@@ -1,0 +1,132 @@
+"""Convert between the JAX package's parameter pytree and the port's modules.
+
+The JAX package stores linears ``[in, out]`` and stacks per-layer leaves as
+``[L, ...]``; the port keeps one module per layer and nn.Linear's
+``[out, in]``. ``from_jax_params`` takes the JAX tree as nested dicts of
+numpy arrays (``jax.tree.map(np.asarray, params)``), transposes the linears
+and unstacks the layers; ``to_jax_params`` is its inverse. A tied head is
+``{"lm_head": {"weight": None}}`` in the JAX tree and ``lm_head = None``
+here. bf16 leaves travel as float32 numpy arrays (numpy has no bf16), which
+is exact.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from llama32mm_tpu_torch.configs import MLLAMAConfig
+from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration
+from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+
+# (port tensor, path in the JAX tree, layer index or None, transposed?)
+Entry = Tuple[torch.Tensor, Tuple[str, ...], Optional[int], bool]
+
+
+def _entries(model: MllamaForConditionalGeneration) -> Iterator[Entry]:
+    vm = model.vision_model
+    vp = ("vision_model",)
+    yield vm.patch_embedding.weight, vp + ("embeddings", "patch_embedding", "weight"), None, True
+    yield vm.position_embedding, vp + ("embeddings", "position_embedding", "weight"), None, False
+    for l, layer in enumerate(vm.layers):
+        lp = vp + ("layers",)
+        for name in ("layernorm1", "layernorm2"):
+            norm = getattr(layer, name)
+            yield norm.weight, lp + (name, "weight"), l, False
+            yield norm.bias, lp + (name, "bias"), l, False
+        for group, names in (("self_attn", ("q_proj", "k_proj", "v_proj", "out_proj")),
+                             ("mlp", ("fc1", "fc2"))):
+            for name in names:
+                lin = getattr(layer, name)
+                yield lin.weight, lp + (group, name, "weight"), l, True
+                yield lin.bias, lp + (group, name, "bias"), l, False
+    yield vm.post_layernorm.weight, vp + ("post_layernorm", "weight"), None, False
+    yield vm.post_layernorm.bias, vp + ("post_layernorm", "bias"), None, False
+
+    proj = model.multi_modal_projector
+    yield proj.weight, ("multi_modal_projector", "linear", "weight"), None, True
+    yield proj.bias, ("multi_modal_projector", "linear", "bias"), None, False
+
+    lm = model.language_model
+    mp = ("language_model", "model")
+    yield lm.model.tok_emb, mp + ("tok_emb", "weight"), None, False
+    bp = mp + ("blocks",)
+    for l, blk in enumerate(lm.model.blocks):
+        yield blk.norm1.weight, bp + ("norm1", "weight"), l, False
+        for name in ("W_query", "W_key", "W_value", "out_proj"):
+            yield getattr(blk.att, name).weight, bp + ("att", name, "weight"), l, True
+        yield blk.norm2.weight, bp + ("norm2", "weight"), l, False
+        yield blk.ff.w_gate.weight, bp + ("ff", "swiglu", "w_gate"), l, True
+        yield blk.ff.w_up.weight, bp + ("ff", "swiglu", "w_up"), l, True
+        yield blk.ff.w_down.weight, bp + ("ff", "w_down", "weight"), l, True
+    yield lm.model.final_norm.weight, mp + ("final_norm", "weight"), None, False
+    if lm.lm_head is not None:
+        yield lm.lm_head.weight, ("language_model", "lm_head", "weight"), None, True
+
+
+def _check_supported(tree: dict) -> None:
+    blocks = tree["language_model"]["model"]["blocks"]
+    if "W_qkv" in blocks.get("att", {}) or "w_gateup" in blocks.get("ff", {}):
+        not_in_slice("the fused W_qkv / w_gateup layout (models/fuse.py)")
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "q" in node or "q4" in node:
+                not_in_slice("quantized weights")
+            for child in node.values():
+                walk(child)
+
+    walk(tree)
+
+
+def _get(tree: dict, path: Tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def from_jax_params(np_tree: dict, config: MLLAMAConfig, device,
+                    dtype: Optional[torch.dtype] = None) -> MllamaForConditionalGeneration:
+    """The port's model holding the weights of a JAX parameter tree."""
+    _check_supported(np_tree)
+    tied = np_tree["language_model"]["lm_head"]["weight"] is None
+    model = MllamaForConditionalGeneration(config, device, dtype=dtype, tie_weights=tied)
+    with torch.no_grad():
+        for param, path, layer, transposed in _entries(model):
+            arr = np.asarray(_get(np_tree, path))
+            if layer is not None:
+                arr = arr[layer]
+            if arr.dtype.name == "bfloat16":
+                arr = arr.astype(np.float32)
+            t = torch.from_numpy(np.array(arr.T if transposed else arr, order="C"))
+            if tuple(t.shape) != tuple(param.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {tuple(t.shape)}, expected {tuple(param.shape)}")
+            param.copy_(t)
+    return model
+
+
+def _set(tree: dict, path: Tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def to_jax_params(model: MllamaForConditionalGeneration) -> dict:
+    """The JAX package's parameter tree (nested dicts of numpy arrays)."""
+    tree: dict = {}
+    stacks: dict = {}
+    for param, path, layer, transposed in _entries(model):
+        t = param.detach().to("cpu")
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        arr = arr.T if transposed else arr
+        if layer is None:
+            _set(tree, path, np.ascontiguousarray(arr))
+        else:
+            stacks.setdefault(path, []).append(arr)
+    for path, arrs in stacks.items():
+        _set(tree, path, np.stack(arrs))
+    if model.language_model.lm_head is None:
+        _set(tree, ("language_model", "lm_head", "weight"), None)
+    return tree

@@ -1,0 +1,46 @@
+"""Parameter holders shared by the towers. Weights are created empty on the
+given device (no default init runs) and filled by ``init_uniform_`` /
+``init_normal_`` from an explicit generator, or by ``convert.from_jax_params``.
+The port is inference-only, so no parameter requires a gradient."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def empty_param(*shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype), requires_grad=False)
+
+
+class Linear(nn.Module):
+    """``weight [out, in]`` (nn.Linear's layout) and an optional ``bias [out]``."""
+
+    def __init__(self, n_in: int, n_out: int, bias: bool, device, dtype):
+        super().__init__()
+        self.weight = empty_param(n_out, n_in, device=device, dtype=dtype)
+        self.bias = empty_param(n_out, device=device, dtype=dtype) if bias else None
+
+    def init_(self, gen: torch.Generator) -> None:
+        """torch nn.Linear's default distribution, U(±1/sqrt(fan_in)), for the
+        weight and the bias, as the JAX package draws them."""
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        self.weight.uniform_(-bound, bound, generator=gen)
+        if self.bias is not None:
+            self.bias.uniform_(-bound, bound, generator=gen)
+
+
+class Norm(nn.Module):
+    """A normalization's scale (ones) and optional shift (zeros)."""
+
+    def __init__(self, dim: int, bias: bool, device, dtype):
+        super().__init__()
+        self.weight = empty_param(dim, device=device, dtype=dtype)
+        self.bias = empty_param(dim, device=device, dtype=dtype) if bias else None
+
+    def init_(self) -> None:
+        self.weight.fill_(1.0)
+        if self.bias is not None:
+            self.bias.zero_()

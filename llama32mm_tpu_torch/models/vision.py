@@ -1,0 +1,110 @@
+"""Plain-ViT vision encoder (counterpart of ``llama32mm_tpu/models/vision.py``).
+
+Patchify + one matmul for the patch embedding ((C, Ph, Pw) order, a strided
+conv's layout) plus learned positions, no CLS token; pre-norm blocks with
+standard residuals; LayerNorm computed as the JAX function computes it;
+exact (erf) GELU; non-causal multi-head attention through the flash kernel
+with every key valid. The linears are plain ``torch.matmul`` GEMMs, as the
+JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from llama32mm_tpu_torch.configs import VisionEncoderConfig
+from llama32mm_tpu_torch.models.common import Linear, Norm, empty_param
+from llama32mm_tpu_torch.ops.attention import AttnMask, gqa_attention
+
+
+def layer_norm(x: torch.Tensor, norm: Norm, eps: float) -> torch.Tensor:
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * norm.weight + norm.bias
+
+
+def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """``[B, C, H, W] → [B, num_patches, C·P·P]`` in (C, Ph, Pw) order."""
+    b, c, hgt, wid = pixel_values.shape
+    p = patch_size
+    nh, nw = hgt // p, wid // p
+    x = pixel_values.reshape(b, c, nh, p, nw, p).permute(0, 2, 4, 1, 3, 5)
+    return x.reshape(b, nh * nw, c * p * p)
+
+
+def _affine(x: torch.Tensor, lin: Linear) -> torch.Tensor:
+    return torch.matmul(x, lin.weight.t()) + lin.bias
+
+
+class VisionBlock(nn.Module):
+    def __init__(self, config: VisionEncoderConfig, device, dtype):
+        super().__init__()
+        d, inter = config.hidden_size, config.intermediate_size
+        self.layernorm1 = Norm(d, True, device, dtype)
+        self.q_proj = Linear(d, d, True, device, dtype)
+        self.k_proj = Linear(d, d, True, device, dtype)
+        self.v_proj = Linear(d, d, True, device, dtype)
+        self.out_proj = Linear(d, d, True, device, dtype)
+        self.layernorm2 = Norm(d, True, device, dtype)
+        self.fc1 = Linear(d, inter, True, device, dtype)
+        self.fc2 = Linear(inter, d, True, device, dtype)
+
+    def attention(self, x: torch.Tensor, config: VisionEncoderConfig, impl: str) -> torch.Tensor:
+        b, n, d = x.shape
+        heads, hd = config.num_attention_heads, config.head_dim
+
+        def split(t):
+            return t.reshape(b, n, heads, hd).transpose(1, 2)
+
+        q = split(_affine(x, self.q_proj))
+        k = split(_affine(x, self.k_proj))
+        v = split(_affine(x, self.v_proj))
+        every_key = AttnMask(torch.ones(b, n, dtype=torch.int32, device=x.device), 0)
+        ctx = gqa_attention(q, k, v, every_key, causal=False, impl=impl)
+        return _affine(ctx.transpose(1, 2).reshape(b, n, d), self.out_proj)
+
+    def forward(self, h: torch.Tensor, config: VisionEncoderConfig, impl: str) -> torch.Tensor:
+        eps = config.layer_norm_eps
+        h = h + self.attention(layer_norm(h, self.layernorm1, eps), config, impl)
+        y = F.gelu(_affine(layer_norm(h, self.layernorm2, eps), self.fc1))
+        return h + _affine(y, self.fc2)
+
+
+class VisionEncoder(nn.Module):
+    """``[B, C, H, W] → [B, num_patches, hidden_size]``."""
+
+    def __init__(self, config: VisionEncoderConfig, device, dtype):
+        super().__init__()
+        self.config = config
+        d = config.hidden_size
+        fan_in = config.num_channels * config.patch_size**2
+        self.patch_embedding = Linear(fan_in, d, False, device, dtype)
+        self.position_embedding = empty_param(config.num_patches, d, device=device, dtype=dtype)
+        self.layers = nn.ModuleList(
+            VisionBlock(config, device, dtype) for _ in range(config.num_hidden_layers)
+        )
+        self.post_layernorm = Norm(d, True, device, dtype)
+
+    def init_(self, gen: torch.Generator) -> None:
+        """The JAX package's ``init_vision_params`` distributions."""
+        self.patch_embedding.init_(gen)
+        self.position_embedding.normal_(generator=gen)
+        for layer in self.layers:
+            for mod in layer.children():
+                if isinstance(mod, Linear):
+                    mod.init_(gen)
+                else:
+                    mod.init_()
+        self.post_layernorm.init_()
+
+    def forward(self, pixel_values: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+        cfg = self.config
+        patches = patchify(pixel_values, cfg.patch_size)
+        h = torch.matmul(patches, self.patch_embedding.weight.t())
+        h = h + self.position_embedding[None].to(h.dtype)
+        for layer in self.layers:
+            h = layer(h, cfg, impl)
+        return layer_norm(h, self.post_layernorm, cfg.layer_norm_eps)
+

@@ -1,0 +1,148 @@
+"""The VLM: vision tower → projector → image-token splice → decoder → head
+(counterpart of ``llama32mm_tpu/models/vlm.py``)."""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from llama32mm_tpu_torch.configs import MLLAMAConfig
+from llama32mm_tpu_torch.models.common import Linear
+from llama32mm_tpu_torch.models.language import CausalLM, llama_forward, lm_head_apply
+from llama32mm_tpu_torch.models.vision import VisionEncoder
+from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+from llama32mm_tpu_torch.utils.kvcache import KVCache
+
+
+class VLMOutput(NamedTuple):
+    logits: Optional[torch.Tensor]
+    loss: Optional[torch.Tensor]
+    hidden_states: torch.Tensor
+    kv_cache: Optional[KVCache]
+
+
+class MllamaForConditionalGeneration(nn.Module):
+    def __init__(self, config: MLLAMAConfig, device, dtype: Optional[torch.dtype] = None,
+                 tie_weights: bool = True):
+        super().__init__()
+        self.config = config
+        dtype = dtype or config.text_config.torch_dtype
+        self.vision_model = VisionEncoder(config.vision_config, device, dtype)
+        self.multi_modal_projector = Linear(
+            config.vision_config.hidden_size, config.text_config.hidden_size, True, device, dtype)
+        self.language_model = CausalLM(config.text_config, device, dtype, tie_weights)
+
+
+def init_vlm(config: MLLAMAConfig, device, gen: torch.Generator,
+             tie_weights: bool = True) -> MllamaForConditionalGeneration:
+    """Random-init model with the JAX package's ``init_vlm_params``
+    distributions, drawn from ``gen`` (a generator on ``device``)."""
+    model = MllamaForConditionalGeneration(config, device, tie_weights=tie_weights)
+    with torch.no_grad():
+        model.vision_model.init_(gen)
+        bound = 1.0 / math.sqrt(config.vision_config.hidden_size)
+        model.multi_modal_projector.weight.uniform_(-bound, bound, generator=gen)
+        model.multi_modal_projector.bias.uniform_(-bound, bound, generator=gen)
+        model.language_model.init_(gen)
+    return model
+
+
+def merge_input_ids_with_image_features(
+    image_features: torch.Tensor,  # [B, N, H]
+    inputs_embeds: torch.Tensor,  # [B, S, H]
+    input_ids: torch.Tensor,  # [B, S]
+    attention_mask,  # [B, S] tensor, an AttnMask, or None
+    image_token_index: int,
+):
+    """Overwrite each row's first run of ``<image>`` positions,
+    ``[first, first + N)`` clipped to S, with the patch features, and mark
+    those positions attended in a 2D mask (other masks pass through)."""
+    b, s = input_ids.shape
+    n, hdim = image_features.shape[1], image_features.shape[2]
+    if attention_mask is None:
+        attention_mask = torch.ones_like(input_ids)
+
+    is_img = input_ids == image_token_index
+    has_img = is_img.any(dim=1)
+    start = is_img.to(torch.int32).argmax(dim=1)  # first occurrence; 0 when none
+    rel = torch.arange(s, device=input_ids.device)[None, :] - start[:, None]
+    in_span = (rel >= 0) & (rel < n) & has_img[:, None]
+    idx = rel.clamp(0, n - 1)[:, :, None].expand(b, s, hdim)
+    gathered = torch.gather(image_features, 1, idx).to(inputs_embeds.dtype)
+    merged = torch.where(in_span[:, :, None], gathered, inputs_embeds)
+    if isinstance(attention_mask, torch.Tensor) and attention_mask.dim() == 2:
+        attention_mask = torch.where(in_span, torch.ones_like(attention_mask), attention_mask)
+    return merged, attention_mask
+
+
+def encode_image(model: MllamaForConditionalGeneration, config: MLLAMAConfig,
+                 pixel_values: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Vision tower + projector: ``[B, C, H, W] → [B, N, text_hidden]``."""
+    feats = model.vision_model(pixel_values, impl=impl)
+    proj = model.multi_modal_projector
+    return torch.matmul(feats, proj.weight.t()) + proj.bias
+
+
+def vlm_forward(
+    model: MllamaForConditionalGeneration,
+    config: MLLAMAConfig,
+    input_ids: Optional[torch.Tensor] = None,
+    pixel_values: Optional[torch.Tensor] = None,
+    attention_mask=None,
+    position_ids: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
+    kv_cache: Optional[KVCache] = None,
+    impl: str = "auto",
+    logits_positions: Optional[torch.Tensor] = None,
+    lora=None,
+    remat: bool = False,
+    loss_chunk: Optional[int] = None,
+    gemv_routes=None,
+    collect_stats: bool = False,
+) -> VLMOutput:
+    """The VLM forward. ``logits_positions [B, k]`` computes the head only at
+    those positions (prefill needs only the last valid one)."""
+    if loss_chunk is not None:
+        not_in_slice("loss_chunk")
+    tc = config.text_config
+    lm = model.language_model
+
+    inputs_embeds = None
+    if input_ids is not None:
+        inputs_embeds = lm.model.tok_emb[input_ids.clamp(0, tc.vocab_size - 1)]
+    if pixel_values is not None and inputs_embeds is not None:
+        feats = encode_image(model, config, pixel_values.to(inputs_embeds.dtype), impl=impl)
+        inputs_embeds, attention_mask = merge_input_ids_with_image_features(
+            feats, inputs_embeds, input_ids, attention_mask, config.image_token_index)
+
+    out = llama_forward(
+        lm.model, tc, input_embeds=inputs_embeds, attention_mask=attention_mask,
+        position_ids=position_ids, kv_cache=kv_cache, impl=impl, lora=lora, remat=remat,
+        gemv_routes=gemv_routes, collect_stats=collect_stats,
+    )
+    hidden = out.hidden_states
+    if logits_positions is not None:
+        if labels is not None:
+            raise ValueError("logits_positions is incompatible with labels")
+        idx = logits_positions.long()[:, :, None].expand(-1, -1, hidden.shape[-1])
+        hidden = torch.gather(hidden, 1, idx)
+    logits = lm_head_apply(lm, tc, hidden, impl=impl)
+    loss = None if labels is None else shifted_cross_entropy(logits, labels, config.ignore_index)
+    return VLMOutput(logits=logits, loss=loss, hidden_states=out.hidden_states,
+                     kv_cache=out.kv_cache)
+
+
+def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          ignore_index: int) -> torch.Tensor:
+    """Next-token cross entropy, mean over labels that are not ``ignore_index``."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != ignore_index
+    logp = F.log_softmax(shift_logits, dim=-1)
+    nll = -torch.gather(logp, -1, torch.where(valid, shift_labels, 0)[..., None].long())[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp(min=1)

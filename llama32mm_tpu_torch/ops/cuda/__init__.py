@@ -1,0 +1,32 @@
+"""The port's hand-written Hopper kernels and their plain PyTorch versions.
+
+Importing this package builds nothing: the kernel library is compiled and
+loaded at the first launch (``build.load_library``).
+"""
+
+from llama32mm_tpu_torch.ops.cuda.attention import flash_attention_cuda, flash_attention_plain
+from llama32mm_tpu_torch.ops.cuda.gemv import gemv_cuda, gemv_plain
+from llama32mm_tpu_torch.ops.cuda.rmsnorm import fused_add_rmsnorm_cuda, fused_add_rmsnorm_plain
+from llama32mm_tpu_torch.ops.cuda.swiglu import fused_swiglu_cuda, fused_swiglu_plain
+
+# kernel name -> (wrapper, plain version)
+KERNELS = {
+    "rmsnorm": (fused_add_rmsnorm_cuda, fused_add_rmsnorm_plain),
+    "gemv": (gemv_cuda, gemv_plain),
+    "swiglu": (fused_swiglu_cuda, fused_swiglu_plain),
+    "flash_attention": (flash_attention_cuda, flash_attention_plain),
+}
+
+
+def reset_counters() -> None:
+    for wrapper, plain in KERNELS.values():
+        wrapper.launches = 0
+        plain.calls = 0
+
+
+def launch_counts() -> dict:
+    return {name: wrapper.launches for name, (wrapper, _) in KERNELS.items()}
+
+
+def plain_counts() -> dict:
+    return {name: plain.calls for name, (_, plain) in KERNELS.items()}

@@ -1,0 +1,176 @@
+"""Guards of the PyTorch port that hold without a GPU: it imports without
+JAX, its kernel wrappers refuse CPU tensors instead of falling back,
+``chip_smoke.py`` fails on a machine without a card, and features outside
+the ported slice raise ``NotImplementedError``."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from llama32mm_tpu_torch.configs import tiny_mllama_config
+from llama32mm_tpu_torch.inference.engine import InferenceEngine
+from llama32mm_tpu_torch.models.vlm import init_vlm, vlm_forward
+from llama32mm_tpu_torch.ops import cuda as kernels
+from llama32mm_tpu_torch.ops.attention import AttnMask, gqa_attention
+from llama32mm_tpu_torch.ops.cuda import build
+from llama32mm_tpu_torch.ops.gemv import linear
+from llama32mm_tpu_torch.ops.rmsnorm import fused_add_rmsnorm
+from llama32mm_tpu_torch.ops.swiglu import fused_swiglu
+from llama32mm_tpu_torch.utils.kvcache import init_kv_cache
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PORT_MODULES = [
+    "llama32mm_tpu_torch.configs", "llama32mm_tpu_torch.convert",
+    "llama32mm_tpu_torch.inference.engine", "llama32mm_tpu_torch.models.vlm",
+    "llama32mm_tpu_torch.ops.cuda", "llama32mm_tpu_torch.preprocess.image",
+    "llama32mm_tpu_torch.utils.sampling", "chip_smoke",
+]
+
+
+def _child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    return env
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        + "".join(f"import {m}\n" for m in PORT_MODULES)
+        + "assert not any(m == 'llama32mm_tpu' or m.startswith('llama32mm_tpu.') for m in sys.modules)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_child_env(),
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_fails_without_gpu():
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=_child_env(),
+                          capture_output=True, text=True, timeout=30)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def _cpu_args(name):
+    x = torch.randn(3, 16)
+    if name == "rmsnorm":
+        return x, torch.ones(16), 1e-5
+    if name == "gemv":
+        return x, torch.randn(8, 16)
+    if name == "swiglu":
+        return x, torch.randn(8, 16), torch.randn(8, 16)
+    q = torch.randn(1, 2, 3, 16)
+    return q, q, q, torch.ones(1, 3), 0, True
+
+
+@pytest.mark.parametrize("name", sorted(kernels.KERNELS))
+def test_kernel_wrapper_refuses_cpu_tensors(name):
+    wrapper, plain = kernels.KERNELS[name]
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(*_cpu_args(name))
+    assert wrapper.launches == before
+    plain(*_cpu_args(name))  # the plain version takes them
+
+
+@pytest.mark.parametrize("op", ["rmsnorm", "gemv", "swiglu", "attention"])
+def test_impl_cuda_on_cpu_raises(op):
+    x = torch.randn(2, 16)
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        if op == "rmsnorm":
+            fused_add_rmsnorm(x, torch.ones(16), impl="cuda")
+        elif op == "gemv":
+            linear(x, torch.randn(4, 16), impl="cuda")
+        elif op == "swiglu":
+            fused_swiglu(x, torch.randn(4, 16), torch.randn(4, 16), impl="cuda")
+        else:
+            q = torch.randn(1, 2, 3, 16)
+            gqa_attention(q, q, q, AttnMask(torch.ones(1, 3), 0), impl="cuda")
+
+
+def test_unknown_impl_raises():
+    with pytest.raises(ValueError, match="impl must be one of"):
+        fused_add_rmsnorm(torch.randn(2, 16), torch.ones(16), impl="pallas")
+
+
+def test_auto_on_cpu_counts_plain_calls_only():
+    kernels.reset_counters()
+    fused_add_rmsnorm(torch.randn(2, 16), torch.ones(16))
+    linear(torch.randn(2, 16), torch.randn(4, 16))
+    assert kernels.plain_counts()["rmsnorm"] == 1 and kernels.plain_counts()["gemv"] == 1
+    assert not any(kernels.launch_counts().values())
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda path: False)
+    with pytest.raises(build.KernelCompileError, match="nvcc not found"):
+        build.find_nvcc()
+
+
+@pytest.fixture(scope="module")
+def tiny_model():
+    cfg = tiny_mllama_config()
+    return cfg, init_vlm(cfg, "cpu", torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"kv_dtype": "int8"}, {"spec_lookup": 2}, {"spec_draft": 2},
+    {"gemv_routes": {"lm_head": 1 << 20}},
+])
+def test_engine_refuses_unported_options(tiny_model, kwargs):
+    cfg, model = tiny_model
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        InferenceEngine(model, cfg, "cpu", **kwargs)
+
+
+def test_engine_refuses_repetition_penalty(tiny_model):
+    cfg, model = tiny_model
+    with pytest.raises(NotImplementedError, match="repetition_penalty"):
+        InferenceEngine(model, cfg, "cpu", max_cache_length=32).generate(
+            np.zeros((1, 4), np.int64), max_new_tokens=2, repetition_penalty=1.2)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"lora": {}}, {"remat": True}, {"loss_chunk": 4}, {"collect_stats": True},
+    {"gemv_routes": {}},
+])
+def test_vlm_forward_refuses_unported_options(tiny_model, kwargs):
+    cfg, model = tiny_model
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        vlm_forward(model, cfg, input_ids=torch.zeros(1, 4, dtype=torch.long), **kwargs)
+
+
+def test_int8_kv_cache_refused():
+    with pytest.raises(NotImplementedError):
+        init_kv_cache(tiny_mllama_config().text_config, 1, "cpu", dtype=torch.int8)
+
+
+def test_convert_refuses_fused_and_quantized_trees(tiny_model):
+    from llama32mm_tpu_torch.convert import from_jax_params, to_jax_params
+
+    cfg, model = tiny_model
+    tree = to_jax_params(model)
+    fused = to_jax_params(model)
+    fused["language_model"]["model"]["blocks"]["att"]["W_qkv"] = {}
+    with pytest.raises(NotImplementedError, match="fused"):
+        from_jax_params(fused, cfg, "cpu")
+    quant = to_jax_params(model)
+    quant["language_model"]["model"]["blocks"]["ff"]["w_down"]["weight"] = {"q": 0, "scale": 0}
+    with pytest.raises(NotImplementedError, match="quantized"):
+        from_jax_params(quant, cfg, "cpu")
+    assert from_jax_params(tree, cfg, "cpu") is not None
+
+
+def test_kv_cache_overflow_raises():
+    cache = init_kv_cache(tiny_mllama_config().text_config, 1, "cpu", max_length=4)
+    kv = torch.zeros(1, 2, 3, 16)
+    cache.update(0, kv, kv)
+    cache.advance(3)
+    with pytest.raises(ValueError, match="overflow"):
+        cache.update(0, kv, kv)
