@@ -6,18 +6,27 @@
 2. builds the port's CUDA kernels from ``llama32mm_tpu_torch/csrc`` (nvcc,
    sm_90a);
 3. compares every kernel with its plain PyTorch version at the shapes the
-   main path gives it, in bf16, and times both;
+   bf16 and the quantized paths give it, in bf16, and times both (and the
+   effective weight GB/s of the gemvs);
 4. checks, on a tiny fp32 model, that the kernel path and the plain path
-   generate the same tokens;
+   generate the same tokens: in float, and quantized to int8 and to the
+   int4-mixed recipe with an int8 KV cache;
 5. builds Llama-3.2-11B-Vision shapes in bf16 from a seed, preprocesses a
    560x560 uint8 image on the card and runs ``InferenceEngine.generate``
    greedily for 64 tokens after a 1600-image-token + 32-text-token prompt,
-   checking the output and that every kernel, and no plain version, ran;
-6. prints, as information, the prefill logits' distance to the plain path.
+   checking the output and that every kernel of the path, and no plain
+   version, ran; prints, as information, the prefill logits' distance to
+   the plain path;
+6. does the same with an untied head, quantized to int8 and (from the same
+   bf16 weights) to ``INT4_MIXED_RECIPE`` at g=128, each served with
+   ``kv_dtype="int8"``.
 
 The second-to-last line is a JSON summary of the kernels, the last line
-``{"ok": true, "device": ...}``. Any failure raises before that line and
-exits non-zero; without a CUDA device it exits non-zero at once.
+``{"ok": true, "device": ...}``. A kernel's ``launches`` there sums the 11B
+generates of every path (bf16, int8, int4-mixed), each counted from 0 just
+before its 64-token run (``launches_by_path`` splits them). Any failure
+raises before that line and exits non-zero; without a CUDA device it exits
+non-zero at once.
 """
 
 from __future__ import annotations
@@ -31,11 +40,14 @@ import time
 import torch
 
 from llama32mm_tpu_torch.configs import llama32_11b_vision_config, tiny_mllama_config
-from llama32mm_tpu_torch.inference.engine import InferenceEngine
+from llama32mm_tpu_torch.inference.engine import InferenceEngine, structured_prefill_mask
 from llama32mm_tpu_torch.models.vlm import init_vlm, vlm_forward
 from llama32mm_tpu_torch.ops import cuda as kernels
 from llama32mm_tpu_torch.ops.cuda.build import build_library
+from llama32mm_tpu_torch.models.quantize import quantize_llama_params
+from llama32mm_tpu_torch.ops.quant import INT4_MIXED_RECIPE, quantize_weight, quantize_weight_int4
 from llama32mm_tpu_torch.preprocess.image import preprocess_image_device
+from llama32mm_tpu_torch.utils.kvcache import init_kv_cache, quantize_kv
 
 # bf16 comparisons: |kernel - plain| <= TOL * max|plain|. 1.6e-2 is about two
 # bf16 ulps (2^-7 each, relative) of the output rounding: the kernel and the
@@ -50,6 +62,26 @@ KERNEL_INFO = {
     "swiglu": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:69"),
     "flash_attention": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
                         "llama32mm_tpu/ops/pallas/attention.py:36"),
+    "gemv_int8": ("llama32mm_tpu_torch/csrc/qgemv.cu", "llama32mm_tpu/ops/pallas/gemv.py:162"),
+    "gemv_int4": ("llama32mm_tpu_torch/csrc/qgemv.cu", "llama32mm_tpu/ops/pallas/gemv.py:272"),
+    "qmatmul": ("llama32mm_tpu_torch/csrc/qmatmul.cu",
+                "llama32mm_tpu/ops/pallas/quant_matmul.py:29"),
+    "flash_attention_int8kv": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
+                               "llama32mm_tpu/ops/pallas/attention.py:36"),
+}
+# Pallas functions a kernel folds in beside the one it is listed against.
+ALSO_REPLACES = {
+    "gemv": ["llama32mm_tpu/ops/pallas/gemv.py:55", "llama32mm_tpu/ops/pallas/gemv.py:105"],
+    "gemv_int8": ["llama32mm_tpu/ops/pallas/gemv.py:701"],
+    "gemv_int4": ["llama32mm_tpu/ops/pallas/gemv.py:216"],
+    "qmatmul": ["llama32mm_tpu/ops/pallas/quant_matmul.py:99"],
+}
+# The kernels each 11B path must launch.
+PATH_KERNELS = {
+    "bf16": ("rmsnorm", "gemv", "swiglu", "flash_attention"),
+    "int8": ("rmsnorm", "flash_attention", "flash_attention_int8kv", "gemv_int8", "qmatmul"),
+    "int4_mixed": ("rmsnorm", "flash_attention", "flash_attention_int8kv", "gemv_int8",
+                   "gemv_int4", "qmatmul"),
 }
 
 
@@ -85,6 +117,19 @@ def kernel_cases(dev, gen):
         kvv[:, :n] = 1
         return kvv
 
+    def q8(n, k):
+        qw = quantize_weight(rnd(n, k, scale=0.02))
+        return qw["q"], qw["scale"]
+
+    def q4(n, k, g):
+        qw = quantize_weight_int4(rnd(n, k, scale=0.02), g)
+        return qw["q4"], qw["scale"]
+
+    def kv8(*shape):
+        """int8 K, V and their scales, as the int8 cache holds them."""
+        (kq, ks), (vq, vs) = quantize_kv(rnd(*shape)), quantize_kv(rnd(*shape))
+        return kq, vq, ks, vs
+
     h, inter, vocab = 4096, 14336, 128256
     cases = [
         ("rmsnorm", "prefill norm2 R=1632 C=4096 +residual",
@@ -116,6 +161,31 @@ def kernel_cases(dev, gen):
         ("flash_attention", "ragged B=2 Tq=37 Tk=100 q_offset=5 hd=16 padded keys",
          (rnd(2, 4, 37, 16), rnd(2, 2, 100, 16), rnd(2, 2, 100, 16),
           valid(2, 100, 90), 5, True), False),
+        ("gemv_int8", "int8 lm_head R=1 N=128256 K=4096", (rnd(1, h), *q8(vocab, h)), True),
+        ("gemv_int8", "w_gate R=1 N=14336 K=4096", (rnd(1, h), *q8(inter, h)), False),
+        ("gemv_int8", "w_down R=1 N=4096 K=14336", (rnd(1, inter), *q8(h, inter)), False),
+        ("gemv_int8", "ragged R=5 N=1000 K=4100", (rnd(5, 4100), *q8(1000, 4100)), False),
+        ("gemv_int4", "int4 lm_head R=1 N=128256 K=4096 g=128",
+         (rnd(1, h), *q4(vocab, h, 128)), True),
+        ("gemv_int4", "w_gate R=1 N=14336 K=4096 g=128", (rnd(1, h), *q4(inter, h, 128)), False),
+        ("gemv_int4", "ragged R=5 N=1000 K=4160 g=32", (rnd(5, 4160), *q4(1000, 4160, 32)), False),
+        ("gemv_int4", "scalar path R=3 N=200 K=192 g=24", (rnd(3, 192), *q4(200, 192, 24)), False),
+        ("qmatmul", "int4 w_gate R=1632 N=14336 K=4096 g=128",
+         (rnd(1632, h), *q4(inter, h, 128)), True),
+        ("qmatmul", "int8 w_down R=1632 N=4096 K=14336", (rnd(1632, inter), *q8(h, inter)), False),
+        ("qmatmul", "int8 W_query R=33 N=4096 K=4096", (rnd(33, h), *q8(h, h)), False),
+        ("qmatmul", "int4 w_up R=33 N=14336 K=4096 g=128", (rnd(33, h), *q4(inter, h, 128)), False),
+        ("qmatmul", "ragged int8 R=100 N=1000 K=4100", (rnd(100, 4100), *q8(1000, 4100)), False),
+        ("qmatmul", "ragged int4 R=70 N=1000 K=4160 g=32",
+         (rnd(70, 4160), *q4(1000, 4160, 32)), False),
+        ("qmatmul", "int4 element path R=40 N=200 K=192 g=24", (rnd(40, 192), *q4(200, 192, 24)),
+         False),
+        ("flash_attention_int8kv", "decoder prefill nq=32 nkv=8 Tq=1632 Tk=2048 hd=128 causal",
+         (rnd(1, 32, 1632, 128), *kv8(1, 8, 2048, 128), valid(1, 2048, 1632), 0, True), True),
+        ("flash_attention_int8kv", "decode Tq=1 Tk=2048 q_offset=1700 hd=128",
+         (rnd(1, 32, 1, 128), *kv8(1, 8, 2048, 128), valid(1, 2048, 1701), 1700, True), False),
+        ("flash_attention_int8kv", "ragged B=2 Tq=37 Tk=100 q_offset=5 hd=16 padded keys",
+         (rnd(2, 4, 37, 16), *kv8(2, 2, 100, 16), valid(2, 100, 90), 5, True), False),
     ]
     return cases
 
@@ -130,8 +200,12 @@ def compare_kernels(dev) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
+        rate = ""
+        if name.startswith("gemv"):  # weight (and scale) bytes streamed per call
+            wbytes = sum(t.numel() * t.element_size() for t in args[1:])
+            rate = f" weight_GB/s={wbytes / ms / 1e6:.6g} plain_weight_GB/s={wbytes / plain_ms / 1e6:.6g}"
         log(f"kernel {name} [{label}]: max_abs_err={err:.6g} max_abs_plain={scale:.6g} "
-            f"ms={ms:.6g} plain_ms={plain_ms:.6g}")
+            f"ms={ms:.6g} plain_ms={plain_ms:.6g}{rate}")
         if not err <= TOL * scale:
             raise RuntimeError(f"{name} [{label}] disagrees with its plain version: "
                                f"{err} > {TOL} * {scale}")
@@ -159,24 +233,52 @@ def check_tiny_paths_agree(dev) -> None:
     if dl > 1e-4 or not torch.equal(res["cuda"].tokens, res["torch"].tokens):
         raise RuntimeError("tiny model: kernel path and plain path disagree")
 
+    # Quantized, with the int8 cache. The 40-token prompt puts the prefill's
+    # linears above the gemv limit, on the dequantizing GEMM.
+    ids = torch.randint(0, 240, (1, 40), generator=gen, device=dev)
+    ids[:, :4] = cfg.image_token_index
+    for mode, kw in (("int8", dict(bits=8)),
+                     ("int4_mixed", dict(bits=4, group_size=32, recipe=INT4_MIXED_RECIPE))):
+        qmodel = quantize_llama_params(model, **kw)
+        res = {}
+        for impl in ("cuda", "torch"):
+            kernels.reset_counters()
+            res[impl] = InferenceEngine(qmodel, cfg, dev, impl=impl, kv_dtype="int8").generate(
+                ids, px, max_new_tokens=8)
+            if impl == "cuda":
+                launches = kernels.launch_counts()
+        dl = (res["cuda"].prefill_logits - res["torch"].prefill_logits).abs().max().item()
+        log(f"tiny fp32 {mode}, int8 KV: tokens cuda={res['cuda'].tokens.tolist()} "
+            f"torch={res['torch'].tokens.tolist()} max_abs_dlogit={dl:.3g} launches {launches}")
+        missing = [k for k in PATH_KERNELS[mode] if launches[k] == 0]
+        if dl > 1e-4 or not torch.equal(res["cuda"].tokens, res["torch"].tokens) or missing:
+            raise RuntimeError(f"tiny {mode} model: kernel path and plain path disagree "
+                               f"(or skipped {missing})")
 
-def run_11b(dev) -> dict:
+
+def build_11b(dev, tie_weights: bool):
     cfg = llama32_11b_vision_config()
-    tc, vc = cfg.text_config, cfg.vision_config
     t0 = time.perf_counter()
-    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0), tie_weights=tie_weights)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"11B model: {n_params} parameters, bf16, init {time.perf_counter() - t0:.3f} s, "
+    log(f"11B model ({'tied' if tie_weights else 'untied'} head): {n_params} parameters, bf16, "
+        f"init {time.perf_counter() - t0:.3f} s, "
         f"allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    return cfg, model
 
+
+def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
+    """Generate 64 tokens on the 11B model, check the result and that the
+    path's kernels, and no plain version, ran; return the launch counts."""
+    tc, vc = cfg.text_config, cfg.vision_config
     gen = torch.Generator(device=dev).manual_seed(0)
     raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen,
                         device=dev, dtype=torch.uint8)
     text = torch.randint(0, tc.vocab_size, (1, 32), generator=gen, device=dev)
     image = torch.full((1, vc.num_patches), cfg.image_token_index, device=dev)
     ids = torch.cat([image, text], dim=1)  # S = 1632
-    engine = InferenceEngine(model, cfg, dev, max_cache_length=2048)
+    engine = InferenceEngine(model, cfg, dev, max_cache_length=2048, kv_dtype=kv_dtype)
 
     def generate(n):
         torch.cuda.synchronize()
@@ -192,10 +294,11 @@ def run_11b(dev) -> dict:
     res, t64 = generate(64)
     launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
     decode_tps = 63 / (t64 - ttft)
-    log(f"generate 64: {t64:.4f} s; TTFT (preprocess+prefill+first token) {ttft * 1e3:.2f} ms; "
-        f"decode {decode_tps:.2f} tok/s (63 tokens after the first)")
-    log(f"launches {launches} plain calls {plain_calls}")
-    log(f"tokens {res.tokens[0].tolist()}")
+    log(f"[{path}] generate 64: {t64:.4f} s; TTFT (preprocess+prefill+first token) "
+        f"{ttft * 1e3:.2f} ms; decode {decode_tps:.2f} tok/s (63 tokens after the first); "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[{path}] launches {launches} plain calls {plain_calls}")
+    log(f"[{path}] tokens {res.tokens[0].tolist()}")
 
     if tuple(res.tokens.shape) != (1, 64) or int(res.num_generated[0]) != 64:
         raise RuntimeError(f"expected 64 tokens, got {tuple(res.tokens.shape)} / {res.num_generated}")
@@ -204,20 +307,51 @@ def run_11b(dev) -> dict:
     if tuple(res.prefill_logits.shape) != (1, tc.vocab_size) or not bool(
             torch.isfinite(res.prefill_logits).all()):
         raise RuntimeError("prefill logits are not finite [1, vocab]")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing or any(plain_calls.values()):
-        raise RuntimeError(f"main path skipped kernels {missing} or ran plain versions {plain_calls}")
+        raise RuntimeError(f"[{path}] skipped kernels {missing} or ran plain versions {plain_calls}")
 
     # Information: the same prefill on the plain path (random-init greedy
     # tokens are near-ties, so token equality is not asserted).
     with torch.inference_mode():
         px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
-        plain = vlm_forward(model, cfg, input_ids=ids, pixel_values=px, impl="torch",
-                            logits_positions=torch.tensor([[ids.shape[1] - 1]], device=dev))
+        pos = torch.tensor([[ids.shape[1] - 1]], device=dev)
+        if kv_dtype is None:
+            plain = vlm_forward(model, cfg, input_ids=ids, pixel_values=px, impl="torch",
+                                logits_positions=pos)
+        else:  # through an int8 cache, as the engine's prefill
+            cache = init_kv_cache(tc, 1, dev, max_length=2048, dtype=torch.int8)
+            mask = structured_prefill_mask(torch.ones_like(ids, dtype=torch.int32), 2048)
+            plain = vlm_forward(model, cfg, input_ids=ids, pixel_values=px, impl="torch",
+                                attention_mask=mask, kv_cache=cache, logits_positions=pos)
+            del cache
     dl = (plain.logits[:, 0].float() - res.prefill_logits.float()).abs().max().item()
-    log(f"prefill logits, kernel path vs impl='torch': max_abs_dlogit={dl:.6g} "
+    log(f"[{path}] prefill logits, kernel path vs impl='torch': max_abs_dlogit={dl:.6g} "
         f"max_abs_logit={res.prefill_logits.float().abs().max().item():.6g}")
     return launches
+
+
+def run_11b_paths(dev) -> dict:
+    """The bf16 path (tied head), then int8 and int4-mixed quantized copies
+    of one untied bf16 model, each served from an int8 KV cache."""
+    by_path = {}
+    cfg, model = build_11b(dev, tie_weights=True)
+    by_path["bf16"] = run_11b(dev, cfg, model, "bf16")
+    del model
+    torch.cuda.empty_cache()
+    cfg, model = build_11b(dev, tie_weights=False)
+    for path, kw in (("int8", dict(bits=8)),
+                     ("int4_mixed", dict(bits=4, group_size=128, recipe=INT4_MIXED_RECIPE))):
+        t = time.perf_counter()
+        qmodel = quantize_llama_params(model, **kw)
+        torch.cuda.synchronize()
+        log(f"[{path}] quantize {time.perf_counter() - t:.3f} s, "
+            f"allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+        by_path[path] = run_11b(dev, cfg, qmodel, path, kv_dtype="int8")
+        del qmodel
+        torch.cuda.empty_cache()
+    return by_path
 
 
 def main() -> int:
@@ -240,14 +374,16 @@ def main() -> int:
     summary = compare_kernels(dev)
     torch.cuda.empty_cache()
     check_tiny_paths_agree(dev)
-    launches = run_11b(dev)
+    by_path = run_11b_paths(dev)
 
     out = []
     for name, (source, replaces) in KERNEL_INFO.items():
         s = summary[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[name], "max_abs_err": s["max_abs_err"],
-                    "ms": s["ms"], "plain_ms": s["plain_ms"]})
+                    "also_replaces": ALSO_REPLACES.get(name, []),
+                    "launches": sum(counts[name] for counts in by_path.values()),
+                    "launches_by_path": {p: counts[name] for p, counts in by_path.items()},
+                    "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"]})
     print(json.dumps({"kernels": out}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

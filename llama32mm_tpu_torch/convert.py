@@ -8,6 +8,13 @@ and unstacks the layers; ``to_jax_params`` is its inverse. A tied head is
 ``{"lm_head": {"weight": None}}`` in the JAX tree and ``lm_head = None``
 here. bf16 leaves travel as float32 numpy arrays (numpy has no bf16), which
 is exact.
+
+Quantized trees (``quantize_llama_params``): a ``{"q", "scale"}`` or
+``{"q4", "scale"}`` leaf stands where the float weight was, stacked
+``[L, ...]`` for the decoder linears or single for the head. Each of its
+arrays is transposed like the weight (``q [K, N] → [N, K]``, ``q4
+[K/2, N] → [N, K/2]``, ``scale [K/g, N] → [N, K/g]``, an int8 ``scale [N]``
+as it is) into a ``QuantLinear``; the bytes do not change.
 """
 
 from __future__ import annotations
@@ -18,11 +25,31 @@ import numpy as np
 import torch
 
 from llama32mm_tpu_torch.configs import MLLAMAConfig
+from llama32mm_tpu_torch.models.common import QuantLinear
 from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+from llama32mm_tpu_torch.ops.quant import is_quantized
 
-# (port tensor, path in the JAX tree, layer index or None, transposed?)
+# (port tensor, or a QuantLinear's {"q"|"q4", "scale"} dict; path in the JAX
+# tree; layer index or None; transposed?)
 Entry = Tuple[torch.Tensor, Tuple[str, ...], Optional[int], bool]
+# (module holding a quantizable linear, its attribute, path, layer or None)
+Slot = Tuple[torch.nn.Module, str, Tuple[str, ...], Optional[int]]
+
+
+def _quantizable(model: MllamaForConditionalGeneration) -> Iterator[Slot]:
+    """The decoder linears and an untied head: the weights
+    ``quantize_llama_params`` may quantize."""
+    lm = model.language_model
+    bp = ("language_model", "model", "blocks")
+    for l, blk in enumerate(lm.model.blocks):
+        for name in ("W_query", "W_key", "W_value", "out_proj"):
+            yield blk.att, name, bp + ("att", name, "weight"), l
+        yield blk.ff, "w_gate", bp + ("ff", "swiglu", "w_gate"), l
+        yield blk.ff, "w_up", bp + ("ff", "swiglu", "w_up"), l
+        yield blk.ff, "w_down", bp + ("ff", "w_down", "weight"), l
+    if lm.lm_head is not None:
+        yield lm, "lm_head", ("language_model", "lm_head", "weight"), None
 
 
 def _entries(model: MllamaForConditionalGeneration) -> Iterator[Entry]:
@@ -55,15 +82,10 @@ def _entries(model: MllamaForConditionalGeneration) -> Iterator[Entry]:
     bp = mp + ("blocks",)
     for l, blk in enumerate(lm.model.blocks):
         yield blk.norm1.weight, bp + ("norm1", "weight"), l, False
-        for name in ("W_query", "W_key", "W_value", "out_proj"):
-            yield getattr(blk.att, name).weight, bp + ("att", name, "weight"), l, True
         yield blk.norm2.weight, bp + ("norm2", "weight"), l, False
-        yield blk.ff.w_gate.weight, bp + ("ff", "swiglu", "w_gate"), l, True
-        yield blk.ff.w_up.weight, bp + ("ff", "swiglu", "w_up"), l, True
-        yield blk.ff.w_down.weight, bp + ("ff", "w_down", "weight"), l, True
     yield lm.model.final_norm.weight, mp + ("final_norm", "weight"), None, False
-    if lm.lm_head is not None:
-        yield lm.lm_head.weight, ("language_model", "lm_head", "weight"), None, True
+    for parent, name, path, layer in _quantizable(model):  # decoder linears and the head
+        yield getattr(parent, name).weight, path, layer, True
 
 
 def _check_supported(tree: dict) -> None:
@@ -71,14 +93,21 @@ def _check_supported(tree: dict) -> None:
     if "W_qkv" in blocks.get("att", {}) or "w_gateup" in blocks.get("ff", {}):
         not_in_slice("the fused W_qkv / w_gateup layout (models/fuse.py)")
 
-    def walk(node):
-        if isinstance(node, dict):
-            if "q" in node or "q4" in node:
-                not_in_slice("quantized weights")
-            for child in node.values():
-                walk(child)
 
-    walk(tree)
+def _quant_linear(leaf: dict, layer: Optional[int], shape, device) -> QuantLinear:
+    """A ``QuantLinear`` from a JAX quantized leaf (one layer of a stack)."""
+    qw = {}
+    for key, arr in leaf.items():
+        arr = np.asarray(arr)
+        if layer is not None:
+            arr = arr[layer]
+        qw[key] = torch.from_numpy(np.array(arr.T, order="C")).to(device)
+    n, k = shape
+    q = qw.get("q", qw.get("q4"))
+    if tuple(q.shape) != ((n, k) if "q" in qw else (n, k // 2)) or qw["scale"].shape[0] != n:
+        raise ValueError(f"quantized leaf {tuple(q.shape)} / {tuple(qw['scale'].shape)} "
+                         f"does not fit a [{n}, {k}] weight")
+    return QuantLinear(qw)
 
 
 def _get(tree: dict, path: Tuple[str, ...]):
@@ -94,7 +123,14 @@ def from_jax_params(np_tree: dict, config: MLLAMAConfig, device,
     tied = np_tree["language_model"]["lm_head"]["weight"] is None
     model = MllamaForConditionalGeneration(config, device, dtype=dtype, tie_weights=tied)
     with torch.no_grad():
+        for parent, name, path, layer in _quantizable(model):
+            leaf = _get(np_tree, path)
+            if is_quantized(leaf):
+                shape = getattr(parent, name).weight.shape
+                setattr(parent, name, _quant_linear(leaf, layer, shape, device))
         for param, path, layer, transposed in _entries(model):
+            if isinstance(param, dict):  # a QuantLinear, filled above
+                continue
             arr = np.asarray(_get(np_tree, path))
             if layer is not None:
                 arr = arr[layer]
@@ -118,13 +154,16 @@ def to_jax_params(model: MllamaForConditionalGeneration) -> dict:
     tree: dict = {}
     stacks: dict = {}
     for param, path, layer, transposed in _entries(model):
-        t = param.detach().to("cpu")
-        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-        arr = arr.T if transposed else arr
-        if layer is None:
-            _set(tree, path, np.ascontiguousarray(arr))
-        else:
-            stacks.setdefault(path, []).append(arr)
+        leaves = ([(path + (key,), t) for key, t in param.items()] if isinstance(param, dict)
+                  else [(path, param)])
+        for leaf_path, t in leaves:
+            t = t.detach().to("cpu")
+            arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+            arr = arr.T if transposed else arr
+            if layer is None:
+                _set(tree, leaf_path, np.ascontiguousarray(arr))
+            else:
+                stacks.setdefault(leaf_path, []).append(arr)
     for path, arrs in stacks.items():
         _set(tree, path, np.stack(arrs))
     if model.language_model.lm_head is None:

@@ -3,7 +3,9 @@ decode loop (counterpart of ``llama32mm_tpu/inference/engine.py``).
 
 The JAX engine compiles the whole generate call into one program; here it is
 a Python loop over eager steps under ``torch.inference_mode()``. The eos
-check reads one flag from the device per step.
+check reads one flag from the device per step. ``kv_dtype="int8"`` serves
+from the int8 KV cache (``utils/kvcache.py``); a model quantized by
+``models/quantize.py::quantize_llama_params`` serves its quantized linears.
 
 Positions, as in the JAX engine: a prompt may be right-padded (by the caller
 or by ``prompt_buckets``). Decode step ``i`` writes its token's keys at cache
@@ -85,8 +87,8 @@ class InferenceEngine:
         draft_config=None,
         gemv_routes="auto",
     ):
-        if kv_dtype is not None:
-            not_in_slice(f"kv_dtype={kv_dtype!r}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         if spec_lookup or spec_draft or draft_params is not None or draft_config is not None:
             not_in_slice("speculative decoding (spec_lookup / spec_draft)")
         if gemv_routes not in (None, "auto"):
@@ -99,6 +101,7 @@ class InferenceEngine:
         self.max_cache_length = max_cache_length or config.text_config.max_cache_length
         self.prompt_buckets = prompt_buckets
         self.impl = impl
+        self.kv_dtype = kv_dtype
 
     def generate(
         self,
@@ -141,7 +144,8 @@ class InferenceEngine:
             if pixel_values is not None:
                 px = torch.as_tensor(pixel_values, device=dev).to(tc.torch_dtype)
 
-            cache = init_kv_cache(tc, b, dev, max_length=max_len)
+            cache = init_kv_cache(tc, b, dev, max_length=max_len,
+                                  dtype=torch.int8 if self.kv_dtype == "int8" else None)
             true_len = pad.sum(dim=1)
             out = vlm_forward(
                 self.model, cfg, input_ids=ids, pixel_values=px,

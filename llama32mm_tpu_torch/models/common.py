@@ -32,6 +32,24 @@ class Linear(nn.Module):
             self.bias.uniform_(-bound, bound, generator=gen)
 
 
+class QuantLinear(nn.Module):
+    """A quantized ``[out, in]`` linear without bias (``ops/quant.py``):
+    buffers ``q`` int8 ``[out, in]`` and ``scale`` fp32 ``[out]``, or ``q4``
+    uint8 ``[out, in/2]`` and ``scale`` fp32 ``[out, in/group]``. Its
+    ``weight`` is the ``{"q"|"q4", "scale"}`` dict, which the linears route
+    to ``qlinear``, as the JAX tree holds that dict where the float weight
+    was."""
+
+    def __init__(self, qw: dict):
+        super().__init__()
+        for name, t in qw.items():
+            self.register_buffer(name, t)
+
+    @property
+    def weight(self) -> dict:
+        return dict(self._buffers)
+
+
 class Norm(nn.Module):
     """A normalization's scale (ones) and optional shift (zeros)."""
 

@@ -7,11 +7,16 @@ Reference semantics kept from the JAX package:
   its positions are overwritten by the splice);
 - the residual-stream drop: a block returns ``attn_out + ff_out`` where the
   FFN input is ``norm2(attn_out + h)`` and ``h`` is not added back;
-- post-RoPE keys written to the cache before attention;
-- tied (the ``[vocab, hidden]`` embedding) or untied head.
+- post-RoPE keys written to the cache before attention (quantized first in
+  the int8 cache mode, attention then reading the int8 cache and its scales);
+- tied (the ``[vocab, hidden]`` embedding) or untied head;
+- quantized linears (``QuantLinear``, from ``models/quantize.py``) through
+  ``ops/gemv.py::qlinear``; with quantized gate/up the FFN takes the explicit
+  ``silu(gate) * up`` form instead of the fused SwiGLU, as in JAX.
 
-One module per layer (no ``[L, ...]`` stacks). Linears with at most 32 input
-rows run the decode gemv kernel, others a plain matmul (``ops/gemv.py``).
+One module per layer (no ``[L, ...]`` stacks). Float linears with at most 32
+input rows run the decode gemv kernel, others a plain matmul
+(``ops/gemv.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import math
 from typing import NamedTuple, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from llama32mm_tpu_torch.configs import LLAMA32Config
@@ -27,6 +33,7 @@ from llama32mm_tpu_torch.models.common import Linear, Norm, empty_param
 from llama32mm_tpu_torch.ops.attention import AttnMask, gqa_attention
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 from llama32mm_tpu_torch.ops.gemv import linear
+from llama32mm_tpu_torch.ops.quant import is_quantized
 from llama32mm_tpu_torch.ops.rmsnorm import fused_add_rmsnorm
 from llama32mm_tpu_torch.ops.rope import apply_rotary_pos_emb, rope_cos_sin
 from llama32mm_tpu_torch.ops.swiglu import fused_swiglu
@@ -109,17 +116,25 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
     k = linear(normed, att.W_key.weight, impl).reshape(b, t, nkv, hd).transpose(1, 2)
     v = linear(normed, att.W_value.weight, impl).reshape(b, t, nkv, hd).transpose(1, 2)
     q, k = apply_rotary_pos_emb(q, k, cos, sin)
-    if kv_cache is not None:
-        k, v = kv_cache.update(layer_idx, k, v)  # post-RoPE keys cached
+    k_scale = v_scale = None
+    if kv_cache is not None:  # post-RoPE keys cached; int8 caches return their scales
+        k, v, k_scale, v_scale = kv_cache.update(layer_idx, k, v)
 
-    attn = gqa_attention(q, k, v, structured, causal=True, impl=impl)
+    attn = gqa_attention(q, k, v, structured, causal=True, impl=impl,
+                         k_scale=k_scale, v_scale=v_scale)
     attn = attn.transpose(1, 2).reshape(b, t, nq * hd)
     attn_out = linear(attn, att.out_proj.weight, impl)
 
     normed_ff = fused_add_rmsnorm(
         attn_out, block.norm2.weight, config.rms_norm_eps, residual=h, impl=impl
     )
-    inter = fused_swiglu(normed_ff, ff.w_gate.weight, ff.w_up.weight, impl=impl)
+    w_gate, w_up = ff.w_gate.weight, ff.w_up.weight
+    if is_quantized(w_gate) or is_quantized(w_up):
+        gate = linear(normed_ff, w_gate, impl)
+        up = linear(normed_ff, w_up, impl)
+        inter = (F.silu(gate.float()) * up.float()).to(gate.dtype)
+    else:
+        inter = fused_swiglu(normed_ff, w_gate, w_up, impl=impl)
     ff_out = linear(inter, ff.w_down.weight, impl)
     # residual-stream drop: the block input h is not added back
     return attn_out + ff_out
@@ -172,7 +187,8 @@ def llama_forward(
         raise ValueError("Either input_ids or input_embeds must be provided")
 
     b, t, _ = h.shape
-    h = h * torch.tensor(math.sqrt(config.hidden_size), dtype=h.dtype, device=h.device)
+    # a 0-dim host tensor: no host-to-device copy (and stream sync) per forward
+    h = h * torch.tensor(math.sqrt(config.hidden_size), dtype=h.dtype)
     structured = _structured_mask(attention_mask, b, t, kv_cache, h.device)
 
     if position_ids is None:
@@ -192,7 +208,8 @@ def llama_forward(
 
 def lm_head_apply(lm: CausalLM, config: LLAMA32Config, hidden: torch.Tensor,
                   impl: str = "auto") -> torch.Tensor:
-    """Logits; a tied head reads the ``[vocab, hidden]`` embedding as it is."""
+    """Logits; a tied head reads the ``[vocab, hidden]`` embedding as it is,
+    a quantized head goes through ``qlinear``."""
     w = lm.model.tok_emb if lm.lm_head is None else lm.lm_head.weight
     return linear(hidden, w, impl)
 

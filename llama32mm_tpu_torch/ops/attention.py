@@ -6,7 +6,9 @@ get probability exactly 0 (PARITY.md row 3). The mask is structured,
 ``AttnMask(kv_valid [B, Tk], q_offset)``: per-key validity plus the absolute
 position of query row 0, from which the causal limit follows. Every call,
 prefill, decode and the ViT's non-causal attention alike, goes through the
-flash kernel on the card.
+flash kernel on the card. With an int8 KV cache, ``k``/``v`` are int8 and
+their per-position fp32 scales ``k_scale``/``v_scale`` fold into the scores
+and the attention weights, in the int8-KV instantiation of the kernel.
 """
 
 from __future__ import annotations
@@ -15,7 +17,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from llama32mm_tpu_torch.ops.cuda.attention import flash_attention_cuda, flash_attention_plain
+from llama32mm_tpu_torch.ops.cuda.attention import (
+    flash_attention_cuda,
+    flash_attention_int8kv_cuda,
+    flash_attention_int8kv_plain,
+    flash_attention_plain,
+)
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice, resolve_impl
 
 
@@ -50,14 +57,20 @@ def gqa_attention(
     causal: bool = True,
     impl: str = "auto",
     mask: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [B, nkv, Tk] fp32, int8 K only
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Grouped-query attention: query head ``h`` reads kv head
     ``h // (nq // nkv)``. Returns ``[B, nq, Tq, hd]``."""
     if mask is not None:
         not_in_slice("a dense additive attention mask")
-    args = (q.contiguous(), k.contiguous(), v.contiguous(), structured.kv_valid,
-            int(structured.q_offset), causal)
+    tail = (structured.kv_valid, int(structured.q_offset), causal)
+    kernel, plain = flash_attention_cuda, flash_attention_plain
+    operands = (q.contiguous(), k.contiguous(), v.contiguous())
+    if k_scale is not None:
+        kernel, plain = flash_attention_int8kv_cuda, flash_attention_int8kv_plain
+        operands += (k_scale.contiguous(), v_scale.contiguous())
     if resolve_impl(impl, q) == "cuda":
-        return flash_attention_cuda(*args)
-    return flash_attention_plain(*args)
+        return kernel(*operands, *tail)
+    return plain(*operands, *tail)
 

@@ -4,8 +4,20 @@ Importing this package builds nothing: the kernel library is compiled and
 loaded at the first launch (``build.load_library``).
 """
 
-from llama32mm_tpu_torch.ops.cuda.attention import flash_attention_cuda, flash_attention_plain
+from llama32mm_tpu_torch.ops.cuda.attention import (
+    flash_attention_cuda,
+    flash_attention_int8kv_cuda,
+    flash_attention_int8kv_plain,
+    flash_attention_plain,
+)
 from llama32mm_tpu_torch.ops.cuda.gemv import gemv_cuda, gemv_plain
+from llama32mm_tpu_torch.ops.cuda.qgemv import (
+    gemv_int4_cuda,
+    gemv_int4_plain,
+    gemv_int8_cuda,
+    gemv_int8_plain,
+)
+from llama32mm_tpu_torch.ops.cuda.qmatmul import qmatmul_cuda, qmatmul_plain
 from llama32mm_tpu_torch.ops.cuda.rmsnorm import fused_add_rmsnorm_cuda, fused_add_rmsnorm_plain
 from llama32mm_tpu_torch.ops.cuda.swiglu import fused_swiglu_cuda, fused_swiglu_plain
 
@@ -15,6 +27,10 @@ KERNELS = {
     "gemv": (gemv_cuda, gemv_plain),
     "swiglu": (fused_swiglu_cuda, fused_swiglu_plain),
     "flash_attention": (flash_attention_cuda, flash_attention_plain),
+    "gemv_int8": (gemv_int8_cuda, gemv_int8_plain),
+    "gemv_int4": (gemv_int4_cuda, gemv_int4_plain),
+    "qmatmul": (qmatmul_cuda, qmatmul_plain),
+    "flash_attention_int8kv": (flash_attention_int8kv_cuda, flash_attention_int8kv_plain),
 }
 
 

@@ -106,6 +106,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "l32_swiglu_fwd": [p, p, p, p, i, i, i, i, p],
         # (q, k, v, kv_valid, out, b, nq, nkv, tq, tk, hd, q_offset, causal, dtype, stream)
         "l32_flash_attn_fwd": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        # (q, k, v, k_scale, v_scale, kv_valid, out, b, nq, nkv, tq, tk, hd, q_offset,
+        #  causal, dtype, stream)
+        "l32_flash_attn_fwd_int8kv": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        # (x, q, scale, out, rows, n, k, dtype, stream)
+        "l32_gemv_int8": [p, p, p, p, i, i, i, i, p],
+        # (x, q4, scale, out, rows, n, k, group, dtype, stream)
+        "l32_gemv_int4": [p, p, p, p, i, i, i, i, i, p],
+        # (x, q|q4, scale, out, rows, n, k, group (0: int8), dtype, stream)
+        "l32_qmatmul": [p, p, p, p, i, i, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -21,15 +21,16 @@ def dtype_code(t: torch.Tensor) -> int:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}") from None
 
 
-def require(name: str, t: torch.Tensor, like: torch.Tensor, shape=None) -> None:
+def require(name: str, t: torch.Tensor, like: torch.Tensor, shape=None, dtype=None) -> None:
     """Check that ``t`` is a contiguous CUDA tensor on ``like``'s device, of
-    ``like``'s dtype, and (when given) of ``shape``."""
+    ``dtype`` (default: ``like``'s), and (when given) of ``shape``."""
+    dtype = dtype or like.dtype
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got one on {t.device}")
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, expected {like.device}")
-    if t.dtype != like.dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {like.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -1,0 +1,104 @@
+"""Quantized decode gemvs: the CUDA kernels (``csrc/qgemv.cu``) and their
+plain PyTorch versions, for at most ``MAX_ROWS`` rows of x and weights in
+nn.Linear's ``[N, K]`` orientation.
+
+- int8 (``gemv_int8_*``): ``q [N, K] int8`` with a per-output-channel fp32
+  ``scale [N]``; ``out = (x @ q.T) * scale``, the scale applied once to the
+  fp32 sum. Replaces ``_qstacked_kernel`` (``int8_gemv_stacked_pallas``)
+  and ``_qkernel`` (``int8_gemv_pallas``) of
+  ``llama32mm_tpu/ops/pallas/gemv.py``.
+- int4 W4A16 (``gemv_int4_*``): ``q4 [N, K/2] uint8`` in the split-half
+  per-group nibble packing with the ``u = q + 8`` offset and fp32
+  ``scale [N, K/g]``; ``out = x @ dequant(q4, scale).T``. Replaces
+  ``_int4_kernel_post`` (``variant="post"``/``"post-cat"``) and folds
+  ``_int4_kernel`` (``"pre"``): the three differ only in how a TPU unpacks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from llama32mm_tpu_torch.ops.cuda.build import check, load_library
+from llama32mm_tpu_torch.ops.cuda.common import counted, dtype_code, require, stream_of
+from llama32mm_tpu_torch.ops.cuda.gemv import MAX_ROWS
+from llama32mm_tpu_torch.ops.quant import dequantize_weight
+
+
+def check_quant(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor):
+    """Validate a quantized linear's CUDA operands; return ``(rows, n, k,
+    group_size)``, the group size 0 for int8 (the weight's dtype, int8 or
+    packed uint8, tells the two apart)."""
+    require("x", x, x)
+    k = x.shape[-1]
+    packed = q.dtype == torch.uint8
+    n = q.shape[0] if q.dim() == 2 else -1
+    require("q", q, x, (n, k // 2 if packed else k), torch.uint8 if packed else torch.int8)
+    groups = scale.shape[-1] if packed else 1
+    require("scale", scale, x, (n, groups) if packed else (n,), torch.float32)
+    if packed and (groups == 0 or k % groups or (k // groups) % 2):
+        raise ValueError(f"K={k} must split into {groups} groups of even size")
+    rows = x.numel() // k if k else 0
+    return rows, n, k, k // groups if packed else 0
+
+
+def _gemv_rows(x, q, scale, packed: bool):
+    if (q.dtype == torch.uint8) != packed:
+        raise TypeError(f"this gemv takes {'uint8' if packed else 'int8'} weights, got {q.dtype}")
+    rows, n, k, g = check_quant(x, q, scale)
+    if rows > MAX_ROWS:
+        raise ValueError(f"the quantized gemv takes at most {MAX_ROWS} rows, got {rows}")
+    return rows, n, k, g
+
+
+@counted("launches")
+def gemv_int8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``(x [..., K] @ q.T) * scale`` for ``q [N, K] int8``, at most 32 rows
+    of x, fp32 accumulation, output in x's dtype."""
+    rows, n, k, _ = _gemv_rows(x, q, scale, packed=False)
+    out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    status = load_library().l32_gemv_int8(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, n, k,
+        dtype_code(x), stream_of(x),
+    )
+    check(status, "int8 gemv kernel")
+    gemv_int8_cuda.launches += 1
+    return out
+
+
+@counted("calls")
+def gemv_int8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The int8 gemv in PyTorch: the product in x's dtype with the weight
+    converted exactly, the scale on its fp32 result (JAX's int8 ``qlinear``)."""
+    gemv_int8_plain.calls += 1
+    return int8_matmul_plain(x, q, scale)
+
+
+@counted("launches")
+def gemv_int4_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ dequant(q4, scale).T`` for ``q4 [N, K/2] uint8`` and
+    ``scale [N, K/g]``, at most 32 rows of x, fp32 accumulation with the
+    group scale applied to each fp32 partial, output in x's dtype."""
+    rows, n, k, g = _gemv_rows(x, q4, scale, packed=True)
+    out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    status = load_library().l32_gemv_int4(
+        x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, n, k, g,
+        dtype_code(x), stream_of(x),
+    )
+    check(status, "int4 gemv kernel")
+    gemv_int4_cuda.launches += 1
+    return out
+
+
+@counted("calls")
+def gemv_int4_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The int4 gemv in PyTorch: dequantize to x's dtype, then one matmul."""
+    gemv_int4_plain.calls += 1
+    return int4_matmul_plain(x, q4, scale)
+
+
+def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (torch.matmul(x, q.to(x.dtype).t()).float() * scale).to(x.dtype)
+
+
+def int4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, dequantize_weight({"q4": q4, "scale": scale}, x.dtype).t())

@@ -1,25 +1,65 @@
 """Linears of the decoder: the decode gemv for few rows, a plain matmul for
-prefill.
+prefill, ``qlinear`` for a quantized weight.
 
 With at most 32 rows of input (decode steps, the prefill's last-position
 logits) a linear is weight-streaming-bound and runs the gemv kernel; with
 more rows it is a GEMM and stays ``torch.matmul``, as the JAX package leaves
-prefill linears to XLA.
+prefill linears to XLA. A quantized weight (``{"q"|"q4", "scale"}``,
+``ops/quant.py``) goes to ``qlinear`` at every row count.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from llama32mm_tpu_torch.ops.cuda.gemv import MAX_ROWS, gemv_cuda, gemv_plain
+from llama32mm_tpu_torch.ops.cuda.qgemv import (
+    gemv_int4_cuda,
+    gemv_int4_plain,
+    gemv_int8_cuda,
+    gemv_int8_plain,
+)
+from llama32mm_tpu_torch.ops.cuda.qmatmul import qmatmul_cuda, qmatmul_plain
 from llama32mm_tpu_torch.ops.dispatch import resolve_impl
+from llama32mm_tpu_torch.ops.quant import is_quantized
+
+# The JAX package's int4 gemv unpack variant, read once at import as its
+# ops/pallas/gemv.py reads it. "pre", "post" and "post-cat" differ only in
+# how a TPU unpacks and are one W4A16 kernel here; the int8-activation
+# variants "w4a8"/"w4a8b" have other numerics and are not ported.
+_INT4_VARIANT = os.environ.get("LLAMA32MM_INT4_VARIANT", "post")
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """``x [..., K] @ weight.T`` for ``weight [N, K]``."""
+def linear(x: torch.Tensor, weight, impl: str = "auto") -> torch.Tensor:
+    """``x [..., K] @ weight.T`` for ``weight [N, K]``, float or quantized."""
+    if is_quantized(weight):
+        return qlinear(x, weight, impl)
     rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
     if rows > MAX_ROWS:
         return torch.matmul(x, weight.t())
     if resolve_impl(impl, x) == "cuda":
         return gemv_cuda(x.contiguous(), weight)
     return gemv_plain(x, weight)
+
+
+def qlinear(x: torch.Tensor, qw: dict, impl: str = "auto") -> torch.Tensor:
+    """``x [..., K] @ dequant(qw).T``. Routed by rows, not as the JAX package
+    does: on the card at most ``MAX_ROWS`` rows go to the quantized gemv
+    kernels and more to the dequantizing GEMM kernel; on the CPU both run
+    their plain versions."""
+    if "q4" in qw:
+        if _INT4_VARIANT in ("w4a8", "w4a8b"):
+            raise NotImplementedError(
+                f"LLAMA32MM_INT4_VARIANT={_INT4_VARIANT!r} (int8-quantized activations) is not "
+                "ported to llama32mm_tpu_torch yet; see ROADMAP.md, queue 2")
+        q, kernel, plain = qw["q4"], gemv_int4_cuda, gemv_int4_plain
+    else:
+        q, kernel, plain = qw["q"], gemv_int8_cuda, gemv_int8_plain
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    if rows > MAX_ROWS:
+        kernel, plain = qmatmul_cuda, qmatmul_plain
+    if resolve_impl(impl, x) == "cuda":
+        return kernel(x.contiguous(), q, qw["scale"])
+    return plain(x, q, qw["scale"])

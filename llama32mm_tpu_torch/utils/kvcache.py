@@ -1,10 +1,11 @@
 """Preallocated KV cache (counterpart of ``llama32mm_tpu/utils/kvcache.py``).
 
-Layout ``[n_layers, batch, n_kv_heads, max_len, head_dim]``, float dtypes
-only. Unlike the JAX package's immutable cache, this one is updated in
-place: a layer's new keys and values are written into their slots by slice
-assignment, and ``pos`` (the number of filled slots) advances once per
-forward.
+Layout ``[n_layers, batch, n_kv_heads, max_len, head_dim]``, in a float dtype
+or, in the int8 serving mode, int8 with fp32 per-position scales
+``[n_layers, batch, n_kv_heads, max_len]``. Unlike the JAX package's
+immutable cache, this one is updated in place: a layer's new keys and values
+are written into their slots by slice assignment, and ``pos`` (the number of
+filled slots) advances once per forward.
 """
 
 from __future__ import annotations
@@ -14,30 +15,62 @@ from typing import Optional
 import torch
 
 from llama32mm_tpu_torch.configs import LLAMA32Config
-from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+
+# fp32(1/127) as a 0-dim host tensor: it enters a CUDA product as a kernel
+# argument, with no host-to-device copy and so no stream synchronization.
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+
+
+def quantize_kv(x: torch.Tensor):
+    """``[..., hd]`` float → (int8 ``[..., hd]``, fp32 scale ``[...]``):
+    symmetric per-position absmax, ``scale = max(absmax, 1e-6) / 127``. The
+    JAX package runs this only inside its compiled decoder, where XLA divides
+    by 127 as a product with the fp32 reciprocal; so does this, bit for bit."""
+    x32 = x.to(torch.float32)
+    scale = torch.clamp(x32.abs().amax(dim=-1), min=1e-6) * _INV_127
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 class KVCache:
-    def __init__(self, k: torch.Tensor, v: torch.Tensor, pos: int = 0):
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, pos: int = 0,
+                 k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None):
         self.k = k  # [L, B, n_kv, S_max, hd]
         self.v = v
         self.pos = pos
+        # int8 mode: per-(layer, batch, head, position) scales [L, B, n_kv, S_max]
+        self.k_scale = k_scale
+        self.v_scale = v_scale
 
     @property
     def max_length(self) -> int:
         return self.k.shape[-2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
     def update(self, layer_idx: int, k_new: torch.Tensor, v_new: torch.Tensor):
         """Write ``[B, n_kv, T, hd]`` entries of one layer at slots
-        ``pos .. pos+T-1`` and return that layer's full key/value buffers."""
+        ``pos .. pos+T-1`` (quantized first in the int8 mode) and return that
+        layer's full buffers ``(k, v, k_scale, v_scale)``; the scales are
+        None in a float cache."""
         t = k_new.shape[2]
         if self.pos + t > self.max_length:
             raise ValueError(
                 f"KV cache overflow: {self.pos} + {t} > capacity {self.max_length}"
             )
-        self.k[layer_idx, :, :, self.pos:self.pos + t] = k_new
-        self.v[layer_idx, :, :, self.pos:self.pos + t] = v_new
-        return self.k[layer_idx], self.v[layer_idx]
+        slots = slice(self.pos, self.pos + t)
+        if self.quantized:
+            k_new, ks = quantize_kv(k_new)
+            v_new, vs = quantize_kv(v_new)
+            self.k_scale[layer_idx, :, :, slots] = ks
+            self.v_scale[layer_idx, :, :, slots] = vs
+        self.k[layer_idx, :, :, slots] = k_new
+        self.v[layer_idx, :, :, slots] = v_new
+        if not self.quantized:
+            return self.k[layer_idx], self.v[layer_idx], None, None
+        return self.k[layer_idx], self.v[layer_idx], self.k_scale[layer_idx], self.v_scale[layer_idx]
 
     def advance(self, n: int) -> None:
         self.pos += n
@@ -50,12 +83,20 @@ def init_kv_cache(
     max_length: Optional[int] = None,
     dtype: Optional[torch.dtype] = None,
 ) -> KVCache:
+    """``dtype=torch.int8`` allocates the quantized serving cache: int8 slots
+    plus fp32 per-position scales (half the bytes of a bf16 cache)."""
     max_length = max_length or config.max_cache_length
     dtype = dtype or config.torch_dtype
-    if not dtype.is_floating_point:
-        not_in_slice(f"a {dtype} (quantized) KV cache")
+    if not (dtype.is_floating_point or dtype == torch.int8):
+        raise ValueError(f"KV cache dtype must be a float dtype or torch.int8, got {dtype}")
     shape = (config.n_layers, batch_size, config.n_kv_groups, max_length, config.head_dim)
+    k_scale = v_scale = None
+    if dtype == torch.int8:
+        k_scale = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        v_scale = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
+        k_scale=k_scale,
+        v_scale=v_scale,
     )

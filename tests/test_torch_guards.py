@@ -17,7 +17,8 @@ from llama32mm_tpu_torch.models.vlm import init_vlm, vlm_forward
 from llama32mm_tpu_torch.ops import cuda as kernels
 from llama32mm_tpu_torch.ops.attention import AttnMask, gqa_attention
 from llama32mm_tpu_torch.ops.cuda import build
-from llama32mm_tpu_torch.ops.gemv import linear
+from llama32mm_tpu_torch.ops.gemv import linear, qlinear
+from llama32mm_tpu_torch.ops.quant import quantize_weight
 from llama32mm_tpu_torch.ops.rmsnorm import fused_add_rmsnorm
 from llama32mm_tpu_torch.ops.swiglu import fused_swiglu
 from llama32mm_tpu_torch.utils.kvcache import init_kv_cache
@@ -28,7 +29,8 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.configs", "llama32mm_tpu_torch.convert",
     "llama32mm_tpu_torch.inference.engine", "llama32mm_tpu_torch.models.vlm",
     "llama32mm_tpu_torch.ops.cuda", "llama32mm_tpu_torch.preprocess.image",
-    "llama32mm_tpu_torch.utils.sampling", "chip_smoke",
+    "llama32mm_tpu_torch.utils.sampling", "llama32mm_tpu_torch.ops.quant",
+    "llama32mm_tpu_torch.models.quantize", "llama32mm_tpu_torch.ops.cuda.qgemv", "llama32mm_tpu_torch.ops.cuda.qmatmul", "chip_smoke",
 ]
 
 
@@ -64,7 +66,14 @@ def _cpu_args(name):
         return x, torch.randn(8, 16)
     if name == "swiglu":
         return x, torch.randn(8, 16), torch.randn(8, 16)
+    if name in ("gemv_int8", "qmatmul"):
+        return x, torch.randint(-127, 128, (8, 16), dtype=torch.int8), torch.rand(8)
+    if name == "gemv_int4":  # group size 8
+        return x, torch.randint(0, 256, (8, 8), dtype=torch.uint8), torch.rand(8, 2)
     q = torch.randn(1, 2, 3, 16)
+    if name == "flash_attention_int8kv":
+        kv = torch.randint(-127, 128, (1, 2, 3, 16), dtype=torch.int8)
+        return q, kv, kv, torch.rand(1, 2, 3), torch.rand(1, 2, 3), torch.ones(1, 3), 0, True
     return q, q, q, torch.ones(1, 3), 0, True
 
 
@@ -78,11 +87,13 @@ def test_kernel_wrapper_refuses_cpu_tensors(name):
     plain(*_cpu_args(name))  # the plain version takes them
 
 
-@pytest.mark.parametrize("op", ["rmsnorm", "gemv", "swiglu", "attention"])
+@pytest.mark.parametrize("op", ["rmsnorm", "gemv", "swiglu", "attention", "qlinear"])
 def test_impl_cuda_on_cpu_raises(op):
     x = torch.randn(2, 16)
     with pytest.raises(ValueError, match="impl='cuda'"):
-        if op == "rmsnorm":
+        if op == "qlinear":
+            qlinear(x, quantize_weight(torch.randn(4, 16)), impl="cuda")
+        elif op == "rmsnorm":
             fused_add_rmsnorm(x, torch.ones(16), impl="cuda")
         elif op == "gemv":
             linear(x, torch.randn(4, 16), impl="cuda")
@@ -120,13 +131,41 @@ def tiny_model():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"kv_dtype": "int8"}, {"spec_lookup": 2}, {"spec_draft": 2},
+    {"kv_dtype": "int4"}, {"spec_lookup": 2}, {"spec_draft": 2},
     {"gemv_routes": {"lm_head": 1 << 20}},
 ])
 def test_engine_refuses_unported_options(tiny_model, kwargs):
+    """Unported options raise NotImplementedError; a KV dtype the JAX engine
+    does not know either (only None and "int8" exist) raises ValueError."""
     cfg, model = tiny_model
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    error, match = ((ValueError, "kv_dtype") if "kv_dtype" in kwargs
+                    else (NotImplementedError, "ROADMAP.md"))
+    with pytest.raises(error, match=match):
         InferenceEngine(model, cfg, "cpu", **kwargs)
+
+
+@pytest.mark.parametrize("variant", ["w4a8", "w4a8b"])
+def test_int4_w4a8_variants_refused(variant):
+    """The int8-activation int4 variants are not ported: selected by the JAX
+    package's environment variable (read at import), an int4 linear raises;
+    an int8 one still runs."""
+    code = (
+        "import torch\n"
+        "from llama32mm_tpu_torch.ops.gemv import qlinear\n"
+        "from llama32mm_tpu_torch.ops.quant import quantize_weight, quantize_weight_int4\n"
+        "x = torch.randn(2, 64)\n"
+        "assert qlinear(x, quantize_weight(torch.randn(8, 64))).shape == (2, 8)\n"
+        "try:\n"
+        "    qlinear(x, quantize_weight_int4(torch.randn(8, 64), group_size=32))\n"
+        "except NotImplementedError as e:\n"
+        "    assert 'ROADMAP.md' in str(e), e\n"
+        "    print('refused')\n"
+    )
+    env = dict(_child_env(), LLAMA32MM_INT4_VARIANT=variant)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["refused"]
 
 
 def test_engine_refuses_repetition_penalty(tiny_model):
@@ -147,11 +186,23 @@ def test_vlm_forward_refuses_unported_options(tiny_model, kwargs):
 
 
 def test_int8_kv_cache_refused():
-    with pytest.raises(NotImplementedError):
-        init_kv_cache(tiny_mllama_config().text_config, 1, "cpu", dtype=torch.int8)
+    """``torch.int8`` is the quantized cache (int8 K/V plus fp32 per-position
+    scales); other integer dtypes are refused."""
+    tc = tiny_mllama_config().text_config
+    cache = init_kv_cache(tc, 2, "cpu", max_length=8, dtype=torch.int8)
+    assert cache.quantized
+    assert cache.k.dtype == cache.v.dtype == torch.int8
+    assert cache.k_scale.dtype == cache.v_scale.dtype == torch.float32
+    assert tuple(cache.k_scale.shape) == (tc.n_layers, 2, tc.n_kv_groups, 8)
+    assert not init_kv_cache(tc, 2, "cpu", max_length=8).quantized
+    with pytest.raises(ValueError, match="int8"):
+        init_kv_cache(tc, 1, "cpu", dtype=torch.uint8)
 
 
 def test_convert_refuses_fused_and_quantized_trees(tiny_model):
+    """The fused W_qkv / w_gateup layout is refused, and so is a quantized
+    leaf whose shape does not fit its weight (well-formed quantized trees
+    convert: tests/test_torch_quant.py)."""
     from llama32mm_tpu_torch.convert import from_jax_params, to_jax_params
 
     cfg, model = tiny_model
@@ -161,8 +212,11 @@ def test_convert_refuses_fused_and_quantized_trees(tiny_model):
     with pytest.raises(NotImplementedError, match="fused"):
         from_jax_params(fused, cfg, "cpu")
     quant = to_jax_params(model)
-    quant["language_model"]["model"]["blocks"]["ff"]["w_down"]["weight"] = {"q": 0, "scale": 0}
-    with pytest.raises(NotImplementedError, match="quantized"):
+    w = quant["language_model"]["model"]["blocks"]["ff"]["w_down"]["weight"]  # [L, K, N]
+    quant["language_model"]["model"]["blocks"]["ff"]["w_down"]["weight"] = {
+        "q": np.zeros((w.shape[0], w.shape[1] + 1, w.shape[2]), np.int8),
+        "scale": np.ones((w.shape[0], w.shape[2]), np.float32)}
+    with pytest.raises(ValueError, match="does not fit"):
         from_jax_params(quant, cfg, "cpu")
     assert from_jax_params(tree, cfg, "cpu") is not None
 
