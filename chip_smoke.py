@@ -6,32 +6,47 @@
 2. builds the port's CUDA kernels from ``llama32mm_tpu_torch/csrc`` (nvcc,
    sm_90a);
 3. compares every kernel with its plain PyTorch version at the shapes the
-   bf16 and the quantized paths give it, in bf16, and times both (and the
-   effective weight GB/s of the gemvs);
+   bf16, the quantized and the training paths give it, and at ragged
+   edges, in bf16, and times both (and the effective weight GB/s of the
+   gemvs);
 4. checks, on a tiny fp32 model, that the kernel path and the plain path
    generate the same tokens: in float, and quantized to int8 and to the
    int4-mixed recipe with an int8 KV cache;
-5. builds Llama-3.2-11B-Vision shapes in bf16 from a seed, preprocesses a
+5. checks, on the tiny fp32 model, that 3 LoRA steps (default targets,
+   head and projector adapters) and 3 full fine-tuning steps (the vision
+   tower training) agree between the kernel and the plain path, and that
+   the kernel path launched every training kernel and no plain version;
+6. builds Llama-3.2-11B-Vision shapes in bf16 from a seed, preprocesses a
    560x560 uint8 image on the card and runs ``InferenceEngine.generate``
    greedily for 64 tokens after a 1600-image-token + 32-text-token prompt,
    checking the output and that every kernel of the path, and no plain
    version, ran; prints, as information, the prefill logits' distance to
    the plain path;
-6. does the same with an untied head, quantized to int8 and (from the same
+7. does the same with an untied head, quantized to int8 and (from the same
    bf16 weights) to ``INT4_MIXED_RECIPE`` at g=128, each served with
-   ``kv_dtype="int8"``.
+   ``kv_dtype="int8"``;
+8. LoRA fine-tuning of the 11B bf16 model (rank 16, the default targets
+   and a head adapter, Adam) on one B=1, S=1632 batch: a warm-up step and
+   3 timed steps; checks finite losses and moments, a bitwise unchanged
+   base and the path's kernels; prints ms/step, tokens/s and peak GiB;
+9. full fine-tuning of the JAX bench's 3B configuration (fp32 masters,
+   bf16 compute, frozen vision tower, AdamW with global-norm clipping),
+   the same batch shape and checks, plus a bitwise unchanged vision tower
+   without optimizer state.
 
 The second-to-last line is a JSON summary of the kernels, the last line
-``{"ok": true, "device": ...}``. A kernel's ``launches`` there sums the 11B
-generates of every path (bf16, int8, int4-mixed), each counted from 0 just
-before its 64-token run (``launches_by_path`` splits them). Any failure
-raises before that line and exits non-zero; without a CUDA device it exits
-non-zero at once.
+``{"ok": true, "device": ...}``. A kernel's ``launches`` there sums the
+11B and 3B runs of every path (bf16, int8, int4-mixed generates; the timed
+LoRA and full fine-tuning steps), each counted from 0 just before its
+measured run (``launches_by_path`` splits them). Any failure raises before
+that line and exits non-zero; without a CUDA device it exits non-zero at
+once.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -39,14 +54,23 @@ import time
 
 import torch
 
-from llama32mm_tpu_torch.configs import llama32_11b_vision_config, tiny_mllama_config
+from llama32mm_tpu_torch.configs import (
+    LLAMA32Config,
+    MLLAMAConfig,
+    VisionEncoderConfig,
+    llama32_11b_vision_config,
+    tiny_mllama_config,
+)
 from llama32mm_tpu_torch.inference.engine import InferenceEngine, structured_prefill_mask
 from llama32mm_tpu_torch.models.vlm import init_vlm, vlm_forward
 from llama32mm_tpu_torch.ops import cuda as kernels
+from llama32mm_tpu_torch.ops.cuda.attention import NEG_BIG
 from llama32mm_tpu_torch.ops.cuda.build import build_library
 from llama32mm_tpu_torch.models.quantize import quantize_llama_params
 from llama32mm_tpu_torch.ops.quant import INT4_MIXED_RECIPE, quantize_weight, quantize_weight_int4
 from llama32mm_tpu_torch.preprocess.image import preprocess_image_device
+from llama32mm_tpu_torch.train.full import make_train_step
+from llama32mm_tpu_torch.train.lora import init_lora_params, lora_leaves, make_lora_train_step
 from llama32mm_tpu_torch.utils.kvcache import init_kv_cache, quantize_kv
 
 # bf16 comparisons: |kernel - plain| <= TOL * max|plain|. 1.6e-2 is about two
@@ -68,6 +92,16 @@ KERNEL_INFO = {
                 "llama32mm_tpu/ops/pallas/quant_matmul.py:29"),
     "flash_attention_int8kv": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
                                "llama32mm_tpu/ops/pallas/attention.py:36"),
+    "rmsnorm_fwd_train": ("llama32mm_tpu_torch/csrc/rmsnorm.cu",
+                          "llama32mm_tpu/ops/pallas/rmsnorm.py:44"),
+    "rmsnorm_bwd": ("llama32mm_tpu_torch/csrc/rmsnorm.cu", "llama32mm_tpu/ops/pallas/rmsnorm.py:62"),
+    "swiglu_bwd": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:136"),
+    "flash_attention_lse": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
+                            "llama32mm_tpu/ops/pallas/attention.py:36"),
+    "flash_attention_bwd_dq": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
+                               "llama32mm_tpu/ops/pallas/attention.py:251"),
+    "flash_attention_bwd_dkv": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
+                                "llama32mm_tpu/ops/pallas/attention.py:322"),
 }
 # Pallas functions a kernel folds in beside the one it is listed against.
 ALSO_REPLACES = {
@@ -83,6 +117,14 @@ PATH_KERNELS = {
     "int4_mixed": ("rmsnorm", "flash_attention", "flash_attention_int8kv", "gemv_int8",
                    "gemv_int4", "qmatmul"),
 }
+# The kernels each training path must launch (the frozen ViT's forward is
+# the no-grad flash kernel).
+TRAIN_KERNELS = ("rmsnorm_fwd_train", "rmsnorm_bwd", "flash_attention_lse",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+PATH_KERNELS.update({
+    "lora_11b": TRAIN_KERNELS + ("flash_attention",),
+    "full_ft_3b": TRAIN_KERNELS + ("flash_attention", "swiglu", "swiglu_bwd"),
+})
 
 
 def log(msg: str) -> None:
@@ -187,7 +229,81 @@ def kernel_cases(dev, gen):
         ("flash_attention_int8kv", "ragged B=2 Tq=37 Tk=100 q_offset=5 hd=16 padded keys",
          (rnd(2, 4, 37, 16), *kv8(2, 2, 100, 16), valid(2, 100, 90), 5, True), False),
     ]
+    return cases + training_kernel_cases(rnd, valid)
+
+
+def training_kernel_cases(rnd, valid):
+    """The training kernels at the training paths' shapes (11B LoRA and 3B
+    full fine-tuning, B=1, S=1632; ViT-H at 1600 patches) and ragged edges."""
+    h, inter = 4096, 14336
+
+    def norm_bwd(r, c, need_dw=True):
+        t = rnd(r, c)
+        rms = t.float().square().mean(-1).add(1e-5).sqrt()
+        return (rnd(r, c), t, rnd(c), rms, need_dw)
+
+    cases = [
+        ("rmsnorm_fwd_train", "R=1632 C=4096 +residual", (rnd(1632, h), rnd(h), 1e-5, rnd(1632, h)),
+         True),
+        ("rmsnorm_fwd_train", "ragged R=3 C=100 +residual",
+         (rnd(3, 100), rnd(100), 1e-5, rnd(3, 100)), False),
+        ("rmsnorm_bwd", "R=1632 C=4096", norm_bwd(1632, h), True),
+        ("rmsnorm_bwd", "R=1632 C=4096 frozen weight", norm_bwd(1632, h, need_dw=False), False),
+        ("rmsnorm_bwd", "ragged R=3 C=100", norm_bwd(3, 100), False),
+        ("swiglu_bwd", "3B R=1632 H=3072 I=8192",
+         (rnd(1632, 3072), rnd(8192, 3072, scale=0.02), rnd(8192, 3072, scale=0.02),
+          rnd(1632, 8192)), True),
+        ("swiglu_bwd", "11B R=1632 H=4096 I=14336",
+         (rnd(1632, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02), rnd(1632, inter)),
+         False),
+        ("swiglu_bwd", "ragged R=33 H=100 I=200",
+         (rnd(33, 100), rnd(200, 100, scale=0.1), rnd(200, 100, scale=0.1), rnd(33, 200)), False),
+    ]
+    masked = valid(2, 100, 90)
+    masked[0, :6] = 0  # batch 0, query 0 (position 5) sees no key
+    attn = [  # (label, q, k, v, kv_valid, q_offset, causal, main?)
+        ("decoder nq=32 nkv=8 T=1632 hd=128 causal", rnd(1, 32, 1632, 128), rnd(1, 8, 1632, 128),
+         rnd(1, 8, 1632, 128), valid(1, 1632, 1632), 0, True, True),
+        ("3B nq=24 nkv=8 T=1632 hd=128 causal", rnd(1, 24, 1632, 128), rnd(1, 8, 1632, 128),
+         rnd(1, 8, 1632, 128), valid(1, 1632, 1632), 0, True, False),
+        ("ViT-H nq=nkv=16 T=1600 hd=80 non-causal", rnd(1, 16, 1600, 80), rnd(1, 16, 1600, 80),
+         rnd(1, 16, 1600, 80), valid(1, 1600, 1600), 0, False, False),
+        ("ragged B=2 Tq=37 Tk=100 q_offset=5 hd=16 padded keys, a fully masked row",
+         rnd(2, 4, 37, 16), rnd(2, 2, 100, 16), rnd(2, 2, 100, 16), masked, 5, True, False),
+    ]
+    for label, q, k, v, kvv, q_offset, causal, main in attn:
+        fwd = (q, k, v, kvv, q_offset, causal)
+        out, lse = kernels.flash_attention_fwd_lse_plain(*fwd)
+        dout = rnd(*q.shape)
+        delta = (dout.float() * out.float()).sum(-1)
+        cases += [("flash_attention_lse", label, fwd, main),
+                  ("flash_attention_bwd_dq", label, (*fwd, lse, delta, dout), main),
+                  ("flash_attention_bwd_dkv", label, (*fwd, lse, delta, dout), main)]
     return cases
+
+
+def max_err(got, want):
+    """``(max |got - want|, max |want|)`` over a kernel's outputs (one tensor,
+    or a tuple with None for an output not asked for). An lse entry at
+    ``NEG_BIG`` (a row with no allowed key) must be so in both versions and
+    is left out of both maxima."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = scale = 0.0
+    for g, w in zip(got, want):
+        if (g is None) != (w is None):
+            raise RuntimeError("the kernel and its plain version return different outputs")
+        if g is None:
+            continue
+        g, w = g.float(), w.float()
+        empty = w <= NEG_BIG / 2
+        if not torch.equal(g <= NEG_BIG / 2, empty):
+            raise RuntimeError("the kernel and its plain version mark different rows empty")
+        g, w = g[~empty], w[~empty]
+        if g.numel():
+            err = max(err, (g - w).abs().max().item())
+            scale = max(scale, w.abs().max().item())
+    return err, scale
 
 
 def compare_kernels(dev) -> dict:
@@ -197,8 +313,7 @@ def compare_kernels(dev) -> dict:
         wrapper, plain = kernels.KERNELS[name]
         got, want = wrapper(*args), plain(*args)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
+        err, scale = max_err(got, want)
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
         rate = ""
         if name.startswith("gemv"):  # weight (and scale) bytes streamed per call
@@ -254,6 +369,185 @@ def check_tiny_paths_agree(dev) -> None:
         if dl > 1e-4 or not torch.equal(res["cuda"].tokens, res["torch"].tokens) or missing:
             raise RuntimeError(f"tiny {mode} model: kernel path and plain path disagree "
                                f"(or skipped {missing})")
+
+
+def tiny_batch(cfg, dev, gen, b=2, s=12):
+    """A tiny training batch: 4 ``<image>`` ids, then text; labels -100 on
+    the image positions and on a padded tail of the last row."""
+    ids = torch.randint(0, cfg.vocab_size - 10, (b, s), generator=gen, device=dev)
+    ids[:, :4] = cfg.image_token_index
+    labels = ids.clone()
+    labels[:, :4] = cfg.ignore_index
+    labels[-1, s - 3:] = cfg.ignore_index
+    px = torch.randn(b, 3, 28, 28, generator=gen, device=dev)
+    return {"input_ids": ids, "labels": labels, "pixel_values": px}
+
+
+def check_tiny_training(dev) -> None:
+    """On a tiny fp32 model, 3 LoRA steps (default targets, head and
+    projector adapters) and 3 full fine-tuning steps with the vision tower
+    training (so the ViT's flash backward runs) agree between the kernel
+    path and the plain path: each step's loss and every trained tensor,
+    within 1e-4 relative. Every training kernel launches on the kernel path,
+    and no plain version runs there. The learning rate is 1e-4: Adam
+    normalizes each element's update, so an element whose true gradient is 0
+    (the ViT key bias: a softmax ignores a shift of all its logits) moves by
+    up to ~lr a step on rounding noise alone, which differs between the two
+    paths; at 1e-3 that noise reached 1.9e-4 of such a tensor."""
+    cfg = tiny_mllama_config()
+    batch = tiny_batch(cfg, dev, torch.Generator(device=dev).manual_seed(5))
+
+    def lora_run(impl):
+        model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+        lora = init_lora_params(torch.Generator(device=dev).manual_seed(3), cfg, rank=4,
+                                include_projector=True)
+        init_state, step = make_lora_train_step(cfg, learning_rate=1e-4, impl=impl)
+        state, losses = init_state(lora), []
+        for _ in range(3):
+            state, loss = step(model, state, batch)
+            losses.append(loss.item())
+        return losses, lora_leaves(state.lora)
+
+    def full_run(impl):
+        model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+        init_state, step = make_train_step(cfg, learning_rate=1e-4, max_grad_norm=1.0,
+                                           freeze_vision=False, impl=impl)
+        state, losses = init_state(model), []
+        for _ in range(3):
+            state, loss = step(state, batch)
+            losses.append(loss.item())
+        return losses, state.params
+
+    for label, run, need in (("LoRA", lora_run, TRAIN_KERNELS),
+                             ("full FT", full_run, TRAIN_KERNELS + ("swiglu", "swiglu_bwd"))):
+        res = {}
+        for impl in ("torch", "cuda"):
+            kernels.reset_counters()
+            res[impl] = run(impl)
+            if impl == "cuda":
+                launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+        (lt, pt), (lc, pc) = res["torch"], res["cuda"]
+        dloss = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(lc, lt))
+        dparam = max(((pc[n] - pt[n]).abs().max() / pt[n].abs().max().clamp(min=1e-12)).item()
+                     for n in pt)
+        log(f"tiny fp32 {label}, 3 steps: losses cuda={lc} torch={lt} max_rel_dloss={dloss:.3g} "
+            f"max_rel_dparam={dparam:.3g} over {len(pt)} tensors; launches {launches}")
+        missing = [k for k in need if launches[k] == 0]
+        if not dloss <= 1e-4 or not dparam <= 1e-4 or missing or any(plain_calls.values()):
+            raise RuntimeError(f"tiny {label}: kernel path and plain path disagree, or skipped "
+                               f"{missing}, or ran plain versions {plain_calls}")
+
+
+def checksums(tensors) -> torch.Tensor:
+    """One int64 per tensor: the sum of its bytes read as int16, so any
+    changed element shows."""
+    return torch.stack([t.detach().contiguous().view(torch.int16).sum(dtype=torch.int64)
+                        for t in tensors])
+
+
+def train_batch(cfg, dev):
+    """B=1, S=1632: the 560x560 image's 1600 ``<image>`` ids then 32 text
+    ids, labels -100 on the image positions; a random uint8 image."""
+    tc, vc = cfg.text_config, cfg.vision_config
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    text = torch.randint(0, tc.vocab_size, (1, 32), generator=gen, device=dev)
+    image = torch.full((1, vc.num_patches), cfg.image_token_index, device=dev)
+    ids = torch.cat([image, text], dim=1)
+    labels = torch.cat([torch.full_like(image, cfg.ignore_index), text], dim=1)
+    px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
+    return {"input_ids": ids, "labels": labels, "pixel_values": px}
+
+
+def run_steps(path: str, step, state, batch, opt_moments):
+    """One warm-up step, then 3 timed steps with the counters set to 0 just
+    before them; checks losses and moments, returns ``(state, launches)``."""
+    tokens = batch["input_ids"].numel()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    log(f"[{path}] warm-up step {time.perf_counter() - t:.4f} s loss {loss.item():.6g}")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    losses, times = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+    ms = 1e3 * statistics.median(times)
+    log(f"[{path}] steps (s) {[round(x, 6) for x in times]} losses {losses}; median "
+        f"{ms:.2f} ms/step, {tokens / ms * 1e3:.1f} tokens/s; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[{path}] launches {launches} plain calls {plain_calls}")
+    mu = list(opt_moments(state))
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"[{path}] non-finite loss {losses}")
+    if not all(bool(torch.isfinite(m).all()) for m in mu) or not any(bool(m.any()) for m in mu):
+        raise RuntimeError(f"[{path}] gradients (first moments) not finite, or all zero")
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    if missing or any(plain_calls.values()):
+        raise RuntimeError(f"[{path}] skipped kernels {missing} or ran plain versions {plain_calls}")
+    return state, launches
+
+
+def run_lora_11b(dev) -> dict:
+    """LoRA fine-tuning at Llama-3.2-11B-Vision, bf16 base (tied head), rank
+    16, alpha 16, the default targets and a head adapter, Adam lr 1e-4."""
+    cfg, model = build_11b(dev, tie_weights=True)
+    base = [p for p in model.parameters()]
+    before = checksums(base)
+    lora = init_lora_params(torch.Generator(device=dev).manual_seed(1), cfg, rank=16, alpha=16.0)
+    init_state, step = make_lora_train_step(cfg, learning_rate=1e-4)
+    state = init_state(lora)
+    batch = train_batch(cfg, dev)
+    with torch.inference_mode():  # information: the plain path's loss at the start
+        plain = vlm_forward(model, cfg, input_ids=batch["input_ids"],
+                            pixel_values=batch["pixel_values"], labels=batch["labels"],
+                            lora=lora, impl="torch").loss.item()
+    log(f"[lora_11b] initial loss, plain path: {plain:.6g}")
+    state, launches = run_steps("lora_11b", lambda st, b: step(model, st, b), state, batch,
+                                lambda st: st.opt_state.mu.values())
+    if not torch.equal(checksums(base), before) or any(p.requires_grad for p in base):
+        raise RuntimeError("[lora_11b] the base weights changed or require gradients")
+    return launches
+
+
+def bench_3b_config(dtype: str) -> MLLAMAConfig:
+    """The JAX package's 3B bench configuration (bench.py): Llama-3.2-3B text
+    widths at full depth, the ViT-H/14 560px vision tower."""
+    return MLLAMAConfig(
+        vision_config=VisionEncoderConfig(),
+        text_config=LLAMA32Config(vocab_size=128256, hidden_size=3072, n_heads=24, n_layers=28,
+                                  hidden_dim=8192, n_kv_groups=8, dtype=dtype),
+        projection_dim=3072, hidden_size=3072,
+    )
+
+
+def run_full_ft_3b(dev) -> dict:
+    """Full fine-tuning at the 3B bench config: fp32 masters, bf16 compute,
+    frozen vision tower, AdamW lr 1e-5 with clip_by_global_norm(1.0)."""
+    cfg = bench_3b_config("float32")
+    t = time.perf_counter()
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"3B model: {sum(p.numel() for p in model.parameters())} parameters, fp32 masters, init "
+        f"{time.perf_counter() - t:.3f} s, allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    vision = list(model.vision_model.parameters())
+    before = checksums(vision)
+    init_state, step = make_train_step(cfg, learning_rate=1e-5, max_grad_norm=1.0,
+                                       freeze_vision=True, compute_dtype="bfloat16")
+    state = init_state(model)
+    batch = train_batch(bench_3b_config("bfloat16"), dev)
+    state, launches = run_steps("full_ft_3b", step, state, batch, lambda st: st.opt_state.mu.values())
+    frozen_in_opt = [n for n in state.opt_state.mu if n.startswith("vision_model.")]
+    if not torch.equal(checksums(vision), before) or frozen_in_opt:
+        raise RuntimeError("[full_ft_3b] the vision tower changed or has optimizer state")
+    return launches
 
 
 def build_11b(dev, tie_weights: bool):
@@ -374,7 +668,12 @@ def main() -> int:
     summary = compare_kernels(dev)
     torch.cuda.empty_cache()
     check_tiny_paths_agree(dev)
+    check_tiny_training(dev)
     by_path = run_11b_paths(dev)
+    torch.cuda.empty_cache()
+    by_path["lora_11b"] = run_lora_11b(dev)
+    torch.cuda.empty_cache()
+    by_path["full_ft_3b"] = run_full_ft_3b(dev)
 
     out = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -9,6 +9,11 @@ and unstacks the layers; ``to_jax_params`` is its inverse. A tied head is
 here. bf16 leaves travel as float32 numpy arrays (numpy has no bf16), which
 is exact.
 
+LoRA adapter trees have one layout in both packages (``lora_a [L, in, r]``,
+``lora_b [L, r, out]``, ``scaling [L]`` per target under ``"blocks"``, flat
+``lm_head`` / ``projector`` adapters): ``lora_from_jax`` and ``lora_to_jax``
+only change the array type.
+
 Quantized trees (``quantize_llama_params``): a ``{"q", "scale"}`` or
 ``{"q4", "scale"}`` leaf stands where the float weight was, stacked
 ``[L, ...]`` for the decoder linears or single for the head. Each of its
@@ -169,3 +174,39 @@ def to_jax_params(model: MllamaForConditionalGeneration) -> dict:
     if model.language_model.lm_head is None:
         _set(tree, ("language_model", "lm_head", "weight"), None)
     return tree
+
+
+def _to_torch(arr, device, dtype) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    t = torch.from_numpy(np.array(arr, order="C")).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def lora_from_jax(np_tree: dict, device, dtype: Optional[torch.dtype] = None) -> dict:
+    """The port's adapter tree from the JAX package's (numpy leaves); bf16
+    leaves come back as fp32 unless ``dtype`` is given. The scaling stays
+    fp32."""
+    out = {}
+    for key, sub in np_tree.items():
+        adapters = sub.items() if key == "blocks" else [(None, sub)]
+        conv = {name: {leaf: _to_torch(arr, device, None if leaf == "scaling" else dtype)
+                       for leaf, arr in ad.items()} for name, ad in adapters}
+        out[key] = conv if key == "blocks" else conv[None]
+    return out
+
+
+def lora_to_jax(lora: dict) -> dict:
+    """The JAX package's adapter tree (numpy leaves; bf16 as fp32)."""
+    def arr(t):
+        t = t.detach().to("cpu")
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    out = {}
+    for key, sub in lora.items():
+        if key == "blocks":
+            out[key] = {name: {leaf: arr(t) for leaf, t in ad.items()} for name, ad in sub.items()}
+        else:
+            out[key] = {leaf: arr(t) for leaf, t in sub.items()}
+    return out

@@ -31,6 +31,20 @@
 // fp32 inputs with more rows take a plain SIMT loop (one thread per output,
 // both dot products in fp32): the main path runs bf16, the fp32 kernel
 // exists so the wrapper takes both types.
+//
+// Backward (l32_swiglu_bwd). Replaces llama32mm_tpu/ops/pallas/swiglu.py::
+// _bwd_kernel: with g the output's cotangent, it recomputes gate and up with
+// fp32 accumulators and writes d_gate = silu'(gate) * g * up and
+// d_up = g * silu(gate), silu'(x) = s (1 + x (1 - s)), s = sigmoid(x), in x's
+// type; gate and up never reach device memory. It is the forward's body with
+// another epilogue (the kBwd template parameter of both the bf16 tile kernel
+// and the fp32 loop): the g tile is staged through the epilogue's shared
+// memory as fp32 and loaded into accumulator fragments, whose layout is the
+// gate and up fragments', so both products are formed in registers; d_gate
+// and then d_up go out through shared memory as the forward's output does.
+// Bound as the forward at R = 1632 (tensor-core FLOPs); the bf16 backward
+// always takes the tile, whatever R. dx = d_gate @ w_gate + d_up @ w_up and the
+// weight gradients are cuBLAS GEMMs in the wrapper's autograd function.
 #include <mma.h>
 
 #include "common.cuh"
@@ -51,6 +65,14 @@ constexpr int kSmemBytes = kRingBytes > kEpilogueBytes ? kRingBytes : kEpilogueB
 static_assert(kSmemBytes <= 48 * 1024, "static shared memory limit");
 
 __device__ __forceinline__ float silu(float g) { return g / (1.f + expf(-g)); }
+
+// The backward epilogue on one (gate, up, g) triple: d_gate, d_up.
+__device__ __forceinline__ void swiglu_grad(float gate, float up, float g, float& d_gate,
+                                            float& d_up) {
+  const float s = 1.f / (1.f + expf(-gate));
+  d_gate = s * (1.f + gate * (1.f - s)) * g * up;
+  d_up = g * (gate * s);
+}
 
 // 16-byte global -> shared copy that does not stall the thread; a zero
 // source size writes zeros (the ragged edge) and reads nothing.
@@ -87,10 +109,13 @@ __device__ __forceinline__ void stage_slice(__nv_bfloat16* dst, const __nv_bfloa
   }
 }
 
-template <bool kVec>
+// kBwd false: out = silu(gate) * up. kBwd true: gin is the cotangent g,
+// out = d_gate and out2 = d_up.
+template <bool kVec, bool kBwd>
 __global__ void __launch_bounds__(kThreads)
 swiglu_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wg,
-                   const __nv_bfloat16* __restrict__ wu, __nv_bfloat16* __restrict__ out,
+                   const __nv_bfloat16* __restrict__ wu, const __nv_bfloat16* __restrict__ gin,
+                   __nv_bfloat16* __restrict__ out, __nv_bfloat16* __restrict__ out2,
                    int rows, int h, int inter) {
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -150,25 +175,68 @@ swiglu_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
     __syncthreads();  // the next iteration's stage() overwrites this buffer
   }
 
-  // Epilogue: silu(g) * u in registers (both fragments have one layout),
-  // then through shared memory (reusing the ring) to one write per element.
+  // Epilogue, through shared memory (reusing the ring) to one write per
+  // element. Forward: silu(g) * u in registers (both fragments have one
+  // layout). Backward: the g tile is staged as fp32 and read back into
+  // fragments of that same layout, then d_gate replaces gate and d_up up.
   float* cs = reinterpret_cast<float*>(smem);
+  auto write_tile = [&](__nv_bfloat16* dst) {  // cs -> dst, bounds-checked
+    for (int e = threadIdx.x; e < BM * BN; e += kThreads) {
+      const int r = e / BN, c = e % BN;
+      const int gr = m0 + r, gc = n0 + c;
+      if (gr < rows && gc < inter)
+        dst[static_cast<size_t>(gr) * inter + gc] = __float2bfloat16(cs[r * LDC + c]);
+    }
+  };
+  if (kBwd) {
+    for (int e = threadIdx.x; e < BM * BN; e += kThreads) {
+      const int r = e / BN, c = e % BN;
+      const int gr = m0 + r, gc = n0 + c;
+      cs[r * LDC + c] = (gr < rows && gc < inter)
+                            ? __bfloat162float(gin[static_cast<size_t>(gr) * inter + gc])
+                            : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> gf;
+        wmma::load_matrix_sync(gf, cs + (wm + i * 16) * LDC + wn + j * 16, LDC,
+                               wmma::mem_row_major);
+#pragma unroll
+        for (int t = 0; t < gf.num_elements; ++t)
+          swiglu_grad(accg[i][j].x[t], accu[i][j].x[t], gf.x[t], accg[i][j].x[t],
+                      accu[i][j].x[t]);
+      }
+    __syncthreads();  // every warp has read its g fragments
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int t = 0; t < accg[i][j].num_elements; ++t)
+          accg[i][j].x[t] = silu(accg[i][j].x[t]) * accu[i][j].x[t];
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int t = 0; t < accg[i][j].num_elements; ++t)
-        accg[i][j].x[t] = silu(accg[i][j].x[t]) * accu[i][j].x[t];
+    for (int j = 0; j < 2; ++j)
       wmma::store_matrix_sync(cs + (wm + i * 16) * LDC + wn + j * 16, accg[i][j], LDC,
                               wmma::mem_row_major);
-    }
   __syncthreads();
-  for (int e = threadIdx.x; e < BM * BN; e += kThreads) {
-    const int r = e / BN, c = e % BN;
-    const int gr = m0 + r, gc = n0 + c;
-    if (gr < rows && gc < inter)
-      out[static_cast<size_t>(gr) * inter + gc] = __float2bfloat16(cs[r * LDC + c]);
+  write_tile(out);
+  if (kBwd) {
+    __syncthreads();  // cs is read out
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(cs + (wm + i * 16) * LDC + wn + j * 16, accu[i][j], LDC,
+                                wmma::mem_row_major);
+    __syncthreads();
+    write_tile(out2);
   }
 }
 
@@ -248,9 +316,11 @@ void launch_rows(const void* x, const void* wg, const void* wu, void* out, int r
   else launch_rows_r<T, kSmallRows>(x, wg, wu, out, rows, h, inter, s);
 }
 
+template <bool kBwd>  // as swiglu_bf16_kernel
 __global__ void swiglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
-                                  const float* __restrict__ wu, float* __restrict__ out,
-                                  int rows, int h, int inter) {
+                                  const float* __restrict__ wu, const float* __restrict__ gin,
+                                  float* __restrict__ out, float* __restrict__ out2, int rows,
+                                  int h, int inter) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y;
   if (i >= inter) return;
@@ -262,7 +332,33 @@ __global__ void swiglu_f32_kernel(const float* __restrict__ x, const float* __re
     g = fmaf(xr[k], gr[k], g);
     u = fmaf(xr[k], ur[k], u);
   }
-  out[static_cast<size_t>(r) * inter + i] = silu(g) * u;
+  const size_t o = static_cast<size_t>(r) * inter + i;
+  if (kBwd)
+    swiglu_grad(g, u, gin[o], out[o], out2[o]);
+  else
+    out[o] = silu(g) * u;
+}
+
+template <bool kBwd>
+void launch_tile(const void* x, const void* wg, const void* wu, const void* g, void* out,
+                 void* out2, int rows, int h, int inter, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const bool vec = h % 8 == 0 && aligned16(x) && aligned16(wg) && aligned16(wu);
+  dim3 grid((inter + BN - 1) / BN, (rows + BM - 1) / BM);
+  auto kernel = vec ? swiglu_bf16_kernel<true, kBwd> : swiglu_bf16_kernel<false, kBwd>;
+  kernel<<<grid, kThreads, 0, s>>>(static_cast<const bf*>(x), static_cast<const bf*>(wg),
+                                   static_cast<const bf*>(wu), static_cast<const bf*>(g),
+                                   static_cast<bf*>(out), static_cast<bf*>(out2), rows, h, inter);
+}
+
+template <bool kBwd>
+void launch_f32(const void* x, const void* wg, const void* wu, const void* g, void* out,
+                void* out2, int rows, int h, int inter, cudaStream_t s) {
+  dim3 grid((inter + 127) / 128, rows);
+  swiglu_f32_kernel<kBwd><<<grid, 128, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wg), static_cast<const float*>(wu),
+      static_cast<const float*>(g), static_cast<float*>(out), static_cast<float*>(out2), rows, h,
+      inter);
 }
 
 }  // namespace
@@ -276,18 +372,29 @@ extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, voi
   } else if (rows <= kSmallRows && dtype == L32_F32) {
     launch_rows<float>(x, wg, wu, out, rows, h, inter, s);
   } else if (dtype == L32_BF16) {
-    const bool vec = h % 8 == 0 && aligned16(x) && aligned16(wg) && aligned16(wu);
-    dim3 grid((inter + BN - 1) / BN, (rows + BM - 1) / BM);
-    auto kernel = vec ? swiglu_bf16_kernel<true> : swiglu_bf16_kernel<false>;
-    kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wg),
-        static_cast<const __nv_bfloat16*>(wu), static_cast<__nv_bfloat16*>(out), rows, h, inter);
+    launch_tile<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
   } else if (dtype == L32_F32) {
     if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    dim3 grid((inter + 127) / 128, rows);
-    swiglu_f32_kernel<<<grid, 128, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wg),
-        static_cast<const float*>(wu), static_cast<float*>(out), rows, h, inter);
+    launch_f32<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d_gate, d_up [rows, inter] from x [rows, h], both weights [inter, h] and
+// the cotangent g [rows, inter]: the tile kernel (bf16) or the loop (fp32),
+// at every row count.
+extern "C" int l32_swiglu_bwd(const void* x, const void* wg, const void* wu, const void* g,
+                              void* d_gate, void* d_up, int rows, int h, int inter, int dtype,
+                              void* stream) {
+  if (rows == 0 || inter == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == L32_BF16) {
+    launch_tile<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
+  } else if (dtype == L32_F32) {
+    if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    launch_f32<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

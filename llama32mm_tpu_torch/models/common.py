@@ -1,10 +1,12 @@
 """Parameter holders shared by the towers. Weights are created empty on the
 given device (no default init runs) and filled by ``init_uniform_`` /
 ``init_normal_`` from an explicit generator, or by ``convert.from_jax_params``.
-The port is inference-only, so no parameter requires a gradient."""
+No parameter requires a gradient until a trainer (``train/``) marks what it
+trains."""
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -13,6 +15,15 @@ from torch import nn
 
 def empty_param(*shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype), requires_grad=False)
+
+
+def copy_module(mod: nn.Module) -> nn.Module:
+    """A shallow copy whose child modules, parameters and buffers can be
+    replaced without touching ``mod``; the tensors themselves stay shared."""
+    new = copy.copy(mod)
+    for slot in ("_modules", "_parameters", "_buffers"):
+        new.__dict__[slot] = dict(getattr(mod, slot))
+    return new
 
 
 class Linear(nn.Module):

@@ -12,11 +12,18 @@ Reference semantics kept from the JAX package:
 - tied (the ``[vocab, hidden]`` embedding) or untied head;
 - quantized linears (``QuantLinear``, from ``models/quantize.py``) through
   ``ops/gemv.py::qlinear``; with quantized gate/up the FFN takes the explicit
-  ``silu(gate) * up`` form instead of the fused SwiGLU, as in JAX.
+  ``silu(gate) * up`` form instead of the fused SwiGLU, as in JAX;
+- LoRA (``lora``, the JAX package's adapter tree: per target
+  ``lora_a [L, in, r]``, ``lora_b [L, r, out]``, ``scaling [L]``):
+  ``base + scaling * (dropout(x) @ A) @ B`` with A and B cast to x's dtype;
+  adapters on gate or up also take the explicit form (``silu(g + dg) *
+  (u + du)`` is not a delta on the fused output);
+- ``remat=True``: each block under ``torch.utils.checkpoint`` (the JAX
+  package's ``jax.checkpoint`` of the scanned layer body).
 
 One module per layer (no ``[L, ...]`` stacks). Float linears with at most 32
-input rows run the decode gemv kernel, others a plain matmul
-(``ops/gemv.py``).
+input rows run the decode gemv kernel, others (and every linear under
+autograd) a plain matmul (``ops/gemv.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from llama32mm_tpu_torch.configs import LLAMA32Config
 from llama32mm_tpu_torch.models.common import Linear, Norm, empty_param
@@ -105,16 +113,63 @@ class LlamaOutput(NamedTuple):
     kv_cache: Optional[KVCache]
 
 
+LORA_TARGETS = ("W_query", "W_key", "W_value", "out_proj", "w_gate", "w_up", "w_down")
+
+
+class Dropout(NamedTuple):
+    """LoRA input dropout at ``rate``; ``seed`` starts its own generator, so
+    a recomputed block (``remat``) draws the same mask."""
+
+    rate: float
+    seed: int
+
+
+def dropout_seeds(gen: Optional[torch.Generator], n: int) -> list:
+    """``n`` seeds for dropout streams from ``gen`` (``None``: none)."""
+    if gen is None:
+        return [None] * n
+    return torch.randint(0, 2**62, (n,), generator=gen, device=gen.device).tolist()
+
+
+def maybe_lora(x: torch.Tensor, base_out: torch.Tensor, adapter: Optional[dict],
+               layer: Optional[int] = None, dropout: Optional[Dropout] = None) -> torch.Tensor:
+    """``base_out + scaling * (dropout(x) @ A) @ B`` (the JAX package's
+    ``_maybe_lora``); ``layer`` picks one layer of a stacked adapter. The
+    scaling multiplies the rank-r product, so autograd keeps only that
+    ``[..., r]`` tensor for the scaling's gradient."""
+    if adapter is None:
+        return base_out
+    a, b, scaling = adapter["lora_a"], adapter["lora_b"], adapter["scaling"]
+    if layer is not None:
+        a, b, scaling = a[layer], b[layer], scaling[layer]
+    if a.dim() != 2:
+        not_in_slice("adapter banks (a different LoRA adapter per batch row)")
+    xin = x
+    if dropout is not None and dropout.rate > 0.0:
+        gen = torch.Generator(device=x.device).manual_seed(dropout.seed)
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - dropout.rate
+        xin = torch.where(keep, x / (1.0 - dropout.rate), torch.zeros((), dtype=x.dtype)).to(x.dtype)
+    delta = torch.matmul(torch.matmul(xin, a.to(x.dtype)) * scaling, b.to(x.dtype))
+    return base_out + delta.to(base_out.dtype)
+
+
 def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config, cos, sin,
-                   structured: AttnMask, kv_cache: Optional[KVCache], impl: str):
+                   structured: AttnMask, kv_cache: Optional[KVCache], impl: str,
+                   lora: Optional[dict] = None, dropouts: Optional[dict] = None):
     b, t, _ = h.shape
     nq, nkv, hd = config.n_heads, config.n_kv_groups, config.head_dim
     att, ff = block.att, block.ff
 
+    def proj(x, name, weight):
+        out = linear(x, weight, impl)
+        if lora is None or lora.get(name) is None:
+            return out
+        return maybe_lora(x, out, lora[name], layer_idx, (dropouts or {}).get(name))
+
     normed = fused_add_rmsnorm(h, block.norm1.weight, config.rms_norm_eps, impl=impl)
-    q = linear(normed, att.W_query.weight, impl).reshape(b, t, nq, hd).transpose(1, 2)
-    k = linear(normed, att.W_key.weight, impl).reshape(b, t, nkv, hd).transpose(1, 2)
-    v = linear(normed, att.W_value.weight, impl).reshape(b, t, nkv, hd).transpose(1, 2)
+    q = proj(normed, "W_query", att.W_query.weight).reshape(b, t, nq, hd).transpose(1, 2)
+    k = proj(normed, "W_key", att.W_key.weight).reshape(b, t, nkv, hd).transpose(1, 2)
+    v = proj(normed, "W_value", att.W_value.weight).reshape(b, t, nkv, hd).transpose(1, 2)
     q, k = apply_rotary_pos_emb(q, k, cos, sin)
     k_scale = v_scale = None
     if kv_cache is not None:  # post-RoPE keys cached; int8 caches return their scales
@@ -123,19 +178,21 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
     attn = gqa_attention(q, k, v, structured, causal=True, impl=impl,
                          k_scale=k_scale, v_scale=v_scale)
     attn = attn.transpose(1, 2).reshape(b, t, nq * hd)
-    attn_out = linear(attn, att.out_proj.weight, impl)
+    attn_out = proj(attn, "out_proj", att.out_proj.weight)
 
     normed_ff = fused_add_rmsnorm(
         attn_out, block.norm2.weight, config.rms_norm_eps, residual=h, impl=impl
     )
     w_gate, w_up = ff.w_gate.weight, ff.w_up.weight
-    if is_quantized(w_gate) or is_quantized(w_up):
-        gate = linear(normed_ff, w_gate, impl)
-        up = linear(normed_ff, w_up, impl)
+    gateup_lora = lora is not None and (lora.get("w_gate") is not None
+                                        or lora.get("w_up") is not None)
+    if is_quantized(w_gate) or is_quantized(w_up) or gateup_lora:
+        gate = proj(normed_ff, "w_gate", w_gate)
+        up = proj(normed_ff, "w_up", w_up)
         inter = (F.silu(gate.float()) * up.float()).to(gate.dtype)
     else:
         inter = fused_swiglu(normed_ff, w_gate, w_up, impl=impl)
-    ff_out = linear(inter, ff.w_down.weight, impl)
+    ff_out = proj(inter, "w_down", ff.w_down.weight)
     # residual-stream drop: the block input h is not added back
     return attn_out + ff_out
 
@@ -167,16 +224,19 @@ def llama_forward(
     position_ids: Optional[torch.Tensor] = None,
     kv_cache: Optional[KVCache] = None,
     impl: str = "auto",
-    lora=None,
+    lora: Optional[dict] = None,
+    dropout_rng: Optional[torch.Generator] = None,
+    lora_dropout: float = 0.0,
     remat: bool = False,
     gemv_routes=None,
     collect_stats: bool = False,
 ) -> LlamaOutput:
     """Decoder forward. With a ``kv_cache`` the new keys and values are written
     at ``kv_cache.pos`` in place and ``pos`` advances by the sequence length;
-    the returned cache is the same object."""
-    for name, on in (("LoRA", lora is not None), ("remat", remat),
-                     ("gemv_routes", gemv_routes is not None), ("collect_stats", collect_stats)):
+    the returned cache is the same object. ``lora`` is the adapter tree (its
+    ``"blocks"``); ``dropout_rng`` seeds one dropout stream per layer and
+    target when ``lora_dropout > 0``."""
+    for name, on in (("gemv_routes", gemv_routes is not None), ("collect_stats", collect_stats)):
         if on:
             not_in_slice(name)
     if input_embeds is not None:
@@ -197,8 +257,20 @@ def llama_forward(
     scaling = config.rope_freq_dict if config.apply_rope_scaling else None
     cos, sin = rope_cos_sin(position_ids, config.head_dim, config.rope_base, h.dtype, scaling)
 
+    blocks_lora = None if lora is None else lora.get("blocks")
+    n_drop = len(LORA_TARGETS)
+    use_dropout = blocks_lora is not None and lora_dropout > 0.0
+    seeds = dropout_seeds(dropout_rng if use_dropout else None, config.n_layers * n_drop)
     for i, block in enumerate(model.blocks):
-        h = _block_forward(h, block, i, config, cos, sin, structured, kv_cache, impl)
+        dropouts = None
+        if use_dropout and seeds[0] is not None:
+            dropouts = {name: Dropout(lora_dropout, seeds[i * n_drop + j])
+                        for j, name in enumerate(LORA_TARGETS)}
+        args = (h, block, i, config, cos, sin, structured, kv_cache, impl, blocks_lora, dropouts)
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(_block_forward, *args, use_reentrant=False)
+        else:
+            h = _block_forward(*args)
     if kv_cache is not None:
         kv_cache.advance(t)
 
@@ -207,11 +279,13 @@ def llama_forward(
 
 
 def lm_head_apply(lm: CausalLM, config: LLAMA32Config, hidden: torch.Tensor,
-                  impl: str = "auto") -> torch.Tensor:
-    """Logits; a tied head reads the ``[vocab, hidden]`` embedding as it is,
-    a quantized head goes through ``qlinear``."""
+                  impl: str = "auto", lora: Optional[dict] = None,
+                  dropout: Optional[Dropout] = None) -> torch.Tensor:
+    """Logits; a tied head reads the ``[vocab, hidden]`` embedding as it is
+    (the JAX package's ``tok_emb.T``), a quantized head goes through
+    ``qlinear``. ``lora`` is the head's flat adapter."""
     w = lm.model.tok_emb if lm.lm_head is None else lm.lm_head.weight
-    return linear(hidden, w, impl)
+    return maybe_lora(hidden, linear(hidden, w, impl), lora, dropout=dropout)
 
 
 def causal_lm_forward(lm: CausalLM, config: LLAMA32Config, input_ids=None, input_embeds=None,

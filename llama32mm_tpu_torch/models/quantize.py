@@ -5,25 +5,16 @@ layouts."""
 
 from __future__ import annotations
 
-import copy
 from typing import Optional
 
 import torch
 from torch import nn
 
-from llama32mm_tpu_torch.models.common import QuantLinear
+from llama32mm_tpu_torch.models.common import QuantLinear, copy_module
 from llama32mm_tpu_torch.ops.quant import quantize_weight, quantize_weight_int4
 
 _ATT = ("W_query", "W_key", "W_value", "out_proj")
 _FF = ("w_gate", "w_up", "w_down")
-
-
-def _copy_module(mod: nn.Module) -> nn.Module:
-    """A shallow copy whose child modules can be replaced without touching
-    ``mod``; parameters and buffers stay shared."""
-    new = copy.copy(mod)
-    new.__dict__["_modules"] = dict(mod._modules)
-    return new
 
 
 def quantize_llama_params(
@@ -63,12 +54,12 @@ def quantize_llama_params(
         return QuantLinear(qw)
 
     lm = getattr(model, "language_model", model)
-    new_lm = _copy_module(lm)
-    new_lm.model = _copy_module(lm.model)
-    new_lm.model.blocks = _copy_module(lm.model.blocks)
+    new_lm = copy_module(lm)
+    new_lm.model = copy_module(lm.model)
+    new_lm.model.blocks = copy_module(lm.model.blocks)
     for i, blk in enumerate(lm.model.blocks):
-        nb = _copy_module(blk)
-        nb.att, nb.ff = _copy_module(blk.att), _copy_module(blk.ff)
+        nb = copy_module(blk)
+        nb.att, nb.ff = copy_module(blk.att), copy_module(blk.ff)
         for parent, names in ((nb.att, _ATT), (nb.ff, _FF)):
             for name in names:
                 setattr(parent, name, quantized(getattr(parent, name), name))
@@ -78,6 +69,6 @@ def quantize_llama_params(
         new_lm.lm_head = quantized(lm.lm_head, "lm_head", compiled=False)
     if lm is model:
         return new_lm
-    new = _copy_module(model)
+    new = copy_module(model)
     new.language_model = new_lm
     return new

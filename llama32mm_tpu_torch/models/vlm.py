@@ -1,8 +1,15 @@
 """The VLM: vision tower → projector → image-token splice → decoder → head
-(counterpart of ``llama32mm_tpu/models/vlm.py``)."""
+(counterpart of ``llama32mm_tpu/models/vlm.py``).
+
+LoRA: ``lora["blocks"]`` adapts the decoder linears, ``lora["lm_head"]``
+the head and ``lora["projector"]`` the projector. The vision tower runs
+under ``torch.no_grad()`` when none of its parameters requires a gradient,
+so a frozen tower keeps no activations (the JAX package closes over frozen
+parameters)."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -12,7 +19,14 @@ from torch import nn
 
 from llama32mm_tpu_torch.configs import MLLAMAConfig
 from llama32mm_tpu_torch.models.common import Linear
-from llama32mm_tpu_torch.models.language import CausalLM, llama_forward, lm_head_apply
+from llama32mm_tpu_torch.models.language import (
+    CausalLM,
+    Dropout,
+    dropout_seeds,
+    llama_forward,
+    lm_head_apply,
+    maybe_lora,
+)
 from llama32mm_tpu_torch.models.vision import VisionEncoder
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 from llama32mm_tpu_torch.utils.kvcache import KVCache
@@ -80,11 +94,16 @@ def merge_input_ids_with_image_features(
 
 
 def encode_image(model: MllamaForConditionalGeneration, config: MLLAMAConfig,
-                 pixel_values: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """Vision tower + projector: ``[B, C, H, W] → [B, N, text_hidden]``."""
-    feats = model.vision_model(pixel_values, impl=impl)
+                 pixel_values: torch.Tensor, impl: str = "auto", lora: Optional[dict] = None,
+                 dropout: Optional[Dropout] = None) -> torch.Tensor:
+    """Vision tower + projector: ``[B, C, H, W] → [B, N, text_hidden]``.
+    ``lora`` is the projector's flat adapter."""
+    frozen = not any(p.requires_grad for p in model.vision_model.parameters())
+    with torch.no_grad() if frozen else contextlib.nullcontext():
+        feats = model.vision_model(pixel_values, impl=impl)
     proj = model.multi_modal_projector
-    return torch.matmul(feats, proj.weight.t()) + proj.bias
+    out = torch.matmul(feats, proj.weight.t()) + proj.bias
+    return maybe_lora(feats, out, lora, dropout=dropout)
 
 
 def vlm_forward(
@@ -98,30 +117,44 @@ def vlm_forward(
     kv_cache: Optional[KVCache] = None,
     impl: str = "auto",
     logits_positions: Optional[torch.Tensor] = None,
-    lora=None,
+    lora: Optional[dict] = None,
+    dropout_rng: Optional[torch.Generator] = None,
+    lora_dropout: float = 0.0,
     remat: bool = False,
     loss_chunk: Optional[int] = None,
     gemv_routes=None,
     collect_stats: bool = False,
 ) -> VLMOutput:
     """The VLM forward. ``logits_positions [B, k]`` computes the head only at
-    those positions (prefill needs only the last valid one)."""
+    those positions (prefill needs only the last valid one). ``dropout_rng``
+    (a ``torch.Generator``) drives the LoRA input dropout when
+    ``lora_dropout > 0``: the projector's, each decoder layer's and the
+    head's streams are seeded from it."""
     if loss_chunk is not None:
         not_in_slice("loss_chunk")
+    if dropout_rng is not None and config.vision_config.attention_dropout > 0.0:
+        not_in_slice("ViT attention dropout (attention_dropout > 0) under training")
     tc = config.text_config
     lm = model.language_model
+    lora = lora or {}
+    proj_seed, head_seed = dropout_seeds(dropout_rng if lora_dropout > 0.0 else None, 2)
+
+    def dropout(seed):
+        return None if seed is None else Dropout(lora_dropout, seed)
 
     inputs_embeds = None
     if input_ids is not None:
         inputs_embeds = lm.model.tok_emb[input_ids.clamp(0, tc.vocab_size - 1)]
     if pixel_values is not None and inputs_embeds is not None:
-        feats = encode_image(model, config, pixel_values.to(inputs_embeds.dtype), impl=impl)
+        feats = encode_image(model, config, pixel_values.to(inputs_embeds.dtype), impl=impl,
+                             lora=lora.get("projector"), dropout=dropout(proj_seed))
         inputs_embeds, attention_mask = merge_input_ids_with_image_features(
             feats, inputs_embeds, input_ids, attention_mask, config.image_token_index)
 
     out = llama_forward(
         lm.model, tc, input_embeds=inputs_embeds, attention_mask=attention_mask,
-        position_ids=position_ids, kv_cache=kv_cache, impl=impl, lora=lora, remat=remat,
+        position_ids=position_ids, kv_cache=kv_cache, impl=impl, lora=lora,
+        dropout_rng=dropout_rng, lora_dropout=lora_dropout, remat=remat,
         gemv_routes=gemv_routes, collect_stats=collect_stats,
     )
     hidden = out.hidden_states
@@ -130,7 +163,8 @@ def vlm_forward(
             raise ValueError("logits_positions is incompatible with labels")
         idx = logits_positions.long()[:, :, None].expand(-1, -1, hidden.shape[-1])
         hidden = torch.gather(hidden, 1, idx)
-    logits = lm_head_apply(lm, tc, hidden, impl=impl)
+    logits = lm_head_apply(lm, tc, hidden, impl=impl, lora=lora.get("lm_head"),
+                           dropout=dropout(head_seed))
     loss = None if labels is None else shifted_cross_entropy(logits, labels, config.ignore_index)
     return VLMOutput(logits=logits, loss=loss, hidden_states=out.hidden_states,
                      kv_cache=out.kv_cache)

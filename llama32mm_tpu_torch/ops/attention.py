@@ -9,6 +9,11 @@ prefill, decode and the ViT's non-causal attention alike, goes through the
 flash kernel on the card. With an int8 KV cache, ``k``/``v`` are int8 and
 their per-position fp32 scales ``k_scale``/``v_scale`` fold into the scores
 and the attention weights, in the int8-KV instantiation of the kernel.
+
+Under autograd the float path is a ``torch.autograd.Function`` (the Pallas
+custom VJP ``_flash_train``): the forward with the log-sum-exp, then the dq
+and dk/dv kernels. The int8-KV path is inference-only, as in the JAX
+package, and raises under autograd.
 """
 
 from __future__ import annotations
@@ -18,12 +23,18 @@ from typing import NamedTuple, Optional
 import torch
 
 from llama32mm_tpu_torch.ops.cuda.attention import (
+    flash_attention_bwd_dkv_cuda,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq_cuda,
+    flash_attention_bwd_dq_plain,
     flash_attention_cuda,
+    flash_attention_fwd_lse_cuda,
+    flash_attention_fwd_lse_plain,
     flash_attention_int8kv_cuda,
     flash_attention_int8kv_plain,
     flash_attention_plain,
 )
-from llama32mm_tpu_torch.ops.dispatch import not_in_slice, resolve_impl
+from llama32mm_tpu_torch.ops.dispatch import needs_grad, not_in_slice, resolve_impl
 
 
 class AttnMask(NamedTuple):
@@ -49,6 +60,31 @@ def dense_from_structured(mask: AttnMask, tq: int, tk: int, dtype: torch.dtype,
     return add
 
 
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, q_offset, causal, impl):
+        cuda = impl == "cuda"
+        fwd = flash_attention_fwd_lse_cuda if cuda else flash_attention_fwd_lse_plain
+        out, lse = fwd(q, k, v, kv_valid, q_offset, causal)
+        ctx.save_for_backward(q, k, v, kv_valid, out, lse)
+        ctx.q_offset, ctx.causal, ctx.cuda = q_offset, causal, cuda
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_valid, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = (dout.float() * out.float()).sum(dim=-1)  # rowsum(dO * O), as JAX's XLA op
+        args = (q, k, v, kv_valid, ctx.q_offset, ctx.causal, lse, delta, dout)
+        dq = dk = dv = None
+        if ctx.needs_input_grad[0]:
+            dq = (flash_attention_bwd_dq_cuda if ctx.cuda else flash_attention_bwd_dq_plain)(*args)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dkv = flash_attention_bwd_dkv_cuda if ctx.cuda else flash_attention_bwd_dkv_plain
+            dk, dv = dkv(*args)
+        return dq, dk, dv, None, None, None, None
+
+
 def gqa_attention(
     q: torch.Tensor,  # [B, nq, Tq, hd], RoPE applied
     k: torch.Tensor,  # [B, nkv, Tk, hd]
@@ -64,13 +100,21 @@ def gqa_attention(
     ``h // (nq // nkv)``. Returns ``[B, nq, Tq, hd]``."""
     if mask is not None:
         not_in_slice("a dense additive attention mask")
+    impl = resolve_impl(impl, q)
     tail = (structured.kv_valid, int(structured.q_offset), causal)
     kernel, plain = flash_attention_cuda, flash_attention_plain
     operands = (q.contiguous(), k.contiguous(), v.contiguous())
+    if needs_grad(q, k, v):
+        if k_scale is not None:
+            raise NotImplementedError(
+                "gradients through the int8-KV attention: it is inference-only, as in the JAX "
+                "package")
+        kv_valid = structured.kv_valid.to(torch.int32).contiguous()
+        return _FlashAttention.apply(*operands, kv_valid, *tail[1:], impl)
     if k_scale is not None:
         kernel, plain = flash_attention_int8kv_cuda, flash_attention_int8kv_plain
         operands += (k_scale.contiguous(), v_scale.contiguous())
-    if resolve_impl(impl, q) == "cuda":
+    if impl == "cuda":
         return kernel(*operands, *tail)
     return plain(*operands, *tail)
 

@@ -5,7 +5,13 @@ loaded at the first launch (``build.load_library``).
 """
 
 from llama32mm_tpu_torch.ops.cuda.attention import (
+    flash_attention_bwd_dkv_cuda,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq_cuda,
+    flash_attention_bwd_dq_plain,
     flash_attention_cuda,
+    flash_attention_fwd_lse_cuda,
+    flash_attention_fwd_lse_plain,
     flash_attention_int8kv_cuda,
     flash_attention_int8kv_plain,
     flash_attention_plain,
@@ -18,8 +24,20 @@ from llama32mm_tpu_torch.ops.cuda.qgemv import (
     gemv_int8_plain,
 )
 from llama32mm_tpu_torch.ops.cuda.qmatmul import qmatmul_cuda, qmatmul_plain
-from llama32mm_tpu_torch.ops.cuda.rmsnorm import fused_add_rmsnorm_cuda, fused_add_rmsnorm_plain
-from llama32mm_tpu_torch.ops.cuda.swiglu import fused_swiglu_cuda, fused_swiglu_plain
+from llama32mm_tpu_torch.ops.cuda.rmsnorm import (
+    fused_add_rmsnorm_cuda,
+    fused_add_rmsnorm_plain,
+    rmsnorm_bwd_cuda,
+    rmsnorm_bwd_plain,
+    rmsnorm_fwd_train_cuda,
+    rmsnorm_fwd_train_plain,
+)
+from llama32mm_tpu_torch.ops.cuda.swiglu import (
+    fused_swiglu_bwd_cuda,
+    fused_swiglu_bwd_plain,
+    fused_swiglu_cuda,
+    fused_swiglu_plain,
+)
 
 # kernel name -> (wrapper, plain version)
 KERNELS = {
@@ -31,6 +49,12 @@ KERNELS = {
     "gemv_int4": (gemv_int4_cuda, gemv_int4_plain),
     "qmatmul": (qmatmul_cuda, qmatmul_plain),
     "flash_attention_int8kv": (flash_attention_int8kv_cuda, flash_attention_int8kv_plain),
+    "rmsnorm_fwd_train": (rmsnorm_fwd_train_cuda, rmsnorm_fwd_train_plain),
+    "rmsnorm_bwd": (rmsnorm_bwd_cuda, rmsnorm_bwd_plain),
+    "swiglu_bwd": (fused_swiglu_bwd_cuda, fused_swiglu_bwd_plain),
+    "flash_attention_lse": (flash_attention_fwd_lse_cuda, flash_attention_fwd_lse_plain),
+    "flash_attention_bwd_dq": (flash_attention_bwd_dq_cuda, flash_attention_bwd_dq_plain),
+    "flash_attention_bwd_dkv": (flash_attention_bwd_dkv_cuda, flash_attention_bwd_dkv_plain),
 }
 
 

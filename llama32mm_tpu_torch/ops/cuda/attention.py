@@ -10,6 +10,15 @@ and, when causal, ``k <= q_offset + i``. Allowed logits are ``s / sqrt(hd)``
 no allowed key is 0. With an int8 cache, ``s = (q·k_q)·k_scale[key]``
 before the mask, and the value scale multiplies each probability in the PV
 product but not the softmax denominator.
+
+Training (float K/V only): the forward also returns ``lse [B, nq, Tq]``
+fp32, each row's log-sum-exp of the allowed logits (``_NEG_BIG`` for a row
+with none), as the Pallas kernel's ``emit_lse`` output; the backward is two
+kernels replacing ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``:
+with ``p = exp(s / sqrt(hd) - lse)`` on allowed keys,
+``ds = p (dO · v - delta) / sqrt(hd)`` and ``delta = rowsum(dO * O)``,
+``dq = ds k``, ``dk = ds^T q`` and ``dv = p^T dO``, dk and dv summed over
+each kv head's group of q heads.
 """
 
 from __future__ import annotations
@@ -19,13 +28,14 @@ import math
 import torch
 
 from llama32mm_tpu_torch.ops.cuda.build import check, load_library
-from llama32mm_tpu_torch.ops.cuda.common import counted, dtype_code, require, stream_of
+from llama32mm_tpu_torch.ops.cuda.common import acc_dtype, counted, dtype_code, require, stream_of
 
 HEAD_DIMS = (8, 16, 32, 64, 80, 96, 128)
+NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)  # lse of a row with no allowed key
 
 
-def _launch(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None) -> torch.Tensor:
-    """Check the operands and launch the float or the int8-KV kernel."""
+def _check(q, k, v, kv_valid, kv_dtype):
+    """Check the operands; return ``(kv_valid as int32, the shape arguments)``."""
     require("q", q, q)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q and k must be [B, heads, T, hd]")
@@ -35,26 +45,34 @@ def _launch(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None) -> 
         raise ValueError(f"head_dim {hd} not supported by the kernel; supported: {HEAD_DIMS}")
     if nkv == 0 or nq % nkv != 0:
         raise ValueError(f"n_heads {nq} must be a multiple of n_kv_heads {nkv}")
-    kv_dtype = q.dtype if k_scale is None else torch.int8
     require("k", k, q, (b, nkv, tk, hd), kv_dtype)
     require("v", v, q, (b, nkv, tk, hd), kv_dtype)
     if tuple(kv_valid.shape) != (b, tk) or kv_valid.device != q.device:
         raise ValueError(f"kv_valid must be [{b}, {tk}] on {q.device}")
-    kvv = kv_valid.to(torch.int32).contiguous()
+    return kv_valid.to(torch.int32).contiguous(), (b, nq, nkv, tq, tk, hd)
+
+
+def _launch(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None, lse=False):
+    """Launch the float (with ``lse``: also the log-sum-exp) or the int8-KV
+    forward kernel."""
+    kvv, shape = _check(q, k, v, kv_valid, q.dtype if k_scale is None else torch.int8)
     out = torch.empty_like(q)
+    lse_out = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse else None
     lib = load_library()
-    common = (b, nq, nkv, tq, tk, hd, int(q_offset), int(bool(causal)), dtype_code(q), stream_of(q))
+    common = (*shape, int(q_offset), int(bool(causal)), dtype_code(q), stream_of(q))
     if k_scale is None:
         status = lib.l32_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kvv.data_ptr(), out.data_ptr(), *common)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kvv.data_ptr(), out.data_ptr(),
+            None if lse_out is None else lse_out.data_ptr(), *common)
     else:
+        b, nkv, tk = k.shape[:3]
         require("k_scale", k_scale, q, (b, nkv, tk), torch.float32)
         require("v_scale", v_scale, q, (b, nkv, tk), torch.float32)
         status = lib.l32_flash_attn_fwd_int8kv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             kvv.data_ptr(), out.data_ptr(), *common)
     check(status, "flash attention kernel")
-    return out
+    return (out, lse_out) if lse else out
 
 
 @counted("launches")
@@ -107,18 +125,100 @@ def flash_attention_int8kv_plain(
     return _dense(q, k, v, kv_valid, q_offset, causal, k_scale, v_scale)
 
 
-def _dense(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None) -> torch.Tensor:
-    b, nq, tq, hd = q.shape
-    nkv, tk = k.shape[1], k.shape[2]
-    qg = q.float().reshape(b, nkv, nq // nkv, tq, hd)
-    scores = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float())
-    if k_scale is not None:
-        scores = scores * k_scale.float()[:, :, None, None, :]
+@counted("launches")
+def flash_attention_fwd_lse_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor,
+    q_offset: int, causal: bool = True,
+):
+    """The training forward: ``(out, lse)``, lse ``[B, nq, Tq]`` fp32."""
+    res = _launch(q, k, v, kv_valid, q_offset, causal, lse=True)
+    flash_attention_fwd_lse_cuda.launches += 1
+    return res
+
+
+@counted("calls")
+def flash_attention_fwd_lse_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor,
+    q_offset: int, causal: bool = True,
+):
+    """``(out, lse)`` with dense scores."""
+    flash_attention_fwd_lse_plain.calls += 1
+    return _dense(q, k, v, kv_valid, q_offset, causal, lse=True)
+
+
+def _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq: bool):
+    kvv, shape = _check(q, k, v, kv_valid, q.dtype)
+    require("lse", lse, q, q.shape[:3], torch.float32)
+    require("delta", delta, q, q.shape[:3], torch.float32)
+    require("dout", dout, q, q.shape)
+    tail = (*shape, int(q_offset), int(bool(causal)), dtype_code(q), stream_of(q))
+    lib = load_library()
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kvv.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dout.data_ptr())
+    if want_dq:
+        dq = torch.empty_like(q)
+        check(lib.l32_flash_attn_bwd_dq(*operands, dq.data_ptr(), *tail),
+              "flash attention dq kernel")
+        return dq
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    check(lib.l32_flash_attn_bwd_dkv(*operands, dk.data_ptr(), dv.data_ptr(), *tail),
+          "flash attention dk/dv kernel")
+    return dk, dv
+
+
+@counted("launches")
+def flash_attention_bwd_dq_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor, q_offset: int,
+    causal: bool, lse: torch.Tensor, delta: torch.Tensor, dout: torch.Tensor,
+) -> torch.Tensor:
+    """dq ``[B, nq, Tq, hd]`` from the forward's lse and ``delta =
+    rowsum(dO * O)`` (both ``[B, nq, Tq]`` fp32)."""
+    dq = _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq=True)
+    flash_attention_bwd_dq_cuda.launches += 1
+    return dq
+
+
+@counted("calls")
+def flash_attention_bwd_dq_plain(q, k, v, kv_valid, q_offset, causal, lse, delta, dout):
+    flash_attention_bwd_dq_plain.calls += 1
+    return _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout)[0]
+
+
+@counted("launches")
+def flash_attention_bwd_dkv_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor, q_offset: int,
+    causal: bool, lse: torch.Tensor, delta: torch.Tensor, dout: torch.Tensor,
+):
+    """``(dk, dv)``, each ``[B, nkv, Tk, hd]``, summed over the group."""
+    res = _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq=False)
+    flash_attention_bwd_dkv_cuda.launches += 1
+    return res
+
+
+@counted("calls")
+def flash_attention_bwd_dkv_plain(q, k, v, kv_valid, q_offset, causal, lse, delta, dout):
+    flash_attention_bwd_dkv_plain.calls += 1
+    return _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout)[1:]
+
+
+def _allowed(kv_valid, q_offset, causal, tq, tk, device):
     allowed = kv_valid.bool()[:, None, None, None, :]  # [B, 1, 1, 1, Tk]
     if causal:
-        kpos = torch.arange(tk, device=q.device)
-        qpos = int(q_offset) + torch.arange(tq, device=q.device)
+        kpos = torch.arange(tk, device=device)
+        qpos = int(q_offset) + torch.arange(tq, device=device)
         allowed = allowed & (kpos[None, :] <= qpos[:, None])
+    return allowed
+
+
+def _dense(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None, lse=False):
+    b, nq, tq, hd = q.shape
+    nkv, tk = k.shape[1], k.shape[2]
+    acc = acc_dtype(q)
+    qg = q.to(acc).reshape(b, nkv, nq // nkv, tq, hd)
+    scores = torch.einsum("bkgqd,bktd->bkgqt", qg, k.to(acc))
+    if k_scale is not None:
+        scores = scores * k_scale.to(acc)[:, :, None, None, :]
+    allowed = _allowed(kv_valid, q_offset, causal, tq, tk, q.device)
     logits = torch.where(allowed, scores * (1.0 / math.sqrt(hd)), float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -126,6 +226,32 @@ def _dense(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None) -> t
     denom = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(denom > 0, denom, torch.ones_like(denom))
     if v_scale is not None:  # re-masked: blocked slots' scales never reach the sum
-        p = torch.where(allowed, p * v_scale.float()[:, :, None, None, :], 0.0)
-    ctx = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
-    return ctx.reshape(b, nq, tq, hd).to(q.dtype)
+        p = torch.where(allowed, p * v_scale.to(acc)[:, :, None, None, :], 0.0)
+    ctx = torch.einsum("bkgqt,bktd->bkgqd", p, v.to(acc))
+    out = ctx.reshape(b, nq, tq, hd).to(q.dtype)
+    if not lse:
+        return out
+    row_lse = torch.where(denom > 0, m + torch.log(denom), torch.full_like(m, NEG_BIG))
+    return out, row_lse.reshape(b, nq, tq).float()
+
+
+def _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout):
+    """The backward formula with dense scores: ``(dq, dk, dv)``."""
+    b, nq, tq, hd = q.shape
+    nkv, tk = k.shape[1], k.shape[2]
+    g = nq // nkv
+    acc = acc_dtype(q)
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.to(acc).reshape(b, nkv, g, tq, hd)
+    dog = dout.to(acc).reshape(b, nkv, g, tq, hd)
+    kf, vf = k.to(acc), v.to(acc)
+    allowed = _allowed(kv_valid, q_offset, causal, tq, tk, q.device)
+    s = torch.einsum("bkgqd,bktd->bkgqt", qg, kf)
+    logits = s * scale - lse.to(acc).reshape(b, nkv, g, tq, 1)
+    p = torch.exp(torch.where(allowed, logits, float("-inf")))
+    dp = torch.einsum("bkgqd,bktd->bkgqt", dog, vf)
+    ds = p * (dp - delta.to(acc).reshape(b, nkv, g, tq, 1)) * scale
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, kf).reshape(b, nq, tq, hd)
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qg)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

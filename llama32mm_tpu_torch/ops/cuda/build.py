@@ -98,14 +98,25 @@ def build_library(verbose: bool = False) -> Path:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
-        # (x, residual|NULL, weight, out, rows, cols, eps, dtype, stream)
-        "l32_rmsnorm_fwd": [p, p, p, p, i, i, f, i, p],
+        # (x, residual|NULL, weight, out, t|NULL, rms|NULL, rows, cols, eps, dtype, stream)
+        "l32_rmsnorm_fwd": [p, p, p, p, p, p, i, i, f, i, p],
+        # (g, t, weight, rms, dt, dw|NULL, workspace|NULL, rows, cols, parts, dtype, stream)
+        "l32_rmsnorm_bwd": [p, p, p, p, p, p, p, i, i, i, i, p],
         # (x, w, out, rows, n, k, dtype, stream)
         "l32_gemv": [p, p, p, i, i, i, i, p],
         # (x, w_gate, w_up, out, rows, hidden, inter, dtype, stream)
         "l32_swiglu_fwd": [p, p, p, p, i, i, i, i, p],
-        # (q, k, v, kv_valid, out, b, nq, nkv, tq, tk, hd, q_offset, causal, dtype, stream)
-        "l32_flash_attn_fwd": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        # (x, w_gate, w_up, g, d_gate, d_up, rows, hidden, inter, dtype, stream)
+        "l32_swiglu_bwd": [p, p, p, p, p, p, i, i, i, i, p],
+        # (q, k, v, kv_valid, out, lse|NULL, b, nq, nkv, tq, tk, hd, q_offset, causal, dtype,
+        #  stream)
+        "l32_flash_attn_fwd": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        # (q, k, v, kv_valid, lse, delta, dout, dq, b, nq, nkv, tq, tk, hd, q_offset, causal,
+        #  dtype, stream)
+        "l32_flash_attn_bwd_dq": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        # (q, k, v, kv_valid, lse, delta, dout, dk, dv, b, nq, nkv, tq, tk, hd, q_offset,
+        #  causal, dtype, stream)
+        "l32_flash_attn_bwd_dkv": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (q, k, v, k_scale, v_scale, kv_valid, out, b, nq, nkv, tq, tk, hd, q_offset,
         #  causal, dtype, stream)
         "l32_flash_attn_fwd_int8kv": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],

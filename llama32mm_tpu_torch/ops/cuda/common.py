@@ -14,6 +14,12 @@ import torch
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The type a plain version computes in: fp32, or fp64 for fp64 inputs
+    (the tests check the plain backward formulas in fp64 with gradcheck)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def dtype_code(t: torch.Tensor) -> int:
     try:
         return DTYPE_CODES[t.dtype]

@@ -1,7 +1,12 @@
-"""Fused SwiGLU forward: the CUDA kernel (``csrc/swiglu.cu``) and its plain
-PyTorch version. ``silu(x @ w_gate.T) * (x @ w_up.T)`` with both weights in
-nn.Linear's ``[I, H]`` layout; the kernel replaces
-``llama32mm_tpu/ops/pallas/swiglu.py::_fwd_kernel``.
+"""Fused SwiGLU: the CUDA kernels (``csrc/swiglu.cu``) and their plain
+PyTorch versions, both weights in nn.Linear's ``[I, H]`` layout.
+
+- forward: ``silu(x @ w_gate.T) * (x @ w_up.T)``, replacing
+  ``llama32mm_tpu/ops/pallas/swiglu.py::_fwd_kernel``;
+- backward (``::_bwd_kernel``): from the output's cotangent ``g`` it
+  recomputes gate and up and returns ``d_gate = silu'(gate) * g * up`` and
+  ``d_up = g * silu(gate)`` in x's dtype, with
+  ``silu'(x) = s (1 + x (1 - s))``, ``s = sigmoid(x)``.
 """
 
 from __future__ import annotations
@@ -10,21 +15,24 @@ import torch
 import torch.nn.functional as F
 
 from llama32mm_tpu_torch.ops.cuda.build import check, load_library
-from llama32mm_tpu_torch.ops.cuda.common import counted, dtype_code, require, stream_of
+from llama32mm_tpu_torch.ops.cuda.common import acc_dtype, counted, dtype_code, require, stream_of
 
 
-@counted("launches")
-def fused_swiglu_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
-    """x ``[..., H]``, w_gate/w_up ``[I, H]`` → ``[..., I]``; gate and up
-    accumulate in fp32 inside the kernel and are never written."""
+def _check(x, w_gate, w_up):
     require("x", x, x)
     h = x.shape[-1]
     if w_gate.dim() != 2 or w_gate.shape[1] != h:
         raise ValueError(f"w_gate must be [I, {h}], got {tuple(w_gate.shape)}")
     require("w_gate", w_gate, x)
     require("w_up", w_up, x, w_gate.shape)
-    inter = w_gate.shape[0]
-    rows = x.numel() // h if h else 0
+    return h, w_gate.shape[0], (x.numel() // h if h else 0)
+
+
+@counted("launches")
+def fused_swiglu_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
+    """x ``[..., H]``, w_gate/w_up ``[I, H]`` → ``[..., I]``; gate and up
+    accumulate in fp32 inside the kernel and are never written."""
+    h, inter, rows = _check(x, w_gate, w_up)
     out = torch.empty(*x.shape[:-1], inter, dtype=x.dtype, device=x.device)
     status = load_library().l32_swiglu_fwd(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr(), rows, h, inter,
@@ -40,6 +48,41 @@ def fused_swiglu_plain(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor
     """The same function in PyTorch: two matmuls in x's dtype, silu and the
     product in fp32, one rounding."""
     fused_swiglu_plain.calls += 1
-    gate = torch.matmul(x, w_gate.t()).float()
-    up = torch.matmul(x, w_up.t()).float()
+    acc = acc_dtype(x)
+    gate = torch.matmul(x, w_gate.t()).to(acc)
+    up = torch.matmul(x, w_up.t()).to(acc)
     return (F.silu(gate) * up).to(x.dtype)
+
+
+@counted("launches")
+def fused_swiglu_bwd_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                          g: torch.Tensor):
+    """``(d_gate, d_up)``, each ``[..., I]`` in x's dtype, from the cotangent
+    ``g [..., I]``; gate and up are recomputed in fp32 inside the kernel."""
+    h, inter, rows = _check(x, w_gate, w_up)
+    shape = (*x.shape[:-1], inter)
+    require("g", g, x, shape)
+    d_gate = torch.empty(shape, dtype=x.dtype, device=x.device)
+    d_up = torch.empty_like(d_gate)
+    status = load_library().l32_swiglu_bwd(
+        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), g.data_ptr(), d_gate.data_ptr(),
+        d_up.data_ptr(), rows, h, inter, dtype_code(x), stream_of(x),
+    )
+    check(status, "swiglu backward kernel")
+    fused_swiglu_bwd_cuda.launches += 1
+    return d_gate, d_up
+
+
+@counted("calls")
+def fused_swiglu_bwd_plain(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                           g: torch.Tensor):
+    """The backward formula in PyTorch: ``(d_gate, d_up)``."""
+    fused_swiglu_bwd_plain.calls += 1
+    acc = acc_dtype(x)
+    gate = torch.matmul(x, w_gate.t()).to(acc)
+    up = torch.matmul(x, w_up.t()).to(acc)
+    gf = g.to(acc)
+    s = torch.sigmoid(gate)
+    d_gate = s * (1.0 + gate * (1.0 - s)) * gf * up
+    d_up = gf * (gate * s)
+    return d_gate.to(x.dtype), d_up.to(x.dtype)

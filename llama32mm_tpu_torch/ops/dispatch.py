@@ -6,6 +6,10 @@ its plain PyTorch version.
 - ``"cuda"``: the kernel; a CPU tensor raises.
 - ``"torch"``: the plain version, on any device (tests and the kernel
   comparisons use it; the main path does not).
+
+Under autograd (``needs_grad``) an op with a backward kernel runs as a
+``torch.autograd.Function``: the kernel forward and the kernel backward for
+``"cuda"``, both plain versions for ``"torch"``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,14 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
     if impl == "cuda" and not x.is_cuda:
         raise ValueError(f"impl='cuda' needs CUDA tensors, got a tensor on {x.device}")
     return impl
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether an op on these operands is recorded for backward: grad mode is
+    on and one of them requires a gradient. Such an op goes through its
+    ``torch.autograd.Function`` (or a plain differentiable form), never a bare
+    kernel call, whose output would carry no ``grad_fn``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def not_in_slice(what: str):

@@ -4,8 +4,11 @@ prefill, ``qlinear`` for a quantized weight.
 With at most 32 rows of input (decode steps, the prefill's last-position
 logits) a linear is weight-streaming-bound and runs the gemv kernel; with
 more rows it is a GEMM and stays ``torch.matmul``, as the JAX package leaves
-prefill linears to XLA. A quantized weight (``{"q"|"q4", "scale"}``,
-``ops/quant.py``) goes to ``qlinear`` at every row count.
+prefill linears to XLA. Under autograd every float linear is
+``torch.matmul`` (the gemv kernel has no backward, and the JAX package routes
+gemvs only at decode). A quantized weight (``{"q"|"q4", "scale"}``,
+``ops/quant.py``) goes to ``qlinear`` at every row count; it is
+inference-only, as in the JAX package, and raises under autograd.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from llama32mm_tpu_torch.ops.cuda.qgemv import (
     gemv_int8_plain,
 )
 from llama32mm_tpu_torch.ops.cuda.qmatmul import qmatmul_cuda, qmatmul_plain
-from llama32mm_tpu_torch.ops.dispatch import resolve_impl
+from llama32mm_tpu_torch.ops.dispatch import needs_grad, resolve_impl
 from llama32mm_tpu_torch.ops.quant import is_quantized
 
 # The JAX package's int4 gemv unpack variant, read once at import as its
@@ -36,10 +39,11 @@ def linear(x: torch.Tensor, weight, impl: str = "auto") -> torch.Tensor:
     """``x [..., K] @ weight.T`` for ``weight [N, K]``, float or quantized."""
     if is_quantized(weight):
         return qlinear(x, weight, impl)
+    impl = resolve_impl(impl, x)
     rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
-    if rows > MAX_ROWS:
+    if rows > MAX_ROWS or needs_grad(x, weight):
         return torch.matmul(x, weight.t())
-    if resolve_impl(impl, x) == "cuda":
+    if impl == "cuda":
         return gemv_cuda(x.contiguous(), weight)
     return gemv_plain(x, weight)
 
@@ -49,6 +53,10 @@ def qlinear(x: torch.Tensor, qw: dict, impl: str = "auto") -> torch.Tensor:
     does: on the card at most ``MAX_ROWS`` rows go to the quantized gemv
     kernels and more to the dequantizing GEMM kernel; on the CPU both run
     their plain versions."""
+    if needs_grad(x):
+        raise NotImplementedError(
+            "gradients through a quantized linear: quantized weights are inference-only, as in "
+            "the JAX package (LoRA over a quantized base is not ported; see ROADMAP.md, queue 1)")
     if "q4" in qw:
         if _INT4_VARIANT in ("w4a8", "w4a8b"):
             raise NotImplementedError(

@@ -2,6 +2,11 @@
 
 Accumulates in fp32 as the Pallas kernel does, not in the input dtype as the
 JAX package's XLA fallback does (PARITY.md row 5): the two agree in fp32.
+Without autograd it runs the inference forward; under autograd it is a
+``torch.autograd.Function``: the training forward (which saves ``t = x +
+residual`` and the fp32 ``rms``) and the backward, with the same ``dt`` for x
+and the residual and no ``+1e-6`` on rms (PARITY §2.9 #13, #16), as the
+Pallas custom VJP.
 """
 
 from __future__ import annotations
@@ -10,8 +15,37 @@ from typing import Optional
 
 import torch
 
-from llama32mm_tpu_torch.ops.cuda.rmsnorm import fused_add_rmsnorm_cuda, fused_add_rmsnorm_plain
-from llama32mm_tpu_torch.ops.dispatch import resolve_impl
+from llama32mm_tpu_torch.ops.cuda.rmsnorm import (
+    fused_add_rmsnorm_cuda,
+    fused_add_rmsnorm_plain,
+    rmsnorm_bwd_cuda,
+    rmsnorm_bwd_plain,
+    rmsnorm_fwd_train_cuda,
+    rmsnorm_fwd_train_plain,
+)
+from llama32mm_tpu_torch.ops.dispatch import needs_grad, resolve_impl
+
+
+class _FusedAddRMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, residual, eps, impl):
+        cuda = impl == "cuda"
+        fwd = rmsnorm_fwd_train_cuda if cuda else rmsnorm_fwd_train_plain
+        if cuda:
+            x = x.contiguous()
+            residual = None if residual is None else residual.contiguous()
+        out, t, rms = fwd(x, weight, eps, residual)
+        ctx.save_for_backward(t, weight, rms)
+        ctx.cuda = cuda
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        t, weight, rms = ctx.saved_tensors
+        bwd = rmsnorm_bwd_cuda if ctx.cuda else rmsnorm_bwd_plain
+        dt, dw = bwd(g.contiguous(), t, weight, rms, need_dw=ctx.needs_input_grad[1])
+        d_res = dt if ctx.needs_input_grad[2] else None
+        return dt, dw, d_res, None, None
 
 
 def fused_add_rmsnorm(
@@ -22,6 +56,9 @@ def fused_add_rmsnorm(
     impl: str = "auto",
 ) -> torch.Tensor:
     """``rmsnorm(x + residual) * weight`` over the last axis."""
-    if resolve_impl(impl, x) == "cuda":
+    impl = resolve_impl(impl, x)
+    if needs_grad(x, weight, residual):
+        return _FusedAddRMSNorm.apply(x, weight, residual, eps, impl)
+    if impl == "cuda":
         return fused_add_rmsnorm_cuda(x, weight, eps, residual)
     return fused_add_rmsnorm_plain(x, weight, eps, residual)

@@ -1,6 +1,11 @@
 """Fused SwiGLU (counterpart of ``llama32mm_tpu/ops/swiglu.py``).
 
-Weights are nn.Linear's ``[I, H]``; the JAX package stores ``[H, I]``.
+Weights are nn.Linear's ``[I, H]``; the JAX package stores ``[H, I]``. Under
+autograd it is a ``torch.autograd.Function``, as the Pallas custom VJP: the
+backward kernel gives ``d_gate`` and ``d_up``, and ``dx = d_gate @ w_gate +
+d_up @ w_up`` and the weight gradients are ``torch.matmul`` (the JAX package
+leaves them to XLA); a weight gradient is computed only when that weight
+requires one.
 """
 
 from __future__ import annotations
@@ -9,8 +14,37 @@ from typing import Optional
 
 import torch
 
-from llama32mm_tpu_torch.ops.cuda.swiglu import fused_swiglu_cuda, fused_swiglu_plain
-from llama32mm_tpu_torch.ops.dispatch import not_in_slice, resolve_impl
+from llama32mm_tpu_torch.ops.cuda.swiglu import (
+    fused_swiglu_bwd_cuda,
+    fused_swiglu_bwd_plain,
+    fused_swiglu_cuda,
+    fused_swiglu_plain,
+)
+from llama32mm_tpu_torch.ops.dispatch import needs_grad, not_in_slice, resolve_impl
+
+
+class _FusedSwiGLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, impl):
+        cuda = impl == "cuda"
+        if cuda:
+            x = x.contiguous()
+        out = (fused_swiglu_cuda if cuda else fused_swiglu_plain)(x, w_gate, w_up)
+        ctx.save_for_backward(x, w_gate, w_up)
+        ctx.cuda = cuda
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_gate, w_up = ctx.saved_tensors
+        bwd = fused_swiglu_bwd_cuda if ctx.cuda else fused_swiglu_bwd_plain
+        d_gate, d_up = bwd(x, w_gate, w_up, g.contiguous())
+        need_x, need_wg, need_wu, _ = ctx.needs_input_grad
+        dx = torch.matmul(d_gate, w_gate) + torch.matmul(d_up, w_up) if need_x else None
+        x2d = x.reshape(-1, x.shape[-1])
+        dwg = torch.matmul(d_gate.reshape(-1, d_gate.shape[-1]).t(), x2d) if need_wg else None
+        dwu = torch.matmul(d_up.reshape(-1, d_up.shape[-1]).t(), x2d) if need_wu else None
+        return dx, dwg, dwu, None
 
 
 def fused_swiglu(
@@ -24,6 +58,9 @@ def fused_swiglu(
     """``silu(x @ w_gate.T) * (x @ w_up.T)``: x ``[..., H]`` → ``[..., I]``."""
     if b_gate is not None or b_up is not None:
         not_in_slice("biased SwiGLU")
-    if resolve_impl(impl, x) == "cuda":
+    impl = resolve_impl(impl, x)
+    if needs_grad(x, w_gate, w_up):
+        return _FusedSwiGLU.apply(x, w_gate, w_up, impl)
+    if impl == "cuda":
         return fused_swiglu_cuda(x, w_gate, w_up)
     return fused_swiglu_plain(x, w_gate, w_up)

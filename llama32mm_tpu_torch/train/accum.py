@@ -1,0 +1,49 @@
+"""Gradient accumulation shared by the LoRA and full fine-tuning steps
+(counterpart of ``llama32mm_tpu/train/accum.py``).
+
+The loss of a batch is a mean over its valid shifted targets, so the
+accumulated gradient weights each microbatch's gradient by its valid-target
+count: ``grad = sum_i n_i grad_i / sum_i n_i``, which equals the one big
+batch's gradient exactly even when microbatches carry different padding. The
+microbatches run one after another (the memory of one).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+
+def valid_target_count(labels: torch.Tensor, ignore_index: int) -> torch.Tensor:
+    """Number of positions the shifted CE scores: targets are ``labels[:, 1:]``
+    minus ``ignore_index`` entries (fp32)."""
+    return (labels[:, 1:] != ignore_index).sum().to(torch.float32)
+
+
+def loss_and_grads(loss: torch.Tensor, wrt: Sequence[torch.Tensor]):
+    """``(loss, [d loss / d w])``; a tensor the loss does not reach gets
+    zeros, as ``jax.grad`` gives."""
+    grads = torch.autograd.grad(loss, list(wrt), allow_unused=True)
+    return loss.detach(), [torch.zeros_like(w) if g is None else g for g, w in zip(grads, wrt)]
+
+
+def accumulate_grads(loss_fn: Callable[[dict], torch.Tensor], wrt: Sequence[torch.Tensor],
+                     batch: dict, accum_steps: int, ignore_index: int):
+    """Run ``loss_fn(microbatch)`` over the leading ``[A, ...]`` axis of every
+    ``batch`` entry and return ``(loss, grads)`` equal to one big-batch
+    ``loss`` and gradient. Each microbatch must hold at least one valid
+    target (a microbatch of pure padding has a NaN mean loss)."""
+    for key, value in batch.items():
+        if value is not None and value.shape[0] != accum_steps:
+            raise ValueError(f"accum_steps={accum_steps}: batch[{key!r}] must carry a leading "
+                             f"microbatch axis of that size, got shape {tuple(value.shape)}")
+    gsum, lsum, nsum = None, 0.0, 0.0
+    for i in range(accum_steps):
+        mb = {key: None if value is None else value[i] for key, value in batch.items()}
+        loss, grads = loss_and_grads(loss_fn(mb), wrt)
+        n = valid_target_count(mb["labels"], ignore_index).to(loss.device)
+        scaled = [g * n for g in grads]
+        gsum = scaled if gsum is None else [a + g for a, g in zip(gsum, scaled)]
+        lsum, nsum = lsum + loss * n, nsum + n
+    return lsum / nsum, [(g / nsum).to(g.dtype) for g in gsum]

@@ -31,6 +31,7 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.ops.cuda", "llama32mm_tpu_torch.preprocess.image",
     "llama32mm_tpu_torch.utils.sampling", "llama32mm_tpu_torch.ops.quant",
     "llama32mm_tpu_torch.models.quantize", "llama32mm_tpu_torch.ops.cuda.qgemv", "llama32mm_tpu_torch.ops.cuda.qmatmul", "chip_smoke",
+    "llama32mm_tpu_torch.train", "llama32mm_tpu_torch.utils.st_file", "profile_train",
 ]
 
 
@@ -60,8 +61,15 @@ def test_chip_smoke_fails_without_gpu():
 
 def _cpu_args(name):
     x = torch.randn(3, 16)
-    if name == "rmsnorm":
+    if name in ("rmsnorm", "rmsnorm_fwd_train"):
         return x, torch.ones(16), 1e-5
+    if name == "rmsnorm_bwd":
+        return x, x, torch.ones(16), torch.ones(3)
+    if name == "swiglu_bwd":
+        return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(3, 8)
+    if name.startswith("flash_attention_bwd"):
+        q, lse = torch.randn(1, 2, 3, 16), torch.zeros(1, 2, 3)
+        return q, q, q, torch.ones(1, 3), 0, True, lse, lse, q
     if name == "gemv":
         return x, torch.randn(8, 16)
     if name == "swiglu":
@@ -175,11 +183,18 @@ def test_engine_refuses_repetition_penalty(tiny_model):
             np.zeros((1, 4), np.int64), max_new_tokens=2, repetition_penalty=1.2)
 
 
+# An adapter bank: a different head adapter per batch row (leading [B] axis).
+_BANK = {"lm_head": {"lora_a": torch.zeros(1, 64, 2), "lora_b": torch.zeros(1, 2, 256),
+                     "scaling": torch.ones(1)}}
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"lora": {}}, {"remat": True}, {"loss_chunk": 4}, {"collect_stats": True},
-    {"gemv_routes": {}},
+    {"lora": _BANK}, {"attention_mask": torch.zeros(1, 1, 4, 4)}, {"loss_chunk": 4},
+    {"collect_stats": True}, {"gemv_routes": {}},
 ])
 def test_vlm_forward_refuses_unported_options(tiny_model, kwargs):
+    """LoRA and remat are ported; adapter banks, dense 4D masks, the chunked
+    loss, statistics and gemv routes are not."""
     cfg, model = tiny_model
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         vlm_forward(model, cfg, input_ids=torch.zeros(1, 4, dtype=torch.long), **kwargs)
