@@ -32,12 +32,29 @@
 9. full fine-tuning of the JAX bench's 3B configuration (fp32 masters,
    bf16 compute, frozen vision tower, AdamW with global-norm clipping),
    the same batch shape and checks, plus a bitwise unchanged vision tower
-   without optimizer state.
+   without optimizer state;
+10. the continuous-batching server (``inference/server.py``): on the tiny
+   fp32 model, staggered requests through 2 slots (monolithic and chunked
+   admission, float and int8 KV cache) give each request the tokens of a
+   solo ``InferenceEngine`` run on the kernel path, and the tiny int4 model
+   under ``LLAMA32MM_INT4_VARIANT=w4a8`` decodes the same tokens on the
+   kernel and the plain path; at 11B, ``server_bf16`` (the tied bf16 model)
+   and ``server_int4_w4a8`` (the untied model in ``INT4_MIXED_RECIPE`` at
+   g=128, int8 KV cache, the W4A8 gemv) each serve 10 image requests (S =
+   1632, budgets 64 / 32) through 8 slots, 6 submitted at first and 4 after
+   one step, checking budgets, ids and the path's kernels; printing
+   aggregate decode tokens/s, ms per decode step with 8 slots busy, peak
+   GiB and how many requests equal a solo engine run; and, as information,
+   a B=1 generate A/B of the W4A8 and W4A16 int4 gemvs;
+11. the ``swiglu_down`` op over the 40 layers' FFN weights of the bf16
+   model at R=1, against and beside the unfused SwiGLU + gemv pair.
 
+Each kernel case also reports its bound (the larger of the bytes it must
+move over 3.35 TB/s and its operations over the dense peak for its type)
+and, where one PyTorch call computes the same function, that call's time.
 The second-to-last line is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": ...}``. A kernel's ``launches`` there sums the
-11B and 3B runs of every path (bf16, int8, int4-mixed generates; the timed
-LoRA and full fine-tuning steps), each counted from 0 just before its
+11B and 3B runs of every path, each counted from 0 just before its
 measured run (``launches_by_path`` splits them). Any failure raises before
 that line and exits non-zero; without a CUDA device it exits non-zero at
 once.
@@ -53,6 +70,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from llama32mm_tpu_torch.configs import (
     LLAMA32Config,
@@ -62,12 +80,21 @@ from llama32mm_tpu_torch.configs import (
     tiny_mllama_config,
 )
 from llama32mm_tpu_torch.inference.engine import InferenceEngine, structured_prefill_mask
+from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
 from llama32mm_tpu_torch.models.vlm import init_vlm, vlm_forward
 from llama32mm_tpu_torch.ops import cuda as kernels
-from llama32mm_tpu_torch.ops.cuda.attention import NEG_BIG
+from llama32mm_tpu_torch.ops import gemv as gemv_mod
+from llama32mm_tpu_torch.ops.gemv import linear
+from llama32mm_tpu_torch.ops.swiglu import fused_swiglu, swiglu_down
+from llama32mm_tpu_torch.ops.cuda.attention import NEG_BIG, allowed_mask
 from llama32mm_tpu_torch.ops.cuda.build import build_library
 from llama32mm_tpu_torch.models.quantize import quantize_llama_params
-from llama32mm_tpu_torch.ops.quant import INT4_MIXED_RECIPE, quantize_weight, quantize_weight_int4
+from llama32mm_tpu_torch.ops.quant import (
+    INT4_MIXED_RECIPE,
+    quantize_weight,
+    quantize_weight_int4,
+    unpack_int4,
+)
 from llama32mm_tpu_torch.preprocess.image import preprocess_image_device
 from llama32mm_tpu_torch.train.full import make_train_step
 from llama32mm_tpu_torch.train.lora import init_lora_params, lora_leaves, make_lora_train_step
@@ -102,20 +129,44 @@ KERNEL_INFO = {
                                "llama32mm_tpu/ops/pallas/attention.py:251"),
     "flash_attention_bwd_dkv": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
                                 "llama32mm_tpu/ops/pallas/attention.py:322"),
+    "gemv_int4_w4a8": ("llama32mm_tpu_torch/csrc/qgemv.cu", "llama32mm_tpu/ops/pallas/gemv.py:353"),
+    "swiglu_down": ("llama32mm_tpu_torch/csrc/swiglu_down.cu",
+                    "llama32mm_tpu/ops/pallas/swiglu.py:217"),
 }
-# Pallas functions a kernel folds in beside the one it is listed against.
+# Pallas functions a kernel folds in beside the one it is listed against, and
+# the pl.pallas_call sites that its Pallas functions reach.
+_P = "llama32mm_tpu/ops/pallas/"
 ALSO_REPLACES = {
-    "gemv": ["llama32mm_tpu/ops/pallas/gemv.py:55", "llama32mm_tpu/ops/pallas/gemv.py:105"],
-    "gemv_int8": ["llama32mm_tpu/ops/pallas/gemv.py:701"],
-    "gemv_int4": ["llama32mm_tpu/ops/pallas/gemv.py:216"],
-    "qmatmul": ["llama32mm_tpu/ops/pallas/quant_matmul.py:99"],
+    "rmsnorm": [_P + "rmsnorm.py:119"],
+    "rmsnorm_fwd_train": [_P + "rmsnorm.py:91"],
+    "rmsnorm_bwd": [_P + "rmsnorm.py:147"],
+    "swiglu": [_P + "swiglu.py:98"],
+    "swiglu_bwd": [_P + "swiglu.py:98"],
+    "swiglu_down": [_P + "swiglu.py:255"],
+    "flash_attention": [_P + "attention.py:198"],
+    "flash_attention_int8kv": [_P + "attention.py:198"],
+    "flash_attention_lse": [_P + "attention.py:198"],
+    "flash_attention_bwd_dq": [_P + "attention.py:433"],
+    "flash_attention_bwd_dkv": [_P + "attention.py:472"],
+    "gemv": [_P + "gemv.py:55", _P + "gemv.py:105", _P + "gemv.py:81", _P + "gemv.py:133",
+             _P + "gemv.py:677"],
+    "gemv_int8": [_P + "gemv.py:701", _P + "gemv.py:185", _P + "gemv.py:724"],
+    "gemv_int4": [_P + "gemv.py:216", _P + "gemv.py:592", _P + "gemv.py:618"],
+    "gemv_int4_w4a8": [_P + "gemv.py:419", _P + "gemv.py:561"],
+    "qmatmul": [_P + "quant_matmul.py:99", _P + "quant_matmul.py:75",
+                _P + "quant_matmul.py:188"],
 }
 # The kernels each 11B path must launch.
+SERVER_INT4_KERNELS = ("rmsnorm", "flash_attention", "flash_attention_int8kv", "gemv_int8",
+                       "gemv_int4_w4a8", "qmatmul")
 PATH_KERNELS = {
     "bf16": ("rmsnorm", "gemv", "swiglu", "flash_attention"),
     "int8": ("rmsnorm", "flash_attention", "flash_attention_int8kv", "gemv_int8", "qmatmul"),
     "int4_mixed": ("rmsnorm", "flash_attention", "flash_attention_int8kv", "gemv_int8",
                    "gemv_int4", "qmatmul"),
+    "server_bf16": ("rmsnorm", "gemv", "swiglu", "flash_attention"),
+    "server_int4_w4a8": SERVER_INT4_KERNELS,
+    "swiglu_down_op": ("swiglu_down",),
 }
 # The kernels each training path must launch (the frozen ViT's forward is
 # the no-grad flash kernel).
@@ -229,7 +280,55 @@ def kernel_cases(dev, gen):
         ("flash_attention_int8kv", "ragged B=2 Tq=37 Tk=100 q_offset=5 hd=16 padded keys",
          (rnd(2, 4, 37, 16), *kv8(2, 2, 100, 16), valid(2, 100, 90), 5, True), False),
     ]
-    return cases + training_kernel_cases(rnd, valid)
+    return cases + server_kernel_cases(rnd, q4, kv8) + training_kernel_cases(rnd, valid)
+
+
+def server_kernel_cases(rnd, q4, kv8):
+    """The server's kernels: the W4A8 int4 gemv at its decode shapes (8 slots;
+    R=1 for one request), the SwiGLU+down op, and decode attention over 8
+    slots at their own fill levels (per-row query offsets; the prompt's
+    bucket padding 1632..1663 blocked, an idle slot at S-1)."""
+    h, inter, vocab = 4096, 14336, 128256
+    dev = rnd(1).device
+    offsets = torch.tensor([1664, 1700, 1727, 1690, 1665, 1800, 2047, 1900], dtype=torch.int32,
+                           device=dev)
+    kvv = (torch.arange(2048, device=dev)[None, :] <= offsets[:, None].long()).to(torch.int32)
+    kvv[:, 1632:1664] = 0
+    zero_row = rnd(2, h)
+    zero_row[0] = 0
+    return [
+        ("gemv_int4_w4a8", "w_gate R=8 N=14336 K=4096 g=128", (rnd(8, h), *q4(inter, h, 128)),
+         True),
+        ("gemv_int4_w4a8", "w_gate R=1 N=14336 K=4096 g=128", (rnd(1, h), *q4(inter, h, 128)),
+         False),
+        ("gemv_int4_w4a8", "int4 lm_head R=8 N=128256 K=4096 g=128",
+         (rnd(8, h), *q4(vocab, h, 128)), False),
+        ("gemv_int4_w4a8", "int4 lm_head R=1 N=128256 K=4096 g=128",
+         (rnd(1, h), *q4(vocab, h, 128)), False),
+        ("gemv_int4_w4a8", "per-channel R=8 N=4096 K=4096 g=4096", (rnd(8, h), *q4(h, h, h)),
+         False),
+        ("gemv_int4_w4a8", "scalar path R=3 N=200 K=192 g=24", (rnd(3, 192), *q4(200, 192, 24)),
+         False),
+        ("gemv_int4_w4a8", "an all-zero row R=2 N=1000 K=4096 g=128",
+         (zero_row, *q4(1000, h, 128)), False),
+        ("swiglu_down", "decode R=1 H=4096 I=14336",
+         (rnd(1, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02),
+          rnd(h, inter, scale=0.01)), True),
+        ("swiglu_down", "R=8 H=4096 I=14336",
+         (rnd(8, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02),
+          rnd(h, inter, scale=0.01)), False),
+        ("swiglu_down", "ragged I R=9 H=96 I=200",
+         (rnd(9, 96), rnd(200, 96, scale=0.1), rnd(200, 96, scale=0.1), rnd(96, 200, scale=0.1)),
+         False),
+        ("swiglu_down", "ragged R=3 H=100 I=37",
+         (rnd(3, 100), rnd(37, 100, scale=0.1), rnd(37, 100, scale=0.1), rnd(100, 37, scale=0.1)),
+         False),
+        ("flash_attention", "server decode B=8 per-row q_offset Tk=2048 hd=128",
+         (rnd(8, 32, 1, 128), rnd(8, 8, 2048, 128), rnd(8, 8, 2048, 128), kvv, offsets, True),
+         False),
+        ("flash_attention_int8kv", "server decode B=8 per-row q_offset Tk=2048 hd=128",
+         (rnd(8, 32, 1, 128), *kv8(8, 8, 2048, 128), kvv, offsets, True), False),
+    ]
 
 
 def training_kernel_cases(rnd, valid):
@@ -306,6 +405,105 @@ def max_err(got, want):
     return err, scale
 
 
+# The card's published rates (NVIDIA H100 SXM, dense): 3.35 TB/s of HBM, and
+# per operand type the peak that its operations could run at.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def _allowed(kv_valid, q_offset, causal, tq):
+    """``[B, Tq, Tk]`` bool: the (query, key) pairs a flash call computes."""
+    b, tk = kv_valid.shape
+    return allowed_mask(kv_valid, q_offset, causal, tq, tk, kv_valid.device).expand(
+        b, 1, 1, tq, tk)[:, 0, 0]
+
+
+def bound(name, args, out):
+    """``(bound_ms, bound_by)``: the larger of the bytes the function must
+    move (each input read once, each output written once; for causal
+    attention only the keys below each row's limit) over the HBM rate and
+    its operations over the peak for its operand type."""
+    outs = out if isinstance(out, tuple) else (out,)
+    x = args[0]
+    in_bytes = _nbytes(args)
+    if name.startswith("flash_attention"):
+        q = args[0]
+        kvv, q_offset, causal = ((args[5], args[6], args[7]) if name == "flash_attention_int8kv"
+                                 else (args[3], args[4], args[5]))
+        allowed = _allowed(kvv, q_offset, causal, q.shape[2])
+        kv_tensors = args[1:5] if name == "flash_attention_int8kv" else args[1:3]
+        needed = allowed.any(dim=1).sum().item() / kvv.numel()  # keys some query sees
+        in_bytes += (needed - 1.0) * _nbytes(kv_tensors)
+        pairs = allowed.sum().item() * q.shape[1]
+        per_pair = {"flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 8}.get(name, 4)
+        ops = per_pair * q.shape[3] * pairs
+    elif name.startswith(("gemv", "qmatmul")):
+        rows, n = x.numel() // x.shape[-1], args[1].shape[0]
+        ops = 2 * rows * n * x.shape[-1]
+    elif name.startswith("swiglu"):
+        rows, inter = x.numel() // x.shape[-1], args[1].shape[0]
+        ops = {"swiglu_down": 6}.get(name, 4) * rows * x.shape[-1] * inter
+    else:  # RMSNorm: a few operations per element
+        ops = 4 * x.numel()
+    peak = PEAK_OPS[torch.int8 if name == "gemv_int4_w4a8" else x.dtype]
+    t_bytes = (in_bytes + _nbytes(outs)) / HBM_BYTES_PER_S
+    t_ops = ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _int4pack(q4, scale, x):
+    """PyTorch's own int4 weight layout (``_convert_weight_to_int4pack``,
+    ``(q - 8) * scale + 0``) holding the same weights, or None."""
+    n, ng = scale.shape
+    u = (unpack_int4(q4, ng) + 8).to(torch.uint8)  # [N, K] in [0, 15]
+    packed = torch.ops.aten._convert_weight_to_int4pack(u[:, ::2] << 4 | u[:, 1::2], 8)
+    zeros = torch.zeros_like(scale)
+    sz = torch.stack([scale, zeros], dim=-1).transpose(0, 1).contiguous().to(x.dtype)
+    return packed, x.shape[-1] // ng, sz
+
+
+def library_call(name, args):
+    """One PyTorch call computing the kernel's function on the same inputs
+    (a yardstick, never called by the port), or None where there is none."""
+    x = args[0]
+    if name == "gemv":
+        return lambda: F.linear(x, args[1])
+    if name == "rmsnorm" and args[3] is None:
+        return lambda: F.rms_norm(x, (x.shape[-1],), args[1], args[2])
+    if name in ("gemv_int4", "qmatmul") and args[1].dtype == torch.uint8:
+        packed, g, sz = _int4pack(args[1], args[2], x)
+        x2 = x.reshape(-1, x.shape[-1])
+        return lambda: torch._weight_int4pack_mm(x2, packed, g, sz)
+    if name in ("gemv_int8", "qmatmul") and args[1].dtype == torch.int8:
+        x2, sc = x.reshape(-1, x.shape[-1]), args[2].to(x.dtype)
+        return lambda: torch._weight_int8pack_mm(x2, args[1], sc)
+    if name in ("flash_attention", "flash_attention_lse") or name.startswith("flash_attention_bwd"):
+        q, k, v, kvv, q_offset, causal = args[:6]
+        mask = _allowed(kvv, q_offset, causal, q.shape[2])[:, None]
+        if name.startswith("flash_attention_bwd"):  # SDPA's autograd backward: dq, dk, dv
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*qkv, attn_mask=mask, enable_gqa=True)
+            return lambda: torch.autograd.grad(out, qkv, args[8], retain_graph=True)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    return None
+
+
+def library_ms(name, label, args):
+    """The library call's time, or None: there is none, or it refuses these
+    shapes on this card and build (the reason is printed)."""
+    try:
+        fn = library_call(name, args)
+        return None if fn is None else time_ms(fn)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"library call for {name} [{label}] unavailable: {type(e).__name__}: "
+            f"{str(e).splitlines()[0][:200]}")
+        return None
+
+
 def compare_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     summary = {}
@@ -315,19 +513,24 @@ def compare_kernels(dev) -> dict:
         torch.cuda.synchronize()
         err, scale = max_err(got, want)
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
+        lib_ms = library_ms(name, label, args)
+        bound_ms, bound_by = bound(name, args, want)
         rate = ""
         if name.startswith("gemv"):  # weight (and scale) bytes streamed per call
             wbytes = sum(t.numel() * t.element_size() for t in args[1:])
             rate = f" weight_GB/s={wbytes / ms / 1e6:.6g} plain_weight_GB/s={wbytes / plain_ms / 1e6:.6g}"
         log(f"kernel {name} [{label}]: max_abs_err={err:.6g} max_abs_plain={scale:.6g} "
-            f"ms={ms:.6g} plain_ms={plain_ms:.6g}{rate}")
+            f"ms={ms:.6g} plain_ms={plain_ms:.6g} library_ms={lib_ms} bound_ms={bound_ms:.6g} "
+            f"({bound_by}){rate}")
         if not err <= TOL * scale:
             raise RuntimeError(f"{name} [{label}] disagrees with its plain version: "
                                f"{err} > {TOL} * {scale}")
         s = summary.setdefault(name, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if main:  # the summary line reports the main-path shape's times
-            s.update(ms=ms, plain_ms=plain_ms)
+            s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=lib_ms)
+        del got, want
     return summary
 
 
@@ -369,6 +572,60 @@ def check_tiny_paths_agree(dev) -> None:
         if dl > 1e-4 or not torch.equal(res["cuda"].tokens, res["torch"].tokens) or missing:
             raise RuntimeError(f"tiny {mode} model: kernel path and plain path disagree "
                                f"(or skipped {missing})")
+
+
+def check_tiny_server(dev) -> None:
+    """On the tiny fp32 model, on the kernel path: three staggered requests
+    through 2 slots (``steps_per_sync=4``; monolithic admission into the
+    (16, 24) buckets, or ``prefill_chunk=4``; float and int8 KV cache) each
+    give the tokens of a solo ``InferenceEngine`` run, and no plain version
+    runs. The tiny int4 model (g=32) under the W4A8 variant decodes the same
+    tokens on the kernel and the plain path."""
+    cfg = tiny_mllama_config(max_cache_length=64)
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    px = torch.randn(1, 3, 28, 28, generator=gen, device=dev)
+    prompts = []
+    for s, max_new in ((9, 6), (12, 10), (14, 4)):
+        ids = torch.randint(0, 240, (s,), generator=gen, device=dev)
+        ids[:4] = cfg.image_token_index
+        prompts.append((ids, max_new))
+    for kv_dtype in (None, "int8"):
+        for chunk in (None, 4):
+            buckets = (16, 24) if chunk is None else None
+            engine = InferenceEngine(model, cfg, dev, prompt_buckets=buckets, kv_dtype=kv_dtype)
+            want = [engine.generate(ids[None], px, max_new_tokens=n).tokens[0].tolist()
+                    for ids, n in prompts]
+            srv = ContinuousBatchingServer(model, cfg, dev, slots=2, prompt_buckets=buckets,
+                                           kv_dtype=kv_dtype, steps_per_sync=4,
+                                           prefill_chunk=chunk)
+            kernels.reset_counters()
+            rids = [srv.submit(ids, px, max_new_tokens=n) for ids, n in prompts]
+            results = srv.run()
+            got = [results[r].tolist() for r in rids]
+            plain_calls = kernels.plain_counts()
+            log(f"tiny fp32 server kv={kv_dtype} prefill_chunk={chunk}: tokens {got} "
+                f"solo engine {want}")
+            if got != want or any(plain_calls.values()):
+                raise RuntimeError(f"tiny server (kv {kv_dtype}, chunk {chunk}) differs from the "
+                                   f"solo engine, or ran plain versions {plain_calls}")
+    qmodel = quantize_llama_params(model, bits=4, group_size=32)
+    ids = prompts[0][0][None]
+    prev, gemv_mod._INT4_VARIANT = gemv_mod._INT4_VARIANT, "w4a8"
+    try:
+        res = {}
+        for impl in ("cuda", "torch"):
+            kernels.reset_counters()
+            res[impl] = InferenceEngine(qmodel, cfg, dev, impl=impl, kv_dtype="int8").generate(
+                ids, px, max_new_tokens=8).tokens
+            if impl == "cuda":
+                launches = kernels.launch_counts()
+    finally:
+        gemv_mod._INT4_VARIANT = prev
+    log(f"tiny fp32 int4 w4a8: tokens cuda={res['cuda'].tolist()} torch={res['torch'].tolist()} "
+        f"w4a8 launches {launches['gemv_int4_w4a8']}")
+    if not torch.equal(res["cuda"], res["torch"]) or launches["gemv_int4_w4a8"] == 0:
+        raise RuntimeError("tiny int4 w4a8: kernel path and plain path disagree (or no launch)")
 
 
 def tiny_batch(cfg, dev, gen, b=2, s=12):
@@ -625,12 +882,146 @@ def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
     return launches
 
 
+def server_requests(cfg, dev, n: int = 10):
+    """Request ``i``: a seeded 560x560 image (1600 ``<image>`` ids) and 32
+    seeded text ids (S = 1632), a budget of 64 tokens when ``i`` is even and
+    32 when it is odd; ``(ids [S], pixel values [1, 3, H, W], budget)``."""
+    tc, vc = cfg.text_config, cfg.vision_config
+    reqs = []
+    for i in range(n):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        text = torch.randint(0, tc.vocab_size, (32,), generator=gen, device=dev)
+        ids = torch.cat([torch.full((vc.num_patches,), cfg.image_token_index, device=dev), text])
+        px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
+        reqs.append((ids, px, 64 if i % 2 == 0 else 32))
+    return reqs
+
+
+def run_server(dev, cfg, model, path: str, kv_dtype=None) -> dict:
+    """The continuous-batching server at 8 slots, S_max 2048: 10 requests,
+    6 submitted, one step, then 4 more, so admissions land mid-decode and in
+    freed slots. Checks budgets, ids and the path's kernels (and no plain
+    version); prints decode tokens/s, ms per decode step with 8 slots busy,
+    peak GiB, launches and how many requests equal a solo engine run."""
+    tc = cfg.text_config
+    reqs = server_requests(cfg, dev)
+    srv = ContinuousBatchingServer(model, cfg, dev, slots=8, max_cache_length=2048,
+                                   kv_dtype=kv_dtype)
+    warm = srv.submit(reqs[0][0], reqs[0][1], max_new_tokens=2)  # handles, allocator
+    srv.run()
+    srv.release(warm)
+    chunks = []  # (steps, busy slots, seconds) per decode chunk
+    decode = srv._decode
+
+    def timed_decode(n):
+        busy = sum(r is not None for r in srv._by_slot)
+        t = time.perf_counter()
+        toks = decode(n)  # ends in the chunk's one device-to-host copy
+        chunks.append((n, busy, time.perf_counter() - t))
+        return toks
+
+    srv._decode = timed_decode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    t0 = time.perf_counter()
+    rids = [srv.submit(ids, px, max_new_tokens=n) for ids, px, n in reqs[:6]]
+    srv.step()
+    rids += [srv.submit(ids, px, max_new_tokens=n) for ids, px, n in reqs[6:]]
+    results = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+    decode_s = sum(c[2] for c in chunks)
+    decode_tokens = sum(len(results[r]) for r in rids) - len(rids)
+    full = [1e3 * sec / n for n, busy, sec in chunks if busy == 8]
+    log(f"[{path}] 10 requests in {wall:.4f} s; {len(chunks)} decode chunks, "
+        f"{sum(c[0] for c in chunks)} steps, {decode_s:.4f} s: {decode_tokens} decode tokens, "
+        f"{decode_tokens / decode_s:.2f} tok/s aggregate; ms per decode step with 8 slots busy: "
+        f"median {statistics.median(full) if full else float('nan'):.4f} over {len(full)} chunks; "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[{path}] launches {launches} plain calls {plain_calls}")
+    for i, r in enumerate(rids):
+        toks = results[r]
+        if len(toks) != reqs[i][2] or not ((toks >= 0) & (toks < tc.vocab_size)).all():
+            raise RuntimeError(f"[{path}] request {i}: {len(toks)} tokens for a budget of "
+                               f"{reqs[i][2]}, or ids outside the vocabulary")
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    if missing or any(plain_calls.values()):
+        raise RuntimeError(f"[{path}] skipped kernels {missing} or ran plain versions {plain_calls}")
+    if launches["gemv_int4"]:
+        raise RuntimeError(f"[{path}] the W4A16 gemv launched {launches['gemv_int4']} times")
+    engine = InferenceEngine(model, cfg, dev, max_cache_length=2048, kv_dtype=kv_dtype,
+                             prompt_buckets="auto")
+    same = sum(engine.generate(ids[None], px, max_new_tokens=n).tokens[0].tolist()
+               == results[r].tolist() for r, (ids, px, n) in zip(rids, reqs))
+    log(f"[{path}] requests whose tokens equal a solo InferenceEngine run: {same}/{len(rids)}")
+    return launches
+
+
+def int4_variant_ab(dev, cfg, qmodel) -> None:
+    """Information: B=1 generates of one request with the W4A16 (post) and
+    the W4A8 int4 gemv, in turns (post, w4a8, w4a8, post)."""
+    ids, px, _ = server_requests(cfg, dev, 1)[0]
+    engine = InferenceEngine(qmodel, cfg, dev, max_cache_length=2048, kv_dtype="int8")
+
+    def generate(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.generate(ids[None], px, max_new_tokens=n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    prev = gemv_mod._INT4_VARIANT
+    try:
+        for variant in ("post", "w4a8", "w4a8", "post"):
+            gemv_mod._INT4_VARIANT = variant
+            generate(2)
+            ttft, t64 = generate(1), generate(64)
+            log(f"[int4 A/B] {variant}: TTFT {ttft * 1e3:.2f} ms, decode "
+                f"{63 / (t64 - ttft):.2f} tok/s (B=1, 63 tokens after the first)")
+    finally:
+        gemv_mod._INT4_VARIANT = prev
+
+
+def run_swiglu_down_op(dev, model) -> dict:
+    """The ``swiglu_down`` op over the 40 layers' FFN weights at R=1,
+    checked against the unfused SwiGLU + gemv pair and timed beside it."""
+    ffs = [(b.ff.w_gate.weight, b.ff.w_up.weight, b.ff.w_down.weight)
+           for b in model.language_model.model.blocks]
+    x = torch.randn(1, ffs[0][2].shape[0], generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev).to(ffs[0][0].dtype)
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    fused = [swiglu_down(x, *w) for w in ffs]
+    torch.cuda.synchronize()
+    launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+    unfused = [linear(fused_swiglu(x, wg, wu), wd) for wg, wu, wd in ffs]
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(fused, unfused))
+    scale = max(b.float().abs().max().item() for b in unfused)
+    fused_ms = time_ms(lambda: [swiglu_down(x, *w) for w in ffs], reps=3) / len(ffs)
+    unfused_ms = time_ms(lambda: [linear(fused_swiglu(x, wg, wu), wd) for wg, wu, wd in ffs],
+                         reps=3) / len(ffs)
+    log(f"[swiglu_down_op] {len(ffs)} layers, R=1: max_abs_err vs SwiGLU+gemv {err:.6g} "
+        f"(max {scale:.6g}); ms per layer: swiglu_down {fused_ms:.6g}, SwiGLU + gemv "
+        f"{unfused_ms:.6g}; launches {launches['swiglu_down']}")
+    if launches["swiglu_down"] != len(ffs) or any(plain_calls.values()) or not err <= TOL * scale:
+        raise RuntimeError(f"[swiglu_down_op] launches {launches['swiglu_down']}, plain calls "
+                           f"{plain_calls}, or {err} > {TOL} * {scale}")
+    return launches
+
+
 def run_11b_paths(dev) -> dict:
-    """The bf16 path (tied head), then int8 and int4-mixed quantized copies
-    of one untied bf16 model, each served from an int8 KV cache."""
+    """The bf16 path (tied head) and its server, then int8 and int4-mixed
+    quantized copies of one untied bf16 model, each served from an int8 KV
+    cache; the int4-mixed copy also through the server with the W4A8 gemv."""
     by_path = {}
     cfg, model = build_11b(dev, tie_weights=True)
     by_path["bf16"] = run_11b(dev, cfg, model, "bf16")
+    by_path["server_bf16"] = run_server(dev, cfg, model, "server_bf16")
+    by_path["swiglu_down_op"] = run_swiglu_down_op(dev, model)
     del model
     torch.cuda.empty_cache()
     cfg, model = build_11b(dev, tie_weights=False)
@@ -643,6 +1034,14 @@ def run_11b_paths(dev) -> dict:
             f"allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
         torch.cuda.reset_peak_memory_stats()
         by_path[path] = run_11b(dev, cfg, qmodel, path, kv_dtype="int8")
+        if path == "int4_mixed":
+            prev, gemv_mod._INT4_VARIANT = gemv_mod._INT4_VARIANT, "w4a8"
+            try:
+                by_path["server_int4_w4a8"] = run_server(dev, cfg, qmodel, "server_int4_w4a8",
+                                                         kv_dtype="int8")
+            finally:
+                gemv_mod._INT4_VARIANT = prev
+            int4_variant_ab(dev, cfg, qmodel)
         del qmodel
         torch.cuda.empty_cache()
     return by_path
@@ -668,6 +1067,7 @@ def main() -> int:
     summary = compare_kernels(dev)
     torch.cuda.empty_cache()
     check_tiny_paths_agree(dev)
+    check_tiny_server(dev)
     check_tiny_training(dev)
     by_path = run_11b_paths(dev)
     torch.cuda.empty_cache()
@@ -682,7 +1082,9 @@ def main() -> int:
                     "also_replaces": ALSO_REPLACES.get(name, []),
                     "launches": sum(counts[name] for counts in by_path.values()),
                     "launches_by_path": {p: counts[name] for p, counts in by_path.items()},
-                    "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"]})
+                    "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+                    "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+                    "library_ms": s["library_ms"]})
     print(json.dumps({"kernels": out}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,6 +8,11 @@
 // get probability exactly 0 and a row with no allowed key outputs 0. The
 // online softmax runs in fp32.
 //
+// The query offset is one int for the batch, or (q_offsets non-null) one
+// per row, int32 [B] on the device: the continuous-batching server decodes
+// every slot at its own fill level in one call. A block serves one batch row,
+// so it reads its row's offset once; the causal limit is that row's.
+//
 // Two instantiations: K/V in q's float dtype, or the int8 KV cache with fp32
 // per-position scales k_scale/v_scale [B, nkv, Tk] (the Pallas kernel's
 // scaled_kv inputs). With int8 K/V the logit is (q . k_q) * k_scale[key]
@@ -74,9 +79,9 @@ template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
                  const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                 const int* __restrict__ kv_valid, T* __restrict__ out,
-                 float* __restrict__ lse, int nq, int nkv, int tq, int tk, int q_offset,
-                 int causal, float scale) {
+                 const int* __restrict__ kv_valid, const int* __restrict__ q_offsets,
+                 T* __restrict__ out, float* __restrict__ lse, int nq, int nkv, int tq, int tk,
+                 int q_offset, int causal, float scale) {
   constexpr bool kScaled = std::is_same<KV, int8_t>::value;
   constexpr int NC = (HD + 31) / 32;  // head-dim slots per lane
   __shared__ float qs[BQ][HD];
@@ -89,6 +94,7 @@ flash_fwd_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __
   const int b = bh / nq, h = bh % nq;
   const int kvh = h / (nq / nkv);
   const int q0 = blockIdx.x * BQ;
+  if (q_offsets != nullptr) q_offset = q_offsets[b];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const T* qb = q + static_cast<size_t>(bh) * tq * HD;
   const KV* kb = k + static_cast<size_t>(b * nkv + kvh) * tk * HD;
@@ -212,23 +218,25 @@ float inv_sqrt_hd() {
 
 template <typename T, typename KV, int HD>
 void launch(const void* q, const void* k, const void* v, const float* k_scale,
-            const float* v_scale, const int* kv_valid, void* out, float* lse, int b, int nq,
-            int nkv, int tq, int tk, int q_offset, int causal, cudaStream_t stream) {
+            const float* v_scale, const int* kv_valid, const int* q_offsets, void* out, float* lse,
+            int b, int nq, int nkv, int tq, int tk, int q_offset, int causal,
+            cudaStream_t stream) {
   dim3 grid((tq + BQ - 1) / BQ, b * nq);
   flash_fwd_kernel<T, KV, HD><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
-      v_scale, kv_valid, static_cast<T*>(out), lse, nq, nkv, tq, tk, q_offset, causal,
+      v_scale, kv_valid, q_offsets, static_cast<T*>(out), lse, nq, nkv, tq, tk, q_offset, causal,
       inv_sqrt_hd<HD>());
 }
 
 template <typename T, typename KV>
 int launch_hd(const void* q, const void* k, const void* v, const float* k_scale,
-              const float* v_scale, const int* kv_valid, void* out, float* lse, int b, int nq,
-              int nkv, int tq, int tk, int hd, int q_offset, int causal, cudaStream_t s) {
-#define L32_HD(N)                                                                      \
-  case N:                                                                              \
-    launch<T, KV, N>(q, k, v, k_scale, v_scale, kv_valid, out, lse, b, nq, nkv, tq, tk, \
-                     q_offset, causal, s);                                             \
+              const float* v_scale, const int* kv_valid, const int* q_offsets, void* out,
+              float* lse, int b, int nq, int nkv, int tq, int tk, int hd, int q_offset,
+              int causal, cudaStream_t s) {
+#define L32_HD(N)                                                                        \
+  case N:                                                                                \
+    launch<T, KV, N>(q, k, v, k_scale, v_scale, kv_valid, q_offsets, out, lse, b, nq, nkv, \
+                     tq, tk, q_offset, causal, s);                                       \
     return 0;
   switch (hd) {
     L32_HD(8)
@@ -246,22 +254,23 @@ int launch_hd(const void* q, const void* k, const void* v, const float* k_scale,
 
 template <typename KVF, typename KVB>  // K/V element type for fp32 / bf16 q
 int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
-             const void* v_scale, const void* kv_valid, void* out, void* lse_out, int b,
-             int nq, int nkv, int tq, int tk, int hd, int q_offset, int causal, int dtype,
-             void* stream) {
+             const void* v_scale, const void* kv_valid, const void* q_offsets, void* out,
+             void* lse_out, int b, int nq, int nkv, int tq, int tk, int hd, int q_offset,
+             int causal, int dtype, void* stream) {
   if (b == 0 || tq == 0) return 0;
   if (nkv <= 0 || nq % nkv != 0 || b * nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const int* kvv = static_cast<const int*>(kv_valid);
+  const int* qo = static_cast<const int*>(q_offsets);
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   float* lse = static_cast<float*>(lse_out);
   int err;
   if (dtype == L32_BF16)
-    err = launch_hd<__nv_bfloat16, KVB>(q, k, v, ks, vs, kvv, out, lse, b, nq, nkv, tq, tk, hd,
-                                        q_offset, causal, s);
+    err = launch_hd<__nv_bfloat16, KVB>(q, k, v, ks, vs, kvv, qo, out, lse, b, nq, nkv, tq, tk,
+                                        hd, q_offset, causal, s);
   else if (dtype == L32_F32)
-    err = launch_hd<float, KVF>(q, k, v, ks, vs, kvv, out, lse, b, nq, nkv, tq, tk, hd,
+    err = launch_hd<float, KVF>(q, k, v, ks, vs, kvv, qo, out, lse, b, nq, nkv, tq, tk, hd,
                                 q_offset, causal, s);
   else
     err = static_cast<int>(cudaErrorInvalidValue);
@@ -603,22 +612,23 @@ int dispatch_bwd(const BwdArgs& a, int hd, bool want_dq, int dtype, void* stream
 
 }  // namespace
 
-// lse: null, or [b * nq, tq] fp32 (the training forward).
+// lse: null, or [b * nq, tq] fp32 (the training forward). q_offsets: null
+// (every row at q_offset), or int32 [b] (one offset per row).
 extern "C" int l32_flash_attn_fwd(const void* q, const void* k, const void* v,
-                                  const void* kv_valid, void* out, void* lse, int b, int nq,
-                                  int nkv, int tq, int tk, int hd, int q_offset, int causal,
-                                  int dtype, void* stream) {
-  return dispatch<float, __nv_bfloat16>(q, k, v, nullptr, nullptr, kv_valid, out, lse, b, nq,
-                                        nkv, tq, tk, hd, q_offset, causal, dtype, stream);
+                                  const void* kv_valid, const void* q_offsets, void* out,
+                                  void* lse, int b, int nq, int nkv, int tq, int tk, int hd,
+                                  int q_offset, int causal, int dtype, void* stream) {
+  return dispatch<float, __nv_bfloat16>(q, k, v, nullptr, nullptr, kv_valid, q_offsets, out, lse,
+                                        b, nq, nkv, tq, tk, hd, q_offset, causal, dtype, stream);
 }
 
 extern "C" int l32_flash_attn_fwd_int8kv(const void* q, const void* k, const void* v,
                                          const void* k_scale, const void* v_scale,
-                                         const void* kv_valid, void* out, int b, int nq,
-                                         int nkv, int tq, int tk, int hd, int q_offset,
-                                         int causal, int dtype, void* stream) {
-  return dispatch<int8_t, int8_t>(q, k, v, k_scale, v_scale, kv_valid, out, nullptr, b, nq, nkv,
-                                  tq, tk, hd, q_offset, causal, dtype, stream);
+                                         const void* kv_valid, const void* q_offsets, void* out,
+                                         int b, int nq, int nkv, int tq, int tk, int hd,
+                                         int q_offset, int causal, int dtype, void* stream) {
+  return dispatch<int8_t, int8_t>(q, k, v, k_scale, v_scale, kv_valid, q_offsets, out, nullptr,
+                                  b, nq, nkv, tq, tk, hd, q_offset, causal, dtype, stream);
 }
 
 // dq [b, nq, tq, hd] from q, k, v, the forward's lse [b * nq, tq], delta =

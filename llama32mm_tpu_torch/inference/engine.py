@@ -26,7 +26,7 @@ from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration, vlm_f
 from llama32mm_tpu_torch.ops.attention import AttnMask
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 from llama32mm_tpu_torch.utils.kvcache import init_kv_cache
-from llama32mm_tpu_torch.utils.sampling import select_next_token
+from llama32mm_tpu_torch.utils.sampling import presence_from_tokens, select_next_token
 
 
 def structured_prefill_mask(padding_mask: torch.Tensor, max_len: int) -> AttnMask:
@@ -118,11 +118,13 @@ class InferenceEngine:
         rng: Optional[torch.Generator] = None,
     ) -> GenerateResult:
         """Greedy (temperature 0) or sampled generation; sampling draws from
-        ``rng``, a ``torch.Generator`` on the engine's device."""
+        ``rng``, a ``torch.Generator`` on the engine's device. A
+        ``repetition_penalty`` other than 1 penalises every token of the
+        prompt (not the image placeholders) and of the generation so far."""
         if not 0.0 <= min_p <= 1.0:
             raise ValueError(f"min_p must be in [0, 1], got {min_p}")
-        if repetition_penalty != 1.0:
-            not_in_slice("repetition_penalty != 1.0")
+        if repetition_penalty <= 0:
+            raise ValueError(f"repetition_penalty must be > 0, got {repetition_penalty}")
         cfg, tc, dev = self.config, self.config.text_config, self.device
         max_len = self.max_cache_length
         with torch.inference_mode():
@@ -153,9 +155,16 @@ class InferenceEngine:
                 impl=self.impl, logits_positions=(true_len - 1)[:, None],
             )
             pre_logits = out.logits[:, 0]
+            pres = None
+            if repetition_penalty != 1.0:
+                safe_ids = torch.where(ids == cfg.image_token_index, -1, ids)
+                pres = presence_from_tokens(safe_ids, true_len, tc.vocab_size)
             sample = dict(rng=rng, temperature=temperature, top_p=top_p, top_k=top_k,
-                          min_p=min_p)
+                          min_p=min_p, presence=pres, repetition_penalty=repetition_penalty)
             last = select_next_token(pre_logits, **sample)
+            rows = torch.arange(b, device=dev)
+            if pres is not None:
+                pres[rows, last] = True
 
             tokens = torch.zeros(b, max_new_tokens, dtype=torch.long, device=dev)
             tokens[:, 0] = last
@@ -171,6 +180,8 @@ class InferenceEngine:
                     position_ids=(true_len + (i - 1))[:, None], kv_cache=cache, impl=self.impl,
                 )
                 nxt = torch.where(done, eos, select_next_token(step.logits[:, -1], **sample))
+                if pres is not None:
+                    pres[rows, nxt] = pres[rows, nxt] | ~done
                 tokens[:, i] = nxt
                 count += (~done).to(torch.int32)
                 done = done | (nxt == eos_token_id)

@@ -209,6 +209,12 @@ def _structured_mask(attention_mask, b: int, t: int, kv_cache: Optional[KVCache]
         return AttnMask(kv_valid=base, q_offset=0)
     # the 2D mask covers the current tokens; cached slots are valid
     pos = kv_cache.pos
+    if kv_cache.per_row:  # row b's tokens land at pos[b] .. pos[b]+t-1
+        karange = torch.arange(kv_cache.max_length, device=device)[None, :]
+        off = karange - pos[:, None]
+        base_at = torch.gather(base, 1, off.clamp(0, t - 1))
+        kv_valid = (karange < pos[:, None]) | ((off >= 0) & (off < t) & (base_at != 0))
+        return AttnMask(kv_valid=kv_valid.to(torch.int32), q_offset=pos.to(torch.int32))
     kv_valid = torch.zeros(b, kv_cache.max_length, dtype=torch.int32, device=device)
     kv_valid[:, :pos] = 1
     kv_valid[:, pos:pos + t] = base
@@ -233,7 +239,10 @@ def llama_forward(
 ) -> LlamaOutput:
     """Decoder forward. With a ``kv_cache`` the new keys and values are written
     at ``kv_cache.pos`` in place and ``pos`` advances by the sequence length;
-    the returned cache is the same object. ``lora`` is the adapter tree (its
+    the returned cache is the same object. A per-row cache (``pos`` an int64
+    ``[B]`` tensor) writes row ``b`` at ``pos[b]``, takes its default RoPE
+    positions from there, and leaves ``pos`` to its owner (the server).
+    ``lora`` is the adapter tree (its
     ``"blocks"``); ``dropout_rng`` seeds one dropout stream per layer and
     target when ``lora_dropout > 0``."""
     for name, on in (("gemv_routes", gemv_routes is not None), ("collect_stats", collect_stats)):
@@ -253,7 +262,10 @@ def llama_forward(
 
     if position_ids is None:
         pos0 = kv_cache.pos if kv_cache is not None else 0
-        position_ids = (pos0 + torch.arange(t, device=h.device))[None].expand(b, t)
+        if isinstance(pos0, torch.Tensor):
+            position_ids = pos0[:, None] + torch.arange(t, device=h.device)
+        else:
+            position_ids = (pos0 + torch.arange(t, device=h.device))[None].expand(b, t)
     scaling = config.rope_freq_dict if config.apply_rope_scaling else None
     cos, sin = rope_cos_sin(position_ids, config.head_dim, config.rope_base, h.dtype, scaling)
 
@@ -271,7 +283,7 @@ def llama_forward(
             h = checkpoint(_block_forward, *args, use_reentrant=False)
         else:
             h = _block_forward(*args)
-    if kv_cache is not None:
+    if kv_cache is not None and not kv_cache.per_row:
         kv_cache.advance(t)
 
     h = fused_add_rmsnorm(h, model.final_norm.weight, config.rms_norm_eps, impl=impl)

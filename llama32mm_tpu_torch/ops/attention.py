@@ -6,7 +6,10 @@ get probability exactly 0 (PARITY.md row 3). The mask is structured,
 ``AttnMask(kv_valid [B, Tk], q_offset)``: per-key validity plus the absolute
 position of query row 0, from which the causal limit follows. Every call,
 prefill, decode and the ViT's non-causal attention alike, goes through the
-flash kernel on the card. With an int8 KV cache, ``k``/``v`` are int8 and
+flash kernel on the card. ``q_offset`` is one int, or an int ``[B]`` tensor
+when the rows sit at different fill levels (the continuous-batching server's
+decode): the kernel takes it as it is, with no dense mask (the JAX package
+densifies a per-row offset and leaves it to XLA). With an int8 KV cache, ``k``/``v`` are int8 and
 their per-position fp32 scales ``k_scale``/``v_scale`` fold into the scores
 and the attention weights, in the int8-KV instantiation of the kernel.
 
@@ -18,7 +21,7 @@ package, and raises under autograd.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -41,7 +44,7 @@ class AttnMask(NamedTuple):
     """Which key slots are valid, and the absolute position of query row 0."""
 
     kv_valid: torch.Tensor  # [B, Tk] bool/int
-    q_offset: int
+    q_offset: Union[int, torch.Tensor]  # one int, or int [B] (per row)
 
 
 def dense_from_structured(mask: AttnMask, tq: int, tk: int, dtype: torch.dtype,
@@ -53,10 +56,15 @@ def dense_from_structured(mask: AttnMask, tq: int, tk: int, dtype: torch.dtype,
     add = torch.where(valid, torch.zeros((), dtype=dtype, device=valid.device),
                       torch.full((), neg, dtype=dtype, device=valid.device))[:, None, None, :]
     if causal:
-        kpos = torch.arange(tk, device=valid.device)[None, :]
-        qpos = int(mask.q_offset) + torch.arange(tq, device=valid.device)[:, None]
-        c = torch.where(kpos > qpos, float("-inf"), 0.0).to(dtype)
-        add = add + c[None, None]
+        kpos = torch.arange(tk, device=valid.device)
+        qrange = torch.arange(tq, device=valid.device)
+        if isinstance(mask.q_offset, torch.Tensor):  # per row: [B, 1, Tq, Tk]
+            qpos = mask.q_offset.to(valid.device).long()[:, None] + qrange
+            c = torch.where(kpos > qpos[:, :, None], float("-inf"), 0.0).to(dtype)[:, None]
+        else:
+            qpos = int(mask.q_offset) + qrange
+            c = torch.where(kpos[None, :] > qpos[:, None], float("-inf"), 0.0).to(dtype)[None, None]
+        add = add + c
     return add
 
 
@@ -101,7 +109,10 @@ def gqa_attention(
     if mask is not None:
         not_in_slice("a dense additive attention mask")
     impl = resolve_impl(impl, q)
-    tail = (structured.kv_valid, int(structured.q_offset), causal)
+    q_offset = structured.q_offset
+    if not isinstance(q_offset, torch.Tensor):
+        q_offset = int(q_offset)
+    tail = (structured.kv_valid, q_offset, causal)
     kernel, plain = flash_attention_cuda, flash_attention_plain
     operands = (q.contiguous(), k.contiguous(), v.contiguous())
     if needs_grad(q, k, v):
@@ -109,6 +120,9 @@ def gqa_attention(
             raise NotImplementedError(
                 "gradients through the int8-KV attention: it is inference-only, as in the JAX "
                 "package")
+        if isinstance(q_offset, torch.Tensor):
+            raise NotImplementedError(
+                "gradients with per-row query offsets: training batches share one offset")
         kv_valid = structured.kv_valid.to(torch.int32).contiguous()
         return _FlashAttention.apply(*operands, kv_valid, *tail[1:], impl)
     if k_scale is not None:

@@ -20,6 +20,8 @@ from llama32mm_tpu_torch.ops.cuda.gemv import gemv_cuda, gemv_plain
 from llama32mm_tpu_torch.ops.cuda.qgemv import (
     gemv_int4_cuda,
     gemv_int4_plain,
+    gemv_int4_w4a8_cuda,
+    gemv_int4_w4a8_plain,
     gemv_int8_cuda,
     gemv_int8_plain,
 )
@@ -37,6 +39,8 @@ from llama32mm_tpu_torch.ops.cuda.swiglu import (
     fused_swiglu_bwd_plain,
     fused_swiglu_cuda,
     fused_swiglu_plain,
+    swiglu_down_cuda,
+    swiglu_down_plain,
 )
 
 # kernel name -> (wrapper, plain version)
@@ -55,6 +59,8 @@ KERNELS = {
     "flash_attention_lse": (flash_attention_fwd_lse_cuda, flash_attention_fwd_lse_plain),
     "flash_attention_bwd_dq": (flash_attention_bwd_dq_cuda, flash_attention_bwd_dq_plain),
     "flash_attention_bwd_dkv": (flash_attention_bwd_dkv_cuda, flash_attention_bwd_dkv_plain),
+    "gemv_int4_w4a8": (gemv_int4_w4a8_cuda, gemv_int4_w4a8_plain),
+    "swiglu_down": (swiglu_down_cuda, swiglu_down_plain),
 }
 
 

@@ -4,8 +4,11 @@
 dtype (``flash_attention_*``), or int8 with per-position fp32 scales
 (``flash_attention_int8kv_*``, the kernel's ``scaled_kv`` inputs).
 
-Mask: key ``k`` is allowed for query row ``i`` iff ``kv_valid[b, k] != 0``
-and, when causal, ``k <= q_offset + i``. Allowed logits are ``s / sqrt(hd)``
+Mask: key ``k`` is allowed for query row ``i`` of batch row ``b`` iff
+``kv_valid[b, k] != 0`` and, when causal, ``k <= q_offset + i``. The forward
+takes ``q_offset`` as one int or, for a batch whose rows sit at different
+fill levels (the continuous-batching server's slots), an int ``[B]`` tensor
+on q's device: row ``b``'s limit is then ``q_offset[b] + i``. Allowed logits are ``s / sqrt(hd)``
 (mask-then-scale), blocked keys get probability exactly 0, and a row with
 no allowed key is 0. With an int8 cache, ``s = (q·k_q)·k_scale[key]``
 before the mask, and the value scale multiplies each probability in the PV
@@ -52,17 +55,28 @@ def _check(q, k, v, kv_valid, kv_dtype):
     return kv_valid.to(torch.int32).contiguous(), (b, nq, nkv, tq, tk, hd)
 
 
+def _q_offsets(q_offset, q):
+    """``(scalar offset, int32 [B] offsets or None)`` for the kernel."""
+    if not isinstance(q_offset, torch.Tensor):
+        return int(q_offset), None
+    offsets = q_offset.to(torch.int32).contiguous()
+    require("q_offset", offsets, q, (q.shape[0],), torch.int32)
+    return 0, offsets
+
+
 def _launch(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None, lse=False):
     """Launch the float (with ``lse``: also the log-sum-exp) or the int8-KV
     forward kernel."""
     kvv, shape = _check(q, k, v, kv_valid, q.dtype if k_scale is None else torch.int8)
+    scalar, offsets = _q_offsets(q_offset, q)
+    offsets_ptr = None if offsets is None else offsets.data_ptr()
     out = torch.empty_like(q)
     lse_out = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse else None
     lib = load_library()
-    common = (*shape, int(q_offset), int(bool(causal)), dtype_code(q), stream_of(q))
+    common = (*shape, scalar, int(bool(causal)), dtype_code(q), stream_of(q))
     if k_scale is None:
         status = lib.l32_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kvv.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kvv.data_ptr(), offsets_ptr, out.data_ptr(),
             None if lse_out is None else lse_out.data_ptr(), *common)
     else:
         b, nkv, tk = k.shape[:3]
@@ -70,7 +84,7 @@ def _launch(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None, lse
         require("v_scale", v_scale, q, (b, nkv, tk), torch.float32)
         status = lib.l32_flash_attn_fwd_int8kv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            kvv.data_ptr(), out.data_ptr(), *common)
+            kvv.data_ptr(), offsets_ptr, out.data_ptr(), *common)
     check(status, "flash attention kernel")
     return (out, lse_out) if lse else out
 
@@ -81,7 +95,7 @@ def flash_attention_cuda(
     k: torch.Tensor,  # [B, nkv, Tk, hd]
     v: torch.Tensor,  # [B, nkv, Tk, hd]
     kv_valid: torch.Tensor,  # [B, Tk] bool/int
-    q_offset: int,
+    q_offset,  # int, or int [B] on q's device
     causal: bool = True,
 ) -> torch.Tensor:
     out = _launch(q, k, v, kv_valid, q_offset, causal)
@@ -107,7 +121,7 @@ def flash_attention_int8kv_cuda(
     k_scale: torch.Tensor,  # [B, nkv, Tk] fp32
     v_scale: torch.Tensor,  # [B, nkv, Tk] fp32
     kv_valid: torch.Tensor,  # [B, Tk] bool/int
-    q_offset: int,
+    q_offset,  # int, or int [B] on q's device
     causal: bool = True,
 ) -> torch.Tensor:
     out = _launch(q, k, v, kv_valid, q_offset, causal, k_scale, v_scale)
@@ -201,12 +215,17 @@ def flash_attention_bwd_dkv_plain(q, k, v, kv_valid, q_offset, causal, lse, delt
     return _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout)[1:]
 
 
-def _allowed(kv_valid, q_offset, causal, tq, tk, device):
+def allowed_mask(kv_valid, q_offset, causal, tq, tk, device):
+    """The keys each query may see: bool ``[B, 1, 1, Tq or 1, Tk]``."""
     allowed = kv_valid.bool()[:, None, None, None, :]  # [B, 1, 1, 1, Tk]
     if causal:
         kpos = torch.arange(tk, device=device)
-        qpos = int(q_offset) + torch.arange(tq, device=device)
-        allowed = allowed & (kpos[None, :] <= qpos[:, None])
+        if isinstance(q_offset, torch.Tensor):  # per row: [B, 1, 1, Tq, Tk]
+            qpos = q_offset.to(device).long()[:, None] + torch.arange(tq, device=device)
+            allowed = allowed & (kpos <= qpos[:, None, None, :, None])
+        else:
+            qpos = int(q_offset) + torch.arange(tq, device=device)
+            allowed = allowed & (kpos[None, :] <= qpos[:, None])
     return allowed
 
 
@@ -218,7 +237,7 @@ def _dense(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None, lse=
     scores = torch.einsum("bkgqd,bktd->bkgqt", qg, k.to(acc))
     if k_scale is not None:
         scores = scores * k_scale.to(acc)[:, :, None, None, :]
-    allowed = _allowed(kv_valid, q_offset, causal, tq, tk, q.device)
+    allowed = allowed_mask(kv_valid, q_offset, causal, tq, tk, q.device)
     logits = torch.where(allowed, scores * (1.0 / math.sqrt(hd)), float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -245,7 +264,7 @@ def _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout):
     qg = q.to(acc).reshape(b, nkv, g, tq, hd)
     dog = dout.to(acc).reshape(b, nkv, g, tq, hd)
     kf, vf = k.to(acc), v.to(acc)
-    allowed = _allowed(kv_valid, q_offset, causal, tq, tk, q.device)
+    allowed = allowed_mask(kv_valid, q_offset, causal, tq, tk, q.device)
     s = torch.einsum("bkgqd,bktd->bkgqt", qg, kf)
     logits = s * scale - lse.to(acc).reshape(b, nkv, g, tq, 1)
     p = torch.exp(torch.where(allowed, logits, float("-inf")))

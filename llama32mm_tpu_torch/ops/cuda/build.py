@@ -108,22 +108,26 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "l32_swiglu_fwd": [p, p, p, p, i, i, i, i, p],
         # (x, w_gate, w_up, g, d_gate, d_up, rows, hidden, inter, dtype, stream)
         "l32_swiglu_bwd": [p, p, p, p, p, p, i, i, i, i, p],
-        # (q, k, v, kv_valid, out, lse|NULL, b, nq, nkv, tq, tk, hd, q_offset, causal, dtype,
-        #  stream)
-        "l32_flash_attn_fwd": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        # (q, k, v, kv_valid, q_offsets|NULL, out, lse|NULL, b, nq, nkv, tq, tk, hd, q_offset,
+        #  causal, dtype, stream)
+        "l32_flash_attn_fwd": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (q, k, v, kv_valid, lse, delta, dout, dq, b, nq, nkv, tq, tk, hd, q_offset, causal,
         #  dtype, stream)
         "l32_flash_attn_bwd_dq": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (q, k, v, kv_valid, lse, delta, dout, dk, dv, b, nq, nkv, tq, tk, hd, q_offset,
         #  causal, dtype, stream)
         "l32_flash_attn_bwd_dkv": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
-        # (q, k, v, k_scale, v_scale, kv_valid, out, b, nq, nkv, tq, tk, hd, q_offset,
-        #  causal, dtype, stream)
-        "l32_flash_attn_fwd_int8kv": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        # (q, k, v, k_scale, v_scale, kv_valid, q_offsets|NULL, out, b, nq, nkv, tq, tk, hd,
+        #  q_offset, causal, dtype, stream)
+        "l32_flash_attn_fwd_int8kv": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (x, q, scale, out, rows, n, k, dtype, stream)
         "l32_gemv_int8": [p, p, p, p, i, i, i, i, p],
         # (x, q4, scale, out, rows, n, k, group, dtype, stream)
         "l32_gemv_int4": [p, p, p, p, i, i, i, i, i, p],
+        # (x, q4, scale, xq, ax, out, rows, n, k, group, dtype, stream)
+        "l32_gemv_int4_w4a8": [p, p, p, p, p, p, i, i, i, i, i, p],
+        # (x, w_gate, w_up, w_down, partial_ws, out, rows, hidden, inter, dtype, stream)
+        "l32_swiglu_down": [p, p, p, p, p, p, i, i, i, i, p],
         # (x, q|q4, scale, out, rows, n, k, group (0: int8), dtype, stream)
         "l32_qmatmul": [p, p, p, p, i, i, i, i, i, p],
     }

@@ -12,6 +12,14 @@ nn.Linear's ``[N, K]`` orientation.
   ``scale [N, K/g]``; ``out = x @ dequant(q4, scale).T``. Replaces
   ``_int4_kernel_post`` (``variant="post"``/``"post-cat"``) and folds
   ``_int4_kernel`` (``"pre"``): the three differ only in how a TPU unpacks.
+- int4 W4A8 (``gemv_int4_w4a8_*``): the same weights against activations
+  quantized per row to int8, ``x ≈ ax·xq`` with ``ax = max|x_row| / 127``
+  (1 for an all-zero row) and ``xq = clamp(round(x / ax), -127, 127)``
+  rounding half to even; ``out = ax · Σ_g scale[n, g] · Σ_{k∈g} xq·q``, exact
+  integers per group. Replaces ``_int4_kernel_w4a8`` (``variant="w4a8"``)
+  and folds ``_int4_kernel_w4a8b`` (``"w4a8b"``, the same math batched for
+  Mosaic). The activation rounding is the one numerical change against
+  W4A16.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import torch
 from llama32mm_tpu_torch.ops.cuda.build import check, load_library
 from llama32mm_tpu_torch.ops.cuda.common import counted, dtype_code, require, stream_of
 from llama32mm_tpu_torch.ops.cuda.gemv import MAX_ROWS
-from llama32mm_tpu_torch.ops.quant import dequantize_weight
+from llama32mm_tpu_torch.ops.quant import dequantize_weight, unpack_int4
 
 
 def check_quant(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor):
@@ -94,6 +102,48 @@ def gemv_int4_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> t
     """The int4 gemv in PyTorch: dequantize to x's dtype, then one matmul."""
     gemv_int4_plain.calls += 1
     return int4_matmul_plain(x, q4, scale)
+
+
+@counted("launches")
+def gemv_int4_w4a8_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """W4A8: ``x [..., K]`` quantized per row to int8 by a first kernel, then
+    int32 dots with ``q4 [N, K/2]`` per group, ``scale [N, K/g]``, at most 32
+    rows of x; output in x's dtype."""
+    rows, n, k, g = _gemv_rows(x, q4, scale, packed=True)
+    out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    xq = torch.empty(rows, k, dtype=torch.int8, device=x.device)
+    ax = torch.empty(rows, dtype=torch.float32, device=x.device)
+    status = load_library().l32_gemv_int4_w4a8(
+        x.data_ptr(), q4.data_ptr(), scale.data_ptr(), xq.data_ptr(), ax.data_ptr(),
+        out.data_ptr(), rows, n, k, g, dtype_code(x), stream_of(x),
+    )
+    check(status, "int4 W4A8 gemv kernel")
+    gemv_int4_w4a8_cuda.launches += 1
+    return out
+
+
+@counted("calls")
+def gemv_int4_w4a8_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """W4A8 in PyTorch: the row quantization, exact per-group integer dots
+    (fp64 holds them exactly), the group scales and ``ax`` in fp32."""
+    gemv_int4_w4a8_plain.calls += 1
+    k = x.shape[-1]
+    n, ng = scale.shape
+    xq, ax = quantize_rows_int8(x.reshape(-1, k))
+    w = unpack_int4(q4, ng).to(torch.float64).reshape(n, ng, k // ng)
+    dots = torch.einsum("rgk,ngk->rng", xq.to(torch.float64).reshape(-1, ng, k // ng), w)
+    out = (dots.float() * scale).sum(dim=-1) * ax[:, None]
+    return out.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
+def quantize_rows_int8(x2d: torch.Tensor):
+    """``[R, K]`` → (int8 ``xq [R, K]``, fp32 ``ax [R]``), the W4A8
+    activation quantization (true divisions, round half to even)."""
+    xf = x2d.float()
+    ax = xf.abs().amax(dim=1) / 127.0
+    ax = torch.where(ax > 0, ax, torch.ones_like(ax))
+    xq = torch.clamp(torch.round(xf / ax[:, None]), -127, 127).to(torch.int8)
+    return xq, ax
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

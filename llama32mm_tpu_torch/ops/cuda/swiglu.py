@@ -6,7 +6,10 @@ PyTorch versions, both weights in nn.Linear's ``[I, H]`` layout.
 - backward (``::_bwd_kernel``): from the output's cotangent ``g`` it
   recomputes gate and up and returns ``d_gate = silu'(gate) * g * up`` and
   ``d_up = g * silu(gate)`` in x's dtype, with
-  ``silu'(x) = s (1 + x (1 - s))``, ``s = sigmoid(x)``.
+  ``silu'(x) = s (1 + x (1 - s))``, ``s = sigmoid(x)``;
+- SwiGLU + down (``csrc/swiglu_down.cu``, replacing ``::_down_kernel``):
+  ``(silu(x @ w_gate.T) * (x @ w_up.T)) @ w_down.T`` for a few rows, the
+  intermediate rounded to x's dtype and never written, ``w_down`` ``[H, I]``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,45 @@ def fused_swiglu_plain(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor
     gate = torch.matmul(x, w_gate.t()).to(acc)
     up = torch.matmul(x, w_up.t()).to(acc)
     return (F.silu(gate) * up).to(x.dtype)
+
+
+SWIGLU_DOWN_TILE = 32  # intermediate columns per block of csrc/swiglu_down.cu (BI)
+
+
+@counted("launches")
+def swiglu_down_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                     w_down: torch.Tensor) -> torch.Tensor:
+    """x ``[..., H]``, w_gate/w_up ``[I, H]``, w_down ``[H, I]`` → ``[..., H]``:
+    each block's tile of I goes to an fp32 ``[tiles, R, H]`` workspace, a
+    second kernel sums the tiles in order."""
+    h, inter, rows = _check(x, w_gate, w_up)
+    require("w_down", w_down, x, (h, inter))
+    if inter == 0:
+        raise ValueError("swiglu_down needs an intermediate size > 0")
+    out = torch.empty_like(x)
+    tiles = -(-inter // SWIGLU_DOWN_TILE)
+    part = torch.empty(tiles * rows * h, dtype=torch.float32, device=x.device)
+    status = load_library().l32_swiglu_down(
+        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), part.data_ptr(),
+        out.data_ptr(), rows, h, inter, dtype_code(x), stream_of(x),
+    )
+    check(status, "swiglu down kernel")
+    swiglu_down_cuda.launches += 1
+    return out
+
+
+@counted("calls")
+def swiglu_down_plain(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                      w_down: torch.Tensor) -> torch.Tensor:
+    """The same function in PyTorch: gate and up in fp32, the intermediate
+    rounded to x's dtype, the down product in fp32, one rounding."""
+    swiglu_down_plain.calls += 1
+    acc = acc_dtype(x)
+    xf = x.to(acc)
+    gate = torch.matmul(xf, w_gate.to(acc).t())
+    up = torch.matmul(xf, w_up.to(acc).t())
+    inter = (F.silu(gate) * up).to(x.dtype)
+    return torch.matmul(inter.to(acc), w_down.to(acc).t()).to(x.dtype)
 
 
 @counted("launches")

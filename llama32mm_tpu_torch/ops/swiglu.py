@@ -5,7 +5,12 @@ autograd it is a ``torch.autograd.Function``, as the Pallas custom VJP: the
 backward kernel gives ``d_gate`` and ``d_up``, and ``dx = d_gate @ w_gate +
 d_up @ w_up`` and the weight gradients are ``torch.matmul`` (the JAX package
 leaves them to XLA); a weight gradient is computed only when that weight
-requires one.
+requires one. Biases (configurations other than LLaMA's) take the plain
+composition, as the JAX package's Pallas path composes them through XLA.
+
+``swiglu_down`` is the JAX package's full-FFN decode fusion ``(silu(x @
+w_gate) * (x @ w_up)) @ w_down`` as an op of its own; the model does not
+call it (nor does the JAX package's).
 """
 
 from __future__ import annotations
@@ -19,8 +24,10 @@ from llama32mm_tpu_torch.ops.cuda.swiglu import (
     fused_swiglu_bwd_plain,
     fused_swiglu_cuda,
     fused_swiglu_plain,
+    swiglu_down_cuda,
+    swiglu_down_plain,
 )
-from llama32mm_tpu_torch.ops.dispatch import needs_grad, not_in_slice, resolve_impl
+from llama32mm_tpu_torch.ops.dispatch import needs_grad, resolve_impl
 
 
 class _FusedSwiGLU(torch.autograd.Function):
@@ -55,12 +62,38 @@ def fused_swiglu(
     b_up: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """``silu(x @ w_gate.T) * (x @ w_up.T)``: x ``[..., H]`` → ``[..., I]``."""
-    if b_gate is not None or b_up is not None:
-        not_in_slice("biased SwiGLU")
+    """``silu(x @ w_gate.T + b_gate) * (x @ w_up.T + b_up)``: x ``[..., H]`` →
+    ``[..., I]``."""
     impl = resolve_impl(impl, x)
+    if b_gate is not None or b_up is not None:
+        gate = torch.matmul(x, w_gate.t())
+        up = torch.matmul(x, w_up.t())
+        gate = gate if b_gate is None else gate + b_gate
+        up = up if b_up is None else up + b_up
+        return torch.nn.functional.silu(gate.float()).to(x.dtype) * up
     if needs_grad(x, w_gate, w_up):
         return _FusedSwiGLU.apply(x, w_gate, w_up, impl)
     if impl == "cuda":
         return fused_swiglu_cuda(x, w_gate, w_up)
     return fused_swiglu_plain(x, w_gate, w_up)
+
+
+def swiglu_down(
+    x: torch.Tensor,
+    w_gate: torch.Tensor,
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    b_gate: Optional[torch.Tensor] = None,
+    b_up: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """The full FFN ``(silu(x @ w_gate.T) * (x @ w_up.T)) @ w_down.T``: x
+    ``[..., H]``, w_gate/w_up ``[I, H]``, w_down ``[H, I]`` → ``[..., H]``.
+    Meant for a few rows (decode). With a bias, or under autograd, it is
+    ``fused_swiglu`` followed by a matmul."""
+    impl = resolve_impl(impl, x)
+    if b_gate is not None or b_up is not None or needs_grad(x, w_gate, w_up, w_down):
+        return torch.matmul(fused_swiglu(x, w_gate, w_up, b_gate, b_up, impl), w_down.t())
+    if impl == "cuda":
+        return swiglu_down_cuda(x.contiguous(), w_gate, w_up, w_down)
+    return swiglu_down_plain(x, w_gate, w_up, w_down)

@@ -6,6 +6,20 @@ or, in the int8 serving mode, int8 with fp32 per-position scales
 immutable cache, this one is updated in place: a layer's new keys and values
 are written into their slots by slice assignment, and ``pos`` (the number of
 filled slots) advances once per forward.
+
+Per-row write offsets (``update_stacked`` / ``update_stacked_scales`` of the
+JAX package with a ``[B]`` position): ``pos`` may be an int64 ``[B]`` tensor
+on the cache's device, and row ``b``'s ``T`` new entries then land at
+``pos[b] .. pos[b]+T-1`` (one scatter per tensor and layer), the int8 scales
+with them. Such a cache belongs to the continuous-batching server, which owns
+``pos``: it clamps an idle slot's offset to ``S-1`` and advances the rows
+itself; ``advance`` refuses a per-row cache.
+
+``slot(b)`` is a one-row view of the batch cache at offset 0: a forward
+through it writes row ``b`` of the batch tensors in place. The server admits
+a request by prefilling straight into its slot's view (chunked admission:
+``C`` tokens at a time, the view's ``pos`` at the chunk's offset), so there
+is no scratch cache to splice into the batch, as the JAX package has.
 """
 
 from __future__ import annotations
@@ -50,29 +64,55 @@ class KVCache:
     def quantized(self) -> bool:
         return self.k_scale is not None
 
+    @property
+    def per_row(self) -> bool:
+        return isinstance(self.pos, torch.Tensor)
+
+    def slot(self, b: int) -> "KVCache":
+        """Row ``b`` as a one-row cache at offset 0, sharing the storage."""
+        rows = slice(b, b + 1)
+        scales = ((None, None) if not self.quantized
+                  else (self.k_scale[:, rows], self.v_scale[:, rows]))
+        return KVCache(self.k[:, rows], self.v[:, rows], 0, *scales)
+
     def update(self, layer_idx: int, k_new: torch.Tensor, v_new: torch.Tensor):
         """Write ``[B, n_kv, T, hd]`` entries of one layer at slots
-        ``pos .. pos+T-1`` (quantized first in the int8 mode) and return that
-        layer's full buffers ``(k, v, k_scale, v_scale)``; the scales are
-        None in a float cache."""
-        t = k_new.shape[2]
-        if self.pos + t > self.max_length:
-            raise ValueError(
-                f"KV cache overflow: {self.pos} + {t} > capacity {self.max_length}"
-            )
-        slots = slice(self.pos, self.pos + t)
+        ``pos .. pos+T-1`` (per row with a ``[B]`` ``pos``; quantized first in
+        the int8 mode) and return that layer's full buffers ``(k, v, k_scale,
+        v_scale)``; the scales are None in a float cache."""
+        b, nkv, t, hd = k_new.shape
         if self.quantized:
             k_new, ks = quantize_kv(k_new)
             v_new, vs = quantize_kv(v_new)
-            self.k_scale[layer_idx, :, :, slots] = ks
-            self.v_scale[layer_idx, :, :, slots] = vs
-        self.k[layer_idx, :, :, slots] = k_new
-        self.v[layer_idx, :, :, slots] = v_new
+        k_l, v_l = self.k[layer_idx], self.v[layer_idx]
+        if self.per_row:
+            idx = self.pos.long()[:, None]  # [B, T]
+            if t > 1:
+                idx = idx + torch.arange(t, device=idx.device)
+            k_l.scatter_(2, idx[:, None, :, None].expand(b, nkv, t, hd), k_new.to(k_l.dtype))
+            v_l.scatter_(2, idx[:, None, :, None].expand(b, nkv, t, hd), v_new.to(v_l.dtype))
+            if self.quantized:
+                sidx = idx[:, None, :].expand(b, nkv, t)
+                self.k_scale[layer_idx].scatter_(2, sidx, ks)
+                self.v_scale[layer_idx].scatter_(2, sidx, vs)
+        else:
+            if self.pos + t > self.max_length:
+                raise ValueError(
+                    f"KV cache overflow: {self.pos} + {t} > capacity {self.max_length}"
+                )
+            slots = slice(self.pos, self.pos + t)
+            if self.quantized:
+                self.k_scale[layer_idx, :, :, slots] = ks
+                self.v_scale[layer_idx, :, :, slots] = vs
+            k_l[:, :, slots] = k_new
+            v_l[:, :, slots] = v_new
         if not self.quantized:
-            return self.k[layer_idx], self.v[layer_idx], None, None
-        return self.k[layer_idx], self.v[layer_idx], self.k_scale[layer_idx], self.v_scale[layer_idx]
+            return k_l, v_l, None, None
+        return k_l, v_l, self.k_scale[layer_idx], self.v_scale[layer_idx]
 
     def advance(self, n: int) -> None:
+        if self.per_row:
+            raise ValueError("a per-row cache's offsets belong to its caller; advance them there")
         self.pos += n
 
 

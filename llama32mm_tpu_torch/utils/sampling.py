@@ -1,11 +1,22 @@
-"""Token sampling: greedy / temperature / top-k / top-p / min-p (counterpart
-of ``llama32mm_tpu/utils/sampling.py``).
+"""Token sampling: greedy / temperature / top-k / top-p / min-p /
+repetition penalty (counterpart of ``llama32mm_tpu/utils/sampling.py``).
 
 Temperature 0 is greedy argmax. Otherwise the logits are temperature-scaled,
 then top-k (kth-value threshold), top-p (the reference's exclusive-of-
 current-token cumulative rule: a token survives while ``cumsum - prob <=
 top_p``) and min-p (a ratio test against the top token) mask them, in that
-order, and a token is drawn with an explicit ``torch.Generator``.
+order, and a token is drawn with an explicit ``torch.Generator``. The CTRL
+repetition penalty applies before the greedy/sampled split.
+
+The ``*_traced`` functions take per-row settings as ``[B]`` tensors (the
+server's slots each carry their request's sampler), in the JAX package's
+order and arithmetic. A sampled row draws by the Gumbel-max rule, the
+argmax of ``logits - log(-log(u))`` for uniforms ``u`` (``jax.random.
+categorical``'s rule); the uniforms come from a ``torch.Generator``, or are
+given (the tests hand both packages the same ones). Where the JAX package
+decides its fast paths on the device (``lax.cond`` over "every row greedy",
+"no row penalised"), the caller decides them from its host copy of the
+settings, so a step never reads a device value.
 """
 
 from __future__ import annotations
@@ -14,6 +25,31 @@ import math
 from typing import Optional
 
 import torch
+
+
+def apply_repetition_penalty(logits: torch.Tensor, presence: torch.Tensor,
+                             penalty) -> torch.Tensor:
+    """CTRL penalty: where ``presence`` (the token is in the row's context),
+    positive logits are divided by ``penalty`` and negative ones multiplied.
+    ``penalty`` is a float or a ``[...]`` tensor (one per row). fp32 out."""
+    logits = logits.float()
+    pen = penalty if isinstance(penalty, torch.Tensor) else torch.tensor(float(penalty))
+    pen = pen.to(device=logits.device, dtype=torch.float32)
+    pen = pen.reshape(pen.shape + (1,) * (logits.dim() - pen.dim()))
+    return torch.where(presence, torch.where(logits > 0, logits / pen, logits * pen), logits)
+
+
+def presence_from_tokens(tokens: torch.Tensor, n_valid: torch.Tensor,
+                         vocab_size: int) -> torch.Tensor:
+    """``[B, S]`` token history (rows right-padded; ``n_valid [B]`` leading
+    entries count) → ``[B, vocab]`` bool presence. Entries past ``n_valid``
+    and ids outside the vocabulary (the image placeholder) are ignored."""
+    b, s = tokens.shape
+    valid = ((torch.arange(s, device=tokens.device)[None, :] < n_valid[:, None])
+             & (tokens >= 0) & (tokens < vocab_size))
+    idx = torch.where(valid, tokens.long(), vocab_size)  # column `vocab_size` takes the rest
+    pres = torch.zeros(b, vocab_size + 1, dtype=torch.bool, device=tokens.device)
+    return pres.scatter_(1, idx, True)[:, :vocab_size]
 
 
 def filter_logits(
@@ -54,11 +90,91 @@ def select_next_token(
     top_p: float = 0.9,
     top_k: int = 50,
     min_p: float = 0.0,
+    presence: Optional[torch.Tensor] = None,  # [..., V] bool
+    repetition_penalty: float = 1.0,
 ) -> torch.Tensor:
     """Token ids ``[...]``: argmax at temperature 0, else a draw from the
-    filtered distribution with ``rng``."""
+    filtered distribution with ``rng``; the repetition penalty (with a
+    ``presence`` mask) reshapes the logits first, greedy rows too."""
+    if repetition_penalty != 1.0 and presence is not None:
+        logits = apply_repetition_penalty(logits, presence, repetition_penalty)
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(filter_logits(logits, temperature, top_p, top_k, min_p), dim=-1)
     flat = probs.reshape(-1, probs.shape[-1])
     return torch.multinomial(flat, 1, generator=rng).reshape(probs.shape[:-1])
+
+
+def filter_logits_traced(
+    logits: torch.Tensor,  # [B, V]
+    temperature: torch.Tensor,  # [B] float
+    top_p: torch.Tensor,  # [B] float
+    top_k: torch.Tensor,  # [B] int
+    min_p: Optional[torch.Tensor] = None,  # [B] float, 0 = off
+) -> torch.Tensor:
+    """``filter_logits`` with per-row settings: ``top_k <= 0`` and
+    ``top_p >= 1`` disable those masks, a row with ``temperature <= 0``
+    divides by 1e-6 (its caller takes the argmax instead)."""
+    v = logits.shape[-1]
+    neg_inf = float("-inf")
+    t = temperature.float().clamp(min=1e-6)[:, None]
+    logits = logits.float() / t
+
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    k = top_k.long().clamp(1, v)
+    kth_val = torch.gather(sorted_desc, 1, (k - 1)[:, None])
+    logits = torch.where((top_k > 0)[:, None] & (logits < kth_val), neg_inf, logits)
+
+    # top-p over the k-masked logits; the order of ties is the JAX package's
+    # (a stable ascending argsort, reversed)
+    order = torch.flip(torch.argsort(logits, dim=-1, stable=True), dims=(-1,))
+    sorted2 = torch.gather(logits, 1, order)
+    probs = torch.softmax(sorted2, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    drop = ((cum - probs) > top_p[:, None]) & (top_p < 1.0)[:, None]
+    sorted2 = torch.where(drop, neg_inf, sorted2)
+    logits = torch.empty_like(logits).scatter_(1, order, sorted2)
+
+    if min_p is not None:  # last, as the HF warpers
+        lmax = logits.amax(dim=-1, keepdim=True)
+        thresh = lmax + torch.log(min_p.float().clamp(min=1e-30))[:, None]
+        logits = torch.where((min_p > 0.0)[:, None] & (logits < thresh), neg_inf, logits)
+    return logits
+
+
+def gumbel_argmax(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A categorical draw per row: ``argmax(logits - log(-log(u)))``, ``u``
+    uniform in ``[tiny, 1)`` (given, or drawn from ``generator``)."""
+    if uniforms is None:
+        uniforms = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = uniforms.float().clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def select_next_token_traced(
+    logits: torch.Tensor,  # [B, V]
+    temperature: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B]
+    min_p: Optional[torch.Tensor] = None,  # [B]
+    presence: Optional[torch.Tensor] = None,  # [B, V] bool
+    penalty: Optional[torch.Tensor] = None,  # [B], 1.0 = off
+    all_greedy: bool = False,
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,  # [B, V]
+) -> torch.Tensor:
+    """Per-row sampling: rows with ``temperature <= 0`` take the argmax, the
+    rest draw from their filtered distribution. The penalty (given with
+    ``presence``) applies first. ``all_greedy`` (the caller's host-side
+    knowledge that every row is greedy) skips the filter's full-vocabulary
+    sort, as the JAX package's ``lax.cond``; pass ``presence``/``penalty``
+    only when some row is penalised."""
+    if presence is not None and penalty is not None:
+        logits = apply_repetition_penalty(logits, presence, penalty)
+    greedy = torch.argmax(logits, dim=-1)
+    if all_greedy:
+        return greedy
+    filt = filter_logits_traced(logits, temperature, top_p, top_k, min_p)
+    sampled = gumbel_argmax(filt, generator, uniforms)
+    return torch.where(temperature <= 0.0, greedy, sampled)

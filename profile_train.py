@@ -31,6 +31,9 @@ CATEGORIES = (
     ("flash_bwd_dq", "flash bwd dq"), ("flash_bwd_dkv", "flash bwd dk/dv"),
     ("flash_fwd", "flash fwd"), ("rmsnorm_bwd", "rmsnorm bwd"), ("dw_sum", "rmsnorm bwd"),
     ("rmsnorm_fwd", "rmsnorm fwd"), ("swiglu", "swiglu (kernel)"),
+    ("gemv_w4a8", "W4A8 gemv"), ("quantize_rows", "W4A8 row quantize"),
+    ("gemv_int8", "int8 gemv"), ("gemv_int4", "int4 gemv"), ("gemv_kernel", "bf16 gemv"),
+    ("qmatmul", "qmatmul"), ("scatter", "cache writes (scatter)"),
     ("nvjet", "GEMM (cuBLAS)"), ("gemm", "GEMM (cuBLAS)"), ("xmma", "GEMM (cuBLAS)"),
     ("cutlass", "GEMM (cuBLAS)"), ("copy", "copies/casts"), ("reduce", "reductions"),
     ("softmax", "softmax/CE"), ("elementwise", "elementwise"), ("index", "indexing/embedding"),

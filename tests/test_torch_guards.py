@@ -32,6 +32,7 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.utils.sampling", "llama32mm_tpu_torch.ops.quant",
     "llama32mm_tpu_torch.models.quantize", "llama32mm_tpu_torch.ops.cuda.qgemv", "llama32mm_tpu_torch.ops.cuda.qmatmul", "chip_smoke",
     "llama32mm_tpu_torch.train", "llama32mm_tpu_torch.utils.st_file", "profile_train",
+    "llama32mm_tpu_torch.inference.server", "profile_serve",
 ]
 
 
@@ -74,9 +75,11 @@ def _cpu_args(name):
         return x, torch.randn(8, 16)
     if name == "swiglu":
         return x, torch.randn(8, 16), torch.randn(8, 16)
+    if name == "swiglu_down":
+        return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(16, 8)
     if name in ("gemv_int8", "qmatmul"):
         return x, torch.randint(-127, 128, (8, 16), dtype=torch.int8), torch.rand(8)
-    if name == "gemv_int4":  # group size 8
+    if name in ("gemv_int4", "gemv_int4_w4a8"):  # group size 8
         return x, torch.randint(0, 256, (8, 8), dtype=torch.uint8), torch.rand(8, 2)
     q = torch.randn(1, 2, 3, 16)
     if name == "flash_attention_int8kv":
@@ -153,34 +156,30 @@ def test_engine_refuses_unported_options(tiny_model, kwargs):
 
 
 @pytest.mark.parametrize("variant", ["w4a8", "w4a8b"])
-def test_int4_w4a8_variants_refused(variant):
-    """The int8-activation int4 variants are not ported: selected by the JAX
-    package's environment variable (read at import), an int4 linear raises;
-    an int8 one still runs."""
+def test_int4_w4a8_variants_selected_by_env(variant):
+    """The JAX package's environment variable (read at import) selects the
+    int8-activation int4 gemv: an int4 linear runs the W4A8 plain version
+    here and equals it; an int8 linear is unaffected."""
     code = (
         "import torch\n"
+        "from llama32mm_tpu_torch.ops import cuda as kernels\n"
+        "from llama32mm_tpu_torch.ops.cuda.qgemv import gemv_int4_w4a8_plain\n"
         "from llama32mm_tpu_torch.ops.gemv import qlinear\n"
         "from llama32mm_tpu_torch.ops.quant import quantize_weight, quantize_weight_int4\n"
         "x = torch.randn(2, 64)\n"
         "assert qlinear(x, quantize_weight(torch.randn(8, 64))).shape == (2, 8)\n"
-        "try:\n"
-        "    qlinear(x, quantize_weight_int4(torch.randn(8, 64), group_size=32))\n"
-        "except NotImplementedError as e:\n"
-        "    assert 'ROADMAP.md' in str(e), e\n"
-        "    print('refused')\n"
+        "qw = quantize_weight_int4(torch.randn(8, 64), group_size=32)\n"
+        "kernels.reset_counters()\n"
+        "out = qlinear(x, qw)\n"
+        "assert kernels.plain_counts()['gemv_int4_w4a8'] == 1\n"
+        "assert torch.equal(out, gemv_int4_w4a8_plain(x, qw['q4'], qw['scale']))\n"
+        "print('w4a8')\n"
     )
     env = dict(_child_env(), LLAMA32MM_INT4_VARIANT=variant)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["refused"]
-
-
-def test_engine_refuses_repetition_penalty(tiny_model):
-    cfg, model = tiny_model
-    with pytest.raises(NotImplementedError, match="repetition_penalty"):
-        InferenceEngine(model, cfg, "cpu", max_cache_length=32).generate(
-            np.zeros((1, 4), np.int64), max_new_tokens=2, repetition_penalty=1.2)
+    assert proc.stdout.split() == ["w4a8"]
 
 
 # An adapter bank: a different head adapter per batch row (leading [B] axis).
