@@ -1,6 +1,7 @@
 // Shared helpers for the port's kernels: element types, conversions to and
-// from fp32, and warp reductions. Every C entry takes a dtype code
-// (L32_F32 or L32_BF16) and returns cudaGetLastError() after its launch.
+// from fp32, warp reductions and asynchronous global-to-shared copies. Every
+// C entry takes a dtype code (L32_F32 or L32_BF16) and returns
+// cudaGetLastError() after its launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,4 +56,27 @@ __device__ __forceinline__ void store16(T* p, const Vec16<T>& r) {
 
 static inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// cp.async of N (4, 8 or 16) bytes into shared memory; with valid false the
+// destination is zero-filled and nothing is read.
+template <int N>
+__device__ __forceinline__ void async_copy(void* smem, const void* gmem, bool valid) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 bytes");
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? N : 0;
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(gmem), "n"(N),
+                 "r"(src_bytes));
+}
+
+__device__ __forceinline__ void async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }

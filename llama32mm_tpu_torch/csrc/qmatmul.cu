@@ -50,17 +50,6 @@ constexpr int kEpilogueBytes = BM * LDC * 4;
 constexpr int kSmemBytes = kRingBytes > kEpilogueBytes ? kRingBytes : kEpilogueBytes;
 static_assert(kSmemBytes <= 48 * 1024, "static shared memory limit");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // The k of column c (0..31) of k-step kt: two runs of 16 starting at a0 and
 // b0. int8 (and any element-wise staging): b0 = a0 + 16. int4 vector
 // staging: the packed chunk [16 kt, 16 kt + 16) of group grp at offset p
@@ -114,7 +103,7 @@ qmatmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ wq,
         const int r = v >> 2, h = v & 3;
         const int kc = (h < 2 ? a0 : b0) + (h & 1) * 8;
         const bool in = m0 + r < rows && kc < k;
-        cp_async16(xs + r * LDS + h * 8, in ? x + static_cast<size_t>(m0 + r) * k + kc : x, in);
+        async_copy<16>(xs + r * LDS + h * 8, in ? x + static_cast<size_t>(m0 + r) * k + kc : x, in);
       }
     } else {
       for (int e = tid; e < BM * BK; e += kThreads) {
@@ -193,7 +182,7 @@ qmatmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ wq,
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   stage_x(0, 0);
-  cp_async_commit();
+  async_commit();
   if (kVec) {
     fetch_w(0);
     store_w(0);
@@ -204,12 +193,12 @@ qmatmul_bf16_kernel(const bf16* __restrict__ x, const void* __restrict__ wq,
     const bool more = kt + 1 < nk;
     if (more) {
       stage_x((kt + 1) & 1, kt + 1);  // the buffer consumed last iteration
-      cp_async_commit();
+      async_commit();
       if (kVec) fetch_w(kt + 1);      // registers only: stored after the products
       else fill_w((kt + 1) & 1, kt + 1);
-      cp_async_wait<1>();
+      async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      async_wait<0>();
     }
     __syncthreads();
     const bf16* xs = ring + (kt & 1) * kStageElems;

@@ -74,19 +74,6 @@ __device__ __forceinline__ void swiglu_grad(float gate, float up, float g, float
   d_up = g * (gate * s);
 }
 
-// 16-byte global -> shared copy that does not stall the thread; a zero
-// source size writes zeros (the ragged edge) and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Stage a [ROWS, 32] slice of a row-major [rows_total, h] matrix starting at
 // (row0, k0), zero-filling everything outside the matrix.
 template <int ROWS, bool kVec>
@@ -96,8 +83,8 @@ __device__ __forceinline__ void stage_slice(__nv_bfloat16* dst, const __nv_bfloa
     for (int v = threadIdx.x; v < ROWS * (BK / 8); v += kThreads) {
       const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
       const bool in = row0 + r < rows_total && k0 + c < h;
-      cp_async16(dst + r * LDS + c,
-                 in ? src + static_cast<size_t>(row0 + r) * h + k0 + c : src, in);
+      async_copy<16>(dst + r * LDS + c,
+                     in ? src + static_cast<size_t>(row0 + r) * h + k0 + c : src, in);
     }
   } else {
     for (int e = threadIdx.x; e < ROWS * BK; e += kThreads) {
@@ -129,7 +116,7 @@ swiglu_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
     stage_slice<BM, kVec>(xs, x, m0, rows, k0, h);
     stage_slice<BN, kVec>(xs + BM * LDS, wg, n0, inter, k0, h);
     stage_slice<BN, kVec>(xs + (BM + BN) * LDS, wu, n0, inter, k0, h);
-    cp_async_commit();
+    async_commit();
   };
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> accg[2][2], accu[2][2];
@@ -146,9 +133,9 @@ swiglu_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) {
       stage((kt + 1) & 1, (kt + 1) * BK);  // overwrites the slice consumed last iteration
-      cp_async_wait<1>();                  // slice kt has landed, kt + 1 may be in flight
+      async_wait<1>();                     // slice kt has landed, kt + 1 may be in flight
     } else {
-      cp_async_wait<0>();
+      async_wait<0>();
     }
     __syncthreads();
     const __nv_bfloat16* xs = ring + (kt & 1) * kStageElems;

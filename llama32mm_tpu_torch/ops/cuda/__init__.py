@@ -15,6 +15,18 @@ from llama32mm_tpu_torch.ops.cuda.attention import (
     flash_attention_int8kv_cuda,
     flash_attention_int8kv_plain,
     flash_attention_plain,
+    flash_attention_tc_cuda,
+    flash_attention_tc_int8kv_cuda,
+    flash_attention_tc_int8kv_plain,
+    flash_attention_tc_lse_cuda,
+    flash_attention_tc_lse_plain,
+    flash_attention_tc_plain,
+)
+from llama32mm_tpu_torch.ops.cuda.flash_decode import (
+    flash_decode_cuda,
+    flash_decode_int8kv_cuda,
+    flash_decode_int8kv_plain,
+    flash_decode_plain,
 )
 from llama32mm_tpu_torch.ops.cuda.gemv import gemv_cuda, gemv_plain
 from llama32mm_tpu_torch.ops.cuda.qgemv import (
@@ -61,6 +73,11 @@ KERNELS = {
     "flash_attention_bwd_dkv": (flash_attention_bwd_dkv_cuda, flash_attention_bwd_dkv_plain),
     "gemv_int4_w4a8": (gemv_int4_w4a8_cuda, gemv_int4_w4a8_plain),
     "swiglu_down": (swiglu_down_cuda, swiglu_down_plain),
+    "flash_attention_tc": (flash_attention_tc_cuda, flash_attention_tc_plain),
+    "flash_attention_tc_int8kv": (flash_attention_tc_int8kv_cuda, flash_attention_tc_int8kv_plain),
+    "flash_attention_tc_lse": (flash_attention_tc_lse_cuda, flash_attention_tc_lse_plain),
+    "flash_decode": (flash_decode_cuda, flash_decode_plain),
+    "flash_decode_int8kv": (flash_decode_int8kv_cuda, flash_decode_int8kv_plain),
 }
 
 

@@ -1,8 +1,12 @@
-"""Flash GQA attention forward: the CUDA kernel
-(``csrc/flash_attention.cu``) and its plain PyTorch version, replacing
-``llama32mm_tpu/ops/pallas/attention.py::_flash_kernel``: K/V in q's float
-dtype (``flash_attention_*``), or int8 with per-position fp32 scales
-(``flash_attention_int8kv_*``, the kernel's ``scaled_kv`` inputs).
+"""Flash GQA attention forward: the CUDA kernels and their plain PyTorch
+version, replacing ``llama32mm_tpu/ops/pallas/attention.py::_flash_kernel``:
+K/V in q's float dtype (``flash_attention_*``), or int8 with per-position
+fp32 scales (``*_int8kv_*``, the kernel's ``scaled_kv`` inputs). Two
+forwards compute the same function: the SIMT fp32 one
+(``csrc/flash_attention.cu``, fp32 and bf16 q) and the tensor-core one
+(``csrc/flash_attention_tc.cu``, ``flash_attention_tc*``, bf16 q only);
+``ops/attention.py`` routes between them and the split-KV decode kernel
+(``flash_decode.py``).
 
 Mask: key ``k`` is allowed for query row ``i`` of batch row ``b`` iff
 ``kv_valid[b, k] != 0`` and, when causal, ``k <= q_offset + i``. The forward
@@ -37,8 +41,10 @@ HEAD_DIMS = (8, 16, 32, 64, 80, 96, 128)
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)  # lse of a row with no allowed key
 
 
-def _check(q, k, v, kv_valid, kv_dtype):
-    """Check the operands; return ``(kv_valid as int32, the shape arguments)``."""
+def _check(q, k, v, kv_valid, k_scale=None, v_scale=None):
+    """Check the operands (K/V in q's dtype, or int8 with fp32 scales
+    ``[B, nkv, Tk]``); return ``(kv_valid as int32, the shape arguments)``."""
+    kv_dtype = q.dtype if k_scale is None else torch.int8
     require("q", q, q)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q and k must be [B, heads, T, hd]")
@@ -50,6 +56,9 @@ def _check(q, k, v, kv_valid, kv_dtype):
         raise ValueError(f"n_heads {nq} must be a multiple of n_kv_heads {nkv}")
     require("k", k, q, (b, nkv, tk, hd), kv_dtype)
     require("v", v, q, (b, nkv, tk, hd), kv_dtype)
+    if k_scale is not None:
+        require("k_scale", k_scale, q, (b, nkv, tk), torch.float32)
+        require("v_scale", v_scale, q, (b, nkv, tk), torch.float32)
     if tuple(kv_valid.shape) != (b, tk) or kv_valid.device != q.device:
         raise ValueError(f"kv_valid must be [{b}, {tk}] on {q.device}")
     return kv_valid.to(torch.int32).contiguous(), (b, nq, nkv, tq, tk, hd)
@@ -67,7 +76,7 @@ def _q_offsets(q_offset, q):
 def _launch(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None, lse=False):
     """Launch the float (with ``lse``: also the log-sum-exp) or the int8-KV
     forward kernel."""
-    kvv, shape = _check(q, k, v, kv_valid, q.dtype if k_scale is None else torch.int8)
+    kvv, shape = _check(q, k, v, kv_valid, k_scale, v_scale)
     scalar, offsets = _q_offsets(q_offset, q)
     offsets_ptr = None if offsets is None else offsets.data_ptr()
     out = torch.empty_like(q)
@@ -79,9 +88,6 @@ def _launch(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None, lse
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kvv.data_ptr(), offsets_ptr, out.data_ptr(),
             None if lse_out is None else lse_out.data_ptr(), *common)
     else:
-        b, nkv, tk = k.shape[:3]
-        require("k_scale", k_scale, q, (b, nkv, tk), torch.float32)
-        require("v_scale", v_scale, q, (b, nkv, tk), torch.float32)
         status = lib.l32_flash_attn_fwd_int8kv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             kvv.data_ptr(), offsets_ptr, out.data_ptr(), *common)
@@ -160,8 +166,97 @@ def flash_attention_fwd_lse_plain(
     return _dense(q, k, v, kv_valid, q_offset, causal, lse=True)
 
 
+def _launch_tc(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None, lse=False):
+    """Launch the tensor-core forward (``csrc/flash_attention_tc.cu``): bf16
+    q, K/V bf16 or int8 with scales, optionally the log-sum-exp."""
+    kvv, shape = _check(q, k, v, kv_valid, k_scale, v_scale)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core flash forward takes bfloat16 q, got {q.dtype}")
+    scalar, offsets = _q_offsets(q_offset, q)
+    out = torch.empty_like(q)
+    lse_out = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse else None
+    status = load_library().l32_flash_attn_tc(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(),
+        kvv.data_ptr(), None if offsets is None else offsets.data_ptr(), out.data_ptr(),
+        None if lse_out is None else lse_out.data_ptr(), *shape, scalar, int(bool(causal)),
+        stream_of(q))
+    check(status, "tensor-core flash attention kernel")
+    return (out, lse_out) if lse else out
+
+
+@counted("launches")
+def flash_attention_tc_cuda(
+    q: torch.Tensor,  # [B, nq, Tq, hd] bf16
+    k: torch.Tensor,  # [B, nkv, Tk, hd] bf16
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,  # [B, Tk] bool/int
+    q_offset,  # int, or int [B] on q's device
+    causal: bool = True,
+) -> torch.Tensor:
+    out = _launch_tc(q, k, v, kv_valid, q_offset, causal)
+    flash_attention_tc_cuda.launches += 1
+    return out
+
+
+@counted("calls")
+def flash_attention_tc_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor, q_offset,
+    causal: bool = True,
+) -> torch.Tensor:
+    """The tensor-core kernel's function with dense fp32 scores."""
+    flash_attention_tc_plain.calls += 1
+    return _dense(q, k, v, kv_valid, q_offset, causal)
+
+
+@counted("launches")
+def flash_attention_tc_int8kv_cuda(
+    q: torch.Tensor,  # [B, nq, Tq, hd] bf16
+    k: torch.Tensor,  # [B, nkv, Tk, hd] int8
+    v: torch.Tensor,
+    k_scale: torch.Tensor,  # [B, nkv, Tk] fp32
+    v_scale: torch.Tensor,
+    kv_valid: torch.Tensor,
+    q_offset,
+    causal: bool = True,
+) -> torch.Tensor:
+    out = _launch_tc(q, k, v, kv_valid, q_offset, causal, k_scale, v_scale)
+    flash_attention_tc_int8kv_cuda.launches += 1
+    return out
+
+
+@counted("calls")
+def flash_attention_tc_int8kv_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale: torch.Tensor,
+    v_scale: torch.Tensor, kv_valid: torch.Tensor, q_offset, causal: bool = True,
+) -> torch.Tensor:
+    flash_attention_tc_int8kv_plain.calls += 1
+    return _dense(q, k, v, kv_valid, q_offset, causal, k_scale, v_scale)
+
+
+@counted("launches")
+def flash_attention_tc_lse_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor,
+    q_offset: int, causal: bool = True,
+):
+    """The bf16 training forward on tensor cores: ``(out, lse)``."""
+    res = _launch_tc(q, k, v, kv_valid, q_offset, causal, lse=True)
+    flash_attention_tc_lse_cuda.launches += 1
+    return res
+
+
+@counted("calls")
+def flash_attention_tc_lse_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor,
+    q_offset: int, causal: bool = True,
+):
+    flash_attention_tc_lse_plain.calls += 1
+    return _dense(q, k, v, kv_valid, q_offset, causal, lse=True)
+
+
 def _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq: bool):
-    kvv, shape = _check(q, k, v, kv_valid, q.dtype)
+    kvv, shape = _check(q, k, v, kv_valid)
     require("lse", lse, q, q.shape[:3], torch.float32)
     require("delta", delta, q, q.shape[:3], torch.float32)
     require("dout", dout, q, q.shape)

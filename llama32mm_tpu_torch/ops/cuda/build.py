@@ -130,6 +130,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "l32_swiglu_down": [p, p, p, p, p, p, i, i, i, i, p],
         # (x, q|q4, scale, out, rows, n, k, group (0: int8), dtype, stream)
         "l32_qmatmul": [p, p, p, p, i, i, i, i, i, p],
+        # (q, k, v, k_scale|NULL, v_scale|NULL, kv_valid, q_offsets|NULL, out, lse|NULL, b, nq,
+        #  nkv, tq, tk, hd, q_offset, causal, stream); bf16 q
+        "l32_flash_attn_tc": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
+        # (q, k, v, k_scale|NULL, v_scale|NULL, kv_valid, q_offsets|NULL, workspace, out, b, nq,
+        #  nkv, tq, tk, hd, q_offset, causal, dtype, stream)
+        "l32_flash_decode": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

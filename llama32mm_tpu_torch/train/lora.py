@@ -305,6 +305,7 @@ def save_lora_adapters(path: str, lora: dict) -> None:
     st_file.save_file(lora_leaves(lora), path)
 
 
-def load_lora_adapters(path: str, device="cpu") -> dict:
-    """An adapter tree from ``save_lora_adapters`` (or the JAX package's)."""
+def load_lora_adapters(path: str, device) -> dict:
+    """An adapter tree from ``save_lora_adapters`` (or the JAX package's),
+    on ``device``."""
     return _unflatten({k: t.to(device) for k, t in st_file.load_file(path).items()})

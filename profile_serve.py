@@ -1,11 +1,12 @@
 """Profile one decode chunk of the continuous-batching server on one NVIDIA
-GPU with all 8 slots busy: the ``server_bf16`` and ``server_int4_w4a8``
+GPU with every slot busy: the ``server_bf16`` and ``server_int4_w4a8``
 configurations of ``chip_smoke.py`` (11B shapes, S_max 2048, 8 image
-requests of S = 1632 admitted together).
+requests of S = 1632 admitted together), and the bf16 model with one slot
+and one request (a B=1 decode step).
 
     python3 profile_serve.py
 
-For each it admits the 8 requests (one ``step()``), then, as
+For each it admits the requests (one ``step()``), then, as
 ``profile_train.py`` does for a training step, times one 8-step decode chunk
 without the profiler and one under ``torch.profiler``, and prints the
 kernels' device time by category, the busy share and the launches.
@@ -27,15 +28,15 @@ from profile_train import profile_step
 STEPS = 8
 
 
-def profile_chunk(dev, cfg, model, label: str, kv_dtype=None) -> None:
-    srv = ContinuousBatchingServer(model, cfg, dev, slots=8, max_cache_length=2048,
+def profile_chunk(dev, cfg, model, label: str, kv_dtype=None, slots: int = 8) -> None:
+    srv = ContinuousBatchingServer(model, cfg, dev, slots=slots, max_cache_length=2048,
                                    kv_dtype=kv_dtype)
-    for ids, px, _ in cs.server_requests(cfg, dev, 8):
+    for ids, px, _ in cs.server_requests(cfg, dev, slots):
         srv.submit(ids, px, max_new_tokens=2048 - 1664)  # budgets that outlast the profile
     srv.step()  # admits every request, then one decode chunk
-    if srv.stats()["slots_busy"] != 8:
-        raise RuntimeError(f"expected 8 busy slots, got {srv.stats()}")
-    profile_step(label, lambda: srv._decode(STEPS), 8 * STEPS)
+    if srv.stats()["slots_busy"] != slots:
+        raise RuntimeError(f"expected {slots} busy slots, got {srv.stats()}")
+    profile_step(label, lambda: srv._decode(STEPS), slots * STEPS)
 
 
 def main() -> None:
@@ -45,6 +46,7 @@ def main() -> None:
     cs.build_library()
     cfg, model = cs.build_11b(dev, tie_weights=True)
     profile_chunk(dev, cfg, model, f"server_bf16, one {STEPS}-step decode chunk")
+    profile_chunk(dev, cfg, model, f"bf16, one slot (B=1), one {STEPS}-step decode chunk", slots=1)
     del model
     torch.cuda.empty_cache()
     cfg, model = cs.build_11b(dev, tie_weights=False)

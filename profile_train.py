@@ -29,7 +29,9 @@ from llama32mm_tpu_torch.train.lora import init_lora_params, make_lora_train_ste
 # (substring of a kernel's name, category); the first match wins
 CATEGORIES = (
     ("flash_bwd_dq", "flash bwd dq"), ("flash_bwd_dkv", "flash bwd dk/dv"),
-    ("flash_fwd", "flash fwd"), ("rmsnorm_bwd", "rmsnorm bwd"), ("dw_sum", "rmsnorm bwd"),
+    ("flash_tc", "flash fwd (tensor cores)"), ("flash_decode_combine", "flash decode combine"),
+    ("flash_decode", "flash decode (split-KV)"),
+    ("flash_fwd", "flash fwd (SIMT)"), ("rmsnorm_bwd", "rmsnorm bwd"), ("dw_sum", "rmsnorm bwd"),
     ("rmsnorm_fwd", "rmsnorm fwd"), ("swiglu", "swiglu (kernel)"),
     ("gemv_w4a8", "W4A8 gemv"), ("quantize_rows", "W4A8 row quantize"),
     ("gemv_int8", "int8 gemv"), ("gemv_int4", "int4 gemv"), ("gemv_kernel", "bf16 gemv"),

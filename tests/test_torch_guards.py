@@ -32,7 +32,8 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.utils.sampling", "llama32mm_tpu_torch.ops.quant",
     "llama32mm_tpu_torch.models.quantize", "llama32mm_tpu_torch.ops.cuda.qgemv", "llama32mm_tpu_torch.ops.cuda.qmatmul", "chip_smoke",
     "llama32mm_tpu_torch.train", "llama32mm_tpu_torch.utils.st_file", "profile_train",
-    "llama32mm_tpu_torch.inference.server", "profile_serve",
+    "llama32mm_tpu_torch.inference.server", "profile_serve", "profile_flash",
+    "llama32mm_tpu_torch.ops.cuda.flash_decode",
 ]
 
 
@@ -82,7 +83,7 @@ def _cpu_args(name):
     if name in ("gemv_int4", "gemv_int4_w4a8"):  # group size 8
         return x, torch.randint(0, 256, (8, 8), dtype=torch.uint8), torch.rand(8, 2)
     q = torch.randn(1, 2, 3, 16)
-    if name == "flash_attention_int8kv":
+    if name in ("flash_attention_int8kv", "flash_attention_tc_int8kv", "flash_decode_int8kv"):
         kv = torch.randint(-127, 128, (1, 2, 3, 16), dtype=torch.int8)
         return q, kv, kv, torch.rand(1, 2, 3), torch.rand(1, 2, 3), torch.ones(1, 3), 0, True
     return q, q, q, torch.ones(1, 3), 0, True

@@ -89,7 +89,9 @@ def test_flash_int8kv_plain_matches_pallas(case):
                         AttnMask(torch.from_numpy(kv_valid), q_offset), causal=causal,
                         k_scale=torch.from_numpy(np.array(ks)),
                         v_scale=torch.from_numpy(np.array(vs)))
-    assert kernels.plain_counts()["flash_attention_int8kv"] == 1
+    # few rows per kv head take the split-KV decode route, longer calls the flash forward
+    route = "flash_decode_int8kv" if tq * (nq // nkv) <= 32 else "flash_attention_int8kv"
+    assert kernels.plain_counts()[route] == 1
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
 
 
@@ -142,7 +144,7 @@ def test_engine_int8_kv_matches_jax(trees, tree):
     kernels.reset_counters()
     pres = InferenceEngine(model, tiny_mllama_config(), "cpu", max_cache_length=MAX_LEN,
                            kv_dtype="int8").generate(ids, px, max_new_tokens=8, eos_token_id=-1)
-    assert kernels.plain_counts()["flash_attention_int8kv"] > 0
+    assert kernels.plain_counts()["flash_decode_int8kv"] > 0  # 10-token prompt, 2 heads per kv
     assert len(set(pres.tokens[0].tolist())) > 2  # the comparison is not degenerate
     np.testing.assert_array_equal(pres.tokens.numpy(), np.asarray(jres.tokens))
     np.testing.assert_allclose(pres.prefill_logits.numpy(), np.asarray(jres.prefill_logits),

@@ -289,7 +289,7 @@ def test_adapter_files_round_trip_between_packages(tiny, tmp_path):
     jax_lora.save_lora_adapters(jax_file, jax.tree.map(jnp.asarray, np_lora))
     want = lora_leaves(lora)
     for path in (port_file, jax_file):  # the port reads its own file and the JAX package's
-        got = lora_leaves(load_lora_adapters(path))
+        got = lora_leaves(load_lora_adapters(path, device="cpu"))
         assert list(got) == list(want)
         for name, t in got.items():
             assert t.dtype == torch.float32 and torch.equal(t, want[name])
@@ -304,9 +304,17 @@ def test_bf16_adapter_file_round_trip(tmp_path):
                             dtype=torch.bfloat16, include_projector=True)
     path = str(tmp_path / "bf16.safetensors")
     save_lora_adapters(path, lora)
-    got = lora_leaves(load_lora_adapters(path))
+    got = lora_leaves(load_lora_adapters(path, device="cpu"))
     for name, t in lora_leaves(lora).items():
         assert got[name].dtype == t.dtype and torch.equal(got[name], t)
+
+
+def test_load_lora_adapters_needs_a_device(tmp_path):
+    path = str(tmp_path / "a.safetensors")
+    save_lora_adapters(path, init_lora_params(torch.Generator().manual_seed(0),
+                                              tiny_mllama_config(), rank=2))
+    with pytest.raises(TypeError):
+        load_lora_adapters(path)
 
 
 def test_train_state_save_and_resume(tiny, tmp_path):

@@ -143,7 +143,8 @@ def test_attention_per_row_offsets_match_jax(tq, int8_kv):
     got = gqa_attention(_t(q), _t(k), _t(v), AttnMask(_t(kv_valid), _t(offsets)),
                         k_scale=None if ks is None else _t(ks),
                         v_scale=None if vs is None else _t(vs))
-    assert kernels.plain_counts()["flash_attention_int8kv" if int8_kv else "flash_attention"] == 1
+    # 2 query heads per kv head x Tq rows: the split-KV decode route
+    assert kernels.plain_counts()["flash_decode_int8kv" if int8_kv else "flash_decode"] == 1
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
     # one row alone with a scalar offset gives that row
     one = gqa_attention(_t(q[1:2]), _t(k[1:2]), _t(v[1:2]),
