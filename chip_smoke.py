@@ -16,6 +16,8 @@
    head and projector adapters) and 3 full fine-tuning steps (the vision
    tower training) agree between the kernel and the plain path, and that
    the kernel path launched every training kernel and no plain version;
+   and, on the tiny model in bf16, that 3 LoRA steps give the plain path's
+   losses through the tensor-core flash backward;
 6. builds Llama-3.2-11B-Vision shapes in bf16 from a seed, preprocesses a
    560x560 uint8 image on the card and runs ``InferenceEngine.generate``
    greedily for 64 tokens after a 1600-image-token + 32-text-token prompt,
@@ -52,11 +54,14 @@
 The flash forward runs as three kernels: the tensor-core forward for bf16
 calls with many query rows (prefill, the ViT, training), the split-KV decode
 kernel for calls with few rows per kv head (decode), and the SIMT forward
-for fp32 (the tiny exactness phases). Step 3 also checks that every row of a
-B=8 decode call equals, bit for bit, a B=1 call on that row, and prints the
-tensor-core forward's time beside the SIMT forward's and SDPA's at the same
-shapes. Every bf16 path at 11B and 3B must launch the new kernels and never
-the SIMT forward.
+for fp32 (the tiny exactness phases). The flash backward runs as two pairs:
+the tensor-core dq and dk/dv kernels for bf16 (every training path at 11B
+and 3B), the SIMT pair for fp32. Step 3 also checks that every row of a B=8
+decode call equals, bit for bit, a B=1 call on that row, and that two calls
+of a tensor-core backward kernel give the same bits, and prints the
+tensor-core forward's and backward's times beside the SIMT kernels' and
+SDPA's at the same shapes. Every bf16 path at 11B and 3B must launch the new
+kernels and never a SIMT forward or backward.
 
 Each kernel case also reports its bound (the larger of the bytes it must
 move over 3.35 TB/s and its operations over the dense peak for its type)
@@ -151,6 +156,10 @@ KERNEL_INFO = {
                      "llama32mm_tpu/ops/pallas/attention.py:36"),
     "flash_decode_int8kv": ("llama32mm_tpu_torch/csrc/flash_decode.cu",
                             "llama32mm_tpu/ops/pallas/attention.py:36"),
+    "flash_attention_bwd_dq_tc": ("llama32mm_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+                                  "llama32mm_tpu/ops/pallas/attention.py:251"),
+    "flash_attention_bwd_dkv_tc": ("llama32mm_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+                                   "llama32mm_tpu/ops/pallas/attention.py:322"),
 }
 # Pallas functions a kernel folds in beside the one it is listed against, and
 # the pl.pallas_call sites that its Pallas functions reach.
@@ -172,6 +181,8 @@ ALSO_REPLACES = {
     "flash_decode_int8kv": [_P + "attention.py:198"],
     "flash_attention_bwd_dq": [_P + "attention.py:433"],
     "flash_attention_bwd_dkv": [_P + "attention.py:472"],
+    "flash_attention_bwd_dq_tc": [_P + "attention.py:433"],
+    "flash_attention_bwd_dkv_tc": [_P + "attention.py:472"],
     "gemv": [_P + "gemv.py:55", _P + "gemv.py:105", _P + "gemv.py:81", _P + "gemv.py:133",
              _P + "gemv.py:677"],
     "gemv_int8": [_P + "gemv.py:701", _P + "gemv.py:185", _P + "gemv.py:724"],
@@ -193,19 +204,22 @@ PATH_KERNELS = {
     "server_int4_w4a8": SERVER_INT4_KERNELS,
     "swiglu_down_op": ("swiglu_down",),
 }
-# The kernels each training path must launch: the fp32 tiny model's forward
-# with the LSE is the SIMT kernel's, the bf16 models' the tensor-core one's
-# (the frozen ViT's no-grad forward too).
+# The kernels each training path must launch: the fp32 tiny model's flash
+# forward with the LSE and backward are the SIMT kernels, the bf16 models'
+# the tensor-core ones (the frozen ViT's no-grad forward too).
 TRAIN_KERNELS = ("rmsnorm_fwd_train", "rmsnorm_bwd", "flash_attention_lse",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 TRAIN_BF16_KERNELS = ("rmsnorm_fwd_train", "rmsnorm_bwd", "flash_attention_tc_lse",
-                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_tc")
+                      "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc",
+                      "flash_attention_tc")
 PATH_KERNELS.update({
     "lora_11b": TRAIN_BF16_KERNELS,
     "full_ft_3b": TRAIN_BF16_KERNELS + ("swiglu", "swiglu_bwd"),
 })
-# The SIMT fp32 forward: the bf16 paths above must never launch it.
+# The SIMT fp32 forward and backward: the bf16 paths above must never
+# launch them.
 SIMT_FORWARD = ("flash_attention", "flash_attention_int8kv", "flash_attention_lse")
+SIMT_BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # The tiny fp32 model's quantized paths: a 40-token prefill over the int8
 # cache (SIMT), the 5-token ViT and decode (split-KV).
 TINY_KERNELS = {
@@ -218,11 +232,11 @@ TINY_KERNELS = {
 
 def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
     """What a path's run got wrong: kernels it should have launched and did
-    not, SIMT forwards launched on a bf16 path, plain versions called."""
+    not, SIMT flash kernels launched on a bf16 path, plain versions called."""
     faults = [f"skipped {k}" for k in PATH_KERNELS[path] if launches[k] == 0]
     if path != "swiglu_down_op":
-        faults += [f"launched the SIMT {k} {launches[k]} times" for k in SIMT_FORWARD
-                   if launches[k]]
+        faults += [f"launched the SIMT {k} {launches[k]} times"
+                   for k in SIMT_FORWARD + SIMT_BACKWARD if launches[k]]
     return faults + [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
 
 
@@ -480,15 +494,32 @@ def training_kernel_cases(rnd, valid):
         ("ragged B=2 Tq=37 Tk=100 q_offset=5 hd=16 padded keys, a fully masked row",
          rnd(2, 4, 37, 16), rnd(2, 2, 100, 16), rnd(2, 2, 100, 16), masked, 5, True, False),
     ]
-    for label, q, k, v, kvv, q_offset, causal, main in attn:
+    holes = valid(1, 150, 150)
+    holes[0, ::7] = 0
+    tc_only = [  # the tensor-core backward's other head sizes and edges
+        ("hd=8 nq=4 nkv=2 Tq=70 Tk=90 q_offset=20 causal", rnd(1, 4, 70, 8), rnd(1, 2, 90, 8),
+         rnd(1, 2, 90, 8), valid(1, 90, 90), 20, True, False),
+        ("hd=32 B=2 nq=8 nkv=1 Tq=200 Tk=260 q_offset=60 causal", rnd(2, 8, 200, 32),
+         rnd(2, 1, 260, 32), rnd(2, 1, 260, 32), valid(2, 260, 260), 60, True, False),
+        ("hd=64 nq=4 nkv=4 T=150 non-causal, every 7th key blocked", rnd(1, 4, 150, 64),
+         rnd(1, 4, 150, 64), rnd(1, 4, 150, 64), holes, 0, False, False),
+        ("hd=96 nq=nkv=2 T=150 non-causal padded keys", rnd(1, 2, 150, 96), rnd(1, 2, 150, 96),
+         rnd(1, 2, 150, 96), valid(1, 150, 140), 0, False, False),
+    ]
+    for simt, (label, q, k, v, kvv, q_offset, causal, main) in (
+            [(True, c) for c in attn] + [(False, c) for c in tc_only]):
         fwd = (q, k, v, kvv, q_offset, causal)
         out, lse = kernels.flash_attention_fwd_lse_plain(*fwd)
         dout = rnd(*q.shape)
         delta = (dout.float() * out.float()).sum(-1)
-        cases += [("flash_attention_lse", label, fwd, main),
-                  ("flash_attention_tc_lse", label, fwd, main),
-                  ("flash_attention_bwd_dq", label, (*fwd, lse, delta, dout), main),
-                  ("flash_attention_bwd_dkv", label, (*fwd, lse, delta, dout), main)]
+        bwd = (*fwd, lse, delta, dout)
+        if simt:
+            cases += [("flash_attention_lse", label, fwd, main),
+                      ("flash_attention_tc_lse", label, fwd, main),
+                      ("flash_attention_bwd_dq", label, bwd, main),
+                      ("flash_attention_bwd_dkv", label, bwd, main)]
+        cases += [("flash_attention_bwd_dq_tc", label, bwd, main),
+                  ("flash_attention_bwd_dkv_tc", label, bwd, main)]
     return cases
 
 
@@ -550,7 +581,8 @@ def bound(name, args, out):
         needed = allowed.any(dim=1).sum().item() / kvv.numel()  # keys some query sees
         in_bytes += (needed - 1.0) * _nbytes(kv_tensors)
         pairs = allowed.sum().item() * q.shape[1]
-        per_pair = {"flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 8}.get(name, 4)
+        per_pair = {"flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 8,
+                    "flash_attention_bwd_dq_tc": 6, "flash_attention_bwd_dkv_tc": 8}.get(name, 4)
         ops = per_pair * q.shape[3] * pairs
     elif name.startswith(("gemv", "qmatmul")):
         rows, n = x.numel() // x.shape[-1], args[1].shape[0]
@@ -630,6 +662,19 @@ def check_rows_alone(name, wrapper, args, got) -> None:
     log(f"kernel {name}: each of the {offsets.shape[0]} rows equals its B=1 call bit for bit")
 
 
+BWD_TC = ("flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")
+
+
+def check_same_bits(name, label, wrapper, args, got) -> None:
+    """A second call on the same inputs gives the same bits (no atomics, a
+    fixed summation order)."""
+    again = wrapper(*args)
+    got, again = (got, again) if isinstance(got, tuple) else ((got,), (again,))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"{name} [{label}]: two calls on the same inputs differ")
+    log(f"kernel {name} [{label}]: two calls equal bit for bit")
+
+
 def compare_kernels(dev, only=None) -> dict:
     """Every kernel case (those of the kernels in ``only``, when given)
     against its plain version; returns the main-path shapes' numbers."""
@@ -651,6 +696,8 @@ def compare_kernels(dev, only=None) -> dict:
             continue
         if main and name.startswith("flash_decode"):
             check_rows_alone(name, wrapper, args, got)
+        if name in BWD_TC:
+            check_same_bits(name, label, wrapper, args, got)
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
         lib_ms = library_ms(name, label, args)
         bound_ms, bound_by = bound(name, args, want)
@@ -677,6 +724,15 @@ def compare_kernels(dev, only=None) -> dict:
             log(f"yardstick [{label}]: {new} {ms:.6g} ms, SIMT flash_attention {simt:.6g} ms "
                 f"({simt / ms:.3g}x), SDPA {lib} ms ({'no slower' if lib and ms <= lib else 'SLOWER'}"
                 f" than SDPA)")
+    label = "decoder nq=32 nkv=8 T=1632 hd=128 causal"
+    simt = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    if all((n, label) in times for n in BWD_TC + simt):
+        tc_ms = sum(times[n, label][0] for n in BWD_TC)
+        simt_ms = sum(times[n, label][0] for n in simt)
+        lib = times[BWD_TC[0], label][1]
+        log(f"yardstick [{label}] backward: tensor-core dq + dk/dv {tc_ms:.6g} ms, SIMT pair "
+            f"{simt_ms:.6g} ms ({simt_ms / tc_ms:.3g}x), SDPA backward (dq, dk, dv) {lib} ms "
+            f"({'no slower' if lib and tc_ms <= lib else 'SLOWER'} than SDPA)")
     if failures:
         raise RuntimeError("; ".join(failures))
     return summary
@@ -841,6 +897,39 @@ def check_tiny_training(dev) -> None:
         if not dloss <= 1e-4 or not dparam <= 1e-4 or missing or any(plain_calls.values()):
             raise RuntimeError(f"tiny {label}: kernel path and plain path disagree, or skipped "
                                f"{missing}, or ran plain versions {plain_calls}")
+
+
+def check_tiny_bf16_lora(dev) -> None:
+    """On the tiny model in bf16, 3 LoRA steps on the kernel path give the
+    plain path's losses within 1e-2 relative: bf16 rounds at other places on
+    the two paths (each rounding 2^-9 relative; the tensor-core flash
+    backward rounds p and ds as its plain version does, the other kernels
+    not), which the loss, a mean over tokens, shows far less than one
+    element does. The kernel path must launch the tensor-core flash backward
+    pair, no SIMT flash kernel and no plain version."""
+    cfg = tiny_mllama_config(dtype="bfloat16")
+    batch = tiny_batch(cfg, dev, torch.Generator(device=dev).manual_seed(5))
+    res = {}
+    for impl in ("torch", "cuda"):
+        model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+        lora = init_lora_params(torch.Generator(device=dev).manual_seed(3), cfg, rank=4,
+                                include_projector=True)
+        init_state, step = make_lora_train_step(cfg, learning_rate=1e-4, impl=impl)
+        state, losses = init_state(lora), []
+        kernels.reset_counters()
+        for _ in range(3):
+            state, loss = step(model, state, batch)
+            losses.append(loss.item())
+        res[impl] = losses
+    launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+    dloss = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(res["cuda"], res["torch"]))
+    log(f"tiny bf16 LoRA, 3 steps: losses cuda={res['cuda']} torch={res['torch']} "
+        f"max_rel_dloss={dloss:.3g}; launches {launches}")
+    faults = [f"skipped {k}" for k in BWD_TC + ("flash_attention_tc_lse",) if launches[k] == 0]
+    faults += [f"launched the SIMT {k}" for k in SIMT_FORWARD + SIMT_BACKWARD if launches[k]]
+    faults += [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
+    if not dloss <= 1e-2 or faults:
+        raise RuntimeError(f"tiny bf16 LoRA: losses differ by {dloss} relative, or {faults}")
 
 
 def checksums(tensors) -> torch.Tensor:
@@ -1222,6 +1311,7 @@ def main() -> int:
     check_tiny_paths_agree(dev)
     check_tiny_server(dev)
     check_tiny_training(dev)
+    check_tiny_bf16_lora(dev)
     by_path = run_11b_paths(dev)
     torch.cuda.empty_cache()
     by_path["lora_11b"] = run_lora_11b(dev)

@@ -24,8 +24,9 @@ the scores and the attention weights, in each kernel's int8-KV
 instantiation.
 
 Under autograd the float path is a ``torch.autograd.Function`` (the Pallas
-custom VJP ``_flash_train``): the forward with the log-sum-exp (tensor-core
-for bf16, SIMT for fp32), then the dq and dk/dv kernels. The int8-KV path is
+custom VJP ``_flash_train``): the forward with the log-sum-exp, then the dq
+and dk/dv kernels, all three on tensor cores for bf16 and SIMT for fp32
+(``_route`` and ``_route_bwd``). The int8-KV path is
 inference-only, as in the JAX package, and raises under autograd. On the
 CPU the same route picks each kernel's plain version.
 """
@@ -37,12 +38,6 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from llama32mm_tpu_torch.ops.cuda import KERNELS
-from llama32mm_tpu_torch.ops.cuda.attention import (
-    flash_attention_bwd_dkv_cuda,
-    flash_attention_bwd_dkv_plain,
-    flash_attention_bwd_dq_cuda,
-    flash_attention_bwd_dq_plain,
-)
 from llama32mm_tpu_torch.ops.cuda.flash_decode import DECODE_MAX_ROWS
 from llama32mm_tpu_torch.ops.dispatch import needs_grad, not_in_slice, resolve_impl
 
@@ -87,13 +82,22 @@ def _route(dtype: torch.dtype, tq: int, group: int, int8_kv: bool, grad: bool) -
     return "flash_attention_int8kv" if int8_kv else "flash_attention"
 
 
+def _route_bwd(dtype: torch.dtype) -> tuple:
+    """The ``KERNELS`` names of the dq and dk/dv kernels a training call's
+    backward goes through: the tensor-core pair for bf16, the SIMT pair for
+    fp32 (and the fp64 of the gradient checks)."""
+    if dtype == torch.bfloat16:
+        return "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc"
+    return "flash_attention_bwd_dq", "flash_attention_bwd_dkv"
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, kv_valid, q_offset, causal, impl, fwd_name):
+    def forward(ctx, q, k, v, kv_valid, q_offset, causal, impl, fwd_name, bwd_names):
         cuda = impl == "cuda"
         out, lse = KERNELS[fwd_name][0 if cuda else 1](q, k, v, kv_valid, q_offset, causal)
         ctx.save_for_backward(q, k, v, kv_valid, out, lse)
-        ctx.q_offset, ctx.causal, ctx.cuda = q_offset, causal, cuda
+        ctx.q_offset, ctx.causal, ctx.cuda, ctx.bwd_names = q_offset, causal, cuda, bwd_names
         return out
 
     @staticmethod
@@ -102,13 +106,13 @@ class _FlashAttention(torch.autograd.Function):
         dout = dout.contiguous()
         delta = (dout.float() * out.float()).sum(dim=-1)  # rowsum(dO * O), as JAX's XLA op
         args = (q, k, v, kv_valid, ctx.q_offset, ctx.causal, lse, delta, dout)
+        dq_fn, dkv_fn = (KERNELS[name][0 if ctx.cuda else 1] for name in ctx.bwd_names)
         dq = dk = dv = None
         if ctx.needs_input_grad[0]:
-            dq = (flash_attention_bwd_dq_cuda if ctx.cuda else flash_attention_bwd_dq_plain)(*args)
+            dq = dq_fn(*args)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dkv = flash_attention_bwd_dkv_cuda if ctx.cuda else flash_attention_bwd_dkv_plain
-            dk, dv = dkv(*args)
-        return dq, dk, dv, None, None, None, None, None
+            dk, dv = dkv_fn(*args)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def gqa_attention(
@@ -143,7 +147,8 @@ def gqa_attention(
             raise NotImplementedError(
                 "gradients with per-row query offsets: training batches share one offset")
         kv_valid = structured.kv_valid.to(torch.int32).contiguous()
-        return _FlashAttention.apply(*operands, kv_valid, *tail[1:], impl, name)
+        return _FlashAttention.apply(*operands, kv_valid, *tail[1:], impl, name,
+                                     _route_bwd(q.dtype))
     if k_scale is not None:
         operands += (k_scale.contiguous(), v_scale.contiguous())
     kernel, plain = KERNELS[name]

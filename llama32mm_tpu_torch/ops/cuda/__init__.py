@@ -7,8 +7,12 @@ loaded at the first launch (``build.load_library``).
 from llama32mm_tpu_torch.ops.cuda.attention import (
     flash_attention_bwd_dkv_cuda,
     flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dkv_tc_cuda,
+    flash_attention_bwd_dkv_tc_plain,
     flash_attention_bwd_dq_cuda,
     flash_attention_bwd_dq_plain,
+    flash_attention_bwd_dq_tc_cuda,
+    flash_attention_bwd_dq_tc_plain,
     flash_attention_cuda,
     flash_attention_fwd_lse_cuda,
     flash_attention_fwd_lse_plain,
@@ -78,6 +82,9 @@ KERNELS = {
     "flash_attention_tc_lse": (flash_attention_tc_lse_cuda, flash_attention_tc_lse_plain),
     "flash_decode": (flash_decode_cuda, flash_decode_plain),
     "flash_decode_int8kv": (flash_decode_int8kv_cuda, flash_decode_int8kv_plain),
+    "flash_attention_bwd_dq_tc": (flash_attention_bwd_dq_tc_cuda, flash_attention_bwd_dq_tc_plain),
+    "flash_attention_bwd_dkv_tc": (flash_attention_bwd_dkv_tc_cuda,
+                                   flash_attention_bwd_dkv_tc_plain),
 }
 
 

@@ -25,7 +25,11 @@ kernels replacing ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``:
 with ``p = exp(s / sqrt(hd) - lse)`` on allowed keys,
 ``ds = p (dO · v - delta) / sqrt(hd)`` and ``delta = rowsum(dO * O)``,
 ``dq = ds k``, ``dk = ds^T q`` and ``dv = p^T dO``, dk and dv summed over
-each kv head's group of q heads.
+each kv head's group of q heads. The SIMT pair (``flash_attention_bwd_*``,
+``csrc/flash_attention.cu``) keeps p and ds in fp32 and serves fp32; the
+tensor-core pair (``flash_attention_bwd_*_tc``,
+``csrc/flash_attention_bwd_tc.cu``) serves bf16 and rounds p and ds to bf16
+before the products, as the Pallas kernels round them to q's dtype.
 """
 
 from __future__ import annotations
@@ -255,23 +259,31 @@ def flash_attention_tc_lse_plain(
     return _dense(q, k, v, kv_valid, q_offset, causal, lse=True)
 
 
-def _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq: bool):
+def _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq: bool,
+                tc: bool = False):
+    """Launch the SIMT backward (``csrc/flash_attention.cu``, fp32 or bf16)
+    or, with ``tc``, the tensor-core one (``csrc/flash_attention_bwd_tc.cu``,
+    bf16 only): dq, or (dk, dv)."""
     kvv, shape = _check(q, k, v, kv_valid)
+    if tc and q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core flash backward takes bfloat16 q, got {q.dtype}")
     require("lse", lse, q, q.shape[:3], torch.float32)
     require("delta", delta, q, q.shape[:3], torch.float32)
     require("dout", dout, q, q.shape)
-    tail = (*shape, int(q_offset), int(bool(causal)), dtype_code(q), stream_of(q))
+    tail = (*shape, int(q_offset), int(bool(causal)))
+    tail += (stream_of(q),) if tc else (dtype_code(q), stream_of(q))
     lib = load_library()
     operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kvv.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dout.data_ptr())
+    kind = "tensor-core flash attention" if tc else "flash attention"
     if want_dq:
         dq = torch.empty_like(q)
-        check(lib.l32_flash_attn_bwd_dq(*operands, dq.data_ptr(), *tail),
-              "flash attention dq kernel")
+        fn = lib.l32_flash_attn_bwd_dq_tc if tc else lib.l32_flash_attn_bwd_dq
+        check(fn(*operands, dq.data_ptr(), *tail), f"{kind} dq kernel")
         return dq
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    check(lib.l32_flash_attn_bwd_dkv(*operands, dk.data_ptr(), dv.data_ptr(), *tail),
-          "flash attention dk/dv kernel")
+    fn = lib.l32_flash_attn_bwd_dkv_tc if tc else lib.l32_flash_attn_bwd_dkv
+    check(fn(*operands, dk.data_ptr(), dv.data_ptr(), *tail), f"{kind} dk/dv kernel")
     return dk, dv
 
 
@@ -308,6 +320,42 @@ def flash_attention_bwd_dkv_cuda(
 def flash_attention_bwd_dkv_plain(q, k, v, kv_valid, q_offset, causal, lse, delta, dout):
     flash_attention_bwd_dkv_plain.calls += 1
     return _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout)[1:]
+
+
+@counted("launches")
+def flash_attention_bwd_dq_tc_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor, q_offset: int,
+    causal: bool, lse: torch.Tensor, delta: torch.Tensor, dout: torch.Tensor,
+) -> torch.Tensor:
+    """The bf16 dq on tensor cores: p and ds rounded to bf16 before ``ds k``."""
+    dq = _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq=True, tc=True)
+    flash_attention_bwd_dq_tc_cuda.launches += 1
+    return dq
+
+
+@counted("calls")
+def flash_attention_bwd_dq_tc_plain(q, k, v, kv_valid, q_offset, causal, lse, delta, dout):
+    flash_attention_bwd_dq_tc_plain.calls += 1
+    return _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, round_to_q=True)[0]
+
+
+@counted("launches")
+def flash_attention_bwd_dkv_tc_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_valid: torch.Tensor, q_offset: int,
+    causal: bool, lse: torch.Tensor, delta: torch.Tensor, dout: torch.Tensor,
+):
+    """The bf16 ``(dk, dv)`` on tensor cores: p and ds rounded to bf16
+    before ``p^T dO`` and ``ds^T q``."""
+    res = _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq=False,
+                      tc=True)
+    flash_attention_bwd_dkv_tc_cuda.launches += 1
+    return res
+
+
+@counted("calls")
+def flash_attention_bwd_dkv_tc_plain(q, k, v, kv_valid, q_offset, causal, lse, delta, dout):
+    flash_attention_bwd_dkv_tc_plain.calls += 1
+    return _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, round_to_q=True)[1:]
 
 
 def allowed_mask(kv_valid, q_offset, causal, tq, tk, device):
@@ -349,8 +397,10 @@ def _dense(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None, lse=
     return out, row_lse.reshape(b, nq, tq).float()
 
 
-def _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout):
-    """The backward formula with dense scores: ``(dq, dk, dv)``."""
+def _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, round_to_q=False):
+    """The backward formula with dense scores: ``(dq, dk, dv)``. With
+    ``round_to_q`` (the tensor-core kernels, as the Pallas kernels), p and
+    ds are rounded to q's dtype before the products that take them."""
     b, nq, tq, hd = q.shape
     nkv, tk = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -365,6 +415,8 @@ def _dense_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout):
     p = torch.exp(torch.where(allowed, logits, float("-inf")))
     dp = torch.einsum("bkgqd,bktd->bkgqt", dog, vf)
     ds = p * (dp - delta.to(acc).reshape(b, nkv, g, tq, 1)) * scale
+    if round_to_q:
+        p, ds = p.to(q.dtype).to(acc), ds.to(q.dtype).to(acc)
     dq = torch.einsum("bkgqt,bktd->bkgqd", ds, kf).reshape(b, nq, tq, hd)
     dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qg)
     dv = torch.einsum("bkgqt,bkgqd->bktd", p, dog)

@@ -117,6 +117,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # (q, k, v, kv_valid, lse, delta, dout, dk, dv, b, nq, nkv, tq, tk, hd, q_offset,
         #  causal, dtype, stream)
         "l32_flash_attn_bwd_dkv": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        # (q, k, v, kv_valid, lse, delta, dout, dq, b, nq, nkv, tq, tk, hd, q_offset, causal,
+        #  stream); bf16
+        "l32_flash_attn_bwd_dq_tc": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
+        # (q, k, v, kv_valid, lse, delta, dout, dk, dv, b, nq, nkv, tq, tk, hd, q_offset, causal,
+        #  stream); bf16
+        "l32_flash_attn_bwd_dkv_tc": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
         # (q, k, v, k_scale, v_scale, kv_valid, q_offsets|NULL, out, b, nq, nkv, tq, tk, hd,
         #  q_offset, causal, dtype, stream)
         "l32_flash_attn_fwd_int8kv": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],

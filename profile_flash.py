@@ -1,15 +1,18 @@
-"""Device time of the flash attention forwards on one NVIDIA GPU, at the
-main path's shapes, beside SDPA on the same inputs:
+"""Device time of the flash attention kernels on one NVIDIA GPU, at the
+main paths' shapes, beside SDPA on the same inputs:
 
     python3 profile_flash.py
 
-For each shape (the 11B decoder prefill, ViT-H, the server's 8-slot decode
-with per-row offsets, a B=1 decode) it times the routed kernel, the SIMT
-forward and ``F.scaled_dot_product_attention`` (a yardstick the port never
-calls) with CUDA events around 20 back-to-back calls queued behind a
-``torch.cuda._sleep``, so that the host's launch overhead is hidden and the
-number is device time; then it lists each call's kernels with their device
-time from ``torch.profiler``.
+Forwards: for each shape (the 11B decoder prefill, ViT-H, the server's
+8-slot decode with per-row offsets, a B=1 decode) it times the routed
+kernel, the SIMT forward and ``F.scaled_dot_product_attention`` (a
+yardstick the port never calls). Backwards: for each training shape (the
+11B and 3B decoders at T=1632, ViT-H) the tensor-core dq and dk/dv kernels,
+the SIMT pair and SDPA's autograd backward (dq, dk, dv). Each time is CUDA
+events around 20 back-to-back calls queued behind a ``torch.cuda._sleep``,
+so that the host's launch overhead is hidden and the number is device time;
+then it lists the routed calls' kernels with their device time from
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -99,6 +102,41 @@ def main() -> None:
             print(f"  {what:24s} {ms:.6g} ms  (share of bound {bound_ms / ms:.4g})")
         for key, us in kernel_rows(calls[name]):
             print(f"    {us:9.2f} us  {key[:100]}")
+
+    train = {  # label: (q, k, v, kv_valid, q_offset, causal)
+        "11B decoder T=1632 nq=32 nkv=8 hd=128 causal": (
+            rnd(1, 32, 1632, 128), rnd(1, 8, 1632, 128), rnd(1, 8, 1632, 128),
+            valid(1, 1632, 1632), 0, True),
+        "3B decoder T=1632 nq=24 nkv=8 hd=128 causal": (
+            rnd(1, 24, 1632, 128), rnd(1, 8, 1632, 128), rnd(1, 8, 1632, 128),
+            valid(1, 1632, 1632), 0, True),
+        "ViT-H T=1600 hd=80 non-causal": (
+            rnd(1, 16, 1600, 80), rnd(1, 16, 1600, 80), rnd(1, 16, 1600, 80),
+            valid(1, 1600, 1600), 0, False),
+    }
+    for label, fwd in train.items():
+        out, lse = kernels.flash_attention_tc_lse_cuda(*fwd)
+        dout = rnd(*fwd[0].shape)
+        args = (*fwd, lse, (dout.float() * out.float()).sum(-1), dout)
+        tc = ("flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")
+        calls = {name: (lambda name=name: kernels.KERNELS[name][0](*args)) for name in tc}
+        calls["SIMT dq + dk/dv"] = lambda: (kernels.flash_attention_bwd_dq_cuda(*args),
+                                            kernels.flash_attention_bwd_dkv_cuda(*args))
+        calls["SDPA backward (dq, dk, dv)"] = cs.library_call(tc[0], args)
+        print(f"== backward, {label}")
+        pair = 0.0
+        for what, fn in calls.items():
+            ms = device_ms(fn)
+            share = ""
+            if what in tc:
+                pair += ms
+                bound_ms, bound_by = cs.bound(what, args, fn())
+                share = f"  bound {bound_ms:.6g} ms ({bound_by}), share {bound_ms / ms:.4g}"
+            print(f"  {what:28s} {ms:.6g} ms{share}")
+        print(f"  tensor-core pair {pair:.6g} ms")
+        for name in tc:
+            for key, us in kernel_rows(calls[name]):
+                print(f"    {us:9.2f} us  {key[:100]}")
 
 
 if __name__ == "__main__":

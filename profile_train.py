@@ -28,7 +28,9 @@ from llama32mm_tpu_torch.train.lora import init_lora_params, make_lora_train_ste
 
 # (substring of a kernel's name, category); the first match wins
 CATEGORIES = (
-    ("flash_bwd_dq", "flash bwd dq"), ("flash_bwd_dkv", "flash bwd dk/dv"),
+    ("flash_bwd_dq_tc", "flash bwd dq (tensor cores)"),
+    ("flash_bwd_dkv_tc", "flash bwd dk/dv (tensor cores)"),
+    ("flash_bwd_dq", "flash bwd dq (SIMT)"), ("flash_bwd_dkv", "flash bwd dk/dv (SIMT)"),
     ("flash_tc", "flash fwd (tensor cores)"), ("flash_decode_combine", "flash decode combine"),
     ("flash_decode", "flash decode (split-KV)"),
     ("flash_fwd", "flash fwd (SIMT)"), ("rmsnorm_bwd", "rmsnorm bwd"), ("dw_sum", "rmsnorm bwd"),

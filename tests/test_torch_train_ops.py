@@ -20,7 +20,7 @@ from llama32mm_tpu.ops.pallas.swiglu import fused_swiglu_pallas
 from llama32mm_tpu_torch.configs import tiny_mllama_config
 from llama32mm_tpu_torch.models.vlm import init_vlm
 from llama32mm_tpu_torch.ops import cuda as kernels
-from llama32mm_tpu_torch.ops.attention import AttnMask, gqa_attention
+from llama32mm_tpu_torch.ops.attention import AttnMask, _FlashAttention, gqa_attention
 from llama32mm_tpu_torch.ops.gemv import linear, qlinear
 from llama32mm_tpu_torch.ops.quant import quantize_weight
 from llama32mm_tpu_torch.ops.rmsnorm import fused_add_rmsnorm
@@ -133,10 +133,12 @@ def _f64(*shape, gen):
 
 
 @pytest.mark.parametrize("op", ["rmsnorm_residual", "rmsnorm", "swiglu", "flash_causal",
-                                "flash_noncausal"])
+                                "flash_noncausal", "flash_tc_causal", "flash_tc_noncausal"])
 def test_plain_backward_formulas_pass_gradcheck(op):
     """Each plain backward (the formula written out) against finite
-    differences of its plain forward, in fp64."""
+    differences of its plain forward, in fp64. ``flash_tc_*``: the
+    tensor-core pair's plain versions (in fp64 their rounding of p and ds to
+    q's dtype is exact), through the autograd function with those names."""
     gen = torch.Generator().manual_seed(7)
     if op.startswith("rmsnorm"):
         x, w, r = _f64(3, 5, 8, gen=gen), _f64(8, gen=gen), _f64(3, 5, 8, gen=gen)
@@ -148,12 +150,16 @@ def test_plain_backward_formulas_pass_gradcheck(op):
         fn = lambda a, b, c: fused_swiglu(a, b, c, impl="torch")  # noqa: E731
         args = (_f64(4, 6, gen=gen), _f64(10, 6, gen=gen), _f64(10, 6, gen=gen))
     else:
-        causal = op == "flash_causal"
+        causal = op in ("flash_causal", "flash_tc_causal")
         kvv = torch.ones(2, 9, dtype=torch.int32)
         kvv[1, :3] = 0
         kvv[0, 7:] = 0
         mask = AttnMask(kvv, 2 if causal else 0)
         fn = lambda a, b, c: gqa_attention(a, b, c, mask, causal=causal, impl="torch")  # noqa: E731
+        if op.startswith("flash_tc"):
+            names = ("flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")
+            fn = lambda a, b, c: _FlashAttention.apply(  # noqa: E731
+                a, b, c, kvv, mask.q_offset, causal, "torch", "flash_attention_tc_lse", names)
         args = (_f64(2, 4, 5, 8, gen=gen), _f64(2, 2, 9, 8, gen=gen), _f64(2, 2, 9, 8, gen=gen))
     assert torch.autograd.gradcheck(fn, args)
 
