@@ -26,7 +26,8 @@
    the plain path;
 7. does the same with an untied head, quantized to int8 and (from the same
    bf16 weights) to ``INT4_MIXED_RECIPE`` at g=128, each served with
-   ``kv_dtype="int8"``;
+   ``kv_dtype="int8"``; the int4-mixed run must launch the W4A16 gemv 81
+   times a decode step (``w_gate`` and ``w_up`` of 40 layers, the head);
 8. LoRA fine-tuning of the 11B bf16 model (rank 16, the default targets
    and a head adapter, Adam) on one B=1, S=1632 batch: a warm-up step and
    3 timed steps; checks finite losses and moments, a bitwise unchanged
@@ -58,7 +59,11 @@ for fp32 (the tiny exactness phases). The flash backward runs as two pairs:
 the tensor-core dq and dk/dv kernels for bf16 (every training path at 11B
 and 3B), the SIMT pair for fp32. Step 3 also checks that every row of a B=8
 decode call equals, bit for bit, a B=1 call on that row, and that two calls
-of a tensor-core backward kernel give the same bits, and prints the
+of a tensor-core backward kernel give the same bits; that each row of the
+int4 W4A16 gemv's R=8, 16 and 32 calls equals its R=1 call bit for bit and
+two calls of each int4 case give the same bits; that 50 calls of the
+tensor-core forward at hd 8 (bf16 and int8 KV) give the same bits (the
+zero-fill of its head-dim padding once raced its copies); and prints the
 tensor-core forward's and backward's times beside the SIMT kernels' and
 SDPA's at the same shapes. Every bf16 path at 11B and 3B must launch the new
 kernels and never a SIMT forward or backward.
@@ -280,6 +285,14 @@ def kernel_cases(dev, gen):
         qw = quantize_weight_int4(rnd(n, k, scale=0.02), g)
         return qw["q4"], qw["scale"]
 
+    def q4_stepped(n, k, g):
+        """Odd groups' weights (so their scales) 1000x the even groups': a
+        scale applied to a neighbouring group shows."""
+        w = rnd(n, k, scale=0.02).float().reshape(n, k // g, g)
+        w[:, 1::2] *= 1000.0
+        qw = quantize_weight_int4(w.reshape(n, k).to(bf), g)
+        return qw["q4"], qw["scale"]
+
     def kv8(*shape):
         """int8 K, V and their scales, as the int8 cache holds them."""
         (kq, ks), (vq, vs) = quantize_kv(rnd(*shape)), quantize_kv(rnd(*shape))
@@ -325,6 +338,13 @@ def kernel_cases(dev, gen):
         ("gemv_int4", "w_gate R=1 N=14336 K=4096 g=128", (rnd(1, h), *q4(inter, h, 128)), False),
         ("gemv_int4", "ragged R=5 N=1000 K=4160 g=32", (rnd(5, 4160), *q4(1000, 4160, 32)), False),
         ("gemv_int4", "scalar path R=3 N=200 K=192 g=24", (rnd(3, 192), *q4(200, 192, 24)), False),
+        ("gemv_int4", "w_gate R=8 N=14336 K=4096 g=128", (rnd(8, h), *q4(inter, h, 128)), False),
+        ("gemv_int4", "w_gate R=16 N=14336 K=4096 g=128", (rnd(16, h), *q4(inter, h, 128)), False),
+        ("gemv_int4", "w_gate R=32 N=14336 K=4096 g=128", (rnd(32, h), *q4(inter, h, 128)), False),
+        ("gemv_int4", "per-channel R=8 N=4096 K=4096 g=4096", (rnd(8, h), *q4(h, h, h)), False),
+        ("gemv_int4", "g=64 R=20 N=1000 K=4096", (rnd(20, h), *q4(1000, h, 64)), False),
+        ("gemv_int4", "group scales 1000x apart R=8 N=1000 K=4096 g=128",
+         (rnd(8, h), *q4_stepped(1000, h, 128)), False),
         ("qmatmul", "int4 w_gate R=1632 N=14336 K=4096 g=128",
          (rnd(1632, h), *q4(inter, h, 128)), True),
         ("qmatmul", "int8 w_down R=1632 N=4096 K=14336", (rnd(1632, inter), *q8(h, inter)), False),
@@ -368,6 +388,8 @@ def kernel_cases(dev, gen):
          (rnd(1, 32, 1632, 128), *kv8(1, 8, 2048, 128), valid(1, 2048, 1632), 0, True), True),
         ("flash_attention_tc_int8kv", "ragged B=2 Tq=37 Tk=100 q_offset=5 hd=16 padded keys",
          (rnd(2, 4, 37, 16), *kv8(2, 2, 100, 16), valid(2, 100, 90), 5, True), False),
+        ("flash_attention_tc_int8kv", "hd=8 nq=4 nkv=2 Tq=70 Tk=90 q_offset=20 causal",
+         (rnd(1, 4, 70, 8), *kv8(1, 2, 90, 8), valid(1, 90, 90), 20, True), False),
     ]
     return cases + server_kernel_cases(rnd, q4, kv8) + training_kernel_cases(rnd, valid)
 
@@ -663,16 +685,32 @@ def check_rows_alone(name, wrapper, args, got) -> None:
 
 
 BWD_TC = ("flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")
+# The tensor-core forward zero-fills its hd 8 padding beside cp.async copies
+# into the same tiles; 50 calls compared bit for bit guard that.
+HD8_RACE = ("flash_attention_tc", "flash_attention_tc_int8kv")
 
 
-def check_same_bits(name, label, wrapper, args, got) -> None:
-    """A second call on the same inputs gives the same bits (no atomics, a
-    fixed summation order)."""
-    again = wrapper(*args)
-    got, again = (got, again) if isinstance(got, tuple) else ((got,), (again,))
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise RuntimeError(f"{name} [{label}]: two calls on the same inputs differ")
-    log(f"kernel {name} [{label}]: two calls equal bit for bit")
+def check_same_bits(name, label, wrapper, args, got, calls: int = 1) -> None:
+    """``calls`` more calls on the same inputs give the same bits (no
+    atomics, a fixed summation order, no race)."""
+    got = got if isinstance(got, tuple) else (got,)
+    for i in range(calls):
+        again = wrapper(*args)
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{name} [{label}]: call {i + 2} on the same inputs differs from "
+                               f"the first")
+    log(f"kernel {name} [{label}]: {calls + 1} calls equal bit for bit")
+
+
+def check_gemv_rows_alone(name, label, wrapper, args, got) -> None:
+    """Each row of a multi-row gemv call equals, bit for bit, the call on
+    that row alone (a server's request against a solo engine run)."""
+    x = args[0]
+    for r in range(x.shape[0]):
+        if not torch.equal(wrapper(x[r:r + 1].contiguous(), *args[1:]), got[r:r + 1]):
+            raise RuntimeError(f"{name} [{label}]: row {r} differs from the R=1 call on that row")
+    log(f"kernel {name} [{label}]: each of the {x.shape[0]} rows equals its R=1 call bit for bit")
 
 
 def compare_kernels(dev, only=None) -> dict:
@@ -696,8 +734,12 @@ def compare_kernels(dev, only=None) -> dict:
             continue
         if main and name.startswith("flash_decode"):
             check_rows_alone(name, wrapper, args, got)
-        if name in BWD_TC:
+        if name in BWD_TC or name == "gemv_int4":
             check_same_bits(name, label, wrapper, args, got)
+        if name == "gemv_int4" and label.startswith("w_gate R="):
+            check_gemv_rows_alone(name, label, wrapper, args, got)
+        if name in HD8_RACE and label.startswith("hd=8"):  # the zero-fill race, repaired
+            check_same_bits(name, label, wrapper, args, got, calls=49)
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
         lib_ms = library_ms(name, label, args)
         bound_ms, bound_by = bound(name, args, want)
@@ -1096,6 +1138,13 @@ def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
             torch.isfinite(res.prefill_logits).all()):
         raise RuntimeError("prefill logits are not finite [1, vocab]")
     faults = path_faults(path, launches, plain_calls)
+    if path == "int4_mixed":  # w_gate and w_up of each layer and the head, each step
+        per_step = 2 * tc.n_layers + 1
+        want = per_step * 63 + 1  # 63 decode steps and the prefill's last-position head
+        log(f"[{path}] W4A16 gemv launches {launches['gemv_int4']} = {per_step} per decode step "
+            f"x 63 + 1: {launches['gemv_int4'] == want}")
+        if launches["gemv_int4"] != want:
+            faults.append(f"launched the W4A16 gemv {launches['gemv_int4']} times, not {want}")
     if faults:
         raise RuntimeError(f"[{path}] {faults}")
 

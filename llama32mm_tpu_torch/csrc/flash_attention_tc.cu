@@ -130,9 +130,17 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
   const int last_limit = first_limit + wg_rows - 1;
   const int wg_tiles = wg_rows == 0 ? 0 : causal ? min(n_tiles, last_limit / kBN + 1) : n_tiles;
 
-  if constexpr (HD != HDP) {  // zero the head-dim padding of every bf16 tile once
-    const int n = (kWarpgroups + 2 * kBuf) * G::kTile / 16;
-    for (int i = tid; i < n; i += kThreads) reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  // Zero the head-dim padding of every bf16 tile (Q, K, V) once. Only the
+  // padding chunks, never the data chunks: the cp.async copies below fill
+  // those without a barrier in between, and a late zero store would erase a
+  // copied chunk. No copy or conversion ever writes a padding chunk (they
+  // write chunks < kChunks), so the padding stays zero as the ring turns.
+  if constexpr (HD != HDP) {
+    constexpr int kPad = HDP / 8 - kChunks, kTiles = kWarpgroups + 2 * kBuf;
+    for (int u = tid; u < kTiles * 64 * kPad; u += kThreads) {
+      const int tile = u / (64 * kPad), r = u % 64, c = kChunks + u / 64 % kPad;
+      *reinterpret_cast<uint4*>(smem + tile * G::kTile + G::at(r, c)) = make_uint4(0, 0, 0, 0);
+    }
   }
 
   // Copy tile t (keys t*kBN ...) into ring stage t % kStages; keys past Tk

@@ -17,6 +17,35 @@
 // dot(xsum, scale) correction that cancels a raw sum ~16x the result).
 // Here the nibbles are unpacked with masks and shifts, and the offset is
 // removed per weight, exactly, as the weight becomes a float.
+// Which kernel runs: bf16 x with g/2 a multiple of 16 and 16-byte aligned x
+// and q4 (the decode path: g=128, and per-channel g=K) takes the tensor-core
+// kernel, gemv_int4_tc_kernel, at every row count up to 32; fp32 x, other
+// group sizes and misaligned pointers take the CUDA-core gemv_int4_kernel
+// (the tiny fp32 checks). The tensor-core kernel computes as the Pallas
+// kernel does: bf16 x against exact bf16 nibbles (u - 8), fp32 sums per
+// group, each multiplied by its fp32 group scale and added to the total.
+// Bound: the weight bytes (K/2 per output column, plus K/g fp32 scales), the
+// same at R = 1 and 32. The CUDA-core kernel re-reads 64 bytes of x from L1
+// per row of x for every 16 weight bytes and spends 8 fp32 FMAs a weight at
+// R=8, several times the byte bound. The tensor-core kernel reuses x through
+// mma.sync m16n8k16 in the swap-AB form (16 output columns as M, up to 8
+// rows of x as N): one B fragment serves 16 columns; R <= 8 runs one n8
+// tile, R <= 16 two, R <= 32 four (with two m16 tiles a warp there, halving
+// the x reads). 16-byte weight loads that bypass L1, four spans of them in
+// flight a thread; 4 warps a block split K, summed in shared memory in warp
+// order, no atomics.
+// Measured (profile_qgemv.py, device time, weights from HBM; NVIDIA H100
+// 80GB HBM3, 700 W): the int4 head (R=1, N=128256, K=4096, g=128) 0.110 ms,
+// 76% of its 0.0834 ms bound (the CUDA-core kernel 0.134,
+// torch._weight_int4pack_mm 0.137); w_gate (N=14336) 0.0178 ms at R=1, 0.0195
+// at R=8, 0.0246 at R=16, 0.0367 at R=32 (CUDA-core 0.019, 0.088, 0.166,
+// 0.494). The kernel is bound by its instruction issue more than by its
+// loads: taking the two integer divisions by the spans-per-group count out
+// of every span cut the head from 0.122 to 0.110 ms, while deeper prefetch
+// was slower in every form tried (8 spans in flight a thread, a persistent
+// grid with double-buffered registers, cp.async rings in shared memory,
+// warp-wide coalesced staging), and so were 8 blocks an SM at 2 spans in
+// flight (PERF.md §6).
 //
 // int4 W4A8 (l32_gemv_int4_w4a8): the same packed weights against int8
 // activations. Replaces _int4_kernel_w4a8 and folds _int4_kernel_w4a8b of
@@ -33,28 +62,31 @@
 // same integers as the TPU's algebra. One 16-byte chunk of a weight row lies
 // inside one group (g/2 a multiple of 16), so its int32 dot is exact and
 // takes one fp32 FMA with the group's scale; the row's ax multiplies the
-// warp's sum once. The warp layout and row buckets are the W4A16 kernel's.
-// Other group sizes (and misaligned rows) run a per-byte scalar loop with
-// the same integer products.
+// warp's sum once. The warp layout and row buckets are the CUDA-core W4A16
+// kernel's. Other group sizes (and misaligned rows) run a per-byte scalar
+// loop with the same integer products.
 //
 // Bound on the H100: device-memory bytes of the weight, K bytes per output
 // row in int8 (half of bf16) and K/2 in int4; each weight byte serves r <= 32
-// rows, far below the ~295 FLOPs per byte where tensor cores would matter.
-// Design (that of gemv.cu): one warp per output row n reads the row once with
-// coalesced 16-byte loads (16 int8 weights, or 32 int4 weights) and applies
-// each loaded vector to every row of x (x is small and stays in L1/L2), r
-// fp32 accumulators per lane, warp-shuffle reduction. In int4 one 16-byte
-// chunk lies inside one group (g/2 is a multiple of 16) and holds the low
-// weights of 16 consecutive k and the high weights of the 16 k that follow
-// g/2 later, so both x slices are contiguous; the chunk's fp32 partial is
-// multiplied by its group scale once (legal: the scale is constant within
-// a group). Other group sizes run a per-byte scalar loop. An int8 K that is
+// rows, far below the ~295 FLOPs per byte where tensor cores would matter
+// for speed (the W4A16 kernel uses them to reuse x, above).
+// Design of the CUDA-core kernels (that of gemv.cu): one warp per output row
+// n reads the row once with coalesced 16-byte loads (16 int8 weights, or 32
+// int4 weights) and applies each loaded vector to every row of x (x is small
+// and stays in L1/L2), r fp32 accumulators per lane, warp-shuffle reduction.
+// In int4 one 16-byte chunk lies inside one group (g/2 is a multiple of 16)
+// and holds the low weights of 16 consecutive k and the high weights of the
+// 16 k that follow g/2 later, so both x slices are contiguous; the chunk's
+// fp32 partial is multiplied by its group scale once (legal: the scale is
+// constant within a group). Other group sizes run a per-byte scalar loop. An int8 K that is
 // not a multiple of 16 (or a misaligned row) runs a scalar head up to the
 // row's 16-byte boundary, the vector body and a scalar tail. Bytes become
 // floats by placing them in the mantissa of 2^23 (a byte permute and one
 // fp32 subtraction), not by the int-to-float conversion, which issues at a
 // quarter of the fp32 rate: with it the int8 head streamed 1630 GB/s, with
 // the mantissa form 3054 GB/s (same call, NVIDIA H100 80GB HBM3, 700 W).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -212,6 +244,257 @@ gemv_int4_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q4,
   store_rows<T, MAXR>(acc, 1.f, out, rows, n, col, lane);
 }
 
+// ---- W4A16 on the tensor cores (bf16 x, g/2 a multiple of 16) ----
+
+constexpr int kTcWarps = 4;   // K slices of a block, one warp each
+constexpr int kTcUnroll = 4;  // spans whose weight loads a thread keeps in flight
+
+// D += A B on mma.sync m16n8k16: A 16x16 and B 16x8 bf16, fp32 C in place.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The nibbles u at bits 0-3 and 16-19 of w as two bf16 values u - 8, exactly:
+// OR-ing in 0x4300 (bf16 128) makes the mantissa's low bits u, i.e. 128 + u,
+// and one bf16x2 FMA, (128 + u) * 1 - 136, leaves u - 8 (small integers, no
+// rounding anywhere).
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t w) {
+  const uint32_t v = (w & 0x000F000Fu) | 0x43004300u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
+// CB packed bytes of one weight row: loaded once, so they bypass L1 (which
+// keeps x).
+template <int CB> struct Piece { uint32_t w[CB / 4]; };
+
+template <int CB>
+__device__ __forceinline__ Piece<CB> load_stream(const uint8_t* p) {
+  Piece<CB> r;
+  if constexpr (CB == 16)
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]) : "l"(p));
+  else if constexpr (CB == 8)
+    asm("ld.global.nc.L1::no_allocate.v2.u32 {%0,%1}, [%2];\n"
+        : "=r"(r.w[0]), "=r"(r.w[1]) : "l"(p));
+  else
+    asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(r.w[0]) : "l"(p));
+  return r;
+}
+
+// CB consecutive bf16 of x (2 CB bytes, aligned to them) as CB / 2 words.
+template <int CB>
+__device__ __forceinline__ void load_x(uint32_t (&d)[CB / 2], const __nv_bfloat16* p) {
+  if constexpr (CB == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    d[0] = v.x;
+    d[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < CB / 8; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      d[4 * i] = v.x;
+      d[4 * i + 1] = v.y;
+      d[4 * i + 2] = v.z;
+      d[4 * i + 3] = v.w;
+    }
+  }
+}
+
+// out[r, n] = sum_j scale[n, j] * (the fp32 mma sum over group j), in the
+// swap-AB form: the 16 rows of an m16 tile are output columns, the 8 columns
+// of an n8 tile rows of x. Lane (gid = lane / 4, t = lane % 4) loads CB bytes
+// of weight rows n0 + gid and n0 + gid + 8 at byte t * CB of a span (4 CB
+// bytes, inside one group), and x rows 8 nt + gid at the k those bytes hold.
+// A dot product is blind to which k sits in which fragment slot, so each of
+// the lane's 32-bit weight words w feeds its A slots directly: the low
+// nibbles of bytes (0, 2) are the slots (2t, 2t + 1) and those of bytes
+// (1, 3) the slots (2t + 8, 2t + 9) of one k16 step, the high nibbles the
+// same slots of another at k + g/2; x is permuted to the same k order in
+// its B slots. Each group's fp32 mma sum is multiplied by the group's scale
+// and added to the total, as the Pallas kernel does. The block's warps take
+// fixed quarters of the row's spans (a quarter may end inside a group: each
+// part gets the group's scale) and their totals are summed in shared
+// memory, warp 0 first. So an output's arithmetic depends on K and g only,
+// never on R or on the other rows: a row of an R=8 call equals, bit for
+// bit, the R=1 call on that row.
+template <int CB, int MT, int NT>
+__global__ void __launch_bounds__(kTcWarps * 32)
+gemv_int4_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q4,
+                    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int rows,
+                    int n, int k, int g) {
+  constexpr int BN = 16 * MT, RB = 8 * NT, W = CB / 4;
+  __shared__ float red[kTcWarps][BN][RB + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BN;
+  const int k2 = k / 2, g2 = g / 2, ng = k / g;
+  const int per_group = g2 / (4 * CB), spans = k2 / (4 * CB);
+  const int ubeg = warp * spans / kTcWarps, uend = (warp + 1) * spans / kTcWarps;
+
+  // This lane's weight and scale rows (row 0 stands in past N: never read).
+  bool in[MT][2];
+  const uint8_t* wrow[MT][2];
+  const float* srow[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 16 * mt + 8 * h + gid;
+      in[mt][h] = col < n;
+      const size_t c = in[mt][h] ? static_cast<size_t>(col) : 0;
+      wrow[mt][h] = q4 + c * k2 + t * CB;
+      srow[mt][h] = scale + c * ng;
+    }
+
+  float tot[MT][NT][4], part[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tot[mt][nt][i] = part[mt][nt][i] = 0.f;
+
+  for (int u0 = ubeg; u0 < uend; u0 += kTcUnroll) {
+    // Each span's group and its place there: one division a batch (an
+    // integer division by a runtime value costs tens of instructions).
+    int grp[kTcUnroll], at[kTcUnroll];
+    grp[0] = u0 / per_group;
+    at[0] = u0 - grp[0] * per_group;
+#pragma unroll
+    for (int s = 1; s < kTcUnroll; ++s) {
+      const bool next = at[s - 1] + 1 == per_group;
+      grp[s] = grp[s - 1] + next;
+      at[s] = next ? 0 : at[s - 1] + 1;
+    }
+    Piece<CB> wp[kTcUnroll][MT][2];
+    float sc[kTcUnroll][MT][2];
+#pragma unroll
+    for (int s = 0; s < kTcUnroll; ++s) {
+      const int u = u0 + s;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (u < uend && in[mt][h]) {
+            wp[s][mt][h] = load_stream<CB>(wrow[mt][h] + u * 4 * CB);
+            sc[s][mt][h] = srow[mt][h][grp[s]];
+          } else {
+#pragma unroll
+            for (int j = 0; j < W; ++j) wp[s][mt][h].w[j] = 0u;
+            sc[s][mt][h] = 0.f;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kTcUnroll; ++s) {
+      const int u = u0 + s;
+      if (u >= uend) break;
+      const int klo = grp[s] * g + at[s] * 4 * CB + t * CB;  // k of byte 0's low nibble
+      uint32_t xl[NT][CB / 2], xh[NT][CB / 2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int r = 8 * nt + gid;
+        if (r < rows) {
+          const __nv_bfloat16* xr = x + static_cast<size_t>(r) * k + klo;
+          load_x<CB>(xl[nt], xr);
+          load_x<CB>(xh[nt], xr + g2);
+        } else {
+#pragma unroll
+          for (int i = 0; i < CB / 2; ++i) xl[nt][i] = xh[nt][i] = 0u;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t w0 = wp[s][mt][0].w[j], w1 = wp[s][mt][1].w[j];
+          const uint32_t alo[4] = {nibbles_bf16x2(w0), nibbles_bf16x2(w1),
+                                   nibbles_bf16x2(w0 >> 8), nibbles_bf16x2(w1 >> 8)};
+          const uint32_t ahi[4] = {nibbles_bf16x2(w0 >> 4), nibbles_bf16x2(w1 >> 4),
+                                   nibbles_bf16x2(w0 >> 12), nibbles_bf16x2(w1 >> 12)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (8 * nt < rows) {
+              // x at k, k + 1, k + 2, k + 3 -> B slots (k, k + 2) and (k + 1, k + 3)
+              const uint32_t x0 = xl[nt][2 * j], x1 = xl[nt][2 * j + 1];
+              const uint32_t y0 = xh[nt][2 * j], y1 = xh[nt][2 * j + 1];
+              mma_16816(part[mt][nt], alo, __byte_perm(x0, x1, 0x5410), __byte_perm(x0, x1, 0x7632));
+              mma_16816(part[mt][nt], ahi, __byte_perm(y0, y1, 0x5410), __byte_perm(y0, y1, 0x7632));
+            }
+          }
+        }
+      }
+      if (at[s] + 1 == per_group || u + 1 == uend) {  // the group (or this warp's part) ends
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {  // C rows: gid (i < 2) and gid + 8
+              tot[mt][nt][i] = fmaf(part[mt][nt][i], sc[s][mt][i >> 1], tot[mt][nt][i]);
+              part[mt][nt][i] = 0.f;
+            }
+      }
+    }
+  }
+  // C element i of a lane: output column gid + 8 (i / 2) of the m16 tile,
+  // x row 2t + i % 2 of the n8 tile.
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        red[warp][16 * mt + gid + 8 * (i >> 1)][8 * nt + 2 * t + (i & 1)] = tot[mt][nt][i];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BN * RB; idx += kTcWarps * 32) {
+    const int m = idx % BN, r = idx / BN;
+    if (r < rows && n0 + m < n) {
+      float acc = red[0][m][r];
+#pragma unroll
+      for (int w = 1; w < kTcWarps; ++w) acc += red[w][m][r];
+      out[static_cast<size_t>(r) * n + n0 + m] = __float2bfloat16(acc);
+    }
+  }
+}
+
+template <int CB>
+void launch_int4_tc(const __nv_bfloat16* x, const uint8_t* q4, const float* scale,
+                    __nv_bfloat16* out, int rows, int n, int k, int g, cudaStream_t s) {
+  const dim3 block(kTcWarps * 32);
+  if (rows <= 8)
+    gemv_int4_tc_kernel<CB, 1, 1><<<(n + 15) / 16, block, 0, s>>>(x, q4, scale, out, rows, n, k, g);
+  else if (rows <= 16)
+    gemv_int4_tc_kernel<CB, 1, 2><<<(n + 15) / 16, block, 0, s>>>(x, q4, scale, out, rows, n, k, g);
+  else  // two m16 tiles a warp halve the x reads of R=32
+    gemv_int4_tc_kernel<CB, 2, 4><<<(n + 31) / 32, block, 0, s>>>(x, q4, scale, out, rows, n, k, g);
+}
+
+// The tensor-core kernel for bf16 x whose g/2 is a multiple of 16 (aligned
+// pointers, at most 32 rows); false where the CUDA-core kernel must run.
+bool int4_tc(const void* x, const void* q4, const float* scale, void* out, int rows, int n, int k,
+             int g, cudaStream_t s) {
+  const int g2 = g / 2;
+  if (!aligned16(x) || !aligned16(q4) || g2 % 16 || rows > 32) return false;
+  auto xb = static_cast<const __nv_bfloat16*>(x);
+  auto w = static_cast<const uint8_t*>(q4);
+  auto o = static_cast<__nv_bfloat16*>(out);
+  if (g2 % 64 == 0)
+    launch_int4_tc<16>(xb, w, scale, o, rows, n, k, g, s);
+  else if (g2 % 32 == 0)
+    launch_int4_tc<8>(xb, w, scale, o, rows, n, k, g, s);
+  else
+    launch_int4_tc<4>(xb, w, scale, o, rows, n, k, g, s);
+  return true;
+}
+
 constexpr int kQuantThreads = 256;
 
 // One block per row of x: ax[r] and xq[r, :] (the W4A8 activations).
@@ -362,6 +645,9 @@ void launch_r(bool int4, bool vec, const void* x, const void* w, const float* sc
 template <typename T>
 int launch(bool int4, const void* x, const void* w, const float* scale, void* out, int rows,
            int n, int k, int g, cudaStream_t s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (int4 && int4_tc(x, w, scale, out, rows, n, k, g, s)) return 0;
+  }
   const bool aligned = aligned16(x) && aligned16(w);
   const bool vec = int4 ? aligned && (g / 2) % 16 == 0 : aligned && k % 16 == 0;
 #define L32_ROWS(R)                                                   \

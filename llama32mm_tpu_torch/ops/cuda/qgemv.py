@@ -85,7 +85,10 @@ def gemv_int8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
 def gemv_int4_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``x [..., K] @ dequant(q4, scale).T`` for ``q4 [N, K/2] uint8`` and
     ``scale [N, K/g]``, at most 32 rows of x, fp32 accumulation with the
-    group scale applied to each fp32 partial, output in x's dtype."""
+    group scale applied to each fp32 partial, output in x's dtype. bf16 x
+    with g/2 a multiple of 16 runs on the tensor cores (``mma.sync``), each
+    row's bits independent of the other rows; fp32 x and other group sizes
+    on the CUDA cores."""
     rows, n, k, g = _gemv_rows(x, q4, scale, packed=True)
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
     status = load_library().l32_gemv_int4(

@@ -1,0 +1,129 @@
+"""Device time of the int4 gemvs on one NVIDIA GPU, beside PyTorch's int4
+matmul on the same weights:
+
+    python3 profile_qgemv.py
+
+Shapes of the int4-mixed decode path of Llama-3.2-11B-Vision (g=128): the
+untied int4 head (R=1, N=128256, K=4096) and ``w_gate`` (N=14336, K=4096)
+at R = 1, 8, 16 and 32 rows. For each it times the W4A16 gemv
+(``gemv_int4_cuda``) and ``torch._weight_int4pack_mm`` on the same weights
+in PyTorch's own layout (a yardstick the port never calls), and the W4A8
+gemv (``gemv_int4_w4a8_cuda``) at R = 1 and 8 on the ``w_gate`` bytes; each
+beside its bound (``chip_smoke.bound``: bytes over 3.35 TB/s, operations over
+the dense peak).
+
+Each time is CUDA events around 20 back-to-back calls queued behind a
+``torch.cuda._sleep``, so that the host's launch overhead is hidden and the
+number is device time. A decode step reads each layer's weights once, so
+they come from device memory, not from the 50 MB L2: a shape whose weights
+are smaller than 150 MB is held in several copies, and the calls cycle
+through them. Then ``torch.profiler`` lists the kernels of the W4A16 call
+with their device time. The last line is one JSON object with every time.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+from functools import partial
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+from llama32mm_tpu_torch.ops import cuda as kernels
+from llama32mm_tpu_torch.ops.quant import quantize_weight_int4
+
+REPS = 20
+L2_SPAN = 150e6  # bytes the copies of one shape's weights cover, 3x the L2
+SHAPES = [  # (label, rows, N, K, g)
+    ("int4 lm_head R=1 N=128256 K=4096 g=128", 1, 128256, 4096, 128),
+    ("w_gate R=1 N=14336 K=4096 g=128", 1, 14336, 4096, 128),
+    ("w_gate R=8 N=14336 K=4096 g=128", 8, 14336, 4096, 128),
+    ("w_gate R=16 N=14336 K=4096 g=128", 16, 14336, 4096, 128),
+    ("w_gate R=32 N=14336 K=4096 g=128", 32, 14336, 4096, 128),
+]
+W4A8_ROWS = (1, 8)
+
+
+def device_ms(fns) -> float:
+    """Device time of one call: the mean of REPS calls, cycling through
+    ``fns`` (one per weight copy), queued behind a sleep."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(4e6))  # keeps the device busy while the host queues the calls
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(REPS):
+        fns[i % len(fns)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+def kernel_rows(fns) -> list:
+    """``(name, device us per call)`` of the kernels one call launches."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(REPS):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    return [(e.key, e.device_time_total / REPS) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_qgemv: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}")
+    cs.build_library()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    weights = {}  # (N, K, g) -> list of (q4, scale) copies
+    for label, rows, n, k, g in SHAPES:
+        if (n, k, g) not in weights:
+            one = n * k // 2 + n * (k // g) * 4
+            copies = max(1, math.ceil(L2_SPAN / one))
+            weights[n, k, g] = []
+            for _ in range(copies):
+                w = (torch.randn(n, k, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+                qw = quantize_weight_int4(w, g)
+                weights[n, k, g].append((qw["q4"], qw["scale"]))
+                del w
+        copies = weights[n, k, g]
+        x = torch.randn(rows, k, generator=gen, device=dev).to(torch.bfloat16)
+        args = (x, *copies[0])
+        bound_ms, bound_by = cs.bound("gemv_int4", args, kernels.gemv_int4_cuda(*args))
+        packed = [cs._int4pack(q4, sc, x) for q4, sc in copies]
+        calls = {
+            "gemv_int4": [partial(kernels.gemv_int4_cuda, x, q4, sc) for q4, sc in copies],
+            "_weight_int4pack_mm": [partial(torch._weight_int4pack_mm, x, *p) for p in packed],
+        }
+        if label.startswith("w_gate") and rows in W4A8_ROWS:
+            calls["gemv_int4_w4a8"] = [partial(kernels.gemv_int4_w4a8_cuda, x, q4, sc)
+                                       for q4, sc in copies]
+        row = {"bound_ms": bound_ms, "bound_by": bound_by, "copies": len(copies)}
+        print(f"== {label}: bound {bound_ms:.6g} ms ({bound_by}), {len(copies)} weight copies")
+        for what, fns in calls.items():
+            ms = device_ms(fns)
+            row[what] = ms
+            print(f"  {what:22s} {ms:.6g} ms  (share of bound {bound_ms / ms:.4g})")
+        for key, us in kernel_rows(calls["gemv_int4"]):
+            print(f"    {us:9.2f} us  {key[:100]}")
+        results[label] = row
+        del packed, calls
+    print(json.dumps({"card": card, "device_ms": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,7 +33,7 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.models.quantize", "llama32mm_tpu_torch.ops.cuda.qgemv", "llama32mm_tpu_torch.ops.cuda.qmatmul", "chip_smoke",
     "llama32mm_tpu_torch.train", "llama32mm_tpu_torch.utils.st_file", "profile_train",
     "llama32mm_tpu_torch.inference.server", "profile_serve", "profile_flash",
-    "llama32mm_tpu_torch.ops.cuda.flash_decode",
+    "llama32mm_tpu_torch.ops.cuda.flash_decode", "profile_qgemv",
 ]
 
 
@@ -59,6 +59,12 @@ def test_chip_smoke_fails_without_gpu():
                           capture_output=True, text=True, timeout=30)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_profile_qgemv_fails_without_gpu():
+    proc = subprocess.run([sys.executable, "profile_qgemv.py"], cwd=ROOT, env=_child_env(),
+                          capture_output=True, text=True, timeout=30)
+    assert proc.returncode != 0 and "device_ms" not in proc.stdout
 
 
 def _cpu_args(name):

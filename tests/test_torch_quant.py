@@ -128,13 +128,14 @@ def test_int8_gemv_plain_matches_pallas(rows, pallas_fn):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("rows", [1, 7])
+@pytest.mark.parametrize("g", [32, 64, 256])  # 256 = K: per-channel
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 32])  # the kernel's row tiles: 8, 16, 32
 @pytest.mark.parametrize("variant", ["post", "pre"])
-def test_int4_gemv_plain_matches_pallas(variant, rows):
+def test_int4_gemv_plain_matches_pallas(variant, rows, g):
     """The Pallas "post" and "pre" unpacks compute one product; the port has
     one W4A16 kernel for both."""
     rs = np.random.RandomState(4)
-    k, n, g, layers = 256, 200, 64, 2
+    k, n, layers = 256, 200, 2
     ws = _rand(rs, layers, k, n, scale=0.1)
     x = _rand(rs, rows, k)
     jqw = [jq.quantize_weight_int4(jnp.asarray(w), g) for w in ws]

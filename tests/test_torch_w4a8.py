@@ -81,7 +81,8 @@ def test_w4a8_row_quantization():
 
 @pytest.mark.parametrize("variant, rows, kernel", [
     ("w4a8", 1, "gemv_int4_w4a8"), ("w4a8b", 32, "gemv_int4_w4a8"),
-    ("w4a8", 33, "qmatmul"), ("post", 5, "gemv_int4"),
+    ("w4a8", 33, "qmatmul"), ("post", 5, "gemv_int4"), ("post", 32, "gemv_int4"),
+    ("post", 33, "qmatmul"), ("pre", 8, "gemv_int4"), ("post-cat", 1, "gemv_int4"),
 ])
 def test_qlinear_routes_int4_by_variant_and_rows(monkeypatch, variant, rows, kernel):
     """Under w4a8/w4a8b an int4 linear of at most 32 rows is the W4A8 gemv;
