@@ -26,8 +26,10 @@
    the plain path;
 7. does the same with an untied head, quantized to int8 and (from the same
    bf16 weights) to ``INT4_MIXED_RECIPE`` at g=128, each served with
-   ``kv_dtype="int8"``; the int4-mixed run must launch the W4A16 gemv 81
-   times a decode step (``w_gate`` and ``w_up`` of 40 layers, the head);
+   ``kv_dtype="int8"``; each prefill must run its 280 quantized linears (7
+   a layer) through the wgmma dequantizing GEMM and none through the wmma
+   one, and the int4-mixed run must launch the W4A16 gemv 81 times a decode
+   step (``w_gate`` and ``w_up`` of 40 layers, the head);
 8. LoRA fine-tuning of the 11B bf16 model (rank 16, the default targets
    and a head adapter, Adam) on one B=1, S=1632 batch: a warm-up step and
    3 timed steps; checks finite losses and moments, a bitwise unchanged
@@ -63,10 +65,13 @@ of a tensor-core backward kernel give the same bits; that each row of the
 int4 W4A16 gemv's R=8, 16 and 32 calls equals its R=1 call bit for bit and
 two calls of each int4 case give the same bits; that 50 calls of the
 tensor-core forward at hd 8 (bf16 and int8 KV) give the same bits (the
-zero-fill of its head-dim padding once raced its copies); and prints the
-tensor-core forward's and backward's times beside the SIMT kernels' and
-SDPA's at the same shapes. Every bf16 path at 11B and 3B must launch the new
-kernels and never a SIMT forward or backward.
+zero-fill of its head-dim padding once raced its copies); that the model's
+entry ``qmatmul_cuda`` routes each wgmma GEMM case to the wgmma kernel,
+two of its calls give the same bits, and rows 0-96 of each R=1632 call
+equal an R=97 call bit for bit; and prints the tensor-core forward's and
+backward's times beside the SIMT kernels' and SDPA's at the same shapes.
+Every bf16 path at 11B and 3B must launch the new kernels and never a SIMT
+forward or backward, nor the wmma dequantizing GEMM.
 
 Each kernel case also reports its bound (the larger of the bytes it must
 move over 3.35 TB/s and its operations over the dense peak for its type)
@@ -165,6 +170,8 @@ KERNEL_INFO = {
                                   "llama32mm_tpu/ops/pallas/attention.py:251"),
     "flash_attention_bwd_dkv_tc": ("llama32mm_tpu_torch/csrc/flash_attention_bwd_tc.cu",
                                    "llama32mm_tpu/ops/pallas/attention.py:322"),
+    "qmatmul_tc": ("llama32mm_tpu_torch/csrc/qmatmul.cu",
+                   "llama32mm_tpu/ops/pallas/quant_matmul.py:29"),
 }
 # Pallas functions a kernel folds in beside the one it is listed against, and
 # the pl.pallas_call sites that its Pallas functions reach.
@@ -195,16 +202,19 @@ ALSO_REPLACES = {
     "gemv_int4_w4a8": [_P + "gemv.py:419", _P + "gemv.py:561"],
     "qmatmul": [_P + "quant_matmul.py:99", _P + "quant_matmul.py:75",
                 _P + "quant_matmul.py:188"],
+    "qmatmul_tc": [_P + "quant_matmul.py:99", _P + "quant_matmul.py:75",
+                   _P + "quant_matmul.py:188"],
 }
 # The kernels each 11B and 3B path must launch: bf16 prefill and the ViT
-# through the tensor-core flash forward, decode through the split-KV kernel.
+# through the tensor-core flash forward, decode through the split-KV kernel,
+# quantized prefill linears through the wgmma dequantizing GEMM.
 BF16_ATTN = ("flash_attention_tc", "flash_decode")
 INT8_KV_ATTN = ("flash_attention_tc", "flash_attention_tc_int8kv", "flash_decode_int8kv")
-SERVER_INT4_KERNELS = ("rmsnorm", "gemv_int8", "gemv_int4_w4a8", "qmatmul") + INT8_KV_ATTN
+SERVER_INT4_KERNELS = ("rmsnorm", "gemv_int8", "gemv_int4_w4a8", "qmatmul_tc") + INT8_KV_ATTN
 PATH_KERNELS = {
     "bf16": ("rmsnorm", "gemv", "swiglu") + BF16_ATTN,
-    "int8": ("rmsnorm", "gemv_int8", "qmatmul") + INT8_KV_ATTN,
-    "int4_mixed": ("rmsnorm", "gemv_int8", "gemv_int4", "qmatmul") + INT8_KV_ATTN,
+    "int8": ("rmsnorm", "gemv_int8", "qmatmul_tc") + INT8_KV_ATTN,
+    "int4_mixed": ("rmsnorm", "gemv_int8", "gemv_int4", "qmatmul_tc") + INT8_KV_ATTN,
     "server_bf16": ("rmsnorm", "gemv", "swiglu") + BF16_ATTN,
     "server_int4_w4a8": SERVER_INT4_KERNELS,
     "swiglu_down_op": ("swiglu_down",),
@@ -222,7 +232,8 @@ PATH_KERNELS.update({
     "full_ft_3b": TRAIN_BF16_KERNELS + ("swiglu", "swiglu_bwd"),
 })
 # The SIMT fp32 forward and backward: the bf16 paths above must never
-# launch them.
+# launch them; nor the wmma dequantizing GEMM ("qmatmul"), which every
+# bf16 prefill shape leaves to the wgmma one.
 SIMT_FORWARD = ("flash_attention", "flash_attention_int8kv", "flash_attention_lse")
 SIMT_BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # The tiny fp32 model's quantized paths: a 40-token prefill over the int8
@@ -242,6 +253,8 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
     if path != "swiglu_down_op":
         faults += [f"launched the SIMT {k} {launches[k]} times"
                    for k in SIMT_FORWARD + SIMT_BACKWARD if launches[k]]
+        if launches["qmatmul"]:
+            faults.append(f"launched the wmma qmatmul {launches['qmatmul']} times")
     return faults + [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
 
 
@@ -309,6 +322,10 @@ def kernel_cases(dev, gen):
         ("gemv", "W_key R=1 N=1024 K=4096", (rnd(1, h), rnd(1024, h, scale=0.02)), False),
         ("gemv", "w_down R=1 N=4096 K=14336", (rnd(1, inter), rnd(h, inter, scale=0.01)), False),
         ("gemv", "ragged R=5 N=1000 K=4100", (rnd(5, 4100), rnd(1000, 4100, scale=0.02)), False),
+        ("gemv", "server lm_head R=8 N=128256 K=4096", (rnd(8, h), rnd(vocab, h)), False),
+        ("gemv", "server W_query R=8 N=4096 K=4096", (rnd(8, h), rnd(h, h, scale=0.02)), False),
+        ("gemv", "server w_down R=8 N=4096 K=14336", (rnd(8, inter), rnd(h, inter, scale=0.01)),
+         False),
         ("swiglu", "prefill R=1632 H=4096 I=14336",
          (rnd(1632, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), True),
         ("swiglu", "decode R=1 H=4096 I=14336",
@@ -355,6 +372,21 @@ def kernel_cases(dev, gen):
          (rnd(70, 4160), *q4(1000, 4160, 32)), False),
         ("qmatmul", "int4 element path R=40 N=200 K=192 g=24", (rnd(40, 192), *q4(200, 192, 24)),
          False),
+        ("qmatmul_tc", "int4 w_gate R=1632 N=14336 K=4096 g=128",
+         (rnd(1632, h), *q4(inter, h, 128)), True),
+        ("qmatmul_tc", "int8 w_gate R=1632 N=14336 K=4096", (rnd(1632, h), *q8(inter, h)), False),
+        ("qmatmul_tc", "int8 w_down R=1632 N=4096 K=14336", (rnd(1632, inter), *q8(h, inter)),
+         False),
+        ("qmatmul_tc", "int8 W_query R=1632 N=4096 K=4096", (rnd(1632, h), *q8(h, h)), False),
+        ("qmatmul_tc", "int8 W_key R=1632 N=1024 K=4096", (rnd(1632, h), *q8(1024, h)), False),
+        ("qmatmul_tc", "int8 W_query R=33 N=4096 K=4096", (rnd(33, h), *q8(h, h)), False),
+        ("qmatmul_tc", "int4 w_up R=33 N=14336 K=4096 g=128", (rnd(33, h), *q4(inter, h, 128)),
+         False),
+        ("qmatmul_tc", "ragged N int4 R=200 N=1000 K=4096 g=128",
+         (rnd(200, h), *q4(1000, h, 128)), False),
+        ("qmatmul_tc", "group scales 1000x apart R=70 N=300 K=512 g=64",
+         (rnd(70, 512), *q4_stepped(300, 512, 64)), False),
+        ("qmatmul_tc", "odd N int8 R=130 N=999 K=256", (rnd(130, 256), *q8(999, 256)), False),
         ("flash_attention_int8kv", "decoder prefill nq=32 nkv=8 Tq=1632 Tk=2048 hd=128 causal",
          (rnd(1, 32, 1632, 128), *kv8(1, 8, 2048, 128), valid(1, 2048, 1632), 0, True), True),
         ("flash_attention_int8kv", "decode Tq=1 Tk=2048 q_offset=1700 hd=128",
@@ -639,11 +671,11 @@ def library_call(name, args):
         return lambda: F.linear(x, args[1])
     if name == "rmsnorm" and args[3] is None:
         return lambda: F.rms_norm(x, (x.shape[-1],), args[1], args[2])
-    if name in ("gemv_int4", "qmatmul") and args[1].dtype == torch.uint8:
+    if name in ("gemv_int4", "qmatmul", "qmatmul_tc") and args[1].dtype == torch.uint8:
         packed, g, sz = _int4pack(args[1], args[2], x)
         x2 = x.reshape(-1, x.shape[-1])
         return lambda: torch._weight_int4pack_mm(x2, packed, g, sz)
-    if name in ("gemv_int8", "qmatmul") and args[1].dtype == torch.int8:
+    if name in ("gemv_int8", "qmatmul", "qmatmul_tc") and args[1].dtype == torch.int8:
         x2, sc = x.reshape(-1, x.shape[-1]), args[2].to(x.dtype)
         return lambda: torch._weight_int8pack_mm(x2, args[1], sc)
     if name in ("flash_attention", "flash_attention_lse", "flash_attention_tc",
@@ -713,6 +745,25 @@ def check_gemv_rows_alone(name, label, wrapper, args, got) -> None:
     log(f"kernel {name} [{label}]: each of the {x.shape[0]} rows equals its R=1 call bit for bit")
 
 
+def check_qmatmul_tc(label, args, got) -> None:
+    """The wgmma GEMM's case: ``qmatmul_cuda`` (the model's entry) routes it
+    to the wgmma kernel with the same bits, a second call gives the same
+    bits, and at R = 1632 rows 0-96 equal an R = 97 call on those rows bit
+    for bit (a row's k order never depends on R or on its row tile)."""
+    before = kernels.qmatmul_tc_cuda.launches
+    routed = kernels.qmatmul_cuda(*args)
+    if kernels.qmatmul_tc_cuda.launches != before + 1 or not torch.equal(routed, got):
+        raise RuntimeError(f"qmatmul_tc [{label}]: qmatmul_cuda did not route it to the wgmma "
+                           f"kernel, or gave other bits")
+    check_same_bits("qmatmul_tc", label, kernels.qmatmul_tc_cuda, args, got)
+    x = args[0]
+    if x.shape[0] == 1632:
+        part = kernels.qmatmul_tc_cuda(x[:97].contiguous(), *args[1:])
+        if not torch.equal(part, got[:97]):
+            raise RuntimeError(f"qmatmul_tc [{label}]: rows 0-96 differ from an R=97 call")
+        log(f"kernel qmatmul_tc [{label}]: rows 0-96 equal the R=97 call bit for bit")
+
+
 def compare_kernels(dev, only=None) -> dict:
     """Every kernel case (those of the kernels in ``only``, when given)
     against its plain version; returns the main-path shapes' numbers."""
@@ -740,6 +791,8 @@ def compare_kernels(dev, only=None) -> dict:
             check_gemv_rows_alone(name, label, wrapper, args, got)
         if name in HD8_RACE and label.startswith("hd=8"):  # the zero-fill race, repaired
             check_same_bits(name, label, wrapper, args, got, calls=49)
+        if name == "qmatmul_tc":
+            check_qmatmul_tc(label, args, got)
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
         lib_ms = library_ms(name, label, args)
         bound_ms, bound_by = bound(name, args, want)
@@ -1138,6 +1191,12 @@ def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
             torch.isfinite(res.prefill_logits).all()):
         raise RuntimeError("prefill logits are not finite [1, vocab]")
     faults = path_faults(path, launches, plain_calls)
+    if path in ("int8", "int4_mixed"):  # the prefill's 7 quantized linears a layer
+        want = 7 * tc.n_layers
+        log(f"[{path}] wgmma qmatmul launches {launches['qmatmul_tc']} = 7 x {tc.n_layers} "
+            f"layers: {launches['qmatmul_tc'] == want}")
+        if launches["qmatmul_tc"] != want:
+            faults.append(f"launched the wgmma qmatmul {launches['qmatmul_tc']} times, not {want}")
     if path == "int4_mixed":  # w_gate and w_up of each layer and the head, each step
         per_step = 2 * tc.n_layers + 1
         want = per_step * 63 + 1  # 63 decode steps and the prefill's last-position head

@@ -41,7 +41,12 @@ from llama32mm_tpu_torch.ops.cuda.qgemv import (
     gemv_int8_cuda,
     gemv_int8_plain,
 )
-from llama32mm_tpu_torch.ops.cuda.qmatmul import qmatmul_cuda, qmatmul_plain
+from llama32mm_tpu_torch.ops.cuda.qmatmul import (
+    qmatmul_cuda,
+    qmatmul_plain,
+    qmatmul_tc_cuda,
+    qmatmul_wmma_cuda,
+)
 from llama32mm_tpu_torch.ops.cuda.rmsnorm import (
     fused_add_rmsnorm_cuda,
     fused_add_rmsnorm_plain,
@@ -67,7 +72,7 @@ KERNELS = {
     "flash_attention": (flash_attention_cuda, flash_attention_plain),
     "gemv_int8": (gemv_int8_cuda, gemv_int8_plain),
     "gemv_int4": (gemv_int4_cuda, gemv_int4_plain),
-    "qmatmul": (qmatmul_cuda, qmatmul_plain),
+    "qmatmul": (qmatmul_wmma_cuda, qmatmul_plain),
     "flash_attention_int8kv": (flash_attention_int8kv_cuda, flash_attention_int8kv_plain),
     "rmsnorm_fwd_train": (rmsnorm_fwd_train_cuda, rmsnorm_fwd_train_plain),
     "rmsnorm_bwd": (rmsnorm_bwd_cuda, rmsnorm_bwd_plain),
@@ -85,6 +90,7 @@ KERNELS = {
     "flash_attention_bwd_dq_tc": (flash_attention_bwd_dq_tc_cuda, flash_attention_bwd_dq_tc_plain),
     "flash_attention_bwd_dkv_tc": (flash_attention_bwd_dkv_tc_cuda,
                                    flash_attention_bwd_dkv_tc_plain),
+    "qmatmul_tc": (qmatmul_tc_cuda, qmatmul_plain),
 }
 
 
@@ -99,4 +105,9 @@ def launch_counts() -> dict:
 
 
 def plain_counts() -> dict:
-    return {name: plain.calls for name, (_, plain) in KERNELS.items()}
+    """Each plain version's calls, once, under the first name KERNELS gives it
+    (``qmatmul`` and ``qmatmul_tc`` share one)."""
+    names = {}
+    for name, (_, plain) in KERNELS.items():
+        names.setdefault(plain, name)
+    return {name: plain.calls for plain, name in names.items()}

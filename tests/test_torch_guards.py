@@ -33,7 +33,7 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.models.quantize", "llama32mm_tpu_torch.ops.cuda.qgemv", "llama32mm_tpu_torch.ops.cuda.qmatmul", "chip_smoke",
     "llama32mm_tpu_torch.train", "llama32mm_tpu_torch.utils.st_file", "profile_train",
     "llama32mm_tpu_torch.inference.server", "profile_serve", "profile_flash",
-    "llama32mm_tpu_torch.ops.cuda.flash_decode", "profile_qgemv",
+    "llama32mm_tpu_torch.ops.cuda.flash_decode", "profile_qgemv", "profile_qmatmul",
 ]
 
 
@@ -84,7 +84,7 @@ def _cpu_args(name):
         return x, torch.randn(8, 16), torch.randn(8, 16)
     if name == "swiglu_down":
         return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(16, 8)
-    if name in ("gemv_int8", "qmatmul"):
+    if name in ("gemv_int8", "qmatmul", "qmatmul_tc"):
         return x, torch.randint(-127, 128, (8, 16), dtype=torch.int8), torch.rand(8)
     if name in ("gemv_int4", "gemv_int4_w4a8"):  # group size 8
         return x, torch.randint(0, 256, (8, 8), dtype=torch.uint8), torch.rand(8, 2)

@@ -148,8 +148,13 @@ def test_int4_gemv_plain_matches_pallas(variant, rows, g):
 
 
 # (bits, rows, K, N, group): rows above the gemv limit; K=200 is ragged for
-# the int8 Pallas kernel's 256-wide K blocks, K=96 for int4 is 3 groups of 32
+# the int8 Pallas kernel's 256-wide K blocks, K=96 for int4 is 3 groups of 32.
+# The *_r130 cases are shapes the card's wgmma kernel takes (int8 K a
+# multiple of 64, int4 g/2 a multiple of 32) with R past one 128-row tile
+# and N past two 128-column tiles.
 QMATMUL_CASES = {
+    "int8_r130": (8, 130, 256, 300, 0),
+    "int4_g128_r130": (4, 130, 256, 300, 128),
     "int8_r33": (8, 33, 256, 300, 0),
     "int8_r100": (8, 100, 256, 130, 0),
     "int8_ragged_k": (8, 40, 200, 130, 0),
@@ -176,6 +181,26 @@ def test_qmatmul_plain_matches_pallas(case):
     got = qlinear(torch.from_numpy(x), qw)
     assert kernels.plain_counts()["qmatmul"] == 1 and not any(kernels.launch_counts().values())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_qmatmul_plain_int4_k512_matches_float64():
+    """int4 g=128 R=130 N=300 at K=512 (four groups), held against the float64
+    product of the same dequantized weights rather than against the Pallas
+    kernel. With this data the port's plain version is within 4.3e-6 of
+    float64 everywhere, while ``int4_matmul_pallas`` (interpret mode) is
+    1.7e-5 away at five elements, past the 1e-5 tolerance: it takes the raw
+    product with ``u = q + 8`` and subtracts ``8 * rowsum(x) @ scale``
+    afterwards, and that raw fp32 product is ~16x the result, so its rounding
+    is ~16x larger relative to it. ``int4_g128_r130`` above therefore
+    compares with Pallas at K=256, where both stay within 1e-5."""
+    rs = np.random.RandomState(5)
+    w, x = _rand(rs, 512, 300, scale=0.1), _rand(rs, 130, 512)
+    qw = quantize_weight_int4(_port(w), 128)
+    kernels.reset_counters()
+    got = qlinear(torch.from_numpy(x), qw)
+    assert kernels.plain_counts()["qmatmul"] == 1 and not any(kernels.launch_counts().values())
+    want = x.astype(np.float64) @ dequantize_weight(qw, torch.float32).double().numpy().T
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.fixture(scope="module")
