@@ -172,6 +172,7 @@ KERNEL_INFO = {
                                    "llama32mm_tpu/ops/pallas/attention.py:322"),
     "qmatmul_tc": ("llama32mm_tpu_torch/csrc/qmatmul.cu",
                    "llama32mm_tpu/ops/pallas/quant_matmul.py:29"),
+    "gemv_tc": ("llama32mm_tpu_torch/csrc/gemv.cu", "llama32mm_tpu/ops/pallas/gemv.py:655"),
 }
 # Pallas functions a kernel folds in beside the one it is listed against, and
 # the pl.pallas_call sites that its Pallas functions reach.
@@ -197,6 +198,8 @@ ALSO_REPLACES = {
     "flash_attention_bwd_dkv_tc": [_P + "attention.py:472"],
     "gemv": [_P + "gemv.py:55", _P + "gemv.py:105", _P + "gemv.py:81", _P + "gemv.py:133",
              _P + "gemv.py:677"],
+    "gemv_tc": [_P + "gemv.py:55", _P + "gemv.py:105", _P + "gemv.py:81", _P + "gemv.py:133",
+                _P + "gemv.py:677"],
     "gemv_int8": [_P + "gemv.py:701", _P + "gemv.py:185", _P + "gemv.py:724"],
     "gemv_int4": [_P + "gemv.py:216", _P + "gemv.py:592", _P + "gemv.py:618"],
     "gemv_int4_w4a8": [_P + "gemv.py:419", _P + "gemv.py:561"],
@@ -207,15 +210,16 @@ ALSO_REPLACES = {
 }
 # The kernels each 11B and 3B path must launch: bf16 prefill and the ViT
 # through the tensor-core flash forward, decode through the split-KV kernel,
-# quantized prefill linears through the wgmma dequantizing GEMM.
+# quantized prefill linears through the wgmma dequantizing GEMM, bf16 decode
+# linears through the tensor-core gemv.
 BF16_ATTN = ("flash_attention_tc", "flash_decode")
 INT8_KV_ATTN = ("flash_attention_tc", "flash_attention_tc_int8kv", "flash_decode_int8kv")
 SERVER_INT4_KERNELS = ("rmsnorm", "gemv_int8", "gemv_int4_w4a8", "qmatmul_tc") + INT8_KV_ATTN
 PATH_KERNELS = {
-    "bf16": ("rmsnorm", "gemv", "swiglu") + BF16_ATTN,
+    "bf16": ("rmsnorm", "gemv_tc", "swiglu") + BF16_ATTN,
     "int8": ("rmsnorm", "gemv_int8", "qmatmul_tc") + INT8_KV_ATTN,
     "int4_mixed": ("rmsnorm", "gemv_int8", "gemv_int4", "qmatmul_tc") + INT8_KV_ATTN,
-    "server_bf16": ("rmsnorm", "gemv", "swiglu") + BF16_ATTN,
+    "server_bf16": ("rmsnorm", "gemv_tc", "swiglu") + BF16_ATTN,
     "server_int4_w4a8": SERVER_INT4_KERNELS,
     "swiglu_down_op": ("swiglu_down",),
 }
@@ -233,7 +237,9 @@ PATH_KERNELS.update({
 })
 # The SIMT fp32 forward and backward: the bf16 paths above must never
 # launch them; nor the wmma dequantizing GEMM ("qmatmul"), which every
-# bf16 prefill shape leaves to the wgmma one.
+# bf16 prefill shape leaves to the wgmma one; nor the CUDA-core gemv
+# ("gemv"), which every decode linear at these widths leaves to the
+# tensor-core one.
 SIMT_FORWARD = ("flash_attention", "flash_attention_int8kv", "flash_attention_lse")
 SIMT_BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # The tiny fp32 model's quantized paths: a 40-token prefill over the int8
@@ -255,6 +261,8 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
                    for k in SIMT_FORWARD + SIMT_BACKWARD if launches[k]]
         if launches["qmatmul"]:
             faults.append(f"launched the wmma qmatmul {launches['qmatmul']} times")
+        if launches["gemv"]:
+            faults.append(f"launched the CUDA-core gemv {launches['gemv']} times")
     return faults + [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
 
 
@@ -326,6 +334,24 @@ def kernel_cases(dev, gen):
         ("gemv", "server W_query R=8 N=4096 K=4096", (rnd(8, h), rnd(h, h, scale=0.02)), False),
         ("gemv", "server w_down R=8 N=4096 K=14336", (rnd(8, inter), rnd(h, inter, scale=0.01)),
          False),
+        ("gemv_tc", "lm_head R=1 N=128256 K=4096", (rnd(1, h), rnd(vocab, h)), False),
+        ("gemv_tc", "W_query R=1 N=4096 K=4096", (rnd(1, h), rnd(h, h, scale=0.02)), False),
+        ("gemv_tc", "W_key R=1 N=1024 K=4096", (rnd(1, h), rnd(1024, h, scale=0.02)), False),
+        ("gemv_tc", "w_down R=1 N=4096 K=14336", (rnd(1, inter), rnd(h, inter, scale=0.01)),
+         False),
+        ("gemv_tc", "server lm_head R=8 N=128256 K=4096", (rnd(8, h), rnd(vocab, h)), True),
+        ("gemv_tc", "server W_query R=8 N=4096 K=4096", (rnd(8, h), rnd(h, h, scale=0.02)), False),
+        ("gemv_tc", "server W_key R=8 N=1024 K=4096", (rnd(8, h), rnd(1024, h, scale=0.02)),
+         False),
+        ("gemv_tc", "server w_down R=8 N=4096 K=14336",
+         (rnd(8, inter), rnd(h, inter, scale=0.01)), False),
+        ("gemv_tc", "W_query R=2 N=4096 K=4096", (rnd(2, h), rnd(h, h, scale=0.02)), False),
+        ("gemv_tc", "W_query R=16 N=4096 K=4096", (rnd(16, h), rnd(h, h, scale=0.02)), False),
+        ("gemv_tc", "w_down R=17 N=4096 K=14336", (rnd(17, inter), rnd(h, inter, scale=0.01)),
+         False),
+        ("gemv_tc", "lm_head R=32 N=128256 K=4096", (rnd(32, h), rnd(vocab, h)), False),
+        ("gemv_tc", "W_key R=32 N=1024 K=4096", (rnd(32, h), rnd(1024, h, scale=0.02)), False),
+        ("gemv_tc", "ragged N R=5 N=1000 K=4096", (rnd(5, h), rnd(1000, h, scale=0.02)), False),
         ("swiglu", "prefill R=1632 H=4096 I=14336",
          (rnd(1632, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), True),
         ("swiglu", "decode R=1 H=4096 I=14336",
@@ -667,7 +693,7 @@ def library_call(name, args):
     """One PyTorch call computing the kernel's function on the same inputs
     (a yardstick, never called by the port), or None where there is none."""
     x = args[0]
-    if name == "gemv":
+    if name in ("gemv", "gemv_tc"):
         return lambda: F.linear(x, args[1])
     if name == "rmsnorm" and args[3] is None:
         return lambda: F.rms_norm(x, (x.shape[-1],), args[1], args[2])
@@ -745,6 +771,21 @@ def check_gemv_rows_alone(name, label, wrapper, args, got) -> None:
     log(f"kernel {name} [{label}]: each of the {x.shape[0]} rows equals its R=1 call bit for bit")
 
 
+def check_gemv_tc(label, args, got) -> None:
+    """The tensor-core gemv's case: ``gemv_cuda`` (the model's entry) routes
+    it to the tensor-core kernel with the same bits, a second call gives the
+    same bits, and each row of a multi-row call equals its R = 1 call bit for
+    bit (the warps' K split and summation order never depend on R)."""
+    before = kernels.gemv_tc_cuda.launches
+    routed = kernels.gemv_cuda(*args)
+    if kernels.gemv_tc_cuda.launches != before + 1 or not torch.equal(routed, got):
+        raise RuntimeError(f"gemv_tc [{label}]: gemv_cuda did not route it to the tensor-core "
+                           f"kernel, or gave other bits")
+    check_same_bits("gemv_tc", label, kernels.gemv_tc_cuda, args, got)
+    if args[0].shape[0] > 1:
+        check_gemv_rows_alone("gemv_tc", label, kernels.gemv_tc_cuda, args, got)
+
+
 def check_qmatmul_tc(label, args, got) -> None:
     """The wgmma GEMM's case: ``qmatmul_cuda`` (the model's entry) routes it
     to the wgmma kernel with the same bits, a second call gives the same
@@ -793,6 +834,8 @@ def compare_kernels(dev, only=None) -> dict:
             check_same_bits(name, label, wrapper, args, got, calls=49)
         if name == "qmatmul_tc":
             check_qmatmul_tc(label, args, got)
+        if name == "gemv_tc":
+            check_gemv_tc(label, args, got)
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
         lib_ms = library_ms(name, label, args)
         bound_ms, bound_by = bound(name, args, want)
@@ -1197,6 +1240,13 @@ def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
             f"layers: {launches['qmatmul_tc'] == want}")
         if launches["qmatmul_tc"] != want:
             faults.append(f"launched the wgmma qmatmul {launches['qmatmul_tc']} times, not {want}")
+    if path == "bf16":  # 5 linears a layer and the head each step, the tensor-core gemv
+        per_step = 5 * tc.n_layers + 1
+        want = per_step * 63 + 1  # 63 decode steps and the prefill's last-position head
+        log(f"[{path}] tensor-core gemv launches {launches['gemv_tc']} = {per_step} per decode "
+            f"step x 63 + 1: {launches['gemv_tc'] == want}")
+        if launches["gemv_tc"] != want:
+            faults.append(f"launched the tensor-core gemv {launches['gemv_tc']} times, not {want}")
     if path == "int4_mixed":  # w_gate and w_up of each layer and the head, each step
         per_step = 2 * tc.n_layers + 1
         want = per_step * 63 + 1  # 63 decode steps and the prefill's last-position head
@@ -1294,6 +1344,14 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None) -> dict:
             raise RuntimeError(f"[{path}] request {i}: {len(toks)} tokens for a budget of "
                                f"{reqs[i][2]}, or ids outside the vocabulary")
     faults = path_faults(path, launches, plain_calls)
+    if path == "server_bf16":  # every decode step's 201 linears and each admission's head
+        steps = sum(c[0] for c in chunks)
+        want = (5 * tc.n_layers + 1) * steps + len(rids)
+        log(f"[{path}] tensor-core gemv launches {launches['gemv_tc']} = "
+            f"{5 * tc.n_layers + 1} x {steps} steps + {len(rids)} prefill heads: "
+            f"{launches['gemv_tc'] == want}")
+        if launches["gemv_tc"] != want:
+            faults.append(f"launched the tensor-core gemv {launches['gemv_tc']} times, not {want}")
     if faults:
         raise RuntimeError(f"[{path}] {faults}")
     if launches["gemv_int4"]:

@@ -58,6 +58,19 @@ static inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// D += A B on mma.sync m16n8k16: A 16x16 and B 16x8 bf16, fp32 C in place.
+// Fragments: lane (gid = lane / 4, t = lane % 4) holds A rows gid (a[0], a[2])
+// and gid + 8 (a[1], a[3]) at k 2t, 2t + 1 (a[0], a[1]) and 2t + 8, 2t + 9
+// (a[2], a[3]); B column gid at k 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1);
+// C rows gid (c[0], c[1]) and gid + 8 (c[2], c[3]) at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // cp.async of N (4, 8 or 16) bytes into shared memory; with valid false the
 // destination is zero-filled and nothing is read.
 template <int N>

@@ -249,15 +249,6 @@ gemv_int4_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q4,
 constexpr int kTcWarps = 4;   // K slices of a block, one warp each
 constexpr int kTcUnroll = 4;  // spans whose weight loads a thread keeps in flight
 
-// D += A B on mma.sync m16n8k16: A 16x16 and B 16x8 bf16, fp32 C in place.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The nibbles u at bits 0-3 and 16-19 of w as two bf16 values u - 8, exactly:
 // OR-ing in 0x4300 (bf16 128) makes the mantissa's low bits u, i.e. 128 + u,
 // and one bf16x2 FMA, (128 + u) * 1 - 136, leaves u - 8 (small integers, no

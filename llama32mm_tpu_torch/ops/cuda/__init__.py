@@ -32,7 +32,7 @@ from llama32mm_tpu_torch.ops.cuda.flash_decode import (
     flash_decode_int8kv_plain,
     flash_decode_plain,
 )
-from llama32mm_tpu_torch.ops.cuda.gemv import gemv_cuda, gemv_plain
+from llama32mm_tpu_torch.ops.cuda.gemv import gemv_cuda, gemv_plain, gemv_simt_cuda, gemv_tc_cuda
 from llama32mm_tpu_torch.ops.cuda.qgemv import (
     gemv_int4_cuda,
     gemv_int4_plain,
@@ -67,7 +67,7 @@ from llama32mm_tpu_torch.ops.cuda.swiglu import (
 # kernel name -> (wrapper, plain version)
 KERNELS = {
     "rmsnorm": (fused_add_rmsnorm_cuda, fused_add_rmsnorm_plain),
-    "gemv": (gemv_cuda, gemv_plain),
+    "gemv": (gemv_simt_cuda, gemv_plain),
     "swiglu": (fused_swiglu_cuda, fused_swiglu_plain),
     "flash_attention": (flash_attention_cuda, flash_attention_plain),
     "gemv_int8": (gemv_int8_cuda, gemv_int8_plain),
@@ -91,6 +91,7 @@ KERNELS = {
     "flash_attention_bwd_dkv_tc": (flash_attention_bwd_dkv_tc_cuda,
                                    flash_attention_bwd_dkv_tc_plain),
     "qmatmul_tc": (qmatmul_tc_cuda, qmatmul_plain),
+    "gemv_tc": (gemv_tc_cuda, gemv_plain),
 }
 
 
@@ -106,7 +107,7 @@ def launch_counts() -> dict:
 
 def plain_counts() -> dict:
     """Each plain version's calls, once, under the first name KERNELS gives it
-    (``qmatmul`` and ``qmatmul_tc`` share one)."""
+    (``qmatmul`` and ``qmatmul_tc`` share one, as do ``gemv`` and ``gemv_tc``)."""
     names = {}
     for name, (_, plain) in KERNELS.items():
         names.setdefault(plain, name)

@@ -102,8 +102,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "l32_rmsnorm_fwd": [p, p, p, p, p, p, i, i, f, i, p],
         # (g, t, weight, rms, dt, dw|NULL, workspace|NULL, rows, cols, parts, dtype, stream)
         "l32_rmsnorm_bwd": [p, p, p, p, p, p, p, i, i, i, i, p],
-        # (x, w, out, rows, n, k, dtype, stream)
-        "l32_gemv": [p, p, p, i, i, i, i, p],
+        # (x, w, out, rows, n, k, dtype, kernel (-1: routed), launched kernel (out), stream)
+        "l32_gemv": [p, p, p, i, i, i, i, i, p, p],
         # (x, w_gate, w_up, out, rows, hidden, inter, dtype, stream)
         "l32_swiglu_fwd": [p, p, p, p, i, i, i, i, p],
         # (x, w_gate, w_up, g, d_gate, d_up, rows, hidden, inter, dtype, stream)

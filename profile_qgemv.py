@@ -1,24 +1,33 @@
-"""Device time of the int4 gemvs on one NVIDIA GPU, beside PyTorch's int4
-matmul on the same weights:
+"""Device time of the decode gemvs on one NVIDIA GPU, beside PyTorch's
+calls on the same weights:
 
-    python3 profile_qgemv.py
+    python3 profile_qgemv.py          # the bf16 gemvs, then the int4 gemvs
+    python3 profile_qgemv.py --bf16   # the bf16 gemvs alone
 
-Shapes of the int4-mixed decode path of Llama-3.2-11B-Vision (g=128): the
-untied int4 head (R=1, N=128256, K=4096) and ``w_gate`` (N=14336, K=4096)
-at R = 1, 8, 16 and 32 rows. For each it times the W4A16 gemv
-(``gemv_int4_cuda``) and ``torch._weight_int4pack_mm`` on the same weights
-in PyTorch's own layout (a yardstick the port never calls), and the W4A8
-gemv (``gemv_int4_w4a8_cuda``) at R = 1 and 8 on the ``w_gate`` bytes; each
-beside its bound (``chip_smoke.bound``: bytes over 3.35 TB/s, operations over
-the dense peak).
+bf16: the decode linears of Llama-3.2-11B-Vision, ``lm_head`` (N=128256,
+K=4096), ``W_query`` (N=4096, K=4096), ``W_key`` (N=1024, K=4096) and
+``w_down`` (N=4096, K=14336), at R = 1, 8, 16 and 32 rows. For each it
+times the tensor-core gemv (``gemv_tc_cuda``, what ``gemv_cuda`` routes
+these shapes to), the CUDA-core gemv (``gemv_simt_cuda``) and ``F.linear``
+on the same tensors (a yardstick the port never calls).
+
+int4: the shapes of the int4-mixed decode path (g=128), the untied int4
+head (R=1, N=128256, K=4096) and ``w_gate`` (N=14336, K=4096) at R = 1, 8,
+16 and 32 rows. For each it times the W4A16 gemv (``gemv_int4_cuda``) and
+``torch._weight_int4pack_mm`` on the same weights in PyTorch's own layout (a
+yardstick the port never calls), and the W4A8 gemv (``gemv_int4_w4a8_cuda``)
+at R = 1 and 8 on the ``w_gate`` bytes.
+
+Each time stands beside its bound (``chip_smoke.bound``: bytes over 3.35
+TB/s, operations over the dense peak).
 
 Each time is CUDA events around 20 back-to-back calls queued behind a
 ``torch.cuda._sleep``, so that the host's launch overhead is hidden and the
 number is device time. A decode step reads each layer's weights once, so
 they come from device memory, not from the 50 MB L2: a shape whose weights
 are smaller than 150 MB is held in several copies, and the calls cycle
-through them. Then ``torch.profiler`` lists the kernels of the W4A16 call
-with their device time. The last line is one JSON object with every time.
+through them. Then ``torch.profiler`` lists the kernels of the tensor-core
+(bf16) and W4A16 (int4) calls with their device time. The last line is one JSON object with every time.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import sys
 from functools import partial
 
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -47,6 +57,13 @@ SHAPES = [  # (label, rows, N, K, g)
     ("w_gate R=32 N=14336 K=4096 g=128", 32, 14336, 4096, 128),
 ]
 W4A8_ROWS = (1, 8)
+BF16_SHAPES = {  # label: (N, K)
+    "lm_head N=128256 K=4096": (128256, 4096),
+    "W_query N=4096 K=4096": (4096, 4096),
+    "W_key N=1024 K=4096": (1024, 4096),
+    "w_down N=4096 K=14336": (4096, 14336),
+}
+BF16_ROWS = (1, 8, 16, 32)
 
 
 def device_ms(fns) -> float:
@@ -76,6 +93,40 @@ def kernel_rows(fns) -> list:
             if e.device_type == DeviceType.CUDA]
 
 
+def profile_bf16(dev, gen) -> dict:
+    """The bf16 gemvs at ``BF16_SHAPES`` x ``BF16_ROWS``, as the module
+    docstring says."""
+    results = {}
+    for label, (n, k) in BF16_SHAPES.items():
+        copies = [(torch.randn(n, k, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+                  for _ in range(max(1, math.ceil(L2_SPAN / (n * k * 2))))]
+        for rows in BF16_ROWS:
+            x = torch.randn(rows, k, generator=gen, device=dev).to(torch.bfloat16)
+            args = (x, copies[0])
+            want = kernels.gemv_plain(*args)
+            bound_ms, bound_by = cs.bound("gemv_tc", args, want)
+            calls = {
+                "gemv_tc": [partial(kernels.gemv_tc_cuda, x, w) for w in copies],
+                "gemv_simt": [partial(kernels.gemv_simt_cuda, x, w) for w in copies],
+                "F.linear": [partial(F.linear, x, w) for w in copies],
+            }
+            err = (kernels.gemv_tc_cuda(*args).float() - want.float()).abs().max().item()
+            row = {"bound_ms": bound_ms, "bound_by": bound_by, "copies": len(copies)}
+            print(f"== bf16 {label} R={rows}: bound {bound_ms:.6g} ms ({bound_by}), "
+                  f"{len(copies)} weight copies; gemv_tc max_abs_err vs plain {err:.6g} "
+                  f"(max {want.float().abs().max().item():.6g})")
+            for what, fns in calls.items():
+                ms = device_ms(fns)
+                row[what] = ms
+                print(f"  {what:22s} {ms:.6g} ms  (share of bound {bound_ms / ms:.4g})")
+            for key, us in kernel_rows(calls["gemv_tc"]):
+                print(f"    {us:9.2f} us  {key[:100]}")
+            results[f"{label} R={rows}"] = row
+        del copies
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_qgemv: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -87,6 +138,10 @@ def main() -> int:
     print(f"card: {card}")
     cs.build_library()
     gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = profile_bf16(dev, gen)
+    if "--bf16" in sys.argv[1:]:
+        print(json.dumps({"card": card, "bf16_device_ms": bf16}))
+        return 0
     results = {}
     weights = {}  # (N, K, g) -> list of (q4, scale) copies
     for label, rows, n, k, g in SHAPES:
@@ -121,7 +176,7 @@ def main() -> int:
             print(f"    {us:9.2f} us  {key[:100]}")
         results[label] = row
         del packed, calls
-    print(json.dumps({"card": card, "device_ms": results}))
+    print(json.dumps({"card": card, "bf16_device_ms": bf16, "device_ms": results}))
     return 0
 
 

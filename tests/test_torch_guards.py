@@ -34,6 +34,7 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.train", "llama32mm_tpu_torch.utils.st_file", "profile_train",
     "llama32mm_tpu_torch.inference.server", "profile_serve", "profile_flash",
     "llama32mm_tpu_torch.ops.cuda.flash_decode", "profile_qgemv", "profile_qmatmul",
+    "llama32mm_tpu_torch.ops.cuda.gemv",
 ]
 
 
@@ -78,7 +79,7 @@ def _cpu_args(name):
     if name.startswith("flash_attention_bwd"):
         q, lse = torch.randn(1, 2, 3, 16), torch.zeros(1, 2, 3)
         return q, q, q, torch.ones(1, 3), 0, True, lse, lse, q
-    if name == "gemv":
+    if name in ("gemv", "gemv_tc"):
         return x, torch.randn(8, 16)
     if name == "swiglu":
         return x, torch.randn(8, 16), torch.randn(8, 16)

@@ -54,11 +54,17 @@ def test_swiglu_matches_pallas(r, h, i):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("rows", [1, 5, 32])
+# (rows, K): K = 96 as before; the row buckets' edges 8, 16 and 17 at K = 128,
+# a multiple of 32 (the shape class of the tensor-core kernel on the card).
+# N = 300 is not a multiple of 16 (the kernel's column groups).
+GEMV_CASES = [(1, 96), (5, 96), (32, 96), (8, 128), (16, 128), (17, 128)]
+
+
+@pytest.mark.parametrize("rows,k", GEMV_CASES, ids=[str(r) for r, _ in GEMV_CASES])
 @pytest.mark.parametrize("pallas_fn", ["gemv_t_pallas", "gemv_pallas"])
-def test_gemv_matches_pallas(rows, pallas_fn):
+def test_gemv_matches_pallas(rows, k, pallas_fn):
     rs = np.random.RandomState(2)
-    k, n = 96, 300
+    n = 300
     x, w_nk = _rand(rs, rows, k), _rand(rs, n, k, scale=0.1)
     if pallas_fn == "gemv_t_pallas":
         want = gemv_t_pallas(jnp.asarray(x), jnp.asarray(w_nk))
@@ -66,6 +72,23 @@ def test_gemv_matches_pallas(rows, pallas_fn):
         want = gemv_pallas(jnp.asarray(x), jnp.asarray(w_nk.T.copy()))
     got = linear(torch.from_numpy(x), torch.from_numpy(w_nk))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_gemv_bf16_matches_pallas():
+    """bf16 x and weight, 8 rows, K = 128, N = 300, against the Pallas kernel
+    in bf16. Both accumulate in fp32 and round once to bf16, summing in other
+    orders, so an output may move by one bf16 step: at most 2^-7 of its
+    magnitude, so 2^-7 of max|want|."""
+    rs = np.random.RandomState(2)
+    x, w_nk = _rand(rs, 8, 128), _rand(rs, 300, 128, scale=0.1)
+    want = gemv_t_pallas(jnp.asarray(x).astype(jnp.bfloat16),
+                         jnp.asarray(w_nk).astype(jnp.bfloat16))
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    got = linear(torch.from_numpy(x).bfloat16(), torch.from_numpy(w_nk).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2.0**-7 * np.abs(want).max())
 
 
 # (b, nq, nkv, tq, tk, hd, q_offset, causal, key validity)
