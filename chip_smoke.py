@@ -173,6 +173,9 @@ KERNEL_INFO = {
     "qmatmul_tc": ("llama32mm_tpu_torch/csrc/qmatmul.cu",
                    "llama32mm_tpu/ops/pallas/quant_matmul.py:29"),
     "gemv_tc": ("llama32mm_tpu_torch/csrc/gemv.cu", "llama32mm_tpu/ops/pallas/gemv.py:655"),
+    "swiglu_tc": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:69"),
+    "swiglu_bwd_tc": ("llama32mm_tpu_torch/csrc/swiglu.cu",
+                      "llama32mm_tpu/ops/pallas/swiglu.py:136"),
 }
 # Pallas functions a kernel folds in beside the one it is listed against, and
 # the pl.pallas_call sites that its Pallas functions reach.
@@ -183,6 +186,8 @@ ALSO_REPLACES = {
     "rmsnorm_bwd": [_P + "rmsnorm.py:147"],
     "swiglu": [_P + "swiglu.py:98"],
     "swiglu_bwd": [_P + "swiglu.py:98"],
+    "swiglu_tc": [_P + "swiglu.py:98"],
+    "swiglu_bwd_tc": [_P + "swiglu.py:98"],
     "swiglu_down": [_P + "swiglu.py:255"],
     "flash_attention": [_P + "attention.py:198"],
     "flash_attention_int8kv": [_P + "attention.py:198"],
@@ -211,15 +216,18 @@ ALSO_REPLACES = {
 # The kernels each 11B and 3B path must launch: bf16 prefill and the ViT
 # through the tensor-core flash forward, decode through the split-KV kernel,
 # quantized prefill linears through the wgmma dequantizing GEMM, bf16 decode
-# linears through the tensor-core gemv.
+# linears through the tensor-core gemv, the bf16 prefill's SwiGLU through
+# the TMA tile and its decode SwiGLU (at most 8 rows) through the rows
+# kernel ("swiglu", which also counts the wmma tile: run_11b and run_server
+# hold it to the decode steps' count).
 BF16_ATTN = ("flash_attention_tc", "flash_decode")
 INT8_KV_ATTN = ("flash_attention_tc", "flash_attention_tc_int8kv", "flash_decode_int8kv")
 SERVER_INT4_KERNELS = ("rmsnorm", "gemv_int8", "gemv_int4_w4a8", "qmatmul_tc") + INT8_KV_ATTN
 PATH_KERNELS = {
-    "bf16": ("rmsnorm", "gemv_tc", "swiglu") + BF16_ATTN,
+    "bf16": ("rmsnorm", "gemv_tc", "swiglu", "swiglu_tc") + BF16_ATTN,
     "int8": ("rmsnorm", "gemv_int8", "qmatmul_tc") + INT8_KV_ATTN,
     "int4_mixed": ("rmsnorm", "gemv_int8", "gemv_int4", "qmatmul_tc") + INT8_KV_ATTN,
-    "server_bf16": ("rmsnorm", "gemv_tc", "swiglu") + BF16_ATTN,
+    "server_bf16": ("rmsnorm", "gemv_tc", "swiglu", "swiglu_tc") + BF16_ATTN,
     "server_int4_w4a8": SERVER_INT4_KERNELS,
     "swiglu_down_op": ("swiglu_down",),
 }
@@ -233,7 +241,7 @@ TRAIN_BF16_KERNELS = ("rmsnorm_fwd_train", "rmsnorm_bwd", "flash_attention_tc_ls
                       "flash_attention_tc")
 PATH_KERNELS.update({
     "lora_11b": TRAIN_BF16_KERNELS,
-    "full_ft_3b": TRAIN_BF16_KERNELS + ("swiglu", "swiglu_bwd"),
+    "full_ft_3b": TRAIN_BF16_KERNELS + ("swiglu_tc", "swiglu_bwd_tc"),
 })
 # The SIMT fp32 forward and backward: the bf16 paths above must never
 # launch them; nor the wmma dequantizing GEMM ("qmatmul"), which every
@@ -256,6 +264,9 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
     """What a path's run got wrong: kernels it should have launched and did
     not, SIMT flash kernels launched on a bf16 path, plain versions called."""
     faults = [f"skipped {k}" for k in PATH_KERNELS[path] if launches[k] == 0]
+    if path == "full_ft_3b":  # every SwiGLU call there has R = 1632
+        faults += [f"launched the wmma {k} {launches[k]} times" for k in ("swiglu", "swiglu_bwd")
+                   if launches[k]]
     if path != "swiglu_down_op":
         faults += [f"launched the SIMT {k} {launches[k]} times"
                    for k in SIMT_FORWARD + SIMT_BACKWARD if launches[k]]
@@ -264,6 +275,17 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
         if launches["gemv"]:
             faults.append(f"launched the CUDA-core gemv {launches['gemv']} times")
     return faults + [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
+
+
+def swiglu_faults(launches: dict, layers: int, prefills: int, decode_steps: int) -> list:
+    """A bf16 generate's or server's SwiGLU launches: the TMA tile once a
+    layer per prefill, and "swiglu" (the rows kernel, or the wmma tile) only
+    once a layer per decode step, so never the wmma tile."""
+    want = {"swiglu_tc": layers * prefills, "swiglu": layers * decode_steps}
+    log(f"SwiGLU launches: TMA tile {launches['swiglu_tc']} (want {want['swiglu_tc']}), rows "
+        f"kernel {launches['swiglu']} (want {want['swiglu']})")
+    return [f"launched {k} {launches[k]} times, not {n}" for k, n in want.items()
+            if launches[k] != n]
 
 
 def log(msg: str) -> None:
@@ -356,10 +378,20 @@ def kernel_cases(dev, gen):
          (rnd(1632, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), True),
         ("swiglu", "decode R=1 H=4096 I=14336",
          (rnd(1, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), False),
+        ("swiglu", "server decode rows R=8 H=4096 I=14336",
+         (rnd(8, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), False),
         ("swiglu", "ragged R=33 H=100 I=200",
          (rnd(33, 100), rnd(200, 100, scale=0.1), rnd(200, 100, scale=0.1)), False),
         ("swiglu", "ragged decode rows R=3 H=100 I=200",
          (rnd(3, 100), rnd(200, 100, scale=0.1), rnd(200, 100, scale=0.1)), False),
+        ("swiglu_tc", "prefill R=1632 H=4096 I=14336",
+         (rnd(1632, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), True),
+        ("swiglu_tc", "3B prefill R=1632 H=3072 I=8192",
+         (rnd(1632, 3072), rnd(8192, 3072, scale=0.02), rnd(8192, 3072, scale=0.02)), False),
+        ("swiglu_tc", "R=33 H=4096 I=14336",
+         (rnd(33, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), False),
+        ("swiglu_tc", "ragged I R=130 H=256 I=300",
+         (rnd(130, 256), rnd(300, 256, scale=0.1), rnd(300, 256, scale=0.1)), False),
         ("flash_attention", "decoder prefill nq=32 nkv=8 Tq=1632 Tk=2048 hd=128 causal",
          (rnd(1, 32, 1632, 128), rnd(1, 8, 2048, 128), rnd(1, 8, 2048, 128),
           valid(1, 2048, 1632), 0, True), True),
@@ -561,6 +593,18 @@ def training_kernel_cases(rnd, valid):
          False),
         ("swiglu_bwd", "ragged R=33 H=100 I=200",
          (rnd(33, 100), rnd(200, 100, scale=0.1), rnd(200, 100, scale=0.1), rnd(33, 200)), False),
+        ("swiglu_bwd_tc", "3B R=1632 H=3072 I=8192",
+         (rnd(1632, 3072), rnd(8192, 3072, scale=0.02), rnd(8192, 3072, scale=0.02),
+          rnd(1632, 8192)), True),
+        ("swiglu_bwd_tc", "11B R=1632 H=4096 I=14336",
+         (rnd(1632, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02), rnd(1632, inter)),
+         False),
+        ("swiglu_bwd_tc", "R=33 H=3072 I=8192",
+         (rnd(33, 3072), rnd(8192, 3072, scale=0.02), rnd(8192, 3072, scale=0.02),
+          rnd(33, 8192)), False),
+        ("swiglu_bwd_tc", "ragged I R=130 H=256 I=300",
+         (rnd(130, 256), rnd(300, 256, scale=0.1), rnd(300, 256, scale=0.1), rnd(130, 300)),
+         False),
     ]
     masked = valid(2, 100, 90)
     masked[0, :6] = 0  # batch 0, query 0 (position 5) sees no key
@@ -786,6 +830,31 @@ def check_gemv_tc(label, args, got) -> None:
         check_gemv_rows_alone("gemv_tc", label, kernels.gemv_tc_cuda, args, got)
 
 
+def check_swiglu_tc(name, label, args, got) -> None:
+    """The TMA tile's case: the model's entry (``fused_swiglu_cuda`` or, for
+    the backward, ``fused_swiglu_bwd_cuda``) routes it to the TMA tile with
+    the same bits, a second call gives the same bits, and at R = 1632 rows
+    0-96 equal an R = 97 call on those rows bit for bit (no split-K, a k
+    order fixed by H, tiles fixed by I)."""
+    wrapper = kernels.KERNELS[name][0]
+    entry = kernels.fused_swiglu_bwd_cuda if name == "swiglu_bwd_tc" else kernels.fused_swiglu_cuda
+    got = got if isinstance(got, tuple) else (got,)
+    before = wrapper.launches
+    routed = entry(*args)
+    routed = routed if isinstance(routed, tuple) else (routed,)
+    if wrapper.launches != before + 1 or not all(map(torch.equal, routed, got)):
+        raise RuntimeError(f"{name} [{label}]: the model's entry did not route it to the TMA "
+                           f"tile, or gave other bits")
+    check_same_bits(name, label, wrapper, args, got)
+    x = args[0]
+    if x.shape[0] == 1632:
+        part = wrapper(*(a[:97].contiguous() if i in (0, 3) else a for i, a in enumerate(args)))
+        part = part if isinstance(part, tuple) else (part,)
+        if not all(torch.equal(p, g[:97]) for p, g in zip(part, got)):
+            raise RuntimeError(f"{name} [{label}]: rows 0-96 differ from an R=97 call")
+        log(f"kernel {name} [{label}]: rows 0-96 equal the R=97 call bit for bit")
+
+
 def check_qmatmul_tc(label, args, got) -> None:
     """The wgmma GEMM's case: ``qmatmul_cuda`` (the model's entry) routes it
     to the wgmma kernel with the same bits, a second call gives the same
@@ -836,6 +905,8 @@ def compare_kernels(dev, only=None) -> dict:
             check_qmatmul_tc(label, args, got)
         if name == "gemv_tc":
             check_gemv_tc(label, args, got)
+        if name in ("swiglu_tc", "swiglu_bwd_tc"):
+            check_swiglu_tc(name, label, args, got)
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
         lib_ms = library_ms(name, label, args)
         bound_ms, bound_by = bound(name, args, want)
@@ -1247,6 +1318,7 @@ def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
             f"step x 63 + 1: {launches['gemv_tc'] == want}")
         if launches["gemv_tc"] != want:
             faults.append(f"launched the tensor-core gemv {launches['gemv_tc']} times, not {want}")
+        faults += swiglu_faults(launches, tc.n_layers, prefills=1, decode_steps=63)
     if path == "int4_mixed":  # w_gate and w_up of each layer and the head, each step
         per_step = 2 * tc.n_layers + 1
         want = per_step * 63 + 1  # 63 decode steps and the prefill's last-position head
@@ -1352,6 +1424,7 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None) -> dict:
             f"{launches['gemv_tc'] == want}")
         if launches["gemv_tc"] != want:
             faults.append(f"launched the tensor-core gemv {launches['gemv_tc']} times, not {want}")
+        faults += swiglu_faults(launches, tc.n_layers, prefills=len(rids), decode_steps=steps)
     if faults:
         raise RuntimeError(f"[{path}] {faults}")
     if launches["gemv_int4"]:

@@ -7,47 +7,69 @@
 // gate and up never reach device memory.
 //
 // Bound on the H100: at prefill (R = 1632, H = 4096, I = 14336) tensor-core
-// FLOPs (~380 GFLOP per layer against ~235 MB of weights); at decode (R = 1)
-// the bytes of the two weights. The bf16 design is a tiled tensor-core GEMM
-// with two B operands: each block owns a 128-row x 64-column output tile,
-// eight warps (4 x 2, 32 x 32 each) run bf16 16x16x16 mma.sync
-// (nvcuda::wmma) into fp32 accumulators for gate and up, and 32-wide K slices
-// of x and both weights are staged through a two-deep shared-memory ring
-// with cp.async, so the next slice loads while the current one multiplies.
-// The gate and up fragments share one layout, so silu(g) * u is applied in
-// registers and only the product goes through shared memory to one rounded
-// write per element. Ragged R, H and I are zero-filled at staging (cp.async
-// with a zero source size) and bounds-checked at the write, as the Pallas
-// kernel masks ragged K; an H that is not a multiple of 8 stages with plain
-// loads. No TMA, no wgmma: later work.
+// FLOPs (~383 GFLOP per layer against ~235 MB of weights: 0.3876 ms); at
+// decode (R = 1) the bytes of the two weights. l32_swiglu_fwd routes by
+// shape (route_fwd), never by failure:
 //
-// With at most 8 rows (decode) the tensor-core tile would stream the weights
-// through shared memory for a 128-row tile that holds one live row, so a
-// weight-streaming form takes over: one warp per output column i reads
-// wg[i, :] and wu[i, :] with 16-byte loads, applies them to every row of x,
-// reduces both fp32 sums with shuffles and writes silu(g) * u. It reads
-// each weight byte once, as the decode gemv does.
-//
-// fp32 inputs with more rows take a plain SIMT loop (one thread per output,
-// both dot products in fp32): the main path runs bf16, the fp32 kernel
-// exists so the wrapper takes both types.
+// 1. The TMA tile (tma::swiglu_tma_kernel) takes bf16 x with H a multiple
+//    of 64, 16-byte-aligned x and weights and more than 8 rows: every
+//    prefill and training call of the 11B and 3B models. A dual-B GEMM: a
+//    block owns 128 rows of x and 128 intermediate columns; two consumer
+//    warpgroups (64 rows each) issue wgmma m64n128k16 twice a k16 step,
+//    once on the gate tile and once on the up tile, into fp32 accumulators
+//    of one layout (128 registers a thread); silu(gate) * up is formed in
+//    registers and rounded once. A producer warp keeps a 4-stage ring of
+//    64-k tiles (x, gate, up: 48 KB a stage) filled by TMA in wgmma's
+//    128-byte swizzle, guarded by full/empty mbarriers (csrc/tma.cuh), so
+//    the consumers spend no issue slots on copies. Two blocks on adjacent
+//    row tiles form a cluster: one copies the gate tile and the other the
+//    up tile, each multicast to both, which halves the weight bytes a block
+//    reads from L2 (PR 9's cp.async wgmma GEMM was bound by that traffic).
+//    Ragged R and I read as zeros (TMA) and are bounds-checked at the
+//    write. No split-K, a k order fixed by H and tiles fixed by I: a row's
+//    bits never depend on R or on its row tile, so a server's prefill equals
+//    a solo engine's.
+//    Measured (profile_swiglu.py, device time, NVIDIA H100 80GB HBM3 at
+//    700 W, R = 1632): 11B forward 0.594 ms (two cuBLAS GEMMs 0.589, the
+//    plain version 0.950, the wmma tile 2.550), 3B forward 0.267, 3B
+//    backward 0.331 (plain 0.889). The products alone run the 11B forward
+//    in 0.57-0.62 ms and the copies alone in 0.55-0.60: the tile runs at
+//    the issue rate of its two warpgroups, with no overlap of one tile's
+//    epilogue and the next one's loads (a persistent grid would add it). At
+//    this speed the multicast gains nothing (0.606 ms without a cluster).
+// 2. With at most 8 rows (decode) a weight-streaming form takes over: one
+//    warp per output column i reads wg[i, :] and wu[i, :] with 16-byte loads,
+//    applies them to every row of x, reduces both fp32 sums with shuffles
+//    and writes silu(g) * u. It reads each weight byte once.
+// 3. Other bf16 shapes (ragged H, misaligned pointers) take the wmma tile
+//    (swiglu_bf16_kernel): a 128 x 64 output tile, eight warps (4 x 2, 32 x
+//    32 each) of bf16 16x16x16 mma.sync (nvcuda::wmma) into fp32
+//    accumulators for gate and up, 32-wide K slices of x and both weights
+//    staged through a two-deep cp.async ring, silu(g) * u through shared
+//    memory to one rounded write per element; ragged R, H and I zero-filled
+//    at staging, an H that is not a multiple of 8 staged with plain loads.
+// 4. fp32 inputs with more rows take a plain SIMT loop (one thread per
+//    output, both dot products in fp32): the tiny fp32 checks.
 //
 // Backward (l32_swiglu_bwd). Replaces llama32mm_tpu/ops/pallas/swiglu.py::
 // _bwd_kernel: with g the output's cotangent, it recomputes gate and up with
 // fp32 accumulators and writes d_gate = silu'(gate) * g * up and
 // d_up = g * silu(gate), silu'(x) = s (1 + x (1 - s)), s = sigmoid(x), in x's
 // type; gate and up never reach device memory. It is the forward's body with
-// another epilogue (the kBwd template parameter of both the bf16 tile kernel
-// and the fp32 loop): the g tile is staged through the epilogue's shared
-// memory as fp32 and loaded into accumulator fragments, whose layout is the
-// gate and up fragments', so both products are formed in registers; d_gate
-// and then d_up go out through shared memory as the forward's output does.
-// Bound as the forward at R = 1632 (tensor-core FLOPs); the bf16 backward
-// always takes the tile, whatever R. dx = d_gate @ w_gate + d_up @ w_up and the
-// weight gradients are cuBLAS GEMMs in the wrapper's autograd function.
+// another epilogue (the kBwd template parameter of the TMA tile, the wmma
+// tile and the fp32 loop), routed as the forward above 8 rows (route_bwd)
+// and to the wmma tile at 8 or fewer. The TMA tile reads g at each
+// accumulator's (row, column) from device memory; the wmma tile stages the
+// g tile through shared memory into fragments of the accumulators' layout.
+// Bound as the forward at R = 1632 (tensor-core FLOPs). dx = d_gate @ w_gate
+// + d_up @ w_up and the weight gradients are cuBLAS GEMMs in the wrapper's
+// autograd function.
+#include <limits.h>
 #include <mma.h>
 
 #include "common.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -327,63 +349,298 @@ __global__ void swiglu_f32_kernel(const float* __restrict__ x, const float* __re
 }
 
 template <bool kBwd>
-void launch_tile(const void* x, const void* wg, const void* wu, const void* g, void* out,
-                 void* out2, int rows, int h, int inter, cudaStream_t s) {
+int launch_tile(const void* x, const void* wg, const void* wu, const void* g, void* out,
+                void* out2, int rows, int h, int inter, cudaStream_t s) {
   using bf = __nv_bfloat16;
   const bool vec = h % 8 == 0 && aligned16(x) && aligned16(wg) && aligned16(wu);
+  if ((rows + BM - 1) / BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((inter + BN - 1) / BN, (rows + BM - 1) / BM);
   auto kernel = vec ? swiglu_bf16_kernel<true, kBwd> : swiglu_bf16_kernel<false, kBwd>;
   kernel<<<grid, kThreads, 0, s>>>(static_cast<const bf*>(x), static_cast<const bf*>(wg),
                                    static_cast<const bf*>(wu), static_cast<const bf*>(g),
                                    static_cast<bf*>(out), static_cast<bf*>(out2), rows, h, inter);
+  return 0;
 }
 
 template <bool kBwd>
-void launch_f32(const void* x, const void* wg, const void* wu, const void* g, void* out,
-                void* out2, int rows, int h, int inter, cudaStream_t s) {
+int launch_f32(const void* x, const void* wg, const void* wu, const void* g, void* out,
+               void* out2, int rows, int h, int inter, cudaStream_t s) {
+  if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((inter + 127) / 128, rows);
   swiglu_f32_kernel<kBwd><<<grid, 128, 0, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(wg), static_cast<const float*>(wu),
       static_cast<const float*>(g), static_cast<float*>(out), static_cast<float*>(out2), rows, h,
       inter);
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The TMA tile: bf16 x with H a multiple of 64 and 16-byte-aligned x and
+// weights, more than 8 rows (forward) or any rows (backward, when asked).
+// ---------------------------------------------------------------------------
+namespace tma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 128;                    // x rows a block: 64 per consumer warpgroup
+constexpr int kBN = 128;                    // intermediate columns a block, of gate and of up
+constexpr int kBK = 64;                     // k a tile: one 128-byte swizzled row
+constexpr int kStages = 4;                  // ring of x, gate and up tiles
+constexpr int kConsumerWarps = 8;           // two warpgroups
+constexpr int kThreads = kConsumerWarps * 32 + 32;  // and the producer warp
+constexpr int kCluster = 2;                 // blocks a cluster
+constexpr int kTile = kBM * kBK * 2;        // 16 KB: x, gate or up (kBN = kBM rows)
+constexpr int kStageBytes = 3 * kTile;
+constexpr int kBarriers = kStages * kStageBytes;  // offset of the 2 x kStages barriers
+constexpr int kSmem = kBarriers + 2 * kStages * 8 + 1024;  // + alignment
+static_assert(kBN == kBM, "one box shape serves x and both weights");
+
+// One block: rows m0 .. m0 + 127 of x and columns n0 .. n0 + 127 of both
+// products. A cluster is two blocks on adjacent row tiles of one column
+// tile: rank 0 copies the gate tile and rank 1 the up tile, each multicast
+// to both, so each block reads half the weight bytes from L2. The producer
+// warp keeps kStages - 1 tiles ahead; stage s's "full" barrier completes
+// when its x tile and both weight tiles have landed, its "empty" barrier
+// when the 2 consumer warpgroups of both blocks have finished reading it (a
+// block's next copies into the stage land in the other block too): one
+// thread of each warpgroup arrives on each block's barrier.
+template <bool kBwd>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+swiglu_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tg,
+                  const __grid_constant__ CUtensorMap tu, const bf16* __restrict__ gin,
+                  bf16* __restrict__ out, bf16* __restrict__ out2, int rows, int inter, int nk) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // 128-byte swizzled tiles need 1024-byte-aligned bases (the same offset
+  // in both blocks of the cluster: multicast copies land at it).
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarriers);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kCluster * kConsumerWarps / 4);
+    }
+    fence_mbar_init();
+  }
+  cluster_sync();  // both blocks' barriers exist before any copy or remote arrival
+
+  if (warp == kConsumerWarps) {
+    if (lane == 0) {  // the producer
+      const uint32_t rank = cluster_ctarank();
+      const CUtensorMap* wmap = rank == 0 ? &tg : &tu;
+      const int wofs = rank == 0 ? kTile : 2 * kTile;
+      const int xrow = m0 < rows ? m0 : 0;  // the padding block of an odd tile count: any rows
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        unsigned char* st = smem + s * kStageBytes;
+        mbar_arrive_expect_tx(&full[s], kStageBytes);
+        tma_load_2d(st, &tx, &full[s], t * kBK, xrow);
+        tma_load_2d_multicast(st + wofs, wmap, &full[s], t * kBK, n0, 0x3);
+      }
+    }
+  } else {
+    const int wg = warp >> 2;
+    // This warpgroup's 64 x 128 fp32 sums of gate and of up, one layout:
+    // thread (warp w, lane) holds rows 16 w + lane / 4 (+ 8) and columns
+    // 8 j + 2 (lane % 4) (+ 1) at acc[4 j + 2 half + e].
+    float accg[kBN / 2], accu[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) accg[i] = accu[i] = 0.f;
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&full[s], (t / kStages) & 1);
+      const unsigned char* st = smem + s * kStageBytes;
+      const unsigned char* xa = st + wg * 64 * 128;
+      fence_regs(accg);
+      fence_regs(accu);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t da = sw128_desc(xa + kk * 32);
+        wgmma_ss_m64n128k16(accg, da, sw128_desc(st + kTile + kk * 32), 1);
+        wgmma_ss_m64n128k16(accu, da, sw128_desc(st + 2 * kTile + kk * 32), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // tile t - 1's products are done ...
+      fence_regs(accg);
+      fence_regs(accu);
+      if (t > 0 && (tid & 127) < kCluster)  // ... so its stage is free, in both blocks
+        mbar_arrive_cluster(&empty[(t - 1) % kStages], tid & 127);
+    }
+    wgmma_wait<0>();
+    fence_regs(accg);
+    fence_regs(accu);
+
+    // Epilogue from registers, one rounding per output, bf16 pairs where
+    // the row stride allows; ragged edges checked.
+    const int r_lo = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+    const bool pairs = (inter & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane & 3);
+      if (col >= inter) break;
+      const bool two = col + 1 < inter;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r_lo + 8 * half;
+        if (row >= rows) continue;
+        const int i = 4 * j + 2 * half;
+        const size_t o = static_cast<size_t>(row) * inter + col;
+        float a0, a1, b0 = 0.f, b1 = 0.f;
+        if (kBwd) {
+          float g0, g1 = 0.f;
+          if (pairs && two) {
+            const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(gin + o);
+            g0 = __low2float(gv);
+            g1 = __high2float(gv);
+          } else {
+            g0 = __bfloat162float(gin[o]);
+            if (two) g1 = __bfloat162float(gin[o + 1]);
+          }
+          swiglu_grad(accg[i], accu[i], g0, a0, b0);
+          swiglu_grad(accg[i + 1], accu[i + 1], g1, a1, b1);
+        } else {
+          a0 = silu(accg[i]) * accu[i];
+          a1 = silu(accg[i + 1]) * accu[i + 1];
+        }
+        if (pairs && two) {
+          *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(a0, a1);
+          if (kBwd) *reinterpret_cast<uint32_t*>(out2 + o) = pack_bf16(b0, b1);
+        } else {
+          out[o] = __float2bfloat16(a0);
+          if (two) out[o + 1] = __float2bfloat16(a1);
+          if (kBwd) {
+            out2[o] = __float2bfloat16(b0);
+            if (two) out2[o + 1] = __float2bfloat16(b1);
+          }
+        }
+      }
+    }
+  }
+  cluster_sync();  // no block leaves while the other may still arrive on its barriers
+}
+
+// The tensor maps of this call (boxes of 128 rows x 64 k), then one launch:
+// row tiles rounded up to an even count (clusters of two), column tiles of
+// 128 on the grid's y axis, so the blocks that run together share their
+// weight tiles in L2. The tiles depend on I alone and the k order on H, so
+// a row's bits never depend on R or on its row tile.
+template <bool kBwd>
+int launch(const void* x, const void* wg, const void* wu, const void* g, void* out, void* out2,
+           int rows, int h, int inter, cudaStream_t s) {
+  CUtensorMap tx, tg, tu;
+  if (!bf16_tile_map(&tx, x, rows, h, kBM) || !bf16_tile_map(&tg, wg, inter, h, kBN) ||
+      !bf16_tile_map(&tu, wu, inter, h, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long m_tiles = ((rows + kBM - 1) / kBM + kCluster - 1) / kCluster * kCluster;
+  const int n_tiles = (inter + kBN - 1) / kBN;
+  if (m_tiles > INT_MAX || n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = swiglu_tma_kernel<kBwd>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(static_cast<unsigned>(m_tiles), n_tiles), kThreads, kSmem, s>>>(
+      tx, tg, tu, static_cast<const bf16*>(g), static_cast<bf16*>(out), static_cast<bf16*>(out2),
+      rows, inter, h / kBK);
+  return 0;
+}
+
+}  // namespace tma
+
+// l32_swiglu_fwd / l32_swiglu_bwd's kernel argument and *launched values.
+enum { kRows = 0, kWmma = 1, kLoop = 2, kTma = 3 };
+
+bool tma_takes(const void* x, const void* wg, const void* wu, int h, int dtype) {
+  return dtype == L32_BF16 && h > 0 && h % tma::kBK == 0 && aligned16(x) && aligned16(wg) &&
+         aligned16(wu);
+}
+
+// The forward's kernel: at most 8 rows the weight-streaming rows kernel;
+// more, bf16 the TMA tile where it takes the call, else the wmma tile;
+// fp32 the loop.
+int route_fwd(const void* x, const void* wg, const void* wu, int rows, int h, int dtype) {
+  if (dtype != L32_BF16 && dtype != L32_F32) return -1;
+  if (rows <= kSmallRows) return kRows;
+  if (dtype == L32_F32) return kLoop;
+  return tma_takes(x, wg, wu, h, dtype) ? kTma : kWmma;
+}
+
+// The backward's: bf16 the TMA tile above 8 rows where it takes the call,
+// else the wmma tile; fp32 the loop.
+int route_bwd(const void* x, const void* wg, const void* wu, int rows, int h, int dtype) {
+  if (dtype != L32_BF16 && dtype != L32_F32) return -1;
+  if (dtype == L32_F32) return kLoop;
+  return rows > kSmallRows && tma_takes(x, wg, wu, h, dtype) ? kTma : kWmma;
+}
+
+// Whether an asked-for kernel takes the call.
+bool takes(int kernel, const void* x, const void* wg, const void* wu, int rows, int h,
+           int dtype, bool bwd) {
+  switch (kernel) {
+    case kRows: return !bwd && rows <= kSmallRows;
+    case kWmma: return dtype == L32_BF16;
+    case kLoop: return dtype == L32_F32;
+    case kTma: return tma_takes(x, wg, wu, h, dtype);
+    default: return false;
+  }
 }
 
 }  // namespace
 
+// kernel -1 routes by shape (route_fwd); 0 (rows), 1 (wmma tile), 2 (fp32
+// loop) or 3 (TMA tile) asks for that kernel, and one that does not take
+// the call is an error. *launched is set to the kernel launched, or -1
+// where none was (no rows or no columns, or an error).
 extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, void* out,
-                              int rows, int h, int inter, int dtype, void* stream) {
+                              int rows, int h, int inter, int dtype, int kernel, int* launched,
+                              void* stream) {
+  *launched = -1;
   if (rows == 0 || inter == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (rows <= kSmallRows && dtype == L32_BF16) {
-    launch_rows<__nv_bfloat16>(x, wg, wu, out, rows, h, inter, s);
-  } else if (rows <= kSmallRows && dtype == L32_F32) {
-    launch_rows<float>(x, wg, wu, out, rows, h, inter, s);
-  } else if (dtype == L32_BF16) {
-    launch_tile<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
-  } else if (dtype == L32_F32) {
-    if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    launch_f32<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
-  } else {
+  if (kernel == -1) kernel = route_fwd(x, wg, wu, rows, h, dtype);
+  if (!takes(kernel, x, wg, wu, rows, h, dtype, false))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  int err = 0;
+  if (kernel == kRows && dtype == L32_BF16)
+    launch_rows<__nv_bfloat16>(x, wg, wu, out, rows, h, inter, s);
+  else if (kernel == kRows)
+    launch_rows<float>(x, wg, wu, out, rows, h, inter, s);
+  else if (kernel == kWmma)
+    err = launch_tile<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
+  else if (kernel == kLoop)
+    err = launch_f32<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
+  else
+    err = tma::launch<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
+  if (!err) err = static_cast<int>(cudaGetLastError());
+  if (!err) *launched = kernel;
+  return err;
 }
 
 // d_gate, d_up [rows, inter] from x [rows, h], both weights [inter, h] and
-// the cotangent g [rows, inter]: the tile kernel (bf16) or the loop (fp32),
-// at every row count.
+// the cotangent g [rows, inter]; kernel and *launched as l32_swiglu_fwd's
+// (route_bwd; the rows kernel has no backward).
 extern "C" int l32_swiglu_bwd(const void* x, const void* wg, const void* wu, const void* g,
                               void* d_gate, void* d_up, int rows, int h, int inter, int dtype,
-                              void* stream) {
+                              int kernel, int* launched, void* stream) {
+  *launched = -1;
   if (rows == 0 || inter == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == L32_BF16) {
-    launch_tile<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
-  } else if (dtype == L32_F32) {
-    if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    launch_f32<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
-  } else {
+  if (kernel == -1) kernel = route_bwd(x, wg, wu, rows, h, dtype);
+  if (!takes(kernel, x, wg, wu, rows, h, dtype, true))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  int err;
+  if (kernel == kWmma)
+    err = launch_tile<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
+  else if (kernel == kLoop)
+    err = launch_f32<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
+  else
+    err = tma::launch<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
+  if (!err) err = static_cast<int>(cudaGetLastError());
+  if (!err) *launched = kernel;
+  return err;
 }

@@ -58,8 +58,12 @@ from llama32mm_tpu_torch.ops.cuda.rmsnorm import (
 from llama32mm_tpu_torch.ops.cuda.swiglu import (
     fused_swiglu_bwd_cuda,
     fused_swiglu_bwd_plain,
+    fused_swiglu_bwd_tc_cuda,
+    fused_swiglu_bwd_wmma_cuda,
     fused_swiglu_cuda,
     fused_swiglu_plain,
+    fused_swiglu_tc_cuda,
+    fused_swiglu_wmma_cuda,
     swiglu_down_cuda,
     swiglu_down_plain,
 )
@@ -68,7 +72,7 @@ from llama32mm_tpu_torch.ops.cuda.swiglu import (
 KERNELS = {
     "rmsnorm": (fused_add_rmsnorm_cuda, fused_add_rmsnorm_plain),
     "gemv": (gemv_simt_cuda, gemv_plain),
-    "swiglu": (fused_swiglu_cuda, fused_swiglu_plain),
+    "swiglu": (fused_swiglu_wmma_cuda, fused_swiglu_plain),
     "flash_attention": (flash_attention_cuda, flash_attention_plain),
     "gemv_int8": (gemv_int8_cuda, gemv_int8_plain),
     "gemv_int4": (gemv_int4_cuda, gemv_int4_plain),
@@ -76,7 +80,7 @@ KERNELS = {
     "flash_attention_int8kv": (flash_attention_int8kv_cuda, flash_attention_int8kv_plain),
     "rmsnorm_fwd_train": (rmsnorm_fwd_train_cuda, rmsnorm_fwd_train_plain),
     "rmsnorm_bwd": (rmsnorm_bwd_cuda, rmsnorm_bwd_plain),
-    "swiglu_bwd": (fused_swiglu_bwd_cuda, fused_swiglu_bwd_plain),
+    "swiglu_bwd": (fused_swiglu_bwd_wmma_cuda, fused_swiglu_bwd_plain),
     "flash_attention_lse": (flash_attention_fwd_lse_cuda, flash_attention_fwd_lse_plain),
     "flash_attention_bwd_dq": (flash_attention_bwd_dq_cuda, flash_attention_bwd_dq_plain),
     "flash_attention_bwd_dkv": (flash_attention_bwd_dkv_cuda, flash_attention_bwd_dkv_plain),
@@ -92,6 +96,8 @@ KERNELS = {
                                    flash_attention_bwd_dkv_tc_plain),
     "qmatmul_tc": (qmatmul_tc_cuda, qmatmul_plain),
     "gemv_tc": (gemv_tc_cuda, gemv_plain),
+    "swiglu_tc": (fused_swiglu_tc_cuda, fused_swiglu_plain),
+    "swiglu_bwd_tc": (fused_swiglu_bwd_tc_cuda, fused_swiglu_bwd_plain),
 }
 
 
@@ -107,7 +113,8 @@ def launch_counts() -> dict:
 
 def plain_counts() -> dict:
     """Each plain version's calls, once, under the first name KERNELS gives it
-    (``qmatmul`` and ``qmatmul_tc`` share one, as do ``gemv`` and ``gemv_tc``)."""
+    (``qmatmul`` and ``qmatmul_tc`` share one, as do ``gemv`` and ``gemv_tc``,
+    ``swiglu`` and ``swiglu_tc``, ``swiglu_bwd`` and ``swiglu_bwd_tc``)."""
     names = {}
     for name, (_, plain) in KERNELS.items():
         names.setdefault(plain, name)

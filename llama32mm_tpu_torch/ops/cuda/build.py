@@ -104,10 +104,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "l32_rmsnorm_bwd": [p, p, p, p, p, p, p, i, i, i, i, p],
         # (x, w, out, rows, n, k, dtype, kernel (-1: routed), launched kernel (out), stream)
         "l32_gemv": [p, p, p, i, i, i, i, i, p, p],
-        # (x, w_gate, w_up, out, rows, hidden, inter, dtype, stream)
-        "l32_swiglu_fwd": [p, p, p, p, i, i, i, i, p],
-        # (x, w_gate, w_up, g, d_gate, d_up, rows, hidden, inter, dtype, stream)
-        "l32_swiglu_bwd": [p, p, p, p, p, p, i, i, i, i, p],
+        # (x, w_gate, w_up, out, rows, hidden, inter, dtype, kernel (-1: routed),
+        #  launched kernel (out), stream)
+        "l32_swiglu_fwd": [p, p, p, p, i, i, i, i, i, p, p],
+        # (x, w_gate, w_up, g, d_gate, d_up, rows, hidden, inter, dtype, kernel (-1: routed),
+        #  launched kernel (out), stream)
+        "l32_swiglu_bwd": [p, p, p, p, p, p, i, i, i, i, i, p, p],
         # (q, k, v, kv_valid, q_offsets|NULL, out, lse|NULL, b, nq, nkv, tq, tk, hd, q_offset,
         #  causal, dtype, stream)
         "l32_flash_attn_fwd": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],

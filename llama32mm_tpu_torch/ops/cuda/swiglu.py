@@ -10,9 +10,21 @@ PyTorch versions, both weights in nn.Linear's ``[I, H]`` layout.
 - SwiGLU + down (``csrc/swiglu_down.cu``, replacing ``::_down_kernel``):
   ``(silu(x @ w_gate.T) * (x @ w_up.T)) @ w_down.T`` for a few rows, the
   intermediate rounded to x's dtype and never written, ``w_down`` ``[H, I]``.
+
+``fused_swiglu_cuda`` and ``fused_swiglu_bwd_cuda`` are the entries the
+model calls: ``l32_swiglu_fwd`` / ``l32_swiglu_bwd`` route each call by its
+shape and report the kernel they launched. bf16 x with H a multiple of 64,
+16-byte-aligned operands and more than 8 rows takes the TMA tile (wgmma
+fed by TMA), counted by ``fused_swiglu_tc_cuda`` / ``fused_swiglu_bwd_tc_cuda``;
+every other call the kernels before it (the weight-streaming rows kernel for
+at most 8 rows in the forward, the wmma tile for other bf16 shapes, a loop
+for fp32), counted by ``fused_swiglu_wmma_cuda`` / ``fused_swiglu_bwd_wmma_cuda``.
+Called directly, each of those four forces its own kernels.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -31,19 +43,54 @@ def _check(x, w_gate, w_up):
     return h, w_gate.shape[0], (x.numel() // h if h else 0)
 
 
-@counted("launches")
-def fused_swiglu_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
-    """x ``[..., H]``, w_gate/w_up ``[I, H]`` → ``[..., I]``; gate and up
-    accumulate in fp32 inside the kernel and are never written."""
+# l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, or force
+# one kernel.
+ROUTED, ROWS, WMMA, LOOP, TMA = -1, 0, 1, 2, 3
+SMALL_ROWS = 8  # at most this many rows: the forward's weight-streaming rows kernel
+
+
+def _before_tma(x: torch.Tensor, rows: int, bwd: bool) -> int:
+    """The kernel a call took before the TMA tile existed."""
+    if rows <= SMALL_ROWS and not bwd:
+        return ROWS
+    return WMMA if x.dtype == torch.bfloat16 else LOOP
+
+
+def _forward(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, kernel: int):
     h, inter, rows = _check(x, w_gate, w_up)
     out = torch.empty(*x.shape[:-1], inter, dtype=x.dtype, device=x.device)
+    launched = ctypes.c_int(-1)
     status = load_library().l32_swiglu_fwd(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr(), rows, h, inter,
-        dtype_code(x), stream_of(x),
+        dtype_code(x), kernel, ctypes.byref(launched), stream_of(x),
     )
     check(status, "swiglu kernel")
-    fused_swiglu_cuda.launches += 1
+    if launched.value == TMA:
+        fused_swiglu_tc_cuda.launches += 1
+    elif launched.value >= 0:
+        fused_swiglu_wmma_cuda.launches += 1
     return out
+
+
+def fused_swiglu_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
+    """x ``[..., H]``, w_gate/w_up ``[I, H]`` → ``[..., I]``; gate and up
+    accumulate in fp32 inside the kernel and are never written. Through the
+    kernel the call's shape routes to."""
+    return _forward(x, w_gate, w_up, ROUTED)
+
+
+@counted("launches")
+def fused_swiglu_tc_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
+    """The TMA tile; raises for a call it does not take."""
+    return _forward(x, w_gate, w_up, TMA)
+
+
+@counted("launches")
+def fused_swiglu_wmma_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
+    """The rows kernel (at most 8 rows), else the wmma tile (bf16) or the
+    fp32 loop: any shape."""
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    return _forward(x, w_gate, w_up, _before_tma(x, rows, bwd=False))
 
 
 @counted("calls")
@@ -96,23 +143,44 @@ def swiglu_down_plain(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return torch.matmul(inter.to(acc), w_down.to(acc).t()).to(x.dtype)
 
 
-@counted("launches")
-def fused_swiglu_bwd_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-                          g: torch.Tensor):
-    """``(d_gate, d_up)``, each ``[..., I]`` in x's dtype, from the cotangent
-    ``g [..., I]``; gate and up are recomputed in fp32 inside the kernel."""
+def _backward(x, w_gate, w_up, g, kernel: int):
     h, inter, rows = _check(x, w_gate, w_up)
     shape = (*x.shape[:-1], inter)
     require("g", g, x, shape)
     d_gate = torch.empty(shape, dtype=x.dtype, device=x.device)
     d_up = torch.empty_like(d_gate)
+    launched = ctypes.c_int(-1)
     status = load_library().l32_swiglu_bwd(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), g.data_ptr(), d_gate.data_ptr(),
-        d_up.data_ptr(), rows, h, inter, dtype_code(x), stream_of(x),
+        d_up.data_ptr(), rows, h, inter, dtype_code(x), kernel, ctypes.byref(launched),
+        stream_of(x),
     )
     check(status, "swiglu backward kernel")
-    fused_swiglu_bwd_cuda.launches += 1
+    if launched.value == TMA:
+        fused_swiglu_bwd_tc_cuda.launches += 1
+    elif launched.value >= 0:
+        fused_swiglu_bwd_wmma_cuda.launches += 1
     return d_gate, d_up
+
+
+def fused_swiglu_bwd_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                          g: torch.Tensor):
+    """``(d_gate, d_up)``, each ``[..., I]`` in x's dtype, from the cotangent
+    ``g [..., I]``; gate and up are recomputed in fp32 inside the kernel.
+    Through the kernel the call's shape routes to."""
+    return _backward(x, w_gate, w_up, g, ROUTED)
+
+
+@counted("launches")
+def fused_swiglu_bwd_tc_cuda(x, w_gate, w_up, g):
+    """The TMA tile's backward; raises for a call it does not take."""
+    return _backward(x, w_gate, w_up, g, TMA)
+
+
+@counted("launches")
+def fused_swiglu_bwd_wmma_cuda(x, w_gate, w_up, g):
+    """The wmma tile's backward (bf16) or the fp32 loop: any shape."""
+    return _backward(x, w_gate, w_up, g, _before_tma(x, 0, bwd=True))
 
 
 @counted("calls")

@@ -18,6 +18,7 @@ then it lists the routed calls' kernels with their device time from
 from __future__ import annotations
 
 import subprocess
+import sys
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +57,11 @@ def kernel_rows(fn) -> list:
             if e.device_type == DeviceType.CUDA]
 
 
-def main() -> None:
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_flash: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
@@ -137,7 +142,8 @@ def main() -> None:
         for name in tc:
             for key, us in kernel_rows(calls[name]):
                 print(f"    {us:9.2f} us  {key[:100]}")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

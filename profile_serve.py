@@ -15,6 +15,7 @@ kernels' device time by category, the busy share and the launches.
 from __future__ import annotations
 
 import subprocess
+import sys
 
 import torch
 
@@ -39,7 +40,11 @@ def profile_chunk(dev, cfg, model, label: str, kv_dtype=None, slots: int = 8) ->
     profile_step(label, lambda: srv._decode(STEPS), slots * STEPS)
 
 
-def main() -> None:
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_serve: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
@@ -55,7 +60,8 @@ def main() -> None:
     gemv_mod._INT4_VARIANT = "w4a8"
     profile_chunk(dev, cfg, qmodel, f"server_int4_w4a8, one {STEPS}-step decode chunk",
                   kv_dtype="int8")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -1,0 +1,157 @@
+"""Device time of the SwiGLU prefill tile on one NVIDIA GPU, beside its
+plain version and cuBLAS on the same tensors:
+
+    python3 profile_swiglu.py
+
+Shapes of the bf16 prefill and full fine-tuning (R = 1632 rows: a 560x560
+image's 1600 tokens and 32 text tokens): the 11B forward (H=4096,
+I=14336), the 3B bench configuration's forward and backward (H=3072,
+I=8192). For each it times
+
+- the routed entry the model calls (``fused_swiglu_cuda`` /
+  ``fused_swiglu_bwd_cuda``: the TMA tile at these shapes);
+- the TMA tile (``swiglu_tc`` / ``swiglu_bwd_tc`` of ``ops.cuda.KERNELS``)
+  and the wmma tile it replaces (``swiglu`` / ``swiglu_bwd``) on their own;
+- the plain version (two matmuls, then silu and the product);
+- two cuBLAS bf16 GEMMs, ``x @ w_gate.T`` and ``x @ w_up.T``: the products
+  alone, a ceiling the port never calls;
+
+each beside its bound (``chip_smoke.bound``: operations over the bf16
+dense peak). Each time is CUDA events around 20 back-to-back calls queued
+behind a ``torch.cuda._sleep`` (device time, ``profile_qgemv.device_ms``).
+A prefill reads each layer's weights once, so a shape whose weights are
+smaller than 150 MB is held in several copies and the calls cycle through
+them. Then ``torch.profiler`` lists the kernels of the routed call, and the
+sums over one 11B prefill (40 launches) follow. The last line is one JSON
+object with every time. ``--kernels-only`` times the routed call and the
+two tiles alone (for A/B runs of kernel variants).
+
+    python3 profile_swiglu.py --ttft
+
+instead times what a user sees: the bf16 11B model (tied head, random
+weights from a seed) as ``chip_smoke.py`` serves it; after a warm-up, 5
+greedy one-token generates of a 560x560 image and 32 text ids (S = 1632),
+host clock around preprocess, prefill and first token, ending in a
+synchronize. It prints each time, the median (TTFT) and the launches of
+one generate.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from functools import partial
+
+import torch
+
+import chip_smoke as cs
+from llama32mm_tpu_torch.inference.engine import InferenceEngine
+from llama32mm_tpu_torch.ops import cuda as kernels
+from llama32mm_tpu_torch.preprocess.image import preprocess_image_device
+from profile_qgemv import L2_SPAN, device_ms, kernel_rows
+
+ROWS = 1632
+SHAPES = {  # label: (H, I, backward?)
+    "11B forward H=4096 I=14336": (4096, 14336, False),
+    "3B forward H=3072 I=8192": (3072, 8192, False),
+    "3B backward H=3072 I=8192": (3072, 8192, True),
+}
+PREFILL = {"11B forward H=4096 I=14336": 40}  # launches in one 11B prefill
+
+
+def ttft(dev, card: str, reps: int = 5) -> None:
+    """TTFT of the bf16 11B prefill, as the module docstring says."""
+    cfg, model = cs.build_11b(dev, tie_weights=True)
+    tc, vc = cfg.text_config, cfg.vision_config
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    text = torch.randint(0, tc.vocab_size, (1, 32), generator=gen, device=dev)
+    ids = torch.cat([torch.full((1, vc.num_patches), cfg.image_token_index, device=dev), text], 1)
+    engine = InferenceEngine(model, cfg, dev, max_cache_length=2048)
+
+    def generate():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
+        engine.generate(ids, px, max_new_tokens=1, temperature=0.0)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    generate()  # warm-up: library handles, allocator
+    kernels.reset_counters()
+    times = [generate() for _ in range(reps)]
+    launches = {k: v // reps for k, v in kernels.launch_counts().items() if v}
+    out = {"ms": times, "ttft_ms": statistics.median(times)}
+    print(f"[bf16] TTFT ms {[round(t, 3) for t in times]}, median {out['ttft_ms']:.3f}; "
+          f"launches per generate {launches}")
+    print(json.dumps({"card": card, "ttft": {"bf16": out}}))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_swiglu: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}")
+    cs.build_library()
+    if "--ttft" in sys.argv[1:]:
+        ttft(dev, card)
+        return 0
+    kernels_only = "--kernels-only" in sys.argv[1:]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for label, (h, inter, bwd) in SHAPES.items():
+        copies = []
+        for _ in range(max(1, math.ceil(L2_SPAN / (2 * inter * h * 2)))):
+            copies.append(tuple((torch.randn(inter, h, generator=gen, device=dev) * 0.02)
+                                .to(torch.bfloat16) for _ in range(2)))
+        x = torch.randn(ROWS, h, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(ROWS, inter, generator=gen, device=dev).to(torch.bfloat16) if bwd else None
+        extra = (g,) if bwd else ()
+        name = "swiglu_bwd" if bwd else "swiglu"
+        routed = kernels.fused_swiglu_bwd_cuda if bwd else kernels.fused_swiglu_cuda
+        args = (x, *copies[0], *extra)
+        want = kernels.KERNELS[name][1](*args)
+        bound_ms, bound_by = cs.bound(name, args, want)
+        calls = {"routed": [partial(routed, x, *c, *extra) for c in copies]}
+        for kname in (name + "_tc", name):
+            wrapper = kernels.KERNELS[kname][0]
+            err, scale = cs.max_err(wrapper(*args), want)
+            print(f"  {kname}: max_abs_err vs plain {err:.6g} (max {scale:.6g})")
+            calls[kname] = [partial(wrapper, x, *c, *extra) for c in copies]
+        if not kernels_only:
+            calls["plain"] = [partial(kernels.KERNELS[name][1], x, *copies[0], *extra)]
+            calls["cuBLAS bf16 x2"] = [
+                partial(lambda wg, wu: (torch.matmul(x, wg.t()), torch.matmul(x, wu.t())), *c)
+                for c in copies]
+        row = {"bound_ms": bound_ms, "bound_by": bound_by, "copies": len(copies)}
+        print(f"== {label} R={ROWS}: bound {bound_ms:.6g} ms ({bound_by}), "
+              f"{len(copies)} weight copies")
+        for what, fns in calls.items():
+            ms = device_ms(fns)
+            row[what] = ms
+            print(f"  {what:22s} {ms:.6g} ms  (share of bound {bound_ms / ms:.4g})")
+        for key, us in kernel_rows(calls["routed"]):
+            print(f"    {us:9.2f} us  {key[:100]}")
+        results[label] = row
+        del copies, calls, want
+        torch.cuda.empty_cache()
+    sums = {label: {what: n * ms for what, ms in results[label].items()
+                    if isinstance(ms, float)} for label, n in PREFILL.items()}
+    for label, n in PREFILL.items():
+        print(f"== one 11B prefill ({n} launches of {label}), ms: "
+              + ", ".join(f"{what} {ms:.6g}" for what, ms in sums[label].items()))
+    print(json.dumps({"card": card, "rows": ROWS, "device_ms": results, "prefill_ms": sums}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

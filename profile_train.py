@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import subprocess
+import sys
 import time
 
 import torch
@@ -34,9 +35,11 @@ CATEGORIES = (
     ("flash_tc", "flash fwd (tensor cores)"), ("flash_decode_combine", "flash decode combine"),
     ("flash_decode", "flash decode (split-KV)"),
     ("flash_fwd", "flash fwd (SIMT)"), ("rmsnorm_bwd", "rmsnorm bwd"), ("dw_sum", "rmsnorm bwd"),
-    ("rmsnorm_fwd", "rmsnorm fwd"), ("swiglu", "swiglu (kernel)"),
+    ("rmsnorm_fwd", "rmsnorm fwd"), ("swiglu_tma", "swiglu (TMA tile)"),
+    ("swiglu_rows", "swiglu rows (decode)"), ("swiglu", "swiglu (wmma tile, loop)"),
     ("gemv_w4a8", "W4A8 gemv"), ("quantize_rows", "W4A8 row quantize"),
-    ("gemv_int8", "int8 gemv"), ("gemv_int4", "int4 gemv"), ("gemv_kernel", "bf16 gemv"),
+    ("gemv_int8", "int8 gemv"), ("gemv_int4", "int4 gemv"),
+    ("gemv_bf16_tc", "bf16 gemv (tensor cores)"), ("gemv_kernel", "bf16 gemv (CUDA cores)"),
     ("qmatmul", "qmatmul"), ("scatter", "cache writes (scatter)"),
     ("nvjet", "GEMM (cuBLAS)"), ("gemm", "GEMM (cuBLAS)"), ("xmma", "GEMM (cuBLAS)"),
     ("cutlass", "GEMM (cuBLAS)"), ("copy", "copies/casts"), ("reduce", "reductions"),
@@ -77,7 +80,11 @@ def profile_step(label: str, fn, tokens: int) -> None:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:5d}  {e.key[:110]}")
 
 
-def main() -> None:
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_train: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
@@ -107,7 +114,8 @@ def main() -> None:
         box[0], _ = step(box[0], batch)
 
     profile_step("full_ft_3b", full_step, batch["input_ids"].numel())
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -34,7 +34,7 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.train", "llama32mm_tpu_torch.utils.st_file", "profile_train",
     "llama32mm_tpu_torch.inference.server", "profile_serve", "profile_flash",
     "llama32mm_tpu_torch.ops.cuda.flash_decode", "profile_qgemv", "profile_qmatmul",
-    "llama32mm_tpu_torch.ops.cuda.gemv",
+    "llama32mm_tpu_torch.ops.cuda.gemv", "llama32mm_tpu_torch.ops.cuda.swiglu", "profile_swiglu",
 ]
 
 
@@ -62,10 +62,20 @@ def test_chip_smoke_fails_without_gpu():
     assert '"ok": true' not in proc.stdout
 
 
-def test_profile_qgemv_fails_without_gpu():
-    proc = subprocess.run([sys.executable, "profile_qgemv.py"], cwd=ROOT, env=_child_env(),
+PROFILERS = ["profile_flash.py", "profile_qgemv.py", "profile_qmatmul.py", "profile_serve.py",
+             "profile_swiglu.py", "profile_train.py"]
+
+
+@pytest.mark.parametrize("script", PROFILERS)
+def test_profile_script_fails_without_gpu(script):
+    """Each device-time profiler exits non-zero without a card and prints no
+    measurement (its JSON line carries a "card" key; the others print
+    kernel rows and ms)."""
+    proc = subprocess.run([sys.executable, script], cwd=ROOT, env=_child_env(),
                           capture_output=True, text=True, timeout=30)
-    assert proc.returncode != 0 and "device_ms" not in proc.stdout
+    assert proc.returncode != 0
+    assert "device_ms" not in proc.stdout and '"card"' not in proc.stdout
+    assert " ms" not in proc.stdout
 
 
 def _cpu_args(name):
@@ -74,14 +84,14 @@ def _cpu_args(name):
         return x, torch.ones(16), 1e-5
     if name == "rmsnorm_bwd":
         return x, x, torch.ones(16), torch.ones(3)
-    if name == "swiglu_bwd":
+    if name in ("swiglu_bwd", "swiglu_bwd_tc"):
         return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(3, 8)
     if name.startswith("flash_attention_bwd"):
         q, lse = torch.randn(1, 2, 3, 16), torch.zeros(1, 2, 3)
         return q, q, q, torch.ones(1, 3), 0, True, lse, lse, q
     if name in ("gemv", "gemv_tc"):
         return x, torch.randn(8, 16)
-    if name == "swiglu":
+    if name in ("swiglu", "swiglu_tc"):
         return x, torch.randn(8, 16), torch.randn(8, 16)
     if name == "swiglu_down":
         return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(16, 8)
