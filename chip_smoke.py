@@ -68,10 +68,18 @@ tensor-core forward at hd 8 (bf16 and int8 KV) give the same bits (the
 zero-fill of its head-dim padding once raced its copies); that the model's
 entry ``qmatmul_cuda`` routes each wgmma GEMM case to the wgmma kernel,
 two of its calls give the same bits, and rows 0-96 of each R=1632 call
-equal an R=97 call bit for bit; and prints the tensor-core forward's and
-backward's times beside the SIMT kernels' and SDPA's at the same shapes.
-Every bf16 path at 11B and 3B must launch the new kernels and never a SIMT
-forward or backward, nor the wmma dequantizing GEMM.
+equal an R=97 call bit for bit; that the model's gemv entry routes each
+tensor-core gemv case there, two calls give the same bits and each row of
+an R = 2-32 call equals its R = 1 call; that the model's SwiGLU entries
+route each TMA-tile case (forward and backward) there, two calls give the
+same bits and rows 0-96 of each R=1632 call equal an R=97 call; and prints
+the tensor-core forward's and backward's times beside the SIMT kernels' and
+SDPA's at the same shapes. Every bf16 path at 11B and 3B must launch the
+new kernels and never a SIMT forward or backward, nor the wmma
+dequantizing GEMM, nor the CUDA-core gemv; the bf16 generate and server
+launch the tensor-core gemv 201 times a decode step (and once for each
+prefill's head), the TMA SwiGLU tile 40 times a prefill and the SwiGLU
+rows kernel only at decode; the 3B full fine-tuning never the wmma tile.
 
 Each kernel case also reports its bound (the larger of the bytes it must
 move over 3.35 TB/s and its operations over the dense peak for its type)

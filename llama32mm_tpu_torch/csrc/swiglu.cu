@@ -9,7 +9,7 @@
 // Bound on the H100: at prefill (R = 1632, H = 4096, I = 14336) tensor-core
 // FLOPs (~383 GFLOP per layer against ~235 MB of weights: 0.3876 ms); at
 // decode (R = 1) the bytes of the two weights. l32_swiglu_fwd routes by
-// shape (route_fwd), never by failure:
+// shape (pick), never by failure:
 //
 // 1. The TMA tile (tma::swiglu_tma_kernel) takes bf16 x with H a multiple
 //    of 64, 16-byte-aligned x and weights and more than 8 rows: every
@@ -57,8 +57,8 @@
 // d_up = g * silu(gate), silu'(x) = s (1 + x (1 - s)), s = sigmoid(x), in x's
 // type; gate and up never reach device memory. It is the forward's body with
 // another epilogue (the kBwd template parameter of the TMA tile, the wmma
-// tile and the fp32 loop), routed as the forward above 8 rows (route_bwd)
-// and to the wmma tile at 8 or fewer. The TMA tile reads g at each
+// tile and the fp32 loop), routed as the forward above 8 rows (pick) and to
+// the wmma tile at 8 or fewer. The TMA tile reads g at each
 // accumulator's (row, column) from device memory; the wmma tile stages the
 // g tile through shared memory into fragments of the accumulators' layout.
 // Bound as the forward at R = 1632 (tensor-core FLOPs). dx = d_gate @ w_gate
@@ -552,7 +552,10 @@ int launch(const void* x, const void* wg, const void* wu, const void* g, void* o
 
 }  // namespace tma
 
-// l32_swiglu_fwd / l32_swiglu_bwd's kernel argument and *launched values.
+// l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, route
+// among the kernels other than the TMA tile, or ask for the TMA tile; and
+// the kernels they report in *launched.
+enum { kRouted = -1, kRoutedNoTma = -2 };
 enum { kRows = 0, kWmma = 1, kLoop = 2, kTma = 3 };
 
 bool tma_takes(const void* x, const void* wg, const void* wu, int h, int dtype) {
@@ -560,50 +563,35 @@ bool tma_takes(const void* x, const void* wg, const void* wu, int h, int dtype) 
          aligned16(wu);
 }
 
-// The forward's kernel: at most 8 rows the weight-streaming rows kernel;
-// more, bf16 the TMA tile where it takes the call, else the wmma tile;
-// fp32 the loop.
-int route_fwd(const void* x, const void* wg, const void* wu, int rows, int h, int dtype) {
-  if (dtype != L32_BF16 && dtype != L32_F32) return -1;
-  if (rows <= kSmallRows) return kRows;
+// The kernel a call takes, or -1 for an error. Routed, the forward takes the
+// weight-streaming rows kernel at most at 8 rows (the backward has none);
+// more rows in bf16 take the TMA tile where it takes the call, else the
+// wmma tile; fp32 the loop.
+int pick(int kernel, const void* x, const void* wg, const void* wu, int rows, int h, int dtype,
+         bool bwd) {
+  const bool tma = tma_takes(x, wg, wu, h, dtype);
+  if (kernel == kTma) return tma ? kTma : -1;
+  if ((kernel != kRouted && kernel != kRoutedNoTma) || (dtype != L32_BF16 && dtype != L32_F32))
+    return -1;
+  if (!bwd && rows <= kSmallRows) return kRows;
   if (dtype == L32_F32) return kLoop;
-  return tma_takes(x, wg, wu, h, dtype) ? kTma : kWmma;
-}
-
-// The backward's: bf16 the TMA tile above 8 rows where it takes the call,
-// else the wmma tile; fp32 the loop.
-int route_bwd(const void* x, const void* wg, const void* wu, int rows, int h, int dtype) {
-  if (dtype != L32_BF16 && dtype != L32_F32) return -1;
-  if (dtype == L32_F32) return kLoop;
-  return rows > kSmallRows && tma_takes(x, wg, wu, h, dtype) ? kTma : kWmma;
-}
-
-// Whether an asked-for kernel takes the call.
-bool takes(int kernel, const void* x, const void* wg, const void* wu, int rows, int h,
-           int dtype, bool bwd) {
-  switch (kernel) {
-    case kRows: return !bwd && rows <= kSmallRows;
-    case kWmma: return dtype == L32_BF16;
-    case kLoop: return dtype == L32_F32;
-    case kTma: return tma_takes(x, wg, wu, h, dtype);
-    default: return false;
-  }
+  return kernel == kRouted && tma && rows > kSmallRows ? kTma : kWmma;
 }
 
 }  // namespace
 
-// kernel -1 routes by shape (route_fwd); 0 (rows), 1 (wmma tile), 2 (fp32
-// loop) or 3 (TMA tile) asks for that kernel, and one that does not take
-// the call is an error. *launched is set to the kernel launched, or -1
-// where none was (no rows or no columns, or an error).
+// kernel: -1 routes by shape (pick), -2 routes among the kernels other than
+// the TMA tile, 3 asks for the TMA tile, and a kernel that does not take the
+// call is an error. *launched is set to the kernel launched (0 rows kernel,
+// 1 wmma tile, 2 fp32 loop, 3 TMA tile), or -1 where none was (no rows or no
+// columns, or an error).
 extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, void* out,
                               int rows, int h, int inter, int dtype, int kernel, int* launched,
                               void* stream) {
   *launched = -1;
   if (rows == 0 || inter == 0) return 0;
-  if (kernel == -1) kernel = route_fwd(x, wg, wu, rows, h, dtype);
-  if (!takes(kernel, x, wg, wu, rows, h, dtype, false))
-    return static_cast<int>(cudaErrorInvalidValue);
+  kernel = pick(kernel, x, wg, wu, rows, h, dtype, false);
+  if (kernel < 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   int err = 0;
   if (kernel == kRows && dtype == L32_BF16)
@@ -622,16 +610,14 @@ extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, voi
 }
 
 // d_gate, d_up [rows, inter] from x [rows, h], both weights [inter, h] and
-// the cotangent g [rows, inter]; kernel and *launched as l32_swiglu_fwd's
-// (route_bwd; the rows kernel has no backward).
+// the cotangent g [rows, inter]; kernel and *launched as l32_swiglu_fwd's.
 extern "C" int l32_swiglu_bwd(const void* x, const void* wg, const void* wu, const void* g,
                               void* d_gate, void* d_up, int rows, int h, int inter, int dtype,
                               int kernel, int* launched, void* stream) {
   *launched = -1;
   if (rows == 0 || inter == 0) return 0;
-  if (kernel == -1) kernel = route_bwd(x, wg, wu, rows, h, dtype);
-  if (!takes(kernel, x, wg, wu, rows, h, dtype, true))
-    return static_cast<int>(cudaErrorInvalidValue);
+  kernel = pick(kernel, x, wg, wu, rows, h, dtype, true);
+  if (kernel < 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   int err;
   if (kernel == kWmma)

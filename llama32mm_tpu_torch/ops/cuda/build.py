@@ -102,13 +102,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "l32_rmsnorm_fwd": [p, p, p, p, p, p, i, i, f, i, p],
         # (g, t, weight, rms, dt, dw|NULL, workspace|NULL, rows, cols, parts, dtype, stream)
         "l32_rmsnorm_bwd": [p, p, p, p, p, p, p, i, i, i, i, p],
-        # (x, w, out, rows, n, k, dtype, kernel (-1: routed), launched kernel (out), stream)
+        # (x, w, out, rows, n, k, dtype, kernel (-1: routed, 0: CUDA cores, 1: tensor cores),
+        #  launched kernel (out), stream)
         "l32_gemv": [p, p, p, i, i, i, i, i, p, p],
-        # (x, w_gate, w_up, out, rows, hidden, inter, dtype, kernel (-1: routed),
-        #  launched kernel (out), stream)
+        # (x, w_gate, w_up, out, rows, hidden, inter, dtype, kernel (-1: routed, -2: routed
+        #  without the TMA tile, 3: the TMA tile), launched kernel (out), stream)
         "l32_swiglu_fwd": [p, p, p, p, i, i, i, i, i, p, p],
-        # (x, w_gate, w_up, g, d_gate, d_up, rows, hidden, inter, dtype, kernel (-1: routed),
-        #  launched kernel (out), stream)
+        # (x, w_gate, w_up, g, d_gate, d_up, rows, hidden, inter, dtype, kernel (as
+        #  l32_swiglu_fwd's), launched kernel (out), stream)
         "l32_swiglu_bwd": [p, p, p, p, p, p, i, i, i, i, i, p, p],
         # (q, k, v, kv_valid, q_offsets|NULL, out, lse|NULL, b, nq, nkv, tq, tk, hd, q_offset,
         #  causal, dtype, stream)

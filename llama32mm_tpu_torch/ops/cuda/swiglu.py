@@ -43,17 +43,10 @@ def _check(x, w_gate, w_up):
     return h, w_gate.shape[0], (x.numel() // h if h else 0)
 
 
-# l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, or force
-# one kernel.
-ROUTED, ROWS, WMMA, LOOP, TMA = -1, 0, 1, 2, 3
-SMALL_ROWS = 8  # at most this many rows: the forward's weight-streaming rows kernel
-
-
-def _before_tma(x: torch.Tensor, rows: int, bwd: bool) -> int:
-    """The kernel a call took before the TMA tile existed."""
-    if rows <= SMALL_ROWS and not bwd:
-        return ROWS
-    return WMMA if x.dtype == torch.bfloat16 else LOOP
+# l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, route
+# among the kernels other than the TMA tile, or ask for the TMA tile (also
+# the value they report when they launched it).
+ROUTED, ROUTED_NO_TMA, TMA = -1, -2, 3
 
 
 def _forward(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, kernel: int):
@@ -89,8 +82,7 @@ def fused_swiglu_tc_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tens
 def fused_swiglu_wmma_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
     """The rows kernel (at most 8 rows), else the wmma tile (bf16) or the
     fp32 loop: any shape."""
-    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
-    return _forward(x, w_gate, w_up, _before_tma(x, rows, bwd=False))
+    return _forward(x, w_gate, w_up, ROUTED_NO_TMA)
 
 
 @counted("calls")
@@ -180,7 +172,7 @@ def fused_swiglu_bwd_tc_cuda(x, w_gate, w_up, g):
 @counted("launches")
 def fused_swiglu_bwd_wmma_cuda(x, w_gate, w_up, g):
     """The wmma tile's backward (bf16) or the fp32 loop: any shape."""
-    return _backward(x, w_gate, w_up, g, _before_tma(x, 0, bwd=True))
+    return _backward(x, w_gate, w_up, g, ROUTED_NO_TMA)
 
 
 @counted("calls")
