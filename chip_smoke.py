@@ -47,7 +47,9 @@
    and ``server_int4_w4a8`` (the untied model in ``INT4_MIXED_RECIPE`` at
    g=128, int8 KV cache, the W4A8 gemv) each serve 10 image requests (S =
    1632, budgets 64 / 32) through 8 slots, 6 submitted at first and 4 after
-   one step, checking budgets, ids and the path's kernels; printing
+   one step, checking budgets, ids and the path's kernels (the tensor-core
+   W4A8 gemv 81 times a decode step and once a prefill's head, the
+   CUDA-core one never); printing
    aggregate decode tokens/s, ms per decode step with 8 slots busy, peak
    GiB and how many requests equal a solo engine run; and, as information,
    a B=1 generate A/B of the W4A8 and W4A16 int4 gemvs;
@@ -74,12 +76,17 @@ an R = 2-32 call equals its R = 1 call; that the model's SwiGLU entries
 route each TMA-tile case (forward and backward) there, two calls give the
 same bits and rows 0-96 of each R=1632 call equal an R=97 call; and prints
 the tensor-core forward's and backward's times beside the SIMT kernels' and
-SDPA's at the same shapes. Every bf16 path at 11B and 3B must launch the
-new kernels and never a SIMT forward or backward, nor the wmma
-dequantizing GEMM, nor the CUDA-core gemv; the bf16 generate and server
-launch the tensor-core gemv 201 times a decode step (and once for each
-prefill's head), the TMA SwiGLU tile 40 times a prefill and the SwiGLU
-rows kernel only at decode; the 3B full fine-tuning never the wmma tile.
+SDPA's at the same shapes. The tensor-core SwiGLU rows kernel and W4A8
+gemv get the same three checks as the tensor-core gemv (routed by the
+model's entry, two calls bit-equal, each row of an R > 1 call equal to its
+R = 1 call), and the TMA SwiGLU backward one case whose cotangent starts
+at an odd element. Every bf16 path at 11B and 3B must launch the new
+kernels and never a SIMT forward or backward, nor the wmma dequantizing
+GEMM, nor the CUDA-core gemv; the bf16 generate and server launch the
+tensor-core gemv 201 times a decode step (and once for each prefill's
+head), the TMA SwiGLU tile 40 times a prefill and the tensor-core SwiGLU
+rows kernel 40 times a decode step, never the weight-streaming rows kernel
+or the wmma tile; the 3B full fine-tuning never the wmma tile.
 
 Each kernel case also reports its bound (the larger of the bytes it must
 move over 3.35 TB/s and its operations over the dense peak for its type)
@@ -184,6 +191,10 @@ KERNEL_INFO = {
     "swiglu_tc": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:69"),
     "swiglu_bwd_tc": ("llama32mm_tpu_torch/csrc/swiglu.cu",
                       "llama32mm_tpu/ops/pallas/swiglu.py:136"),
+    "swiglu_rows_tc": ("llama32mm_tpu_torch/csrc/swiglu.cu",
+                       "llama32mm_tpu/ops/pallas/swiglu.py:69"),
+    "gemv_int4_w4a8_tc": ("llama32mm_tpu_torch/csrc/qgemv.cu",
+                          "llama32mm_tpu/ops/pallas/gemv.py:353"),
 }
 # Pallas functions a kernel folds in beside the one it is listed against, and
 # the pl.pallas_call sites that its Pallas functions reach.
@@ -196,6 +207,7 @@ ALSO_REPLACES = {
     "swiglu_bwd": [_P + "swiglu.py:98"],
     "swiglu_tc": [_P + "swiglu.py:98"],
     "swiglu_bwd_tc": [_P + "swiglu.py:98"],
+    "swiglu_rows_tc": [_P + "swiglu.py:98"],
     "swiglu_down": [_P + "swiglu.py:255"],
     "flash_attention": [_P + "attention.py:198"],
     "flash_attention_int8kv": [_P + "attention.py:198"],
@@ -216,6 +228,7 @@ ALSO_REPLACES = {
     "gemv_int8": [_P + "gemv.py:701", _P + "gemv.py:185", _P + "gemv.py:724"],
     "gemv_int4": [_P + "gemv.py:216", _P + "gemv.py:592", _P + "gemv.py:618"],
     "gemv_int4_w4a8": [_P + "gemv.py:419", _P + "gemv.py:561"],
+    "gemv_int4_w4a8_tc": [_P + "gemv.py:419", _P + "gemv.py:561"],
     "qmatmul": [_P + "quant_matmul.py:99", _P + "quant_matmul.py:75",
                 _P + "quant_matmul.py:188"],
     "qmatmul_tc": [_P + "quant_matmul.py:99", _P + "quant_matmul.py:75",
@@ -225,17 +238,18 @@ ALSO_REPLACES = {
 # through the tensor-core flash forward, decode through the split-KV kernel,
 # quantized prefill linears through the wgmma dequantizing GEMM, bf16 decode
 # linears through the tensor-core gemv, the bf16 prefill's SwiGLU through
-# the TMA tile and its decode SwiGLU (at most 8 rows) through the rows
-# kernel ("swiglu", which also counts the wmma tile: run_11b and run_server
-# hold it to the decode steps' count).
+# the TMA tile and its decode SwiGLU (at most 8 rows) through the
+# tensor-core rows kernel (run_11b and run_server hold both to their counts,
+# and "swiglu", the base rows kernel and the wmma tile, to 0), the int4
+# server's W4A8 gemvs through the tensor-core W4A8 kernel.
 BF16_ATTN = ("flash_attention_tc", "flash_decode")
 INT8_KV_ATTN = ("flash_attention_tc", "flash_attention_tc_int8kv", "flash_decode_int8kv")
-SERVER_INT4_KERNELS = ("rmsnorm", "gemv_int8", "gemv_int4_w4a8", "qmatmul_tc") + INT8_KV_ATTN
+SERVER_INT4_KERNELS = ("rmsnorm", "gemv_int8", "gemv_int4_w4a8_tc", "qmatmul_tc") + INT8_KV_ATTN
 PATH_KERNELS = {
-    "bf16": ("rmsnorm", "gemv_tc", "swiglu", "swiglu_tc") + BF16_ATTN,
+    "bf16": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
     "int8": ("rmsnorm", "gemv_int8", "qmatmul_tc") + INT8_KV_ATTN,
     "int4_mixed": ("rmsnorm", "gemv_int8", "gemv_int4", "qmatmul_tc") + INT8_KV_ATTN,
-    "server_bf16": ("rmsnorm", "gemv_tc", "swiglu", "swiglu_tc") + BF16_ATTN,
+    "server_bf16": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
     "server_int4_w4a8": SERVER_INT4_KERNELS,
     "swiglu_down_op": ("swiglu_down",),
 }
@@ -282,16 +296,19 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
             faults.append(f"launched the wmma qmatmul {launches['qmatmul']} times")
         if launches["gemv"]:
             faults.append(f"launched the CUDA-core gemv {launches['gemv']} times")
+        if launches["gemv_int4_w4a8"]:
+            faults.append(f"launched the CUDA-core W4A8 gemv {launches['gemv_int4_w4a8']} times")
     return faults + [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
 
 
 def swiglu_faults(launches: dict, layers: int, prefills: int, decode_steps: int) -> list:
     """A bf16 generate's or server's SwiGLU launches: the TMA tile once a
-    layer per prefill, and "swiglu" (the rows kernel, or the wmma tile) only
-    once a layer per decode step, so never the wmma tile."""
-    want = {"swiglu_tc": layers * prefills, "swiglu": layers * decode_steps}
-    log(f"SwiGLU launches: TMA tile {launches['swiglu_tc']} (want {want['swiglu_tc']}), rows "
-        f"kernel {launches['swiglu']} (want {want['swiglu']})")
+    layer per prefill, the tensor-core rows kernel once a layer per decode
+    step, and "swiglu" (the base rows kernel, or the wmma tile) never."""
+    want = {"swiglu_tc": layers * prefills, "swiglu_rows_tc": layers * decode_steps, "swiglu": 0}
+    log(f"SwiGLU launches: TMA tile {launches['swiglu_tc']} (want {want['swiglu_tc']}), "
+        f"tensor-core rows kernel {launches['swiglu_rows_tc']} (want {want['swiglu_rows_tc']}), "
+        f"base rows kernel or wmma tile {launches['swiglu']} (want 0)")
     return [f"launched {k} {launches[k]} times, not {n}" for k, n in want.items()
             if launches[k] != n]
 
@@ -400,6 +417,13 @@ def kernel_cases(dev, gen):
          (rnd(33, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), False),
         ("swiglu_tc", "ragged I R=130 H=256 I=300",
          (rnd(130, 256), rnd(300, 256, scale=0.1), rnd(300, 256, scale=0.1)), False),
+        *[("swiglu_rows_tc", f"{'server ' if r == 8 else ''}decode R={r} H=4096 I=14336",
+           (rnd(r, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), r == 8)
+          for r in (1, 2, 5, 8)],
+        ("swiglu_rows_tc", "3B decode R=8 H=3072 I=8192",
+         (rnd(8, 3072), rnd(8192, 3072, scale=0.02), rnd(8192, 3072, scale=0.02)), False),
+        ("swiglu_rows_tc", "ragged I R=3 H=96 I=200",
+         (rnd(3, 96), rnd(200, 96, scale=0.1), rnd(200, 96, scale=0.1)), False),
         ("flash_attention", "decoder prefill nq=32 nkv=8 Tq=1632 Tk=2048 hd=128 causal",
          (rnd(1, 32, 1632, 128), rnd(1, 8, 2048, 128), rnd(1, 8, 2048, 128),
           valid(1, 2048, 1632), 0, True), True),
@@ -489,14 +513,17 @@ def kernel_cases(dev, gen):
         ("flash_attention_tc_int8kv", "hd=8 nq=4 nkv=2 Tq=70 Tk=90 q_offset=20 causal",
          (rnd(1, 4, 70, 8), *kv8(1, 2, 90, 8), valid(1, 90, 90), 20, True), False),
     ]
-    return cases + server_kernel_cases(rnd, q4, kv8) + training_kernel_cases(rnd, valid)
+    return (cases + server_kernel_cases(rnd, q4, q4_stepped, kv8)
+            + training_kernel_cases(rnd, valid))
 
 
-def server_kernel_cases(rnd, q4, kv8):
+def server_kernel_cases(rnd, q4, q4_stepped, kv8):
     """The server's kernels: the W4A8 int4 gemv at its decode shapes (8 slots;
-    R=1 for one request), the SwiGLU+down op, and decode attention over 8
-    slots at their own fill levels (per-row query offsets; the prompt's
-    bucket padding 1632..1663 blocked, an idle slot at S-1)."""
+    R=1 for one request; the CUDA-core kernel at the main shape and at a
+    group size the tensor-core one does not take), the SwiGLU+down op, and
+    decode attention over 8 slots at their own fill levels (per-row query
+    offsets; the prompt's bucket padding 1632..1663 blocked, an idle slot at
+    S-1)."""
     h, inter, vocab = 4096, 14336, 128256
     dev = rnd(1).device
     offsets = torch.tensor([1664, 1700, 1727, 1690, 1665, 1800, 2047, 1900], dtype=torch.int32,
@@ -505,21 +532,27 @@ def server_kernel_cases(rnd, q4, kv8):
     kvv[:, 1632:1664] = 0
     zero_row = rnd(2, h)
     zero_row[0] = 0
+    w_gate = q4(inter, h, 128)
     return [
-        ("gemv_int4_w4a8", "w_gate R=8 N=14336 K=4096 g=128", (rnd(8, h), *q4(inter, h, 128)),
-         True),
-        ("gemv_int4_w4a8", "w_gate R=1 N=14336 K=4096 g=128", (rnd(1, h), *q4(inter, h, 128)),
-         False),
-        ("gemv_int4_w4a8", "int4 lm_head R=8 N=128256 K=4096 g=128",
-         (rnd(8, h), *q4(vocab, h, 128)), False),
-        ("gemv_int4_w4a8", "int4 lm_head R=1 N=128256 K=4096 g=128",
-         (rnd(1, h), *q4(vocab, h, 128)), False),
-        ("gemv_int4_w4a8", "per-channel R=8 N=4096 K=4096 g=4096", (rnd(8, h), *q4(h, h, h)),
-         False),
+        ("gemv_int4_w4a8", "w_gate R=8 N=14336 K=4096 g=128", (rnd(8, h), *w_gate), True),
         ("gemv_int4_w4a8", "scalar path R=3 N=200 K=192 g=24", (rnd(3, 192), *q4(200, 192, 24)),
          False),
-        ("gemv_int4_w4a8", "an all-zero row R=2 N=1000 K=4096 g=128",
+        *[("gemv_int4_w4a8_tc", f"w_gate R={r} N=14336 K=4096 g=128", (rnd(r, h), *w_gate), r == 8)
+          for r in (1, 8, 16, 32)],
+        ("gemv_int4_w4a8_tc", "int4 lm_head R=8 N=128256 K=4096 g=128",
+         (rnd(8, h), *q4(vocab, h, 128)), False),
+        ("gemv_int4_w4a8_tc", "int4 lm_head R=1 N=128256 K=4096 g=128",
+         (rnd(1, h), *q4(vocab, h, 128)), False),
+        ("gemv_int4_w4a8_tc", "per-channel R=8 N=4096 K=4096 g=4096", (rnd(8, h), *q4(h, h, h)),
+         False),
+        ("gemv_int4_w4a8_tc", "an all-zero row R=2 N=1000 K=4096 g=128",
          (zero_row, *q4(1000, h, 128)), False),
+        ("gemv_int4_w4a8_tc", "g=64 R=20 N=1000 K=4096", (rnd(20, h), *q4(1000, h, 64)), False),
+        ("gemv_int4_w4a8_tc", "g=32 R=5 N=300 K=256", (rnd(5, 256), *q4(300, 256, 32)), False),
+        ("gemv_int4_w4a8_tc", "group scales 1000x apart R=8 N=1000 K=4096 g=128",
+         (rnd(8, h), *q4_stepped(1000, h, 128)), False),
+        ("gemv_int4_w4a8_tc", "fp32 x R=3 N=1000 K=4096 g=128",
+         (rnd(3, h).float(), *q4(1000, h, 128)), False),
         ("swiglu_down", "decode R=1 H=4096 I=14336",
          (rnd(1, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02),
           rnd(h, inter, scale=0.01)), True),
@@ -613,6 +646,10 @@ def training_kernel_cases(rnd, valid):
         ("swiglu_bwd_tc", "ragged I R=130 H=256 I=300",
          (rnd(130, 256), rnd(300, 256, scale=0.1), rnd(300, 256, scale=0.1), rnd(130, 300)),
          False),
+        # a contiguous cotangent that starts at an odd element (2-byte aligned)
+        ("swiglu_bwd_tc", "g offset by one element R=130 H=256 I=300",
+         (rnd(130, 256), rnd(300, 256, scale=0.1), rnd(300, 256, scale=0.1),
+          rnd(130 * 300 + 1)[1:].view(130, 300)), False),
     ]
     masked = valid(2, 100, 90)
     masked[0, :6] = 0  # batch 0, query 0 (position 5) sees no key
@@ -724,7 +761,7 @@ def bound(name, args, out):
         ops = {"swiglu_down": 6}.get(name, 4) * rows * x.shape[-1] * inter
     else:  # RMSNorm: a few operations per element
         ops = 4 * x.numel()
-    peak = PEAK_OPS[torch.int8 if name == "gemv_int4_w4a8" else x.dtype]
+    peak = PEAK_OPS[torch.int8 if name.startswith("gemv_int4_w4a8") else x.dtype]
     t_bytes = (in_bytes + _nbytes(outs)) / HBM_BYTES_PER_S
     t_ops = ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -823,63 +860,47 @@ def check_gemv_rows_alone(name, label, wrapper, args, got) -> None:
     log(f"kernel {name} [{label}]: each of the {x.shape[0]} rows equals its R=1 call bit for bit")
 
 
-def check_gemv_tc(label, args, got) -> None:
-    """The tensor-core gemv's case: ``gemv_cuda`` (the model's entry) routes
-    it to the tensor-core kernel with the same bits, a second call gives the
-    same bits, and each row of a multi-row call equals its R = 1 call bit for
-    bit (the warps' K split and summation order never depend on R)."""
-    before = kernels.gemv_tc_cuda.launches
-    routed = kernels.gemv_cuda(*args)
-    if kernels.gemv_tc_cuda.launches != before + 1 or not torch.equal(routed, got):
-        raise RuntimeError(f"gemv_tc [{label}]: gemv_cuda did not route it to the tensor-core "
-                           f"kernel, or gave other bits")
-    check_same_bits("gemv_tc", label, kernels.gemv_tc_cuda, args, got)
-    if args[0].shape[0] > 1:
-        check_gemv_rows_alone("gemv_tc", label, kernels.gemv_tc_cuda, args, got)
+# The tensor-core kernels that the model's entries choose by shape: kernel
+# name -> that entry. Rows of a gemv-like call (at most 32) are each checked
+# against an R = 1 call, those of an R = 1632 GEMM-like call against an
+# R = 97 call.
+ROUTED_BY = {
+    "gemv_tc": kernels.gemv_cuda,
+    "gemv_int4_w4a8_tc": kernels.gemv_int4_w4a8_cuda,
+    "swiglu_rows_tc": kernels.fused_swiglu_cuda,
+    "swiglu_tc": kernels.fused_swiglu_cuda,
+    "swiglu_bwd_tc": kernels.fused_swiglu_bwd_cuda,
+    "qmatmul_tc": kernels.qmatmul_cuda,
+}
 
 
-def check_swiglu_tc(name, label, args, got) -> None:
-    """The TMA tile's case: the model's entry (``fused_swiglu_cuda`` or, for
-    the backward, ``fused_swiglu_bwd_cuda``) routes it to the TMA tile with
-    the same bits, a second call gives the same bits, and at R = 1632 rows
-    0-96 equal an R = 97 call on those rows bit for bit (no split-K, a k
-    order fixed by H, tiles fixed by I)."""
+def check_routed(name, label, args, got) -> None:
+    """A routed kernel's case: the model's entry routes it to that kernel
+    with the same bits, a second call gives the same bits, each row of a
+    multi-row decode call equals its R = 1 call bit for bit (warps split K
+    at spans fixed by the weights' shape and are summed in a fixed order),
+    and at R = 1632 rows 0-96 equal an R = 97 call on those rows bit for bit
+    (no split-K, a k order fixed by K, tiles fixed by N)."""
     wrapper = kernels.KERNELS[name][0]
-    entry = kernels.fused_swiglu_bwd_cuda if name == "swiglu_bwd_tc" else kernels.fused_swiglu_cuda
     got = got if isinstance(got, tuple) else (got,)
     before = wrapper.launches
-    routed = entry(*args)
+    routed = ROUTED_BY[name](*args)
     routed = routed if isinstance(routed, tuple) else (routed,)
     if wrapper.launches != before + 1 or not all(map(torch.equal, routed, got)):
-        raise RuntimeError(f"{name} [{label}]: the model's entry did not route it to the TMA "
-                           f"tile, or gave other bits")
+        raise RuntimeError(f"{name} [{label}]: the model's entry did not route it to {name}, or "
+                           f"gave other bits")
+    log(f"kernel {name} [{label}]: the model's entry launched {name}, the same bits")
     check_same_bits(name, label, wrapper, args, got)
     x = args[0]
+    if 1 < x.shape[0] <= 32:
+        check_gemv_rows_alone(name, label, wrapper, args, got[0])
     if x.shape[0] == 1632:
+        # x, and for the backward the cotangent, cut to their first 97 rows
         part = wrapper(*(a[:97].contiguous() if i in (0, 3) else a for i, a in enumerate(args)))
         part = part if isinstance(part, tuple) else (part,)
         if not all(torch.equal(p, g[:97]) for p, g in zip(part, got)):
             raise RuntimeError(f"{name} [{label}]: rows 0-96 differ from an R=97 call")
         log(f"kernel {name} [{label}]: rows 0-96 equal the R=97 call bit for bit")
-
-
-def check_qmatmul_tc(label, args, got) -> None:
-    """The wgmma GEMM's case: ``qmatmul_cuda`` (the model's entry) routes it
-    to the wgmma kernel with the same bits, a second call gives the same
-    bits, and at R = 1632 rows 0-96 equal an R = 97 call on those rows bit
-    for bit (a row's k order never depends on R or on its row tile)."""
-    before = kernels.qmatmul_tc_cuda.launches
-    routed = kernels.qmatmul_cuda(*args)
-    if kernels.qmatmul_tc_cuda.launches != before + 1 or not torch.equal(routed, got):
-        raise RuntimeError(f"qmatmul_tc [{label}]: qmatmul_cuda did not route it to the wgmma "
-                           f"kernel, or gave other bits")
-    check_same_bits("qmatmul_tc", label, kernels.qmatmul_tc_cuda, args, got)
-    x = args[0]
-    if x.shape[0] == 1632:
-        part = kernels.qmatmul_tc_cuda(x[:97].contiguous(), *args[1:])
-        if not torch.equal(part, got[:97]):
-            raise RuntimeError(f"qmatmul_tc [{label}]: rows 0-96 differ from an R=97 call")
-        log(f"kernel qmatmul_tc [{label}]: rows 0-96 equal the R=97 call bit for bit")
 
 
 def compare_kernels(dev, only=None) -> dict:
@@ -909,12 +930,8 @@ def compare_kernels(dev, only=None) -> dict:
             check_gemv_rows_alone(name, label, wrapper, args, got)
         if name in HD8_RACE and label.startswith("hd=8"):  # the zero-fill race, repaired
             check_same_bits(name, label, wrapper, args, got, calls=49)
-        if name == "qmatmul_tc":
-            check_qmatmul_tc(label, args, got)
-        if name == "gemv_tc":
-            check_gemv_tc(label, args, got)
-        if name in ("swiglu_tc", "swiglu_bwd_tc"):
-            check_swiglu_tc(name, label, args, got)
+        if name in ROUTED_BY:
+            check_routed(name, label, args, got)
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
         lib_ms = library_ms(name, label, args)
         bound_ms, bound_by = bound(name, args, want)
@@ -1044,8 +1061,8 @@ def check_tiny_server(dev) -> None:
     finally:
         gemv_mod._INT4_VARIANT = prev
     log(f"tiny fp32 int4 w4a8: tokens cuda={res['cuda'].tolist()} torch={res['torch'].tolist()} "
-        f"w4a8 launches {launches['gemv_int4_w4a8']}")
-    if not torch.equal(res["cuda"], res["torch"]) or launches["gemv_int4_w4a8"] == 0:
+        f"tensor-core w4a8 launches {launches['gemv_int4_w4a8_tc']}")
+    if not torch.equal(res["cuda"], res["torch"]) or launches["gemv_int4_w4a8_tc"] == 0:
         raise RuntimeError("tiny int4 w4a8: kernel path and plain path disagree (or no launch)")
 
 
@@ -1433,6 +1450,14 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None) -> dict:
         if launches["gemv_tc"] != want:
             faults.append(f"launched the tensor-core gemv {launches['gemv_tc']} times, not {want}")
         faults += swiglu_faults(launches, tc.n_layers, prefills=len(rids), decode_steps=steps)
+    if path == "server_int4_w4a8":  # w_gate, w_up and the int4 head each step, each prefill's head
+        steps = sum(c[0] for c in chunks)
+        want = (2 * tc.n_layers + 1) * steps + len(rids)
+        got = launches["gemv_int4_w4a8_tc"]
+        log(f"[{path}] tensor-core W4A8 gemv launches {got} = {2 * tc.n_layers + 1} x {steps} "
+            f"steps + {len(rids)} prefill heads: {got == want}")
+        if got != want:
+            faults.append(f"launched the tensor-core W4A8 gemv {got} times, not {want}")
     if faults:
         raise RuntimeError(f"[{path}] {faults}")
     if launches["gemv_int4"]:

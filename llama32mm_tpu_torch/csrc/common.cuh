@@ -71,6 +71,43 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// D += A B on mma.sync m16n8k32 in signed bytes: A 16x32 and B 32x8 s8,
+// int32 C in place (exact). Fragments: lane (gid, t) holds A rows gid (a[0],
+// a[2]) and gid + 8 (a[1], a[3]) at k 4t .. 4t + 3 (a[0], a[1]) and 4t + 16 ..
+// 4t + 19 (a[2], a[3]), four bytes a word, the lowest byte first; B column gid
+// at the same two k sets (b0, b1); C as mma_16816's.
+__device__ __forceinline__ void mma_16832_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes of a weight row read once: they bypass L1, which keeps x. A warp's
+// load covers 64 bytes of each of 8 rows; the L2::256B hint has L2 fetch 256
+// bytes of the row at once, which the next spans read (-3.4% at the bf16
+// lm_head gemv).
+__device__ __forceinline__ uint4 load_stream16(const void* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+  return r;
+}
+
+// Warps a block of the swap-AB tensor-core gemvs (gemv.cu, the SwiGLU rows
+// kernel): enough blocks x warps to keep loads in flight on every SM at
+// every N (W_key's N = 1024 has 64 groups of 16 columns, w_down's 256 for a
+// K of 14336), with at least 8 spans of 32 k a warp. N and K alone decide
+// it, so a row's bits never depend on R. (Measured on the bf16 gemv: 8 and
+// 16 beat 4 and 8 at every decode shape, -7% at w_down; 2 and 4 lost up to
+// 20%.)
+static inline int tc_warps(int n, int k) {
+  int warps = n >= 8192 ? 8 : 16;
+  while (warps > 4 && k / 32 < 8 * warps) warps /= 2;
+  return warps;
+}
+
 // cp.async of N (4, 8 or 16) bytes into shared memory; with valid false the
 // destination is zero-filled and nothing is read.
 template <int N>

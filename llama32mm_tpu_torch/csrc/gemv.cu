@@ -127,16 +127,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTcUnroll = 4;  // spans whose weight loads a lane keeps in flight
 
-// 16 bytes read once: they bypass L1, which keeps x. A warp's load covers
-// 64 bytes of each of 8 weight rows; the L2::256B hint has L2 fetch 256
-// bytes of the row at once, which the next spans read (-3.4% at lm_head).
-__device__ __forceinline__ uint4 load_stream16(const bf16* p) {
-  uint4 r;
-  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
-  return r;
-}
-
 // W warps a block, each a fixed part of K's spans; MT m16 tiles (16 output
 // columns each) and NT n8 tiles (8 rows of x each) a warp. C element i of a
 // lane: output column 16 mt + gid + 8 (i / 2), x row 8 nt + 2t + i % 2.
@@ -231,17 +221,6 @@ gemv_bf16_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       out[static_cast<size_t>(r) * n + n0 + m] = __float2bfloat16(sum);
     }
   }
-}
-
-// Warps a block: enough blocks x warps to keep loads in flight on every SM
-// at every N (W_key's N = 1024 has 64 groups of 16 columns, w_down's 256
-// for a K of 14336), with at least 8 spans a warp. N and K alone decide it.
-// (Measured: 8 and 16 beat 4 and 8 at every decode shape, -7% at w_down;
-// 2 and 4 lost up to 20%.)
-int tc_warps(int n, int k) {
-  int warps = n >= 8192 ? 8 : 16;
-  while (warps > 4 && k / 32 < 8 * warps) warps /= 2;
-  return warps;
 }
 
 template <int W>

@@ -58,13 +58,31 @@
 // 16 * u_hi - 128 top-bit flip and -8 * xqsum_lo correction exist because
 // Mosaic lacks narrow shifts; here each nibble is masked out of its 32-bit
 // word four at a time and __vsub4 takes 8 off every byte, which leaves u - 8
-// as exact signed bytes, and __dp4a accumulates xq * (u - 8) in int32: the
-// same integers as the TPU's algebra. One 16-byte chunk of a weight row lies
-// inside one group (g/2 a multiple of 16), so its int32 dot is exact and
-// takes one fp32 FMA with the group's scale; the row's ax multiplies the
-// warp's sum once. The warp layout and row buckets are the CUDA-core W4A16
-// kernel's. Other group sizes (and misaligned rows) run a per-byte scalar
-// loop with the same integer products.
+// as exact signed bytes (nibbles_s8): the same integers as the TPU's algebra.
+// The dot reads only xq, so either kernel takes any x dtype.
+// 1. g/2 a multiple of 16 with 16-byte-aligned q4 and xq (the decode path:
+//    g=128, per-channel g=K) takes the tensor-core kernel,
+//    gemv_w4a8_tc_kernel: the W4A16 kernel's swap-AB layout on mma.sync
+//    m16n8k32 s8. A packed word's four low nibbles and its four high ones
+//    are each one A word as nibbles_s8 leaves them, and four xq bytes one B
+//    word as loaded, so nothing is repacked or converted to float. Each
+//    group's int32 sum is exact and takes one fp32 FMA with the group's
+//    scale, in k order; the warps' totals are summed in warp order and ax[r]
+//    multiplies once, so a row's bits never depend on R. Row buckets as in
+//    W4A16. Measured (profile_qgemv.py --int4, device time of both launches,
+//    weights from HBM; NVIDIA H100 80GB HBM3, 700 W): w_gate 0.0190 / 0.0217
+//    / 0.0238 / 0.0326 ms at R = 1 / 8 / 16 / 32 (the CUDA-core kernel
+//    0.0180 / 0.0464 / 0.0856 / 0.1678, W4A16 0.0174 / 0.0193 / 0.0242 /
+//    0.0365, bound 0.0093-0.0097), the int4 head at R = 1 0.0913 (bound
+//    0.0834); the row quantization is 2.6 us of each call.
+// 2. Other group sizes (and misaligned rows) take the CUDA-core kernel,
+//    gemv_w4a8_kernel: __dp4a accumulates xq * (u - 8) in int32, one 16-byte
+//    chunk of a weight row at a time (inside one group when g/2 is a
+//    multiple of 16, so its int32 dot takes one fp32 FMA with the group's
+//    scale), with the CUDA-core W4A16 kernel's warp layout and row buckets,
+//    or a per-byte scalar loop with the same integer products. It reloads
+//    two 16-byte xq vectors per row of x for every 16 weight bytes (16 x
+//    loads per weight load at R = 8).
 //
 // Bound on the H100: device-memory bytes of the weight, K bytes per output
 // row in int8 (half of bf16) and K/2 in int4; each weight byte serves r <= 32
@@ -591,19 +609,235 @@ gemv_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ ax,
   }
 }
 
+// ---- W4A8 on the tensor cores (g/2 a multiple of 16) ----
+
+// CB bytes of xq (aligned to them) as CB / 4 words.
+template <int CB>
+__device__ __forceinline__ void load_xq(uint32_t (&d)[CB / 4], const int8_t* p) {
+  if constexpr (CB == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  } else if constexpr (CB == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    d[0] = v.x;
+    d[1] = v.y;
+  } else {
+    d[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// out[r, n] = ax[r] * sum_j scale[n, j] * (the int32 mma sum over group j),
+// gemv_int4_tc_kernel's swap-AB form on mma.sync m16n8k32 s8: the 16 rows of
+// an m16 tile are output columns, the 8 columns of an n8 tile rows of xq.
+// Lane (gid, t) loads CB bytes of weight rows n0 + gid and n0 + gid + 8 at
+// byte t * CB of a span (4 CB bytes, inside one group) and the xq bytes of
+// row 8 nt + gid at the k they hold: the low nibbles of packed word j are
+// the four k at klo + 4j (klo the k of byte 0's low nibble), the high
+// nibbles the four k g/2 later. nibbles_s8 turns a word into those four
+// exact signed bytes u - 8, and one product takes, per word, the low plane
+// as A slots 4t .. 4t + 3 and the high plane as 4t + 16 .. 4t + 19, with xq
+// at the same k as B: four consecutive xq bytes are one B word as loaded,
+// so nothing is repacked. Each group's int32 sum (exact) takes one fp32 FMA
+// with the group's scale, in k order; the block's warps take fixed parts of
+// the row's spans (a part may end inside a group: each part gets the
+// group's scale), their totals are summed in shared memory in warp order,
+// and ax[r] multiplies the sum once. An output's arithmetic depends on K
+// and g only, never on R or on the other rows.
+template <typename T, int CB, int MT, int NT>
+__global__ void __launch_bounds__(kTcWarps * 32)
+gemv_w4a8_tc_kernel(const int8_t* __restrict__ xq, const float* __restrict__ ax,
+                    const uint8_t* __restrict__ q4, const float* __restrict__ scale,
+                    T* __restrict__ out, int rows, int n, int k, int g) {
+  constexpr int BN = 16 * MT, RB = 8 * NT, W = CB / 4;
+  __shared__ float red[kTcWarps][BN][RB + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BN;
+  const int k2 = k / 2, g2 = g / 2, ng = k / g;
+  const int per_group = g2 / (4 * CB), spans = k2 / (4 * CB);
+  const int ubeg = warp * spans / kTcWarps, uend = (warp + 1) * spans / kTcWarps;
+
+  // This lane's weight and scale rows (row 0 stands in past N: never read).
+  bool in[MT][2];
+  const uint8_t* wrow[MT][2];
+  const float* srow[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 16 * mt + 8 * h + gid;
+      in[mt][h] = col < n;
+      const size_t c = in[mt][h] ? static_cast<size_t>(col) : 0;
+      wrow[mt][h] = q4 + c * k2 + t * CB;
+      srow[mt][h] = scale + c * ng;
+    }
+
+  float tot[MT][NT][4];
+  int part[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tot[mt][nt][i] = 0.f;
+        part[mt][nt][i] = 0;
+      }
+
+  for (int u0 = ubeg; u0 < uend; u0 += kTcUnroll) {
+    // Each span's group and its place there: one division a batch.
+    int grp[kTcUnroll], at[kTcUnroll];
+    grp[0] = u0 / per_group;
+    at[0] = u0 - grp[0] * per_group;
+#pragma unroll
+    for (int s = 1; s < kTcUnroll; ++s) {
+      const bool next = at[s - 1] + 1 == per_group;
+      grp[s] = grp[s - 1] + next;
+      at[s] = next ? 0 : at[s - 1] + 1;
+    }
+    Piece<CB> wp[kTcUnroll][MT][2];
+    float sc[kTcUnroll][MT][2];
+#pragma unroll
+    for (int s = 0; s < kTcUnroll; ++s) {
+      const int u = u0 + s;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (u < uend && in[mt][h]) {
+            if constexpr (CB == 16) {  // with the L2::256B hint: -2.7% at w_gate R=8
+              const uint4 v = load_stream16(wrow[mt][h] + u * 4 * CB);
+              wp[s][mt][h] = Piece<CB>{{v.x, v.y, v.z, v.w}};
+            } else {
+              wp[s][mt][h] = load_stream<CB>(wrow[mt][h] + u * 4 * CB);
+            }
+            sc[s][mt][h] = srow[mt][h][grp[s]];
+          } else {
+#pragma unroll
+            for (int j = 0; j < W; ++j) wp[s][mt][h].w[j] = 0u;
+            sc[s][mt][h] = 0.f;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kTcUnroll; ++s) {
+      const int u = u0 + s;
+      if (u >= uend) break;
+      const int klo = grp[s] * g + at[s] * 4 * CB + t * CB;  // k of byte 0's low nibble
+      uint32_t xl[NT][W], xh[NT][W];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int r = 8 * nt + gid;
+        if (r < rows) {
+          const int8_t* xr = xq + static_cast<size_t>(r) * k + klo;
+          load_xq<CB>(xl[nt], xr);
+          load_xq<CB>(xh[nt], xr + g2);
+        } else {
+#pragma unroll
+          for (int i = 0; i < W; ++i) xl[nt][i] = xh[nt][i] = 0u;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t w0 = wp[s][mt][0].w[j], w1 = wp[s][mt][1].w[j];
+          const uint32_t a[4] = {static_cast<uint32_t>(nibbles_s8(w0)),
+                                 static_cast<uint32_t>(nibbles_s8(w1)),
+                                 static_cast<uint32_t>(nibbles_s8(w0 >> 4)),
+                                 static_cast<uint32_t>(nibbles_s8(w1 >> 4))};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            if (8 * nt < rows) mma_16832_s8(part[mt][nt], a, xl[nt][j], xh[nt][j]);
+        }
+      }
+      if (at[s] + 1 == per_group || u + 1 == uend) {  // the group (or this warp's part) ends
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {  // C rows: gid (i < 2) and gid + 8
+              tot[mt][nt][i] =
+                  fmaf(static_cast<float>(part[mt][nt][i]), sc[s][mt][i >> 1], tot[mt][nt][i]);
+              part[mt][nt][i] = 0;
+            }
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        red[warp][16 * mt + gid + 8 * (i >> 1)][8 * nt + 2 * t + (i & 1)] = tot[mt][nt][i];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BN * RB; idx += kTcWarps * 32) {
+    const int m = idx % BN, r = idx / BN;
+    if (r < rows && n0 + m < n) {
+      float acc = red[0][m][r];
+#pragma unroll
+      for (int w = 1; w < kTcWarps; ++w) acc += red[w][m][r];
+      out[static_cast<size_t>(r) * n + n0 + m] = from_f32<T>(acc * ax[r]);
+    }
+  }
+}
+
+template <typename T, int CB>
+void launch_w4a8_tc(const int8_t* xq, const float* ax, const uint8_t* q4, const float* scale,
+                    T* out, int rows, int n, int k, int g, cudaStream_t s) {
+  const dim3 block(kTcWarps * 32);
+  if (rows <= 8)
+    gemv_w4a8_tc_kernel<T, CB, 1, 1><<<(n + 15) / 16, block, 0, s>>>(xq, ax, q4, scale, out, rows,
+                                                                     n, k, g);
+  else if (rows <= 16)
+    gemv_w4a8_tc_kernel<T, CB, 1, 2><<<(n + 15) / 16, block, 0, s>>>(xq, ax, q4, scale, out, rows,
+                                                                     n, k, g);
+  else  // two m16 tiles a warp halve the xq reads of R=32
+    gemv_w4a8_tc_kernel<T, CB, 2, 4><<<(n + 31) / 32, block, 0, s>>>(xq, ax, q4, scale, out, rows,
+                                                                     n, k, g);
+}
+
+// l32_gemv_int4_w4a8's kernel argument and the kernel it reports: route by
+// shape, the CUDA-core kernel, the tensor-core kernel.
+enum { kW4a8Routed = -1, kW4a8Simt = 0, kW4a8Tc = 1 };
+
+// The tensor-core kernel reads only xq, so it takes any x dtype: g/2 a
+// multiple of 16 (a span of 16 bytes or more inside one group) and
+// 16-byte-aligned q4 and xq.
+bool w4a8_tc_takes(const void* q4, const void* xq, int g) {
+  return (g / 2) % 16 == 0 && aligned16(q4) && aligned16(xq);
+}
+
+// The row quantization, then the dot kernel `kernel` (kW4a8Simt or kW4a8Tc).
 template <typename T>
-int launch_w4a8(const void* x, const void* q4, const float* scale, int8_t* xq, float* ax,
-                void* out, int rows, int n, int k, int g, cudaStream_t s) {
+void launch_w4a8(const void* x, const void* q4, const float* scale, int8_t* xq, float* ax,
+                 void* out, int rows, int n, int k, int g, int kernel, cudaStream_t s) {
   quantize_rows_kernel<T><<<rows, kQuantThreads, 0, s>>>(static_cast<const T*>(x), xq, ax, k);
-  const bool vec = aligned16(q4) && aligned16(xq) && (g / 2) % 16 == 0;
-  const int blocks = (n + kWarps - 1) / kWarps;
   const uint8_t* w = static_cast<const uint8_t*>(q4);
   T* o = static_cast<T*>(out);
+  if (kernel == kW4a8Tc) {
+    const int g2 = g / 2;
+    if (g2 % 64 == 0)
+      launch_w4a8_tc<T, 16>(xq, ax, w, scale, o, rows, n, k, g, s);
+    else if (g2 % 32 == 0)
+      launch_w4a8_tc<T, 8>(xq, ax, w, scale, o, rows, n, k, g, s);
+    else
+      launch_w4a8_tc<T, 4>(xq, ax, w, scale, o, rows, n, k, g, s);
+    return;
+  }
+  const bool vec = aligned16(q4) && aligned16(xq) && (g / 2) % 16 == 0;
+  const int blocks = (n + kWarps - 1) / kWarps;
 #define L32_ROWS(R)                                                                     \
   if (rows <= R) {                                                                      \
-    auto kernel = vec ? gemv_w4a8_kernel<T, R, true> : gemv_w4a8_kernel<T, R, false>;   \
-    kernel<<<blocks, kWarps * 32, 0, s>>>(xq, ax, w, scale, o, rows, n, k, g);          \
-    return 0;                                                                           \
+    auto dot = vec ? gemv_w4a8_kernel<T, R, true> : gemv_w4a8_kernel<T, R, false>;      \
+    dot<<<blocks, kWarps * 32, 0, s>>>(xq, ax, w, scale, o, rows, n, k, g);             \
+    return;                                                                             \
   }
   L32_ROWS(1)
   L32_ROWS(2)
@@ -612,7 +846,6 @@ int launch_w4a8(const void* x, const void* q4, const float* scale, int8_t* xq, f
   L32_ROWS(16)
   L32_ROWS(32)
 #undef L32_ROWS
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // One launch per row bucket: the rows of x live in MAXR registers per lane.
@@ -686,22 +919,31 @@ extern "C" int l32_gemv_int4(const void* x, const void* q4, const void* scale, v
 }
 
 // xq [rows, k] int8 and ax [rows] fp32: workspace the caller allocates.
+// kernel -1 routes by shape (w4a8_tc_takes: the tensor-core kernel, else the
+// CUDA-core one); 0 (CUDA cores) or 1 (tensor cores) asks for that kernel,
+// and a kernel that does not take the call is an error. *launched is set to
+// the dot kernel launched after the row quantization, or -1 where none was
+// (no rows or no columns, or an error).
 extern "C" int l32_gemv_int4_w4a8(const void* x, const void* q4, const void* scale, void* xq,
                                   void* ax, void* out, int rows, int n, int k, int g, int dtype,
-                                  void* stream) {
+                                  int kernel, int* launched, void* stream) {
+  *launched = -1;
   if (rows == 0 || n == 0) return 0;
-  if (g <= 0 || g % 2 || k % g) return static_cast<int>(cudaErrorInvalidValue);
+  if (g <= 0 || g % 2 || k % g || rows > 32 || (dtype != L32_BF16 && dtype != L32_F32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool tc = w4a8_tc_takes(q4, xq, g);
+  if (kernel == kW4a8Routed) kernel = tc ? kW4a8Tc : kW4a8Simt;
+  if (kernel != kW4a8Simt && !(kernel == kW4a8Tc && tc))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   int8_t* q = static_cast<int8_t*>(xq);
   float* a = static_cast<float*>(ax);
-  int err;
   if (dtype == L32_BF16)
-    err = launch_w4a8<__nv_bfloat16>(x, q4, sc, q, a, out, rows, n, k, g, s);
-  else if (dtype == L32_F32)
-    err = launch_w4a8<float>(x, q4, sc, q, a, out, rows, n, k, g, s);
+    launch_w4a8<__nv_bfloat16>(x, q4, sc, q, a, out, rows, n, k, g, kernel, s);
   else
-    err = static_cast<int>(cudaErrorInvalidValue);
-  if (err) return err;
-  return static_cast<int>(cudaGetLastError());
+    launch_w4a8<float>(x, q4, sc, q, a, out, rows, n, k, g, kernel, s);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (!err) *launched = kernel;
+  return err;
 }

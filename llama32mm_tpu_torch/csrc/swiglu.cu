@@ -37,10 +37,27 @@
 //    the issue rate of its two warpgroups, with no overlap of one tile's
 //    epilogue and the next one's loads (a persistent grid would add it). At
 //    this speed the multicast gains nothing (0.606 ms without a cluster).
-// 2. With at most 8 rows (decode) a weight-streaming form takes over: one
-//    warp per output column i reads wg[i, :] and wu[i, :] with 16-byte loads,
-//    applies them to every row of x, reduces both fp32 sums with shuffles
-//    and writes silu(g) * u. It reads each weight byte once.
+// 2. With at most 8 rows (decode), bf16 x with H a multiple of 32 and
+//    16-byte-aligned x and weights take the tensor-core rows kernel
+//    (swiglu_rows_tc_kernel): gemv.cu's swap-AB mma.sync m16n8k16 form with
+//    two A streams. 16 intermediate columns of gate and of up are the M side
+//    of two products and the <= 8 rows of x the N side, so a lane's x
+//    fragment feeds four products and x is read once per 16 columns (the
+//    weight-streaming kernel below reads it once per column: at R = 8 as
+//    many x bytes through L1/L2 as weight bytes and 128 FMAs per two weight
+//    loads, issue-bound at 38% of the bound). 16-byte weight loads with the
+//    L2::256B hint, 4 spans in flight a lane (108 registers, no spills; 2
+//    spans lost 3% at R = 1), warps from tc_warps (8 at I = 14336) taking
+//    fixed spans of H, gate and up summed in warp order in shared memory,
+//    silu(gate) * up in fp32, one rounding: a row's bits never depend on R.
+//    Measured (profile_swiglu.py --rows, device time, NVIDIA H100 80GB HBM3
+//    at 700 W, H = 4096, I = 14336): 0.0848 ms at R = 8 (the
+//    weight-streaming kernel 0.1859, the plain version 0.1027, two F.linear
+//    0.0837, bound 0.0702), 0.0813 at R = 1 (weight-streaming 0.0788).
+//    Other calls of at most 8 rows (fp32, ragged H, misaligned pointers)
+//    take the weight-streaming form: one warp per output column i reads
+//    wg[i, :] and wu[i, :] with 16-byte loads, applies them to every row of
+//    x, reduces both fp32 sums with shuffles and writes silu(g) * u.
 // 3. Other bf16 shapes (ragged H, misaligned pointers) take the wmma tile
 //    (swiglu_bf16_kernel): a 128 x 64 output tile, eight warps (4 x 2, 32 x
 //    32 each) of bf16 16x16x16 mma.sync (nvcuda::wmma) into fp32
@@ -59,8 +76,10 @@
 // another epilogue (the kBwd template parameter of the TMA tile, the wmma
 // tile and the fp32 loop), routed as the forward above 8 rows (pick) and to
 // the wmma tile at 8 or fewer. The TMA tile reads g at each
-// accumulator's (row, column) from device memory; the wmma tile stages the
-// g tile through shared memory into fragments of the accumulators' layout.
+// accumulator's (row, column) from device memory, in bf16 pairs where g is
+// 4-byte aligned and one element at a time where it is not (a contiguous
+// view may start at an odd element); the wmma tile stages the g tile
+// through shared memory into fragments of the accumulators' layout.
 // Bound as the forward at R = 1632 (tensor-core FLOPs). dx = d_gate @ w_gate
 // + d_up @ w_up and the weight gradients are cuBLAS GEMMs in the wrapper's
 // autograd function.
@@ -325,6 +344,113 @@ void launch_rows(const void* x, const void* wg, const void* wu, void* out, int r
   else launch_rows_r<T, kSmallRows>(x, wg, wu, out, rows, h, inter, s);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core rows kernel: bf16 x with at most 8 rows, H a multiple of
+// 32, 16-byte-aligned x and weights (every decode step of the bf16 models).
+// ---------------------------------------------------------------------------
+constexpr int kRowsTcUnroll = 4;  // spans whose weight loads a lane keeps in flight
+
+// gemv.cu's gemv_bf16_tc_kernel with two A streams. One m16 tile: 16
+// intermediate columns (rows of both weights); one n8 tile: the <= 8 rows of
+// x. A span is 32 k: lane (gid, t) loads 16 bytes of gate rows gid and
+// gid + 8, of up rows gid and gid + 8, and of x row gid at k 8t, and each
+// pair of weight words feeds one product as loaded (see gemv.cu), so the
+// lane's x fragment serves four products, two into the gate sums and two
+// into the up sums. The W warps take fixed parts of H's spans; both fp32
+// totals are summed in shared memory in warp order, then silu(gate) * up is
+// formed in fp32 and rounded once. W comes from I and H alone (tc_warps), so
+// a row's bits never depend on R.
+template <int W>
+__global__ void __launch_bounds__(W * 32)
+swiglu_rows_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wg,
+                      const __nv_bfloat16* __restrict__ wu, __nv_bfloat16* __restrict__ out,
+                      int rows, int h, int inter) {
+  __shared__ float red[2][W][16][kSmallRows + 1];  // gate, up
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * 16;
+  const int spans = h / 32;
+  const int ubeg = warp * spans / W, uend = (warp + 1) * spans / W;
+
+  // This lane's weight rows (row 0 stands in past I: never loaded) and x row.
+  bool in[2];
+  size_t wofs[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int col = n0 + 8 * hh + gid;
+    in[hh] = col < inter;
+    wofs[hh] = static_cast<size_t>(in[hh] ? col : 0) * h + 8 * t;
+  }
+  const bool xin = gid < rows;
+  const __nv_bfloat16* xrow = x + static_cast<size_t>(xin ? gid : 0) * h + 8 * t;
+
+  float accg[4] = {0.f, 0.f, 0.f, 0.f}, accu[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int u0 = ubeg; u0 < uend; u0 += kRowsTcUnroll) {
+    uint4 gv[kRowsTcUnroll][2], uv[kRowsTcUnroll][2];
+#pragma unroll
+    for (int s = 0; s < kRowsTcUnroll; ++s)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const bool load = u0 + s < uend && in[hh];
+        const size_t o = wofs[hh] + static_cast<size_t>(u0 + s) * 32;
+        gv[s][hh] = load ? load_stream16(wg + o) : make_uint4(0u, 0u, 0u, 0u);
+        uv[s][hh] = load ? load_stream16(wu + o) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+    for (int s = 0; s < kRowsTcUnroll; ++s) {
+      const int u = u0 + s;
+      if (u >= uend) break;
+      const uint4 xv = xin ? *reinterpret_cast<const uint4*>(xrow + u * 32)
+                           : make_uint4(0u, 0u, 0u, 0u);
+      const uint4 g0 = gv[s][0], g1 = gv[s][1], u0v = uv[s][0], u1v = uv[s][1];
+      const uint32_t glo[4] = {g0.x, g1.x, g0.y, g1.y};  // k 8t .. 8t + 3
+      const uint32_t ghi[4] = {g0.z, g1.z, g0.w, g1.w};  // k 8t + 4 .. 8t + 7
+      const uint32_t ulo[4] = {u0v.x, u1v.x, u0v.y, u1v.y};
+      const uint32_t uhi[4] = {u0v.z, u1v.z, u0v.w, u1v.w};
+      mma_16816(accg, glo, xv.x, xv.y);
+      mma_16816(accg, ghi, xv.z, xv.w);
+      mma_16816(accu, ulo, xv.x, xv.y);
+      mma_16816(accu, uhi, xv.z, xv.w);
+    }
+  }
+  // C element i of a lane: column gid + 8 (i / 2), x row 2t + i % 2.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    red[0][warp][gid + 8 * (i >> 1)][2 * t + (i & 1)] = accg[i];
+    red[1][warp][gid + 8 * (i >> 1)][2 * t + (i & 1)] = accu[i];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < 16 * kSmallRows; idx += W * 32) {
+    const int m = idx % 16, r = idx / 16;
+    if (r < rows && n0 + m < inter) {
+      float g = red[0][0][m][r], u = red[1][0][m][r];
+#pragma unroll
+      for (int v = 1; v < W; ++v) {
+        g += red[0][v][m][r];
+        u += red[1][v][m][r];
+      }
+      out[static_cast<size_t>(r) * inter + n0 + m] = __float2bfloat16(silu(g) * u);
+    }
+  }
+}
+
+void launch_rows_tc(const void* x, const void* wg, const void* wu, void* out, int rows, int h,
+                    int inter, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  auto xb = static_cast<const bf*>(x);
+  auto gb = static_cast<const bf*>(wg);
+  auto ub = static_cast<const bf*>(wu);
+  auto o = static_cast<bf*>(out);
+  const int blocks = (inter + 15) / 16;
+  const int warps = tc_warps(inter, h);
+  if (warps == 4)
+    swiglu_rows_tc_kernel<4><<<blocks, 4 * 32, 0, s>>>(xb, gb, ub, o, rows, h, inter);
+  else if (warps == 8)
+    swiglu_rows_tc_kernel<8><<<blocks, 8 * 32, 0, s>>>(xb, gb, ub, o, rows, h, inter);
+  else
+    swiglu_rows_tc_kernel<16><<<blocks, 16 * 32, 0, s>>>(xb, gb, ub, o, rows, h, inter);
+}
+
 template <bool kBwd>  // as swiglu_bf16_kernel
 __global__ void swiglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
                                   const float* __restrict__ wu, const float* __restrict__ gin,
@@ -480,6 +606,8 @@ swiglu_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant_
     // the row stride allows; ragged edges checked.
     const int r_lo = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
     const bool pairs = (inter & 1) == 0;
+    // g is the caller's tensor: a contiguous view may start at an odd element
+    const bool gpairs = pairs && (reinterpret_cast<uintptr_t>(gin) & 3) == 0;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * (lane & 3);
@@ -494,7 +622,7 @@ swiglu_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant_
         float a0, a1, b0 = 0.f, b1 = 0.f;
         if (kBwd) {
           float g0, g1 = 0.f;
-          if (pairs && two) {
+          if (gpairs && two) {
             const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(gin + o);
             g0 = __low2float(gv);
             g1 = __high2float(gv);
@@ -553,38 +681,48 @@ int launch(const void* x, const void* wg, const void* wu, const void* g, void* o
 }  // namespace tma
 
 // l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, route
-// among the kernels other than the TMA tile, or ask for the TMA tile; and
-// the kernels they report in *launched.
-enum { kRouted = -1, kRoutedNoTma = -2 };
-enum { kRows = 0, kWmma = 1, kLoop = 2, kTma = 3 };
+// among the base kernels (the rows kernel, the wmma tile, the loop: neither
+// the TMA tile nor the tensor-core rows kernel), or ask for the TMA tile or
+// the tensor-core rows kernel; and the kernels they report in *launched.
+enum { kRouted = -1, kRoutedBase = -2 };
+enum { kRows = 0, kWmma = 1, kLoop = 2, kTma = 3, kRowsTc = 4 };
 
 bool tma_takes(const void* x, const void* wg, const void* wu, int h, int dtype) {
   return dtype == L32_BF16 && h > 0 && h % tma::kBK == 0 && aligned16(x) && aligned16(wg) &&
          aligned16(wu);
 }
 
-// The kernel a call takes, or -1 for an error. Routed, the forward takes the
-// weight-streaming rows kernel at most at 8 rows (the backward has none);
-// more rows in bf16 take the TMA tile where it takes the call, else the
-// wmma tile; fp32 the loop.
+bool rows_tc_takes(const void* x, const void* wg, const void* wu, int rows, int h, int dtype) {
+  return dtype == L32_BF16 && rows <= kSmallRows && h > 0 && h % 32 == 0 && aligned16(x) &&
+         aligned16(wg) && aligned16(wu);
+}
+
+// The kernel a call takes, or -1 for an error. Routed, the forward takes a
+// rows kernel at most at 8 rows (the backward has none): the tensor-core
+// one where it takes the call, else the weight-streaming one; more rows in
+// bf16 take the TMA tile where it takes the call, else the wmma tile; fp32
+// the loop.
 int pick(int kernel, const void* x, const void* wg, const void* wu, int rows, int h, int dtype,
          bool bwd) {
   const bool tma = tma_takes(x, wg, wu, h, dtype);
+  const bool rows_tc = !bwd && rows_tc_takes(x, wg, wu, rows, h, dtype);
   if (kernel == kTma) return tma ? kTma : -1;
-  if ((kernel != kRouted && kernel != kRoutedNoTma) || (dtype != L32_BF16 && dtype != L32_F32))
+  if (kernel == kRowsTc) return rows_tc ? kRowsTc : -1;
+  if ((kernel != kRouted && kernel != kRoutedBase) || (dtype != L32_BF16 && dtype != L32_F32))
     return -1;
-  if (!bwd && rows <= kSmallRows) return kRows;
+  if (!bwd && rows <= kSmallRows) return kernel == kRouted && rows_tc ? kRowsTc : kRows;
   if (dtype == L32_F32) return kLoop;
   return kernel == kRouted && tma && rows > kSmallRows ? kTma : kWmma;
 }
 
 }  // namespace
 
-// kernel: -1 routes by shape (pick), -2 routes among the kernels other than
-// the TMA tile, 3 asks for the TMA tile, and a kernel that does not take the
-// call is an error. *launched is set to the kernel launched (0 rows kernel,
-// 1 wmma tile, 2 fp32 loop, 3 TMA tile), or -1 where none was (no rows or no
-// columns, or an error).
+// kernel: -1 routes by shape (pick), -2 routes among the base kernels, 3
+// asks for the TMA tile, 4 for the tensor-core rows kernel, and a kernel
+// that does not take the call is an error. *launched is set to the kernel
+// launched (0 rows kernel, 1 wmma tile, 2 fp32 loop, 3 TMA tile, 4
+// tensor-core rows kernel), or -1 where none was (no rows or no columns, or
+// an error).
 extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, void* out,
                               int rows, int h, int inter, int dtype, int kernel, int* launched,
                               void* stream) {
@@ -594,7 +732,9 @@ extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, voi
   if (kernel < 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   int err = 0;
-  if (kernel == kRows && dtype == L32_BF16)
+  if (kernel == kRowsTc)
+    launch_rows_tc(x, wg, wu, out, rows, h, inter, s);
+  else if (kernel == kRows && dtype == L32_BF16)
     launch_rows<__nv_bfloat16>(x, wg, wu, out, rows, h, inter, s);
   else if (kernel == kRows)
     launch_rows<float>(x, wg, wu, out, rows, h, inter, s);

@@ -38,6 +38,8 @@ from llama32mm_tpu_torch.ops.cuda.qgemv import (
     gemv_int4_plain,
     gemv_int4_w4a8_cuda,
     gemv_int4_w4a8_plain,
+    gemv_int4_w4a8_simt_cuda,
+    gemv_int4_w4a8_tc_cuda,
     gemv_int8_cuda,
     gemv_int8_plain,
 )
@@ -62,6 +64,7 @@ from llama32mm_tpu_torch.ops.cuda.swiglu import (
     fused_swiglu_bwd_wmma_cuda,
     fused_swiglu_cuda,
     fused_swiglu_plain,
+    fused_swiglu_rows_tc_cuda,
     fused_swiglu_tc_cuda,
     fused_swiglu_wmma_cuda,
     swiglu_down_cuda,
@@ -84,7 +87,7 @@ KERNELS = {
     "flash_attention_lse": (flash_attention_fwd_lse_cuda, flash_attention_fwd_lse_plain),
     "flash_attention_bwd_dq": (flash_attention_bwd_dq_cuda, flash_attention_bwd_dq_plain),
     "flash_attention_bwd_dkv": (flash_attention_bwd_dkv_cuda, flash_attention_bwd_dkv_plain),
-    "gemv_int4_w4a8": (gemv_int4_w4a8_cuda, gemv_int4_w4a8_plain),
+    "gemv_int4_w4a8": (gemv_int4_w4a8_simt_cuda, gemv_int4_w4a8_plain),
     "swiglu_down": (swiglu_down_cuda, swiglu_down_plain),
     "flash_attention_tc": (flash_attention_tc_cuda, flash_attention_tc_plain),
     "flash_attention_tc_int8kv": (flash_attention_tc_int8kv_cuda, flash_attention_tc_int8kv_plain),
@@ -98,6 +101,8 @@ KERNELS = {
     "gemv_tc": (gemv_tc_cuda, gemv_plain),
     "swiglu_tc": (fused_swiglu_tc_cuda, fused_swiglu_plain),
     "swiglu_bwd_tc": (fused_swiglu_bwd_tc_cuda, fused_swiglu_bwd_plain),
+    "swiglu_rows_tc": (fused_swiglu_rows_tc_cuda, fused_swiglu_plain),
+    "gemv_int4_w4a8_tc": (gemv_int4_w4a8_tc_cuda, gemv_int4_w4a8_plain),
 }
 
 
@@ -114,7 +119,8 @@ def launch_counts() -> dict:
 def plain_counts() -> dict:
     """Each plain version's calls, once, under the first name KERNELS gives it
     (``qmatmul`` and ``qmatmul_tc`` share one, as do ``gemv`` and ``gemv_tc``,
-    ``swiglu`` and ``swiglu_tc``, ``swiglu_bwd`` and ``swiglu_bwd_tc``)."""
+    ``swiglu``, ``swiglu_tc`` and ``swiglu_rows_tc``, ``swiglu_bwd`` and
+    ``swiglu_bwd_tc``, ``gemv_int4_w4a8`` and ``gemv_int4_w4a8_tc``)."""
     names = {}
     for name, (_, plain) in KERNELS.items():
         names.setdefault(plain, name)

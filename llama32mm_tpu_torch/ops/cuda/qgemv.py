@@ -19,16 +19,23 @@ nn.Linear's ``[N, K]`` orientation.
   integers per group. Replaces ``_int4_kernel_w4a8`` (``variant="w4a8"``)
   and folds ``_int4_kernel_w4a8b`` (``"w4a8b"``, the same math batched for
   Mosaic). The activation rounding is the one numerical change against
-  W4A16.
+  W4A16. ``gemv_int4_w4a8_cuda`` is the entry the model calls:
+  ``l32_gemv_int4_w4a8`` quantizes the rows, then routes the dot by shape
+  to the tensor-core kernel (``mma.sync`` s8; g/2 a multiple of 16, aligned
+  operands, any x dtype) or else the CUDA-core one, and reports which it
+  launched; ``gemv_int4_w4a8_tc_cuda`` and ``gemv_int4_w4a8_simt_cuda``
+  count those launches and, called directly, force their own kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from llama32mm_tpu_torch.ops.cuda.build import check, load_library
 from llama32mm_tpu_torch.ops.cuda.common import counted, dtype_code, require, stream_of
-from llama32mm_tpu_torch.ops.cuda.gemv import MAX_ROWS
+from llama32mm_tpu_torch.ops.cuda.gemv import MAX_ROWS, ROUTED, SIMT, TC
 from llama32mm_tpu_torch.ops.quant import dequantize_weight, unpack_int4
 
 
@@ -107,22 +114,44 @@ def gemv_int4_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> t
     return int4_matmul_plain(x, q4, scale)
 
 
-@counted("launches")
-def gemv_int4_w4a8_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """W4A8: ``x [..., K]`` quantized per row to int8 by a first kernel, then
-    int32 dots with ``q4 [N, K/2]`` per group, ``scale [N, K/g]``, at most 32
-    rows of x; output in x's dtype."""
+def _w4a8(x, q4, scale, kernel: int) -> torch.Tensor:
     rows, n, k, g = _gemv_rows(x, q4, scale, packed=True)
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
     xq = torch.empty(rows, k, dtype=torch.int8, device=x.device)
     ax = torch.empty(rows, dtype=torch.float32, device=x.device)
+    launched = ctypes.c_int(-1)
     status = load_library().l32_gemv_int4_w4a8(
         x.data_ptr(), q4.data_ptr(), scale.data_ptr(), xq.data_ptr(), ax.data_ptr(),
-        out.data_ptr(), rows, n, k, g, dtype_code(x), stream_of(x),
+        out.data_ptr(), rows, n, k, g, dtype_code(x), kernel, ctypes.byref(launched),
+        stream_of(x),
     )
     check(status, "int4 W4A8 gemv kernel")
-    gemv_int4_w4a8_cuda.launches += 1
+    if launched.value == TC:
+        gemv_int4_w4a8_tc_cuda.launches += 1
+    elif launched.value == SIMT:
+        gemv_int4_w4a8_simt_cuda.launches += 1
     return out
+
+
+def gemv_int4_w4a8_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """W4A8: ``x [..., K]`` quantized per row to int8 by a first kernel, then
+    int32 dots with ``q4 [N, K/2]`` per group, ``scale [N, K/g]``, at most 32
+    rows of x; output in x's dtype. Through the dot kernel the call's shape
+    routes to."""
+    return _w4a8(x, q4, scale, ROUTED)
+
+
+@counted("launches")
+def gemv_int4_w4a8_tc_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor):
+    """The tensor-core W4A8 dot (``mma.sync`` s8); raises for a call it does
+    not take."""
+    return _w4a8(x, q4, scale, TC)
+
+
+@counted("launches")
+def gemv_int4_w4a8_simt_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor):
+    """The CUDA-core W4A8 dot (``__dp4a``): any group size and alignment."""
+    return _w4a8(x, q4, scale, SIMT)
 
 
 @counted("calls")

@@ -16,10 +16,13 @@ model calls: ``l32_swiglu_fwd`` / ``l32_swiglu_bwd`` route each call by its
 shape and report the kernel they launched. bf16 x with H a multiple of 64,
 16-byte-aligned operands and more than 8 rows takes the TMA tile (wgmma
 fed by TMA), counted by ``fused_swiglu_tc_cuda`` / ``fused_swiglu_bwd_tc_cuda``;
-every other call the kernels before it (the weight-streaming rows kernel for
-at most 8 rows in the forward, the wmma tile for other bf16 shapes, a loop
-for fp32), counted by ``fused_swiglu_wmma_cuda`` / ``fused_swiglu_bwd_wmma_cuda``.
-Called directly, each of those four forces its own kernels.
+a bf16 forward with at most 8 rows, H a multiple of 32 and aligned operands
+the tensor-core rows kernel (``mma.sync``), counted by
+``fused_swiglu_rows_tc_cuda``; every other call the base kernels (the
+weight-streaming rows kernel for at most 8 rows in the forward, the wmma
+tile for other bf16 shapes, a loop for fp32), counted by
+``fused_swiglu_wmma_cuda`` / ``fused_swiglu_bwd_wmma_cuda``. Called
+directly, each of those five forces its own kernels.
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ def _check(x, w_gate, w_up):
 
 
 # l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, route
-# among the kernels other than the TMA tile, or ask for the TMA tile (also
-# the value they report when they launched it).
-ROUTED, ROUTED_NO_TMA, TMA = -1, -2, 3
+# among the base kernels, or ask for the TMA tile or the tensor-core rows
+# kernel (also the values they report when they launched those).
+ROUTED, ROUTED_BASE, TMA, ROWS_TC = -1, -2, 3, 4
 
 
 def _forward(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, kernel: int):
@@ -60,6 +63,8 @@ def _forward(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, kernel: 
     check(status, "swiglu kernel")
     if launched.value == TMA:
         fused_swiglu_tc_cuda.launches += 1
+    elif launched.value == ROWS_TC:
+        fused_swiglu_rows_tc_cuda.launches += 1
     elif launched.value >= 0:
         fused_swiglu_wmma_cuda.launches += 1
     return out
@@ -79,10 +84,17 @@ def fused_swiglu_tc_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tens
 
 
 @counted("launches")
+def fused_swiglu_rows_tc_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
+    """The tensor-core rows kernel (bf16, at most 8 rows); raises for a call
+    it does not take."""
+    return _forward(x, w_gate, w_up, ROWS_TC)
+
+
+@counted("launches")
 def fused_swiglu_wmma_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
-    """The rows kernel (at most 8 rows), else the wmma tile (bf16) or the
-    fp32 loop: any shape."""
-    return _forward(x, w_gate, w_up, ROUTED_NO_TMA)
+    """The weight-streaming rows kernel (at most 8 rows), else the wmma tile
+    (bf16) or the fp32 loop: any shape."""
+    return _forward(x, w_gate, w_up, ROUTED_BASE)
 
 
 @counted("calls")
@@ -172,7 +184,7 @@ def fused_swiglu_bwd_tc_cuda(x, w_gate, w_up, g):
 @counted("launches")
 def fused_swiglu_bwd_wmma_cuda(x, w_gate, w_up, g):
     """The wmma tile's backward (bf16) or the fp32 loop: any shape."""
-    return _backward(x, w_gate, w_up, g, ROUTED_NO_TMA)
+    return _backward(x, w_gate, w_up, g, ROUTED_BASE)
 
 
 @counted("calls")

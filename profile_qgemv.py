@@ -3,6 +3,7 @@ calls on the same weights:
 
     python3 profile_qgemv.py          # the bf16 gemvs, then the int4 gemvs
     python3 profile_qgemv.py --bf16   # the bf16 gemvs alone
+    python3 profile_qgemv.py --int4   # the int4 gemvs alone
 
 bf16: the decode linears of Llama-3.2-11B-Vision, ``lm_head`` (N=128256,
 K=4096), ``W_query`` (N=4096, K=4096), ``W_key`` (N=1024, K=4096) and
@@ -13,10 +14,12 @@ on the same tensors (a yardstick the port never calls).
 
 int4: the shapes of the int4-mixed decode path (g=128), the untied int4
 head (R=1, N=128256, K=4096) and ``w_gate`` (N=14336, K=4096) at R = 1, 8,
-16 and 32 rows. For each it times the W4A16 gemv (``gemv_int4_cuda``) and
+16 and 32 rows. For each it times the W4A16 gemv (``gemv_int4_cuda``),
 ``torch._weight_int4pack_mm`` on the same weights in PyTorch's own layout (a
-yardstick the port never calls), and the W4A8 gemv (``gemv_int4_w4a8_cuda``)
-at R = 1 and 8 on the ``w_gate`` bytes.
+yardstick the port never calls), and the W4A8 gemv on the same bytes: the
+tensor-core kernel (``gemv_int4_w4a8_tc_cuda``, what the model's entry
+routes these shapes to) and the CUDA-core one (``gemv_int4_w4a8_simt_cuda``),
+each with its row quantization (two launches a call).
 
 Each time stands beside its bound (``chip_smoke.bound``: bytes over 3.35
 TB/s, operations over the dense peak).
@@ -27,7 +30,8 @@ number is device time. A decode step reads each layer's weights once, so
 they come from device memory, not from the 50 MB L2: a shape whose weights
 are smaller than 150 MB is held in several copies, and the calls cycle
 through them. Then ``torch.profiler`` lists the kernels of the tensor-core
-(bf16) and W4A16 (int4) calls with their device time. The last line is one JSON object with every time.
+(bf16), W4A16 and tensor-core W4A8 (int4) calls with their device time. The
+last line is one JSON object with every time.
 """
 
 from __future__ import annotations
@@ -56,7 +60,6 @@ SHAPES = [  # (label, rows, N, K, g)
     ("w_gate R=16 N=14336 K=4096 g=128", 16, 14336, 4096, 128),
     ("w_gate R=32 N=14336 K=4096 g=128", 32, 14336, 4096, 128),
 ]
-W4A8_ROWS = (1, 8)
 BF16_SHAPES = {  # label: (N, K)
     "lm_head N=128256 K=4096": (128256, 4096),
     "W_query N=4096 K=4096": (4096, 4096),
@@ -138,7 +141,7 @@ def main() -> int:
     print(f"card: {card}")
     cs.build_library()
     gen = torch.Generator(device=dev).manual_seed(0)
-    bf16 = profile_bf16(dev, gen)
+    bf16 = {} if "--int4" in sys.argv[1:] else profile_bf16(dev, gen)
     if "--bf16" in sys.argv[1:]:
         print(json.dumps({"card": card, "bf16_device_ms": bf16}))
         return 0
@@ -162,18 +165,23 @@ def main() -> int:
         calls = {
             "gemv_int4": [partial(kernels.gemv_int4_cuda, x, q4, sc) for q4, sc in copies],
             "_weight_int4pack_mm": [partial(torch._weight_int4pack_mm, x, *p) for p in packed],
+            "gemv_int4_w4a8_tc": [partial(kernels.gemv_int4_w4a8_tc_cuda, x, q4, sc)
+                                  for q4, sc in copies],
+            "gemv_int4_w4a8 (CUDA cores)": [partial(kernels.gemv_int4_w4a8_simt_cuda, x, q4, sc)
+                                            for q4, sc in copies],
         }
-        if label.startswith("w_gate") and rows in W4A8_ROWS:
-            calls["gemv_int4_w4a8"] = [partial(kernels.gemv_int4_w4a8_cuda, x, q4, sc)
-                                       for q4, sc in copies]
+        want = kernels.gemv_int4_w4a8_plain(*args)
+        err, scale = cs.max_err(kernels.gemv_int4_w4a8_tc_cuda(*args), want)
         row = {"bound_ms": bound_ms, "bound_by": bound_by, "copies": len(copies)}
-        print(f"== {label}: bound {bound_ms:.6g} ms ({bound_by}), {len(copies)} weight copies")
+        print(f"== {label}: bound {bound_ms:.6g} ms ({bound_by}), {len(copies)} weight copies; "
+              f"gemv_int4_w4a8_tc max_abs_err vs plain {err:.6g} (max {scale:.6g})")
         for what, fns in calls.items():
             ms = device_ms(fns)
             row[what] = ms
             print(f"  {what:22s} {ms:.6g} ms  (share of bound {bound_ms / ms:.4g})")
-        for key, us in kernel_rows(calls["gemv_int4"]):
-            print(f"    {us:9.2f} us  {key[:100]}")
+        for what in ("gemv_int4", "gemv_int4_w4a8_tc"):
+            for key, us in kernel_rows(calls[what]):
+                print(f"    {us:9.2f} us  {key[:100]}")
         results[label] = row
         del packed, calls
     print(json.dumps({"card": card, "bf16_device_ms": bf16, "device_ms": results}))

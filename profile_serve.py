@@ -9,7 +9,9 @@ and one request (a B=1 decode step).
 For each it admits the requests (one ``step()``), then, as
 ``profile_train.py`` does for a training step, times one 8-step decode chunk
 without the profiler and one under ``torch.profiler``, and prints the
-kernels' device time by category, the busy share and the launches.
+kernels' device time by category, the busy share, the launches and the
+kernels' device time per decode step. Run it on two commits in one call to
+compare them.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def profile_chunk(dev, cfg, model, label: str, kv_dtype=None, slots: int = 8) ->
     srv.step()  # admits every request, then one decode chunk
     if srv.stats()["slots_busy"] != slots:
         raise RuntimeError(f"expected {slots} busy slots, got {srv.stats()}")
-    profile_step(label, lambda: srv._decode(STEPS), slots * STEPS)
+    total = profile_step(label, lambda: srv._decode(STEPS), slots * STEPS)
+    print(f"== {label}: kernel time per decode step {total / STEPS:.4f} ms")
 
 
 def main() -> int:

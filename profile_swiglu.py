@@ -34,6 +34,17 @@ greedy one-token generates of a 560x560 image and 32 text ids (S = 1632),
 host clock around preprocess, prefill and first token, ending in a
 synchronize. It prints each time, the median (TTFT) and the launches of
 one generate.
+
+    python3 profile_swiglu.py --rows
+
+instead times the decode SwiGLU at R = 1 (a B=1 decode step) and R = 8
+(the 8-slot server) at the 11B (H=4096, I=14336) and 3B (H=3072, I=8192)
+widths: the routed entry (the tensor-core rows kernel at these shapes), the
+tensor-core rows kernel and the weight-streaming rows kernel it replaces on
+their own, the plain version and two ``F.linear`` calls (the products
+alone, a yardstick the port never calls), each beside its bound (the
+weights' bytes), the weights cycled past the L2 as above; then the sums
+over one decode step's 40 launches at 11B.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import time
 from functools import partial
 
 import torch
+import torch.nn.functional as F
 
 import chip_smoke as cs
 from llama32mm_tpu_torch.inference.engine import InferenceEngine
@@ -61,6 +73,8 @@ SHAPES = {  # label: (H, I, backward?)
     "3B backward H=3072 I=8192": (3072, 8192, True),
 }
 PREFILL = {"11B forward H=4096 I=14336": 40}  # launches in one 11B prefill
+DECODE_SHAPES = {"11B H=4096 I=14336": (4096, 14336), "3B H=3072 I=8192": (3072, 8192)}
+DECODE_ROWS = (1, 8)
 
 
 def ttft(dev, card: str, reps: int = 5) -> None:
@@ -92,6 +106,55 @@ def ttft(dev, card: str, reps: int = 5) -> None:
     print(json.dumps({"card": card, "ttft": {"bf16": out}}))
 
 
+def weight_copies(gen, dev, h, inter) -> list:
+    """(w_gate, w_up) copies covering ``L2_SPAN`` bytes."""
+    return [tuple((torch.randn(inter, h, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+                  for _ in range(2))
+            for _ in range(max(1, math.ceil(L2_SPAN / (2 * inter * h * 2))))]
+
+
+def decode_rows(dev, card: str) -> None:
+    """The decode SwiGLU at ``DECODE_ROWS``, as the module docstring says."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for label, (h, inter) in DECODE_SHAPES.items():
+        copies = weight_copies(gen, dev, h, inter)
+        for rows in DECODE_ROWS:
+            x = torch.randn(rows, h, generator=gen, device=dev).to(torch.bfloat16)
+            args = (x, *copies[0])
+            want = kernels.fused_swiglu_plain(*args)
+            bound_ms, bound_by = cs.bound("swiglu_rows_tc", args, want)
+            calls = {}
+            for what, fn in (("routed", kernels.fused_swiglu_cuda),
+                             ("swiglu_rows_tc", kernels.fused_swiglu_rows_tc_cuda),
+                             ("rows kernel (base)", kernels.fused_swiglu_wmma_cuda),
+                             ("plain", kernels.fused_swiglu_plain)):
+                calls[what] = [partial(fn, x, *c) for c in copies]
+                err, scale = cs.max_err(fn(*args), want)
+                print(f"  {what}: max_abs_err vs plain {err:.6g} (max {scale:.6g})")
+            calls["F.linear x2"] = [
+                partial(lambda wg, wu: (F.linear(x, wg), F.linear(x, wu)), *c) for c in copies]
+            row = {"bound_ms": bound_ms, "bound_by": bound_by, "copies": len(copies)}
+            print(f"== decode {label} R={rows}: bound {bound_ms:.6g} ms ({bound_by}), "
+                  f"{len(copies)} weight copies")
+            for what, fns in calls.items():
+                ms = device_ms(fns)
+                row[what] = ms
+                print(f"  {what:22s} {ms:.6g} ms  (share of bound {bound_ms / ms:.4g})")
+            for key, us in kernel_rows(calls["routed"]):
+                print(f"    {us:9.2f} us  {key[:100]}")
+            results[f"{label} R={rows}"] = row
+        del copies
+        torch.cuda.empty_cache()
+    label = next(iter(DECODE_SHAPES))
+    steps = {f"R={r}": {what: 40 * ms for what, ms in results[f"{label} R={r}"].items()
+                        if isinstance(ms, float)} for r in DECODE_ROWS}
+    for r, sums in steps.items():
+        print(f"== one 11B decode step at {r} (40 launches), ms: "
+              + ", ".join(f"{what} {ms:.6g}" for what, ms in sums.items()))
+    print(json.dumps({"card": card, "decode_device_ms": results, "decode_step_ms": steps}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_swiglu: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -105,14 +168,14 @@ def main() -> int:
     if "--ttft" in sys.argv[1:]:
         ttft(dev, card)
         return 0
+    if "--rows" in sys.argv[1:]:
+        decode_rows(dev, card)
+        return 0
     kernels_only = "--kernels-only" in sys.argv[1:]
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for label, (h, inter, bwd) in SHAPES.items():
-        copies = []
-        for _ in range(max(1, math.ceil(L2_SPAN / (2 * inter * h * 2)))):
-            copies.append(tuple((torch.randn(inter, h, generator=gen, device=dev) * 0.02)
-                                .to(torch.bfloat16) for _ in range(2)))
+        copies = weight_copies(gen, dev, h, inter)
         x = torch.randn(ROWS, h, generator=gen, device=dev).to(torch.bfloat16)
         g = torch.randn(ROWS, inter, generator=gen, device=dev).to(torch.bfloat16) if bwd else None
         extra = (g,) if bwd else ()

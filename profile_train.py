@@ -36,7 +36,9 @@ CATEGORIES = (
     ("flash_decode", "flash decode (split-KV)"),
     ("flash_fwd", "flash fwd (SIMT)"), ("rmsnorm_bwd", "rmsnorm bwd"), ("dw_sum", "rmsnorm bwd"),
     ("rmsnorm_fwd", "rmsnorm fwd"), ("swiglu_tma", "swiglu (TMA tile)"),
+    ("swiglu_rows_tc", "swiglu rows (tensor cores)"),
     ("swiglu_rows", "swiglu rows (decode)"), ("swiglu", "swiglu (wmma tile, loop)"),
+    ("gemv_w4a8_tc", "W4A8 gemv (tensor cores)"),
     ("gemv_w4a8", "W4A8 gemv"), ("quantize_rows", "W4A8 row quantize"),
     ("gemv_int8", "int8 gemv"), ("gemv_int4", "int4 gemv"),
     ("gemv_bf16_tc", "bf16 gemv (tensor cores)"), ("gemv_kernel", "bf16 gemv (CUDA cores)"),
@@ -52,7 +54,9 @@ def category(name: str) -> str:
     return next((cat for key, cat in CATEGORIES if key in n), "other")
 
 
-def profile_step(label: str, fn, tokens: int) -> None:
+def profile_step(label: str, fn, tokens: int) -> float:
+    """Time one call of ``fn`` (a step), profile another; print them and
+    return the profiled call's kernel time in ms."""
     fn()  # warm-up
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -78,6 +82,7 @@ def profile_step(label: str, fn, tokens: int) -> None:
         print(f"  {cat:22s} {t_ms:9.2f} ms  {100 * t_ms / total:5.1f}%  launches {launches[cat]}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:5d}  {e.key[:110]}")
+    return total
 
 
 def main() -> int:

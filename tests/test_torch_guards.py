@@ -35,6 +35,7 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.inference.server", "profile_serve", "profile_flash",
     "llama32mm_tpu_torch.ops.cuda.flash_decode", "profile_qgemv", "profile_qmatmul",
     "llama32mm_tpu_torch.ops.cuda.gemv", "llama32mm_tpu_torch.ops.cuda.swiglu", "profile_swiglu",
+    "profile_rmsnorm",
 ]
 
 
@@ -62,8 +63,8 @@ def test_chip_smoke_fails_without_gpu():
     assert '"ok": true' not in proc.stdout
 
 
-PROFILERS = ["profile_flash.py", "profile_qgemv.py", "profile_qmatmul.py", "profile_serve.py",
-             "profile_swiglu.py", "profile_train.py"]
+PROFILERS = ["profile_flash.py", "profile_qgemv.py", "profile_qmatmul.py", "profile_rmsnorm.py",
+             "profile_serve.py", "profile_swiglu.py", "profile_train.py"]
 
 
 @pytest.mark.parametrize("script", PROFILERS)
@@ -91,13 +92,13 @@ def _cpu_args(name):
         return q, q, q, torch.ones(1, 3), 0, True, lse, lse, q
     if name in ("gemv", "gemv_tc"):
         return x, torch.randn(8, 16)
-    if name in ("swiglu", "swiglu_tc"):
+    if name in ("swiglu", "swiglu_tc", "swiglu_rows_tc"):
         return x, torch.randn(8, 16), torch.randn(8, 16)
     if name == "swiglu_down":
         return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(16, 8)
     if name in ("gemv_int8", "qmatmul", "qmatmul_tc"):
         return x, torch.randint(-127, 128, (8, 16), dtype=torch.int8), torch.rand(8)
-    if name in ("gemv_int4", "gemv_int4_w4a8"):  # group size 8
+    if name in ("gemv_int4", "gemv_int4_w4a8", "gemv_int4_w4a8_tc"):  # group size 8
         return x, torch.randint(0, 256, (8, 8), dtype=torch.uint8), torch.rand(8, 2)
     q = torch.randn(1, 2, 3, 16)
     if name in ("flash_attention_int8kv", "flash_attention_tc_int8kv", "flash_decode_int8kv"):

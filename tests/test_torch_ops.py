@@ -45,7 +45,10 @@ def test_rmsnorm_matches_pallas(shape, with_residual):
 
 # (130, 256, 300): more than one 128-row tile, H a multiple of 64 (the
 # shape class of the TMA tile on the card), I not a multiple of its 128.
-@pytest.mark.parametrize("r,h,i", [(1, 64, 128), (10, 96, 200), (33, 128, 384), (130, 256, 300)])
+# (5, 96, 200) and (8, 128, 384): at most 8 rows with H a multiple of 32 (the
+# tensor-core rows kernel's class), I = 200 not a multiple of its 16 columns.
+@pytest.mark.parametrize("r,h,i", [(1, 64, 128), (10, 96, 200), (33, 128, 384), (130, 256, 300),
+                                   (5, 96, 200), (8, 128, 384)])
 def test_swiglu_matches_pallas(r, h, i):
     rs = np.random.RandomState(1)
     x, wg, wu = _rand(rs, r, h), _rand(rs, h, i, scale=0.1), _rand(rs, h, i, scale=0.1)
@@ -93,14 +96,9 @@ def test_gemv_bf16_matches_pallas():
                                atol=2.0**-7 * np.abs(want).max())
 
 
-def test_swiglu_bf16_matches_pallas():
-    """bf16 (130, 256, 300) against the Pallas kernel in bf16, within
-    1.6e-2 of max|want| (two bf16 steps): the Pallas kernel keeps gate and
-    up in fp32, the port's plain version rounds each to bf16 (cuBLAS's
-    products in x's dtype) before silu(gate) * up, and the output is rounded
-    once more."""
+def _swiglu_bf16_matches_pallas(r, h, i):
     rs = np.random.RandomState(1)
-    x, wg, wu = _rand(rs, 130, 256), _rand(rs, 256, 300, scale=0.1), _rand(rs, 256, 300, scale=0.1)
+    x, wg, wu = _rand(rs, r, h), _rand(rs, h, i, scale=0.1), _rand(rs, h, i, scale=0.1)
     want = fused_swiglu_pallas(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (x, wg, wu)))
     assert want.dtype == jnp.bfloat16
     want = np.asarray(want.astype(jnp.float32))
@@ -109,6 +107,22 @@ def test_swiglu_bf16_matches_pallas():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                atol=1.6e-2 * np.abs(want).max())
+
+
+def test_swiglu_bf16_matches_pallas():
+    """bf16 (130, 256, 300) against the Pallas kernel in bf16, within
+    1.6e-2 of max|want| (two bf16 steps): the Pallas kernel keeps gate and
+    up in fp32, the port's plain version rounds each to bf16 (cuBLAS's
+    products in x's dtype) before silu(gate) * up, and the output is rounded
+    once more."""
+    _swiglu_bf16_matches_pallas(130, 256, 300)
+
+
+@pytest.mark.parametrize("r,h,i", [(1, 128, 384), (5, 96, 200), (8, 128, 384)])
+def test_swiglu_bf16_decode_rows_match_pallas(r, h, i):
+    """``test_swiglu_bf16_matches_pallas`` in the tensor-core rows kernel's
+    class (at most 8 rows, H a multiple of 32)."""
+    _swiglu_bf16_matches_pallas(r, h, i)
 
 
 # (b, nq, nkv, tq, tk, hd, q_offset, causal, key validity)

@@ -81,6 +81,34 @@ def test_swiglu_grads_match_pallas_vjp(r, h, i):
     _close(wut.grad.T, dwu_j)
 
 
+@pytest.mark.parametrize("r,h,i", [(3, 64, 128), (10, 96, 200)])
+def test_swiglu_bwd_offset_cotangent_matches_pallas_vjp(r, h, i):
+    """The cotangent as a contiguous view that starts one element into its
+    buffer (``buf[1:].view(R, I)``: in bf16 on the card, not 4-byte aligned).
+    The plain backward's d_gate and d_up, taken through the autograd
+    function's formulas for dx and the weight gradients, give the Pallas
+    VJP's gradients; in bf16 they equal, bit for bit, those of an aligned
+    copy of the same cotangent."""
+    rs = np.random.RandomState(1)
+    x, g = _rand(rs, r, h), _rand(rs, r, i)
+    wg, wu = _rand(rs, h, i, scale=0.1), _rand(rs, h, i, scale=0.1)
+    _, vjp = jax.vjp(fused_swiglu_pallas, jnp.asarray(x), jnp.asarray(wg), jnp.asarray(wu))
+    dx_j, dwg_j, dwu_j = vjp(jnp.asarray(g))
+    buf = torch.cat([torch.zeros(1), torch.from_numpy(g).reshape(-1)])
+    g_off = buf[1:].view(r, i)
+    assert g_off.is_contiguous() and g_off.storage_offset() == 1
+    xt, wgt, wut = torch.from_numpy(x), torch.from_numpy(wg.T.copy()), torch.from_numpy(wu.T.copy())
+    d_gate, d_up = kernels.fused_swiglu_bwd_plain(xt, wgt, wut, g_off)
+    _close(d_gate @ wgt + d_up @ wut, dx_j)
+    _close((d_gate.t() @ xt).t(), dwg_j)
+    _close((d_up.t() @ xt).t(), dwu_j)
+    bf = [t.bfloat16() for t in (xt, wgt, wut)]
+    off = buf.bfloat16()[1:].view(r, i)
+    for a, b in zip(kernels.fused_swiglu_bwd_plain(*bf, off),
+                    kernels.fused_swiglu_bwd_plain(*bf, off.clone())):
+        assert torch.equal(a, b)
+
+
 # (b, nq, nkv, tq, tk, hd, q_offset, causal, key validity)
 FLASH_CASES = {
     "noncausal_group1": (1, 4, 4, 12, 12, 16, 0, False, "all"),

@@ -47,12 +47,9 @@ def _x(seed, rows, grid):
     return rs.randn(rows, K).astype(np.float32)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("group", [64, K])  # grouped, and per-channel (g = K)
-@pytest.mark.parametrize("variant", ["w4a8", "w4a8b"])
-def test_w4a8_plain_matches_pallas(variant, group, dtype):
+def _plain_matches_pallas(variant, group, dtype, row_counts):
     (q4s, scales), (q4, scale) = _weights(7, group)
-    for rows in (1, 2, 5):
+    for rows in row_counts:
         for grid in (True, False):
             x = _x(rows * 10 + grid, rows, grid)
             xj = jnp.asarray(x, dtype=jnp.dtype(dtype))
@@ -67,6 +64,23 @@ def test_w4a8_plain_matches_pallas(variant, group, dtype):
                 np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
             else:
                 assert np.abs(got - want).max() <= 1.6e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [64, K])  # grouped, and per-channel (g = K)
+@pytest.mark.parametrize("variant", ["w4a8", "w4a8b"])
+def test_w4a8_plain_matches_pallas(variant, group, dtype):
+    _plain_matches_pallas(variant, group, dtype, (1, 2, 5))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [64, K])  # g/2 a multiple of 16: the card's tensor-core class
+@pytest.mark.parametrize("rows", [8, 9, 16, 17, 32])  # the row buckets' edges (n8 tiles of x)
+def test_w4a8_plain_matches_pallas_row_buckets(rows, group, dtype):
+    """``test_w4a8_plain_matches_pallas`` at the row counts where the card's
+    tensor-core W4A8 kernel changes its tiling (one n8 tile of x rows up to
+    8, two up to 16, four with two m16 tiles up to 32)."""
+    _plain_matches_pallas("w4a8", group, dtype, (rows,))
 
 
 def test_w4a8_row_quantization():
