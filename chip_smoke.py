@@ -29,7 +29,9 @@
    ``kv_dtype="int8"``; each prefill must run its 280 quantized linears (7
    a layer) through the wgmma dequantizing GEMM and none through the wmma
    one, and the int4-mixed run must launch the W4A16 gemv 81 times a decode
-   step (``w_gate`` and ``w_up`` of 40 layers, the head);
+   step (``w_gate`` and ``w_up`` of 40 layers, the head); the tensor-core
+   int8 gemv must serve every int8 decode linear (281 a step and the
+   prefill's head in int8, 200 a step in int4-mixed), the CUDA-core one none;
 8. LoRA fine-tuning of the 11B bf16 model (rank 16, the default targets
    and a head adapter, Adam) on one B=1, S=1632 batch: a warm-up step and
    3 timed steps; checks finite losses and moments, a bitwise unchanged
@@ -49,7 +51,8 @@
    1632, budgets 64 / 32) through 8 slots, 6 submitted at first and 4 after
    one step, checking budgets, ids and the path's kernels (the tensor-core
    W4A8 gemv 81 times a decode step and once a prefill's head, the
-   CUDA-core one never); printing
+   tensor-core int8 gemv 200 times a decode step, the CUDA-core ones
+   never); printing
    aggregate decode tokens/s, ms per decode step with 8 slots busy, peak
    GiB and how many requests equal a solo engine run; and, as information,
    a B=1 generate A/B of the W4A8 and W4A16 int4 gemvs;
@@ -79,10 +82,13 @@ the tensor-core forward's and backward's times beside the SIMT kernels' and
 SDPA's at the same shapes. The tensor-core SwiGLU rows kernel and W4A8
 gemv get the same three checks as the tensor-core gemv (routed by the
 model's entry, two calls bit-equal, each row of an R > 1 call equal to its
-R = 1 call), and the TMA SwiGLU backward one case whose cotangent starts
-at an odd element. Every bf16 path at 11B and 3B must launch the new
-kernels and never a SIMT forward or backward, nor the wmma dequantizing
-GEMM, nor the CUDA-core gemv; the bf16 generate and server launch the
+R = 1 call), and so does the tensor-core int8 gemv, with a case whose x
+starts 2 bytes off alignment that the model's entry must route to the
+CUDA-core int8 gemv; the TMA SwiGLU backward one case whose cotangent
+starts at an odd element; two calls of each RMSNorm backward case give the
+same bits (dt, and dw when asked for). Every bf16 path at 11B and 3B must
+launch the new kernels and never a SIMT forward or backward, nor the wmma
+dequantizing GEMM, nor a CUDA-core gemv; the bf16 generate and server launch the
 tensor-core gemv 201 times a decode step (and once for each prefill's
 head), the TMA SwiGLU tile 40 times a prefill and the tensor-core SwiGLU
 rows kernel 40 times a decode step, never the weight-streaming rows kernel
@@ -195,6 +201,8 @@ KERNEL_INFO = {
                        "llama32mm_tpu/ops/pallas/swiglu.py:69"),
     "gemv_int4_w4a8_tc": ("llama32mm_tpu_torch/csrc/qgemv.cu",
                           "llama32mm_tpu/ops/pallas/gemv.py:353"),
+    "gemv_int8_tc": ("llama32mm_tpu_torch/csrc/qgemv.cu",
+                     "llama32mm_tpu/ops/pallas/gemv.py:162"),
 }
 # Pallas functions a kernel folds in beside the one it is listed against, and
 # the pl.pallas_call sites that its Pallas functions reach.
@@ -226,6 +234,7 @@ ALSO_REPLACES = {
     "gemv_tc": [_P + "gemv.py:55", _P + "gemv.py:105", _P + "gemv.py:81", _P + "gemv.py:133",
                 _P + "gemv.py:677"],
     "gemv_int8": [_P + "gemv.py:701", _P + "gemv.py:185", _P + "gemv.py:724"],
+    "gemv_int8_tc": [_P + "gemv.py:701", _P + "gemv.py:185", _P + "gemv.py:724"],
     "gemv_int4": [_P + "gemv.py:216", _P + "gemv.py:592", _P + "gemv.py:618"],
     "gemv_int4_w4a8": [_P + "gemv.py:419", _P + "gemv.py:561"],
     "gemv_int4_w4a8_tc": [_P + "gemv.py:419", _P + "gemv.py:561"],
@@ -241,14 +250,16 @@ ALSO_REPLACES = {
 # the TMA tile and its decode SwiGLU (at most 8 rows) through the
 # tensor-core rows kernel (run_11b and run_server hold both to their counts,
 # and "swiglu", the base rows kernel and the wmma tile, to 0), the int4
-# server's W4A8 gemvs through the tensor-core W4A8 kernel.
+# server's W4A8 gemvs through the tensor-core W4A8 kernel, and every int8
+# decode linear through the tensor-core int8 gemv (run_11b and run_server
+# hold it to its count, path_faults the CUDA-core one to 0).
 BF16_ATTN = ("flash_attention_tc", "flash_decode")
 INT8_KV_ATTN = ("flash_attention_tc", "flash_attention_tc_int8kv", "flash_decode_int8kv")
-SERVER_INT4_KERNELS = ("rmsnorm", "gemv_int8", "gemv_int4_w4a8_tc", "qmatmul_tc") + INT8_KV_ATTN
+SERVER_INT4_KERNELS = ("rmsnorm", "gemv_int8_tc", "gemv_int4_w4a8_tc", "qmatmul_tc") + INT8_KV_ATTN
 PATH_KERNELS = {
     "bf16": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
-    "int8": ("rmsnorm", "gemv_int8", "qmatmul_tc") + INT8_KV_ATTN,
-    "int4_mixed": ("rmsnorm", "gemv_int8", "gemv_int4", "qmatmul_tc") + INT8_KV_ATTN,
+    "int8": ("rmsnorm", "gemv_int8_tc", "qmatmul_tc") + INT8_KV_ATTN,
+    "int4_mixed": ("rmsnorm", "gemv_int8_tc", "gemv_int4", "qmatmul_tc") + INT8_KV_ATTN,
     "server_bf16": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
     "server_int4_w4a8": SERVER_INT4_KERNELS,
     "swiglu_down_op": ("swiglu_down",),
@@ -267,9 +278,9 @@ PATH_KERNELS.update({
 })
 # The SIMT fp32 forward and backward: the bf16 paths above must never
 # launch them; nor the wmma dequantizing GEMM ("qmatmul"), which every
-# bf16 prefill shape leaves to the wgmma one; nor the CUDA-core gemv
-# ("gemv"), which every decode linear at these widths leaves to the
-# tensor-core one.
+# bf16 prefill shape leaves to the wgmma one; nor the CUDA-core gemvs
+# ("gemv", "gemv_int4_w4a8", "gemv_int8"), which every decode linear at these
+# widths leaves to the tensor-core ones.
 SIMT_FORWARD = ("flash_attention", "flash_attention_int8kv", "flash_attention_lse")
 SIMT_BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # The tiny fp32 model's quantized paths: a 40-token prefill over the int8
@@ -298,6 +309,8 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
             faults.append(f"launched the CUDA-core gemv {launches['gemv']} times")
         if launches["gemv_int4_w4a8"]:
             faults.append(f"launched the CUDA-core W4A8 gemv {launches['gemv_int4_w4a8']} times")
+        if launches["gemv_int8"]:
+            faults.append(f"launched the CUDA-core int8 gemv {launches['gemv_int8']} times")
     return faults + [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
 
 
@@ -311,6 +324,22 @@ def swiglu_faults(launches: dict, layers: int, prefills: int, decode_steps: int)
         f"base rows kernel or wmma tile {launches['swiglu']} (want 0)")
     return [f"launched {k} {launches[k]} times, not {n}" for k, n in want.items()
             if launches[k] != n]
+
+
+def int8_gemv_faults(path: str, launches: dict, layers: int, decode_steps: int, int8_head: bool,
+                     prefills: int) -> list:
+    """A quantized generate's or server's int8 gemvs: each decode step's int8
+    linears (7 a layer in int8: W_query, W_key, W_value, out_proj, w_gate,
+    w_up, w_down; 5 in the int4-mixed recipe, whose w_gate, w_up and head are
+    int4) and an int8 head at each decode step and each prefill's last
+    position, all on the tensor-core kernel (path_faults holds the CUDA-core
+    one to 0)."""
+    per_step = (7 if path == "int8" else 5) * layers + int8_head
+    want = per_step * decode_steps + int8_head * prefills
+    got = launches["gemv_int8_tc"]
+    log(f"[{path}] tensor-core int8 gemv launches {got} = {per_step} x {decode_steps} decode steps"
+        f" + {int8_head * prefills} prefill heads: {got == want}")
+    return [] if got == want else [f"launched the tensor-core int8 gemv {got} times, not {want}"]
 
 
 def log(msg: str) -> None:
@@ -513,8 +542,47 @@ def kernel_cases(dev, gen):
         ("flash_attention_tc_int8kv", "hd=8 nq=4 nkv=2 Tq=70 Tk=90 q_offset=20 causal",
          (rnd(1, 4, 70, 8), *kv8(1, 2, 90, 8), valid(1, 90, 90), 20, True), False),
     ]
-    return (cases + server_kernel_cases(rnd, q4, q4_stepped, kv8)
+    return (cases + int8_gemv_cases(rnd, q8) + server_kernel_cases(rnd, q4, q4_stepped, kv8)
             + training_kernel_cases(rnd, valid))
+
+
+# The CUDA-core int8 gemv's case whose x starts 2 bytes past a 16-byte
+# boundary: the model's entry must route it there (check_routed).
+MISALIGNED_X = "x 2 bytes off alignment"
+
+
+def int8_gemv_cases(rnd, q8):
+    """The tensor-core int8 gemv at the 11B decode linears (R = 1, 8, 16 and
+    32: one request, the server's 8 slots, more rows), the int8 head at R = 1
+    (main) and 8, the 3B widths, channel scales 1000x apart (a scale applied
+    to a neighbouring column shows) with a ragged N; and a call whose x the
+    tensor-core kernel does not take, which the model's entry routes to the
+    CUDA-core kernel."""
+    h, inter, vocab = 4096, 14336, 128256
+
+    def q8_stepped(n, k):
+        w = rnd(n, k, scale=0.02).float()
+        w[1::2] *= 1e-3
+        qw = quantize_weight(w.to(torch.bfloat16))
+        return qw["q"], qw["scale"]
+
+    head = q8(vocab, h)
+    linears = [("W_query", h, h, q8(h, h)), ("W_key", 1024, h, q8(1024, h)),
+               ("w_gate", inter, h, q8(inter, h)), ("w_down", h, inter, q8(h, inter))]
+    cases = [("gemv_int8_tc", f"{label} R={r} N={n} K={k}", (rnd(r, k), *w), False)
+             for r in (1, 8, 16, 32) for label, n, k, w in linears]
+    cases += [
+        ("gemv_int8_tc", "int8 lm_head R=1 N=128256 K=4096", (rnd(1, h), *head), True),
+        ("gemv_int8_tc", "int8 lm_head R=8 N=128256 K=4096", (rnd(8, h), *head), False),
+        ("gemv_int8_tc", "3B W_query R=8 N=3072 K=3072", (rnd(8, 3072), *q8(3072, 3072)), False),
+        ("gemv_int8_tc", "3B w_gate R=1 N=8192 K=3072", (rnd(1, 3072), *q8(8192, 3072)), False),
+        ("gemv_int8_tc", "3B w_down R=8 N=3072 K=8192", (rnd(8, 8192), *q8(3072, 8192)), False),
+        ("gemv_int8_tc", "channel scales 1000x apart R=8 N=1000 K=4096",
+         (rnd(8, h), *q8_stepped(1000, h)), False),
+        ("gemv_int8", f"{MISALIGNED_X} R=8 N=4096 K=4096",
+         (rnd(8 * h + 1)[1:].view(8, h), *linears[0][3]), False),
+    ]
+    return cases
 
 
 def server_kernel_cases(rnd, q4, q4_stepped, kv8):
@@ -625,7 +693,13 @@ def training_kernel_cases(rnd, valid):
          (rnd(3, 100), rnd(100), 1e-5, rnd(3, 100)), False),
         ("rmsnorm_bwd", "R=1632 C=4096", norm_bwd(1632, h), True),
         ("rmsnorm_bwd", "R=1632 C=4096 frozen weight", norm_bwd(1632, h, need_dw=False), False),
+        ("rmsnorm_bwd", "3B R=1632 C=3072", norm_bwd(1632, 3072), False),
+        ("rmsnorm_bwd", "3B R=1632 C=3072 frozen weight", norm_bwd(1632, 3072, need_dw=False),
+         False),
         ("rmsnorm_bwd", "ragged R=3 C=100", norm_bwd(3, 100), False),
+        ("rmsnorm_bwd", "ragged R=130 C=4100", norm_bwd(130, 4100), False),
+        ("rmsnorm_bwd", "fp32 R=33 C=4096", tuple(a.float() if isinstance(a, torch.Tensor) else a
+                                                  for a in norm_bwd(33, h)), False),
         ("swiglu_bwd", "3B R=1632 H=3072 I=8192",
          (rnd(1632, 3072), rnd(8192, 3072, scale=0.02), rnd(8192, 3072, scale=0.02),
           rnd(1632, 8192)), True),
@@ -790,7 +864,8 @@ def library_call(name, args):
         packed, g, sz = _int4pack(args[1], args[2], x)
         x2 = x.reshape(-1, x.shape[-1])
         return lambda: torch._weight_int4pack_mm(x2, packed, g, sz)
-    if name in ("gemv_int8", "qmatmul", "qmatmul_tc") and args[1].dtype == torch.int8:
+    if (name in ("gemv_int8", "gemv_int8_tc", "qmatmul", "qmatmul_tc")
+            and args[1].dtype == torch.int8):
         x2, sc = x.reshape(-1, x.shape[-1]), args[2].to(x.dtype)
         return lambda: torch._weight_int8pack_mm(x2, args[1], sc)
     if name in ("flash_attention", "flash_attention_lse", "flash_attention_tc",
@@ -839,12 +914,13 @@ HD8_RACE = ("flash_attention_tc", "flash_attention_tc_int8kv")
 
 def check_same_bits(name, label, wrapper, args, got, calls: int = 1) -> None:
     """``calls`` more calls on the same inputs give the same bits (no
-    atomics, a fixed summation order, no race)."""
+    atomics, a fixed summation order, no race); an output not asked for is
+    None in every call."""
     got = got if isinstance(got, tuple) else (got,)
     for i in range(calls):
         again = wrapper(*args)
         again = again if isinstance(again, tuple) else (again,)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again)):
             raise RuntimeError(f"{name} [{label}]: call {i + 2} on the same inputs differs from "
                                f"the first")
     log(f"kernel {name} [{label}]: {calls + 1} calls equal bit for bit")
@@ -866,12 +942,22 @@ def check_gemv_rows_alone(name, label, wrapper, args, got) -> None:
 # R = 97 call.
 ROUTED_BY = {
     "gemv_tc": kernels.gemv_cuda,
+    "gemv_int8_tc": kernels.gemv_int8_cuda,
     "gemv_int4_w4a8_tc": kernels.gemv_int4_w4a8_cuda,
     "swiglu_rows_tc": kernels.fused_swiglu_cuda,
     "swiglu_tc": kernels.fused_swiglu_cuda,
     "swiglu_bwd_tc": kernels.fused_swiglu_bwd_cuda,
     "qmatmul_tc": kernels.qmatmul_cuda,
 }
+
+
+def routed_entry(name, label):
+    """The model's entry that must launch this case's kernel, or None: a
+    tensor-core kernel's, or the int8 entry for the CUDA-core int8 case whose
+    x the tensor-core kernel does not take."""
+    if name == "gemv_int8" and label.startswith(MISALIGNED_X):
+        return kernels.gemv_int8_cuda
+    return ROUTED_BY.get(name)
 
 
 def check_routed(name, label, args, got) -> None:
@@ -884,7 +970,7 @@ def check_routed(name, label, args, got) -> None:
     wrapper = kernels.KERNELS[name][0]
     got = got if isinstance(got, tuple) else (got,)
     before = wrapper.launches
-    routed = ROUTED_BY[name](*args)
+    routed = routed_entry(name, label)(*args)
     routed = routed if isinstance(routed, tuple) else (routed,)
     if wrapper.launches != before + 1 or not all(map(torch.equal, routed, got)):
         raise RuntimeError(f"{name} [{label}]: the model's entry did not route it to {name}, or "
@@ -924,13 +1010,13 @@ def compare_kernels(dev, only=None) -> dict:
             continue
         if main and name.startswith("flash_decode"):
             check_rows_alone(name, wrapper, args, got)
-        if name in BWD_TC or name == "gemv_int4":
+        if name in BWD_TC or name in ("gemv_int4", "rmsnorm_bwd"):
             check_same_bits(name, label, wrapper, args, got)
         if name == "gemv_int4" and label.startswith("w_gate R="):
             check_gemv_rows_alone(name, label, wrapper, args, got)
         if name in HD8_RACE and label.startswith("hd=8"):  # the zero-fill race, repaired
             check_same_bits(name, label, wrapper, args, got, calls=49)
-        if name in ROUTED_BY:
+        if routed_entry(name, label) is not None:
             check_routed(name, label, args, got)
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
         lib_ms = library_ms(name, label, args)
@@ -1351,6 +1437,9 @@ def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
             f"x 63 + 1: {launches['gemv_int4'] == want}")
         if launches["gemv_int4"] != want:
             faults.append(f"launched the W4A16 gemv {launches['gemv_int4']} times, not {want}")
+    if path in ("int8", "int4_mixed"):
+        faults += int8_gemv_faults(path, launches, tc.n_layers, decode_steps=63,
+                                   int8_head=path == "int8", prefills=1)
     if faults:
         raise RuntimeError(f"[{path}] {faults}")
 
@@ -1458,6 +1547,8 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None) -> dict:
             f"steps + {len(rids)} prefill heads: {got == want}")
         if got != want:
             faults.append(f"launched the tensor-core W4A8 gemv {got} times, not {want}")
+        faults += int8_gemv_faults(path, launches, tc.n_layers, decode_steps=steps,
+                                   int8_head=False, prefills=len(rids))
     if faults:
         raise RuntimeError(f"[{path}] {faults}")
     if launches["gemv_int4"]:

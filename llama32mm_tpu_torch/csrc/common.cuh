@@ -71,6 +71,18 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Two exact bf16 values from the signed bytes at bits 0-7 and 16-23 of v (the
+// other bits are ignored): 0x4300 | (b & 0x7F) is the bf16 128 + (b & 0x7F),
+// and subtracting 128 (b >= 0) or 256 (b < 0: 0x4300 | 0x80) leaves b, an
+// exact bf16 difference. Two LOP3s and one bf16x2 subtraction a pair.
+__device__ __forceinline__ uint32_t int8x2_bf16x2(uint32_t v) {
+  const uint32_t m = (v & 0x007F007Fu) | 0x43004300u;
+  const uint32_t s = (v & 0x00800080u) | 0x43004300u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                             *reinterpret_cast<const __nv_bfloat162*>(&s));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
 // D += A B on mma.sync m16n8k32 in signed bytes: A 16x32 and B 32x8 s8,
 // int32 C in place (exact). Fragments: lane (gid, t) holds A rows gid (a[0],
 // a[2]) and gid + 8 (a[1], a[3]) at k 4t .. 4t + 3 (a[0], a[1]) and 4t + 16 ..

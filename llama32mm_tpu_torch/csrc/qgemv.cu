@@ -5,7 +5,34 @@
 // the per-channel scale applied once to the fp32 sum. Replaces two TPU
 // kernels of llama32mm_tpu/ops/pallas/gemv.py: _qstacked_kernel
 // (int8_gemv_stacked_pallas; a layer of the stack is a pointer here) and
-// _qkernel (int8_gemv_pallas, the int8 head).
+// _qkernel (int8_gemv_pallas, the int8 head). Bound: the weight bytes, K per
+// output column (plus a 4-byte scale), the same at R = 1 and 32.
+// 1. bf16 x with K a multiple of 64 and 16-byte-aligned x and q (every int8
+//    decode linear and the int8 head of the 11B and 3B configs) takes the
+//    tensor-core kernel, gemv_int8_tc_kernel, at every R from 1 to 32: the
+//    bf16 gemv's swap-AB mma.sync m16n8k16 form (gemv.cu), each int8 weight
+//    made an exact bf16 in registers (int8x2_bf16x2: two LOP3s and one
+//    bf16x2 subtraction a pair of weights, no byte permute), x read once per
+//    16 output columns instead of once per column. It computes what _qkernel
+//    computes: bf16 x against the exact weights with fp32 sums, the scale on
+//    the fp32 total, one rounding. Warps a block from N and K alone; 2 or 4
+//    spans of loads in flight a lane by grid shape (int8_two_spans).
+//    Measured (profile_qgemv.py --int8, device time, weights cycled past the
+//    L2; NVIDIA H100 80GB HBM3, 700.00 W): the int8 head 0.176 / 0.182 ms at
+//    R = 1 / 8 (89% / 87% of its 0.157 bound; the CUDA-core kernel 0.172 /
+//    0.577, torch._weight_int8pack_mm 2.34 / 9.28); w_down 0.0242 / 0.0253
+//    / 0.0341 / 0.0415 at R = 1 / 8 / 16 / 32 (bound 0.0175-0.0179; CUDA
+//    cores 0.0259 / 0.120 / 0.216 / 0.628), w_gate 0.0249 / 0.0276 / 0.0331
+//    / 0.0464 (CUDA cores 0.0235 / 0.082 / 0.168 / 0.309), W_query 0.0101 /
+//    0.0105 (bound 0.0050; CUDA cores 0.0099 / 0.0273). At R = 1 it is 2-6%
+//    behind the CUDA-core kernel except at w_down: a warp's 16-byte loads
+//    cover 64 bytes of each of 8 rows where the CUDA-core kernel's cover 512
+//    bytes of one (a timing-only copy with 256-byte runs a row was 2-11%
+//    faster everywhere but w_gate).
+// 2. fp32 x, other K and misaligned pointers take the CUDA-core
+//    gemv_int8_kernel (the tiny fp32 checks): one warp per output column,
+//    16 x values re-read from L1 for each row of x and every 16 weight bytes
+//    (16 x loads per weight load at R = 8) and 16 R fp32 FMAs.
 //
 // int4 W4A16 (l32_gemv_int4): q4 [N, K/2] uint8 in the split-half per-group
 // packing (byte j*g/2 + i of a row holds k = j*g + i in its low nibble and
@@ -87,7 +114,7 @@
 // Bound on the H100: device-memory bytes of the weight, K bytes per output
 // row in int8 (half of bf16) and K/2 in int4; each weight byte serves r <= 32
 // rows, far below the ~295 FLOPs per byte where tensor cores would matter
-// for speed (the W4A16 kernel uses them to reuse x, above).
+// for speed (the tensor-core kernels use them to reuse x, above).
 // Design of the CUDA-core kernels (that of gemv.cu): one warp per output row
 // n reads the row once with coalesced 16-byte loads (16 int8 weights, or 32
 // int4 weights) and applies each loaded vector to every row of x (x is small
@@ -504,6 +531,190 @@ bool int4_tc(const void* x, const void* q4, const float* scale, void* out, int r
   return true;
 }
 
+// ---- int8 on the tensor cores (bf16 x, K a multiple of 64) ----
+
+// Warps a block: those of the bf16 gemv for the same bytes (a span of 64
+// int8 k holds the bytes of 32 bf16 k). N and K alone decide it.
+int int8_tc_warps(int n, int k) { return tc_warps(n, k / 2); }
+
+// out[r, n] = bf16(scale[n] * sum_k x[r, k] q[n, k]) in the swap-AB form of
+// gemv_bf16_tc_kernel: the 16 rows of an m16 tile are output columns, the 8
+// columns of an n8 tile rows of x. A span is 64 k: lane (gid, t) loads 16
+// bytes (k 16t .. 16t + 15) of weight rows n0 + gid and n0 + gid + 8 with
+// one streaming load each, and x row 8 nt + gid at the same 16 k. A dot
+// product is blind to which k sits in which fragment slot, so each of the
+// lane's 32-bit weight words feeds one product as loaded: its bytes (0, 2)
+// become the A slots (2t, 2t + 1) and its bytes (1, 3) the slots (2t + 8,
+// 2t + 9), each pair converted exactly by int8x2_bf16x2 (bytes 1 and 3 after
+// one shift), and x is permuted to the same k order in its B slots (one
+// byte permute a B word). The W warps of a block (tc_warps: N and K alone)
+// take fixed parts of the row's spans; their fp32 totals are summed in
+// shared memory in warp order and the channel scale multiplies the sum once.
+// So an output's arithmetic depends on K and N only, never on R or on the
+// other rows: a row of an R=8 call equals, bit for bit, the R=1 call on it.
+// A lane loads U spans at a time (U changes no arithmetic: the spans are
+// summed in order either way).
+template <int W, int MT, int NT, int U>
+__global__ void __launch_bounds__(W * 32)
+gemv_int8_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int rows,
+                    int n, int k) {
+  constexpr int BN = 16 * MT, RB = 8 * NT;
+  __shared__ float red[W][BN][RB + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BN;
+  const int spans = k / 64;
+  const int ubeg = warp * spans / W, uend = (warp + 1) * spans / W;
+  // The channel scale of this thread's outputs (column n0 + threadIdx.x % BN
+  // in the epilogue), loaded before the weights.
+  const int scol = n0 + threadIdx.x % BN;
+  const float sc = scol < n ? scale[scol] : 0.f;
+
+  // This lane's weight rows (row 0 stands in past N: never loaded) and x rows.
+  bool in[MT][2];
+  const int8_t* wrow[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 16 * mt + 8 * h + gid;
+      in[mt][h] = col < n;
+      wrow[mt][h] = q + static_cast<size_t>(in[mt][h] ? col : 0) * k + 16 * t;
+    }
+  bool xin[NT];
+  const __nv_bfloat16* xrow[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int r = 8 * nt + gid;
+    xin[nt] = r < rows;
+    xrow[nt] = x + static_cast<size_t>(xin[nt] ? r : 0) * k + 16 * t;
+  }
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  for (int u0 = ubeg; u0 < uend; u0 += U) {
+    uint4 wv[U][MT][2];
+#pragma unroll
+    for (int s = 0; s < U; ++s)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wv[s][mt][h] = u0 + s < uend && in[mt][h] ? load_stream16(wrow[mt][h] + (u0 + s) * 64)
+                                                    : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      const int u = u0 + s;
+      if (u >= uend) break;
+      // x at k 4j .. 4j + 3 of the lane's 16 -> B words (4j, 4j + 2) and (4j + 1, 4j + 3)
+      uint32_t be[NT][4], bo[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
+        if (xin[nt]) {
+          x0 = *reinterpret_cast<const uint4*>(xrow[nt] + u * 64);
+          x1 = *reinterpret_cast<const uint4*>(xrow[nt] + u * 64 + 8);
+        }
+        const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          be[nt][j] = __byte_perm(xw[2 * j], xw[2 * j + 1], 0x5410);
+          bo[nt][j] = __byte_perm(xw[2 * j], xw[2 * j + 1], 0x7632);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint4 v0 = wv[s][mt][0], v1 = wv[s][mt][1];
+        const uint32_t w0[4] = {v0.x, v0.y, v0.z, v0.w}, w1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t a[4] = {int8x2_bf16x2(w0[j]), int8x2_bf16x2(w1[j]),
+                                 int8x2_bf16x2(w0[j] >> 8), int8x2_bf16x2(w1[j] >> 8)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            if (8 * nt < rows) mma_16816(acc[mt][nt], a, be[nt][j], bo[nt][j]);
+        }
+      }
+    }
+  }
+  // C element i of a lane: output column gid + 8 (i / 2) of the m16 tile,
+  // x row 2t + i % 2 of the n8 tile.
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        red[warp][16 * mt + gid + 8 * (i >> 1)][8 * nt + 2 * t + (i & 1)] = acc[mt][nt][i];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BN * RB; idx += W * 32) {  // idx % BN == threadIdx.x % BN
+    const int m = idx % BN, r = idx / BN;
+    if (r < rows && n0 + m < n) {
+      float sum = red[0][m][r];
+#pragma unroll
+      for (int v = 1; v < W; ++v) sum += red[v][m][r];
+      out[static_cast<size_t>(r) * n + n0 + m] = __float2bfloat16(sum * sc);
+    }
+  }
+}
+
+// Spans a lane loads at a time: 2 where at most 8 rows run on a grid of one
+// or two 16-column blocks an SM of the H100's 132 (N = 2033 .. 4224: the
+// 11B's N = 4096 linears), 4 elsewhere. Measured at R = 1 and 8 (PERF.md
+// §6): 2 beat 4 by 10-15% at w_down and 3-6% at W_query, and lost 4-6%
+// at W_key (64 blocks, half the SMs idle: fewer round trips win) and 1-13%
+// at w_gate (896 blocks, 1.7 waves).
+bool int8_two_spans(int rows, int n) {
+  const int blocks = (n + 15) / 16;
+  return rows <= 8 && blocks >= 128 && blocks <= 264;
+}
+
+template <int W>
+void launch_int8_tc_w(const __nv_bfloat16* x, const int8_t* q, const float* scale,
+                      __nv_bfloat16* out, int rows, int n, int k, cudaStream_t s) {
+  const int b16 = (n + 15) / 16;
+  if (int8_two_spans(rows, n)) {
+    gemv_int8_tc_kernel<W, 1, 1, 2><<<b16, W * 32, 0, s>>>(x, q, scale, out, rows, n, k);
+  } else if (rows <= 8) {
+    gemv_int8_tc_kernel<W, 1, 1, 4><<<b16, W * 32, 0, s>>>(x, q, scale, out, rows, n, k);
+  } else if (rows <= 16) {
+    gemv_int8_tc_kernel<W, 1, 2, 4><<<b16, W * 32, 0, s>>>(x, q, scale, out, rows, n, k);
+  } else if constexpr (W <= 8) {  // two m16 tiles a warp halve the x reads of R = 32
+    gemv_int8_tc_kernel<W, 2, 4, 4><<<(n + 31) / 32, W * 32, 0, s>>>(x, q, scale, out, rows, n,
+                                                                      k);
+  } else {  // (the reduction buffer of 32 columns would not fit)
+    gemv_int8_tc_kernel<W, 1, 4, 4><<<b16, W * 32, 0, s>>>(x, q, scale, out, rows, n, k);
+  }
+}
+
+void launch_int8_tc(const void* x, const void* q, const float* scale, void* out, int rows, int n,
+                    int k, cudaStream_t s) {
+  auto xb = static_cast<const __nv_bfloat16*>(x);
+  auto w = static_cast<const int8_t*>(q);
+  auto o = static_cast<__nv_bfloat16*>(out);
+  const int warps = int8_tc_warps(n, k);
+  if (warps == 4) launch_int8_tc_w<4>(xb, w, scale, o, rows, n, k, s);
+  else if (warps == 8) launch_int8_tc_w<8>(xb, w, scale, o, rows, n, k, s);
+  else launch_int8_tc_w<16>(xb, w, scale, o, rows, n, k, s);
+}
+
+// The int8 and W4A8 entries' kernel argument and the kernel they report:
+// route by shape, the CUDA-core kernel, the tensor-core kernel.
+enum { kRouted = -1, kSimt = 0, kTc = 1 };
+
+// The tensor-core int8 kernel's calls: bf16 x, K a multiple of its 64-k
+// span, 16-byte-aligned x and q (so every row of both).
+bool int8_tc_takes(const void* x, const void* q, int k, int dtype) {
+  return dtype == L32_BF16 && k % 64 == 0 && aligned16(x) && aligned16(q);
+}
+
 constexpr int kQuantThreads = 256;
 
 // One block per row of x: ax[r] and xq[r, :] (the W4A8 activations).
@@ -803,10 +1014,6 @@ void launch_w4a8_tc(const int8_t* xq, const float* ax, const uint8_t* q4, const 
                                                                      n, k, g);
 }
 
-// l32_gemv_int4_w4a8's kernel argument and the kernel it reports: route by
-// shape, the CUDA-core kernel, the tensor-core kernel.
-enum { kW4a8Routed = -1, kW4a8Simt = 0, kW4a8Tc = 1 };
-
 // The tensor-core kernel reads only xq, so it takes any x dtype: g/2 a
 // multiple of 16 (a span of 16 bytes or more inside one group) and
 // 16-byte-aligned q4 and xq.
@@ -814,14 +1021,14 @@ bool w4a8_tc_takes(const void* q4, const void* xq, int g) {
   return (g / 2) % 16 == 0 && aligned16(q4) && aligned16(xq);
 }
 
-// The row quantization, then the dot kernel `kernel` (kW4a8Simt or kW4a8Tc).
+// The row quantization, then the dot kernel `kernel` (kSimt or kTc).
 template <typename T>
 void launch_w4a8(const void* x, const void* q4, const float* scale, int8_t* xq, float* ax,
                  void* out, int rows, int n, int k, int g, int kernel, cudaStream_t s) {
   quantize_rows_kernel<T><<<rows, kQuantThreads, 0, s>>>(static_cast<const T*>(x), xq, ax, k);
   const uint8_t* w = static_cast<const uint8_t*>(q4);
   T* o = static_cast<T*>(out);
-  if (kernel == kW4a8Tc) {
+  if (kernel == kTc) {
     const int g2 = g / 2;
     if (g2 % 64 == 0)
       launch_w4a8_tc<T, 16>(xq, ax, w, scale, o, rows, n, k, g, s);
@@ -908,9 +1115,31 @@ int dispatch(bool int4, const void* x, const void* w, const void* scale, void* o
 
 }  // namespace
 
+// kernel -1 routes by shape (int8_tc_takes: the tensor-core kernel, else the
+// CUDA-core one); 0 (CUDA cores) or 1 (tensor cores) asks for that kernel,
+// and a kernel that does not take the call is an error. *launched is set to
+// the kernel launched, or -1 where none was (no rows or no columns, or an
+// error).
 extern "C" int l32_gemv_int8(const void* x, const void* q, const void* scale, void* out,
-                             int rows, int n, int k, int dtype, void* stream) {
-  return dispatch(false, x, q, scale, out, rows, n, k, 0, dtype, stream);
+                             int rows, int n, int k, int dtype, int kernel, int* launched,
+                             void* stream) {
+  *launched = -1;
+  if (rows == 0 || n == 0) return 0;
+  if (rows > 32 || (dtype != L32_BF16 && dtype != L32_F32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool tc = int8_tc_takes(x, q, k, dtype);
+  if (kernel == kRouted) kernel = tc ? kTc : kSimt;
+  if (kernel != kSimt && !(kernel == kTc && tc)) return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (kernel == kTc) {
+    launch_int8_tc(x, q, static_cast<const float*>(scale), out, rows, n, k,
+                   static_cast<cudaStream_t>(stream));
+    err = static_cast<int>(cudaGetLastError());
+  } else {
+    err = dispatch(false, x, q, scale, out, rows, n, k, 0, dtype, stream);
+  }
+  if (!err) *launched = kernel;
+  return err;
 }
 
 extern "C" int l32_gemv_int4(const void* x, const void* q4, const void* scale, void* out,
@@ -932,8 +1161,8 @@ extern "C" int l32_gemv_int4_w4a8(const void* x, const void* q4, const void* sca
   if (g <= 0 || g % 2 || k % g || rows > 32 || (dtype != L32_BF16 && dtype != L32_F32))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool tc = w4a8_tc_takes(q4, xq, g);
-  if (kernel == kW4a8Routed) kernel = tc ? kW4a8Tc : kW4a8Simt;
-  if (kernel != kW4a8Simt && !(kernel == kW4a8Tc && tc))
+  if (kernel == kRouted) kernel = tc ? kTc : kSimt;
+  if (kernel != kSimt && !(kernel == kTc && tc))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);

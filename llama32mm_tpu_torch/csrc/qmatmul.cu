@@ -335,15 +335,9 @@ struct Geom {
 };
 
 // Two exact bf16 values from two int8 bytes of w (sel picks them, zero
-// bytes between): 0x4300 | (v & 0x7F) is 128 + (v & 0x7F), and subtracting
-// 128 (v >= 0) or 256 (v < 0: 0x4300 | 0x80) leaves v, an exact bf16 sum.
+// bytes between; int8x2_bf16x2 in common.cuh).
 __device__ __forceinline__ uint32_t int8x2_bf16x2(uint32_t w, uint32_t sel) {
-  const uint32_t a = __byte_perm(w, 0, sel);
-  const uint32_t m = (a & 0x007F007Fu) | 0x43004300u;
-  const uint32_t s = (a & 0x00800080u) | 0x43004300u;
-  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
-                             *reinterpret_cast<const __nv_bfloat162*>(&s));
-  return *reinterpret_cast<uint32_t*>(&r);
+  return ::int8x2_bf16x2(__byte_perm(w, 0, sel));
 }
 
 // float(u - 8) * s rounded once in fp32, for the nibble u at bit P (<= 12)

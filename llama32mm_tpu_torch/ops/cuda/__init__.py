@@ -42,6 +42,8 @@ from llama32mm_tpu_torch.ops.cuda.qgemv import (
     gemv_int4_w4a8_tc_cuda,
     gemv_int8_cuda,
     gemv_int8_plain,
+    gemv_int8_simt_cuda,
+    gemv_int8_tc_cuda,
 )
 from llama32mm_tpu_torch.ops.cuda.qmatmul import (
     qmatmul_cuda,
@@ -77,7 +79,7 @@ KERNELS = {
     "gemv": (gemv_simt_cuda, gemv_plain),
     "swiglu": (fused_swiglu_wmma_cuda, fused_swiglu_plain),
     "flash_attention": (flash_attention_cuda, flash_attention_plain),
-    "gemv_int8": (gemv_int8_cuda, gemv_int8_plain),
+    "gemv_int8": (gemv_int8_simt_cuda, gemv_int8_plain),
     "gemv_int4": (gemv_int4_cuda, gemv_int4_plain),
     "qmatmul": (qmatmul_wmma_cuda, qmatmul_plain),
     "flash_attention_int8kv": (flash_attention_int8kv_cuda, flash_attention_int8kv_plain),
@@ -103,6 +105,7 @@ KERNELS = {
     "swiglu_bwd_tc": (fused_swiglu_bwd_tc_cuda, fused_swiglu_bwd_plain),
     "swiglu_rows_tc": (fused_swiglu_rows_tc_cuda, fused_swiglu_plain),
     "gemv_int4_w4a8_tc": (gemv_int4_w4a8_tc_cuda, gemv_int4_w4a8_plain),
+    "gemv_int8_tc": (gemv_int8_tc_cuda, gemv_int8_plain),
 }
 
 
@@ -120,7 +123,8 @@ def plain_counts() -> dict:
     """Each plain version's calls, once, under the first name KERNELS gives it
     (``qmatmul`` and ``qmatmul_tc`` share one, as do ``gemv`` and ``gemv_tc``,
     ``swiglu``, ``swiglu_tc`` and ``swiglu_rows_tc``, ``swiglu_bwd`` and
-    ``swiglu_bwd_tc``, ``gemv_int4_w4a8`` and ``gemv_int4_w4a8_tc``)."""
+    ``swiglu_bwd_tc``, ``gemv_int4_w4a8`` and ``gemv_int4_w4a8_tc``,
+    ``gemv_int8`` and ``gemv_int8_tc``)."""
     names = {}
     for name, (_, plain) in KERNELS.items():
         names.setdefault(plain, name)

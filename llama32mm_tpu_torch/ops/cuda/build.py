@@ -130,8 +130,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # (q, k, v, k_scale, v_scale, kv_valid, q_offsets|NULL, out, b, nq, nkv, tq, tk, hd,
         #  q_offset, causal, dtype, stream)
         "l32_flash_attn_fwd_int8kv": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
-        # (x, q, scale, out, rows, n, k, dtype, stream)
-        "l32_gemv_int8": [p, p, p, p, i, i, i, i, p],
+        # (x, q, scale, out, rows, n, k, dtype, kernel (-1: routed, 0: CUDA cores, 1: tensor
+        #  cores), launched kernel (out), stream)
+        "l32_gemv_int8": [p, p, p, p, i, i, i, i, i, p, p],
         # (x, q4, scale, out, rows, n, k, group, dtype, stream)
         "l32_gemv_int4": [p, p, p, p, i, i, i, i, i, p],
         # (x, q4, scale, xq, ax, out, rows, n, k, group, dtype, kernel (-1: routed, 0: CUDA

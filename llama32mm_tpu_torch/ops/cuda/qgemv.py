@@ -6,7 +6,12 @@ nn.Linear's ``[N, K]`` orientation.
   ``scale [N]``; ``out = (x @ q.T) * scale``, the scale applied once to the
   fp32 sum. Replaces ``_qstacked_kernel`` (``int8_gemv_stacked_pallas``)
   and ``_qkernel`` (``int8_gemv_pallas``) of
-  ``llama32mm_tpu/ops/pallas/gemv.py``.
+  ``llama32mm_tpu/ops/pallas/gemv.py``. ``gemv_int8_cuda`` is the entry the
+  model calls: ``l32_gemv_int8`` routes the call by its shape to the
+  tensor-core kernel (``mma.sync``; bf16 x, K a multiple of 64,
+  16-byte-aligned x and q) or else to the CUDA-core one, and reports which it
+  launched; ``gemv_int8_tc_cuda`` and ``gemv_int8_simt_cuda`` count those
+  launches and, called directly, force their own kernel.
 - int4 W4A16 (``gemv_int4_*``): ``q4 [N, K/2] uint8`` in the split-half
   per-group nibble packing with the ``u = q + 8`` offset and fp32
   ``scale [N, K/g]``; ``out = x @ dequant(q4, scale).T``. Replaces
@@ -65,19 +70,40 @@ def _gemv_rows(x, q, scale, packed: bool):
     return rows, n, k, g
 
 
-@counted("launches")
-def gemv_int8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``(x [..., K] @ q.T) * scale`` for ``q [N, K] int8``, at most 32 rows
-    of x, fp32 accumulation, output in x's dtype."""
+def _int8(x, q, scale, kernel: int) -> torch.Tensor:
     rows, n, k, _ = _gemv_rows(x, q, scale, packed=False)
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    launched = ctypes.c_int(-1)
     status = load_library().l32_gemv_int8(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, n, k,
-        dtype_code(x), stream_of(x),
+        dtype_code(x), kernel, ctypes.byref(launched), stream_of(x),
     )
     check(status, "int8 gemv kernel")
-    gemv_int8_cuda.launches += 1
+    if launched.value == TC:
+        gemv_int8_tc_cuda.launches += 1
+    elif launched.value == SIMT:
+        gemv_int8_simt_cuda.launches += 1
     return out
+
+
+def gemv_int8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``(x [..., K] @ q.T) * scale`` for ``q [N, K] int8``, at most 32 rows
+    of x, fp32 accumulation, output in x's dtype, through the kernel the
+    call's shape routes to."""
+    return _int8(x, q, scale, ROUTED)
+
+
+@counted("launches")
+def gemv_int8_tc_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The tensor-core int8 gemv (``mma.sync``, exact bf16 weights); raises
+    for a call it does not take."""
+    return _int8(x, q, scale, TC)
+
+
+@counted("launches")
+def gemv_int8_simt_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The CUDA-core int8 gemv: any K and alignment, bf16 or fp32 x."""
+    return _int8(x, q, scale, SIMT)
 
 
 @counted("calls")

@@ -21,9 +21,10 @@ import torch
 from llama32mm_tpu_torch.ops.cuda.build import check, load_library
 from llama32mm_tpu_torch.ops.cuda.common import acc_dtype, counted, dtype_code, require, stream_of
 
-# Blocks of the backward kernel: each sums dw over its rows into one row of
-# a [BWD_PARTS, C] fp32 workspace, reduced by a second kernel.
-BWD_PARTS = 256
+# Blocks of the backward kernel (two on each of the H100's 132 SMs): each
+# walks every BWD_PARTS-th row and sums dw over its rows into one row of a
+# [BWD_PARTS, C] fp32 workspace, reduced in a fixed order by a second kernel.
+BWD_PARTS = 264
 
 
 def _launch_fwd(x, weight, eps, residual, train: bool):

@@ -1,8 +1,9 @@
 """Device time of the decode gemvs on one NVIDIA GPU, beside PyTorch's
 calls on the same weights:
 
-    python3 profile_qgemv.py          # the bf16 gemvs, then the int4 gemvs
+    python3 profile_qgemv.py          # the bf16 gemvs, the int8 gemvs, then the int4 gemvs
     python3 profile_qgemv.py --bf16   # the bf16 gemvs alone
+    python3 profile_qgemv.py --int8   # the int8 gemvs alone
     python3 profile_qgemv.py --int4   # the int4 gemvs alone
 
 bf16: the decode linears of Llama-3.2-11B-Vision, ``lm_head`` (N=128256,
@@ -11,6 +12,13 @@ K=4096), ``W_query`` (N=4096, K=4096), ``W_key`` (N=1024, K=4096) and
 times the tensor-core gemv (``gemv_tc_cuda``, what ``gemv_cuda`` routes
 these shapes to), the CUDA-core gemv (``gemv_simt_cuda``) and ``F.linear``
 on the same tensors (a yardstick the port never calls).
+
+int8: the same four shapes and ``w_gate`` (N=14336, K=4096) with int8
+weights and per-channel scales (``quantize_weight``), the int8 head among
+them, at R = 1, 8, 16 and 32. For each it times the tensor-core int8 gemv
+(``gemv_int8_tc_cuda``, what ``gemv_int8_cuda`` routes these shapes to), the
+CUDA-core one (``gemv_int8_simt_cuda``) and ``torch._weight_int8pack_mm`` on
+the same weights (a yardstick the port never calls).
 
 int4: the shapes of the int4-mixed decode path (g=128), the untied int4
 head (R=1, N=128256, K=4096) and ``w_gate`` (N=14336, K=4096) at R = 1, 8,
@@ -30,8 +38,8 @@ number is device time. A decode step reads each layer's weights once, so
 they come from device memory, not from the 50 MB L2: a shape whose weights
 are smaller than 150 MB is held in several copies, and the calls cycle
 through them. Then ``torch.profiler`` lists the kernels of the tensor-core
-(bf16), W4A16 and tensor-core W4A8 (int4) calls with their device time. The
-last line is one JSON object with every time.
+(bf16 and int8), W4A16 and tensor-core W4A8 (int4) calls with their device
+time. The last line is one JSON object with every time.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from llama32mm_tpu_torch.ops import cuda as kernels
-from llama32mm_tpu_torch.ops.quant import quantize_weight_int4
+from llama32mm_tpu_torch.ops.quant import quantize_weight, quantize_weight_int4
 
 REPS = 20
 L2_SPAN = 150e6  # bytes the copies of one shape's weights cover, 3x the L2
@@ -67,6 +75,7 @@ BF16_SHAPES = {  # label: (N, K)
     "w_down N=4096 K=14336": (4096, 14336),
 }
 BF16_ROWS = (1, 8, 16, 32)
+INT8_SHAPES = dict(BF16_SHAPES, **{"w_gate N=14336 K=4096": (14336, 4096)})
 
 
 def device_ms(fns) -> float:
@@ -130,6 +139,46 @@ def profile_bf16(dev, gen) -> dict:
     return results
 
 
+def profile_int8(dev, gen) -> dict:
+    """The int8 gemvs at ``INT8_SHAPES`` x ``BF16_ROWS``, as the module
+    docstring says."""
+    results = {}
+    for label, (n, k) in INT8_SHAPES.items():
+        copies = []
+        for _ in range(max(1, math.ceil(L2_SPAN / (n * k + 4 * n)))):
+            qw = quantize_weight((torch.randn(n, k, generator=gen, device=dev) * 0.02)
+                                 .to(torch.bfloat16))
+            copies.append((qw["q"], qw["scale"]))
+        scales = [sc.to(torch.bfloat16) for _, sc in copies]  # _weight_int8pack_mm's
+        for rows in BF16_ROWS:
+            x = torch.randn(rows, k, generator=gen, device=dev).to(torch.bfloat16)
+            args = (x, *copies[0])
+            want = kernels.gemv_int8_plain(*args)
+            bound_ms, bound_by = cs.bound("gemv_int8_tc", args, want)
+            calls = {
+                "gemv_int8_tc": [partial(kernels.gemv_int8_tc_cuda, x, q, sc) for q, sc in copies],
+                "gemv_int8 (CUDA cores)": [partial(kernels.gemv_int8_simt_cuda, x, q, sc)
+                                           for q, sc in copies],
+                "_weight_int8pack_mm": [partial(torch._weight_int8pack_mm, x, q, sc)
+                                        for (q, _), sc in zip(copies, scales)],
+            }
+            err, scale = cs.max_err(kernels.gemv_int8_tc_cuda(*args), want)
+            row = {"bound_ms": bound_ms, "bound_by": bound_by, "copies": len(copies)}
+            print(f"== int8 {label} R={rows}: bound {bound_ms:.6g} ms ({bound_by}), "
+                  f"{len(copies)} weight copies; gemv_int8_tc max_abs_err vs plain {err:.6g} "
+                  f"(max {scale:.6g})")
+            for what, fns in calls.items():
+                ms = device_ms(fns)
+                row[what] = ms
+                print(f"  {what:22s} {ms:.6g} ms  (share of bound {bound_ms / ms:.4g})")
+            for key, us in kernel_rows(calls["gemv_int8_tc"]):
+                print(f"    {us:9.2f} us  {key[:100]}")
+            results[f"{label} R={rows}"] = row
+        del copies, scales
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_qgemv: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -141,9 +190,11 @@ def main() -> int:
     print(f"card: {card}")
     cs.build_library()
     gen = torch.Generator(device=dev).manual_seed(0)
-    bf16 = {} if "--int4" in sys.argv[1:] else profile_bf16(dev, gen)
-    if "--bf16" in sys.argv[1:]:
-        print(json.dumps({"card": card, "bf16_device_ms": bf16}))
+    only = [a for a in sys.argv[1:] if a in ("--bf16", "--int8", "--int4")]
+    bf16 = profile_bf16(dev, gen) if not only or "--bf16" in only else {}
+    int8 = profile_int8(dev, gen) if not only or "--int8" in only else {}
+    if only and "--int4" not in only:
+        print(json.dumps({"card": card, "bf16_device_ms": bf16, "int8_device_ms": int8}))
         return 0
     results = {}
     weights = {}  # (N, K, g) -> list of (q4, scale) copies
@@ -184,7 +235,8 @@ def main() -> int:
                 print(f"    {us:9.2f} us  {key[:100]}")
         results[label] = row
         del packed, calls
-    print(json.dumps({"card": card, "bf16_device_ms": bf16, "device_ms": results}))
+    print(json.dumps({"card": card, "bf16_device_ms": bf16, "int8_device_ms": int8,
+                      "device_ms": results}))
     return 0
 
 

@@ -1,10 +1,12 @@
 """Profile one decode chunk of the continuous-batching server on one NVIDIA
 GPU with every slot busy: the ``server_bf16`` and ``server_int4_w4a8``
 configurations of ``chip_smoke.py`` (11B shapes, S_max 2048, 8 image
-requests of S = 1632 admitted together), and the bf16 model with one slot
-and one request (a B=1 decode step).
+requests of S = 1632 admitted together), and with one slot and one request
+(a B=1 decode step) the bf16 model and its copy quantized to int8 with the
+int8 KV cache (the int8 generate of ``chip_smoke.py``).
 
-    python3 profile_serve.py
+    python3 profile_serve.py              # all four
+    python3 profile_serve.py --quantized  # the int8 one-slot step and server_int4_w4a8
 
 For each it admits the requests (one ``step()``), then, as
 ``profile_train.py`` does for a training step, times one 8-step decode chunk
@@ -52,12 +54,19 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     cs.build_library()
-    cfg, model = cs.build_11b(dev, tie_weights=True)
-    profile_chunk(dev, cfg, model, f"server_bf16, one {STEPS}-step decode chunk")
-    profile_chunk(dev, cfg, model, f"bf16, one slot (B=1), one {STEPS}-step decode chunk", slots=1)
-    del model
-    torch.cuda.empty_cache()
+    if "--quantized" not in sys.argv[1:]:
+        cfg, model = cs.build_11b(dev, tie_weights=True)
+        profile_chunk(dev, cfg, model, f"server_bf16, one {STEPS}-step decode chunk")
+        profile_chunk(dev, cfg, model, f"bf16, one slot (B=1), one {STEPS}-step decode chunk",
+                      slots=1)
+        del model
+        torch.cuda.empty_cache()
     cfg, model = cs.build_11b(dev, tie_weights=False)
+    qmodel = quantize_llama_params(model, bits=8)
+    profile_chunk(dev, cfg, qmodel, f"int8, one slot (B=1), one {STEPS}-step decode chunk",
+                  kv_dtype="int8", slots=1)
+    del qmodel
+    torch.cuda.empty_cache()
     qmodel = quantize_llama_params(model, bits=4, group_size=128, recipe=INT4_MIXED_RECIPE,
                                    free_originals=True)
     gemv_mod._INT4_VARIANT = "w4a8"

@@ -40,7 +40,8 @@ CATEGORIES = (
     ("swiglu_rows", "swiglu rows (decode)"), ("swiglu", "swiglu (wmma tile, loop)"),
     ("gemv_w4a8_tc", "W4A8 gemv (tensor cores)"),
     ("gemv_w4a8", "W4A8 gemv"), ("quantize_rows", "W4A8 row quantize"),
-    ("gemv_int8", "int8 gemv"), ("gemv_int4", "int4 gemv"),
+    ("gemv_int8_tc", "int8 gemv (tensor cores)"), ("gemv_int8", "int8 gemv (CUDA cores)"),
+    ("gemv_int4", "int4 gemv"),
     ("gemv_bf16_tc", "bf16 gemv (tensor cores)"), ("gemv_kernel", "bf16 gemv (CUDA cores)"),
     ("qmatmul", "qmatmul"), ("scatter", "cache writes (scatter)"),
     ("nvjet", "GEMM (cuBLAS)"), ("gemm", "GEMM (cuBLAS)"), ("xmma", "GEMM (cuBLAS)"),

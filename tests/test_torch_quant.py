@@ -128,6 +128,37 @@ def test_int8_gemv_plain_matches_pallas(rows, pallas_fn):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("k", [128, 100])  # a multiple of the kernel's 64-k span; ragged
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 16, 17, 32])  # the kernel's row tiles: 8, 16, 32
+@pytest.mark.parametrize("pallas_fn", ["int8_gemv_pallas", "int8_gemv_stacked_pallas"])
+def test_int8_gemv_plain_matches_pallas_bf16(pallas_fn, rows, k):
+    """bf16 x, as the decode path gives the int8 gemv. Which kernel runs is
+    decided in C (``l32_gemv_int8``: the tensor-core kernel for bf16 x with K a
+    multiple of 64 and 16-byte-aligned x and q, else the CUDA-core one) and
+    cannot be tested here, where ``qlinear`` runs ``gemv_int8_plain`` at
+    every shape; ``chip_smoke.py`` checks the routing on the card. Tolerance
+    2^-7 of the largest output: the plain version rounds the product to bf16
+    before the scale and the scaled result again, Pallas once (each rounding
+    at most 2^-9 relative, and an output's scale below the largest one's)."""
+    rs = np.random.RandomState(5)
+    n, layers = 200, 2
+    ws = _rand(rs, layers, k, n, scale=0.1)
+    x = _rand(rs, rows, k)
+    jqw = [jq.quantize_weight(jnp.asarray(w)) for w in ws]
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    if pallas_fn == "int8_gemv_pallas":
+        want = int8_gemv_pallas(xj, jqw[1]["q"], jqw[1]["scale"])
+    else:
+        want = int8_gemv_stacked_pallas(xj, jnp.stack([q["q"] for q in jqw]),
+                                        jnp.stack([q["scale"] for q in jqw]), 1)
+    want = np.asarray(want.astype(jnp.float32))
+    kernels.reset_counters()
+    got = qlinear(torch.from_numpy(x).to(torch.bfloat16), quantize_weight(_port(ws[1])))
+    assert got.dtype == torch.bfloat16 and kernels.plain_counts()["gemv_int8"] == 1
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2.0 ** -7 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("g", [32, 64, 256])  # 256 = K: per-channel
 @pytest.mark.parametrize("rows", [1, 7, 8, 9, 32])  # the kernel's row tiles: 8, 16, 32
 @pytest.mark.parametrize("variant", ["post", "pre"])

@@ -65,6 +65,34 @@ def test_rmsnorm_grads_match_pallas_vjp(shape, with_residual):
         assert torch.equal(rt.grad, xt.grad)  # x and the residual share dt
 
 
+@pytest.mark.parametrize("rows", [1, 7, 33, 130])  # not multiples of the kernel's rows in flight
+@pytest.mark.parametrize("frozen", [True, False])
+def test_rmsnorm_bwd_row_counts_match_pallas_vjp(rows, frozen):
+    """The backward at row counts that leave the kernel's blocks uneven (it
+    walks every P-th row, D rows in flight), with the weight trained (``dw``
+    summed over the rows) or frozen, as the LoRA step's norms are: no ``dw``
+    is asked for, and dt, the gradient of x and of the residual, still
+    equals the Pallas VJP's."""
+    rs = np.random.RandomState(rows)
+    c, eps = 96, 1e-5
+    x, res, g = _rand(rs, rows, c), _rand(rs, rows, c), _rand(rs, rows, c)
+    w = _rand(rs, c) + 1.0
+    _, vjp = jax.vjp(lambda a, b, e: fused_add_rmsnorm_pallas(a, b, e, eps),
+                     jnp.asarray(x), jnp.asarray(w), jnp.asarray(res))
+    dx_j, dw_j, dres_j = vjp(jnp.asarray(g))
+    xt, rt = _leaf(x), _leaf(res)
+    wt = torch.tensor(w) if frozen else _leaf(w)
+    kernels.reset_counters()
+    fused_add_rmsnorm(xt, wt, eps, residual=rt, impl="torch").backward(torch.from_numpy(g))
+    assert kernels.plain_counts()["rmsnorm_bwd"] == 1
+    _close(xt.grad, dx_j)
+    _close(rt.grad, dres_j)
+    if frozen:
+        assert wt.grad is None
+    else:
+        _close(wt.grad, dw_j)
+
+
 @pytest.mark.parametrize("r,h,i", [(1, 64, 128), (10, 96, 200), (33, 128, 384)])
 def test_swiglu_grads_match_pallas_vjp(r, h, i):
     rs = np.random.RandomState(1)
