@@ -57,7 +57,24 @@
    GiB and how many requests equal a solo engine run; and, as information,
    a B=1 generate A/B of the W4A8 and W4A16 int4 gemvs;
 11. the ``swiglu_down`` op over the 40 layers' FFN weights of the bf16
-   model at R=1, against and beside the unfused SwiGLU + gemv pair.
+   model at R=1, against and beside the unfused SwiGLU + gemv pair;
+12. speculative decoding: on the tiny fp32 model, prompt lookup (K=3) and
+   a seeded one-layer draft (K=3) give the plain engine's tokens on the
+   kernel and the plain path, lookup accepts on a cyclic continuation, and
+   the spec server (K=3, staggered submits) gives each request the solo
+   engine's tokens; at 11B in bf16, ``bf16_spec_lookup`` (K=4) and
+   ``bf16_spec_draft`` (K=4, a random draft at Llama-3.2-1B's published
+   widths) generate 64 tokens after the smoke's image and 32 text ids that
+   hold a 16-id phrase twice, each with its exact launches (the target's
+   201 tensor-core gemvs, 40 SwiGLU rows calls and 40 flash decodes a
+   verify step, the draft's R = 1 steps on top), 1-63 verify steps and no
+   plain call; a self-draft (the 11B's own decoder, a text-only prompt)
+   the same; ``server_bf16_spec`` serves the ``server_bf16`` traffic with
+   K=3 (32 verify rows: the gemv and the TMA SwiGLU tile), with its exact
+   launches. Each prints TTFT or ms a verify step, tokens/s, tokens a
+   step and, as information, how many leading tokens equal the plain
+   path's (random weights give near-tied logits, and a verify's bits may
+   differ from a decode step's).
 
 The flash forward runs as three kernels: the tensor-core forward for bf16
 calls with many query rows (prefill, the ViT, training), the split-KV decode
@@ -113,6 +130,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -126,6 +144,8 @@ from llama32mm_tpu_torch.configs import (
 )
 from llama32mm_tpu_torch.inference.engine import InferenceEngine, structured_prefill_mask
 from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
+from llama32mm_tpu_torch.models import language as language_mod
+from llama32mm_tpu_torch.models.language import CausalLM
 from llama32mm_tpu_torch.models.vlm import init_vlm, vlm_forward
 from llama32mm_tpu_torch.ops import cuda as kernels
 from llama32mm_tpu_torch.ops import gemv as gemv_mod
@@ -263,6 +283,14 @@ PATH_KERNELS = {
     "server_bf16": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
     "server_int4_w4a8": SERVER_INT4_KERNELS,
     "swiglu_down_op": ("swiglu_down",),
+    # speculative decoding: the (K+1)-row verifies (K+1 <= 8 rows on the SwiGLU
+    # rows kernel; the 8-slot server's 32 rows on the TMA tile) and the draft's
+    # R = 1 steps
+    "bf16_spec_lookup": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
+    "bf16_spec_draft": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
+    "server_bf16_spec": ("rmsnorm", "gemv_tc", "swiglu_tc") + BF16_ATTN,
+    "server_bf16_spec_rows": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
+    "bf16_spec_self_draft": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
 }
 # The kernels each training path must launch: the fp32 tiny model's flash
 # forward with the LSE and backward are the SIMT kernels, the bf16 models'
@@ -542,8 +570,36 @@ def kernel_cases(dev, gen):
         ("flash_attention_tc_int8kv", "hd=8 nq=4 nkv=2 Tq=70 Tk=90 q_offset=20 causal",
          (rnd(1, 4, 70, 8), *kv8(1, 2, 90, 8), valid(1, 90, 90), 20, True), False),
     ]
-    return (cases + int8_gemv_cases(rnd, q8) + server_kernel_cases(rnd, q4, q4_stepped, kv8)
-            + training_kernel_cases(rnd, valid))
+    return (cases + spec_kernel_cases(rnd, valid) + int8_gemv_cases(rnd, q8)
+            + server_kernel_cases(rnd, q4, q4_stepped, kv8) + training_kernel_cases(rnd, valid))
+
+
+def spec_kernel_cases(rnd, valid):
+    """The shapes speculative decoding adds: the 8-slot server's verify (K=3,
+    32 rows) through the gemv and the TMA SwiGLU tile, and the Llama-3.2-1B-
+    width draft (hidden 2048, FFN 8192, head dim 64): its R=1 linears and
+    head, its decode SwiGLU rows, its prefill tile and prefill attention.
+    (The B=1 verify's K+1 = 5 rows are the R=5 cases above; the verify's
+    flash decode shapes are with the decode cases.)"""
+    h, inter, vocab, dh, dinter = 4096, 14336, 128256, 2048, 8192
+    return [
+        ("gemv_tc", "server verify W_query R=32 N=4096 K=4096",
+         (rnd(32, h), rnd(h, h, scale=0.02)), False),
+        ("gemv_tc", "server verify w_down R=32 N=4096 K=14336",
+         (rnd(32, inter), rnd(h, inter, scale=0.01)), False),
+        ("gemv_tc", "1B draft lm_head R=1 N=128256 K=2048", (rnd(1, dh), rnd(vocab, dh)), False),
+        ("gemv_tc", "1B draft w_down R=1 N=2048 K=8192",
+         (rnd(1, dinter), rnd(dh, dinter, scale=0.01)), False),
+        ("swiglu_tc", "server verify R=32 H=4096 I=14336",
+         (rnd(32, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), False),
+        ("swiglu_tc", "1B draft prefill R=1632 H=2048 I=8192",
+         (rnd(1632, dh), rnd(dinter, dh, scale=0.02), rnd(dinter, dh, scale=0.02)), False),
+        ("swiglu_rows_tc", "1B draft decode R=1 H=2048 I=8192",
+         (rnd(1, dh), rnd(dinter, dh, scale=0.02), rnd(dinter, dh, scale=0.02)), False),
+        ("flash_attention_tc", "1B draft prefill nq=32 nkv=8 Tq=1632 Tk=2048 hd=64 causal",
+         (rnd(1, 32, 1632, 64), rnd(1, 8, 2048, 64), rnd(1, 8, 2048, 64),
+          valid(1, 2048, 1632), 0, True), False),
+    ]
 
 
 # The CUDA-core int8 gemv's case whose x starts 2 bytes past a 16-byte
@@ -651,6 +707,13 @@ def decode_kernel_cases(rnd, kv8, kvv, offsets):
     kvv3[0, :6] = 0  # batch row 0, query 0 (position 5) sees no key
     off3 = torch.tensor([5, 40, 80], dtype=torch.int32, device=dev)
     kvv_f = (torch.arange(300, device=dev) <= 250).to(torch.int32)[None].repeat(2, 1)
+    # speculative verifies: B=1 K=4 at q_offset 1700; the 8-slot server's K=3 at
+    # wp = the slot's offset clamped to S-1-K, valid keys below wp and wp..wp+3
+    kvv5 = (torch.arange(2048, device=dev) <= 1704).to(torch.int32)[None]
+    wp = offsets.clamp(max=2048 - 4)
+    karr = torch.arange(2048, device=dev)[None, :]
+    kvv_v = (((kvv != 0) & (karr < wp[:, None].long()))
+             | ((karr >= wp[:, None].long()) & (karr <= wp[:, None].long() + 3))).to(torch.int32)
     cases = []
     for name, kv in (("flash_decode", lambda *sh: (rnd(*sh), rnd(*sh))),
                      ("flash_decode_int8kv", kv8)):
@@ -659,6 +722,12 @@ def decode_kernel_cases(rnd, kv8, kvv, offsets):
              (rnd(8, 32, 1, 128), *kv(8, 8, 2048, 128), kvv, offsets, True), True),
             (name, "decode B=1 Tq=1 Tk=2048 q_offset=1700 hd=128",
              (rnd(1, 32, 1, 128), *kv(1, 8, 2048, 128), kvv1, 1700, True), False),
+            (name, "verify B=1 Tq=5 Tk=2048 q_offset=1700 hd=128",
+             (rnd(1, 32, 5, 128), *kv(1, 8, 2048, 128), kvv5, 1700, True), False),
+            (name, "server verify B=8 Tq=4 per-row q_offset Tk=2048 hd=128",
+             (rnd(8, 32, 4, 128), *kv(8, 8, 2048, 128), kvv_v, wp, True), False),
+            (name, "1B draft decode B=1 nq=32 nkv=8 Tk=2048 q_offset=1700 hd=64",
+             (rnd(1, 32, 1, 64), *kv(1, 8, 2048, 64), kvv1, 1700, True), False),
             (name, "ragged B=3 nq=8 nkv=2 Tq=3 Tk=100 hd=16 per-row q_offset, an empty row",
              (rnd(3, 8, 3, 16), *kv(3, 2, 100, 16), kvv3, off3, True), False),
             (name, "fp32 q B=2 nq=8 nkv=2 Tq=2 Tk=300 q_offset=249 hd=64",
@@ -965,8 +1034,9 @@ def check_routed(name, label, args, got) -> None:
     with the same bits, a second call gives the same bits, each row of a
     multi-row decode call equals its R = 1 call bit for bit (warps split K
     at spans fixed by the weights' shape and are summed in a fixed order),
-    and at R = 1632 rows 0-96 equal an R = 97 call on those rows bit for bit
-    (no split-K, a k order fixed by K, tiles fixed by N)."""
+    and the rows of an R = 1632 call, and of the SwiGLU tile at R <= 32,
+    equal those of an R = 97 call bit for bit (no split-K, a k order fixed
+    by K, tiles fixed by N): rows 0-96 of the one, all of the other."""
     wrapper = kernels.KERNELS[name][0]
     got = got if isinstance(got, tuple) else (got,)
     before = wrapper.launches
@@ -977,16 +1047,20 @@ def check_routed(name, label, args, got) -> None:
                            f"gave other bits")
     log(f"kernel {name} [{label}]: the model's entry launched {name}, the same bits")
     check_same_bits(name, label, wrapper, args, got)
-    x = args[0]
-    if 1 < x.shape[0] <= 32:
+    rows = args[0].shape[0]
+    tile = name == "swiglu_tc"
+    if 1 < rows <= 32 and not tile:
         check_gemv_rows_alone(name, label, wrapper, args, got[0])
-    if x.shape[0] == 1632:
-        # x, and for the backward the cotangent, cut to their first 97 rows
-        part = wrapper(*(a[:97].contiguous() if i in (0, 3) else a for i, a in enumerate(args)))
+    if rows == 1632 or (tile and rows <= 32):
+        # x, and for the backward the cotangent, as 97 rows whose first
+        # min(R, 97) are the case's (repeated where R < 97)
+        n = min(rows, 97)
+        part = wrapper(*(a.repeat(-(-97 // rows), 1)[:97].contiguous() if i in (0, 3) else a
+                         for i, a in enumerate(args)))
         part = part if isinstance(part, tuple) else (part,)
-        if not all(torch.equal(p, g[:97]) for p, g in zip(part, got)):
-            raise RuntimeError(f"{name} [{label}]: rows 0-96 differ from an R=97 call")
-        log(f"kernel {name} [{label}]: rows 0-96 equal the R=97 call bit for bit")
+        if not all(torch.equal(p[:n], g[:n]) for p, g in zip(part, got)):
+            raise RuntimeError(f"{name} [{label}]: rows 0-{n - 1} differ from an R=97 call")
+        log(f"kernel {name} [{label}]: rows 0-{n - 1} equal the R=97 call bit for bit")
 
 
 def compare_kernels(dev, only=None) -> dict:
@@ -1150,6 +1224,87 @@ def check_tiny_server(dev) -> None:
         f"tensor-core w4a8 launches {launches['gemv_int4_w4a8_tc']}")
     if not torch.equal(res["cuda"], res["torch"]) or launches["gemv_int4_w4a8_tc"] == 0:
         raise RuntimeError("tiny int4 w4a8: kernel path and plain path disagree (or no launch)")
+
+
+def tiny_draft(cfg, dev):
+    """A seeded one-layer draft over the tiny vocabulary (head dim 16)."""
+    tc = cfg.text_config
+    dcfg = LLAMA32Config(vocab_size=tc.vocab_size, hidden_size=32, n_heads=2, n_layers=1,
+                         hidden_dim=48, n_kv_groups=1, dtype=tc.dtype,
+                         max_cache_length=tc.max_cache_length)
+    draft = CausalLM(dcfg, dev, dcfg.torch_dtype)
+    with torch.no_grad():
+        draft.init_(torch.Generator(device=dev).manual_seed(7))
+    return draft, dcfg
+
+
+def check_tiny_spec(dev) -> None:
+    """On the tiny fp32 model: prompt lookup (K=3) and a seeded one-layer
+    draft (K=3) give the plain engine's tokens and ``num_generated``, on the
+    kernel path (no plain version called) and on the plain path; on the
+    first of a few text prompts whose continuation cycles, lookup accepts
+    (fewer verify steps than tokens); the spec server (K=3, 2 slots, a third
+    request submitted after one step) gives each request the solo engine's
+    tokens. Any difference raises."""
+    cfg = tiny_mllama_config(max_cache_length=96)
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    draft, dcfg = tiny_draft(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ids = torch.randint(0, 240, (1, 12), generator=gen, device=dev)
+    ids[:, :4] = cfg.image_token_index
+    px = torch.randn(1, 3, 28, 28, generator=gen, device=dev)
+    specs = {"lookup": dict(spec_lookup=3),
+             "draft": dict(spec_draft=3, draft_params=draft, draft_config=dcfg)}
+    for impl in ("cuda", "torch"):
+        want = InferenceEngine(model, cfg, dev, impl=impl).generate(ids, px, max_new_tokens=24)
+        for kind, spec in specs.items():
+            kernels.reset_counters()
+            got = InferenceEngine(model, cfg, dev, impl=impl, **spec).generate(
+                ids, px, max_new_tokens=24)
+            plain_calls = {k: n for k, n in kernels.plain_counts().items() if n}
+            log(f"tiny fp32 spec {kind} impl={impl}: tokens {got.tokens.tolist()} "
+                f"({int(got.steps)} verify steps), plain engine {want.tokens.tolist()}")
+            if not (torch.equal(got.tokens, want.tokens)
+                    and torch.equal(got.num_generated, want.num_generated)):
+                raise RuntimeError(f"tiny spec {kind} (impl {impl}) differs from the plain engine")
+            if impl == "cuda" and plain_calls:
+                raise RuntimeError(f"tiny spec {kind}: the kernel path ran plain {plain_calls}")
+    accepted = None
+    for seed in range(6):
+        text = torch.randint(0, 240, (1, 9), generator=torch.Generator(device=dev).manual_seed(
+            10 + seed), device=dev)
+        want = InferenceEngine(model, cfg, dev).generate(text, max_new_tokens=48)
+        got = InferenceEngine(model, cfg, dev, spec_lookup=4).generate(text, max_new_tokens=48)
+        if not torch.equal(got.tokens, want.tokens):
+            raise RuntimeError(f"tiny spec lookup (prompt seed {10 + seed}) differs")
+        if int(got.steps) < 47:
+            accepted = (10 + seed, int(got.steps))
+            break
+    log(f"tiny fp32 spec lookup K=4, 48 tokens: (prompt seed, verify steps) {accepted}")
+    if accepted is None:
+        raise RuntimeError("tiny spec lookup accepted no draft on any of 6 prompts")
+    reqs = []
+    for s, max_new, image in ((9, 8, False), (12, 10, True), (14, 6, False)):
+        toks = torch.randint(0, 240, (s,), generator=gen, device=dev)
+        toks[s // 2:] = toks[:s - s // 2].clone()  # a repeated phrase, so drafts hit
+        if image:
+            toks[:4] = cfg.image_token_index
+        reqs.append((toks, px if image else None, max_new))
+    engine = InferenceEngine(model, cfg, dev)
+    want = [engine.generate(r[None], p, max_new_tokens=n).tokens[0].tolist() for r, p, n in reqs]
+    srv = ContinuousBatchingServer(model, cfg, dev, slots=2, prompt_buckets=None,
+                                   steps_per_sync=2, spec_lookup=3)
+    kernels.reset_counters()
+    rids = [srv.submit(r, p, max_new_tokens=n) for r, p, n in reqs[:2]]
+    srv.step()
+    rids += [srv.submit(r, p, max_new_tokens=n) for r, p, n in reqs[2:]]
+    results = srv.run()
+    got = [results[r].tolist() for r in rids]
+    plain_calls = {k: n for k, n in kernels.plain_counts().items() if n}
+    log(f"tiny fp32 spec server K=3: tokens {got} solo engine {want}; {srv.stats()}")
+    if got != want or plain_calls:
+        raise RuntimeError(f"tiny spec server differs from the solo engine, or ran plain "
+                           f"{plain_calls}")
 
 
 def tiny_batch(cfg, dev, gen, b=2, s=12):
@@ -1463,6 +1618,120 @@ def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
     return launches
 
 
+def llama32_1b_draft(dev):
+    """A random-init bf16 draft at Llama-3.2-1B's published widths
+    (``meta-llama/Llama-3.2-1B`` ``config.json``: hidden 2048, 16 layers, 32
+    heads, 8 KV heads, head dim 64, FFN 8192, vocab 128256, tied
+    embeddings), from a seed; RoPE as the 11B config's."""
+    dcfg = LLAMA32Config(vocab_size=128256, hidden_size=2048, n_heads=32, n_layers=16,
+                         hidden_dim=8192, n_kv_groups=8, dtype="bfloat16")
+    draft = CausalLM(dcfg, dev, dcfg.torch_dtype)
+    with torch.no_grad():
+        draft.init_(torch.Generator(device=dev).manual_seed(1))
+    return draft, dcfg
+
+
+def spec_prompt(cfg, dev, image: bool = True):
+    """``(ids [1, S], raw image or None)``: the smoke's 560x560 image (1600
+    ``<image>`` ids, S = 1632) or none (S = 32), then 32 text ids in which a
+    seeded 16-id phrase appears twice, so the bigram lookup has matches."""
+    tc, vc = cfg.text_config, cfg.vision_config
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    phrase = torch.randint(0, tc.vocab_size, (1, 16), generator=gen, device=dev)
+    text = torch.cat([phrase, phrase], dim=1)
+    if not image:
+        return text, None
+    return torch.cat([torch.full((1, vc.num_patches), cfg.image_token_index, device=dev),
+                      text], dim=1), raw
+
+
+def spec_launches(tc, k: int, steps: int, prompt_len: int, draft_cfg=None):
+    """``(want, per verify step)``: the exact launches of a bf16 speculative
+    generate. A verify step runs the target's K+1 rows once (5 gemvs a layer
+    and the head, one SwiGLU rows call and one flash decode a layer) and,
+    with a draft, the draft's K+1 R=1 steps (the same a layer, a head on all
+    but the last). The prefills add the target's last-position head and a
+    SwiGLU tile a layer (the draft's too, with no head); a prompt of at most
+    32 rows also runs their 5 linears a layer on the gemv."""
+    per_step = {"gemv_tc": 5 * tc.n_layers + 1, "swiglu_rows_tc": tc.n_layers,
+                "flash_decode": tc.n_layers}
+    prefill = {"gemv_tc": 1 + 5 * tc.n_layers * (prompt_len <= 32), "swiglu_tc": tc.n_layers}
+    if draft_cfg is not None:
+        dl = draft_cfg.n_layers
+        per_step["gemv_tc"] += 5 * dl * (k + 1) + k
+        per_step["swiglu_rows_tc"] += dl * (k + 1)
+        per_step["flash_decode"] += dl * (k + 1)
+        prefill["gemv_tc"] += 5 * dl * (prompt_len <= 32)
+        prefill["swiglu_tc"] += dl
+    want = {name: n * steps + prefill.get(name, 0) for name, n in per_step.items()}
+    return {**want, "swiglu_tc": prefill["swiglu_tc"], "swiglu": 0}, per_step
+
+
+def run_11b_spec(dev, cfg, model, path: str, spec: dict, image: bool = True,
+                 want_tokens=None):
+    """Generate 64 tokens greedily on the 11B model with speculative decoding
+    (``spec``: the engine's spec arguments) from ``spec_prompt``; check 64
+    tokens in the vocabulary, 1-63 verify steps, the exact launches of
+    ``spec_launches`` and no plain call; print TTFT, tokens/s, the verify
+    steps, tokens a step, ms a verify step and how many leading tokens equal
+    the plain engine's on the same prompt (``want_tokens``, or a run of it,
+    timed the same way and printed beside). Returns ``(launches, the plain
+    engine's tokens)``."""
+    tc, vc = cfg.text_config, cfg.vision_config
+    k = spec.get("spec_lookup") or spec["spec_draft"]
+    ids, raw = spec_prompt(cfg, dev, image)
+
+    def generate(engine, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        px = None if raw is None else preprocess_image_device(raw, vc.image_size,
+                                                              dtype=tc.torch_dtype)
+        res = engine.generate(ids, px, max_new_tokens=n, temperature=0.0)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    if want_tokens is None:
+        plain_engine = InferenceEngine(model, cfg, dev, max_cache_length=2048)
+        _, ttft = generate(plain_engine, 1)
+        res, t64 = generate(plain_engine, 64)
+        want_tokens = res.tokens[0].tolist()
+        log(f"[{path}] the plain engine on this prompt: TTFT {ttft * 1e3:.2f} ms; decode "
+            f"{63 / (t64 - ttft):.2f} tok/s, {1e3 * (t64 - ttft) / 63:.4f} ms a step")
+    engine = InferenceEngine(model, cfg, dev, max_cache_length=2048, **spec)
+    generate(engine, 2)  # warm-up: library handles, allocator
+    _, ttft = generate(engine, 1)
+    kernels.reset_counters()
+    res, t64 = generate(engine, 64)
+    launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+    steps, toks = int(res.steps), res.tokens[0].tolist()
+    log(f"[{path}] launches {launches} plain calls {plain_calls}")
+    log(f"[{path}] tokens {toks}")
+    if tuple(res.tokens.shape) != (1, 64) or int(res.num_generated[0]) != 64:
+        raise RuntimeError(f"[{path}] expected 64 tokens, got {tuple(res.tokens.shape)} / "
+                           f"{res.num_generated}")
+    if not bool(((res.tokens >= 0) & (res.tokens < tc.vocab_size)).all()):
+        raise RuntimeError(f"[{path}] generated ids outside the vocabulary")
+    if not 1 <= steps <= 63:
+        raise RuntimeError(f"[{path}] {steps} verify steps for 63 tokens")
+    agree = next((i for i, (a, b) in enumerate(zip(toks, want_tokens)) if a != b), len(toks))
+    decode_s = t64 - ttft
+    log(f"[{path}] K={k} generate 64: {t64:.4f} s; TTFT (preprocess+prefill+first token) "
+        f"{ttft * 1e3:.2f} ms; decode {63 / decode_s:.2f} tok/s (63 tokens after the first); "
+        f"{steps} verify steps, {63 / steps:.4f} tokens a step, {1e3 * decode_s / steps:.4f} ms "
+        f"a verify step; leading tokens equal to the plain engine's {agree}/64; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    want, per_step = spec_launches(tc, k, steps, ids.shape[1], spec.get("draft_config"))
+    log(f"[{path}] exact launches: {per_step} a verify step x {steps} + prefill = {want}")
+    faults = path_faults(path, launches, plain_calls)
+    faults += [f"launched {name} {launches[name]} times, not {n}" for name, n in want.items()
+               if launches[name] != n]
+    if faults:
+        raise RuntimeError(f"[{path}] {faults}")
+    return launches, want_tokens
+
+
 def server_requests(cfg, dev, n: int = 10):
     """Request ``i``: a seeded 560x560 image (1600 ``<image>`` ids) and 32
     seeded text ids (S = 1632), a budget of 64 tokens when ``i`` is even and
@@ -1480,16 +1749,21 @@ def server_requests(cfg, dev, n: int = 10):
     return reqs
 
 
-def run_server(dev, cfg, model, path: str, kv_dtype=None) -> dict:
+def run_server(dev, cfg, model, path: str, kv_dtype=None, spec_lookup: int = 0,
+               tokens: Optional[dict] = None) -> dict:
     """The continuous-batching server at 8 slots, S_max 2048: 10 requests,
     6 submitted, one step, then 4 more, so admissions land mid-decode and in
     freed slots. Checks budgets, ids and the path's kernels (and no plain
     version); prints decode tokens/s, ms per decode step with 8 slots busy,
-    peak GiB, launches and how many requests equal a solo engine run."""
+    peak GiB, launches and how many requests equal a solo engine run. With
+    ``spec_lookup`` a decode step is a verify step of 8 x (K+1) rows; it
+    prints the tokens a step, and compares each request with the plain
+    server's tokens (``tokens["server_bf16"]``) instead. ``tokens`` collects
+    each path's tokens."""
     tc = cfg.text_config
     reqs = server_requests(cfg, dev)
     srv = ContinuousBatchingServer(model, cfg, dev, slots=8, max_cache_length=2048,
-                                   kv_dtype=kv_dtype)
+                                   kv_dtype=kv_dtype, spec_lookup=spec_lookup)
     warm = srv.submit(reqs[0][0], reqs[0][1], max_new_tokens=2)  # handles, allocator
     srv.run()
     srv.release(warm)
@@ -1518,6 +1792,9 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None) -> dict:
     decode_s = sum(c[2] for c in chunks)
     decode_tokens = sum(len(results[r]) for r in rids) - len(rids)
     full = [1e3 * sec / n for n, busy, sec in chunks if busy == 8]
+    if spec_lookup:
+        log(f"[{path}] K={spec_lookup}: {srv.stats()['spec_tokens_per_step']} tokens a slot a "
+            f"verify step (kept tokens only); the steps below are verify steps")
     log(f"[{path}] 10 requests in {wall:.4f} s; {len(chunks)} decode chunks, "
         f"{sum(c[0] for c in chunks)} steps, {decode_s:.4f} s: {decode_tokens} decode tokens, "
         f"{decode_tokens / decode_s:.2f} tok/s aggregate; ms per decode step with 8 slots busy: "
@@ -1539,6 +1816,15 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None) -> dict:
         if launches["gemv_tc"] != want:
             faults.append(f"launched the tensor-core gemv {launches['gemv_tc']} times, not {want}")
         faults += swiglu_faults(launches, tc.n_layers, prefills=len(rids), decode_steps=steps)
+    if path == "server_bf16_spec":  # 8 x (K+1) = 32 rows a verify: the gemv, the TMA tile
+        steps = sum(c[0] for c in chunks)
+        want = {"gemv_tc": (5 * tc.n_layers + 1) * steps + len(rids),
+                "flash_decode": tc.n_layers * steps,
+                "swiglu_tc": tc.n_layers * (steps + len(rids)), "swiglu_rows_tc": 0, "swiglu": 0}
+        log(f"[{path}] exact launches over {steps} verify steps and {len(rids)} prefills: "
+            f"{want}")
+        faults += [f"launched {name} {launches[name]} times, not {n}"
+                   for name, n in want.items() if launches[name] != n]
     if path == "server_int4_w4a8":  # w_gate, w_up and the int4 head each step, each prefill's head
         steps = sum(c[0] for c in chunks)
         want = (2 * tc.n_layers + 1) * steps + len(rids)
@@ -1553,10 +1839,21 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None) -> dict:
         raise RuntimeError(f"[{path}] {faults}")
     if launches["gemv_int4"]:
         raise RuntimeError(f"[{path}] the W4A16 gemv launched {launches['gemv_int4']} times")
+    got = [results[r].tolist() for r in rids]
+    if tokens is not None:
+        tokens[path] = got
+    if spec_lookup:  # information: bits that depend on the rows of a call
+        plain = tokens["server_bf16"]
+        same = sum(a == b for a, b in zip(got, plain))
+        lead = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+                for a, b in zip(got, plain)]
+        log(f"[{path}] requests whose tokens equal the plain server's: {same}/{len(rids)}; "
+            f"leading tokens equal {lead}")
+        return launches
     engine = InferenceEngine(model, cfg, dev, max_cache_length=2048, kv_dtype=kv_dtype,
                              prompt_buckets="auto")
     same = sum(engine.generate(ids[None], px, max_new_tokens=n).tokens[0].tolist()
-               == results[r].tolist() for r, (ids, px, n) in zip(rids, reqs))
+               == got[i] for i, (ids, px, n) in enumerate(reqs))
     log(f"[{path}] requests whose tokens equal a solo InferenceEngine run: {same}/{len(rids)}")
     return launches
 
@@ -1613,15 +1910,53 @@ def run_swiglu_down_op(dev, model) -> dict:
     return launches
 
 
+def spec_server_rows_witness(dev, cfg, model, tokens: dict) -> None:
+    """Information: the ``server_bf16_spec`` traffic again with each
+    verify's SwiGLU (32 rows) run as four 8-row calls of the tensor-core rows
+    kernel, the kernel that every plain decode step's 8 rows take; the log
+    says how many requests then equal the plain server's. The prefills keep
+    the TMA tile."""
+    tiled = language_mod.fused_swiglu
+
+    def rows_swiglu(x, w_gate, w_up, *biases, impl="auto"):
+        flat = x.reshape(-1, x.shape[-1])
+        if flat.shape[0] > 32 or biases:
+            return tiled(x, w_gate, w_up, *biases, impl=impl)
+        out = [kernels.fused_swiglu_rows_tc_cuda(r, w_gate, w_up) for r in flat.split(8)]
+        return torch.cat(out).reshape(*x.shape[:-1], w_gate.shape[0])
+
+    language_mod.fused_swiglu = rows_swiglu
+    try:
+        run_server(dev, cfg, model, "server_bf16_spec_rows", spec_lookup=3, tokens=tokens)
+    finally:
+        language_mod.fused_swiglu = tiled
+
+
 def run_11b_paths(dev) -> dict:
     """The bf16 path (tied head) and its server, then int8 and int4-mixed
     quantized copies of one untied bf16 model, each served from an int8 KV
     cache; the int4-mixed copy also through the server with the W4A8 gemv."""
-    by_path = {}
+    by_path, tokens = {}, {}
     cfg, model = build_11b(dev, tie_weights=True)
     by_path["bf16"] = run_11b(dev, cfg, model, "bf16")
-    by_path["server_bf16"] = run_server(dev, cfg, model, "server_bf16")
+    by_path["server_bf16"] = run_server(dev, cfg, model, "server_bf16", tokens=tokens)
     by_path["swiglu_down_op"] = run_swiglu_down_op(dev, model)
+    by_path["bf16_spec_lookup"], plain = run_11b_spec(dev, cfg, model, "bf16_spec_lookup",
+                                                      dict(spec_lookup=4))
+    draft, dcfg = llama32_1b_draft(dev)
+    by_path["bf16_spec_draft"], _ = run_11b_spec(
+        dev, cfg, model, "bf16_spec_draft", dict(spec_draft=4, draft_params=draft,
+                                                  draft_config=dcfg), want_tokens=plain)
+    del draft
+    torch.cuda.empty_cache()
+    # information: the 11B's own decoder as the draft; a low acceptance points
+    # at bits that depend on the rows of a call (the verify's K+1 against 1)
+    run_11b_spec(dev, cfg, model, "bf16_spec_self_draft",
+                 dict(spec_draft=4, draft_params=model.language_model,
+                      draft_config=cfg.text_config), image=False)
+    by_path["server_bf16_spec"] = run_server(dev, cfg, model, "server_bf16_spec",
+                                             spec_lookup=3, tokens=tokens)
+    spec_server_rows_witness(dev, cfg, model, tokens)
     del model
     torch.cuda.empty_cache()
     cfg, model = build_11b(dev, tie_weights=False)
@@ -1652,6 +1987,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1673,6 +2009,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_tiny_paths_agree(dev)
     check_tiny_server(dev)
+    check_tiny_spec(dev)
     check_tiny_training(dev)
     check_tiny_bf16_lora(dev)
     by_path = run_11b_paths(dev)
@@ -1680,6 +2017,7 @@ def main() -> int:
     by_path["lora_11b"] = run_lora_11b(dev)
     torch.cuda.empty_cache()
     by_path["full_ft_3b"] = run_full_ft_3b(dev)
+    log(f"all phases {time.perf_counter() - t_start:.1f} s")
 
     out = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -7,7 +7,8 @@ numpy arrays (``jax.tree.map(np.asarray, params)``), transposes the linears
 and unstacks the layers; ``to_jax_params`` is its inverse. A tied head is
 ``{"lm_head": {"weight": None}}`` in the JAX tree and ``lm_head = None``
 here. bf16 leaves travel as float32 numpy arrays (numpy has no bf16), which
-is exact.
+is exact. ``causal_lm_from_jax`` does the same for a bare causal-LM tree
+(``init_causal_lm_params``), e.g. a speculative-decoding draft.
 
 LoRA adapter trees have one layout in both packages (``lora_a [L, in, r]``,
 ``lora_b [L, r, out]``, ``scaling [L]`` per target under ``"blocks"``, flat
@@ -29,8 +30,9 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from llama32mm_tpu_torch.configs import MLLAMAConfig
+from llama32mm_tpu_torch.configs import LLAMA32Config, MLLAMAConfig
 from llama32mm_tpu_torch.models.common import QuantLinear
+from llama32mm_tpu_torch.models.language import CausalLM
 from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 from llama32mm_tpu_torch.ops.quant import is_quantized
@@ -42,11 +44,10 @@ Entry = Tuple[torch.Tensor, Tuple[str, ...], Optional[int], bool]
 Slot = Tuple[torch.nn.Module, str, Tuple[str, ...], Optional[int]]
 
 
-def _quantizable(model: MllamaForConditionalGeneration) -> Iterator[Slot]:
-    """The decoder linears and an untied head: the weights
-    ``quantize_llama_params`` may quantize."""
-    lm = model.language_model
-    bp = ("language_model", "model", "blocks")
+def _lm_quantizable(lm: CausalLM, prefix: Tuple[str, ...]) -> Iterator[Slot]:
+    """The decoder linears and an untied head of a causal LM whose JAX tree
+    sits at ``prefix``: the weights ``quantize_llama_params`` may quantize."""
+    bp = prefix + ("model", "blocks")
     for l, blk in enumerate(lm.model.blocks):
         for name in ("W_query", "W_key", "W_value", "out_proj"):
             yield blk.att, name, bp + ("att", name, "weight"), l
@@ -54,7 +55,23 @@ def _quantizable(model: MllamaForConditionalGeneration) -> Iterator[Slot]:
         yield blk.ff, "w_up", bp + ("ff", "swiglu", "w_up"), l
         yield blk.ff, "w_down", bp + ("ff", "w_down", "weight"), l
     if lm.lm_head is not None:
-        yield lm, "lm_head", ("language_model", "lm_head", "weight"), None
+        yield lm, "lm_head", prefix + ("lm_head", "weight"), None
+
+
+def _quantizable(model: MllamaForConditionalGeneration) -> Iterator[Slot]:
+    return _lm_quantizable(model.language_model, ("language_model",))
+
+
+def _lm_entries(lm: CausalLM, prefix: Tuple[str, ...]) -> Iterator[Entry]:
+    mp = prefix + ("model",)
+    yield lm.model.tok_emb, mp + ("tok_emb", "weight"), None, False
+    bp = mp + ("blocks",)
+    for l, blk in enumerate(lm.model.blocks):
+        yield blk.norm1.weight, bp + ("norm1", "weight"), l, False
+        yield blk.norm2.weight, bp + ("norm2", "weight"), l, False
+    yield lm.model.final_norm.weight, mp + ("final_norm", "weight"), None, False
+    for parent, name, path, layer in _lm_quantizable(lm, prefix):  # decoder linears, head
+        yield getattr(parent, name).weight, path, layer, True
 
 
 def _entries(model: MllamaForConditionalGeneration) -> Iterator[Entry]:
@@ -81,20 +98,11 @@ def _entries(model: MllamaForConditionalGeneration) -> Iterator[Entry]:
     yield proj.weight, ("multi_modal_projector", "linear", "weight"), None, True
     yield proj.bias, ("multi_modal_projector", "linear", "bias"), None, False
 
-    lm = model.language_model
-    mp = ("language_model", "model")
-    yield lm.model.tok_emb, mp + ("tok_emb", "weight"), None, False
-    bp = mp + ("blocks",)
-    for l, blk in enumerate(lm.model.blocks):
-        yield blk.norm1.weight, bp + ("norm1", "weight"), l, False
-        yield blk.norm2.weight, bp + ("norm2", "weight"), l, False
-    yield lm.model.final_norm.weight, mp + ("final_norm", "weight"), None, False
-    for parent, name, path, layer in _quantizable(model):  # decoder linears and the head
-        yield getattr(parent, name).weight, path, layer, True
+    yield from _lm_entries(model.language_model, ("language_model",))
 
 
-def _check_supported(tree: dict) -> None:
-    blocks = tree["language_model"]["model"]["blocks"]
+def _check_supported(lm_tree: dict) -> None:
+    blocks = lm_tree["model"]["blocks"]
     if "W_qkv" in blocks.get("att", {}) or "w_gateup" in blocks.get("ff", {}):
         not_in_slice("the fused W_qkv / w_gateup layout (models/fuse.py)")
 
@@ -124,16 +132,35 @@ def _get(tree: dict, path: Tuple[str, ...]):
 def from_jax_params(np_tree: dict, config: MLLAMAConfig, device,
                     dtype: Optional[torch.dtype] = None) -> MllamaForConditionalGeneration:
     """The port's model holding the weights of a JAX parameter tree."""
-    _check_supported(np_tree)
+    _check_supported(np_tree["language_model"])
     tied = np_tree["language_model"]["lm_head"]["weight"] is None
     model = MllamaForConditionalGeneration(config, device, dtype=dtype, tie_weights=tied)
+    _fill(np_tree, _quantizable(model), _entries(model), device)
+    return model
+
+
+def causal_lm_from_jax(np_tree: dict, config: LLAMA32Config, device,
+                       dtype: Optional[torch.dtype] = None) -> CausalLM:
+    """The port's ``CausalLM`` holding a JAX causal-LM tree (``init_causal_lm_params``'s
+    layout, ``{"model": ..., "lm_head": ...}``, tied or untied), e.g. a
+    speculative-decoding draft."""
+    _check_supported(np_tree)
+    tied = np_tree["lm_head"]["weight"] is None
+    lm = CausalLM(config, device, dtype or config.torch_dtype, tie_weights=tied)
+    _fill(np_tree, _lm_quantizable(lm, ()), _lm_entries(lm, ()), device)
+    return lm
+
+
+def _fill(np_tree: dict, quantizable: Iterator[Slot], entries: Iterator[Entry], device) -> None:
+    """Copy the tree's leaves into the module's parameters; quantized leaves
+    replace their linears with ``QuantLinear`` modules first."""
     with torch.no_grad():
-        for parent, name, path, layer in _quantizable(model):
+        for parent, name, path, layer in quantizable:
             leaf = _get(np_tree, path)
             if is_quantized(leaf):
                 shape = getattr(parent, name).weight.shape
                 setattr(parent, name, _quant_linear(leaf, layer, shape, device))
-        for param, path, layer, transposed in _entries(model):
+        for param, path, layer, transposed in entries:
             if isinstance(param, dict):  # a QuantLinear, filled above
                 continue
             arr = np.asarray(_get(np_tree, path))
@@ -145,7 +172,6 @@ def from_jax_params(np_tree: dict, config: MLLAMAConfig, device,
             if tuple(t.shape) != tuple(param.shape):
                 raise ValueError(f"{'/'.join(path)}: shape {tuple(t.shape)}, expected {tuple(param.shape)}")
             param.copy_(t)
-    return model
 
 
 def _set(tree: dict, path: Tuple[str, ...], value) -> None:

@@ -24,6 +24,15 @@
   power of two (the JAX package's ladder, kept so that ``step()`` emits and
   ``stats()`` counts as there): the sampled tokens stay on the device for
   the whole chunk, and one device-to-host copy per chunk brings them back;
+- **speculative decoding** (``spec_lookup=K``): every live slot drafts K
+  tokens by the trailing-bigram lookup over its own token history, one
+  (K+1)-token forward over the pool verifies them, and each slot commits its
+  longest accepted prefix plus one token (``utils/sampling.py::
+  spec_verify_tokens``: greedy slots exact, sampled slots distributed as
+  without speculation). The mask stays structured: a slot's valid keys plus
+  its K+1 new slots ``wp..wp+K``, query offset ``wp``, causal; every
+  committed key lies below ``wp``, so this is the JAX package's dense mask
+  exactly;
 - deadlines (``timeout_s``), cancellation, a bounded queue (``max_queue``,
   ``QueueFullError``), ``release`` of finished records.
 
@@ -33,8 +42,7 @@ Greedy requests produce the tokens of a solo ``InferenceEngine.generate``
 
 Not in this slice (``NotImplementedError``, ROADMAP.md queue 1): prefix
 caching (``register_prefix`` / ``prefix_id``), per-request LoRA adapters
-(``adapter_bank``), speculative decoding (``spec_lookup``) and explicit
-``gemv_routes``.
+(``adapter_bank``) and explicit ``gemv_routes``.
 """
 
 from __future__ import annotations
@@ -58,7 +66,11 @@ from llama32mm_tpu_torch.models.vlm import (
 from llama32mm_tpu_torch.ops.attention import AttnMask
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 from llama32mm_tpu_torch.utils.kvcache import KVCache, init_kv_cache
-from llama32mm_tpu_torch.utils.sampling import presence_from_tokens, select_next_token_traced
+from llama32mm_tpu_torch.utils.sampling import (
+    presence_from_tokens,
+    select_next_token_traced,
+    spec_verify_tokens,
+)
 
 
 class QueueFullError(RuntimeError):
@@ -76,6 +88,8 @@ class BatchState(NamedTuple):
     last_token: torch.Tensor  # [B] int64: the token fed next step
     seq: torch.Tensor  # [B, S] int64: prompt + generated tokens at their true
     # positions (seq[b, rope_pos[b]] == last_token[b]); the penalty's context
+    rope_end: torch.Tensor  # [B] int64: RoPE position of the request's last token
+    # (prompt + budget - 1), where its slot stops committing
 
 
 class _Request:
@@ -134,15 +148,16 @@ class ContinuousBatchingServer:
         gemv_routes="auto",
     ):
         """``prefill_chunk=C``: chunked admission, ``C`` prompt tokens per
-        ``step()``, token for token the same as monolithic admission."""
+        ``step()``, token for token the same as monolithic admission.
+        ``spec_lookup=K``: prompt-lookup speculative decoding, each decode
+        step a (K+1)-token verify; a request then needs K cache slots of
+        headroom past its budget."""
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if spec_lookup < 0:
             raise ValueError(f"spec_lookup must be >= 0, got {spec_lookup}")
-        if spec_lookup:
-            not_in_slice("speculative decoding in the server (spec_lookup)")
         if adapter_bank is not None:
             not_in_slice("multi-LoRA serving (adapter_bank)")
         if gemv_routes not in (None, "auto"):
@@ -164,6 +179,7 @@ class ContinuousBatchingServer:
         self.steps_per_sync = steps_per_sync
         self.prefill_chunk = prefill_chunk
         self.max_queue = max_queue
+        self.spec_lookup = int(spec_lookup)
         self._rng = rng if rng is not None else torch.Generator(self.device).manual_seed(0)
 
         tc, s_max, dev = config.text_config, self.max_cache_length, self.device
@@ -176,6 +192,7 @@ class ContinuousBatchingServer:
                 rope_pos=torch.zeros(slots, dtype=torch.long, device=dev),
                 last_token=torch.zeros(slots, dtype=torch.long, device=dev),
                 seq=torch.zeros(slots, s_max, dtype=torch.long, device=dev),
+                rope_end=torch.zeros(slots, dtype=torch.long, device=dev),
             )
             self._karange = torch.arange(s_max, device=dev)[None, :]
         self._queue: deque[_Request] = deque()
@@ -186,6 +203,8 @@ class ContinuousBatchingServer:
         self._next_id = 0
         self._inflight: Optional[dict] = None  # chunked admission in progress
         self._timeouts = 0
+        self._spec_steps = 0  # live-slot verify steps (spec mode)
+        self._spec_tokens = 0  # tokens those steps committed that their requests kept
 
     # -- device-side pieces ---------------------------------------------------
 
@@ -238,6 +257,7 @@ class ContinuousBatchingServer:
         st.kv_valid[slot] = 0
         st.kv_valid[slot, :s] = 1
         st.rope_pos[slot] = s
+        st.rope_end[slot] = s + req.max_new_tokens - 1
         st.last_token[slot:slot + 1] = first
         st.seq[slot] = 0
         st.seq[slot, :s] = ids_row[0, :s]
@@ -267,7 +287,8 @@ class ContinuousBatchingServer:
     def _admit(self, req: _Request, slot: int) -> None:
         """Monolithic admission: one prefill into the slot's view."""
         s = req.prompt_len
-        bucket = bucketed_len(s, req.max_new_tokens, self.max_cache_length, self.prompt_buckets)
+        bucket = bucketed_len(s, req.max_new_tokens + self.spec_lookup, self.max_cache_length,
+                              self.prompt_buckets)
         ids, pad, px = self._prompt(req, bucket)
         out = vlm_forward(
             self.model, self.config, input_ids=ids, pixel_values=px,
@@ -283,7 +304,7 @@ class ContinuousBatchingServer:
         once; the decoder pass then runs ``prefill_chunk`` tokens per step."""
         s, c = req.prompt_len, self.prefill_chunk
         bucket = -(-s // c) * c
-        if bucket > self.max_cache_length - req.max_new_tokens:
+        if bucket > self.max_cache_length - req.max_new_tokens - self.spec_lookup:
             bucket = s  # chunk alignment would overflow: the last chunk runs ragged
         ids, pad, px = self._prompt(req, bucket)
         tc = self.config.text_config
@@ -324,44 +345,93 @@ class ContinuousBatchingServer:
             self._install(req, slot, first, fl["ids"], bucket)
 
     @torch.inference_mode()
-    def _decode(self, n: int) -> np.ndarray:
-        """``n`` decode steps of every slot; returns the tokens ``[B, n]``
-        (one device-to-host copy)."""
-        st, s_max = self.state, self.max_cache_length
+    def _decode(self, n: int):
+        """``n`` decode steps of every slot: ``(tokens [B, n, T], counts [B,
+        n])`` in one device-to-host copy, step ``i`` having committed the
+        first ``counts[b, i]`` of slot ``b``'s ``T`` tokens.
+
+        Without speculation T = 1: each slot feeds its pending token at its
+        write offset ``wp = pos`` (clamped, so an idle slot writes its own
+        row) and commits the token sampled after it. With ``spec_lookup=K``
+        a step is a verify step, T = K+1: a slot drafts the K tokens that
+        followed the latest earlier occurrence of its trailing bigram in
+        ``seq``; the pool's (K+1)-token forward writes slot ``b``'s entries at
+        ``wp..wp+K`` (``wp`` clamped to ``S-1-K``); each slot commits its
+        accepted prefix plus one token, cut at the first eos. Entries past
+        the commit stay masked until a later step overwrites them. Every
+        commit stops at the request's budget (``rope_end``) and idle slots
+        commit nothing (``_commit``)."""
+        st, s_max, k = self.state, self.max_cache_length, self.spec_lookup
         active, samp = self._slot_args()
         all_greedy = self._all_greedy(self._slot_sampler)
         penalised = self._penalised(self._slot_sampler)
         image_id, vocab = self.config.image_token_index, self.config.text_config.vocab_size
-        cache = st.cache
-        toks = torch.empty(self.slots, n, dtype=torch.long, device=self.device)
+        cache, karange, eos = st.cache, self._karange, self.eos_token_id
+        jr = torch.arange(k + 1, device=self.device)
+        # tokens [B, n, T] and, in the last column, the counts: one copy back
+        out_buf = torch.empty(self.slots, n, k + 2, dtype=torch.long, device=self.device)
         for i in range(n):
-            wp = st.pos.clamp(0, s_max - 1)  # an idle slot writes its own row there
-            new_bit = self._karange == wp[:, None]
-            attend = ((st.kv_valid != 0) | new_bit).to(torch.int32)
+            seq, rp, last = st.seq, st.rope_pos, st.last_token
+            ids = last[:, None]
+            if k:
+                m = ((seq == seq.gather(1, (rp - 1).clamp(0, s_max - 1)[:, None]))
+                     & (seq.roll(-1, dims=1) == last[:, None]) & (karange + 1 < rp[:, None]))
+                start = (torch.where(m, karange, -1).amax(dim=1) + 2).clamp(0, s_max - k)
+                drafts = seq.gather(1, start[:, None] + jr[None, :k])
+                ids = torch.cat([ids, drafts], dim=1)
+            wp = st.pos.clamp(0, s_max - 1 - k)
+            attend = ((st.kv_valid != 0) | ((karange >= wp[:, None])
+                                             & (karange <= wp[:, None] + k))).to(torch.int32)
             out = vlm_forward(
-                self.model, self.config, input_ids=st.last_token[:, None],
+                self.model, self.config, input_ids=ids,
                 attention_mask=AttnMask(kv_valid=attend, q_offset=wp.to(torch.int32)),
-                position_ids=st.rope_pos[:, None],
+                position_ids=rp[:, None] + jr,
                 kv_cache=KVCache(cache.k, cache.v, wp, cache.k_scale, cache.v_scale),
                 impl=self.impl,
             )
             pres = None
             if penalised:
-                safe = torch.where(st.seq == image_id, -1, st.seq)
-                pres = presence_from_tokens(safe, st.rope_pos + 1, vocab)
-            nxt = select_next_token_traced(
-                out.logits[:, -1], samp[0], samp[1], samp[2], samp[3], presence=pres,
-                penalty=samp[4] if penalised else None, all_greedy=all_greedy,
-                generator=self._rng)
-            # only active slots advance; the history keeps every live token
-            at = (st.rope_pos + 1).clamp(max=s_max - 1)[:, None]
-            st.seq.scatter_(1, at, torch.where(active[:, None], nxt[:, None], st.seq.gather(1, at)))
-            st.kv_valid.copy_(torch.where(active[:, None], attend, st.kv_valid))
-            st.pos.copy_(torch.where(active, wp + 1, st.pos))
-            st.rope_pos.add_(active.long())
-            st.last_token.copy_(torch.where(active, nxt, st.last_token))
-            toks[:, i] = nxt
-        return toks.cpu().numpy()
+                pres = presence_from_tokens(torch.where(seq == image_id, -1, seq), rp + 1, vocab)
+            penalty = samp[4] if penalised else None
+            budget = torch.where(active, st.rope_end - rp, 0)  # tokens a slot may still commit
+            if k:
+                nxt, acc_bit = spec_verify_tokens(
+                    out.logits, drafts, self._rng, samp[0], samp[1], samp[2], samp[3],
+                    presence=pres, penalty=penalty, all_greedy=all_greedy)
+                n_commit = torch.cumprod(acc_bit.long(), dim=1).sum(dim=1) + 1
+                eos_hit = (jr < n_commit[:, None]) & (nxt == eos)
+                n_commit = torch.minimum(n_commit, torch.where(eos_hit, jr, k + 1).amin(dim=1) + 1)
+                n_commit = torch.minimum(n_commit, budget)
+            else:
+                nxt = select_next_token_traced(
+                    out.logits[:, -1], samp[0], samp[1], samp[2], samp[3], presence=pres,
+                    penalty=penalty, all_greedy=all_greedy, generator=self._rng)[:, None]
+                n_commit = budget.clamp(0, 1)
+            self._commit(nxt, n_commit, wp)
+            out_buf[:, i, :k + 1] = nxt
+            out_buf[:, i, k + 1] = n_commit
+        host = out_buf.cpu().numpy()
+        return host[:, :, :k + 1], host[:, :, k + 1]
+
+    def _commit(self, nxt: torch.Tensor, n_commit: torch.Tensor, wp: torch.Tensor) -> None:
+        """Advance slot ``b`` by the first ``n_commit[b]`` of its tokens ``nxt
+        [B, T]``, whose inputs' cache entries this step wrote from ``wp[b]``:
+        those entries become valid, the tokens join ``seq`` after the pending
+        one, the write offset and the RoPE position move on, and the last
+        committed token is the next one fed. A slot with ``n_commit`` 0 (idle,
+        or its budget spent) keeps its state, so no RoPE position passes the
+        request's ``rope_end`` and every ``seq`` index stays inside the
+        cache."""
+        st, karange = self.state, self._karange
+        moved = n_commit > 0
+        st.kv_valid.logical_or_((karange >= wp[:, None]) & (karange < (wp + n_commit)[:, None]))
+        off = karange - (st.rope_pos + 1)[:, None]
+        torch.where((off >= 0) & (off < n_commit[:, None]),
+                    nxt.gather(1, off.clamp(0, nxt.shape[1] - 1)), st.seq, out=st.seq)
+        torch.where(moved, wp + n_commit, st.pos, out=st.pos)
+        st.rope_pos.add_(n_commit)
+        torch.where(moved, nxt.gather(1, (n_commit - 1).clamp(min=0)[:, None])[:, 0],
+                    st.last_token, out=st.last_token)
 
     # -- host-side scheduling -------------------------------------------------
 
@@ -420,11 +490,13 @@ class ContinuousBatchingServer:
             raise ValueError(
                 f"submit() takes ONE prompt ([s] or [1, s]); got shape {ids.shape} — call "
                 "submit once per request")
-        # refused now: failing at admission would strand the request mid-step
-        if ids.shape[0] + max_new_tokens > self.max_cache_length:
+        # refused now: failing at admission would strand the request mid-step;
+        # speculation needs K slots of headroom (the last verify writes K+1)
+        if ids.shape[0] + max_new_tokens + self.spec_lookup > self.max_cache_length:
+            extra = f" + spec headroom ({self.spec_lookup})" if self.spec_lookup else ""
             raise ValueError(
-                f"prompt ({ids.shape[0]}) + max_new_tokens ({max_new_tokens}) exceeds cache "
-                f"capacity {self.max_cache_length}")
+                f"prompt ({ids.shape[0]}) + max_new_tokens ({max_new_tokens}){extra} exceeds "
+                f"cache capacity {self.max_cache_length}")
         px = pixel_values
         if px is not None and px.ndim == 4:
             px = px[0]
@@ -501,11 +573,19 @@ class ContinuousBatchingServer:
         if live:
             # the tightest budget bounds the chunk, quantized (_chunk_steps);
             # tokens past a request's budget or eos are dropped by _emit
-            n = self._chunk_steps(min(r.max_new_tokens - len(r.tokens) for r in live))
-            toks = self._decode(n)
+            remaining = min(r.max_new_tokens - len(r.tokens) for r in live)
+            # a verify step commits 1 to K+1 tokens a slot
+            toks, counts = self._decode(self._chunk_steps(-(-remaining // (self.spec_lookup + 1))))
             for slot, req in enumerate(self._by_slot):
-                if req is not None:
-                    self._emit(req, [int(t) for t in toks[slot]])
+                # emitted step by step, so that the acceptance statistic
+                # counts only the tokens a request keeps
+                for i in range(toks.shape[1] if req is not None else 0):
+                    if req.finished:
+                        break
+                    kept = len(req.tokens)
+                    self._emit(req, toks[slot, i, :counts[slot, i]].tolist())
+                    self._spec_steps += 1
+                    self._spec_tokens += len(req.tokens) - kept
 
         after = {r.rid for r in self._results.values() if r.finished}
         return sorted(after - before)
@@ -576,6 +656,9 @@ class ContinuousBatchingServer:
             "tokens_generated": sum(len(r.tokens) for r in self._results.values()),
             **({"max_queue": self.max_queue} if self.max_queue is not None else {}),
             **({"timeouts": self._timeouts} if self._timeouts else {}),
+            **({"spec_lookup": self.spec_lookup,
+                "spec_tokens_per_step": round(self._spec_tokens / max(self._spec_steps, 1), 3)}
+               if self.spec_lookup else {}),
             **({"admitting": self._inflight["req"].rid,
                 "admit_progress": f"{self._inflight['off']}/{self._inflight['bucket']}"}
                if self._inflight is not None else {}),

@@ -178,3 +178,73 @@ def select_next_token_traced(
     filt = filter_logits_traced(logits, temperature, top_p, top_k, min_p)
     sampled = gumbel_argmax(filt, generator, uniforms)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+def spec_verify_tokens(
+    logits: torch.Tensor,  # [B, K+1, V] target logits at each fed position
+    drafts: torch.Tensor,  # [B, K] proposed (deterministic) draft tokens
+    generator: Optional[torch.Generator],
+    temperature: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B]
+    min_p: Optional[torch.Tensor] = None,  # [B]
+    presence: Optional[torch.Tensor] = None,  # [B, V] bool context presence at chunk start
+    penalty: Optional[torch.Tensor] = None,  # [B], 1.0 = off
+    all_greedy: bool = False,
+) -> tuple:
+    """Rejection-sampling verification of deterministic drafts. Returns
+    ``(nxt [B, K+1] long, acc [B, K] bool)``: the caller commits ``nxt[:,
+    :n]``, ``n - 1`` the length of ``acc``'s leading-True run, i.e. the
+    accepted drafts, then the replacement at the first miss, or the bonus
+    token at position K when every draft was accepted.
+
+    A draft is a point mass, so the rejection rule is: accept draft ``d``
+    with probability ``p(d)`` under the row's filtered distribution ``p``
+    (``filter_logits_traced``'s); on the first miss draw from ``p`` with
+    ``d`` removed. Every committed token is then distributed as ``p``.
+    Greedy rows (``temperature <= 0``) accept iff the draft is the argmax
+    and commit the argmax. ``all_greedy`` (the caller's host-side knowledge)
+    skips the full-vocabulary filter, as the JAX package's ``lax.cond``.
+    A draft outside the vocabulary is never accepted.
+
+    The penalty (given with ``presence``) composes exactly: position ``j``
+    is consulted only when drafts ``0..j-1`` were accepted, so its context
+    is ``presence`` plus exactly those drafts, a cumulative one-hot.
+
+    The draws cannot reproduce the JAX package's bits: they come from the
+    one ``generator`` in a fixed order, the acceptance uniforms ``[B, K]``,
+    then the replacements' ``[B, K, V]`` and the bonus tokens' ``[B, V]``
+    (both by the Gumbel-max rule)."""
+    b, k1, v = logits.shape
+    k = k1 - 1
+    dev = logits.device
+    penalised = presence is not None and penalty is not None
+    draft_hot = None  # [B, K, V]; all False for a draft off the vocabulary
+    if penalised or not all_greedy:
+        draft_hot = drafts[..., None] == torch.arange(v, device=dev)
+    if penalised:
+        cum = torch.cumsum(draft_hot.to(torch.int32), dim=1) > 0
+        pres = torch.cat([presence[:, None], presence[:, None] | cum], dim=1)  # [B, K+1, V]
+        logits = apply_repetition_penalty(logits, pres, penalty)
+    greedy = torch.argmax(logits, dim=-1)  # [B, K+1]
+    acc_greedy = drafts == greedy[:, :k]
+    if all_greedy:
+        return greedy, acc_greedy
+
+    filt = filter_logits_traced(
+        logits.reshape(b * k1, v), temperature.repeat_interleave(k1), top_p.repeat_interleave(k1),
+        top_k.repeat_interleave(k1), None if min_p is None else min_p.repeat_interleave(k1),
+    ).reshape(b, k1, v)
+    p = torch.softmax(filt, dim=-1)
+    in_vocab = (drafts >= 0) & (drafts < v)
+    p_draft = torch.gather(p[:, :k], 2, drafts.clamp(0, v - 1)[..., None])[..., 0]
+    p_draft = p_draft.masked_fill(~in_vocab, 0.0)
+    u_acc = torch.rand(b, k, generator=generator, device=dev)
+    u_repl = torch.rand(b, k, v, generator=generator, device=dev)
+    u_bonus = torch.rand(b, v, generator=generator, device=dev)
+    accept = u_acc < p_draft
+    repl = gumbel_argmax(filt[:, :k].masked_fill(draft_hot, float("-inf")), uniforms=u_repl)
+    bonus = gumbel_argmax(filt[:, k], uniforms=u_bonus)
+    nxt = torch.cat([torch.where(accept, drafts, repl), bonus[:, None]], dim=1)
+    g_row = (temperature <= 0.0)[:, None]
+    return torch.where(g_row, greedy, nxt), torch.where(g_row, acc_greedy, accept)

@@ -12,7 +12,10 @@ the SIMT pair and SDPA's autograd backward (dq, dk, dv). Each time is CUDA
 events around 20 back-to-back calls queued behind a ``torch.cuda._sleep``,
 so that the host's launch overhead is hidden and the number is device time;
 then it lists the routed calls' kernels with their device time from
-``torch.profiler``.
+``torch.profiler``. The forwards include speculative decoding's verify
+shapes, Tq = K+1 query rows a head: a B=1 verify of K=4 drafts and the
+8-slot server's verify of K=3 (per-row offsets ``wp``, valid keys below
+``wp`` and the K+1 new ones).
 """
 
 from __future__ import annotations
@@ -80,6 +83,10 @@ def main() -> int:
                            device=dev)
     kvv8 = (torch.arange(2048, device=dev)[None, :] <= offsets[:, None].long()).to(torch.int32)
     kvv8[:, 1632:1664] = 0
+    wp = offsets.clamp(max=2048 - 4)  # the server's verify writes wp..wp+3
+    karr = torch.arange(2048, device=dev)[None, :]
+    kvv_verify = (((kvv8 != 0) & (karr < wp[:, None]))
+                  | ((karr >= wp[:, None]) & (karr <= wp[:, None] + 3))).to(torch.int32)
     shapes = {  # label: (routed kernel, args)
         "decoder prefill Tq=1632 Tk=2048 hd=128 causal": ("flash_attention_tc", (
             rnd(1, 32, 1632, 128), rnd(1, 8, 2048, 128), rnd(1, 8, 2048, 128),
@@ -92,6 +99,12 @@ def main() -> int:
         "decode B=1 Tk=2048 q_offset=1700": ("flash_decode", (
             rnd(1, 32, 1, 128), rnd(1, 8, 2048, 128), rnd(1, 8, 2048, 128),
             valid(1, 2048, 1701), 1700, True)),
+        "verify B=1 Tq=5 Tk=2048 q_offset=1700": ("flash_decode", (
+            rnd(1, 32, 5, 128), rnd(1, 8, 2048, 128), rnd(1, 8, 2048, 128),
+            valid(1, 2048, 1705), 1700, True)),
+        "server verify B=8 Tq=4 per-row offsets Tk=2048": ("flash_decode", (
+            rnd(8, 32, 4, 128), rnd(8, 8, 2048, 128), rnd(8, 8, 2048, 128), kvv_verify,
+            wp, True)),
     }
     for label, (name, args) in shapes.items():
         q, k, v, kvv, q_offset, causal = args

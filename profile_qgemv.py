@@ -8,7 +8,8 @@ calls on the same weights:
 
 bf16: the decode linears of Llama-3.2-11B-Vision, ``lm_head`` (N=128256,
 K=4096), ``W_query`` (N=4096, K=4096), ``W_key`` (N=1024, K=4096) and
-``w_down`` (N=4096, K=14336), at R = 1, 8, 16 and 32 rows. For each it
+``w_down`` (N=4096, K=14336), at R = 1, 5, 8, 16 and 32 rows (5 and 32: the
+verify steps of speculative decoding at B=1 and in the 8-slot server). For each it
 times the tensor-core gemv (``gemv_tc_cuda``, what ``gemv_cuda`` routes
 these shapes to), the CUDA-core gemv (``gemv_simt_cuda``) and ``F.linear``
 on the same tensors (a yardstick the port never calls).
@@ -74,7 +75,7 @@ BF16_SHAPES = {  # label: (N, K)
     "W_key N=1024 K=4096": (1024, 4096),
     "w_down N=4096 K=14336": (4096, 14336),
 }
-BF16_ROWS = (1, 8, 16, 32)
+BF16_ROWS = (1, 5, 8, 16, 32)  # 5: a B=1 verify of K=4 drafts; 32: the 8-slot server's of K=3
 INT8_SHAPES = dict(BF16_SHAPES, **{"w_gate N=14336 K=4096": (14336, 4096)})
 
 

@@ -5,7 +5,7 @@ requests of S = 1632 admitted together), and with one slot and one request
 (a B=1 decode step) the bf16 model and its copy quantized to int8 with the
 int8 KV cache (the int8 generate of ``chip_smoke.py``).
 
-    python3 profile_serve.py              # all four
+    python3 profile_serve.py              # all four, the bf16 ones also with spec_lookup
     python3 profile_serve.py --quantized  # the int8 one-slot step and server_int4_w4a8
 
 For each it admits the requests (one ``step()``), then, as
@@ -13,7 +13,10 @@ For each it admits the requests (one ``step()``), then, as
 without the profiler and one under ``torch.profiler``, and prints the
 kernels' device time by category, the busy share, the launches and the
 kernels' device time per decode step. Run it on two commits in one call to
-compare them.
+compare them. ``server_bf16`` and the bf16 slot run twice, plain and then
+with prompt lookup (``spec_lookup`` 3 with 8 slots, 4 with one), where a
+decode step is a verify step of K+1 rows a slot; that run also prints the
+tokens each chunk committed (its tokens/s line counts one a slot a step).
 """
 
 from __future__ import annotations
@@ -33,16 +36,27 @@ from profile_train import profile_step
 STEPS = 8
 
 
-def profile_chunk(dev, cfg, model, label: str, kv_dtype=None, slots: int = 8) -> None:
+def profile_chunk(dev, cfg, model, label: str, kv_dtype=None, slots: int = 8,
+                  spec_lookup: int = 0) -> None:
     srv = ContinuousBatchingServer(model, cfg, dev, slots=slots, max_cache_length=2048,
-                                   kv_dtype=kv_dtype)
+                                   kv_dtype=kv_dtype, spec_lookup=spec_lookup)
     for ids, px, _ in cs.server_requests(cfg, dev, slots):
         srv.submit(ids, px, max_new_tokens=2048 - 1664)  # budgets that outlast the profile
     srv.step()  # admits every request, then one decode chunk
     if srv.stats()["slots_busy"] != slots:
         raise RuntimeError(f"expected {slots} busy slots, got {srv.stats()}")
-    total = profile_step(label, lambda: srv._decode(STEPS), slots * STEPS)
+    committed = []
+
+    def chunk():
+        out = srv._decode(STEPS)
+        if spec_lookup:
+            committed.append(int(out[1].sum()))
+
+    total = profile_step(label, chunk, slots * STEPS)
     print(f"== {label}: kernel time per decode step {total / STEPS:.4f} ms")
+    if spec_lookup:
+        print(f"== {label}: committed tokens per chunk {committed} "
+              f"({committed[-1] / (slots * STEPS):.4f} a slot a verify step in the profiled one)")
 
 
 def main() -> int:
@@ -56,9 +70,11 @@ def main() -> int:
     cs.build_library()
     if "--quantized" not in sys.argv[1:]:
         cfg, model = cs.build_11b(dev, tie_weights=True)
-        profile_chunk(dev, cfg, model, f"server_bf16, one {STEPS}-step decode chunk")
-        profile_chunk(dev, cfg, model, f"bf16, one slot (B=1), one {STEPS}-step decode chunk",
-                      slots=1)
+        for slots, k in ((8, 3), (1, 4)):
+            name = "server_bf16" if slots == 8 else "bf16, one slot (B=1)"
+            profile_chunk(dev, cfg, model, f"{name}, one {STEPS}-step decode chunk", slots=slots)
+            profile_chunk(dev, cfg, model, f"{name} spec_lookup={k}, one {STEPS}-step verify chunk",
+                          slots=slots, spec_lookup=k)
         del model
         torch.cuda.empty_cache()
     cfg, model = cs.build_11b(dev, tie_weights=False)

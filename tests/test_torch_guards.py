@@ -161,8 +161,7 @@ def tiny_model():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"kv_dtype": "int4"}, {"spec_lookup": 2}, {"spec_draft": 2},
-    {"gemv_routes": {"lm_head": 1 << 20}},
+    {"kv_dtype": "int4"}, {"gemv_routes": {"lm_head": 1 << 20}},
 ])
 def test_engine_refuses_unported_options(tiny_model, kwargs):
     """Unported options raise NotImplementedError; a KV dtype the JAX engine

@@ -294,13 +294,10 @@ def test_submit_refuses_a_batch_and_bad_queue_bound(tiny):
         _server(tiny, kv_dtype="int4")
 
 
-@pytest.mark.parametrize("what", ["spec_lookup", "adapter_bank", "gemv_routes",
-                                  "register_prefix", "prefix_id"])
+@pytest.mark.parametrize("what", ["adapter_bank", "gemv_routes", "register_prefix", "prefix_id"])
 def test_options_outside_the_slice_raise(tiny, what):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if what == "spec_lookup":
-            _server(tiny, spec_lookup=2)
-        elif what == "adapter_bank":
+        if what == "adapter_bank":
             _server(tiny, adapter_bank={})
         elif what == "gemv_routes":
             _server(tiny, gemv_routes={"lm_head": 1 << 20})
