@@ -74,7 +74,33 @@
    launches. Each prints TTFT or ms a verify step, tokens/s, tokens a
    step and, as information, how many leading tokens equal the plain
    path's (random weights give near-tied logits, and a verify's bits may
-   differ from a decode step's).
+   differ from a decode step's);
+13. the rest of the server: on the tiny fp32 model, on the kernel path with
+   no plain version called, prefix caching (a text prefix matched on its
+   own under float and int8 KV, an image prefix pinned by id, one under
+   ``prefill_chunk=4``, one with ``spec_lookup=2``) gives each request a
+   solo engine's tokens on the full prompt; a 3-adapter bank (the identity
+   and two seeded adapters) gives each request the tokens of a solo engine
+   on its merged model, an adapter-specific prefix included; the HTTP front
+   end on loopback (``/prefix``, ``/generate``, a concurrent pair,
+   ``/generate_stream``) gives the direct server's tokens. At 11B in bf16
+   (the tied model, 8 slots): ``server_bf16_prefix`` registers one image and
+   16 system ids (P = 1616) and serves 10 requests of that prefix and 32
+   question ids each (budgets 64 / 32, the ``server_bf16`` pattern),
+   printing the registration's ms, the ms per prefixed admission against
+   ``server_bf16``'s unprefixed one, the prefix's GiB, tokens/s and how many
+   requests equal a solo engine on the full prompt; ``http_bf16`` sends that
+   traffic through the front end (the prefix by ``POST /prefix``, then 9
+   ``/generate`` and 1 ``/generate_stream`` at once) and counts the requests
+   equal to the direct run's; ``server_bf16_lora`` serves the
+   ``server_bf16`` traffic with a bank of the identity and two seeded
+   rank-16 adapters (default targets and the head; request ``i`` adapter
+   ``i % 3``), printing ms and kernel launches a decode step (a profiled
+   chunk) and tokens/s against ``server_bf16``, peak GiB, and whether the
+   identity adapter's requests equal the plain server's. Each checks its
+   exact launches: 201 tensor-core gemvs a decode step on the prefix paths
+   (a prefix's prefill and each 128-row suffix one TMA SwiGLU tile a layer),
+   281 with the bank, whose gate/up adapters leave every SwiGLU kernel at 0.
 
 The flash forward runs as three kernels: the tensor-core forward for bf16
 calls with many query rows (prefill, the ViT, training), the split-KV decode
@@ -124,16 +150,20 @@ once.
 
 from __future__ import annotations
 
+import gc
+import http.client
 import json
 import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import DeviceType, ProfilerActivity, profile
 
 from llama32mm_tpu_torch.configs import (
     LLAMA32Config,
@@ -143,6 +173,7 @@ from llama32mm_tpu_torch.configs import (
     tiny_mllama_config,
 )
 from llama32mm_tpu_torch.inference.engine import InferenceEngine, structured_prefill_mask
+from llama32mm_tpu_torch.inference.http_server import ServingFrontend, serve_forever
 from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
 from llama32mm_tpu_torch.models import language as language_mod
 from llama32mm_tpu_torch.models.language import CausalLM
@@ -162,7 +193,14 @@ from llama32mm_tpu_torch.ops.quant import (
 )
 from llama32mm_tpu_torch.preprocess.image import preprocess_image_device
 from llama32mm_tpu_torch.train.full import make_train_step
-from llama32mm_tpu_torch.train.lora import init_lora_params, lora_leaves, make_lora_train_step
+from llama32mm_tpu_torch.train.lora import (
+    init_lora_params,
+    lora_leaves,
+    make_lora_train_step,
+    merge_lora_into_params,
+    stack_adapter_bank,
+    zero_lora_params,
+)
 from llama32mm_tpu_torch.utils.kvcache import init_kv_cache, quantize_kv
 
 # bf16 comparisons: |kernel - plain| <= TOL * max|plain|. 1.6e-2 is about two
@@ -291,6 +329,13 @@ PATH_KERNELS = {
     "server_bf16_spec": ("rmsnorm", "gemv_tc", "swiglu_tc") + BF16_ATTN,
     "server_bf16_spec_rows": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
     "bf16_spec_self_draft": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
+    # the rest of the server: a prefix's prefill and each prefixed admission's
+    # 128-row suffix chunk on the TMA SwiGLU tile and the tensor-core flash
+    # forward; an adapter bank with gate/up adapters runs the FFN unfused
+    # (run_server holds every SwiGLU kernel to 0 there)
+    "server_bf16_prefix": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
+    "http_bf16": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
+    "server_bf16_lora": ("rmsnorm", "gemv_tc") + BF16_ATTN,
 }
 # The kernels each training path must launch: the fp32 tiny model's flash
 # forward with the LSE and backward are the SIMT kernels, the bf16 models'
@@ -372,6 +417,14 @@ def int8_gemv_faults(path: str, launches: dict, layers: int, decode_steps: int, 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def free_device_memory() -> None:
+    """Collect reference cycles (a server whose ``_decode`` a timing wrapper
+    replaced holds itself, and with it the model), then return the cached
+    blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -1307,6 +1360,240 @@ def check_tiny_spec(dev) -> None:
                            f"{plain_calls}")
 
 
+def tiny_served(srv, submits) -> tuple:
+    """Run ``submits`` (``(ids, pixel values, budget, submit kwargs)``)
+    through ``srv`` on the kernel path from zeroed counters: ``(tokens of
+    each, plain calls made)``."""
+    kernels.reset_counters()
+    rids = [srv.submit(ids, px, max_new_tokens=n, **kw) for ids, px, n, kw in submits]
+    results = srv.run()
+    return [results[r].tolist() for r in rids], {k: n for k, n in kernels.plain_counts().items()
+                                                 if n}
+
+
+def check_tiny_prefix(dev) -> None:
+    """On the tiny fp32 model, on the kernel path: a text prefix matched on
+    its own (float and int8 KV cache), an image prefix pinned by id, a prefix
+    under ``prefill_chunk=4`` and one with ``spec_lookup=2``: two requests
+    each (2 slots) give the tokens of a solo ``InferenceEngine`` run on the
+    full prompt, both use the prefix, and no plain version runs."""
+    cfg = tiny_mllama_config(max_cache_length=64)
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    px = torch.randn(1, 3, 28, 28, generator=gen, device=dev)
+
+    def ids(n):
+        return torch.randint(0, 240, (n,), generator=gen, device=dev)
+
+    image_head = ids(10)
+    image_head[:4] = cfg.image_token_index
+    phrase = ids(4)
+    cases = {  # label: (prefix, its image, server options)
+        "text, matched": (ids(8), None, {}),
+        "text, matched, int8 KV": (ids(8), None, {"kv_dtype": "int8"}),
+        "image, pinned": (image_head, px, {}),
+        "text, prefill_chunk=4": (ids(10), None, {"prefill_chunk": 4}),
+        "text, spec_lookup=2": (torch.cat([phrase, phrase]), None, {"spec_lookup": 2}),
+    }
+    for label, (prefix, image, kw) in cases.items():
+        suffixes = [ids(5), ids(9)]
+        if "spec_lookup" in kw:
+            suffixes = [torch.cat([phrase, phrase[:1]]), torch.cat([phrase[:3], phrase, phrase])]
+        prompts = [torch.cat([prefix, sfx]) for sfx in suffixes]
+        engine = InferenceEngine(model, cfg, dev, kv_dtype=kw.get("kv_dtype"))
+        want = [engine.generate(p[None], image, max_new_tokens=6).tokens[0].tolist()
+                for p in prompts]
+        srv = ContinuousBatchingServer(model, cfg, dev, slots=2, prompt_buckets=None,
+                                       steps_per_sync=3, **kw)
+        pid = srv.register_prefix(prefix, pixel_values=image)
+        pin = {"prefix_id": pid} if image is not None else {}
+        got, plain_calls = tiny_served(srv, [(p, None, 6, pin) for p in prompts])
+        hits = srv.stats()["prefix_hits"]
+        log(f"tiny fp32 prefix ({label}): tokens {got} solo engine {want}; prefix hits {hits}")
+        if got != want or hits != 2 or plain_calls:
+            raise RuntimeError(f"tiny prefix ({label}) differs from the solo engine, missed the "
+                               f"prefix ({hits} hits), or ran plain {plain_calls}")
+
+
+def tiny_adapter(tc, dev, seed: int) -> dict:
+    """A seeded rank-4 adapter (default targets and the head) whose B is
+    nonzero (0.05 * N(0, 1))."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lora = init_lora_params(gen, tc, rank=4)
+    for ad in [*lora["blocks"].values(), lora["lm_head"]]:
+        ad["lora_b"].normal_(generator=gen).mul_(0.05)
+    return lora
+
+
+def check_tiny_bank(dev) -> None:
+    """On the tiny fp32 model, on the kernel path: a 3-adapter bank (the
+    identity and two seeded adapters with nonzero B) serving 4 requests
+    through 3 slots (adapters 0 / 1 / 2, then 1 after a step, into a freed
+    slot) and one through a prefix of adapter 2 (matched on its own); each
+    gives the tokens of a solo ``InferenceEngine`` on the model with its
+    adapter merged (``merge_lora_into_params``), and no plain version runs."""
+    cfg = tiny_mllama_config(max_cache_length=64)
+    tc = cfg.text_config
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    adapters = [zero_lora_params(tc, rank=4, device=dev), tiny_adapter(tc, dev, 101),
+                tiny_adapter(tc, dev, 102)]
+    engines = [InferenceEngine(merge_lora_into_params(model, a), cfg, dev) for a in adapters]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    prompts = [torch.randint(0, 240, (s,), generator=gen, device=dev) for s in (9, 12, 10, 11)]
+    prefix = torch.randint(0, 240, (8,), generator=gen, device=dev)
+    prompts.append(torch.cat([prefix, prompts[0][:5]]))
+    aids = [0, 1, 2, 1, 2]
+    want = [engines[a].generate(p[None], max_new_tokens=6).tokens[0].tolist()
+            for p, a in zip(prompts, aids)]
+    srv = ContinuousBatchingServer(model, cfg, dev, slots=3, prompt_buckets=None,
+                                   steps_per_sync=2, adapter_bank=stack_adapter_bank(adapters))
+    srv.register_prefix(prefix, adapter_id=2)
+    kernels.reset_counters()
+    rids = [srv.submit(p, None, max_new_tokens=6, adapter_id=a)
+            for p, a in zip(prompts[:3], aids[:3])]
+    srv.step()
+    rids += [srv.submit(p, None, max_new_tokens=6, adapter_id=a)
+             for p, a in zip(prompts[3:], aids[3:])]
+    results = srv.run()
+    got = [results[r].tolist() for r in rids]
+    plain_calls = {k: n for k, n in kernels.plain_counts().items() if n}
+    st = srv.stats()
+    log(f"tiny fp32 adapter bank (adapters {aids}, the last through a prefix of adapter 2): "
+        f"tokens {got} merged solo engines {want}; {st}")
+    if got != want or st["prefix_hits"] != 1 or plain_calls:
+        raise RuntimeError(f"tiny adapter bank differs from the merged engines, missed the "
+                           f"prefix, or ran plain {plain_calls}")
+
+
+def http_call(port: int, method: str, path: str, body=None, timeout: float = 60.0) -> tuple:
+    """``(status, JSON reply)`` of one HTTP request to the front end; a
+    ``/generate_stream`` reply as ``(status, (streamed tokens, final event,
+    events))``."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if not path.endswith("_stream") or r.status != 200:
+            return r.status, json.loads(r.read())
+        streamed, final, events = [], None, 0
+        for line in r:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                ev = json.loads(line[len("data: "):])
+                events += 1
+                if ev.get("finished"):
+                    final = ev
+                    break
+                streamed.extend(ev["tokens"])
+        return r.status, (streamed, final, events)
+    finally:
+        conn.close()
+
+
+class LiveFrontend:
+    """``ServingFrontend`` over ``srv`` and an HTTP server on a free loopback
+    port, served from a thread; ``close()`` stops both."""
+
+    def __init__(self, srv):
+        self.frontend = ServingFrontend(srv)
+        self.httpd = serve_forever(self.frontend, host="127.0.0.1", port=0)
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.frontend.shutdown()
+        self.thread.join(timeout=30)
+
+
+def http_traffic(port: int, bodies: list, timeout: float) -> list:
+    """Send ``bodies`` at once, the last to ``/generate_stream`` and the
+    others to ``/generate``, each from its own thread; the token list of
+    each. A status other than 200, a stream whose tokens differ from its
+    final event's, or a call still open after ``timeout`` raises."""
+    out = [None] * len(bodies)
+
+    def call(i):
+        stream = i == len(bodies) - 1
+        status, reply = http_call(port, "POST", "/generate_stream" if stream else "/generate",
+                                  bodies[i], timeout=timeout)
+        if stream and status == 200:
+            streamed, final, events = reply
+            if final is None or final["tokens"] != streamed or events < 2:
+                raise RuntimeError(f"SSE stream: {events} events, streamed {streamed}, "
+                                   f"final {final}")
+            reply = final
+        out[i] = (status, reply)
+
+    errors = []
+
+    def guarded(i):
+        try:
+            call(i)
+        except Exception as e:  # re-raised below, from the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=guarded, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"HTTP traffic failed: {errors or 'a call did not return'}")
+    bad = [(i, o) for i, o in enumerate(out) if o[0] != 200 or not o[1].get("finished")]
+    if bad:
+        raise RuntimeError(f"HTTP calls failed: {bad}")
+    return [o[1]["tokens"] for o in out]
+
+
+def check_tiny_http(dev) -> None:
+    """On the tiny fp32 model, on the kernel path: the HTTP front end on
+    127.0.0.1 (a free port), driven over ``http.client``: ``POST /prefix``
+    (a text prefix), ``/generate``, a concurrent pair of ``/generate`` and a
+    ``/generate_stream``, then ``DELETE /prefix``; each reply's tokens equal
+    the direct server's on the same requests, and no plain version runs."""
+    cfg = tiny_mllama_config(max_cache_length=64)
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    prefix = torch.randint(0, 240, (8,), generator=gen, device=dev)
+    image = torch.randint(0, 240, (12,), generator=gen, device=dev)
+    image[:4] = cfg.image_token_index
+    px = torch.randn(3, 28, 28, generator=gen, device=dev)
+    reqs = [(torch.cat([prefix, torch.randint(0, 240, (s,), generator=gen, device=dev)]), None, n)
+            for s, n in ((5, 6), (7, 5), (4, 7))]
+    reqs.insert(2, (image, px, 6))
+
+    direct, srv = [ContinuousBatchingServer(model, cfg, dev, slots=2, prompt_buckets=None,
+                                            steps_per_sync=3) for _ in range(2)]
+    direct.register_prefix(prefix)
+    want, _ = tiny_served(direct, [(ids, p, n, {}) for ids, p, n in reqs])
+    live = LiveFrontend(srv)
+    try:
+        kernels.reset_counters()
+        status, reply = http_call(live.port, "POST", "/prefix", {"input_ids": prefix.tolist()})
+        if status != 200:
+            raise RuntimeError(f"POST /prefix: {status} {reply}")
+        bodies = [{"input_ids": ids.tolist(), "max_new_tokens": n,
+                   **({} if p is None else {"pixel_values": p.cpu().numpy().tolist()})}
+                  for ids, p, n in reqs]
+        got = http_traffic(live.port, bodies[:1], timeout=60)
+        got += http_traffic(live.port, bodies[1:3], timeout=60)
+        got += http_traffic(live.port, bodies[3:], timeout=60)  # the stream
+        stats = http_call(live.port, "GET", "/stats")[1]
+        dropped = http_call(live.port, "DELETE", f"/prefix/{reply['prefix_id']}")
+        plain_calls = {k: n for k, n in kernels.plain_counts().items() if n}
+    finally:
+        live.close()
+    log(f"tiny fp32 HTTP front end: tokens {got} direct server {want}; prefix hits "
+        f"{stats.get('prefix_hits')}; DELETE /prefix {dropped}")
+    if got != want or stats.get("prefix_hits") != 3 or dropped[0] != 200 or plain_calls:
+        raise RuntimeError(f"tiny HTTP front end differs from the direct server, missed the "
+                           f"prefix, or ran plain {plain_calls}")
+
+
 def tiny_batch(cfg, dev, gen, b=2, s=12):
     """A tiny training batch: 4 ``<image>`` ids, then text; labels -100 on
     the image positions and on a padded tail of the last row."""
@@ -1749,26 +2036,122 @@ def server_requests(cfg, dev, n: int = 10):
     return reqs
 
 
-def run_server(dev, cfg, model, path: str, kv_dtype=None, spec_lookup: int = 0,
-               tokens: Optional[dict] = None) -> dict:
-    """The continuous-batching server at 8 slots, S_max 2048: 10 requests,
-    6 submitted, one step, then 4 more, so admissions land mid-decode and in
-    freed slots. Checks budgets, ids and the path's kernels (and no plain
-    version); prints decode tokens/s, ms per decode step with 8 slots busy,
-    peak GiB, launches and how many requests equal a solo engine run. With
-    ``spec_lookup`` a decode step is a verify step of 8 x (K+1) rows; it
-    prints the tokens a step, and compares each request with the plain
-    server's tokens (``tokens["server_bf16"]``) instead. ``tokens`` collects
-    each path's tokens."""
+def prefix_requests(cfg, dev, n: int = 10):
+    """``((prefix ids [P], pixel values [1, 3, H, W]), requests)``: the prefix
+    is a seeded 560x560 image (1600 ``<image>`` ids) and 16 seeded system ids
+    (P = 1616); request ``i`` is the prefix's ids and 32 seeded question ids
+    (S = 1648), no pixel values, a budget of 64 tokens when ``i`` is even
+    and 32 when it is odd."""
+    tc, vc = cfg.text_config, cfg.vision_config
+    gen = torch.Generator(device=dev).manual_seed(200)
+    raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    system = torch.randint(0, tc.vocab_size, (16,), generator=gen, device=dev)
+    prefix = torch.cat([torch.full((vc.num_patches,), cfg.image_token_index, device=dev), system])
+    px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
+    reqs = []
+    for i in range(n):
+        gen = torch.Generator(device=dev).manual_seed(300 + i)
+        question = torch.randint(0, tc.vocab_size, (32,), generator=gen, device=dev)
+        reqs.append((torch.cat([prefix, question]), None, 64 if i % 2 == 0 else 32))
+    return (prefix, px), reqs
+
+
+def server_bank(cfg, dev) -> dict:
+    """The 11B bank: the identity and two seeded rank-16 bf16 adapters (the
+    default targets and the head) with B = 0.02 * N(0, 1)."""
     tc = cfg.text_config
-    reqs = server_requests(cfg, dev)
+    adapters = [zero_lora_params(tc, rank=16, dtype=torch.bfloat16, device=dev)]
+    for seed in (1, 2):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        lora = init_lora_params(gen, tc, rank=16, dtype=torch.bfloat16)
+        for ad in [*lora["blocks"].values(), lora["lm_head"]]:
+            ad["lora_b"].copy_(torch.randn(ad["lora_b"].shape, generator=gen, device=dev) * 0.02)
+        adapters.append(lora)
+    bank = stack_adapter_bank(adapters)
+    del adapters
+    return bank
+
+
+def profile_decode_chunk(path: str, srv, decode, reqs, adapter_ids) -> dict:
+    """Information: one 8-step decode chunk (``decode``, the server's own)
+    with 8 slots busy under ``torch.profiler``: kernel ms and kernel
+    launches a step (every CUDA kernel, cuBLAS and elementwise ones too)."""
+    for (ids, px, _), aid in zip(reqs[:8], adapter_ids[:8]):
+        srv.submit(ids, px, max_new_tokens=2048 - ids.shape[0] - 8, adapter_id=aid)
+    srv.step()  # admits all 8, then one decode chunk
+    if srv.stats()["slots_busy"] != 8:
+        raise RuntimeError(f"[{path}] expected 8 busy slots, got {srv.stats()}")
+    decode(8)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode(8)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = {"kernel_ms": sum(e.self_device_time_total for e in rows) / 1e3 / 8,
+           "launches": sum(e.count for e in rows) / 8}
+    log(f"[{path}] profiled 8-step decode chunk, 8 slots busy: kernel time "
+        f"{out['kernel_ms']:.4f} ms a step, {out['launches']:.1f} kernel launches a step; "
+        f"the most device time, ms a step (launches a step):")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3 / 8:8.4f} ({e.count / 8:6.1f})  {e.key[:100]}")
+    for r in list(srv._results):
+        srv.cancel(r)
+    return out
+
+
+def profile_admission(path: str, srv, ids, px, **kw) -> None:
+    """Information: one admission alone (a request with a budget of 1, which
+    finishes at its first token) under ``torch.profiler``: kernel ms and
+    kernel launches."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        rid = srv.submit(ids, px, max_new_tokens=1, **kw)
+        srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    srv.release(rid)
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    log(f"[{path}] profiled admission: kernel time "
+        f"{sum(e.self_device_time_total for e in rows) / 1e3:.4f} ms, "
+        f"{sum(e.count for e in rows)} kernel launches, {wall * 1e3:.2f} ms wall (profiled)")
+
+
+def run_server(dev, cfg, model, path: str, kv_dtype=None, spec_lookup: int = 0,
+               tokens: Optional[dict] = None, metrics: Optional[dict] = None,
+               prefix=None, reqs=None, adapter_bank=None, profile_step=False) -> dict:
+    """The continuous-batching server at 8 slots, S_max 2048: 10 requests
+    (``server_requests`` unless ``reqs``), 6 submitted, one step, then 4 more,
+    so admissions land mid-decode and in freed slots. Checks budgets, ids and
+    the path's kernels (and no plain version); prints decode tokens/s, ms per
+    decode step with 8 slots busy, ms per admission, peak GiB, launches and
+    how many requests equal a solo engine run. With ``spec_lookup`` a decode
+    step is a verify step of 8 x (K+1) rows; it prints the tokens a step, and
+    compares each request with the plain server's tokens
+    (``tokens["server_bf16"]``) instead. ``prefix`` (ids, pixel values):
+    registered (timed, its K/V's GiB printed) and pinned by every request.
+    ``adapter_bank``: request ``i`` runs adapter ``i % 3``; the requests of
+    the identity adapter are compared with the plain server's.
+    ``profile_step``: one profiled decode chunk afterwards. ``tokens``
+    collects each path's tokens, ``metrics`` its numbers."""
+    tc = cfg.text_config
+    free_device_memory()  # earlier servers' caches, so that the peak is this server's
+    reqs = reqs or server_requests(cfg, dev)
+    aids = [i % 3 if adapter_bank is not None else 0 for i in range(len(reqs))]
     srv = ContinuousBatchingServer(model, cfg, dev, slots=8, max_cache_length=2048,
-                                   kv_dtype=kv_dtype, spec_lookup=spec_lookup)
-    warm = srv.submit(reqs[0][0], reqs[0][1], max_new_tokens=2)  # handles, allocator
+                                   kv_dtype=kv_dtype, spec_lookup=spec_lookup,
+                                   adapter_bank=adapter_bank)
+    pin = {}
+    if prefix is not None:  # warm-up registration and prefixed admission
+        pin = {"prefix_id": srv.register_prefix(prefix[0], pixel_values=prefix[1])}
+    warm = srv.submit(reqs[0][0], reqs[0][1], max_new_tokens=2, **pin)  # handles, allocator
     srv.run()
     srv.release(warm)
-    chunks = []  # (steps, busy slots, seconds) per decode chunk
-    decode = srv._decode
+    if prefix is not None:
+        srv.drop_prefix(pin["prefix_id"])
+    chunks, admissions = [], []  # (steps, busy slots, seconds) per decode chunk; admission s
+    decode, admit = srv._decode, srv._admit
 
     def timed_decode(n):
         busy = sum(r is not None for r in srv._by_slot)
@@ -1777,14 +2160,30 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None, spec_lookup: int = 0,
         chunks.append((n, busy, time.perf_counter() - t))
         return toks
 
-    srv._decode = timed_decode
+    def timed_admit(req, slot):
+        t = time.perf_counter()
+        admit(req, slot)  # ends in the first token's device-to-host copy
+        admissions.append(time.perf_counter() - t)
+
+    srv._decode, srv._admit = timed_decode, timed_admit
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
+    if prefix is not None:
+        t = time.perf_counter()
+        pin = {"prefix_id": srv.register_prefix(prefix[0], pixel_values=prefix[1])}
+        torch.cuda.synchronize()
+        reg_ms = 1e3 * (time.perf_counter() - t)
+        cache = srv._prefixes[pin["prefix_id"]].cache
+        gib = sum(t.numel() * t.element_size() for t in (cache.k, cache.v)) / 2**30
+        log(f"[{path}] register_prefix (P = {cache.k.shape[3]}: the image and 16 system ids) "
+            f"{reg_ms:.4f} ms; its K/V hold {gib:.4f} GiB")
     t0 = time.perf_counter()
-    rids = [srv.submit(ids, px, max_new_tokens=n) for ids, px, n in reqs[:6]]
+    rids = [srv.submit(ids, px, max_new_tokens=n, adapter_id=a, **pin)
+            for (ids, px, n), a in zip(reqs[:6], aids[:6])]
     srv.step()
-    rids += [srv.submit(ids, px, max_new_tokens=n) for ids, px, n in reqs[6:]]
+    rids += [srv.submit(ids, px, max_new_tokens=n, adapter_id=a, **pin)
+             for (ids, px, n), a in zip(reqs[6:], aids[6:])]
     results = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1792,14 +2191,19 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None, spec_lookup: int = 0,
     decode_s = sum(c[2] for c in chunks)
     decode_tokens = sum(len(results[r]) for r in rids) - len(rids)
     full = [1e3 * sec / n for n, busy, sec in chunks if busy == 8]
+    steps = sum(c[0] for c in chunks)
+    numbers = {"tok_s": decode_tokens / decode_s,
+               "step_ms": statistics.median(full) if full else float("nan"),
+               "admit_ms": 1e3 * statistics.median(admissions),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     if spec_lookup:
         log(f"[{path}] K={spec_lookup}: {srv.stats()['spec_tokens_per_step']} tokens a slot a "
             f"verify step (kept tokens only); the steps below are verify steps")
-    log(f"[{path}] 10 requests in {wall:.4f} s; {len(chunks)} decode chunks, "
-        f"{sum(c[0] for c in chunks)} steps, {decode_s:.4f} s: {decode_tokens} decode tokens, "
-        f"{decode_tokens / decode_s:.2f} tok/s aggregate; ms per decode step with 8 slots busy: "
-        f"median {statistics.median(full) if full else float('nan'):.4f} over {len(full)} chunks; "
-        f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[{path}] 10 requests in {wall:.4f} s; {len(chunks)} decode chunks, {steps} steps, "
+        f"{decode_s:.4f} s: {decode_tokens} decode tokens, {numbers['tok_s']:.2f} tok/s "
+        f"aggregate; ms per decode step with 8 slots busy: median {numbers['step_ms']:.4f} over "
+        f"{len(full)} chunks; ms per admission: median {numbers['admit_ms']:.4f} over "
+        f"{len(admissions)}; peak allocated {numbers['peak_gib']:.3f} GiB")
     log(f"[{path}] launches {launches} plain calls {plain_calls}")
     for i, r in enumerate(rids):
         toks = results[r]
@@ -1807,17 +2211,27 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None, spec_lookup: int = 0,
             raise RuntimeError(f"[{path}] request {i}: {len(toks)} tokens for a budget of "
                                f"{reqs[i][2]}, or ids outside the vocabulary")
     faults = path_faults(path, launches, plain_calls)
-    if path == "server_bf16":  # every decode step's 201 linears and each admission's head
-        steps = sum(c[0] for c in chunks)
+    if path in ("server_bf16", "server_bf16_prefix"):
+        # every decode step's 201 linears and each admission's head; a
+        # prefix's prefill (one more TMA SwiGLU tile a layer) has no head
         want = (5 * tc.n_layers + 1) * steps + len(rids)
         log(f"[{path}] tensor-core gemv launches {launches['gemv_tc']} = "
             f"{5 * tc.n_layers + 1} x {steps} steps + {len(rids)} prefill heads: "
             f"{launches['gemv_tc'] == want}")
         if launches["gemv_tc"] != want:
             faults.append(f"launched the tensor-core gemv {launches['gemv_tc']} times, not {want}")
-        faults += swiglu_faults(launches, tc.n_layers, prefills=len(rids), decode_steps=steps)
+        faults += swiglu_faults(launches, tc.n_layers, decode_steps=steps,
+                                prefills=len(rids) + (prefix is not None))
+        if prefix is not None and srv.stats()["prefix_hits"] != len(rids):
+            faults.append(f"the prefix served {srv.stats()['prefix_hits']} requests")
+    if path == "server_bf16_lora":  # 7 linears a layer and the head, the FFN unfused
+        want = {"gemv_tc": (7 * tc.n_layers + 1) * steps + len(rids),
+                "flash_decode": tc.n_layers * steps,
+                "swiglu_tc": 0, "swiglu_rows_tc": 0, "swiglu": 0}
+        log(f"[{path}] exact launches over {steps} decode steps and {len(rids)} prefills: {want}")
+        faults += [f"launched {name} {launches[name]} times, not {n}"
+                   for name, n in want.items() if launches[name] != n]
     if path == "server_bf16_spec":  # 8 x (K+1) = 32 rows a verify: the gemv, the TMA tile
-        steps = sum(c[0] for c in chunks)
         want = {"gemv_tc": (5 * tc.n_layers + 1) * steps + len(rids),
                 "flash_decode": tc.n_layers * steps,
                 "swiglu_tc": tc.n_layers * (steps + len(rids)), "swiglu_rows_tc": 0, "swiglu": 0}
@@ -1826,7 +2240,6 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None, spec_lookup: int = 0,
         faults += [f"launched {name} {launches[name]} times, not {n}"
                    for name, n in want.items() if launches[name] != n]
     if path == "server_int4_w4a8":  # w_gate, w_up and the int4 head each step, each prefill's head
-        steps = sum(c[0] for c in chunks)
         want = (2 * tc.n_layers + 1) * steps + len(rids)
         got = launches["gemv_int4_w4a8_tc"]
         log(f"[{path}] tensor-core W4A8 gemv launches {got} = {2 * tc.n_layers + 1} x {steps} "
@@ -1842,19 +2255,95 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None, spec_lookup: int = 0,
     got = [results[r].tolist() for r in rids]
     if tokens is not None:
         tokens[path] = got
-    if spec_lookup:  # information: bits that depend on the rows of a call
+    if path in ("server_bf16", "server_bf16_prefix"):
+        profile_admission(path, srv, reqs[0][0], reqs[0][1], **pin)
+    if profile_step:
+        numbers.update(profile_decode_chunk(path, srv, decode, reqs, aids))
+    if metrics is not None:
+        metrics[path] = numbers
+    if spec_lookup or adapter_bank is not None:  # information: bits that depend on the rows
         plain = tokens["server_bf16"]
-        same = sum(a == b for a, b in zip(got, plain))
-        lead = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
-                for a, b in zip(got, plain)]
-        log(f"[{path}] requests whose tokens equal the plain server's: {same}/{len(rids)}; "
-            f"leading tokens equal {lead}")
+        idx = [i for i in range(len(rids)) if aids[i] == 0]
+        same = sum(got[i] == plain[i] for i in idx)
+        lead = [next((j for j, (x, y) in enumerate(zip(got[i], plain[i])) if x != y),
+                     len(got[i])) for i in idx]
+        log(f"[{path}] requests {'of the identity adapter ' if adapter_bank is not None else ''}"
+            f"whose tokens equal the plain server's: {same}/{len(idx)}; leading tokens equal "
+            f"{lead}")
         return launches
     engine = InferenceEngine(model, cfg, dev, max_cache_length=2048, kv_dtype=kv_dtype,
                              prompt_buckets="auto")
-    same = sum(engine.generate(ids[None], px, max_new_tokens=n).tokens[0].tolist()
-               == got[i] for i, (ids, px, n) in enumerate(reqs))
-    log(f"[{path}] requests whose tokens equal a solo InferenceEngine run: {same}/{len(rids)}")
+    image = None if prefix is None else prefix[1]
+    same = sum(engine.generate(ids[None], image if px is None else px, max_new_tokens=n)
+               .tokens[0].tolist() == got[i] for i, (ids, px, n) in enumerate(reqs))
+    log(f"[{path}] requests whose tokens equal a solo InferenceEngine run"
+        f"{' on the full prompt' if prefix is not None else ''}: {same}/{len(rids)}")
+    return launches
+
+
+def run_http(dev, cfg, model, tokens: dict, metrics: dict) -> dict:
+    """``http_bf16``: the ``server_bf16_prefix`` traffic through the HTTP
+    front end on loopback: the prefix by ``POST /prefix`` with its pixel
+    values (once), then the 10 requests at once, 9 to ``/generate`` and 1 to
+    ``/generate_stream``, each pinning the prefix. Checks statuses, budgets
+    and the path's exact launches; prints the wall time, decode tokens/s and
+    how many requests equal the direct ``server_bf16_prefix`` run's."""
+    tc = cfg.text_config
+    free_device_memory()
+    (prefix, px), reqs = prefix_requests(cfg, dev)
+    srv = ContinuousBatchingServer(model, cfg, dev, slots=8, max_cache_length=2048)
+    chunks = []
+    decode = srv._decode
+
+    def counted_decode(n):
+        t = time.perf_counter()
+        out = decode(n)
+        chunks.append((n, time.perf_counter() - t))
+        return out
+
+    srv._decode = counted_decode
+    live = LiveFrontend(srv)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        status, reply = http_call(live.port, "POST", "/prefix", {
+            "input_ids": prefix.tolist(), "pixel_values": px[0].float().cpu().numpy().tolist()},
+            timeout=300)
+        if status != 200:
+            raise RuntimeError(f"[http_bf16] POST /prefix: {status} {reply}")
+        t_prefix = time.perf_counter() - t0
+        bodies = [{"input_ids": ids.tolist(), "max_new_tokens": n,
+                   "prefix_id": reply["prefix_id"]} for ids, _, n in reqs]
+        got = http_traffic(live.port, bodies, timeout=600)
+        wall = time.perf_counter() - t0
+        launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+        stats = http_call(live.port, "GET", "/stats")[1]
+    finally:
+        live.close()
+    steps = sum(c[0] for c in chunks)
+    decode_s = sum(c[1] for c in chunks)
+    decode_tokens = sum(len(g) for g in got) - len(got)
+    same = sum(a == b for a, b in zip(got, tokens["server_bf16_prefix"]))
+    metrics["http_bf16"] = {"tok_s": decode_tokens / decode_s, "wall_s": wall}
+    log(f"[http_bf16] POST /prefix (JSON pixel values included) {t_prefix * 1e3:.2f} ms; 10 "
+        f"requests (9 /generate, 1 /generate_stream) in {wall:.4f} s from the prefix's POST; "
+        f"{steps} decode steps, {decode_tokens / decode_s:.2f} tok/s aggregate over the decode "
+        f"chunks; prefix hits {stats.get('prefix_hits')}")
+    log(f"[http_bf16] launches {launches} plain calls {plain_calls}")
+    log(f"[http_bf16] requests whose tokens equal the direct server_bf16_prefix run's: "
+        f"{same}/{len(got)}")
+    faults = path_faults("http_bf16", launches, plain_calls)
+    faults += [f"request {i}: {len(g)} tokens for a budget of {reqs[i][2]}"
+               for i, g in enumerate(got) if len(g) != reqs[i][2]]
+    want = (5 * tc.n_layers + 1) * steps + len(reqs)
+    if launches["gemv_tc"] != want:
+        faults.append(f"launched the tensor-core gemv {launches['gemv_tc']} times, not {want}")
+    faults += swiglu_faults(launches, tc.n_layers, prefills=len(reqs) + 1, decode_steps=steps)
+    if stats.get("prefix_hits") != len(reqs):
+        faults.append(f"the prefix served {stats.get('prefix_hits')} requests")
+    if faults:
+        raise RuntimeError(f"[http_bf16] {faults}")
     return launches
 
 
@@ -1936,10 +2425,32 @@ def run_11b_paths(dev) -> dict:
     """The bf16 path (tied head) and its server, then int8 and int4-mixed
     quantized copies of one untied bf16 model, each served from an int8 KV
     cache; the int4-mixed copy also through the server with the W4A8 gemv."""
-    by_path, tokens = {}, {}
+    by_path, tokens, metrics = {}, {}, {}
     cfg, model = build_11b(dev, tie_weights=True)
     by_path["bf16"] = run_11b(dev, cfg, model, "bf16")
-    by_path["server_bf16"] = run_server(dev, cfg, model, "server_bf16", tokens=tokens)
+    by_path["server_bf16"] = run_server(dev, cfg, model, "server_bf16", tokens=tokens,
+                                        metrics=metrics, profile_step=True)
+    prefix, reqs = prefix_requests(cfg, dev)
+    by_path["server_bf16_prefix"] = run_server(dev, cfg, model, "server_bf16_prefix",
+                                               tokens=tokens, metrics=metrics, prefix=prefix,
+                                               reqs=reqs)
+    by_path["http_bf16"] = run_http(dev, cfg, model, tokens, metrics)
+    bank = server_bank(cfg, dev)
+    by_path["server_bf16_lora"] = run_server(dev, cfg, model, "server_bf16_lora", tokens=tokens,
+                                             metrics=metrics, adapter_bank=bank,
+                                             profile_step=True)
+    del bank
+    free_device_memory()
+    plain, pre, lora = (metrics[k] for k in ("server_bf16", "server_bf16_prefix",
+                                             "server_bf16_lora"))
+    log(f"[server_bf16_prefix] ms per admission {pre['admit_ms']:.4f} against server_bf16's "
+        f"unprefixed {plain['admit_ms']:.4f} ({plain['admit_ms'] / pre['admit_ms']:.2f}x); "
+        f"decode {pre['tok_s']:.2f} tok/s against {plain['tok_s']:.2f}")
+    log(f"[server_bf16_lora] against server_bf16: ms per decode step (8 busy) "
+        f"{lora['step_ms']:.4f} / {plain['step_ms']:.4f}; kernel ms a step "
+        f"{lora['kernel_ms']:.4f} / {plain['kernel_ms']:.4f}; kernel launches a step "
+        f"{lora['launches']:.1f} / {plain['launches']:.1f}; decode {lora['tok_s']:.2f} / "
+        f"{plain['tok_s']:.2f} tok/s; peak {lora['peak_gib']:.3f} / {plain['peak_gib']:.3f} GiB")
     by_path["swiglu_down_op"] = run_swiglu_down_op(dev, model)
     by_path["bf16_spec_lookup"], plain = run_11b_spec(dev, cfg, model, "bf16_spec_lookup",
                                                       dict(spec_lookup=4))
@@ -1948,7 +2459,7 @@ def run_11b_paths(dev) -> dict:
         dev, cfg, model, "bf16_spec_draft", dict(spec_draft=4, draft_params=draft,
                                                   draft_config=dcfg), want_tokens=plain)
     del draft
-    torch.cuda.empty_cache()
+    free_device_memory()
     # information: the 11B's own decoder as the draft; a low acceptance points
     # at bits that depend on the rows of a call (the verify's K+1 against 1)
     run_11b_spec(dev, cfg, model, "bf16_spec_self_draft",
@@ -1958,7 +2469,7 @@ def run_11b_paths(dev) -> dict:
                                              spec_lookup=3, tokens=tokens)
     spec_server_rows_witness(dev, cfg, model, tokens)
     del model
-    torch.cuda.empty_cache()
+    free_device_memory()
     cfg, model = build_11b(dev, tie_weights=False)
     for path, kw in (("int8", dict(bits=8)),
                      ("int4_mixed", dict(bits=4, group_size=128, recipe=INT4_MIXED_RECIPE))):
@@ -1978,7 +2489,7 @@ def run_11b_paths(dev) -> dict:
                 gemv_mod._INT4_VARIANT = prev
             int4_variant_ab(dev, cfg, qmodel)
         del qmodel
-        torch.cuda.empty_cache()
+        free_device_memory()
     return by_path
 
 
@@ -2006,16 +2517,19 @@ def main() -> int:
     summary = compare_kernels(dev, only)
     if only is not None:
         return 0
-    torch.cuda.empty_cache()
+    free_device_memory()
     check_tiny_paths_agree(dev)
     check_tiny_server(dev)
     check_tiny_spec(dev)
+    check_tiny_prefix(dev)
+    check_tiny_bank(dev)
+    check_tiny_http(dev)
     check_tiny_training(dev)
     check_tiny_bf16_lora(dev)
     by_path = run_11b_paths(dev)
-    torch.cuda.empty_cache()
+    free_device_memory()
     by_path["lora_11b"] = run_lora_11b(dev)
-    torch.cuda.empty_cache()
+    free_device_memory()
     by_path["full_ft_3b"] = run_full_ft_3b(dev)
     log(f"all phases {time.perf_counter() - t_start:.1f} s")
 

@@ -1,0 +1,353 @@
+"""HTTP serving front end over the continuous-batching server (counterpart
+of ``llama32mm_tpu/inference/http_server.py``).
+
+Standard library only (``http.server`` and a scheduler thread):
+
+- a background thread drives ``ContinuousBatchingServer.step()`` while work
+  is pending (admissions interleave with decode as the scheduler decides);
+- ``POST /generate``: submit and wait; body ``{"input_ids": [...],
+  "pixel_values"?: [3, H, W] nested lists, "max_new_tokens": N,
+  "adapter_id"?: i, "prefix_id"?: p, "timeout_s"?: t}`` and the sampler
+  fields (``temperature``, ``top_p``, ``top_k``, ``min_p``,
+  ``repetition_penalty``); or the text surface ``{"prompt": "...",
+  "image"?: <base64 image file>}``, which needs a tokenizer (and, with an
+  image, a processor) on the front end; returns ``{"request_id", "finished",
+  "tokens", "timed_out"?, "text"?}``;
+- ``POST /submit``: the same body, returns ``{"request_id"}`` at once;
+- ``GET /result/<rid>``: ``{"finished", "tokens"}`` so far;
+- ``GET /stats``: the scheduler's ``stats()``;
+- ``POST /prefix``: register a prompt prefix (``{"input_ids",
+  "pixel_values"?, "adapter_id"?}`` → ``{"prefix_id"}``); later text
+  requests match it on their own, or pin it with ``"prefix_id"``;
+  ``DELETE /prefix/<pid>`` frees it;
+- ``POST /generate_stream``: server-sent events, ``data: {"request_id",
+  "tokens": [...new...]}`` as tokens arrive, then the final result with
+  ``"finished": true``; a client that disconnects has its request cancelled;
+- ``DELETE /request/<rid>``: cancel a queued or running request (on a
+  finished one: drop its record);
+- backpressure: a full admission queue (``max_queue``) and a draining front
+  end answer 429; bad bodies 400; unknown ids 404.
+
+One lock serializes every call into the scheduler.
+
+Run: ``python -m llama32mm_tpu_torch.inference.http_server --hf-weights DIR
+...`` needs the checkpoint loader and the prompt processor, which are not
+ported yet (``main`` raises; ROADMAP.md queue 1 item 4). Until then build a
+``ServingFrontend`` over a server in Python and pass it to ``serve_forever``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import numpy as np
+
+from llama32mm_tpu_torch.inference.server import QueueFullError
+from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+
+
+class ServingFrontend:
+    """Owns a ``ContinuousBatchingServer`` and the thread that steps it."""
+
+    def __init__(self, server, tokenizer=None, processor=None):
+        self.srv = server
+        self.tokenizer = tokenizer
+        self.processor = processor  # prompt + image bodies (MllamaImageProcessor's surface)
+        self._lock = threading.Lock()
+        self._work = threading.Event()
+        self._done_events: dict[int, threading.Event] = {}
+        self._stop = False
+        self._draining = False
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _pending(self) -> bool:
+        s = self.srv
+        return bool(s._queue or s._inflight is not None or any(r is not None for r in s._by_slot))
+
+    def _loop(self):
+        while not self._stop:
+            with self._lock:
+                pending = self._pending()
+                finished = self.srv.step() if pending else []
+            for rid in finished:
+                ev = self._done_events.pop(rid, None)
+                if ev is not None:
+                    ev.set()
+            # let a handler waiting for the lock take it before the next step
+            # (a released lock is otherwise taken back at once)
+            time.sleep(0)
+            if not pending:
+                self._work.wait(timeout=0.05)
+                self._work.clear()
+
+    def submit(self, input_ids, pixel_values, max_new_tokens: int,
+               prefix_id: Optional[int] = None, adapter_id: int = 0,
+               temperature=None, top_p=None, top_k=None, min_p=None, repetition_penalty=None,
+               timeout_s: Optional[float] = None) -> int:
+        with self._lock:
+            if self._draining:
+                raise QueueFullError("server is draining — not accepting requests")
+            rid = self.srv.submit(
+                input_ids, pixel_values, max_new_tokens, prefix_id=prefix_id,
+                adapter_id=adapter_id, temperature=temperature, top_p=top_p, top_k=top_k,
+                min_p=min_p, repetition_penalty=repetition_penalty, timeout_s=timeout_s,
+            )
+            self._done_events[rid] = threading.Event()
+        self._work.set()
+        return rid
+
+    def encode_request(self, req: dict):
+        """A request body as ``(input_ids, pixel_values or None)``: raw
+        ``input_ids`` (and ``pixel_values``), or ``prompt`` (and ``image``,
+        a base64 image file) through the front end's tokenizer or processor
+        (duck-typed: ``tokenizer([text], return_tensors="np", ...)``,
+        ``processor([prompt], [image], padding=True)``)."""
+        if "input_ids" in req:
+            ids = np.asarray(req["input_ids"], np.int64)
+            px = req.get("pixel_values")
+            return ids, None if px is None else np.asarray(px, np.float32)
+        prompt = req["prompt"]  # KeyError → 400 (input_ids or prompt needed)
+        img_b64 = req.get("image")
+        if img_b64 is None:
+            if self.tokenizer is None:
+                raise ValueError("server has no tokenizer — send input_ids")
+            text = (getattr(self.tokenizer, "bos_token", None) or "") + prompt
+            # BOS is prepended above: keep the tokenizer from adding its own
+            if hasattr(self.tokenizer, "add_bos_token"):
+                self.tokenizer.add_bos_token = False
+            if hasattr(self.tokenizer, "add_eos_token"):
+                self.tokenizer.add_eos_token = False
+            ids = self.tokenizer([text], return_tensors="np", padding=True,
+                                 truncation=False)["input_ids"][0]
+            return np.asarray(ids, np.int64), None
+        if self.processor is None:
+            raise ValueError("server has no image processor — send input_ids")
+        import base64
+        import io
+
+        from PIL import Image
+
+        img = Image.open(io.BytesIO(base64.b64decode(img_b64))).convert("RGB")
+        out = self.processor([prompt], [img], padding=True)
+        return (np.asarray(out["input_ids"][0], np.int64),
+                np.asarray(out["pixel_values"][0], np.float32))
+
+    def register_prefix(self, input_ids, pixel_values=None, adapter_id: int = 0) -> int:
+        with self._lock:
+            return self.srv.register_prefix(input_ids, pixel_values, adapter_id=adapter_id)
+
+    def drop_prefix(self, prefix_id: int) -> None:
+        with self._lock:
+            self.srv.drop_prefix(prefix_id)
+
+    def tokens_so_far(self, rid: int) -> tuple:
+        with self._lock:
+            return [int(t) for t in self.srv.tokens_so_far(rid)], self.srv.is_finished(rid)
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a live request; on a finished one, drop its record instead
+        (``DELETE /request/<id>`` doubles as cleanup)."""
+        with self._lock:
+            ok = self.srv.cancel(rid)
+            if not ok:
+                self.srv.release(rid)
+        ev = self._done_events.pop(rid, None)
+        if ev is not None:
+            ev.set()  # release a /generate waiter
+        return ok
+
+    def wait(self, rid: int, timeout: Optional[float] = None) -> bool:
+        ev = self._done_events.get(rid)
+        if ev is None:  # already finished (the loop popped its event)
+            return True
+        return ev.wait(timeout)
+
+    def result(self, rid: int) -> dict:
+        with self._lock:
+            toks = [int(t) for t in self.srv.tokens_so_far(rid)]
+            fin = self.srv.is_finished(rid)
+            req = self.srv._results.get(rid)
+            timed_out = bool(req is not None and req.timed_out)
+        out = {"request_id": rid, "finished": fin, "tokens": toks}
+        if timed_out:
+            out["timed_out"] = True
+        if fin and self.tokenizer is not None:
+            out["text"] = self.tokenizer.decode(toks, skip_special_tokens=True).strip()
+        return out
+
+    def stats(self) -> dict:
+        with self._lock:
+            return self.srv.stats()
+
+    def drain(self, timeout: Optional[float] = 30.0) -> bool:
+        """Refuse new submissions (``submit`` raises ``QueueFullError``) and
+        wait for everything queued or decoding to finish; True if it did
+        within ``timeout`` seconds (None: no limit)."""
+        with self._lock:
+            self._draining = True
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            with self._lock:
+                if not self._pending():
+                    return True
+            if deadline is not None and time.monotonic() >= deadline:
+                return False
+            self._work.set()
+            time.sleep(0.02)
+
+    def shutdown(self, drain: bool = False, drain_timeout: Optional[float] = 30.0):
+        """Stop the scheduler thread; ``drain=True`` first lets in-flight
+        requests finish (within ``drain_timeout``)."""
+        if drain:
+            self.drain(drain_timeout)
+        self._stop = True
+        self._work.set()
+        self._thread.join(timeout=5)
+
+
+def make_handler(frontend: ServingFrontend):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _json(self, code: int, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _read_body(self):
+            n = int(self.headers.get("Content-Length", 0))
+            return json.loads(self.rfile.read(n) or b"{}")
+
+        def _sse(self, rid: int):
+            """Stream a request's tokens as server-sent events, one event
+            per scheduler step that produced tokens, then the final result.
+            A client that disconnects has its request cancelled, so that it
+            does not keep a slot busy to its budget."""
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.end_headers()
+            sent = 0
+            try:
+                while True:
+                    done = frontend.wait(rid, timeout=0.02)
+                    toks, fin = frontend.tokens_so_far(rid)
+                    if len(toks) > sent:
+                        ev = {"request_id": rid, "tokens": toks[sent:]}
+                        self.wfile.write(f"data: {json.dumps(ev)}\n\n".encode())
+                        self.wfile.flush()
+                        sent = len(toks)
+                    if fin or done:
+                        self.wfile.write(f"data: {json.dumps(frontend.result(rid))}\n\n".encode())
+                        self.wfile.flush()
+                        return
+            except (BrokenPipeError, ConnectionResetError, OSError):
+                frontend.cancel(rid)  # free the slot or dequeue
+
+        def do_GET(self):
+            try:
+                if self.path == "/stats":
+                    return self._json(200, frontend.stats())
+                if self.path.startswith("/result/"):
+                    return self._json(200, frontend.result(int(self.path.rsplit("/", 1)[1])))
+                return self._json(404, {"error": f"unknown path {self.path}"})
+            except KeyError:
+                return self._json(404, {"error": "unknown request id"})
+            except Exception as e:  # pragma: no cover - defensive
+                return self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def do_POST(self):
+            try:
+                req = self._read_body()
+                ids, px = frontend.encode_request(req)
+                if self.path == "/prefix":
+                    pid = frontend.register_prefix(ids, px,
+                                                   adapter_id=int(req.get("adapter_id", 0)))
+                    return self._json(200, {"prefix_id": pid})
+                mnt = int(req.get("max_new_tokens", 64))
+                pfx = req.get("prefix_id")
+                tmo = req.get("timeout_s")
+                kw = dict(
+                    prefix_id=None if pfx is None else int(pfx),
+                    adapter_id=int(req.get("adapter_id", 0)),
+                    temperature=req.get("temperature"), top_p=req.get("top_p"),
+                    top_k=req.get("top_k"), min_p=req.get("min_p"),
+                    repetition_penalty=req.get("repetition_penalty"),
+                    timeout_s=None if tmo is None else float(tmo),
+                )
+                if self.path == "/submit":
+                    return self._json(200, {"request_id": frontend.submit(ids, px, mnt, **kw)})
+                if self.path == "/generate":
+                    rid = frontend.submit(ids, px, mnt, **kw)
+                    frontend.wait(rid)
+                    return self._json(200, frontend.result(rid))
+                if self.path == "/generate_stream":
+                    return self._sse(frontend.submit(ids, px, mnt, **kw))
+                return self._json(404, {"error": f"unknown path {self.path}"})
+            except QueueFullError as e:
+                return self._json(429, {"error": str(e)})
+            except (KeyError, ValueError, TypeError) as e:
+                return self._json(400, {"error": f"{type(e).__name__}: {e}"})
+            except Exception as e:  # pragma: no cover - defensive
+                return self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def do_DELETE(self):
+            try:
+                if self.path.startswith("/prefix/"):
+                    try:
+                        frontend.drop_prefix(int(self.path.rsplit("/", 1)[1]))
+                    except KeyError:
+                        return self._json(404, {"error": "unknown prefix id"})
+                    return self._json(200, {"ok": True})
+                if self.path.startswith("/request/"):
+                    try:
+                        ok = frontend.cancel(int(self.path.rsplit("/", 1)[1]))
+                    except KeyError:
+                        return self._json(404, {"error": "unknown request id"})
+                    return self._json(200, {"cancelled": ok})
+                return self._json(404, {"error": f"unknown path {self.path}"})
+            except Exception as e:  # pragma: no cover - defensive
+                return self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+    return Handler
+
+
+def serve_forever(frontend: ServingFrontend, host: str = "0.0.0.0", port: int = 8000):
+    """The HTTP server over ``frontend`` (bound, not yet serving: call its
+    ``serve_forever()``, e.g. in a thread; ``port=0`` picks a free port,
+    read back from ``server_address``)."""
+    return ThreadingHTTPServer((host, port), make_handler(frontend))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="llama32mm PyTorch/CUDA HTTP serving")
+    parser.add_argument("--hf-weights", required=True)
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--slots", type=int, default=4)
+    parser.add_argument("--max-queue", type=int, default=64,
+                        help="admission queue bound; a full queue returns HTTP 429 "
+                             "(0 = unbounded)")
+    parser.add_argument("--max-cache-length", type=int, default=2048)
+    parser.add_argument("--quantize", choices=["none", "int8", "int4"], default="none")
+    parser.add_argument("--prefill-chunk", type=int, default=None)
+    parser.add_argument("--spec-lookup", type=int, default=0,
+                        help="K>0: batched prompt-lookup speculative decoding")
+    parser.add_argument("--dtype", default="bfloat16")
+    parser.parse_args(argv)
+    not_in_slice("the HTTP server's command line (it needs io/checkpoint.py::load_hf_model and "
+                 "preprocess/processor.py, queue 1 item 4)")
+
+
+if __name__ == "__main__":
+    main()

@@ -33,16 +33,33 @@
   its K+1 new slots ``wp..wp+K``, query offset ``wp``, causal; every
   committed key lies below ``wp``, so this is the JAX package's dense mask
   exactly;
+- **prefix caching** (``register_prefix``): the K/V of a shared prompt
+  prefix (an image and its instruction template, a system preamble) is
+  computed once and kept for its ``P`` positions only (``[L, 1, n_kv, P,
+  hd]``, the int8 scales with them); an admission that uses it copies those
+  rows into its slot, marks them valid and prefills only the suffix from
+  ``q_offset = P`` through the chunked-admission code, so its cost follows
+  the suffix. ``drop_prefix`` frees the rows;
+- **multi-LoRA serving** (``adapter_bank``, ``train/lora.py::
+  stack_adapter_bank``): each request picks an adapter by ``adapter_id``;
+  admission runs that adapter (the bank indexed at one id, the shared
+  ``[L, in, r]`` layout) and every decode step runs each slot's own adapter
+  in the one batched forward (``models/language.py::maybe_lora``'s per-row
+  branch over the bank gathered by slot, rebuilt only when a slot's adapter
+  changes). Adapters on ``w_gate`` / ``w_up`` put the FFN on its unfused
+  ``silu(gate) * up`` form, so such a bank launches no SwiGLU kernel. A
+  bank's projector adapter applies to the image of a monolithic admission
+  only, as in the JAX package (chunked and prefixed admissions and image
+  prefixes encode with the base projector); vision adapters are not
+  per-slot;
 - deadlines (``timeout_s``), cancellation, a bounded queue (``max_queue``,
   ``QueueFullError``), ``release`` of finished records.
 
 Greedy requests produce the tokens of a solo ``InferenceEngine.generate``
-(the tests hold both to the JAX engine). Sampling draws from a
-``torch.Generator`` on the server's device.
-
-Not in this slice (``NotImplementedError``, ROADMAP.md queue 1): prefix
-caching (``register_prefix`` / ``prefix_id``), per-request LoRA adapters
-(``adapter_bank``) and explicit ``gemv_routes``.
+on the full prompt, with a bank adapter those of an engine on the model
+with that adapter merged (the tests hold both to the JAX package).
+Sampling draws from a ``torch.Generator`` on the server's device.
+Explicit ``gemv_routes`` are refused (ROADMAP.md, "Do not port").
 """
 
 from __future__ import annotations
@@ -65,6 +82,7 @@ from llama32mm_tpu_torch.models.vlm import (
 )
 from llama32mm_tpu_torch.ops.attention import AttnMask
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+from llama32mm_tpu_torch.train.lora import first_leaf, gather_adapter_bank
 from llama32mm_tpu_torch.utils.kvcache import KVCache, init_kv_cache
 from llama32mm_tpu_torch.utils.sampling import (
     presence_from_tokens,
@@ -75,7 +93,13 @@ from llama32mm_tpu_torch.utils.sampling import (
 
 class QueueFullError(RuntimeError):
     """Raised by ``submit`` when the admission queue holds ``max_queue``
-    requests (backpressure)."""
+    requests (backpressure; the HTTP front end answers 429)."""
+
+
+def _single_adapter(bank: dict, aid: int) -> dict:
+    """Adapter ``aid`` of a bank in the shared layout (``[L, in, r]``
+    blocks, ``[in, r]`` flat leaves): views of the bank's rows, no copy."""
+    return {k: _single_adapter(v, aid) if isinstance(v, dict) else v[aid] for k, v in bank.items()}
 
 
 class BatchState(NamedTuple):
@@ -95,11 +119,12 @@ class BatchState(NamedTuple):
 class _Request:
     __slots__ = (
         "rid", "input_ids", "pixel_values", "max_new_tokens", "tokens",
-        "slot", "finished", "prompt_len", "sampler", "deadline", "timed_out",
+        "slot", "finished", "prompt_len", "prefix", "adapter_id", "sampler",
+        "deadline", "timed_out",
     )
 
-    def __init__(self, rid, input_ids, pixel_values, max_new_tokens,
-                 sampler=(0.0, 0.9, 50, 0.0, 1.0), deadline=None):
+    def __init__(self, rid, input_ids, pixel_values, max_new_tokens, prefix=None,
+                 adapter_id=0, sampler=(0.0, 0.9, 50, 0.0, 1.0), deadline=None):
         self.rid = rid
         self.input_ids = input_ids  # np [s]
         self.pixel_values = pixel_values  # [3, H, W] (numpy or a tensor) or None
@@ -108,9 +133,31 @@ class _Request:
         self.slot: Optional[int] = None
         self.finished = False
         self.prompt_len = int(input_ids.shape[-1])
+        self.prefix: Optional[_Prefix] = prefix
+        self.adapter_id = adapter_id
         self.sampler = sampler  # (T, top_p, top_k, min_p, rep_penalty)
         self.deadline = deadline  # absolute time.monotonic() cutoff or None
         self.timed_out = False
+
+
+class _Prefix:
+    """A registered prompt prefix: the K/V of its ``P`` positions (``cache``,
+    ``[L, 1, n_kv, P, hd]``, with the int8 scales in that mode), computed once
+    with adapter ``adapter_id``; ``cache`` is None once dropped and no queued
+    request needs it."""
+
+    __slots__ = ("pid", "input_ids", "has_image", "auto_match", "cache", "length", "hits",
+                 "adapter_id")
+
+    def __init__(self, pid, input_ids, has_image, auto_match, cache, adapter_id):
+        self.pid = pid
+        self.input_ids = input_ids  # np [P]
+        self.has_image = has_image
+        self.auto_match = auto_match
+        self.cache: Optional[KVCache] = cache
+        self.length = int(input_ids.shape[0])
+        self.hits = 0
+        self.adapter_id = adapter_id
 
 
 class ContinuousBatchingServer:
@@ -151,15 +198,17 @@ class ContinuousBatchingServer:
         ``step()``, token for token the same as monolithic admission.
         ``spec_lookup=K``: prompt-lookup speculative decoding, each decode
         step a (K+1)-token verify; a request then needs K cache slots of
-        headroom past its budget."""
+        headroom past its budget. ``adapter_bank``: a stacked bank of LoRA
+        adapters (``train/lora.py::stack_adapter_bank``, leaves ``[N,
+        ...]``), picked per request by ``submit(..., adapter_id=i)``; entry 0
+        is conventionally the identity adapter (``zero_lora_params``), so
+        that default requests run the base model."""
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if spec_lookup < 0:
             raise ValueError(f"spec_lookup must be >= 0, got {spec_lookup}")
-        if adapter_bank is not None:
-            not_in_slice("multi-LoRA serving (adapter_bank)")
         if gemv_routes not in (None, "auto"):
             not_in_slice("gemv_routes (the port has one gemv kernel for every decode linear)")
         if max_queue is not None and max_queue < 1:
@@ -180,6 +229,8 @@ class ContinuousBatchingServer:
         self.prefill_chunk = prefill_chunk
         self.max_queue = max_queue
         self.spec_lookup = int(spec_lookup)
+        self.adapter_bank = adapter_bank
+        self.n_adapters = int(first_leaf(adapter_bank).shape[0]) if adapter_bank is not None else 0
         self._rng = rng if rng is not None else torch.Generator(self.device).manual_seed(0)
 
         tc, s_max, dev = config.text_config, self.max_cache_length, self.device
@@ -198,7 +249,11 @@ class ContinuousBatchingServer:
         self._queue: deque[_Request] = deque()
         self._by_slot: list[Optional[_Request]] = [None] * slots
         self._slot_sampler = [self.sampler] * slots
+        self._slot_adapter = [0] * slots  # adapter id per slot (bank mode)
         self._slot_dev = None  # device copies of the occupancy and the samplers
+        self._slot_bank = None  # (adapter ids, the bank gathered by slot)
+        self._prefixes: dict[int, _Prefix] = {}
+        self._next_prefix_id = 0
         self._results: dict[int, _Request] = {}
         self._next_id = 0
         self._inflight: Optional[dict] = None  # chunked admission in progress
@@ -247,6 +302,25 @@ class ContinuousBatchingServer:
             logits, samp[0], samp[1], samp[2], samp[3], presence=pres, penalty=penalty,
             all_greedy=self._all_greedy([sampler]), generator=self._rng)
 
+    def _adapter(self, adapter_id: int) -> Optional[dict]:
+        """The request's adapter for its admission (None without a bank)."""
+        if self.adapter_bank is None:
+            return None
+        return _single_adapter(self.adapter_bank, adapter_id)
+
+    def _slot_lora(self) -> Optional[dict]:
+        """Each slot's adapter for decode: the bank's decoder and head
+        adapters gathered by slot (``[L, B, in, r]`` blocks, ``[B, in, r]``
+        head), gathered again only when a slot's adapter id changes."""
+        if self.adapter_bank is None:
+            return None
+        ids = tuple(self._slot_adapter)
+        if self._slot_bank is None or self._slot_bank[0] != ids:
+            self._slot_bank = None  # free the old gather before the new one
+            bank = {k: v for k, v in self.adapter_bank.items() if k in ("blocks", "lm_head")}
+            self._slot_bank = (ids, gather_adapter_bank(bank, self._tensor(list(ids), torch.long)))
+        return self._slot_bank[1]
+
     def _install(self, req: _Request, slot: int, first: torch.Tensor, ids_row: torch.Tensor,
                  filled: int) -> None:
         """Make ``slot`` live for ``req``: its prompt's ``filled`` cache slots
@@ -265,6 +339,7 @@ class ContinuousBatchingServer:
         req.slot = slot
         self._by_slot[slot] = req
         self._slot_sampler[slot] = req.sampler
+        self._slot_adapter[slot] = req.adapter_id
         self._slot_dev = None
         req.input_ids = req.pixel_values = None  # the prompt lives in the cache now
         self._emit(req, [int(first[0])])  # one device read per admission
@@ -277,15 +352,50 @@ class ContinuousBatchingServer:
         ids[0, :s] = req.input_ids
         pad = np.zeros((1, bucket), np.int32)
         pad[0, :s] = 1
-        px = None
-        if req.pixel_values is not None:
-            px = torch.as_tensor(req.pixel_values, device=self.device)
-            px = px.to(self.config.text_config.torch_dtype)[None]
         return (torch.as_tensor(ids, device=self.device),
-                torch.as_tensor(pad, device=self.device), px)
+                torch.as_tensor(pad, device=self.device), self._pixels(req.pixel_values))
+
+    def _pixels(self, px) -> Optional[torch.Tensor]:
+        """Pixel values ``[3, H, W]`` (numpy or a tensor) as ``[1, 3, H, W]``
+        on the device in the model's dtype."""
+        if px is None:
+            return None
+        return torch.as_tensor(px, device=self.device).to(self.config.text_config.torch_dtype)[None]
+
+    def _embed(self, ids: torch.Tensor, pad: torch.Tensor, px) -> torch.Tensor:
+        """Token embeddings ``[1, n, H]`` of ``ids`` with the image's features
+        spliced over its ``<image>`` ids (the decoder applies its scale)."""
+        tc = self.config.text_config
+        embeds = self.model.language_model.model.tok_emb[ids.clamp(0, tc.vocab_size - 1)]
+        if px is not None:
+            feats = encode_image(self.model, self.config, px, impl=self.impl)
+            embeds, _ = merge_input_ids_with_image_features(
+                feats, embeds, ids, pad, self.config.image_token_index)
+        return embeds
+
+    def _prefill_rows(self, embeds: torch.Tensor, pad_row: torch.Tensor, off: int,
+                      view: KVCache, lora: Optional[dict]):
+        """The decoder over ``embeds`` (prompt positions ``off..off+n-1``)
+        into the one-row cache ``view`` at ``q_offset = off``; ``pad_row [1,
+        S]`` marks the prompt's keys."""
+        n = embeds.shape[1]
+        view.pos = off
+        return llama_forward(
+            self.model.language_model.model, self.config.text_config, input_embeds=embeds,
+            attention_mask=AttnMask(kv_valid=pad_row, q_offset=off),
+            position_ids=(off + torch.arange(n, device=self.device))[None],
+            kv_cache=view, impl=self.impl, lora=lora,
+        )
 
     def _admit(self, req: _Request, slot: int) -> None:
-        """Monolithic admission: one prefill into the slot's view."""
+        """Monolithic admission: one prefill into the slot's view; a prefixed
+        request prefills its suffix through the chunked-admission code,
+        within this call."""
+        if req.prefix is not None:
+            self._start_admission(req, slot)
+            while self._inflight is not None:
+                self._advance_admission()
+            return
         s = req.prompt_len
         bucket = bucketed_len(s, req.max_new_tokens + self.spec_lookup, self.max_cache_length,
                               self.prompt_buckets)
@@ -295,49 +405,63 @@ class ContinuousBatchingServer:
             attention_mask=structured_prefill_mask(pad, self.max_cache_length),
             kv_cache=self.state.cache.slot(slot), impl=self.impl,
             logits_positions=torch.full((1, 1), s - 1, device=self.device),
+            lora=self._adapter(req.adapter_id),
         )
         first = self._first_token(out.logits[:, 0], ids, s, req.sampler)
         self._install(req, slot, first, ids, bucket)
 
     def _start_admission(self, req: _Request, slot: int) -> None:
-        """Begin a chunked admission: encode the image and embed the prompt
-        once; the decoder pass then runs ``prefill_chunk`` tokens per step."""
-        s, c = req.prompt_len, self.prefill_chunk
-        bucket = -(-s // c) * c
+        """Begin a chunked or prefixed admission: encode the image and embed
+        the prompt (a prefixed request: copy the prefix's rows into the slot
+        and embed the suffix) once; the decoder pass then runs one chunk per
+        ``_advance_admission`` from ``off = P`` (0 without a prefix). The
+        chunk is ``prefill_chunk``; without it, a prefixed admission's suffix
+        is one chunk, rounded up to 128 rows under ``"auto"`` buckets."""
+        s, pfx = req.prompt_len, req.prefix
+        base = 0 if pfx is None else pfx.length
+        n_suffix = s - base
+        if self.prefill_chunk is not None:
+            c = self.prefill_chunk
+        elif self.prompt_buckets == "auto":
+            c = -(-n_suffix // 128) * 128
+        else:
+            c = n_suffix
+        bucket = base + -(-n_suffix // c) * c
         if bucket > self.max_cache_length - req.max_new_tokens - self.spec_lookup:
             bucket = s  # chunk alignment would overflow: the last chunk runs ragged
         ids, pad, px = self._prompt(req, bucket)
-        tc = self.config.text_config
-        embeds = self.model.language_model.model.tok_emb[ids.clamp(0, tc.vocab_size - 1)]
-        if px is not None:
-            feats = encode_image(self.model, self.config, px, impl=self.impl)
-            embeds, _ = merge_input_ids_with_image_features(
-                feats, embeds, ids, pad, self.config.image_token_index)
+        embeds = self._embed(ids[:, base:], pad[:, base:], px)
+        if pfx is not None:
+            view, src = self.state.cache.slot(slot), pfx.cache
+            view.k[:, :, :, :base].copy_(src.k)
+            view.v[:, :, :, :base].copy_(src.v)
+            if view.quantized:
+                view.k_scale[..., :base].copy_(src.k_scale)
+                view.v_scale[..., :base].copy_(src.v_scale)
+            pfx.hits += 1
+            self._release_if_dropped(pfx)
         # decode steps between the chunks advance the live slots and write this
         # idle slot at its offset; S-1 is a cache slot the request never uses
         self.state.pos[slot] = self.max_cache_length - 1
         pad_row = torch.zeros(1, self.max_cache_length, dtype=torch.int32, device=self.device)
         pad_row[0, :s] = 1
         self._inflight = {"req": req, "slot": slot, "embeds": embeds, "pad_row": pad_row,
-                          "ids": ids, "off": 0, "bucket": bucket, "logits": None}
+                          "ids": ids, "off": base, "base": base, "chunk": c, "bucket": bucket,
+                          "lora": self._adapter(req.adapter_id), "logits": None}
 
     def _advance_admission(self) -> None:
         fl = self._inflight
-        req, slot, off, bucket = fl["req"], fl["slot"], fl["off"], fl["bucket"]
-        n = min(self.prefill_chunk, bucket - off)
-        view = self.state.cache.slot(slot)
-        view.pos = off
-        lm = self.model.language_model
-        out = llama_forward(
-            lm.model, self.config.text_config, input_embeds=fl["embeds"][:, off:off + n],
-            attention_mask=AttnMask(kv_valid=fl["pad_row"], q_offset=off),
-            position_ids=(off + torch.arange(n, device=self.device))[None],
-            kv_cache=view, impl=self.impl,
-        )
+        req, slot, off, bucket, base = fl["req"], fl["slot"], fl["off"], fl["bucket"], fl["base"]
+        n = min(fl["chunk"], bucket - off)
+        lora = fl["lora"]
+        out = self._prefill_rows(fl["embeds"][:, off - base:off - base + n], fl["pad_row"], off,
+                                 self.state.cache.slot(slot), lora)
         last = req.prompt_len - 1
         if off <= last < off + n:  # the chunk holding the prompt's last token
             h_last = out.hidden_states[:, last - off:last - off + 1]
-            fl["logits"] = lm_head_apply(lm, self.config.text_config, h_last, impl=self.impl)[:, 0]
+            fl["logits"] = lm_head_apply(self.model.language_model, self.config.text_config,
+                                         h_last, impl=self.impl,
+                                         lora=None if lora is None else lora.get("lm_head"))[:, 0]
         fl["off"] = off + n
         if fl["off"] >= bucket:
             self._inflight = None
@@ -363,6 +487,7 @@ class ContinuousBatchingServer:
         commit nothing (``_commit``)."""
         st, s_max, k = self.state, self.max_cache_length, self.spec_lookup
         active, samp = self._slot_args()
+        lora = self._slot_lora()
         all_greedy = self._all_greedy(self._slot_sampler)
         penalised = self._penalised(self._slot_sampler)
         image_id, vocab = self.config.image_token_index, self.config.text_config.vocab_size
@@ -387,7 +512,7 @@ class ContinuousBatchingServer:
                 attention_mask=AttnMask(kv_valid=attend, q_offset=wp.to(torch.int32)),
                 position_ids=rp[:, None] + jr,
                 kv_cache=KVCache(cache.k, cache.v, wp, cache.k_scale, cache.v_scale),
-                impl=self.impl,
+                impl=self.impl, lora=lora,
             )
             pres = None
             if penalised:
@@ -435,16 +560,81 @@ class ContinuousBatchingServer:
 
     # -- host-side scheduling -------------------------------------------------
 
+    @torch.inference_mode()
     def register_prefix(self, input_ids, pixel_values=None, auto_match=None,
                         adapter_id: int = 0) -> int:
-        not_in_slice("prefix caching (register_prefix)")
+        """Compute and keep the K/V of a shared prompt prefix (an image and its
+        instruction template, a system preamble, few-shot examples); requests
+        whose prompt starts with it skip its prefill: admission copies its
+        rows into the slot and prefills only the suffix.
+
+        ``auto_match`` (default: true for a text-only prefix) lets ``submit``
+        use the prefix by the longest token-prefix match. A prefix with an
+        image is never auto-matched (every image request starts with the same
+        ``<image>`` ids); pass its ``prefix_id`` to ``submit``, with
+        ``pixel_values=None``: the image is in the prefix. The prefix's K/V
+        are computed with adapter ``adapter_id`` and serve only requests of
+        that adapter. Cost: the ``P`` positions' K/V, kept on the device."""
+        ids = np.asarray(input_ids.cpu() if isinstance(input_ids, torch.Tensor) else input_ids)
+        ids = ids.reshape(-1).astype(np.int64)
+        p = int(ids.shape[0])
+        if p < 1 or p >= self.max_cache_length:
+            raise ValueError(f"prefix length {p} must be in [1, cache {self.max_cache_length})")
+        px = pixel_values
+        if px is not None and px.ndim == 4:
+            px = px[0]
+        use_image = px is not None
+        if auto_match is None:
+            auto_match = not use_image
+        if auto_match and use_image:
+            raise ValueError("image prefixes cannot be auto-matched — pass prefix_id explicitly")
+        self._check_adapter_id(adapter_id)
+        # one prefill of the P positions into a one-row scratch cache shaped
+        # like a slot (the admission's shapes), of which the P rows are kept
+        tc = self.config.text_config
+        scratch = init_kv_cache(tc, 1, self.device, max_length=self.max_cache_length,
+                                dtype=torch.int8 if self.kv_dtype == "int8" else None)
+        ids_t = torch.as_tensor(ids, device=self.device)[None]
+        pad_row = torch.zeros(1, self.max_cache_length, dtype=torch.int32, device=self.device)
+        pad_row[0, :p] = 1
+        embeds = self._embed(ids_t, pad_row[:, :p], self._pixels(px))
+        self._prefill_rows(embeds, pad_row, 0, scratch, self._adapter(adapter_id))
+        scales = ((scratch.k_scale[..., :p].clone(), scratch.v_scale[..., :p].clone())
+                  if scratch.quantized else (None, None))
+        cache = KVCache(scratch.k[:, :, :, :p].clone(), scratch.v[:, :, :, :p].clone(), p, *scales)
+        pid = self._next_prefix_id
+        self._next_prefix_id += 1
+        self._prefixes[pid] = _Prefix(pid, ids, use_image, auto_match, cache, adapter_id)
+        return pid
+
+    def drop_prefix(self, prefix_id: int) -> None:
+        """Unregister a prefix and free its K/V (after the admission of a
+        queued request that uses it, if there is one)."""
+        self._release_if_dropped(self._prefixes.pop(prefix_id))
+
+    def _release_if_dropped(self, pfx: _Prefix) -> None:
+        if self._prefixes.get(pfx.pid) is not pfx and not any(r.prefix is pfx
+                                                              for r in self._queue):
+            pfx.cache = None
 
     def _check_adapter_id(self, adapter_id: int) -> None:
-        if adapter_id != 0:
+        if adapter_id == 0 and self.adapter_bank is None:
+            return
+        if self.adapter_bank is None:
             raise ValueError("no adapter_bank configured on this server")
+        if not 0 <= adapter_id < self.n_adapters:
+            raise ValueError(f"adapter_id {adapter_id} out of range [0, {self.n_adapters})")
 
-    def _match_prefix(self, ids: np.ndarray, adapter_id: int):
-        return None  # no prefixes without register_prefix
+    def _match_prefix(self, ids: np.ndarray, adapter_id: int) -> Optional[_Prefix]:
+        """The longest auto-match prefix of ``ids`` computed with the same
+        adapter (a prefix's K/V are adapter-specific)."""
+        best = None
+        for p in self._prefixes.values():
+            if (p.auto_match and p.adapter_id == adapter_id and p.length < ids.shape[0]
+                    and (best is None or p.length > best.length)
+                    and np.array_equal(ids[:p.length], p.input_ids)):
+                best = p
+        return best
 
     def submit(
         self,
@@ -460,17 +650,19 @@ class ContinuousBatchingServer:
         repetition_penalty: Optional[float] = None,
         timeout_s: Optional[float] = None,
     ) -> int:
-        """Queue one request (``input_ids`` ``[s]`` or ``[1, s]``); returns its
-        id. The sampler arguments override the server's defaults for this
-        request. ``timeout_s``: a request still queued or decoding that long
-        after submission is finished at the next ``step()`` with the tokens it
-        has, flagged ``timed_out``."""
+        """Queue one request (``input_ids`` ``[s]`` or ``[1, s]``: the full
+        prompt, a prefix's tokens included); returns its id. ``prefix_id``
+        pins a registered prefix; without it a text-only request uses the
+        longest registered auto-match prefix of the same ``adapter_id``.
+        ``adapter_id`` picks the request's adapter from ``adapter_bank``. The
+        sampler arguments override the server's defaults for this request.
+        ``timeout_s``: a request still queued or decoding that long after
+        submission is finished at the next ``step()`` with the tokens it has,
+        flagged ``timed_out``."""
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             raise QueueFullError(f"admission queue full ({len(self._queue)}/{self.max_queue})")
         if timeout_s is not None and timeout_s <= 0:
             raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
-        if prefix_id is not None:
-            not_in_slice("prefix caching (prefix_id)")
         sampler = (
             self.sampler[0] if temperature is None else float(temperature),
             self.sampler[1] if top_p is None else float(top_p),
@@ -501,10 +693,28 @@ class ContinuousBatchingServer:
         if px is not None and px.ndim == 4:
             px = px[0]
         self._check_adapter_id(adapter_id)
+        prefix = None
+        if prefix_id is not None:
+            prefix = self._prefixes[prefix_id]
+            if prefix.length >= ids.shape[0]:
+                raise ValueError(f"prompt ({ids.shape[0]}) must extend past the prefix "
+                                 f"({prefix.length}) by at least one token")
+            if not np.array_equal(ids[:prefix.length], prefix.input_ids):
+                raise ValueError("prompt does not start with the given prefix's tokens")
+            if prefix.has_image and px is not None:
+                raise ValueError(
+                    "the prefix already carries the image — submit with pixel_values=None")
+            if prefix.adapter_id != adapter_id:
+                raise ValueError(
+                    f"prefix {prefix_id} was computed with adapter {prefix.adapter_id}, not "
+                    f"{adapter_id} — prefix KV is adapter-specific")
+        elif px is None:
+            prefix = self._match_prefix(ids, adapter_id)
         rid = self._next_id
         self._next_id += 1
         deadline = None if timeout_s is None else time.monotonic() + timeout_s
-        req = _Request(rid, ids, px, max_new_tokens, sampler=sampler, deadline=deadline)
+        req = _Request(rid, ids, px, max_new_tokens, prefix=prefix, adapter_id=adapter_id,
+                       sampler=sampler, deadline=deadline)
         self._queue.append(req)
         self._results[rid] = req
         return rid
@@ -636,6 +846,8 @@ class ContinuousBatchingServer:
                 self._queue.remove(req)
             except ValueError:
                 pass
+            if req.prefix is not None:
+                self._release_if_dropped(req.prefix)
         return True
 
     def tokens_so_far(self, rid: int) -> np.ndarray:
@@ -656,6 +868,11 @@ class ContinuousBatchingServer:
             "tokens_generated": sum(len(r.tokens) for r in self._results.values()),
             **({"max_queue": self.max_queue} if self.max_queue is not None else {}),
             **({"timeouts": self._timeouts} if self._timeouts else {}),
+            **({"prefixes": len(self._prefixes),
+                "prefix_hits": sum(p.hits for p in self._prefixes.values()),
+                "prefix_tokens_cached": sum(p.length for p in self._prefixes.values())}
+               if self._prefixes else {}),
+            **({"adapters": self.n_adapters} if self.adapter_bank is not None else {}),
             **({"spec_lookup": self.spec_lookup,
                 "spec_tokens_per_step": round(self._spec_tokens / max(self._spec_steps, 1), 3)}
                if self.spec_lookup else {}),

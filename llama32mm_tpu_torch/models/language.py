@@ -16,8 +16,12 @@ Reference semantics kept from the JAX package:
 - LoRA (``lora``, the JAX package's adapter tree: per target
   ``lora_a [L, in, r]``, ``lora_b [L, r, out]``, ``scaling [L]``):
   ``base + scaling * (dropout(x) @ A) @ B`` with A and B cast to x's dtype;
-  adapters on gate or up also take the explicit form (``silu(g + dg) *
-  (u + du)`` is not a delta on the fused output);
+  a bank gathered by row (``train/lora.py::gather_adapter_bank``: ``[L, B,
+  in, r]``, ``[L, B, r, out]``, ``[L, B]``, the head's ``[B, ...]``) gives
+  each batch row its own adapter, as two ``torch.bmm`` (multi-LoRA
+  serving); adapters on gate or up also take the explicit form (``silu(g +
+  dg) * (u + du)`` is not a delta on the fused output), so such a model
+  launches no SwiGLU kernel;
 - ``remat=True``: each block under ``torch.utils.checkpoint`` (the JAX
   package's ``jax.checkpoint`` of the scanned layer body).
 
@@ -136,19 +140,23 @@ def maybe_lora(x: torch.Tensor, base_out: torch.Tensor, adapter: Optional[dict],
     """``base_out + scaling * (dropout(x) @ A) @ B`` (the JAX package's
     ``_maybe_lora``); ``layer`` picks one layer of a stacked adapter. The
     scaling multiplies the rank-r product, so autograd keeps only that
-    ``[..., r]`` tensor for the scaling's gradient."""
+    ``[..., r]`` tensor for the scaling's gradient. A 3-D ``A`` (``[B, in,
+    r]``, with ``B [B, r, out]`` and ``scaling [B]``: a bank gathered by
+    row) gives each row of ``x [B, t, in]`` its own adapter, scaled after
+    both products as in JAX."""
     if adapter is None:
         return base_out
     a, b, scaling = adapter["lora_a"], adapter["lora_b"], adapter["scaling"]
     if layer is not None:
         a, b, scaling = a[layer], b[layer], scaling[layer]
-    if a.dim() != 2:
-        not_in_slice("adapter banks (a different LoRA adapter per batch row)")
     xin = x
     if dropout is not None and dropout.rate > 0.0:
         gen = torch.Generator(device=x.device).manual_seed(dropout.seed)
         keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - dropout.rate
         xin = torch.where(keep, x / (1.0 - dropout.rate), torch.zeros((), dtype=x.dtype)).to(x.dtype)
+    if a.dim() == 3:
+        delta = torch.bmm(torch.bmm(xin, a.to(x.dtype)), b.to(x.dtype))
+        return base_out + (scaling[:, None, None] * delta).to(base_out.dtype)
     delta = torch.matmul(torch.matmul(xin, a.to(x.dtype)) * scaling, b.to(x.dtype))
     return base_out + delta.to(base_out.dtype)
 
@@ -295,7 +303,8 @@ def lm_head_apply(lm: CausalLM, config: LLAMA32Config, hidden: torch.Tensor,
                   dropout: Optional[Dropout] = None) -> torch.Tensor:
     """Logits; a tied head reads the ``[vocab, hidden]`` embedding as it is
     (the JAX package's ``tok_emb.T``), a quantized head goes through
-    ``qlinear``. ``lora`` is the head's flat adapter."""
+    ``qlinear``. ``lora`` is the head's flat adapter, or a bank's head
+    gathered by row (``[B, in, r]``: one adapter per row of ``hidden``)."""
     w = lm.model.tok_emb if lm.lm_head is None else lm.lm_head.weight
     return maybe_lora(hidden, linear(hidden, w, impl), lora, dropout=dropout)
 

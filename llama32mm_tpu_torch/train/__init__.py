@@ -23,6 +23,7 @@ from llama32mm_tpu_torch.train.lora import (
     save_lora_adapters,
     save_train_state,
     stack_adapter_bank,
+    zero_lora_params,
 )
 
 __all__ = [
@@ -45,4 +46,5 @@ __all__ = [
     "save_lora_adapters",
     "save_train_state",
     "stack_adapter_bank",
+    "zero_lora_params",
 ]

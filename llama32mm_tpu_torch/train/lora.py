@@ -110,15 +110,61 @@ def _unflatten(flat: dict) -> dict:
     return out
 
 
+def zero_lora_params(config, rank: int = 16, device=None, **kw) -> dict:
+    """An identity adapter (B = 0, as at init; A from a generator seeded 0
+    on ``device``, the CPU by default): entry 0 of a serving bank, so that
+    requests without an adapter run the base model exactly. ``kw`` as
+    ``init_lora_params``."""
+    gen = torch.Generator(device=device if device is not None else "cpu").manual_seed(0)
+    return init_lora_params(gen, config, rank=rank, device=device, **kw)
+
+
+def first_leaf(tree: dict) -> torch.Tensor:
+    """The first tensor of a nested adapter tree (or bank)."""
+    leaf = next(iter(tree.values()))
+    return first_leaf(leaf) if isinstance(leaf, dict) else leaf
+
+
+def _structure(tree: dict):
+    """The keys of an adapter tree and the shapes of its leaves."""
+    return tuple((k, _structure(v) if isinstance(v, dict) else tuple(v.shape))
+                 for k, v in sorted(tree.items()))
+
+
+def _stack(trees: Sequence[dict]) -> dict:
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
 def stack_adapter_bank(adapters: Sequence[dict]) -> dict:
-    """Not ported: multi-LoRA banks belong to the continuous-batching server
-    (ROADMAP.md, queue 1)."""
-    not_in_slice("adapter banks (stack_adapter_bank), with the server slice")
+    """N adapter trees of one structure stacked into a bank (each leaf gains
+    a leading ``[N, ...]`` axis) for multi-LoRA serving: the
+    continuous-batching server holds one bank and each slot picks its
+    adapter by index (``ContinuousBatchingServer(adapter_bank=...)``). All
+    adapters share rank and targets; entry 0 is conventionally the identity
+    adapter (``zero_lora_params``)."""
+    if not adapters:
+        raise ValueError("need at least one adapter")
+    if len({_structure(a) for a in adapters}) != 1:
+        raise ValueError("adapters have mismatched structures (rank/targets must agree)")
+    return _stack(adapters)
 
 
 def gather_adapter_bank(bank: dict, idx) -> dict:
-    """Not ported (see ``stack_adapter_bank``)."""
-    not_in_slice("adapter banks (gather_adapter_bank), with the server slice")
+    """Per-row adapters for a batch: ``idx [B]`` picks each row's adapter
+    from the bank. Blocks leaves become ``[L, B, in, r]`` (the layer axis
+    first, so ``leaf[l]`` is the per-row ``[B, in, r]`` that
+    ``models/language.py::maybe_lora`` takes), flat leaves (the head, the
+    projector) ``[B, in, r]``. The result is a copy, contiguous."""
+    idx = torch.as_tensor(idx, dtype=torch.long, device=first_leaf(bank).device)
+    out = {}
+    for key, sub in bank.items():
+        if key == "blocks":
+            out[key] = {name: {leaf: t.transpose(0, 1).index_select(1, idx)
+                               for leaf, t in ad.items()} for name, ad in sub.items()}
+        else:
+            out[key] = {leaf: t.index_select(0, idx) for leaf, t in sub.items()}
+    return out
 
 
 class Linear_LORA(nn.Module):

@@ -35,7 +35,7 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.inference.server", "profile_serve", "profile_flash",
     "llama32mm_tpu_torch.ops.cuda.flash_decode", "profile_qgemv", "profile_qmatmul",
     "llama32mm_tpu_torch.ops.cuda.gemv", "llama32mm_tpu_torch.ops.cuda.swiglu", "profile_swiglu",
-    "profile_rmsnorm",
+    "profile_rmsnorm", "llama32mm_tpu_torch.inference.http_server",
 ]
 
 
@@ -200,18 +200,13 @@ def test_int4_w4a8_variants_selected_by_env(variant):
     assert proc.stdout.split() == ["w4a8"]
 
 
-# An adapter bank: a different head adapter per batch row (leading [B] axis).
-_BANK = {"lm_head": {"lora_a": torch.zeros(1, 64, 2), "lora_b": torch.zeros(1, 2, 256),
-                     "scaling": torch.ones(1)}}
-
-
 @pytest.mark.parametrize("kwargs", [
-    {"lora": _BANK}, {"attention_mask": torch.zeros(1, 1, 4, 4)}, {"loss_chunk": 4},
-    {"collect_stats": True}, {"gemv_routes": {}},
+    {"attention_mask": torch.zeros(1, 4, 4)}, {"attention_mask": torch.zeros(1, 1, 4, 4)},
+    {"loss_chunk": 4}, {"collect_stats": True}, {"gemv_routes": {}},
 ])
 def test_vlm_forward_refuses_unported_options(tiny_model, kwargs):
-    """LoRA and remat are ported; adapter banks, dense 4D masks, the chunked
-    loss, statistics and gemv routes are not."""
+    """LoRA, adapter banks and remat are ported; dense 3D and 4D masks, the
+    chunked loss, statistics and gemv routes are not."""
     cfg, model = tiny_model
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         vlm_forward(model, cfg, input_ids=torch.zeros(1, 4, dtype=torch.long), **kwargs)

@@ -41,7 +41,6 @@ from llama32mm_tpu_torch.train import (
     merge_lora_into_params,
     save_lora_adapters,
     save_train_state,
-    stack_adapter_bank,
 )
 from llama32mm_tpu_torch.train.lora import lora_leaves
 
@@ -369,13 +368,10 @@ def test_linear_lora_formula():
 def _refusals(model, cfg, lora):
     b = _t(_batch(cfg))
     ids, px = b["input_ids"], b["pixel_values"]
-    bank = {"lm_head": {k: v[None] for k, v in lora["lm_head"].items()}}
     vit_dropout = dataclasses.replace(
         cfg, vision_config=dataclasses.replace(cfg.vision_config, attention_dropout=0.1))
     return {
         "loss_chunk": lambda: make_lora_train_step(cfg, loss_chunk=4),
-        "adapter_bank": lambda: vlm_forward(model, cfg, input_ids=ids, lora=bank),
-        "stack_adapter_bank": lambda: stack_adapter_bank([lora, lora]),
         "qlora": lambda: vlm_forward(quantize_llama_params(model), cfg, input_ids=ids,
                                      lora=lora),
         "vit_attention_dropout": lambda: vlm_forward(
@@ -384,8 +380,7 @@ def _refusals(model, cfg, lora):
     }
 
 
-@pytest.mark.parametrize("feature", ["loss_chunk", "adapter_bank", "stack_adapter_bank",
-                                     "qlora", "vit_attention_dropout"])
+@pytest.mark.parametrize("feature", ["loss_chunk", "qlora", "vit_attention_dropout"])
 def test_refused_features_raise(tiny, feature):
     jcfg, _, cfg, model = tiny
     lora = _port_lora(_np_lora(jcfg), requires_grad=True)

@@ -5,7 +5,8 @@ cache, image and text-only prompts, eos) give the greedy tokens of a solo
 JAX ``InferenceEngine.generate`` per request, exactly; so do penalised
 requests, and the port engine's repetition penalty. Also the scheduler's
 hygiene (cancel, release, deadlines, the bounded queue, argument checks)
-and the options outside the slice, which raise."""
+and explicit ``gemv_routes``, which raise (prefix caching and adapter banks:
+``test_torch_prefix_cache.py``, ``test_torch_multi_lora.py``)."""
 
 import time
 
@@ -294,15 +295,8 @@ def test_submit_refuses_a_batch_and_bad_queue_bound(tiny):
         _server(tiny, kv_dtype="int4")
 
 
-@pytest.mark.parametrize("what", ["adapter_bank", "gemv_routes", "register_prefix", "prefix_id"])
+@pytest.mark.parametrize("what", ["gemv_routes"])
 def test_options_outside_the_slice_raise(tiny, what):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if what == "adapter_bank":
-            _server(tiny, adapter_bank={})
-        elif what == "gemv_routes":
-            _server(tiny, gemv_routes={"lm_head": 1 << 20})
-        elif what == "register_prefix":
-            _server(tiny).register_prefix(np.arange(4))
-        else:
-            _server(tiny).submit(_prompt(9, 1)[0], None, 4, prefix_id=0)
+        _server(tiny, gemv_routes={"lm_head": 1 << 20})
     assert _server(tiny)._match_prefix(np.arange(4), 0) is None
