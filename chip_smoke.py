@@ -100,7 +100,23 @@
    identity adapter's requests equal the plain server's. Each checks its
    exact launches: 201 tensor-core gemvs a decode step on the prefix paths
    (a prefix's prefill and each 128-row suffix one TMA SwiGLU tile a layer),
-   281 with the bank, whose gate/up adapters leave every SwiGLU kernel at 0.
+   281 with the bank, whose gate/up adapters leave every SwiGLU kernel at 0;
+14. checkpoint loading (``load_11b``): a seeded untied bf16 model at
+   Llama-3.2-11B-Vision widths, its depth cut to 4 decoder and 2 ViT
+   layers (printed), saved by ``save_checkpoint_params`` in 1 GiB shards
+   with an index under ``build/`` (removed at the end), its config rebuilt
+   from ``config.json``, loaded three ways through the native reader: host
+   bf16, streaming int8 and streaming ``INT4_MIXED_RECIPE`` (quantize on
+   load). Each load's report must be empty and every tensor bit-equal to
+   the saved model (bf16) or to its quantization by ``quantize_weight`` /
+   ``quantize_weight_int4`` with ``compiled=True`` at the recipe's bits;
+   each loaded model then generates 32 greedy tokens after a seeded
+   3024x4032 photo resized on the card (``preprocess_image_device``) and 32
+   text ids, with the path's exact launches (int8 KV cache for the
+   quantized loads) and the tokens of the same generate on the reference
+   model. The resize on the card must be within 1e-3 of the CPU's (0-255
+   scale). Prints each load's seconds and GB/s, its peak GiB beside the
+   loaded model's, the preprocess ms and the phase's seconds.
 
 The flash forward runs as three kernels: the tensor-core forward for bf16
 calls with many query rows (prefill, the ViT, training), the split-KV decode
@@ -150,15 +166,20 @@ once.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import http.client
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -175,6 +196,13 @@ from llama32mm_tpu_torch.configs import (
 from llama32mm_tpu_torch.inference.engine import InferenceEngine, structured_prefill_mask
 from llama32mm_tpu_torch.inference.http_server import ServingFrontend, serve_forever
 from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
+from llama32mm_tpu_torch.io.checkpoint import (
+    build_config_from_hf,
+    load_checkpoint_params,
+    save_checkpoint_params,
+)
+from llama32mm_tpu_torch.io.native_st import native_available
+from llama32mm_tpu_torch.models.common import QuantLinear
 from llama32mm_tpu_torch.models import language as language_mod
 from llama32mm_tpu_torch.models.language import CausalLM
 from llama32mm_tpu_torch.models.vlm import init_vlm, vlm_forward
@@ -191,7 +219,7 @@ from llama32mm_tpu_torch.ops.quant import (
     quantize_weight_int4,
     unpack_int4,
 )
-from llama32mm_tpu_torch.preprocess.image import preprocess_image_device
+from llama32mm_tpu_torch.preprocess.image import cubic_resize, preprocess_image_device
 from llama32mm_tpu_torch.train.full import make_train_step
 from llama32mm_tpu_torch.train.lora import (
     init_lora_params,
@@ -337,6 +365,9 @@ PATH_KERNELS = {
     "http_bf16": ("rmsnorm", "gemv_tc", "swiglu_rows_tc", "swiglu_tc") + BF16_ATTN,
     "server_bf16_lora": ("rmsnorm", "gemv_tc") + BF16_ATTN,
 }
+# checkpoint loads (the load_11b phase): a loaded model runs its kind's kernels
+PATH_KERNELS.update({f"load_11b_{kind}": PATH_KERNELS[kind]
+                     for kind in ("bf16", "int8", "int4_mixed")})
 # The kernels each training path must launch: the fp32 tiny model's flash
 # forward with the LSE and backward are the SIMT kernels, the bf16 models'
 # the tensor-core ones (the frozen ViT's no-grad forward too).
@@ -400,19 +431,51 @@ def swiglu_faults(launches: dict, layers: int, prefills: int, decode_steps: int)
 
 
 def int8_gemv_faults(path: str, launches: dict, layers: int, decode_steps: int, int8_head: bool,
-                     prefills: int) -> list:
+                     prefills: int, kind: Optional[str] = None) -> list:
     """A quantized generate's or server's int8 gemvs: each decode step's int8
     linears (7 a layer in int8: W_query, W_key, W_value, out_proj, w_gate,
     w_up, w_down; 5 in the int4-mixed recipe, whose w_gate, w_up and head are
     int4) and an int8 head at each decode step and each prefill's last
     position, all on the tensor-core kernel (path_faults holds the CUDA-core
-    one to 0)."""
-    per_step = (7 if path == "int8" else 5) * layers + int8_head
+    one to 0). ``kind`` ("int8" or "int4_mixed") defaults to ``path``."""
+    per_step = (7 if (kind or path) == "int8" else 5) * layers + int8_head
     want = per_step * decode_steps + int8_head * prefills
     got = launches["gemv_int8_tc"]
     log(f"[{path}] tensor-core int8 gemv launches {got} = {per_step} x {decode_steps} decode steps"
         f" + {int8_head * prefills} prefill heads: {got == want}")
     return [] if got == want else [f"launched the tensor-core int8 gemv {got} times, not {want}"]
+
+
+def generate_faults(path: str, kind: str, launches: dict, plain_calls: dict, layers: int,
+                    decode_steps: int) -> list:
+    """What one B=1 generate (a prefill, then ``decode_steps`` decode steps)
+    of a ``kind`` ("bf16", "int8" or "int4_mixed") model launched wrong."""
+    faults = path_faults(path, launches, plain_calls)
+    if kind in ("int8", "int4_mixed"):  # the prefill's 7 quantized linears a layer
+        want = 7 * layers
+        log(f"[{path}] wgmma qmatmul launches {launches['qmatmul_tc']} = 7 x {layers} "
+            f"layers: {launches['qmatmul_tc'] == want}")
+        if launches["qmatmul_tc"] != want:
+            faults.append(f"launched the wgmma qmatmul {launches['qmatmul_tc']} times, not {want}")
+    if kind == "bf16":  # 5 linears a layer and the head each step, the tensor-core gemv
+        per_step = 5 * layers + 1
+        want = per_step * decode_steps + 1  # and the prefill's last-position head
+        log(f"[{path}] tensor-core gemv launches {launches['gemv_tc']} = {per_step} per decode "
+            f"step x {decode_steps} + 1: {launches['gemv_tc'] == want}")
+        if launches["gemv_tc"] != want:
+            faults.append(f"launched the tensor-core gemv {launches['gemv_tc']} times, not {want}")
+        faults += swiglu_faults(launches, layers, prefills=1, decode_steps=decode_steps)
+    if kind == "int4_mixed":  # w_gate and w_up of each layer and the head, each step
+        per_step = 2 * layers + 1
+        want = per_step * decode_steps + 1  # and the prefill's last-position head
+        log(f"[{path}] W4A16 gemv launches {launches['gemv_int4']} = {per_step} per decode step "
+            f"x {decode_steps} + 1: {launches['gemv_int4'] == want}")
+        if launches["gemv_int4"] != want:
+            faults.append(f"launched the W4A16 gemv {launches['gemv_int4']} times, not {want}")
+    if kind in ("int8", "int4_mixed"):
+        faults += int8_gemv_faults(path, launches, layers, decode_steps=decode_steps,
+                                   int8_head=kind == "int8", prefills=1, kind=kind)
+    return faults
 
 
 def log(msg: str) -> None:
@@ -1857,31 +1920,7 @@ def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
     if tuple(res.prefill_logits.shape) != (1, tc.vocab_size) or not bool(
             torch.isfinite(res.prefill_logits).all()):
         raise RuntimeError("prefill logits are not finite [1, vocab]")
-    faults = path_faults(path, launches, plain_calls)
-    if path in ("int8", "int4_mixed"):  # the prefill's 7 quantized linears a layer
-        want = 7 * tc.n_layers
-        log(f"[{path}] wgmma qmatmul launches {launches['qmatmul_tc']} = 7 x {tc.n_layers} "
-            f"layers: {launches['qmatmul_tc'] == want}")
-        if launches["qmatmul_tc"] != want:
-            faults.append(f"launched the wgmma qmatmul {launches['qmatmul_tc']} times, not {want}")
-    if path == "bf16":  # 5 linears a layer and the head each step, the tensor-core gemv
-        per_step = 5 * tc.n_layers + 1
-        want = per_step * 63 + 1  # 63 decode steps and the prefill's last-position head
-        log(f"[{path}] tensor-core gemv launches {launches['gemv_tc']} = {per_step} per decode "
-            f"step x 63 + 1: {launches['gemv_tc'] == want}")
-        if launches["gemv_tc"] != want:
-            faults.append(f"launched the tensor-core gemv {launches['gemv_tc']} times, not {want}")
-        faults += swiglu_faults(launches, tc.n_layers, prefills=1, decode_steps=63)
-    if path == "int4_mixed":  # w_gate and w_up of each layer and the head, each step
-        per_step = 2 * tc.n_layers + 1
-        want = per_step * 63 + 1  # 63 decode steps and the prefill's last-position head
-        log(f"[{path}] W4A16 gemv launches {launches['gemv_int4']} = {per_step} per decode step "
-            f"x 63 + 1: {launches['gemv_int4'] == want}")
-        if launches["gemv_int4"] != want:
-            faults.append(f"launched the W4A16 gemv {launches['gemv_int4']} times, not {want}")
-    if path in ("int8", "int4_mixed"):
-        faults += int8_gemv_faults(path, launches, tc.n_layers, decode_steps=63,
-                                   int8_head=path == "int8", prefills=1)
+    faults = generate_faults(path, path, launches, plain_calls, tc.n_layers, decode_steps=63)
     if faults:
         raise RuntimeError(f"[{path}] {faults}")
 
@@ -1902,6 +1941,184 @@ def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
     dl = (plain.logits[:, 0].float() - res.prefill_logits.float()).abs().max().item()
     log(f"[{path}] prefill logits, kernel path vs impl='torch': max_abs_dlogit={dl:.6g} "
         f"max_abs_logit={res.prefill_logits.float().abs().max().item():.6g}")
+    return launches
+
+
+# The load_11b phase: a checkpoint at Llama-3.2-11B-Vision widths, its depth
+# cut to fit a smoke run (a full-depth one is ~21 GB on disk), saved and loaded
+# three ways, each load served 32 tokens after a phone-photo-sized image.
+LOAD_DEPTH = {"decoder": 4, "vit": 2}
+LOAD_PATHS = {
+    "load_11b_bf16": ("bf16", {}),
+    "load_11b_int8": ("int8", dict(streaming=True, quantize_int8=True)),
+    "load_11b_int4_mixed": ("int4_mixed", dict(streaming=True, quantize_int4=True,
+                                                int4_recipe=INT4_MIXED_RECIPE)),
+}
+LOAD_SHARD_BYTES = 2**30  # several shards and an index
+PHOTO = (3024, 4032)  # a 12 MP phone photo, height x width
+RESIZE_TOL = 1e-3  # card vs CPU, on the 0-255 scale (fp32 sums in other orders)
+
+
+def load_11b_config() -> MLLAMAConfig:
+    full = llama32_11b_vision_config()
+    return MLLAMAConfig(
+        vision_config=dataclasses.replace(full.vision_config,
+                                          num_hidden_layers=LOAD_DEPTH["vit"]),
+        text_config=dataclasses.replace(full.text_config, n_layers=LOAD_DEPTH["decoder"]),
+        projection_dim=full.projection_dim, hidden_size=full.hidden_size,
+    )
+
+
+def shape_fields(cfg) -> tuple:
+    """What ``config.json`` must carry over: the fields that shape the weights
+    and the math (``build_config_from_hf`` reads ``max_position_embeddings``
+    for both the context length and the position limit, as the JAX package
+    does, so those two are left out)."""
+    tc, vc = cfg.text_config, cfg.vision_config
+    return (tc.vocab_size, tc.hidden_size, tc.n_heads, tc.n_layers, tc.hidden_dim,
+            tc.n_kv_groups, tc.rope_base, tc.rms_norm_eps, tc.dtype, vc.hidden_size,
+            vc.intermediate_size, vc.num_hidden_layers, vc.num_attention_heads,
+            vc.num_channels, vc.image_size, vc.patch_size, vc.layer_norm_eps,
+            cfg.image_token_index, cfg.projection_dim)
+
+
+def oracle_quantized(model, kind: str):
+    """The serving form quantize-on-load must produce, from the float model:
+    every linear through ``quantize_weight`` / ``quantize_weight_int4`` with
+    ``compiled=True`` at the recipe's bits (``quantize_llama_params``
+    quantizes the head eagerly, so the head is redone here)."""
+    if kind == "int8":
+        q = quantize_llama_params(model, quantize_lm_head=False, bits=8)
+        head = quantize_weight(model.language_model.lm_head.weight, compiled=True)
+    else:
+        q = quantize_llama_params(model, quantize_lm_head=False, bits=4, group_size=128,
+                                  recipe=INT4_MIXED_RECIPE)
+        head = quantize_weight_int4(model.language_model.lm_head.weight, 128, compiled=True)
+    q.language_model.lm_head = QuantLinear(head)
+    return q
+
+
+def model_bytes(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def run_load_11b(dev) -> dict:
+    """Save a seeded untied bf16 model at 11B widths in 1 GiB shards, rebuild
+    its config from ``config.json``, and load it three ways (host bf16,
+    streaming int8 and int4-mixed): each load through the native reader,
+    with an empty report, bit-equal to the saved model or to its oracle
+    quantization, then a greedy 32-token generate after the resized photo
+    and 32 text ids with the path's exact launches and the reference
+    model's tokens. Checks the card's resize against the CPU's."""
+    t_phase = time.perf_counter()
+    cfg = load_11b_config()
+    tc, vc = cfg.text_config, cfg.vision_config
+    full = llama32_11b_vision_config()
+    log(f"[load_11b] Llama-3.2-11B-Vision widths (hidden {tc.hidden_size}, FFN {tc.hidden_dim}, "
+        f"{tc.n_heads} / {tc.n_kv_groups} heads, vocab {tc.vocab_size}, ViT-H/14 at "
+        f"{vc.image_size} px), depth cut to {tc.n_layers} of {full.text_config.n_layers} decoder "
+        f"layers and {vc.num_hidden_layers} of {full.vision_config.num_hidden_layers} ViT layers")
+    if not native_available():
+        raise RuntimeError("[load_11b] the native safetensors reader did not build")
+    saved = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0), tie_weights=False)
+    ckpt_bytes = model_bytes(saved)
+    n_params = sum(p.numel() for p in saved.parameters())
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="load_11b_", dir=root)
+    by_path = {}
+    try:
+        t = time.perf_counter()
+        save_checkpoint_params(tmp, saved, cfg, max_shard_bytes=LOAD_SHARD_BYTES)
+        save_s = time.perf_counter() - t
+        shards = sorted(f for f in os.listdir(tmp) if f.endswith(".safetensors"))
+        log(f"[load_11b] saved {n_params} parameters, {ckpt_bytes / 1e9:.3f} GB bf16, in "
+            f"{len(shards)} shards: {save_s:.3f} s, {ckpt_bytes / save_s / 1e9:.3f} GB/s")
+        if len(shards) < 2 or not os.path.exists(os.path.join(tmp, "model.safetensors.index.json")):
+            raise RuntimeError(f"[load_11b] expected an index and several shards, got {shards}")
+        with open(os.path.join(tmp, "config.json"), encoding="utf-8") as f:
+            loaded_cfg = build_config_from_hf(json.load(f))
+        if shape_fields(loaded_cfg) != shape_fields(cfg):
+            raise RuntimeError(f"[load_11b] config.json rebuilds other shapes: "
+                               f"{shape_fields(loaded_cfg)} against {shape_fields(cfg)}")
+
+        gen = torch.Generator(device=dev).manual_seed(1)
+        raw = torch.randint(0, 256, (1, *PHOTO, 3), generator=gen, device=dev, dtype=torch.uint8)
+        text = torch.randint(0, tc.vocab_size, (1, 32), generator=gen, device=dev)
+        ids = torch.cat([torch.full((1, vc.num_patches), cfg.image_token_index, device=dev),
+                         text], dim=1)
+        check_resize(raw, vc.image_size)
+        px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
+
+        for path, (kind, kw) in LOAD_PATHS.items():
+            free_device_memory()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            model, report = load_checkpoint_params(tmp, loaded_cfg, dev, verbose=False,
+                                                   return_report=True, **kw)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+            log(f"[{path}] load {load_s:.3f} s, {ckpt_bytes / load_s / 1e9:.3f} GB/s of checkpoint; "
+                f"peak {peak:.3f} GiB above the saved model while loading, loaded model "
+                f"{model_bytes(model) / 2**30:.3f} GiB")
+            if any(dataclasses.asdict(report).values()):
+                raise RuntimeError(f"[{path}] load report not empty: {report}")
+            want = saved if kind == "bf16" else oracle_quantized(saved, kind)
+            got_sd, want_sd = model.state_dict(), want.state_dict()
+            unequal = [k for k in want_sd if k not in got_sd or got_sd[k].dtype != want_sd[k].dtype
+                       or not torch.equal(got_sd[k], want_sd[k])]
+            n_quant = sum(isinstance(m, QuantLinear) for m in model.modules())
+            log(f"[{path}] {len(got_sd)} tensors ({n_quant} QuantLinear) bit-equal to the "
+                f"{'saved model' if kind == 'bf16' else 'oracle quantization'}: {not unequal}")
+            if unequal or list(got_sd) != list(want_sd):
+                raise RuntimeError(f"[{path}] tensors differ from the reference: {unequal[:8]}")
+            by_path[path] = load_generate(dev, path, kind, model, want, loaded_cfg, ids, px)
+            del model, want, got_sd, want_sd
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del saved
+        free_device_memory()
+    log(f"[load_11b] phase {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def check_resize(raw, size: int) -> None:
+    """The photo's resize on the card against the same function on the CPU,
+    on the 0-255 scale, and the card's preprocess time (CUDA events)."""
+    on_card = cubic_resize(raw.float(), size, size)
+    on_cpu = cubic_resize(raw.cpu().float(), size, size)
+    err = (on_card.cpu() - on_cpu).abs().max().item()
+    ms = time_ms(lambda: preprocess_image_device(raw, size, dtype=torch.bfloat16))
+    log(f"[load_11b] preprocess {PHOTO[0]}x{PHOTO[1]} -> {size}x{size} on the card "
+        f"{ms:.4f} ms; resize card vs CPU max_abs_err {err:.6g} (tolerance {RESIZE_TOL})")
+    if not err <= RESIZE_TOL:
+        raise RuntimeError(f"[load_11b] the card's resize is {err} from the CPU's")
+
+
+def load_generate(dev, path: str, kind: str, model, reference, cfg, ids, px) -> dict:
+    """32 greedy tokens on the loaded model (launches counted) and on the
+    reference; the tokens must be equal."""
+    kv_dtype = None if kind == "bf16" else "int8"
+    results = []
+    for m in (model, reference):
+        engine = InferenceEngine(m, cfg, dev, max_cache_length=2048, kv_dtype=kv_dtype)
+        kernels.reset_counters()
+        res = engine.generate(ids, px, max_new_tokens=32, temperature=0.0)
+        torch.cuda.synchronize()
+        results.append((res, kernels.launch_counts(), kernels.plain_counts()))
+    (res, launches, plain_calls), (ref, _, _) = results
+    log(f"[{path}] launches {launches} plain calls {plain_calls}")
+    log(f"[{path}] tokens {res.tokens[0].tolist()}")
+    faults = generate_faults(path, kind, launches, plain_calls, cfg.text_config.n_layers,
+                             decode_steps=31)
+    if int(res.num_generated[0]) != 32 or not torch.equal(res.tokens, ref.tokens):
+        faults.append(f"tokens differ from the reference model's: {ref.tokens[0].tolist()}")
+    if faults:
+        raise RuntimeError(f"[{path}] {faults}")
     return launches
 
 
@@ -2527,6 +2744,8 @@ def main() -> int:
     check_tiny_training(dev)
     check_tiny_bf16_lora(dev)
     by_path = run_11b_paths(dev)
+    free_device_memory()
+    by_path.update(run_load_11b(dev))
     free_device_memory()
     by_path["lora_11b"] = run_lora_11b(dev)
     free_device_memory()

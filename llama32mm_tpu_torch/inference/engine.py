@@ -246,6 +246,11 @@ class InferenceEngine:
                 last = nxt
         return GenerateResult(tokens=tokens, num_generated=count, prefill_logits=pre_logits)
 
+    def decode_tokens(self, tokenizer, result: GenerateResult, batch_idx: int = 0) -> str:
+        """Row ``batch_idx``'s generated tokens as text (special tokens skipped)."""
+        toks = result.tokens[batch_idx][: int(result.num_generated[batch_idx])]
+        return tokenizer.decode(toks.tolist(), skip_special_tokens=True).strip()
+
     def _spec_loop(self, ids, pad, cache, true_len, first, pres, max_new_tokens: int,
                    eos_token_id: int, sampler: tuple, rng):
         """The speculative decode loop (batch 1) after the prefill; returns

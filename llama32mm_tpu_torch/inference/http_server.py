@@ -31,9 +31,11 @@ Standard library only (``http.server`` and a scheduler thread):
 One lock serializes every call into the scheduler.
 
 Run: ``python -m llama32mm_tpu_torch.inference.http_server --hf-weights DIR
-...`` needs the checkpoint loader and the prompt processor, which are not
-ported yet (``main`` raises; ROADMAP.md queue 1 item 4). Until then build a
-``ServingFrontend`` over a server in Python and pass it to ``serve_forever``.
+[--quantize int8|int4] [--slots N] [--port P]`` (the GPU; ``--cpu`` for the
+CPU): loads the checkpoint (``io/checkpoint.py::load_hf_model``), builds the
+server and the processor, warms the decode chunks up and serves until
+interrupted, then drains. In Python, build a ``ServingFrontend`` over a
+server and pass it to ``serve_forever``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,6 @@ from typing import Optional
 import numpy as np
 
 from llama32mm_tpu_torch.inference.server import QueueFullError
-from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 
 
 class ServingFrontend:
@@ -344,9 +345,52 @@ def main(argv=None):
     parser.add_argument("--spec-lookup", type=int, default=0,
                         help="K>0: batched prompt-lookup speculative decoding")
     parser.add_argument("--dtype", default="bfloat16")
-    parser.parse_args(argv)
-    not_in_slice("the HTTP server's command line (it needs io/checkpoint.py::load_hf_model and "
-                 "preprocess/processor.py, queue 1 item 4)")
+    parser.add_argument("--cpu", action="store_true", help="Serve on the CPU instead of the GPU.")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
+    from llama32mm_tpu_torch.io.checkpoint import load_hf_model
+    from llama32mm_tpu_torch.preprocess.processor import MllamaImageProcessor
+
+    device = torch.device("cpu" if args.cpu else "cuda")
+    model, tokenizer = load_hf_model(
+        args.hf_weights, device, dtype=args.dtype,
+        max_cache_length=args.max_cache_length,
+        streaming=args.quantize != "none",
+        quantize_int8=args.quantize == "int8",
+        quantize_int4=args.quantize == "int4",
+    )
+    srv = ContinuousBatchingServer(
+        model, model.config, device, slots=args.slots,
+        max_cache_length=args.max_cache_length,
+        kv_dtype="int8" if args.quantize != "none" else None,
+        eos_token_id=tokenizer.eos_token_id if tokenizer.eos_token_id is not None else -1,
+        prefill_chunk=args.prefill_chunk,
+        spec_lookup=args.spec_lookup,
+        max_queue=args.max_queue if args.max_queue > 0 else None,
+    )
+    processor = MllamaImageProcessor(
+        tokenizer,
+        model.config.text_config.num_image_tokens,
+        model.config.vision_config.image_size,
+    )
+    print("warming up the decode chunks...", flush=True)
+    srv.warmup()  # every decode chunk length once, before traffic
+    frontend = ServingFrontend(srv, tokenizer, processor)
+    httpd = serve_forever(frontend, args.host, args.port)
+    print(f"serving on {args.host}:{httpd.server_address[1]} "
+          f"(slots={args.slots}, quantize={args.quantize})", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        # graceful drain: refuse new work, let in-flight requests finish
+        print("draining...", flush=True)
+        frontend.shutdown(drain=True, drain_timeout=60.0)
+        httpd.server_close()
 
 
 if __name__ == "__main__":

@@ -1,0 +1,15 @@
+from llama32mm_tpu_torch.io.checkpoint import (
+    build_config_from_hf,
+    load_checkpoint_params,
+    load_hf_model,
+    save_checkpoint_params,
+    translate_hf_key,
+)
+
+__all__ = [
+    "build_config_from_hf",
+    "load_checkpoint_params",
+    "load_hf_model",
+    "save_checkpoint_params",
+    "translate_hf_key",
+]

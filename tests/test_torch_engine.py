@@ -118,5 +118,13 @@ def test_preprocess_matches_jax():
 
 
 def test_preprocess_refuses_resize():
-    with pytest.raises(ValueError, match="resizing is not ported"):
-        preprocess_image_device(torch.zeros(1, 30, 28, 3, dtype=torch.uint8), 28)
+    """Pixels that are not ``image_size`` square are resized as
+    ``jax.image.resize(method="cubic")`` resizes them, not refused; what is
+    refused is a tensor that is not ``[B, H, W, C]``."""
+    raw = np.random.RandomState(1).randint(0, 256, (1, 30, 28, 3)).astype(np.uint8)
+    want = np.asarray(jax_preprocess(jnp.asarray(raw), 28))
+    got = preprocess_image_device(torch.from_numpy(raw), 28)
+    assert got.shape == (1, 3, 28, 28)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match=r"\[B, H, W, C\]"):
+        preprocess_image_device(torch.zeros(30, 28, 3, dtype=torch.uint8), 28)

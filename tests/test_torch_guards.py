@@ -36,6 +36,10 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.ops.cuda.flash_decode", "profile_qgemv", "profile_qmatmul",
     "llama32mm_tpu_torch.ops.cuda.gemv", "llama32mm_tpu_torch.ops.cuda.swiglu", "profile_swiglu",
     "profile_rmsnorm", "llama32mm_tpu_torch.inference.http_server",
+    "llama32mm_tpu_torch.io", "llama32mm_tpu_torch.io.checkpoint",
+    "llama32mm_tpu_torch.io.native_st", "llama32mm_tpu_torch.io.download",
+    "llama32mm_tpu_torch.preprocess", "llama32mm_tpu_torch.preprocess.processor",
+    "llama32mm_tpu_torch.inference.cli",
 ]
 
 
@@ -50,6 +54,22 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         + "".join(f"import {m}\n" for m in PORT_MODULES)
         + "assert not any(m == 'llama32mm_tpu' or m.startswith('llama32mm_tpu.') for m in sys.modules)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_child_env(),
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_imports_without_the_host_only_packages():
+    """The card has torch but no jax, transformers, PIL, safetensors or
+    huggingface_hub: every port module and ``chip_smoke`` import without
+    them (each is imported inside the function that needs it)."""
+    absent = ("jax", "transformers", "PIL", "safetensors", "huggingface_hub")
+    code = (
+        "import sys\n"
+        + "".join(f"sys.modules[{name!r}] = None\n" for name in absent)
+        + "".join(f"import {m}\n" for m in PORT_MODULES)
+        + f"assert not any(sys.modules.get(n) for n in {absent!r})\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_child_env(),
                           capture_output=True, text=True, timeout=60)

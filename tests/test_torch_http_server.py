@@ -397,6 +397,9 @@ def test_adapter_bank_from_jax_serves_over_http(tiny):
         lv.close()
 
 
-def test_main_needs_the_checkpoint_loader():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        http_server.main(["--hf-weights", "/nonexistent"])
+def test_main_needs_the_checkpoint_loader(tmp_path):
+    """``main()`` loads through ``io/checkpoint.py::load_hf_model``: a
+    directory without a checkpoint fails there, before a server starts
+    (``tests/test_torch_cli.py`` serves a real one)."""
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        http_server.main(["--hf-weights", str(tmp_path), "--cpu"])
