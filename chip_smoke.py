@@ -116,7 +116,33 @@
    quantized loads) and the tokens of the same generate on the reference
    model. The resize on the card must be within 1e-3 of the CPU's (0-255
    scale). Prints each load's seconds and GB/s, its peak GiB beside the
-   loaded model's, the preprocess ms and the phase's seconds.
+   loaded model's, the preprocess ms and the phase's seconds;
+15. QLoRA (``qlora_11b_int8``, ``qlora_11b_int4_mixed``): rank-16 adapters
+   (the default targets and the head, Adam lr 1e-4, ``remat=True``,
+   ``loss_chunk=512``, 2 accumulated microbatches of B=1) over the untied
+   11B quantized to int8 and to ``INT4_MIXED_RECIPE`` at g=128, trained by
+   the fine-tune command line's loop (``train/finetune.py::finetune_loop``)
+   on S=1632 rows that ``PackedBatchIterator`` packs from seeded token
+   documents of the 11B vocabulary and ``prefetch_to_device`` stages: a
+   warm-up and 3 timed steps (ms a step, tokens/s, peak GiB), then a run of
+   2 steps that saves its state and data position through
+   ``TrainCheckpointManager`` and a run that restores them into a fresh
+   state and iterator and goes on to step 4, whose adapters must equal the
+   uninterrupted run's (rtol 1e-5; bit-equality printed); checks finite
+   losses, the base's bytes unchanged, the adapters moved and the exact
+   launches of the wgmma ``qmatmul``, the flash forward with the LSE and its
+   backward and the RMSNorm training forward and backward;
+16. evaluation (``eval_11b_*``, ``calibrate_11b``) on the tied bf16 11B:
+   ``perplexity`` over 2 windows of 2048 seeded ids on the kernel path and
+   on ``impl="torch"`` (NLL per token within 1% of each other), on its int8
+   copy through an int8 KV cache, ``agreement`` of bf16 with int8 and with
+   ``INT4_MIXED_RECIPE`` quantized plain (RTN) and after ``awq_equalize``
+   (information: random weights give near-tied logits), and
+   ``calibrate_stats`` at S=1632 with the image (its ms); exact launches;
+17. ``finetune_cli_tiny``: the fine-tune command line's smoke mode on the
+   card with ``--run-dir``, 3 steps, then rerun to 6 (resumed), whose
+   adapters must equal an uninterrupted 6-step run's bit for bit; every
+   training kernel launched, no plain version.
 
 The flash forward runs as three kernels: the tensor-core forward for bf16
 calls with many query rows (prefill, the ViT, training), the split-KV decode
@@ -182,6 +208,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import DeviceType, ProfilerActivity, profile
@@ -193,6 +220,7 @@ from llama32mm_tpu_torch.configs import (
     llama32_11b_vision_config,
     tiny_mllama_config,
 )
+from llama32mm_tpu_torch import evaluate
 from llama32mm_tpu_torch.inference.engine import InferenceEngine, structured_prefill_mask
 from llama32mm_tpu_torch.inference.http_server import ServingFrontend, serve_forever
 from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
@@ -219,7 +247,9 @@ from llama32mm_tpu_torch.ops.quant import (
     quantize_weight_int4,
     unpack_int4,
 )
+from llama32mm_tpu_torch.ops.awq import awq_equalize, calibrate_stats
 from llama32mm_tpu_torch.preprocess.image import cubic_resize, preprocess_image_device
+from llama32mm_tpu_torch.train import finetune
 from llama32mm_tpu_torch.train.full import make_train_step
 from llama32mm_tpu_torch.train.lora import (
     init_lora_params,
@@ -229,6 +259,7 @@ from llama32mm_tpu_torch.train.lora import (
     stack_adapter_bank,
     zero_lora_params,
 )
+from llama32mm_tpu_torch.utils import st_file
 from llama32mm_tpu_torch.utils.kvcache import init_kv_cache, quantize_kv
 
 # bf16 comparisons: |kernel - plain| <= TOL * max|plain|. 1.6e-2 is about two
@@ -379,6 +410,22 @@ TRAIN_BF16_KERNELS = ("rmsnorm_fwd_train", "rmsnorm_bwd", "flash_attention_tc_ls
 PATH_KERNELS.update({
     "lora_11b": TRAIN_BF16_KERNELS,
     "full_ft_3b": TRAIN_BF16_KERNELS + ("swiglu_tc", "swiglu_bwd_tc"),
+})
+# QLoRA over a quantized base: every decoder linear and the head (in chunks
+# of the loss) through the wgmma qmatmul, forward and remat recompute; the
+# quantized FFN runs SiLU·up explicitly (no SwiGLU kernel); the text-only
+# batches run no ViT. Evaluation: 2048-row windows (no gemv; the int8 copy's
+# linears on the qmatmul, its cache on the int8-KV flash forward); the
+# calibration forward's one-row head on the tensor-core gemv.
+QLORA_KERNELS = ("rmsnorm", "rmsnorm_fwd_train", "rmsnorm_bwd", "flash_attention_tc_lse",
+                 "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc", "qmatmul_tc")
+PATH_KERNELS.update({
+    "qlora_11b_int8": QLORA_KERNELS,
+    "qlora_11b_int4_mixed": QLORA_KERNELS,
+    "eval_11b_bf16": ("rmsnorm", "swiglu_tc", "flash_attention_tc"),
+    "eval_11b_int8": ("rmsnorm", "qmatmul_tc", "flash_attention_tc_int8kv"),
+    "eval_11b_agreement": ("rmsnorm", "swiglu_tc", "flash_attention_tc", "qmatmul_tc"),
+    "calibrate_11b": ("rmsnorm", "swiglu_tc", "flash_attention_tc", "gemv_tc"),
 })
 # The SIMT fp32 forward and backward: the bf16 paths above must never
 # launch them; nor the wmma dequantizing GEMM ("qmatmul"), which every
@@ -2638,6 +2685,283 @@ def spec_server_rows_witness(dev, cfg, model, tokens: dict) -> None:
         language_mod.fused_swiglu = tiled
 
 
+# QLoRA (phase 15): the fine-tune loop's packed-text path at the 11B's widths.
+QLORA_SEQ = 1632
+QLORA_CHUNK = 512
+QLORA_ACCUM = 2
+QLORA_EOS = 128001  # Llama 3's <|end_of_text|>
+
+
+def qlora_docs(vocab: int) -> list:
+    """Seeded token documents (150-2500 ids each, below the special ids at
+    the top of the vocabulary), enough for 12 steps of 2 rows of 1632 an
+    epoch."""
+    rs = np.random.RandomState(0)
+    return [rs.randint(0, vocab * 99 // 100, rs.randint(150, 2500)).tolist() for _ in range(28)]
+
+
+def qlora_args(steps: int, run_dir=None):
+    argv = ["--rank", "16", "--alpha", "16", "--lr", "1e-4", "--batch-size", "1",
+            "--accum-steps", str(QLORA_ACCUM), "--max-seq-len", str(QLORA_SEQ),
+            "--steps", str(steps), "--save-every", "2", "--log-every", "1000"]
+    return finetune.parse_args(argv + (["--run-dir", str(run_dir)] if run_dir else []))
+
+
+def qlora_launches(layers: int, steps: int) -> dict:
+    """Each QLoRA step's launches: per microbatch, the decoder's 7 quantized
+    linears a layer twice (the forward and its remat recompute) and the
+    head's loss chunks twice (forward, recompute) on the wgmma qmatmul; the
+    flash forward with the LSE twice a layer, its backward once; the RMSNorm
+    training forward for every norm whose input carries a gradient (all but
+    layer 0's norm1, which the inference RMSNorm runs) in the forward and the
+    recompute plus the final norm once, its backward once each."""
+    chunks = -(-(QLORA_SEQ - 1) // QLORA_CHUNK)
+    per_mb = {"qmatmul_tc": 2 * 7 * layers + 2 * chunks,
+              "flash_attention_tc_lse": 2 * layers,
+              "flash_attention_bwd_dq_tc": layers, "flash_attention_bwd_dkv_tc": layers,
+              "rmsnorm_fwd_train": 2 * (2 * layers - 1) + 1, "rmsnorm": 2,
+              "rmsnorm_bwd": 2 * layers}
+    return {k: v * QLORA_ACCUM * steps for k, v in per_mb.items()}
+
+
+def quantized_checksums(model) -> torch.Tensor:
+    """``checksums`` of every parameter and buffer of a (quantized) model."""
+    return torch.stack([t.detach().contiguous().view(torch.uint8).sum(dtype=torch.int64)
+                        for t in [*model.parameters(), *model.buffers()]])
+
+
+def run_qlora_11b(dev, cfg, qmodel, path: str) -> dict:
+    """QLoRA over a quantized 11B, driven by the fine-tune loop; returns the
+    timed steps' launches."""
+    tc = cfg.text_config
+    t_phase = time.perf_counter()
+    docs = qlora_docs(tc.vocab_size)
+    before = quantized_checksums(qmodel)
+    times, losses, counts = [], [], {}
+
+    def on_step(i, state, loss):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        losses.append(loss.item())
+        if i == 0:  # after the warm-up: count and measure the 3 timed steps
+            kernels.reset_counters()
+            torch.cuda.reset_peak_memory_stats()
+        if i == 3:
+            counts.update(launches=kernels.launch_counts(), plain=kernels.plain_counts())
+
+    state = finetune.finetune_loop(qmodel, cfg, dev, qlora_args(4), docs=docs,
+                                   eos_id=QLORA_EOS, on_step=on_step, remat=True,
+                                   loss_chunk=QLORA_CHUNK)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = [b - a for a, b in zip(times[:-1], times[1:])]
+    ms = 1e3 * statistics.median(steps)
+    tokens = QLORA_ACCUM * QLORA_SEQ
+    log(f"[{path}] steps (s) {[round(x, 6) for x in steps]} (warm-up "
+        f"{times[0] - t_phase:.3f} s incl. setup) losses {losses}; median {ms:.2f} ms/step, "
+        f"{tokens / ms * 1e3:.1f} tokens/s; peak allocated {peak:.3f} GiB")
+    launches, plain_calls = counts["launches"], counts["plain"]
+    log(f"[{path}] launches {launches} plain calls {plain_calls}")
+    faults = path_faults(path, launches, plain_calls)
+    want = qlora_launches(tc.n_layers, steps=3)
+    faults += [f"launched {k} {launches[k]} times, not {n}" for k, n in want.items()
+               if launches[k] != n]
+    faults += [f"launched {k} {launches[k]} times" for k in ("swiglu", "swiglu_tc", "gemv_tc")
+               if launches[k]]
+    if not all(math.isfinite(x) for x in losses):
+        faults.append(f"non-finite loss {losses}")
+    if not torch.equal(quantized_checksums(qmodel), before):
+        faults.append("the quantized base changed")
+    if not all(bool(b.any()) for name, b in lora_leaves(state.lora).items()
+               if name.endswith("lora_b")):
+        faults.append("an adapter's B did not move from 0")
+
+    # resume: 2 steps saved to a run dir, then a fresh state and iterator
+    # restored from it and run to step 4, against the uninterrupted run
+    run_dir = Path(tempfile.mkdtemp(prefix=f"{path}_run_"))
+    try:
+        finetune.finetune_loop(qmodel, cfg, dev, qlora_args(2, run_dir), docs=docs,
+                               eos_id=QLORA_EOS, remat=True, loss_chunk=QLORA_CHUNK)
+        resumed = finetune.finetune_loop(qmodel, cfg, dev, qlora_args(4, run_dir), docs=docs,
+                                         eos_id=QLORA_EOS, remat=True, loss_chunk=QLORA_CHUNK)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    want_l, got_l = lora_leaves(state.lora), lora_leaves(resumed.lora)
+    bit_equal = all(torch.equal(got_l[n], t) for n, t in want_l.items())
+    rel = max(((got_l[n] - t).abs().max() / t.abs().max().clamp(min=1e-30)).item()
+              for n, t in want_l.items())
+    log(f"[{path}] resumed at step 2 and run to 4: adapters bit-equal to the uninterrupted "
+        f"run's: {bit_equal}; max relative difference {rel:.3g}")
+    if not rel <= 1e-5:
+        faults.append(f"the resumed adapters differ from the uninterrupted run's by {rel}")
+    log(f"[{path}] phase {time.perf_counter() - t_phase:.1f} s")
+    if faults:
+        raise RuntimeError(f"[{path}] {faults}")
+    return launches
+
+
+# Evaluation (phase 16): 2 windows of 2048 seeded ids through the text decoder.
+EVAL_WINDOW = 2048
+EVAL_NLL_TOL = 0.01  # kernel path against impl="torch": bf16 rounding orders differ
+
+
+def eval_launch_faults(path: str, launches: dict, plain_calls: dict, want: dict) -> list:
+    log(f"[{path}] launches {launches} plain calls {plain_calls}")
+    faults = path_faults(path, launches, plain_calls)
+    return faults + [f"launched {k} {launches[k]} times, not {n}" for k, n in want.items()
+                     if launches[k] != n]
+
+
+def counted(fn):
+    """``(fn(), launches, plain calls)`` with the counters set to 0 just
+    before ``fn`` and read just after."""
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts(), kernels.plain_counts()
+
+
+def run_eval_11b(dev, cfg, model) -> dict:
+    """``perplexity``, ``agreement`` and ``calibrate_stats`` on the tied bf16
+    11B and its quantized copies; returns the launches by path."""
+    tc, vc = cfg.text_config, cfg.vision_config
+    layers, windows = tc.n_layers, 2
+    t_phase = time.perf_counter()
+    ids = np.random.RandomState(7).randint(0, tc.vocab_size * 99 // 100, windows * EVAL_WINDOW)
+    by_path, faults = {}, []
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        log(f"[{label}] {res} in {time.perf_counter() - t:.3f} s")
+        return res
+
+    kernel, launches, plain_calls = counted(lambda: timed(
+        "eval_11b_bf16", lambda: evaluate.perplexity(model, cfg, ids, window=EVAL_WINDOW)))
+    by_path["eval_11b_bf16"] = launches
+    faults += eval_launch_faults("eval_11b_bf16", launches, plain_calls, {
+        "rmsnorm": (2 * layers + 1) * windows, "swiglu_tc": layers * windows,
+        "flash_attention_tc": layers * windows})
+    plain = timed("eval_11b_bf16 impl=torch", lambda: evaluate.perplexity(
+        model, cfg, ids, window=EVAL_WINDOW, impl="torch"))
+    d = abs(kernel["nll_per_token"] - plain["nll_per_token"]) / plain["nll_per_token"]
+    log(f"[eval_11b_bf16] NLL per token: kernel path {kernel['nll_per_token']:.6f}, plain path "
+        f"{plain['nll_per_token']:.6f}, relative difference {d:.3g} (limit {EVAL_NLL_TOL})")
+    if not d <= EVAL_NLL_TOL:
+        faults.append(f"kernel and plain NLL differ by {d} relative")
+
+    int8 = quantize_llama_params(model, bits=8)
+    res, launches, plain_calls = counted(lambda: timed(
+        "eval_11b_int8 kv int8", lambda: evaluate.perplexity(
+            int8, cfg, ids, window=EVAL_WINDOW, kv_dtype="int8")))
+    by_path["eval_11b_int8"] = launches
+    faults += eval_launch_faults("eval_11b_int8", launches, plain_calls, {
+        "rmsnorm": (2 * layers + 1) * windows, "qmatmul_tc": 7 * layers * windows,
+        "flash_attention_tc_int8kv": layers * windows})
+    if not math.isfinite(res["nll_per_token"]):
+        faults.append(f"int8 perplexity {res}")
+
+    agree = {}
+    agree_launches = {}
+
+    def agreement(label, other):
+        res, launches, plain_calls = counted(lambda: timed(
+            f"eval_11b_agreement {label}",
+            lambda: evaluate.agreement(model, other, cfg, ids, window=EVAL_WINDOW)))
+        agree[label] = res
+        for k, n in launches.items():
+            agree_launches[k] = agree_launches.get(k, 0) + n
+        return plain_calls
+
+    plain_calls = agreement("bf16 vs int8", int8)
+    del int8
+    free_device_memory()
+    rtn = quantize_llama_params(model, bits=4, group_size=128, recipe=INT4_MIXED_RECIPE)
+    plain_calls = {k: n + plain_calls[k] for k, n in agreement("bf16 vs int4-mixed RTN",
+                                                               rtn).items()}
+    # information: the same agreement on the plain path, so that a low number
+    # is the random model's and not the kernels'
+    log(f"[eval_11b_agreement] bf16 vs int4-mixed RTN, both impl='torch': "
+        f"{evaluate.agreement(model, rtn, cfg, ids, window=EVAL_WINDOW, impl='torch')}")
+    del rtn
+    free_device_memory()
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
+    cal_ids = torch.cat([torch.full((1, vc.num_patches), cfg.image_token_index, device=dev),
+                         torch.from_numpy(ids[:32]).to(dev)[None]], dim=1)  # S = 1632
+    calibrate_stats(model, cfg, cal_ids, pixel_values=px)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    stats, launches, cal_plain = counted(lambda: calibrate_stats(model, cfg, cal_ids,
+                                                                 pixel_values=px))
+    log(f"[calibrate_11b] calibrate_stats at S={cal_ids.shape[1]} with the image: "
+        f"{1e3 * (time.perf_counter() - t):.2f} ms; stats "
+        f"{ {k: tuple(v.shape) for k, v in stats.items()} }")
+    by_path["calibrate_11b"] = launches
+    faults += eval_launch_faults("calibrate_11b", launches, cal_plain, {
+        "rmsnorm": 2 * layers + 1, "swiglu_tc": layers,
+        "flash_attention_tc": layers + vc.num_hidden_layers, "gemv_tc": 1})
+    if not all(bool(torch.isfinite(v).all() and (v > 0).all()) for v in stats.values()):
+        faults.append("calibration stats not finite and positive")
+    eq = awq_equalize(model, stats)  # shares out_proj and the embeddings with model
+    awq = quantize_llama_params(eq, bits=4, group_size=128, recipe=INT4_MIXED_RECIPE)
+    del eq
+    free_device_memory()
+    plain_calls = {k: n + plain_calls[k] for k, n in agreement("bf16 vs int4-mixed AWQ",
+                                                               awq).items()}
+    del awq
+    free_device_memory()
+    by_path["eval_11b_agreement"] = agree_launches
+    windows_a = 3 * windows  # three agreements, each the bf16 side and a quantized side
+    faults += eval_launch_faults("eval_11b_agreement", agree_launches, plain_calls, {
+        "rmsnorm": 2 * (2 * layers + 1) * windows_a, "swiglu_tc": layers * windows_a,
+        "flash_attention_tc": 2 * layers * windows_a, "qmatmul_tc": 7 * layers * windows_a})
+    for label, res in agree.items():
+        log(f"[eval_11b_agreement] {label}: top-1 agreement {res['top1_agreement']:.4f}, mean "
+            f"|dlogit| {res['mean_abs_dlogit']:.6f} over {res['tokens']} positions")
+    log(f"[eval_11b] phase {time.perf_counter() - t_phase:.1f} s")
+    if faults:
+        raise RuntimeError(f"[eval_11b] {faults}")
+    return by_path
+
+
+def run_finetune_cli_tiny(dev) -> dict:
+    """The fine-tune command line's smoke mode on the card: 3 steps with a
+    run dir, rerun to 6 (resumed), against an uninterrupted 6-step run."""
+    t = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="finetune_cli_"))
+    try:
+        def cli(steps, save, run_dir=None):
+            argv = ["--steps", str(steps), "--rank", "4", "--log-every", "1",
+                    "--save", str(tmp / save)]
+            finetune.main(argv + (["--run-dir", str(tmp / run_dir)] if run_dir else []))
+            return st_file.load_file(str(tmp / save))
+
+        def runs():
+            cli(3, "b3.safetensors", "run")
+            return cli(6, "b6.safetensors", "run"), cli(6, "a.safetensors")
+
+        (resumed, straight), launches, plain_calls = counted(runs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bit_equal = set(resumed) == set(straight) and all(
+        torch.equal(resumed[k], straight[k]) for k in straight)
+    log(f"[finetune_cli_tiny] 3 steps, resumed to 6: adapters bit-equal to an uninterrupted "
+        f"6-step run's: {bit_equal}; launches {launches} plain calls {plain_calls}; "
+        f"{time.perf_counter() - t:.1f} s")
+    faults = [f"skipped {k}" for k in TRAIN_KERNELS if launches[k] == 0]
+    faults += [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
+    if not bit_equal or faults:
+        raise RuntimeError(f"[finetune_cli_tiny] resumed adapters bit-equal: {bit_equal}; "
+                           f"{faults}")
+    return launches
+
+
 def run_11b_paths(dev) -> dict:
     """The bf16 path (tied head) and its server, then int8 and int4-mixed
     quantized copies of one untied bf16 model, each served from an int8 KV
@@ -2685,6 +3009,8 @@ def run_11b_paths(dev) -> dict:
     by_path["server_bf16_spec"] = run_server(dev, cfg, model, "server_bf16_spec",
                                              spec_lookup=3, tokens=tokens)
     spec_server_rows_witness(dev, cfg, model, tokens)
+    free_device_memory()
+    by_path.update(run_eval_11b(dev, cfg, model))
     del model
     free_device_memory()
     cfg, model = build_11b(dev, tie_weights=False)
@@ -2705,6 +3031,8 @@ def run_11b_paths(dev) -> dict:
             finally:
                 gemv_mod._INT4_VARIANT = prev
             int4_variant_ab(dev, cfg, qmodel)
+        free_device_memory()
+        by_path[f"qlora_11b_{path}"] = run_qlora_11b(dev, cfg, qmodel, f"qlora_11b_{path}")
         del qmodel
         free_device_memory()
     return by_path
@@ -2743,7 +3071,10 @@ def main() -> int:
     check_tiny_http(dev)
     check_tiny_training(dev)
     check_tiny_bf16_lora(dev)
+    finetune_cli = run_finetune_cli_tiny(dev)
+    free_device_memory()
     by_path = run_11b_paths(dev)
+    by_path["finetune_cli_tiny"] = finetune_cli
     free_device_memory()
     by_path.update(run_load_11b(dev))
     free_device_memory()

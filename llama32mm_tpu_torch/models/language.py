@@ -23,7 +23,14 @@ Reference semantics kept from the JAX package:
   dg) * (u + du)`` is not a delta on the fused output), so such a model
   launches no SwiGLU kernel;
 - ``remat=True``: each block under ``torch.utils.checkpoint`` (the JAX
-  package's ``jax.checkpoint`` of the scanned layer body).
+  package's ``jax.checkpoint`` of the scanned layer body);
+- ``collect_stats=True``: each layer's fp32 mean |x| over (batch, positions)
+  of norm1's output, norm2's output and the SwiGLU output (the inputs of
+  q/k/v, gate/up and w_down), stacked ``[L, h]``, ``[L, h]``, ``[L, I]`` in
+  ``LlamaOutput.stats``: the calibration signal of ``ops/awq.py``;
+- the attention mask: a 2D ``[B, S]`` padding mask or an ``AttnMask``
+  (the structured form every kernel takes), or a dense additive ``[B, 1,
+  Tq, Tk]`` mask, which passes through to the plain dense attention.
 
 One module per layer (no ``[L, ...]`` stacks). Float linears with at most 32
 input rows run the decode gemv kernel, others (and every linear under
@@ -115,6 +122,8 @@ class CausalLM(nn.Module):
 class LlamaOutput(NamedTuple):
     hidden_states: torch.Tensor
     kv_cache: Optional[KVCache]
+    # per-layer activation statistics (ops/awq.py), with collect_stats only
+    stats: Optional[dict] = None
 
 
 LORA_TARGETS = ("W_query", "W_key", "W_value", "out_proj", "w_gate", "w_up", "w_down")
@@ -162,8 +171,11 @@ def maybe_lora(x: torch.Tensor, base_out: torch.Tensor, adapter: Optional[dict],
 
 
 def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config, cos, sin,
-                   structured: AttnMask, kv_cache: Optional[KVCache], impl: str,
-                   lora: Optional[dict] = None, dropouts: Optional[dict] = None):
+                   structured: Optional[AttnMask], kv_cache: Optional[KVCache], impl: str,
+                   lora: Optional[dict] = None, dropouts: Optional[dict] = None,
+                   dense_mask: Optional[torch.Tensor] = None, collect_stats: bool = False):
+    """One block: ``attn_out + ff_out``, and with ``collect_stats`` also the
+    layer's statistics (a dict of fp32 vectors)."""
     b, t, _ = h.shape
     nq, nkv, hd = config.n_heads, config.n_kv_groups, config.head_dim
     att, ff = block.att, block.ff
@@ -183,7 +195,7 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
     if kv_cache is not None:  # post-RoPE keys cached; int8 caches return their scales
         k, v, k_scale, v_scale = kv_cache.update(layer_idx, k, v)
 
-    attn = gqa_attention(q, k, v, structured, causal=True, impl=impl,
+    attn = gqa_attention(q, k, v, structured, causal=True, impl=impl, mask=dense_mask,
                          k_scale=k_scale, v_scale=v_scale)
     attn = attn.transpose(1, 2).reshape(b, t, nq * hd)
     attn_out = proj(attn, "out_proj", att.out_proj.weight)
@@ -202,7 +214,12 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
         inter = fused_swiglu(normed_ff, w_gate, w_up, impl=impl)
     ff_out = proj(inter, "w_down", ff.w_down.weight)
     # residual-stream drop: the block input h is not added back
-    return attn_out + ff_out
+    out = attn_out + ff_out
+    if not collect_stats:
+        return out
+    return out, {"norm1_absmean": normed.float().abs().mean(dim=(0, 1)),
+                 "norm2_absmean": normed_ff.float().abs().mean(dim=(0, 1)),
+                 "inter_absmean": inter.float().abs().mean(dim=(0, 1))}
 
 
 def _structured_mask(attention_mask, b: int, t: int, kv_cache: Optional[KVCache],
@@ -210,7 +227,9 @@ def _structured_mask(attention_mask, b: int, t: int, kv_cache: Optional[KVCache]
     if isinstance(attention_mask, AttnMask):
         return attention_mask
     if attention_mask is not None and attention_mask.dim() != 2:
-        not_in_slice("a dense 4D attention mask (pass an AttnMask)")
+        raise ValueError("attention_mask must be a 2D [B, S] padding mask, a dense additive "
+                         f"[B, 1, Tq, Tk] mask or an AttnMask, got shape "
+                         f"{tuple(attention_mask.shape)}")
     base = (torch.ones(b, t, dtype=torch.int32, device=device) if attention_mask is None
             else attention_mask.to(torch.int32))
     if kv_cache is None:
@@ -252,10 +271,10 @@ def llama_forward(
     positions from there, and leaves ``pos`` to its owner (the server).
     ``lora`` is the adapter tree (its
     ``"blocks"``); ``dropout_rng`` seeds one dropout stream per layer and
-    target when ``lora_dropout > 0``."""
-    for name, on in (("gemv_routes", gemv_routes is not None), ("collect_stats", collect_stats)):
-        if on:
-            not_in_slice(name)
+    target when ``lora_dropout > 0``. A 4D ``attention_mask`` (dense,
+    additive, ``[B, 1, Tq, Tk]``) runs every layer's attention densely."""
+    if gemv_routes is not None:
+        not_in_slice("gemv_routes")
     if input_embeds is not None:
         h = input_embeds
     elif input_ids is not None:
@@ -266,7 +285,11 @@ def llama_forward(
     b, t, _ = h.shape
     # a 0-dim host tensor: no host-to-device copy (and stream sync) per forward
     h = h * torch.tensor(math.sqrt(config.hidden_size), dtype=h.dtype)
-    structured = _structured_mask(attention_mask, b, t, kv_cache, h.device)
+    dense_mask = structured = None
+    if isinstance(attention_mask, torch.Tensor) and attention_mask.dim() == 4:
+        dense_mask = attention_mask.to(h.dtype)  # prebuilt dense: pass through
+    else:
+        structured = _structured_mask(attention_mask, b, t, kv_cache, h.device)
 
     if position_ids is None:
         pos0 = kv_cache.pos if kv_cache is not None else 0
@@ -281,21 +304,29 @@ def llama_forward(
     n_drop = len(LORA_TARGETS)
     use_dropout = blocks_lora is not None and lora_dropout > 0.0
     seeds = dropout_seeds(dropout_rng if use_dropout else None, config.n_layers * n_drop)
+    layer_stats = []
     for i, block in enumerate(model.blocks):
         dropouts = None
         if use_dropout and seeds[0] is not None:
             dropouts = {name: Dropout(lora_dropout, seeds[i * n_drop + j])
                         for j, name in enumerate(LORA_TARGETS)}
-        args = (h, block, i, config, cos, sin, structured, kv_cache, impl, blocks_lora, dropouts)
+        args = (h, block, i, config, cos, sin, structured, kv_cache, impl, blocks_lora, dropouts,
+                dense_mask, collect_stats)
         if remat and torch.is_grad_enabled():
             h = checkpoint(_block_forward, *args, use_reentrant=False)
         else:
             h = _block_forward(*args)
+        if collect_stats:
+            h, st = h
+            layer_stats.append(st)
     if kv_cache is not None and not kv_cache.per_row:
         kv_cache.advance(t)
 
     h = fused_add_rmsnorm(h, model.final_norm.weight, config.rms_norm_eps, impl=impl)
-    return LlamaOutput(hidden_states=h, kv_cache=kv_cache)
+    stats = None
+    if collect_stats:
+        stats = {key: torch.stack([st[key] for st in layer_stats]) for key in layer_stats[0]}
+    return LlamaOutput(hidden_states=h, kv_cache=kv_cache, stats=stats)
 
 
 def lm_head_apply(lm: CausalLM, config: LLAMA32Config, hidden: torch.Tensor,

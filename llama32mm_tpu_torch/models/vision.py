@@ -6,9 +6,19 @@ standard residuals; LayerNorm computed as the JAX function computes it;
 exact (erf) GELU; non-causal multi-head attention through the flash kernel
 with every key valid. The linears are plain ``torch.matmul`` GEMMs, as the
 JAX package leaves them to XLA.
+
+Training with attention dropout (``dropout_rng`` given and
+``config.attention_dropout > 0``) needs the attention weights themselves, so
+each layer then takes the explicit form, as the JAX package does:
+``softmax(q·kᵀ·hd^-0.5)`` in fp32, cast back, inverted dropout on the
+weights from one generator a layer (seeded from ``dropout_rng``), then the
+product with v. Inference stays on flash and is deterministic. The dropout
+bits are not JAX's; only the rule is.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +48,19 @@ def _affine(x: torch.Tensor, lin: Linear) -> torch.Tensor:
     return torch.matmul(x, lin.weight.t()) + lin.bias
 
 
+def dropout_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rate: float,
+                      seed: int) -> torch.Tensor:
+    """Training attention with dropout on the weights (the JAX package's
+    explicit ``_vit_attention`` branch): ``[B, heads, N, hd]`` in and out."""
+    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype)
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    keep = torch.rand(weights.shape, generator=gen, device=q.device) < 1.0 - rate
+    weights = torch.where(keep, weights / (1.0 - rate), torch.zeros((), dtype=weights.dtype))
+    return torch.matmul(weights.to(q.dtype), v)
+
+
 class VisionBlock(nn.Module):
     def __init__(self, config: VisionEncoderConfig, device, dtype):
         super().__init__()
@@ -51,7 +74,8 @@ class VisionBlock(nn.Module):
         self.fc1 = Linear(d, inter, True, device, dtype)
         self.fc2 = Linear(inter, d, True, device, dtype)
 
-    def attention(self, x: torch.Tensor, config: VisionEncoderConfig, impl: str) -> torch.Tensor:
+    def attention(self, x: torch.Tensor, config: VisionEncoderConfig, impl: str,
+                  dropout: Optional[tuple] = None) -> torch.Tensor:
         b, n, d = x.shape
         heads, hd = config.num_attention_heads, config.head_dim
 
@@ -61,13 +85,18 @@ class VisionBlock(nn.Module):
         q = split(_affine(x, self.q_proj))
         k = split(_affine(x, self.k_proj))
         v = split(_affine(x, self.v_proj))
-        every_key = AttnMask(torch.ones(b, n, dtype=torch.int32, device=x.device), 0)
-        ctx = gqa_attention(q, k, v, every_key, causal=False, impl=impl)
+        if dropout is None:
+            every_key = AttnMask(torch.ones(b, n, dtype=torch.int32, device=x.device), 0)
+            ctx = gqa_attention(q, k, v, every_key, causal=False, impl=impl)
+        else:
+            ctx = dropout_attention(q, k, v, *dropout)
         return _affine(ctx.transpose(1, 2).reshape(b, n, d), self.out_proj)
 
-    def forward(self, h: torch.Tensor, config: VisionEncoderConfig, impl: str) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, config: VisionEncoderConfig, impl: str,
+                dropout: Optional[tuple] = None) -> torch.Tensor:
+        """``dropout``: ``(rate, seed)`` of the attention dropout, or None."""
         eps = config.layer_norm_eps
-        h = h + self.attention(layer_norm(h, self.layernorm1, eps), config, impl)
+        h = h + self.attention(layer_norm(h, self.layernorm1, eps), config, impl, dropout)
         y = F.gelu(_affine(layer_norm(h, self.layernorm2, eps), self.fc1))
         return h + _affine(y, self.fc2)
 
@@ -99,12 +128,23 @@ class VisionEncoder(nn.Module):
                     mod.init_()
         self.post_layernorm.init_()
 
-    def forward(self, pixel_values: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor, impl: str = "auto",
+                dropout_rng: Optional[torch.Generator] = None,
+                attention_dropout: Optional[float] = None) -> torch.Tensor:
+        """``dropout_rng`` turns on training attention dropout at
+        ``attention_dropout`` (the caller's config's rate; this tower's by
+        default), a seed a layer drawn from the generator."""
         cfg = self.config
+        rate = cfg.attention_dropout if attention_dropout is None else attention_dropout
         patches = patchify(pixel_values, cfg.patch_size)
         h = torch.matmul(patches, self.patch_embedding.weight.t())
         h = h + self.position_embedding[None].to(h.dtype)
-        for layer in self.layers:
-            h = layer(h, cfg, impl)
+        drops = [None] * len(self.layers)
+        if dropout_rng is not None and rate > 0.0:
+            seeds = torch.randint(0, 2**62, (len(self.layers),), generator=dropout_rng,
+                                  device=dropout_rng.device).tolist()
+            drops = [(rate, seed) for seed in seeds]
+        for layer, drop in zip(self.layers, drops):
+            h = layer(h, cfg, impl, drop)
         return layer_norm(h, self.post_layernorm, cfg.layer_norm_eps)
 

@@ -5,7 +5,13 @@ LoRA: ``lora["blocks"]`` adapts the decoder linears, ``lora["lm_head"]``
 the head and ``lora["projector"]`` the projector. The vision tower runs
 under ``torch.no_grad()`` when none of its parameters requires a gradient,
 so a frozen tower keeps no activations (the JAX package closes over frozen
-parameters)."""
+parameters).
+
+Training extras: ``dropout_rng`` with ``vision_config.attention_dropout > 0``
+turns on the ViT's attention dropout (``models/vision.py``);
+``loss_chunk=N`` computes the loss by ``chunked_shifted_cross_entropy``, so
+the ``[B, T, V]`` logits never exist; ``collect_stats=True`` returns the
+decoder's per-layer activation statistics (``ops/awq.py``)."""
 
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from llama32mm_tpu_torch.configs import MLLAMAConfig
 from llama32mm_tpu_torch.models.common import Linear
@@ -28,7 +35,6 @@ from llama32mm_tpu_torch.models.language import (
     maybe_lora,
 )
 from llama32mm_tpu_torch.models.vision import VisionEncoder
-from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 from llama32mm_tpu_torch.utils.kvcache import KVCache
 
 
@@ -37,6 +43,8 @@ class VLMOutput(NamedTuple):
     loss: Optional[torch.Tensor]
     hidden_states: torch.Tensor
     kv_cache: Optional[KVCache]
+    # per-layer activation calibration stats (ops/awq.py), with collect_stats only
+    stats: Optional[dict] = None
 
 
 class MllamaForConditionalGeneration(nn.Module):
@@ -95,12 +103,15 @@ def merge_input_ids_with_image_features(
 
 def encode_image(model: MllamaForConditionalGeneration, config: MLLAMAConfig,
                  pixel_values: torch.Tensor, impl: str = "auto", lora: Optional[dict] = None,
-                 dropout: Optional[Dropout] = None) -> torch.Tensor:
+                 dropout: Optional[Dropout] = None,
+                 dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """Vision tower + projector: ``[B, C, H, W] → [B, N, text_hidden]``.
-    ``lora`` is the projector's flat adapter."""
+    ``lora`` is the projector's flat adapter; ``dropout_rng`` drives the
+    tower's attention dropout."""
     frozen = not any(p.requires_grad for p in model.vision_model.parameters())
     with torch.no_grad() if frozen else contextlib.nullcontext():
-        feats = model.vision_model(pixel_values, impl=impl)
+        feats = model.vision_model(pixel_values, impl=impl, dropout_rng=dropout_rng,
+                                   attention_dropout=config.vision_config.attention_dropout)
     proj = model.multi_modal_projector
     out = torch.matmul(feats, proj.weight.t()) + proj.bias
     return maybe_lora(feats, out, lora, dropout=dropout)
@@ -129,11 +140,9 @@ def vlm_forward(
     those positions (prefill needs only the last valid one). ``dropout_rng``
     (a ``torch.Generator``) drives the LoRA input dropout when
     ``lora_dropout > 0``: the projector's, each decoder layer's and the
-    head's streams are seeded from it."""
-    if loss_chunk is not None:
-        not_in_slice("loss_chunk")
-    if dropout_rng is not None and config.vision_config.attention_dropout > 0.0:
-        not_in_slice("ViT attention dropout (attention_dropout > 0) under training")
+    head's streams are seeded from it, and with ``attention_dropout > 0`` the
+    ViT's layers after them. ``loss_chunk`` (needs ``labels``) returns the
+    loss with ``logits=None``."""
     tc = config.text_config
     lm = model.language_model
     lora = lora or {}
@@ -147,7 +156,8 @@ def vlm_forward(
         inputs_embeds = lm.model.tok_emb[input_ids.clamp(0, tc.vocab_size - 1)]
     if pixel_values is not None and inputs_embeds is not None:
         feats = encode_image(model, config, pixel_values.to(inputs_embeds.dtype), impl=impl,
-                             lora=lora.get("projector"), dropout=dropout(proj_seed))
+                             lora=lora.get("projector"), dropout=dropout(proj_seed),
+                             dropout_rng=dropout_rng)
         inputs_embeds, attention_mask = merge_input_ids_with_image_features(
             feats, inputs_embeds, input_ids, attention_mask, config.image_token_index)
 
@@ -163,11 +173,58 @@ def vlm_forward(
             raise ValueError("logits_positions is incompatible with labels")
         idx = logits_positions.long()[:, :, None].expand(-1, -1, hidden.shape[-1])
         hidden = torch.gather(hidden, 1, idx)
+    if loss_chunk is not None:
+        # head-LoRA applies; head-LoRA dropout does not on this path (as in JAX)
+        if labels is None:
+            raise ValueError("loss_chunk requires labels")
+        loss = chunked_shifted_cross_entropy(lm, tc, hidden, labels, config.ignore_index,
+                                             chunk=loss_chunk, lora=lora.get("lm_head"),
+                                             impl=impl)
+        return VLMOutput(logits=None, loss=loss, hidden_states=out.hidden_states,
+                         kv_cache=out.kv_cache, stats=out.stats)
     logits = lm_head_apply(lm, tc, hidden, impl=impl, lora=lora.get("lm_head"),
                            dropout=dropout(head_seed))
     loss = None if labels is None else shifted_cross_entropy(logits, labels, config.ignore_index)
     return VLMOutput(logits=logits, loss=loss, hidden_states=out.hidden_states,
-                     kv_cache=out.kv_cache)
+                     kv_cache=out.kv_cache, stats=out.stats)
+
+
+def _chunk_nll(lm: CausalLM, config, lora, impl: str, ignore_index: int, h_c: torch.Tensor,
+               t_c: torch.Tensor):
+    """``(sum of the chunk's NLL, its valid targets)`` in fp32."""
+    logits = lm_head_apply(lm, config, h_c, impl=impl, lora=lora)
+    valid = t_c != ignore_index
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, torch.where(valid, t_c, 0)[..., None].long())[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum(), valid.sum()
+
+
+def chunked_shifted_cross_entropy(lm: CausalLM, config, hidden: torch.Tensor,
+                                  labels: torch.Tensor, ignore_index: int, chunk: int = 1024,
+                                  lora: Optional[dict] = None,
+                                  impl: str = "auto") -> torch.Tensor:
+    """``shifted_cross_entropy`` without the full ``[B, T, V]`` logits: the
+    shifted positions stream through the head and an fp32 log-softmax
+    ``chunk`` at a time, each chunk under ``torch.utils.checkpoint``, so the
+    backward recomputes one chunk's logits from its saved hidden slice (the
+    JAX package's rematerialized ``lax.scan``). ``lora`` is the head's
+    adapter."""
+    sh, st = hidden[:, :-1], labels[:, 1:]
+    n = sh.shape[1]
+    chunk = int(min(chunk, n))
+    nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for start in range(0, n, chunk):
+        args = (lm, config, lora, impl, ignore_index, sh[:, start:start + chunk],
+                st[:, start:start + chunk])
+        if torch.is_grad_enabled():
+            part, valid = checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            part, valid = _chunk_nll(*args)
+        nll_sum = nll_sum + part
+        cnt = cnt + valid
+    return nll_sum / cnt.clamp(min=1)
 
 
 def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -29,6 +29,11 @@ and dk/dv kernels, all three on tensor cores for bf16 and SIMT for fp32
 (``_route`` and ``_route_bwd``). The int8-KV path is
 inference-only, as in the JAX package, and raises under autograd. On the
 CPU the same route picks each kernel's plain version.
+
+A dense additive ``[B, 1, Tq, Tk]`` mask (the reference's own form, which the
+JAX ``llama_forward`` passes through) has no structure for a kernel to use:
+such a call runs ``dense_attention``, the JAX package's XLA attention in
+plain PyTorch, on any device and under autograd.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 
 from llama32mm_tpu_torch.ops.cuda import KERNELS
 from llama32mm_tpu_torch.ops.cuda.flash_decode import DECODE_MAX_ROWS
-from llama32mm_tpu_torch.ops.dispatch import needs_grad, not_in_slice, resolve_impl
+from llama32mm_tpu_torch.ops.dispatch import needs_grad, resolve_impl
 
 
 class AttnMask(NamedTuple):
@@ -115,6 +120,28 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``softmax((q·kᵀ + mask) / sqrt(hd)) · v`` with a dense additive mask
+    ``[B, 1, Tq, Tk]``, in the activation dtype, grouped-query heads, and
+    int8 K/V scales folded into the scores and the weights (the JAX
+    package's ``_gqa_attention_xla``)."""
+    b, n_q, t_q, hd = q.shape
+    n_kv = k.shape[1]
+    qg = q.reshape(b, n_kv, n_q // n_kv, t_q, hd)
+    scores = torch.einsum("bkgqd,bkTd->bkgqT", qg, k.to(q.dtype))
+    if k_scale is not None:
+        scores = (scores.float() * k_scale[:, :, None, None, :]).to(scores.dtype)
+    scores = scores + mask.to(scores.dtype)[:, :, None, :, :]
+    scale = torch.tensor(hd, dtype=scores.dtype) ** 0.5
+    weights = torch.softmax(scores / scale, dim=-1)
+    if v_scale is not None:
+        weights = (weights.float() * v_scale[:, :, None, None, :]).to(weights.dtype)
+    ctx = torch.einsum("bkgqT,bkTd->bkgqd", weights, v.to(q.dtype))
+    return ctx.reshape(b, n_q, t_q, hd)
+
+
 def gqa_attention(
     q: torch.Tensor,  # [B, nq, Tq, hd], RoPE applied
     k: torch.Tensor,  # [B, nkv, Tk, hd]
@@ -127,9 +154,10 @@ def gqa_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Grouped-query attention: query head ``h`` reads kv head
-    ``h // (nq // nkv)``. Returns ``[B, nq, Tq, hd]``."""
+    ``h // (nq // nkv)``. Returns ``[B, nq, Tq, hd]``. A dense additive
+    ``mask`` takes the place of ``structured`` (``dense_attention``)."""
     if mask is not None:
-        not_in_slice("a dense additive attention mask")
+        return dense_attention(q, k, v, mask, k_scale, v_scale)
     impl = resolve_impl(impl, q)
     q_offset = structured.q_offset
     if not isinstance(q_offset, torch.Tensor):

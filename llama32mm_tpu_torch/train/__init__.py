@@ -1,6 +1,7 @@
-"""Training: LoRA and full fine-tuning (counterpart of
-``llama32mm_tpu/train``). ``train/data.py`` and the ``finetune`` command
-line are not ported (ROADMAP.md, queue 1)."""
+"""Training: LoRA (QLoRA over a quantized base) and full fine-tuning
+(counterpart of ``llama32mm_tpu/train``); ``train/data.py`` (packing,
+resumable iteration, prefetch) and the ``train/finetune.py`` command line
+beside them."""
 
 from llama32mm_tpu_torch.train.accum import accumulate_grads, valid_target_count
 from llama32mm_tpu_torch.train.full import (

@@ -10,17 +10,20 @@
 - **Frozen subtrees.** ``freeze_vision=True`` freezes the vision tower: it
   gets no gradient and no optimizer state, and runs under
   ``torch.no_grad()`` (``models/vlm.py``).
-- **Optimizer.** ``clip_by_global_norm`` (optax's rule) then AdamW, stepped
-  one parameter at a time (``Adam`` in ``optim.py`` beside this module);
-  ``learning_rate`` may be a schedule.
+- **Optimizer.** ``clip_by_global_norm`` (optax's rule) then AdamW or,
+  with ``optimizer="adafactor"``, optax's Adafactor with the JAX package's
+  arguments, stepped one parameter at a time (``optim.py`` beside this
+  module); ``learning_rate`` may be a schedule.
+- ``remat=True`` and ``loss_chunk=N`` (the chunked loss) for long
+  sequences, as in the LoRA step.
 
-Not ported (they raise ``NotImplementedError``): ``optimizer="adafactor"``,
-``zero1_params`` / ``zero1_masters`` (the multi-GPU slice) and
-``loss_chunk``.
+Not ported (they raise ``NotImplementedError``): ``zero1_params`` /
+``zero1_masters`` (the multi-GPU slice).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -30,7 +33,7 @@ from llama32mm_tpu_torch.configs import MLLAMAConfig, resolve_dtype
 from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration, vlm_forward
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 from llama32mm_tpu_torch.train.accum import accumulate_grads, loss_and_grads
-from llama32mm_tpu_torch.train.optim import Adam, AdamState
+from llama32mm_tpu_torch.train.optim import Adafactor, AdafactorState, Adam
 from llama32mm_tpu_torch.utils import st_file
 
 FROZEN_KEYS_VISION = ("vision_model",)
@@ -39,7 +42,7 @@ FROZEN_KEYS_VISION = ("vision_model",)
 class FullTrainState(NamedTuple):
     params: dict  # name -> trainable master tensor (the model's own parameters)
     frozen: dict  # name -> frozen parameter ({} when everything trains)
-    opt_state: AdamState
+    opt_state: object  # AdamState or AdafactorState
     step: int
     module: nn.Module  # the module the forward runs: the model, or its compute-dtype twin
 
@@ -60,15 +63,20 @@ def split_trainable(model: nn.Module, freeze_vision: bool = False):
 
 def make_optimizer(learning_rate=1e-5, weight_decay: float = 0.0,
                    max_grad_norm: Optional[float] = 1.0, b1: float = 0.9, b2: float = 0.999,
-                   optimizer: str = "adamw") -> Adam:
+                   optimizer: str = "adamw"):
     """The optimizer ``make_train_step`` trains with: optax's
-    ``clip_by_global_norm(max_grad_norm)`` (when set) then ``adamw``."""
+    ``clip_by_global_norm(max_grad_norm)`` (when set) then ``adamw``, or
+    ``adafactor(learning_rate, multiply_by_parameter_scale=False,
+    momentum=None, weight_decay_rate=weight_decay or None)``. Adafactor keeps
+    a row and a column vector for each matrix with two dimensions of at
+    least 128, in place of AdamW's two full moments."""
+    if optimizer == "adamw":
+        return Adam(learning_rate, b1=b1, b2=b2, weight_decay=weight_decay,
+                    max_grad_norm=max_grad_norm)
     if optimizer == "adafactor":
-        not_in_slice("optimizer='adafactor' (optax's factored rule)")
-    if optimizer != "adamw":
-        raise ValueError(f"optimizer must be 'adamw' or 'adafactor', got {optimizer!r}")
-    return Adam(learning_rate, b1=b1, b2=b2, weight_decay=weight_decay,
-                max_grad_norm=max_grad_norm)
+        return Adafactor(learning_rate, weight_decay_rate=weight_decay or None,
+                         max_grad_norm=max_grad_norm)
+    raise ValueError(f"optimizer must be 'adamw' or 'adafactor', got {optimizer!r}")
 
 
 def _compute_twin(model: MllamaForConditionalGeneration, config: MLLAMAConfig,
@@ -102,10 +110,7 @@ def make_train_step(
     differentiates every non-frozen parameter and takes one optimizer step,
     updating the masters in place. ``batch`` is as in the LoRA step (a
     leading ``[A, ...]`` axis with ``accum_steps=A``); ``rng`` is a
-    ``torch.Generator`` for dropout (ViT attention dropout, which the port
-    refuses)."""
-    if loss_chunk is not None:
-        not_in_slice("loss_chunk")
+    ``torch.Generator`` for dropout (the ViT's attention dropout)."""
     if zero1_params is not None or zero1_masters:
         not_in_slice("ZeRO optimizer partitioning (zero1_params / zero1_masters)")
     tx = make_optimizer(learning_rate, weight_decay, max_grad_norm, b1, b2, optimizer=optimizer)
@@ -129,7 +134,7 @@ def make_train_step(
         return vlm_forward(
             module, config, input_ids=batch["input_ids"], pixel_values=batch.get("pixel_values"),
             attention_mask=batch.get("attention_mask"), labels=batch["labels"],
-            dropout_rng=rng, impl=impl, remat=remat,
+            dropout_rng=rng, impl=impl, remat=remat, loss_chunk=loss_chunk,
         ).loss
 
     def train_step(state: FullTrainState, batch: dict, rng=None):
@@ -155,13 +160,21 @@ def make_train_step(
     return init_state, train_step
 
 
+def _moments(opt_state) -> tuple:
+    """The optimizer state's tensor dicts by file prefix."""
+    if isinstance(opt_state, AdafactorState):
+        return (("v_row", opt_state.v_row), ("v_col", opt_state.v_col), ("v", opt_state.v))
+    return (("mu", opt_state.mu), ("nu", opt_state.nu))
+
+
 def save_full_train_state(path: str, state: FullTrainState) -> None:
-    """Persist masters, frozen parameters, Adam moments, update count and
+    """Persist masters, frozen parameters, the optimizer's moments (Adam's
+    ``mu``/``nu`` or Adafactor's ``v_row``/``v_col``/``v``), update count and
     step as one safetensors file keyed by name."""
     tensors = {f"params/{n}": t for n, t in state.params.items()}
     tensors.update({f"frozen/{n}": t for n, t in state.frozen.items()})
-    tensors.update({f"mu/{n}": t for n, t in state.opt_state.mu.items()})
-    tensors.update({f"nu/{n}": t for n, t in state.opt_state.nu.items()})
+    for prefix, moments in _moments(state.opt_state):
+        tensors.update({f"{prefix}/{n}": t for n, t in moments.items()})
     tensors["count"] = torch.tensor(state.opt_state.count, dtype=torch.int64)
     tensors["step"] = torch.tensor(state.step, dtype=torch.int64)
     st_file.save_file(tensors, path)
@@ -173,7 +186,7 @@ def load_full_train_state(path: str, template: FullTrainState) -> FullTrainState
     dtypes must match."""
     data = st_file.load_file(path)
     groups = (("params", template.params), ("frozen", template.frozen),
-              ("mu", template.opt_state.mu), ("nu", template.opt_state.nu))
+              *_moments(template.opt_state))
     with torch.no_grad():
         for prefix, tensors in groups:
             for name, dst in tensors.items():
@@ -191,6 +204,5 @@ def load_full_train_state(path: str, template: FullTrainState) -> FullTrainState
         for name, t in template.frozen.items():  # a compute twin holds its own frozen copy
             if compute[name] is not t:
                 compute[name].copy_(t)
-    opt_state = AdamState(count=int(data["count"]), mu=template.opt_state.mu,
-                          nu=template.opt_state.nu)
+    opt_state = dataclasses.replace(template.opt_state, count=int(data["count"]))
     return template._replace(opt_state=opt_state, step=int(data["step"]))

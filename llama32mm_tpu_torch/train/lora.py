@@ -23,7 +23,6 @@ from llama32mm_tpu_torch.configs import LLAMA32Config, MLLAMAConfig
 from llama32mm_tpu_torch.models.common import Linear, copy_module
 from llama32mm_tpu_torch.models.language import LORA_TARGETS, Dropout, maybe_lora
 from llama32mm_tpu_torch.models.vlm import vlm_forward
-from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 from llama32mm_tpu_torch.train.accum import accumulate_grads, loss_and_grads
 from llama32mm_tpu_torch.train.optim import Adam, AdamState
 from llama32mm_tpu_torch.utils import st_file
@@ -262,8 +261,6 @@ def make_lora_train_step(
     ...]`` microbatch axis and the gradients are valid-target-weighted
     (``train/accum.py``). ``rng`` is a ``torch.Generator`` for the dropout
     (used when ``lora_dropout > 0``)."""
-    if loss_chunk is not None:
-        not_in_slice("loss_chunk")
     tx = Adam(learning_rate)
 
     def init_state(lora: dict) -> LoraTrainState:
@@ -277,7 +274,7 @@ def make_lora_train_step(
             model, config, input_ids=batch["input_ids"], pixel_values=batch.get("pixel_values"),
             attention_mask=batch.get("attention_mask"), labels=batch["labels"], lora=lora,
             dropout_rng=rng if lora_dropout > 0.0 else None, lora_dropout=lora_dropout,
-            impl=impl, remat=remat,
+            impl=impl, remat=remat, loss_chunk=loss_chunk,
         ).loss
 
     def train_step(model, state: LoraTrainState, batch: dict, rng=None):

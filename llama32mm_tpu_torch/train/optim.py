@@ -1,4 +1,4 @@
-"""Adam and AdamW with optax's update rules, optionally after
+"""Adam, AdamW and Adafactor with optax's update rules, optionally after
 ``clip_by_global_norm``, stepped one parameter at a time.
 
 The JAX package trains with optax, which is XLA there, not a Pallas kernel;
@@ -15,16 +15,38 @@ this is plain PyTorch that follows optax's arithmetic:
   ``max_norm / norm`` (``(g / norm) * max_norm``); unlike
   ``torch.nn.utils.clip_grad_norm_`` it adds nothing to the norm.
 
+Adafactor is ``optax.adafactor`` as the JAX package builds it
+(``multiply_by_parameter_scale=False``, ``momentum=None``) with optax's other
+defaults: the second moment is factored for a parameter with two dimensions
+of at least 128 (a row vector and a column vector, over its two largest
+dimensions), kept whole otherwise; decay ``1 - t^-0.8`` at update ``t``;
+1e-30 added to ``g²``; the update ``g / sqrt(v)`` then clipped to an RMS of
+at most 1 per block, scaled by the learning rate, plus
+``weight_decay_rate * p`` when set, subtracted. A block is one leaf of the
+JAX tree: the port keeps one module per layer where JAX stacks the layers,
+so ``stacked_leaf`` maps a parameter name to its JAX leaf and the clip's RMS
+runs over all of a stack's layers.
+
 Parameters are updated in place, one at a time, so the temporaries of a step
 are those of the largest parameter rather than of the whole model.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
 import torch
+
+
+def _global_norm_clip(grads: dict, max_norm: Optional[float]):
+    """optax's ``clip_by_global_norm``: the norm to divide by, or None when
+    the global norm is below ``max_norm`` (or there is no clip)."""
+    if max_norm is None:
+        return None
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+    return None if bool(norm < max_norm) else norm
 
 
 @dataclass
@@ -57,11 +79,7 @@ class Adam:
         """Update ``params`` in place from ``grads`` (same keys; a gradient
         may be of a lower precision than its parameter) and return the new
         state (its moments are updated in place)."""
-        clip = None
-        if self.max_grad_norm is not None:
-            norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
-            if not bool(norm < self.max_grad_norm):
-                clip = norm
+        clip = _global_norm_clip(grads, self.max_grad_norm)
         lr = self.learning_rate(state.count) if callable(self.learning_rate) else self.learning_rate
         count = state.count + 1
         bc1, bc2 = 1.0 - self.b1**count, 1.0 - self.b2**count
@@ -79,3 +97,116 @@ class Adam:
                 u.add_(p, alpha=self.weight_decay)
             p.add_(u, alpha=-lr)
         return AdamState(count=count, mu=state.mu, nu=state.nu)
+
+
+def stacked_leaf(name: str) -> str:
+    """The JAX tree leaf a port parameter belongs to: every layer of a
+    ``blocks.<i>`` / ``layers.<i>`` list is one stacked ``[L, ...]`` leaf."""
+    return re.sub(r"\.(blocks|layers)\.\d+\.", r".\1.*.", name)
+
+
+@dataclass
+class AdafactorState:
+    """optax's ``FactoredState``, keyed like the parameters: the update count,
+    the row and column statistics of factored parameters and the whole
+    second moment of the others (each dict holds only the parameters it
+    applies to)."""
+
+    count: int
+    v_row: dict
+    v_col: dict
+    v: dict
+
+
+def _factored_dims(shape, min_dim: int) -> Optional[tuple]:
+    """optax's choice: the indices (second largest, largest) of the shape's
+    two largest dimensions when the smaller of them is at least ``min_dim``."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: (shape[i], i))
+    if shape[order[-2]] < min_dim:
+        return None
+    return order[-2], order[-1]
+
+
+class Adafactor:
+    # optax's defaults, which the JAX package keeps
+    MIN_DIM_SIZE_TO_FACTOR = 128
+    DECAY_RATE = 0.8
+    CLIPPING_THRESHOLD = 1.0
+    EPSILON = 1e-30
+
+    def __init__(self, learning_rate: Union[float, Callable[[int], float]] = 1e-3,
+                 weight_decay_rate: Optional[float] = None,
+                 max_grad_norm: Optional[float] = None):
+        self.learning_rate = learning_rate
+        self.weight_decay_rate = weight_decay_rate
+        self.max_grad_norm = max_grad_norm
+
+    def init(self, params: dict) -> AdafactorState:
+        v_row, v_col, v = {}, {}, {}
+        for name, p in params.items():
+            dims = _factored_dims(p.shape, self.MIN_DIM_SIZE_TO_FACTOR)
+            if dims is None:
+                v[name] = torch.zeros_like(p, requires_grad=False)
+            else:
+                d1, d0 = dims
+                v_row[name] = torch.zeros_like(p.select(d0, 0), requires_grad=False)
+                v_col[name] = torch.zeros_like(p.select(d1, 0), requires_grad=False)
+        return AdafactorState(count=0, v_row=v_row, v_col=v_col, v=v)
+
+    def _update(self, name: str, p: torch.Tensor, g: torch.Tensor,
+                state: AdafactorState) -> torch.Tensor:
+        """``g`` scaled by the (new) second-moment statistics."""
+        dims = _factored_dims(p.shape, self.MIN_DIM_SIZE_TO_FACTOR)
+        if dims is None:
+            return g * state.v[name].rsqrt()
+        d1, d0 = dims
+        row = state.v_row[name]
+        reduced_d1 = d1 - 1 if d1 > d0 else d1
+        row_factor = (row / row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+        return g * row_factor.unsqueeze(d0) * state.v_col[name].rsqrt().unsqueeze(d1)
+
+    @torch.no_grad()
+    def step(self, params: dict, grads: dict, state: AdafactorState) -> AdafactorState:
+        """Update ``params`` in place from ``grads`` and return the new state
+        (its statistics updated in place). Two passes over the parameters:
+        the first updates the statistics and sums each block's squared
+        update, the second recomputes the update, clips it by its block's
+        RMS and applies it."""
+        clip = _global_norm_clip(grads, self.max_grad_norm)
+        lr = self.learning_rate(state.count) if callable(self.learning_rate) else self.learning_rate
+        t = torch.tensor(float(state.count + 1), dtype=torch.float32)
+        decay = float(1.0 - t ** (-self.DECAY_RATE))
+
+        def grad(name, p):
+            g = grads[name].to(p.dtype)
+            return g if clip is None else (g / clip.to(p.dtype)) * self.max_grad_norm
+
+        sq_sum, size = {}, {}
+        for name, p in params.items():
+            g = grad(name, p)
+            g2 = g.square() + self.EPSILON
+            dims = _factored_dims(p.shape, self.MIN_DIM_SIZE_TO_FACTOR)
+            if dims is None:
+                state.v[name].mul_(decay).add_((1.0 - decay) * g2)
+            else:
+                d1, d0 = dims
+                state.v_row[name].mul_(decay).add_((1.0 - decay) * g2.mean(dim=d0))
+                state.v_col[name].mul_(decay).add_((1.0 - decay) * g2.mean(dim=d1))
+            del g2
+            block = stacked_leaf(name)
+            u = self._update(name, p, g, state)
+            sq_sum[block] = sq_sum.get(block, 0.0) + u.float().square().sum()
+            size[block] = size.get(block, 0) + u.numel()
+        for name, p in params.items():
+            u = self._update(name, p, grad(name, p), state)
+            block = stacked_leaf(name)
+            rms = torch.sqrt(sq_sum[block] / size[block])
+            u = u / torch.clamp(rms / self.CLIPPING_THRESHOLD, min=1.0).to(u.dtype)
+            u = u * lr
+            if self.weight_decay_rate is not None:
+                u = u + self.weight_decay_rate * p
+            p.sub_(u)
+        return AdafactorState(count=state.count + 1, v_row=state.v_row, v_col=state.v_col,
+                              v=state.v)

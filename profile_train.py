@@ -1,8 +1,11 @@
 """Profile one training step of each training path of ``chip_smoke.py`` on
 one NVIDIA GPU: 11B LoRA and 3B full fine-tuning, at the same shapes,
-weights and batch.
+weights and batch; with ``--qlora``, instead, one QLoRA step over the untied
+11B quantized to int8 and to ``INT4_MIXED_RECIPE`` (rank 16, ``remat``,
+``loss_chunk=512``, 2 packed microbatches of 1632, as ``chip_smoke.py``'s
+``qlora_11b_*`` phases).
 
-    python3 profile_train.py
+    python3 profile_train.py [--qlora]
 
 For each path it times one step without the profiler, then one step under
 ``torch.profiler`` and sums the kernel rows of ``key_averages()`` (the
@@ -23,7 +26,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
+from llama32mm_tpu_torch.models.quantize import quantize_llama_params
 from llama32mm_tpu_torch.models.vlm import init_vlm
+from llama32mm_tpu_torch.ops.quant import INT4_MIXED_RECIPE
+from llama32mm_tpu_torch.train.data import PackedBatchIterator
 from llama32mm_tpu_torch.train.full import make_train_step
 from llama32mm_tpu_torch.train.lora import init_lora_params, make_lora_train_step
 
@@ -44,6 +50,7 @@ CATEGORIES = (
     ("gemv_int4", "int4 gemv"),
     ("gemv_bf16_tc", "bf16 gemv (tensor cores)"), ("gemv_kernel", "bf16 gemv (CUDA cores)"),
     ("qmatmul", "qmatmul"), ("scatter", "cache writes (scatter)"),
+    ("log_softmax", "softmax/CE"),
     ("nvjet", "GEMM (cuBLAS)"), ("gemm", "GEMM (cuBLAS)"), ("xmma", "GEMM (cuBLAS)"),
     ("cutlass", "GEMM (cuBLAS)"), ("copy", "copies/casts"), ("reduce", "reductions"),
     ("softmax", "softmax/CE"), ("elementwise", "elementwise"), ("index", "indexing/embedding"),
@@ -95,6 +102,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     cs.build_library()
+    if "--qlora" in sys.argv[1:]:
+        return profile_qlora(dev)
 
     cfg, model = cs.build_11b(dev, tie_weights=True)
     lora = init_lora_params(torch.Generator(device=dev).manual_seed(1), cfg, rank=16, alpha=16.0)
@@ -120,6 +129,35 @@ def main() -> int:
         box[0], _ = step(box[0], batch)
 
     profile_step("full_ft_3b", full_step, batch["input_ids"].numel())
+    return 0
+
+
+def profile_qlora(dev) -> int:
+    """One QLoRA step (``chip_smoke.py``'s settings) over each quantized copy
+    of the untied 11B; the batch is the first packed one of that phase."""
+    cfg, model = cs.build_11b(dev, tie_weights=False)
+    tc = cfg.text_config
+    rows = next(PackedBatchIterator(cs.qlora_docs(tc.vocab_size), cs.QLORA_ACCUM, cs.QLORA_SEQ,
+                                    cs.QLORA_EOS, ignore_index=cfg.ignore_index))
+    batch = {k: torch.from_numpy(v).to(dev).reshape(cs.QLORA_ACCUM, 1, cs.QLORA_SEQ)
+             for k, v in rows.items()}
+    for label, kw in (("qlora_11b_int8", dict(bits=8)),
+                      ("qlora_11b_int4_mixed", dict(bits=4, group_size=128,
+                                                    recipe=INT4_MIXED_RECIPE))):
+        qmodel = quantize_llama_params(model, **kw)
+        lora = init_lora_params(torch.Generator(device=dev).manual_seed(1), tc, rank=16,
+                                alpha=16.0, device=dev)
+        init_state, step = make_lora_train_step(cfg, learning_rate=1e-4, remat=True,
+                                                loss_chunk=cs.QLORA_CHUNK,
+                                                accum_steps=cs.QLORA_ACCUM)
+        box = [init_state(lora)]
+
+        def qlora_step():
+            box[0], _ = step(qmodel, box[0], batch)
+
+        profile_step(label, qlora_step, batch["input_ids"].numel())
+        del qmodel, lora, box
+        cs.free_device_memory()
     return 0
 
 

@@ -276,20 +276,31 @@ def test_split_trainable_freezes_the_vision_tower(jax_params):
     assert split_trainable(model)[1] == {}
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"optimizer": "adafactor"}, {"zero1_params": {}}, {"zero1_masters": True},
-    {"loss_chunk": 4},
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"optimizer": "adagrad"}, ValueError, "optimizer must be"),
+    ({"zero1_params": {}}, NotImplementedError, "ROADMAP.md"),
+    ({"zero1_masters": True}, NotImplementedError, "ROADMAP.md"),
+    ({"zero1_params": {}, "loss_chunk": 4}, NotImplementedError, "ROADMAP.md"),
 ])
-def test_refused_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_refused_options_raise(kwargs, error, match):
+    """ZeRO partitioning stays refused and an unknown optimizer is an
+    error; ``optimizer="adafactor"`` and ``loss_chunk`` are ported
+    (tests/test_torch_train_ext.py)."""
+    with pytest.raises(error, match=match):
         make_train_step(tiny_mllama_config(), **kwargs)
 
 
 def test_vit_attention_dropout_refused(jax_params):
+    """Once refused, ViT attention dropout now trains: a step with a
+    generator runs the explicit dropout path (a finite loss that differs
+    from the step without dropout), and the same seed repeats it."""
     cfg = tiny_mllama_config()
     cfg = dataclasses.replace(
         cfg, vision_config=dataclasses.replace(cfg.vision_config, attention_dropout=0.1))
-    init_state, step = make_train_step(cfg)
-    state = init_state(_model(jax_params))
-    with pytest.raises(NotImplementedError, match="attention dropout"):
-        step(state, _t(_batch()), rng=torch.Generator().manual_seed(0))
+    losses = []
+    for seed in (0, 0, None):
+        init_state, step = make_train_step(cfg)
+        state = init_state(_model(jax_params))
+        rng = None if seed is None else torch.Generator().manual_seed(seed)
+        losses.append(step(state, _t(_batch()), rng=rng)[1].item())
+    assert all(np.isfinite(losses)) and losses[0] == losses[1] != losses[2]

@@ -39,7 +39,10 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.io", "llama32mm_tpu_torch.io.checkpoint",
     "llama32mm_tpu_torch.io.native_st", "llama32mm_tpu_torch.io.download",
     "llama32mm_tpu_torch.preprocess", "llama32mm_tpu_torch.preprocess.processor",
-    "llama32mm_tpu_torch.inference.cli",
+    "llama32mm_tpu_torch.inference.cli", "llama32mm_tpu_torch.evaluate",
+    "llama32mm_tpu_torch.ops.awq", "llama32mm_tpu_torch.train.data",
+    "llama32mm_tpu_torch.train.finetune", "llama32mm_tpu_torch.io.distributed",
+    "llama32mm_tpu_torch.train.optim",
 ]
 
 
@@ -220,16 +223,94 @@ def test_int4_w4a8_variants_selected_by_env(variant):
     assert proc.stdout.split() == ["w4a8"]
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"attention_mask": torch.zeros(1, 4, 4)}, {"attention_mask": torch.zeros(1, 1, 4, 4)},
-    {"loss_chunk": 4}, {"collect_stats": True}, {"gemv_routes": {}},
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"attention_mask": torch.zeros(1, 4, 4)}, ValueError, "attention_mask must be"),
+    ({"attention_mask": torch.zeros(4)}, ValueError, "attention_mask must be"),
+    ({"loss_chunk": 4}, ValueError, "loss_chunk requires labels"),
+    ({"gemv_routes": {"lm_head": 1 << 20}}, NotImplementedError, "ROADMAP.md"),
+    ({"gemv_routes": {}}, NotImplementedError, "ROADMAP.md"),
 ])
-def test_vlm_forward_refuses_unported_options(tiny_model, kwargs):
-    """LoRA, adapter banks and remat are ported; dense 3D and 4D masks, the
-    chunked loss, statistics and gemv routes are not."""
+def test_vlm_forward_refuses_unported_options(tiny_model, kwargs, error, match):
+    """Of the JAX forward's options only gemv routes stay unported; a mask
+    that is neither 2D, 4D nor an ``AttnMask`` and a chunked loss without
+    labels are errors, as in JAX."""
     cfg, model = tiny_model
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match=match):
         vlm_forward(model, cfg, input_ids=torch.zeros(1, 4, dtype=torch.long), **kwargs)
+
+
+def _once_refused_features(cfg, model):
+    """Each feature that the port once refused with ``not_in_slice``, run once."""
+    import dataclasses
+
+    from llama32mm_tpu_torch.models.quantize import quantize_llama_params
+    from llama32mm_tpu_torch.train.full import make_optimizer, make_train_step
+    from llama32mm_tpu_torch.train.lora import (
+        init_lora_params,
+        lora_leaves,
+        make_lora_train_step,
+    )
+
+    ids = torch.randint(0, 240, (1, 6), generator=torch.Generator().manual_seed(0))
+    dense = torch.zeros(1, 1, 6, 6).masked_fill(torch.ones(6, 6).triu(1).bool(), float("-inf"))
+    vit = dataclasses.replace(cfg, vision_config=dataclasses.replace(
+        cfg.vision_config, attention_dropout=0.1))
+
+    def qlora():
+        lora = init_lora_params(torch.Generator().manual_seed(1), cfg.text_config, rank=2)
+        leaves = list(lora_leaves(lora).values())
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = vlm_forward(quantize_llama_params(model), cfg, input_ids=ids, labels=ids,
+                           lora=lora).loss
+        return torch.autograd.grad(loss, leaves[0])[0]
+
+    return {
+        "qlora": qlora,
+        "collect_stats": lambda: vlm_forward(model, cfg, input_ids=ids,
+                                             collect_stats=True).stats["inter_absmean"],
+        "loss_chunk": lambda: vlm_forward(model, cfg, input_ids=ids, labels=ids,
+                                          loss_chunk=2).loss,
+        "loss_chunk_steps": lambda: torch.tensor([len(make_train_step(cfg, loss_chunk=2)),
+                                                  len(make_lora_train_step(cfg, loss_chunk=2))]),
+        "vit_attention_dropout": lambda: vlm_forward(
+            model, vit, input_ids=ids, pixel_values=torch.randn(1, 3, 28, 28),
+            dropout_rng=torch.Generator().manual_seed(0)).logits,
+        "adafactor": lambda: make_optimizer(optimizer="adafactor").init(
+            {"w": torch.zeros(128, 128)}).v_row["w"],
+        "dense_mask": lambda: vlm_forward(model, cfg, input_ids=ids,
+                                          attention_mask=dense).logits,
+    }
+
+
+@pytest.mark.parametrize("feature", ["qlora", "collect_stats", "loss_chunk", "loss_chunk_steps",
+                                     "vit_attention_dropout", "adafactor", "dense_mask"])
+def test_refusals_of_earlier_slices_are_gone(tiny_model, feature):
+    """Features the port once refused with ``not_in_slice`` now run (their
+    agreement with the JAX package: tests/test_torch_{qlora,awq,train_ext}.py)."""
+    cfg, model = tiny_model
+    out = _once_refused_features(cfg, model)[feature]()
+    assert torch.isfinite(out).all()
+
+
+def test_not_in_slice_sites_left():
+    """The refusals left in the port's sources: gemv routes (engine, server,
+    language), the fused layout, shardings, ZeRO and the sharded
+    checkpointer."""
+    import glob
+
+    sites = []
+    for path in sorted(glob.glob(os.path.join(ROOT, "llama32mm_tpu_torch", "**", "*.py"),
+                                 recursive=True)):
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                if "not_in_slice(" in line and "def not_in_slice" not in line:
+                    sites.append(os.path.relpath(path, ROOT))
+    assert sorted(set(sites)) == [
+        "llama32mm_tpu_torch/convert.py", "llama32mm_tpu_torch/inference/engine.py",
+        "llama32mm_tpu_torch/inference/server.py", "llama32mm_tpu_torch/io/checkpoint.py",
+        "llama32mm_tpu_torch/io/distributed.py", "llama32mm_tpu_torch/models/language.py",
+        "llama32mm_tpu_torch/train/full.py"]
 
 
 def test_int8_kv_cache_refused():
@@ -275,3 +356,27 @@ def test_kv_cache_overflow_raises():
     cache.advance(3)
     with pytest.raises(ValueError, match="overflow"):
         cache.update(0, kv, kv)
+
+
+@pytest.mark.parametrize("entry", ["evaluate", "finetune", "prefetch"])
+def test_new_entry_points_run_on_the_gpu_unless_asked(entry):
+    """The evaluation and fine-tune command lines pick the GPU unless given
+    ``--cpu``, and the prefetch stages on the GPU by default: without a card
+    each fails instead of falling back to the CPU."""
+    from llama32mm_tpu_torch import evaluate
+    from llama32mm_tpu_torch.train import finetune
+    from llama32mm_tpu_torch.train.data import prefetch_to_device
+
+    if entry == "evaluate":
+        args = evaluate.parse_args(["--hf-weights", "w", "--text", "t"])
+        assert args.cpu is False and evaluate.parse_args(
+            ["--hf-weights", "w", "--text", "t", "--cpu"]).cpu
+        return
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the GPU path runs instead of failing")
+    with pytest.raises((RuntimeError, AssertionError)):
+        if entry == "finetune":
+            assert finetune.parse_args([]).cpu is False
+            finetune.main(["--steps", "1"])  # smoke mode on "cuda"
+        else:
+            next(prefetch_to_device(iter([{"x": np.zeros(1)}])))

@@ -260,9 +260,14 @@ def test_training_runs_no_inference_op():
 
 
 def test_inference_only_ops_raise_under_grad():
+    """The int8-KV attention stays inference-only; a quantized linear (once
+    refused) records a backward for its input alone (QLoRA,
+    tests/test_torch_qlora.py)."""
     x = torch.randn(2, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        qlinear(x, quantize_weight(torch.randn(4, 16)))
+    qw = quantize_weight(torch.randn(4, 16))
+    out = qlinear(x, qw)
+    out.sum().backward()
+    assert x.grad is not None and x.grad.shape == x.shape and not qw["q"].requires_grad
     q = torch.randn(1, 2, 3, 16, requires_grad=True)
     (kq, ks), (vq, vs) = quantize_kv(torch.randn(1, 2, 3, 16)), quantize_kv(torch.randn(1, 2, 3, 16))
     with pytest.raises(NotImplementedError, match="int8-KV"):
