@@ -142,7 +142,19 @@
 17. ``finetune_cli_tiny``: the fine-tune command line's smoke mode on the
    card with ``--run-dir``, 3 steps, then rerun to 6 (resumed), whose
    adapters must equal an uninterrupted 6-step run's bit for bit; every
-   training kernel launched, no plain version.
+   training kernel launched, no plain version;
+18. ``wrapper_profiling``: the object API's logits equal ``vlm_forward``'s,
+   and ``utils/profiling.py::trace`` around a bf16 generate at the 11B
+   widths names the three phases and the hand kernels;
+19. ``tp_tiny``: the tiny model at tp=2 (fp32, int8 and int4-mixed
+   weights): every rank's engine and server tokens (monolithic and chunked,
+   float and int8 KV) equal the one-device kernel path's exactly;
+20. ``tp_11b_bf16``, ``tp_11b_server_bf16`` and ``tp_11b_int4_mixed``: the
+   11B at full depth and tp=2 (NCCL with a GPU a rank, else two ranks
+   sharing the card over gloo): every rank launches each kernel of the path
+   at its sharded shape and no plain version, the ranks' tokens are equal,
+   and the prefill logits stay within twice the one-device kernel path's
+   distance from ``impl="torch"`` of that path.
 
 The flash forward runs as three kernels: the tensor-core forward for bf16
 calls with many query rows (prefill, the ViT, training), the split-KV decode
@@ -199,6 +211,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -232,10 +245,14 @@ from llama32mm_tpu_torch.io.checkpoint import (
 from llama32mm_tpu_torch.io.native_st import native_available
 from llama32mm_tpu_torch.models.common import QuantLinear
 from llama32mm_tpu_torch.models import language as language_mod
+from llama32mm_tpu_torch.models import wrapper
 from llama32mm_tpu_torch.models.language import CausalLM
 from llama32mm_tpu_torch.models.vlm import init_vlm, vlm_forward
 from llama32mm_tpu_torch.ops import cuda as kernels
+from llama32mm_tpu_torch.ops import attention as attention_mod
 from llama32mm_tpu_torch.ops import gemv as gemv_mod
+from llama32mm_tpu_torch.ops import rmsnorm as rmsnorm_mod
+from llama32mm_tpu_torch.ops import swiglu as swiglu_mod
 from llama32mm_tpu_torch.ops.gemv import linear
 from llama32mm_tpu_torch.ops.swiglu import fused_swiglu, swiglu_down
 from llama32mm_tpu_torch.ops.cuda.attention import NEG_BIG, allowed_mask
@@ -259,7 +276,9 @@ from llama32mm_tpu_torch.train.lora import (
     stack_adapter_bank,
     zero_lora_params,
 )
+from llama32mm_tpu_torch.parallel import create_mesh, init_distributed, shard_params
 from llama32mm_tpu_torch.utils import st_file
+from llama32mm_tpu_torch.utils.profiling import trace
 from llama32mm_tpu_torch.utils.kvcache import init_kv_cache, quantize_kv
 
 # bf16 comparisons: |kernel - plain| <= TOL * max|plain|. 1.6e-2 is about two
@@ -427,6 +446,10 @@ PATH_KERNELS.update({
     "eval_11b_agreement": ("rmsnorm", "swiglu_tc", "flash_attention_tc", "qmatmul_tc"),
     "calibrate_11b": ("rmsnorm", "swiglu_tc", "flash_attention_tc", "gemv_tc"),
 })
+# Tensor-parallel serving (each rank at its tp=2 shapes) runs its kind's kernels.
+PATH_KERNELS.update({"tp_11b_bf16": PATH_KERNELS["bf16"],
+                     "tp_11b_int4_mixed": PATH_KERNELS["int4_mixed"],
+                     "tp_11b_server_bf16": PATH_KERNELS["server_bf16"]})
 # The SIMT fp32 forward and backward: the bf16 paths above must never
 # launch them; nor the wmma dequantizing GEMM ("qmatmul"), which every
 # bf16 prefill shape leaves to the wgmma one; nor the CUDA-core gemvs
@@ -526,7 +549,8 @@ def generate_faults(path: str, kind: str, launches: dict, plain_calls: dict, lay
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    sys.stdout.write(msg + "\n")  # one write a line: ranks sharing stdout do not interleave
+    sys.stdout.flush()
 
 
 def free_device_memory() -> None:
@@ -734,7 +758,78 @@ def kernel_cases(dev, gen):
          (rnd(1, 4, 70, 8), *kv8(1, 2, 90, 8), valid(1, 90, 90), 20, True), False),
     ]
     return (cases + spec_kernel_cases(rnd, valid) + int8_gemv_cases(rnd, q8)
-            + server_kernel_cases(rnd, q4, q4_stepped, kv8) + training_kernel_cases(rnd, valid))
+            + server_kernel_cases(rnd, q4, q4_stepped, kv8) + training_kernel_cases(rnd, valid)
+            + tp_kernel_cases(rnd, valid, q8, q4, kv8))
+
+
+def tp_kernel_cases(rnd, valid, q8, q4, kv8):
+    """The kernels of the tensor-parallel serving path (``tp_11b_*``) at the
+    11B's tp=2 shapes: each rank's column-parallel linears (W_query N=2048,
+    W_key and W_value N=512, w_gate and w_up N=7168, the vocab-parallel head
+    N=64128), its row-parallel ones (out_proj K=2048, w_down K=7168; int4
+    ones split on g=128 group boundaries), SwiGLU at I=7168 (the prefill's
+    TMA tile, the decode rows kernel) and attention over 16 query and 4 kv
+    heads, in bf16, int8 and int4, for one request and the 4-slot server."""
+    h, vl, il, ol, kvl = 4096, 64128, 7168, 2048, 512
+    dev = rnd(1).device
+    offsets = torch.tensor([1664, 1700, 1727, 1690], dtype=torch.int32, device=dev)
+    kvv = (torch.arange(2048, device=dev)[None, :] <= offsets[:, None].long()).to(torch.int32)
+    kvv1 = (torch.arange(2048, device=dev) <= 1700).to(torch.int32)[None]
+    head, w_gate = q4(vl, h, 128), q4(il, h, 128)
+    cases = [
+        ("gemv_tc", "tp=2 lm_head R=1 N=64128 K=4096", (rnd(1, h), rnd(vl, h)), False),
+        ("gemv_tc", "tp=2 W_query R=1 N=2048 K=4096", (rnd(1, h), rnd(ol, h, scale=0.02)), False),
+        ("gemv_tc", "tp=2 W_key R=1 N=512 K=4096", (rnd(1, h), rnd(kvl, h, scale=0.02)), False),
+        ("gemv_tc", "tp=2 out_proj R=1 N=4096 K=2048", (rnd(1, ol), rnd(h, ol, scale=0.02)),
+         False),
+        ("gemv_tc", "tp=2 w_down R=1 N=4096 K=7168", (rnd(1, il), rnd(h, il, scale=0.01)), False),
+        ("gemv_tc", "tp=2 server lm_head R=4 N=64128 K=4096", (rnd(4, h), rnd(vl, h)), False),
+        ("gemv_tc", "tp=2 server w_down R=4 N=4096 K=7168", (rnd(4, il), rnd(h, il, scale=0.01)),
+         False),
+        ("swiglu_tc", "tp=2 prefill R=1632 H=4096 I=7168",
+         (rnd(1632, h), rnd(il, h, scale=0.02), rnd(il, h, scale=0.02)), False),
+        ("swiglu_rows_tc", "tp=2 decode R=1 H=4096 I=7168",
+         (rnd(1, h), rnd(il, h, scale=0.02), rnd(il, h, scale=0.02)), False),
+        ("swiglu_rows_tc", "tp=2 server decode R=4 H=4096 I=7168",
+         (rnd(4, h), rnd(il, h, scale=0.02), rnd(il, h, scale=0.02)), False),
+        ("flash_attention_tc", "tp=2 decoder prefill nq=16 nkv=4 Tq=1632 Tk=2048 hd=128 causal",
+         (rnd(1, 16, 1632, 128), rnd(1, 4, 2048, 128), rnd(1, 4, 2048, 128),
+          valid(1, 2048, 1632), 0, True), False),
+        ("flash_attention_tc_int8kv", "tp=2 decoder prefill nq=16 nkv=4 Tq=1632 Tk=2048 hd=128",
+         (rnd(1, 16, 1632, 128), *kv8(1, 4, 2048, 128), valid(1, 2048, 1632), 0, True), False),
+        ("gemv_int8_tc", "tp=2 W_query R=1 N=2048 K=4096", (rnd(1, h), *q8(ol, h)), False),
+        ("gemv_int8_tc", "tp=2 W_key R=1 N=512 K=4096", (rnd(1, h), *q8(kvl, h)), False),
+        ("gemv_int8_tc", "tp=2 out_proj R=1 N=4096 K=2048", (rnd(1, ol), *q8(h, ol)), False),
+        ("gemv_int8_tc", "tp=2 w_down R=1 N=4096 K=7168", (rnd(1, il), *q8(h, il)), False),
+        ("gemv_int4", "tp=2 w_gate R=1 N=7168 K=4096 g=128", (rnd(1, h), *w_gate), False),
+        ("gemv_int4", "tp=2 int4 lm_head R=1 N=64128 K=4096 g=128", (rnd(1, h), *head), False),
+        ("gemv_int4", "tp=2 row-parallel w_down R=1 N=4096 K=7168 g=128",
+         (rnd(1, il), *q4(h, il, 128)), False),
+        ("gemv_int4", "tp=2 row-parallel out_proj R=1 N=4096 K=2048 g=128",
+         (rnd(1, ol), *q4(h, ol, 128)), False),
+        ("gemv_int4_w4a8_tc", "tp=2 w_gate R=4 N=7168 K=4096 g=128", (rnd(4, h), *w_gate),
+         False),
+        ("qmatmul_tc", "tp=2 int4 w_gate R=1632 N=7168 K=4096 g=128", (rnd(1632, h), *w_gate),
+         False),
+        ("qmatmul_tc", "tp=2 int8 W_query R=1632 N=2048 K=4096", (rnd(1632, h), *q8(ol, h)),
+         False),
+        ("qmatmul_tc", "tp=2 int8 W_key R=1632 N=512 K=4096", (rnd(1632, h), *q8(kvl, h)), False),
+        ("qmatmul_tc", "tp=2 int8 out_proj R=1632 N=4096 K=2048", (rnd(1632, ol), *q8(h, ol)),
+         False),
+        ("qmatmul_tc", "tp=2 int8 w_down R=1632 N=4096 K=7168", (rnd(1632, il), *q8(h, il)),
+         False),
+        ("qmatmul_tc", "tp=2 row-parallel int4 w_down R=1632 N=4096 K=7168 g=128",
+         (rnd(1632, il), *q4(h, il, 128)), False),
+    ]
+    for name, kv in (("flash_decode", lambda *sh: (rnd(*sh), rnd(*sh))),
+                     ("flash_decode_int8kv", kv8)):
+        cases += [
+            (name, "tp=2 decode B=1 nq=16 nkv=4 Tk=2048 q_offset=1700 hd=128",
+             (rnd(1, 16, 1, 128), *kv(1, 4, 2048, 128), kvv1, 1700, True), False),
+            (name, "tp=2 server decode B=4 nq=16 nkv=4 per-row q_offset Tk=2048 hd=128",
+             (rnd(4, 16, 1, 128), *kv(4, 4, 2048, 128), kvv, offsets, True), False),
+        ]
+    return cases
 
 
 def spec_kernel_cases(rnd, valid):
@@ -1928,9 +2023,11 @@ def build_11b(dev, tie_weights: bool):
     return cfg, model
 
 
-def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
+def run_11b(dev, cfg, model, path: str, kv_dtype=None, keep: Optional[dict] = None) -> dict:
     """Generate 64 tokens on the 11B model, check the result and that the
-    path's kernels, and no plain version, ran; return the launch counts."""
+    path's kernels, and no plain version, ran; return the launch counts.
+    ``keep`` takes the prefill logits, the tokens and the kernel-vs-plain
+    distance under ``path`` (the tensor-parallel phases' reference)."""
     tc, vc = cfg.text_config, cfg.vision_config
     gen = torch.Generator(device=dev).manual_seed(0)
     raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen,
@@ -1988,6 +2085,9 @@ def run_11b(dev, cfg, model, path: str, kv_dtype=None) -> dict:
     dl = (plain.logits[:, 0].float() - res.prefill_logits.float()).abs().max().item()
     log(f"[{path}] prefill logits, kernel path vs impl='torch': max_abs_dlogit={dl:.6g} "
         f"max_abs_logit={res.prefill_logits.float().abs().max().item():.6g}")
+    if keep is not None:
+        keep[path] = {"prefill_logits": res.prefill_logits.float().cpu(),
+                      "tokens": res.tokens.cpu(), "dl_plain": dl}
     return launches
 
 
@@ -2962,13 +3062,478 @@ def run_finetune_cli_tiny(dev) -> dict:
     return launches
 
 
-def run_11b_paths(dev) -> dict:
+# The object API and profiling (wrapper_profiling): the kernel symbols a trace
+# of the bf16 generate must name, and the port's three phases.
+TRACE_KERNELS = ("flash", "gemv", "swiglu", "rmsnorm")
+TRACE_PHASES = ("vision_encode", "mm_projector", "image_splice")
+
+
+def run_wrapper_profiling(dev) -> dict:
+    """The wrapper's logits equal ``vlm_forward``'s on the tiny fp32 model;
+    ``utils/profiling.py::trace`` around a 4-token bf16 generate at the 11B
+    widths (4 decoder, 2 ViT layers) exports a Chrome trace naming the three
+    phases and the hand kernels. Returns the traced generate's launches."""
+    cfg = tiny_mllama_config()
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    wrapped = wrapper.MllamaForConditionalGeneration(cfg, params=model, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(0, 240, (2, 12), generator=gen, device=dev)
+    ids[:, :4] = cfg.image_token_index
+    px = torch.randn(2, 3, 28, 28, generator=gen, device=dev)
+    with torch.inference_mode():
+        got = wrapped(input_ids=ids, pixel_values=px, labels=ids)
+        want = vlm_forward(model, cfg, input_ids=ids, pixel_values=px, labels=ids)
+    if not (torch.equal(got["logits"], want.logits) and torch.equal(got["loss"], want.loss)):
+        raise RuntimeError("the wrapper's logits differ from vlm_forward's")
+    log(f"[wrapper_profiling] tiny fp32 wrapper logits equal vlm_forward's: "
+        f"{tuple(got['logits'].shape)}, loss {got['loss'].item():.6g}")
+
+    cfg = load_11b_config()
+    tc, vc = cfg.text_config, cfg.vision_config
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    text = torch.randint(0, tc.vocab_size, (1, 32), generator=gen, device=dev)
+    ids = torch.cat([torch.full((1, vc.num_patches), cfg.image_token_index, device=dev), text],
+                    dim=1)
+    px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
+    engine = InferenceEngine(model, cfg, dev, max_cache_length=2048)
+    engine.generate(ids, px, max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir) as prof:
+            res = engine.generate(ids, px, max_new_tokens=4)
+            torch.cuda.synchronize()
+        path = os.path.join(log_dir, "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+    names = {e.get("name", "") for e in events}
+    kernel_names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if device_ms == 0:
+        log("[wrapper_profiling] torch.profiler's key_averages() show no device time on this "
+            "machine (CUPTI recorded no kernel)")
+    found = {k: sorted(n for n in kernel_names if k in n.lower())[:3] for k in TRACE_KERNELS}
+    log(f"[wrapper_profiling] trace.json {size} bytes, {len(events)} events, {len(kernel_names)} "
+        f"kernel names, kernel device time {device_ms:.4f} ms; phases "
+        f"{[p for p in TRACE_PHASES if p in names]}; kernels {found}")
+    faults = [f"no {p} in the trace" for p in TRACE_PHASES if p not in names]
+    faults += [f"no {k} kernel in the trace" for k in TRACE_KERNELS if not found[k]]
+    faults += path_faults("bf16", launches, plain_calls)
+    if tuple(res.tokens.shape) != (1, 4):
+        faults.append(f"generated {tuple(res.tokens.shape)}")
+    if faults:
+        raise RuntimeError(f"[wrapper_profiling] {faults}")
+    return launches
+
+
+# Tensor-parallel serving (tp_tiny, tp_11b_*): TP_WORLD ranks, NCCL with a GPU
+# each or gloo on one shared card. The entries each rank's model calls, whose
+# argument shapes record_shapes notes.
+TP_WORLD = 2
+_SHAPE_ENTRIES = ((gemv_mod, ("gemv_cuda", "gemv_int8_cuda", "gemv_int4_cuda", "qmatmul_cuda",
+                              "gemv_int4_w4a8_cuda")),
+                  (swiglu_mod, ("fused_swiglu_cuda",)),
+                  (rmsnorm_mod, ("fused_add_rmsnorm_cuda",)))
+
+
+class record_shapes:
+    """Within the block, note each kernel entry's call as (entry, the shapes of
+    its tensor arguments): the gemv, SwiGLU and RMSNorm entries the model
+    calls and every flash kernel of ``ops/attention.py``'s table."""
+
+    def __init__(self):
+        self.seen, self._undo = set(), []
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            self.seen.add((name, tuple(tuple(a.shape) for a in args
+                                       if isinstance(a, torch.Tensor))))
+            return fn(*args, **kw)
+        return call
+
+    def __enter__(self):
+        for mod, names in _SHAPE_ENTRIES:
+            for name in names:
+                fn = getattr(mod, name)
+                self._undo.append((mod, name, fn))
+                setattr(mod, name, self._wrap(name, fn))
+        table = attention_mod.KERNELS
+        for name in [n for n in table if n.startswith("flash")]:
+            kernel, plain = table[name]
+            self._undo.append((table, name, (kernel, plain)))
+            table[name] = (self._wrap(name, kernel), plain)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            if isinstance(owner, dict):
+                owner[name] = orig
+            else:
+                setattr(owner, name, orig)
+        return False
+
+    def weights(self, entry: str) -> set:
+        """The second argument's shapes (a linear's weight, SwiGLU's w_gate)."""
+        return {shapes[1] for name, shapes in self.seen if name == entry and len(shapes) > 1}
+
+    def widths(self, entry: str) -> set:
+        """The first argument's last axis (the normed activations' width)."""
+        return {shapes[0][-1] for name, shapes in self.seen if name == entry and shapes}
+
+    def heads(self) -> set:
+        """(query heads, kv heads) of every flash call."""
+        return {(shapes[0][1], shapes[1][1]) for name, shapes in self.seen
+                if name.startswith("flash")}
+
+
+def tp_shape_faults(path: str, rec: record_shapes, kind: str) -> list:
+    """The 11B's tp=2 shapes each kernel must have run at on this rank, and
+    no unsharded one: column-parallel N = 2048 (W_query), 512 (W_key,
+    W_value), 7168 (w_gate, w_up), the head's 64128; row-parallel K = 2048
+    (out_proj) and 7168 (w_down); attention over 16 query and 4 kv heads
+    (the decoder) and 16 and 16 (the ViT, whole); RMSNorm over all 4096."""
+    h = 4096
+    if kind == "bf16":
+        want = {"gemv_cuda": {(2048, h), (512, h), (h, 2048), (h, 7168), (64128, h)},
+                "fused_swiglu_cuda": {(7168, h)}}
+    else:  # INT4_MIXED_RECIPE: int8 attention and w_down, int4 (q4 [N, K/2]) gate, up and head
+        want = {"gemv_int8_cuda": {(2048, h), (512, h), (h, 2048), (h, 7168)},
+                "gemv_int4_cuda": {(7168, h // 2), (64128, h // 2)},
+                "qmatmul_cuda": {(2048, h), (512, h), (h, 2048), (h, 7168), (7168, h // 2)}}
+    want["fused_add_rmsnorm_cuda"] = {(h,)}  # the decoder's norms stay whole
+    faults = [f"{e} ran at {sorted(rec.weights(e))}, not {sorted(w)}"
+              for e, w in want.items() if rec.weights(e) != w]
+    if rec.widths("fused_add_rmsnorm_cuda") != {h}:
+        faults.append(f"RMSNorm over widths {sorted(rec.widths('fused_add_rmsnorm_cuda'))}")
+    if rec.heads() != {(16, 4), (16, 16)}:  # the decoder's heads and the whole ViT's
+        faults.append(f"flash heads {sorted(rec.heads())}, not [(16, 4), (16, 16)]")
+    log(f"[{path}] shapes: " + "; ".join(f"{e} {sorted(rec.weights(e))}" for e in want)
+        + f"; RMSNorm widths {sorted(rec.widths('fused_add_rmsnorm_cuda'))}"
+        + f"; flash (q heads, kv heads) {sorted(rec.heads())}")
+    return faults
+
+
+def tp_compute_mode() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def run_tp_world(phase: str, fn_name: str, args: dict) -> list:
+    """Run ``TP_PHASES[fn_name](rank, device, args)`` on TP_WORLD spawned
+    ranks; return each rank's result. Two or more GPUs: NCCL, a GPU each;
+    one GPU: the ranks share it over gloo (not possible in the
+    Exclusive_Process compute mode, which fails here)."""
+    n = torch.cuda.device_count()
+    mode = tp_compute_mode()
+    how = ("NCCL, one GPU a rank" if n >= TP_WORLD else
+           f"gloo, {TP_WORLD} ranks sharing cuda:0 (times are not multi-GPU times)")
+    log(f"[{phase}] {TP_WORLD} ranks over {how}; compute mode {mode}")
+    if n < TP_WORLD and "Exclusive_Process" in mode:
+        raise RuntimeError(f"[{phase}] {TP_WORLD} processes cannot share the one card in compute "
+                           f"mode {mode}")
+    ctx = torch.multiprocessing.get_context("spawn")
+    queue = ctx.SimpleQueue()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = torch.multiprocessing.spawn(_tp_rank, args=(fn_name, port, args, queue),
+                                        nprocs=TP_WORLD, join=False)
+    results = {}
+    while len(results) < TP_WORLD:
+        if not queue.empty():
+            rank, value = queue.get()
+            results[rank] = value
+        elif any(p.is_alive() for p in procs.processes):
+            time.sleep(0.05)
+        elif queue.empty():
+            break
+    procs.join()  # raises with the failed rank's traceback
+    failed = {r: v[1] for r, v in results.items() if isinstance(v, tuple) and v[0] == "error"}
+    if failed or len(results) < TP_WORLD:
+        raise RuntimeError(f"[{phase}] ranks failed: {failed or 'no result'}")
+    return [results[r] for r in range(TP_WORLD)]
+
+
+def _host(obj):
+    """``obj`` with every tensor a numpy array: a tensor sent through a
+    queue lives in the sender's shared memory, which ends with the rank."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host(v) for v in obj)
+    return obj
+
+
+def _tp_rank(rank: int, fn_name: str, port: int, args: dict, queue) -> None:
+    import traceback
+
+    dev = init_distributed(rank, TP_WORLD, f"tcp://localhost:{port}", device="cuda",
+                           share_device=True)
+    try:
+        queue.put((rank, _host(TP_PHASES[fn_name](rank, dev, args))))
+    except Exception:
+        queue.put((rank, ("error", traceback.format_exc())))
+        raise
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tiny_tp_traffic(cfg, dev):
+    """check_tiny_server's model and three staggered prompts."""
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    px = torch.randn(1, 3, 28, 28, generator=gen, device=dev)
+    prompts = []
+    for s, max_new in ((9, 6), (12, 10), (14, 4)):
+        ids = torch.randint(0, 240, (s,), generator=gen, device=dev)
+        ids[:4] = cfg.image_token_index
+        prompts.append((ids, max_new))
+    return model, px, prompts
+
+
+def tiny_tp_tokens(model, cfg, dev, px, prompts) -> dict:
+    """Engine and server tokens (monolithic and chunked admission, float and
+    int8 KV cache) on the kernel path."""
+    out = {}
+    for kv_dtype in (None, "int8"):
+        engine = InferenceEngine(model, cfg, dev, kv_dtype=kv_dtype)
+        out[f"engine kv={kv_dtype}"] = [engine.generate(ids[None], px, max_new_tokens=n)
+                                        .tokens[0].tolist() for ids, n in prompts]
+        for chunk in (None, 4):
+            srv = ContinuousBatchingServer(model, cfg, dev, slots=2,
+                                           prompt_buckets=(16, 24) if chunk is None else None,
+                                           kv_dtype=kv_dtype, steps_per_sync=4,
+                                           prefill_chunk=chunk)
+            rids = [srv.submit(ids, px, max_new_tokens=n) for ids, n in prompts]
+            results = srv.run()
+            out[f"server kv={kv_dtype} chunk={chunk}"] = [results[r].tolist() for r in rids]
+    return out
+
+
+# tp_tiny's weights: fp32, and quantized as check_tiny_paths_agree quantizes
+# (g=32 falls on the tp=2 row-parallel split, K/2 = 32 and 64), each with the
+# kernels its path must launch (prompts of at most 24 rows: every quantized
+# linear is a gemv; tp_11b_int4_mixed runs the prefill GEMM)
+TINY_TP_WEIGHTS = {
+    "fp32": (None, ("rmsnorm", "gemv", "swiglu", "flash_decode", "flash_decode_int8kv")),
+    "int8": (dict(bits=8), ("rmsnorm", "gemv_int8", "flash_decode", "flash_decode_int8kv")),
+    "int4_mixed": (dict(bits=4, group_size=32, recipe=INT4_MIXED_RECIPE),
+                   ("rmsnorm", "gemv_int8", "gemv_int4", "flash_decode", "flash_decode_int8kv")),
+}
+
+
+def tiny_tp_model(cfg, dev, weights: str):
+    model, px, prompts = tiny_tp_traffic(cfg, dev)
+    quant = TINY_TP_WEIGHTS[weights][0]
+    if quant is not None:
+        model = quantize_llama_params(model, **quant)
+    return model, px, prompts
+
+
+def tp_tiny_rank(rank, dev, args) -> dict:
+    cfg = tiny_mllama_config(max_cache_length=64)
+    mesh = create_mesh(tp=TP_WORLD)
+    out = {}
+    for weights in TINY_TP_WEIGHTS:
+        model, px, prompts = tiny_tp_model(cfg, dev, weights)
+        sharded = shard_params(model, cfg, mesh)
+        kernels.reset_counters()
+        out[weights] = {"tokens": tiny_tp_tokens(sharded, cfg, dev, px, prompts),
+                        "launches": kernels.launch_counts(), "plain": kernels.plain_counts()}
+    return out
+
+
+def run_tp_tiny(dev) -> dict:
+    """The tiny model at tp=2, fp32, int8 and int4-mixed: each rank's engine
+    and server tokens equal the one-device kernel path's exactly; each rank
+    launches its path's kernels and no plain version."""
+    cfg = tiny_mllama_config(max_cache_length=64)
+    want = {}
+    for weights in TINY_TP_WEIGHTS:
+        model, px, prompts = tiny_tp_model(cfg, dev, weights)
+        want[weights] = tiny_tp_tokens(model, cfg, dev, px, prompts)
+        del model
+    ranks = run_tp_world("tp_tiny", "tp_tiny", {})
+    faults, launches = [], {}
+    for weights, (_, path_kernels) in TINY_TP_WEIGHTS.items():
+        equal = all(rank[weights]["tokens"] == want[weights] for rank in ranks)
+        for r, res in enumerate(rank[weights] for rank in ranks):
+            if res["tokens"] != want[weights]:
+                faults.append(f"{weights} rank {r}: {res['tokens']} != one device "
+                              f"{want[weights]}")
+            if any(res["plain"].values()):
+                faults.append(f"{weights} rank {r} ran plain versions {res['plain']}")
+            faults += [f"{weights} rank {r} skipped {k}" for k in path_kernels
+                       if res["launches"][k] == 0]
+        for k, n in ranks[0][weights]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        log(f"[tp_tiny {weights}] tokens on every rank equal the one-device kernel path's: "
+            f"{equal} ({len(want[weights])} runs, "
+            f"{sum(len(v) for v in want[weights].values())} requests); rank 0 launches "
+            f"{ {k: n for k, n in ranks[0][weights]['launches'].items() if n} }")
+    if faults:
+        raise RuntimeError(f"[tp_tiny] {faults}")
+    return launches
+
+
+TP_11B_KINDS = ("bf16", "int4_mixed")
+
+
+def tp_11b_model(rank, dev, mesh, kind: str):
+    """This rank's shard of the seeded 11B (bf16 with a tied head, or the
+    untied one quantized to INT4_MIXED_RECIPE at g=128): the whole model is
+    built, sharded and freed one rank at a time on a shared card."""
+    shared = torch.cuda.device_count() < TP_WORLD
+    cfg, sharded = llama32_11b_vision_config(), None
+    for turn in range(TP_WORLD):
+        if turn == (rank if shared else 0):
+            model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                             tie_weights=kind == "bf16")
+            if kind == "int4_mixed":
+                model = quantize_llama_params(model, bits=4, group_size=128,
+                                              recipe=INT4_MIXED_RECIPE, free_originals=True)
+            sharded = shard_params(model, cfg, mesh)
+            del model
+            free_device_memory()
+        torch.distributed.barrier()
+    return cfg, sharded
+
+
+def tp_11b_rank(rank, dev, args) -> dict:
+    """Each kind: a 32-token greedy generate after the smoke's 1632-token
+    image prompt (the bf16 path's prompt), then, in bf16, 4 image requests of
+    the server_bf16 pattern through 4 slots; launches, shapes and tokens."""
+    mesh = create_mesh(tp=TP_WORLD)
+    out = {}
+    for kind in args["kinds"]:
+        cfg, model = tp_11b_model(rank, dev, mesh, kind)
+        tc, vc = cfg.text_config, cfg.vision_config
+        path = f"tp_11b_{kind}"
+        kv_dtype = None if kind == "bf16" else "int8"
+        gen = torch.Generator(device=dev).manual_seed(0)
+        raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        text = torch.randint(0, tc.vocab_size, (1, 32), generator=gen, device=dev)
+        ids = torch.cat([torch.full((1, vc.num_patches), cfg.image_token_index, device=dev),
+                         text], dim=1)
+        engine = InferenceEngine(model, cfg, dev, max_cache_length=2048, kv_dtype=kv_dtype)
+
+        def generate(n):
+            px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
+            return engine.generate(ids, px, max_new_tokens=n, temperature=0.0)
+
+        generate(2)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        generate(1)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t
+        kernels.reset_counters()
+        with record_shapes() as rec:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = generate(32)
+            torch.cuda.synchronize()
+            t32 = time.perf_counter() - t
+        launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+        faults = generate_faults(path, kind, launches, plain_calls, tc.n_layers, decode_steps=31)
+        faults += tp_shape_faults(f"{path} rank {rank}", rec, kind)
+        one = {"tokens": res.tokens.cpu(), "num": res.num_generated.cpu(),
+               "prefill_logits": res.prefill_logits.float().cpu(), "launches": launches,
+               "faults": faults, "ttft_s": ttft, "t32_s": t32,
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if kind == "bf16":
+            srv = ContinuousBatchingServer(model, cfg, dev, slots=4, max_cache_length=2048)
+            reqs = server_requests(cfg, dev, n=4)
+            kernels.reset_counters()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rids = [srv.submit(ids_r, px_r, max_new_tokens=budget) for ids_r, px_r, budget in reqs]
+            results = srv.run()
+            torch.cuda.synchronize()
+            one["server_s"] = time.perf_counter() - t
+            one["server_tokens"] = [results[r].tolist() for r in rids]
+            one["server_budgets"] = [budget for _, _, budget in reqs]
+            one["server_launches"] = kernels.launch_counts()
+            one["faults"] += path_faults("server_bf16", one["server_launches"],
+                                         kernels.plain_counts())
+            del srv, reqs
+        out[kind] = one
+        del engine, model
+        free_device_memory()
+    return out
+
+
+def run_tp_11b(keep: dict, kinds=TP_11B_KINDS) -> dict:
+    """The 11B at full width and depth, tp=2 (tp_11b_bf16, tp_11b_int4_mixed):
+    every rank launches the path's kernels at its sharded shapes and no plain
+    version, and every rank gives the same tokens; the prefill logits' max
+    |Δ| against the one-device kernel path (``keep``) stays within twice that
+    path's kernel-vs-plain distance."""
+    ranks = run_tp_world("tp_11b", "tp_11b", {"kinds": kinds})
+    by_path = {}
+    for kind in kinds:
+        path = f"tp_11b_{kind}"
+        res = [r[kind] for r in ranks]
+        faults = [f"rank {r}: {f}" for r, one in enumerate(res) for f in one["faults"]]
+        for one in res:
+            for key in ("tokens", "num", "prefill_logits"):
+                one[key] = torch.as_tensor(one[key])
+        toks = res[0]["tokens"]
+        if not all(torch.equal(one["tokens"], toks) for one in res):
+            faults.append(f"ranks' tokens differ: {[one['tokens'][0].tolist() for one in res]}")
+        if tuple(toks.shape) != (1, 32) or int(res[0]["num"][0]) != 32:
+            faults.append(f"generated {tuple(toks.shape)} / {res[0]['num'].tolist()}")
+        ref = keep[kind]
+        dl = (res[0]["prefill_logits"] - ref["prefill_logits"]).abs().max().item()
+        if not dl <= 2 * ref["dl_plain"]:  # bf16 partial sums rounded on each rank
+            faults.append(f"prefill logits {dl} from the one-device kernel path, over twice "
+                          f"that path's distance from impl='torch' ({ref['dl_plain']})")
+        same = int((toks[0] == ref["tokens"][0, :32]).long().cumprod(0).sum())
+        log(f"[{path}] rank 0: TTFT {res[0]['ttft_s'] * 1e3:.2f} ms, 32 tokens "
+            f"{res[0]['t32_s']:.4f} s ({31 / (res[0]['t32_s'] - res[0]['ttft_s']):.2f} tok/s "
+            f"after the first), peak {res[0]['peak_gib']:.3f} GiB; rank 1 peak "
+            f"{res[1]['peak_gib']:.3f} GiB")
+        log(f"[{path}] prefill logits, tp=2 vs the one-device kernel path: max_abs_dlogit={dl:.6g}"
+            f" (the one-device kernel path vs impl='torch' at these shapes: {ref['dl_plain']:.6g});"
+            f" leading tokens equal to the one-device run's: {same} of 32")
+        log(f"[{path}] tokens {toks[0].tolist()}")
+        if kind == "bf16":
+            srv = [one["server_tokens"] for one in res]
+            if any(s != srv[0] for s in srv):
+                faults.append("the ranks' server tokens differ")
+            lens = [len(t) for t in srv[0]]
+            if lens != res[0]["server_budgets"]:
+                faults.append(f"server budgets {lens} != {res[0]['server_budgets']}")
+            log(f"[{path}] server: 4 image requests through 4 slots in {res[0]['server_s']:.3f} s"
+                f" ({sum(lens) / res[0]['server_s']:.2f} tok/s), tokens equal on every rank")
+            by_path["tp_11b_server_bf16"] = res[0]["server_launches"]
+        if faults:
+            raise RuntimeError(f"[{path}] {faults}")
+        by_path[path] = res[0]["launches"]
+    return by_path
+
+
+TP_PHASES = {"tp_tiny": tp_tiny_rank, "tp_11b": tp_11b_rank}
+
+
+def run_11b_paths(dev, keep: dict) -> dict:
     """The bf16 path (tied head) and its server, then int8 and int4-mixed
     quantized copies of one untied bf16 model, each served from an int8 KV
-    cache; the int4-mixed copy also through the server with the W4A8 gemv."""
+    cache; the int4-mixed copy also through the server with the W4A8 gemv.
+    ``keep`` takes the bf16 and int4-mixed generates' prefill logits and
+    tokens (``run_11b``)."""
     by_path, tokens, metrics = {}, {}, {}
     cfg, model = build_11b(dev, tie_weights=True)
-    by_path["bf16"] = run_11b(dev, cfg, model, "bf16")
+    by_path["bf16"] = run_11b(dev, cfg, model, "bf16", keep=keep)
     by_path["server_bf16"] = run_server(dev, cfg, model, "server_bf16", tokens=tokens,
                                         metrics=metrics, profile_step=True)
     prefix, reqs = prefix_requests(cfg, dev)
@@ -3022,7 +3587,7 @@ def run_11b_paths(dev) -> dict:
         log(f"[{path}] quantize {time.perf_counter() - t:.3f} s, "
             f"allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
         torch.cuda.reset_peak_memory_stats()
-        by_path[path] = run_11b(dev, cfg, qmodel, path, kv_dtype="int8")
+        by_path[path] = run_11b(dev, cfg, qmodel, path, kv_dtype="int8", keep=keep)
         if path == "int4_mixed":
             prev, gemv_mod._INT4_VARIANT = gemv_mod._INT4_VARIANT, "w4a8"
             try:
@@ -3072,15 +3637,22 @@ def main() -> int:
     check_tiny_training(dev)
     check_tiny_bf16_lora(dev)
     finetune_cli = run_finetune_cli_tiny(dev)
+    wrapper_profiling = run_wrapper_profiling(dev)
     free_device_memory()
-    by_path = run_11b_paths(dev)
+    tp_reference = {}
+    by_path = run_11b_paths(dev, tp_reference)
     by_path["finetune_cli_tiny"] = finetune_cli
+    by_path["wrapper_profiling"] = wrapper_profiling
     free_device_memory()
     by_path.update(run_load_11b(dev))
     free_device_memory()
     by_path["lora_11b"] = run_lora_11b(dev)
     free_device_memory()
     by_path["full_ft_3b"] = run_full_ft_3b(dev)
+    free_device_memory()
+    by_path["tp_tiny"] = run_tp_tiny(dev)
+    free_device_memory()
+    by_path.update(run_tp_11b(tp_reference))
     log(f"all phases {time.perf_counter() - t_start:.1f} s")
 
     out = []

@@ -22,6 +22,14 @@ spec_verify_tokens``), and the longest accepted prefix plus one token is
 committed. The lookup, the draft steps and the commit all stay on the
 device: the loop's one blocking read a verify step is the flag that says
 whether to go on, as the plain loop's ``done``.
+
+Tensor parallelism (a model from ``parallel/sharding.py::shard_params``):
+every rank of a ``tp`` group runs this loop on the same inputs; the
+all-gathered logits are the same bits on every rank and samplers seeded
+alike draw alike, so every rank produces the same tokens. With ``dp > 1`` on
+the mesh each dp group serves its share of the batch rows and the results
+are all-gathered over ``dp``. Draft-model speculation is not ported under
+TP.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from llama32mm_tpu_torch.models.language import CausalLM, causal_lm_forward, lla
 from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration, vlm_forward
 from llama32mm_tpu_torch.ops.attention import AttnMask
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP
+from llama32mm_tpu_torch.parallel.sharding import tp_of
 from llama32mm_tpu_torch.utils.kvcache import KVCache, init_kv_cache
 from llama32mm_tpu_torch.utils.sampling import (
     presence_from_tokens,
@@ -131,6 +141,9 @@ class InferenceEngine:
             )
         if prompt_buckets is not None and prompt_buckets != "auto":
             prompt_buckets = tuple(sorted(int(b) for b in prompt_buckets))
+        self.tp = tp_of(model)
+        if self.tp is not None and spec_draft:
+            not_in_slice("draft-model speculative decoding under tensor parallelism")
         self.model = model
         self.config = config
         self.device = torch.device(device)
@@ -160,7 +173,34 @@ class InferenceEngine:
         """Greedy (temperature 0) or sampled generation; sampling draws from
         ``rng``, a ``torch.Generator`` on the engine's device. A
         ``repetition_penalty`` other than 1 penalises every token of the
-        prompt (not the image placeholders) and of the generation so far."""
+        prompt (not the image placeholders) and of the generation so far.
+        On a mesh with ``dp > 1`` this rank's dp group generates its share of
+        the rows (B must divide by dp) and every rank returns all rows."""
+        mesh = None if self.tp is None else self.tp.mesh
+        dp = 1 if mesh is None else mesh.shape[AXIS_DP]
+        args = dict(max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
+                    top_k=top_k, min_p=min_p, repetition_penalty=repetition_penalty,
+                    eos_token_id=eos_token_id, rng=rng)
+        if dp == 1:
+            return self._generate(input_ids, pixel_values, attention_mask, **args)
+        ids = torch.as_tensor(input_ids)
+        b = ids.shape[0]
+        if b % dp:
+            raise ValueError(f"batch {b} does not split over dp={dp}")
+        share = b // dp
+        rows = slice(mesh.rank(AXIS_DP) * share, (mesh.rank(AXIS_DP) + 1) * share)
+
+        def mine(x):
+            return None if x is None else torch.as_tensor(x)[rows]
+
+        res = self._generate(ids[rows], mine(pixel_values), mine(attention_mask), **args)
+        return GenerateResult(*(None if t is None else mesh.all_gather(t, AXIS_DP, dim=0)
+                                for t in res))
+
+    def _generate(self, input_ids, pixel_values, attention_mask, max_new_tokens: int,
+                  temperature: float, top_p: float, top_k: int, min_p: float,
+                  repetition_penalty: float, eos_token_id: int,
+                  rng: Optional[torch.Generator]) -> GenerateResult:
         if not 0.0 <= min_p <= 1.0:
             raise ValueError(f"min_p must be in [0, 1], got {min_p}")
         if repetition_penalty <= 0:
@@ -199,7 +239,8 @@ class InferenceEngine:
                 px = torch.as_tensor(pixel_values, device=dev).to(tc.torch_dtype)
 
             cache = init_kv_cache(tc, b, dev, max_length=max_len,
-                                  dtype=torch.int8 if self.kv_dtype == "int8" else None)
+                                  dtype=torch.int8 if self.kv_dtype == "int8" else None,
+                                  n_kv_heads=None if self.tp is None else self.tp.kv_heads)
             true_len = pad.sum(dim=1)
             out = vlm_forward(
                 self.model, cfg, input_ids=ids, pixel_values=px,

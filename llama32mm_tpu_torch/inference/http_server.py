@@ -50,12 +50,15 @@ from typing import Optional
 import numpy as np
 
 from llama32mm_tpu_torch.inference.server import QueueFullError
+from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 
 
 class ServingFrontend:
     """Owns a ``ContinuousBatchingServer`` and the thread that steps it."""
 
     def __init__(self, server, tokenizer=None, processor=None):
+        if server.tp is not None:
+            not_in_slice("the HTTP front end over a tensor-parallel server")
         self.srv = server
         self.tokenizer = tokenizer
         self.processor = processor  # prompt + image bodies (MllamaImageProcessor's surface)

@@ -55,6 +55,15 @@
 - deadlines (``timeout_s``), cancellation, a bounded queue (``max_queue``,
   ``QueueFullError``), ``release`` of finished records.
 
+Tensor parallelism (a model from ``parallel/sharding.py::shard_params``):
+every rank of the ``tp`` group runs this same host loop on the same requests
+(SPMD); the all-gathered logits are the same bits on every rank and the
+generators are seeded alike, so every rank draws the same tokens. A deadline
+expires on every rank as soon as it has on one (an all-reduce of the expired
+flags), so the ranks' clocks cannot split the loop. Each rank's cache holds
+its kv heads. Adapter banks and a mesh with ``dp > 1`` are not
+ported under TP.
+
 Greedy requests produce the tokens of a solo ``InferenceEngine.generate``
 on the full prompt, with a bank adapter those of an engine on the model
 with that adapter merged (the tests hold both to the JAX package).
@@ -73,7 +82,7 @@ import torch
 
 from llama32mm_tpu_torch.configs import MLLAMAConfig
 from llama32mm_tpu_torch.inference.engine import bucketed_len, structured_prefill_mask
-from llama32mm_tpu_torch.models.language import llama_forward, lm_head_apply
+from llama32mm_tpu_torch.models.language import embed_tokens, llama_forward, lm_head_apply
 from llama32mm_tpu_torch.models.vlm import (
     MllamaForConditionalGeneration,
     encode_image,
@@ -82,6 +91,8 @@ from llama32mm_tpu_torch.models.vlm import (
 )
 from llama32mm_tpu_torch.ops.attention import AttnMask
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP
+from llama32mm_tpu_torch.parallel.sharding import tp_of
 from llama32mm_tpu_torch.train.lora import first_leaf, gather_adapter_bank
 from llama32mm_tpu_torch.utils.kvcache import KVCache, init_kv_cache
 from llama32mm_tpu_torch.utils.sampling import (
@@ -215,6 +226,12 @@ class ContinuousBatchingServer:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if prompt_buckets is not None and prompt_buckets != "auto":
             prompt_buckets = tuple(sorted(int(b) for b in prompt_buckets))
+        self.tp = tp_of(model)
+        if self.tp is not None:
+            if self.tp.mesh.shape[AXIS_DP] > 1:
+                not_in_slice("the continuous-batching server on a mesh with dp > 1")
+            if adapter_bank is not None:
+                not_in_slice("adapter banks under tensor parallelism")
         self.model = model
         self.config = config
         self.device = torch.device(device)
@@ -233,11 +250,10 @@ class ContinuousBatchingServer:
         self.n_adapters = int(first_leaf(adapter_bank).shape[0]) if adapter_bank is not None else 0
         self._rng = rng if rng is not None else torch.Generator(self.device).manual_seed(0)
 
-        tc, s_max, dev = config.text_config, self.max_cache_length, self.device
+        s_max, dev = self.max_cache_length, self.device
         with torch.inference_mode():
             self.state = BatchState(
-                cache=init_kv_cache(tc, slots, dev, max_length=s_max,
-                                    dtype=torch.int8 if kv_dtype == "int8" else None),
+                cache=self._new_cache(slots),
                 pos=torch.zeros(slots, dtype=torch.long, device=dev),
                 kv_valid=torch.zeros(slots, s_max, dtype=torch.int32, device=dev),
                 rope_pos=torch.zeros(slots, dtype=torch.long, device=dev),
@@ -262,6 +278,14 @@ class ContinuousBatchingServer:
         self._spec_tokens = 0  # tokens those steps committed that their requests kept
 
     # -- device-side pieces ---------------------------------------------------
+
+    def _new_cache(self, rows: int) -> KVCache:
+        """A cache of ``rows`` slots in the server's dtype (this rank's kv
+        heads under TP)."""
+        return init_kv_cache(self.config.text_config, rows, self.device,
+                             max_length=self.max_cache_length,
+                             dtype=torch.int8 if self.kv_dtype == "int8" else None,
+                             n_kv_heads=None if self.tp is None else self.tp.kv_heads)
 
     def _tensor(self, values, dtype) -> torch.Tensor:
         return torch.tensor(values, dtype=dtype, device=self.device)
@@ -365,8 +389,8 @@ class ContinuousBatchingServer:
     def _embed(self, ids: torch.Tensor, pad: torch.Tensor, px) -> torch.Tensor:
         """Token embeddings ``[1, n, H]`` of ``ids`` with the image's features
         spliced over its ``<image>`` ids (the decoder applies its scale)."""
-        tc = self.config.text_config
-        embeds = self.model.language_model.model.tok_emb[ids.clamp(0, tc.vocab_size - 1)]
+        lm = self.model.language_model
+        embeds = embed_tokens(lm.model, self.config.text_config, ids)
         if px is not None:
             feats = encode_image(self.model, self.config, px, impl=self.impl)
             embeds, _ = merge_input_ids_with_image_features(
@@ -591,9 +615,7 @@ class ContinuousBatchingServer:
         self._check_adapter_id(adapter_id)
         # one prefill of the P positions into a one-row scratch cache shaped
         # like a slot (the admission's shapes), of which the P rows are kept
-        tc = self.config.text_config
-        scratch = init_kv_cache(tc, 1, self.device, max_length=self.max_cache_length,
-                                dtype=torch.int8 if self.kv_dtype == "int8" else None)
+        scratch = self._new_cache(1)
         ids_t = torch.as_tensor(ids, device=self.device)[None]
         pad_row = torch.zeros(1, self.max_cache_length, dtype=torch.int32, device=self.device)
         pad_row[0, :p] = 1
@@ -721,9 +743,14 @@ class ContinuousBatchingServer:
 
     def _expire_deadlines(self) -> None:
         now = time.monotonic()
-        expired = [r for r in self._results.values()
-                   if not r.finished and r.deadline is not None and now >= r.deadline]
-        for req in expired:
+        timed = [r for r in self._results.values() if not r.finished and r.deadline is not None]
+        expired = [now >= r.deadline for r in timed]
+        if self.tp is not None and timed:
+            # each rank reads its own clock: a request expires on every rank
+            # once it has on one, so the ranks admit and decode the same slots
+            flags = torch.tensor(expired, dtype=torch.int32, device=self.device)
+            expired = self.tp.all_reduce(flags).gt(0).tolist()
+        for req in [r for r, e in zip(timed, expired) if e]:
             req.timed_out = True
             self._timeouts += 1
             self.cancel(req.rid)

@@ -43,7 +43,8 @@ from llama32mm_tpu_torch.convert import _entries, _quantizable
 from llama32mm_tpu_torch.io.native_st import iter_tensors, native_available
 from llama32mm_tpu_torch.models.common import QuantLinear
 from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration
-from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+from llama32mm_tpu_torch.parallel.mesh import AXIS_TP
+from llama32mm_tpu_torch.parallel.sharding import Placement, param_shardings, shard_params
 from llama32mm_tpu_torch.ops.quant import quantize_weight, quantize_weight_int4
 from llama32mm_tpu_torch.utils import st_file
 
@@ -433,6 +434,27 @@ def _init_value(path, shape, targets, config: MLLAMAConfig, dtype, gen) -> torch
 _QUANT_ROWS = 8192  # output rows quantized at once while loading
 
 
+def _key_tensor(dst) -> torch.Tensor:
+    """The tensor that names a target: the parameter, or a quantized
+    linear's ``q`` / ``q4`` buffer."""
+    if isinstance(dst, dict):
+        return dst["q"] if "q" in dst else dst["q4"]
+    return dst
+
+
+def _shard_meta(model: MllamaForConditionalGeneration, config: MLLAMAConfig,
+                shardings: Dict[str, Placement]):
+    """This rank's local model of the ``meta`` model (``shard_params``) and
+    the placement of each of its tensors by name. The mesh, and whether the
+    ViT is split, come from ``shardings``; the placements of the quantized
+    buffers are derived anew for this model."""
+    any_pl = next(iter(shardings.values()))
+    vision_tp = any(name.startswith("vision_model.layers.") and pl.dim is not None
+                    for name, pl in shardings.items())
+    plan = param_shardings(config, any_pl.mesh, model, vision_tp)
+    return shard_params(model, config, any_pl.mesh, vision_tp), plan
+
+
 def _quant_bits(name: str, quantize_int8: bool, int4_recipe: Optional[dict]) -> int:
     if quantize_int8:
         return 8
@@ -470,10 +492,20 @@ def load_checkpoint_params(
     ``quantize_int4``) maps weight names (``W_query`` ... ``w_down``,
     ``lm_head``) to 4 or 8 bits, as ``quantize_llama_params(recipe=...)``
     does; unnamed weights are int4. A checkpoint without ``lm_head`` but
-    with an embedding loads tied (``lm_head`` None). ``shardings``
-    (multi-GPU placement) is not ported."""
-    if shardings is not None:
-        not_in_slice("load_checkpoint_params(shardings=...) (multi-GPU placement)")
+    with an embedding loads tied (``lm_head`` None).
+
+    ``shardings`` (``parallel/sharding.py::param_shardings`` on a mesh this
+    rank belongs to) loads this rank's tensor-parallel model, as
+    ``shard_params`` of the whole load would give it: each tensor read from
+    the mapping is narrowed to this rank's slice before it is copied (or
+    quantized) onto ``device``. The ViT is split when ``shardings`` splits
+    it. A row-parallel int8 leaf's per-channel scale is the maximum over the
+    whole input row, so its ranks reduce their slices' maxima (a ``MAX``
+    all-reduce over ``tp``) before quantizing: the bytes equal those of the
+    unsharded load, sliced."""
+    if shardings is not None and not (shardings and all(
+            isinstance(pl, Placement) for pl in shardings.values())):
+        raise ValueError("shardings must be parallel/sharding.py::param_shardings(config, mesh)")
     if (quantize_int8 or quantize_int4) and not streaming:
         raise ValueError("quantize_int8/int4=True requires streaming=True")
     if quantize_int8 and quantize_int4:
@@ -511,20 +543,40 @@ def load_checkpoint_params(
                 qw = {"q4": torch.empty(n, k // 2, dtype=torch.uint8, device="meta"),
                       "scale": torch.empty(n, k // g, dtype=torch.float32, device="meta")}
             setattr(parent, name, QuantLinear(qw))
+    placed: Dict[int, Placement] = {}
+    if shardings is not None:
+        model, plan = _shard_meta(model, config, shardings)
     model.to_empty(device=device)
+    if shardings is not None:  # each tensor's placement, by id
+        named = list(model.named_parameters()) + list(model.named_buffers())
+        placed = {id(t): plan[name] for name, t in named}
     targets = _targets(model)
+    if shardings is not None:  # a leaf's whole shape, as the checkpoint holds it
+        targets = {path: {layer: (dst, placed[id(_key_tensor(dst))].full_shape(shape))
+                          for layer, (dst, shape) in rows.items()}
+                   for path, rows in targets.items()}
 
     def write(dst, t: torch.Tensor) -> None:
+        pl = placed.get(id(_key_tensor(dst)))
+        if pl is not None:  # this rank's slice of the whole tensor
+            t = pl.local(t)
         if not isinstance(dst, dict):
             dst.copy_(t)
             return
         # quantize on the device, as the JAX loader's jitted writes, a block of
         # output rows at a time (each row's bits depend on that row alone), so
         # the fp32 temporaries of a 128256-row head stay a block's size
+        row_parallel_int8 = "q" in dst and pl is not None and pl.dim == 1
         for r in range(0, t.shape[0], _QUANT_ROWS):
             w = t[r:r + _QUANT_ROWS].to(device=device, dtype=dt)
-            qw = (quantize_weight_int4(w, int4_group_size, compiled=True) if "q4" in dst
-                  else quantize_weight(w, compiled=True))
+            if "q4" in dst:
+                qw = quantize_weight_int4(w, int4_group_size, compiled=True)
+            else:
+                absmax = None
+                if row_parallel_int8:  # the whole row's maximum, from every rank's slice
+                    absmax = pl.mesh.all_reduce(w.float().abs().amax(dim=1), AXIS_TP,
+                                                op=torch.distributed.ReduceOp.MAX)
+                qw = quantize_weight(w, compiled=True, absmax=absmax)
             for key, buf in dst.items():
                 buf[r:r + _QUANT_ROWS].copy_(qw[key])
 

@@ -22,8 +22,9 @@ template is a concrete tree or :func:`abstract_state` of one.
 Trees are nested dicts, lists, tuples, named tuples (``LoraTrainState``,
 ``DataState``) and dataclasses (``AdamState``) of tensors and scalars.
 
-Not here: the multi-device ``ShardedCheckpointer`` and placement by
-``shardings`` (ROADMAP.md, queue 1, multi-GPU). The JAX package's orbax
+``abstract_state(tree, shardings)`` gives each placed tensor its rank's local
+shape (tensor parallelism, ``parallel/sharding.py``). Not here: the
+multi-device ``ShardedCheckpointer`` (ROADMAP.md, queue 1, multi-GPU). The JAX package's orbax
 directories are not read, nor written: the layouts differ.
 """
 
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+from llama32mm_tpu_torch.parallel.sharding import Placement
 from llama32mm_tpu_torch.utils import st_file
 
 __all__ = ["ShardedCheckpointer", "TensorSpec", "TrainCheckpointManager", "abstract_state"]
@@ -77,15 +79,26 @@ def _map(tree: Any, fn: Callable[[str, Any], Any], path: str = "") -> Any:
 def abstract_state(tree: Any, shardings: Optional[Any] = None) -> Any:
     """The template ``restore`` needs, from a concrete state tree: every
     tensor leaf becomes a :class:`TensorSpec` (shape, dtype, device,
-    ``requires_grad``); other leaves stay. ``shardings`` (a target layout
-    across devices) is not ported yet."""
-    if shardings is not None:
-        not_in_slice("shardings (multi-device checkpoint placement)")
+    ``requires_grad``); other leaves stay. ``shardings``, a tree of the same
+    structure (or a flat ``{path: Placement}``, e.g. ``param_shardings`` for
+    a ``state_dict``) whose leaves are ``parallel/sharding.py::Placement``
+    or None, is the target layout: a placed leaf's spec takes this rank's
+    local shape and the mesh's device."""
+    placed = {}
+    if isinstance(shardings, dict) and all(isinstance(v, Placement)
+                                           for v in shardings.values()):
+        placed = dict(shardings)
+    elif shardings is not None:
+        _map(shardings, lambda path, leaf: placed.__setitem__(path, leaf))
 
-    def one(_, leaf):
-        if isinstance(leaf, torch.Tensor):
-            return TensorSpec(tuple(leaf.shape), leaf.dtype, leaf.device, leaf.requires_grad)
-        return leaf
+    def one(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        pl = placed.get(path)
+        if isinstance(pl, Placement):
+            return TensorSpec(pl.local_shape(leaf.shape), leaf.dtype, pl.mesh.device,
+                              leaf.requires_grad)
+        return TensorSpec(tuple(leaf.shape), leaf.dtype, leaf.device, leaf.requires_grad)
 
     return _map(tree, one)
 

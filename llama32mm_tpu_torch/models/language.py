@@ -30,7 +30,14 @@ Reference semantics kept from the JAX package:
   ``LlamaOutput.stats``: the calibration signal of ``ops/awq.py``;
 - the attention mask: a 2D ``[B, S]`` padding mask or an ``AttnMask``
   (the structured form every kernel takes), or a dense additive ``[B, 1,
-  Tq, Tk]`` mask, which passes through to the plain dense attention.
+  Tq, Tk]`` mask, which passes through to the plain dense attention;
+- tensor parallelism (``parallel/sharding.py::shard_params``): a decoder
+  with a ``TPShard`` holds its rank's heads, FFN columns and vocabulary
+  rows; each block all-reduces ``attn_out`` after ``out_proj`` (before
+  ``norm2`` reads it) and ``ff_out`` after ``w_down``, the embedding
+  all-reduces the rows its rank looked up, and the head all-gathers the
+  vocab-sharded logits, so every rank holds the full ``[B, T, V]``. Without
+  one (``tp`` None) no collective is called.
 
 One module per layer (no ``[L, ...]`` stacks). Float linears with at most 32
 input rows run the decode gemv kernel, others (and every linear under
@@ -88,11 +95,32 @@ class DecoderBlock(nn.Module):
 
 
 class LlamaModel(nn.Module):
+    tp = None  # a TPShard on a rank of a tensor-parallel mesh (parallel/sharding.py)
+
     def __init__(self, config: LLAMA32Config, device, dtype):
         super().__init__()
+        self.config = config
         self.tok_emb = empty_param(config.vocab_size, config.hidden_size, device=device, dtype=dtype)
         self.blocks = nn.ModuleList(DecoderBlock(config, device, dtype) for _ in range(config.n_layers))
         self.final_norm = Norm(config.hidden_size, False, device, dtype)
+
+    def init_(self, gen: torch.Generator) -> None:
+        """The JAX package's ``init_llama_params`` distributions."""
+        self.tok_emb.normal_(generator=gen)
+        if self.config.pad_token_index is not None:
+            self.tok_emb[self.config.pad_token_index] = 0.0
+        for mod in self.modules():
+            if isinstance(mod, Linear):
+                mod.init_(gen)
+            elif isinstance(mod, Norm):
+                mod.init_()
+
+    def forward(self, input_ids=None, input_embeds=None, attention_mask=None, position_ids=None,
+                kv_cache=None, impl: str = "auto", **kwargs) -> "LlamaOutput":
+        """``llama_forward`` (other keywords pass through to it)."""
+        return llama_forward(self, self.config, input_ids=input_ids, input_embeds=input_embeds,
+                             attention_mask=attention_mask, position_ids=position_ids,
+                             kv_cache=kv_cache, impl=impl, **kwargs)
 
 
 class CausalLM(nn.Module):
@@ -107,16 +135,16 @@ class CausalLM(nn.Module):
 
     def init_(self, gen: torch.Generator) -> None:
         """The JAX package's ``init_causal_lm_params`` distributions."""
-        self.model.tok_emb.normal_(generator=gen)
-        if self.config.pad_token_index is not None:
-            self.model.tok_emb[self.config.pad_token_index] = 0.0
-        for mod in self.model.modules():
-            if isinstance(mod, Linear):
-                mod.init_(gen)
-            elif isinstance(mod, Norm):
-                mod.init_()
+        self.model.init_(gen)
         if self.lm_head is not None:
             self.lm_head.init_(gen)
+
+    def forward(self, input_ids=None, input_embeds=None, attention_mask=None, position_ids=None,
+                kv_cache=None, impl: str = "auto"):
+        """``causal_lm_forward``: ``(logits, kv_cache)``."""
+        return causal_lm_forward(self, self.config, input_ids=input_ids,
+                                 input_embeds=input_embeds, attention_mask=attention_mask,
+                                 position_ids=position_ids, kv_cache=kv_cache, impl=impl)
 
 
 class LlamaOutput(NamedTuple):
@@ -173,11 +201,14 @@ def maybe_lora(x: torch.Tensor, base_out: torch.Tensor, adapter: Optional[dict],
 def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config, cos, sin,
                    structured: Optional[AttnMask], kv_cache: Optional[KVCache], impl: str,
                    lora: Optional[dict] = None, dropouts: Optional[dict] = None,
-                   dense_mask: Optional[torch.Tensor] = None, collect_stats: bool = False):
+                   dense_mask: Optional[torch.Tensor] = None, collect_stats: bool = False,
+                   tp=None):
     """One block: ``attn_out + ff_out``, and with ``collect_stats`` also the
     layer's statistics (a dict of fp32 vectors)."""
     b, t, _ = h.shape
     nq, nkv, hd = config.n_heads, config.n_kv_groups, config.head_dim
+    if tp is not None:  # this rank's heads
+        nq, nkv = tp.heads, tp.kv_heads
     att, ff = block.att, block.ff
 
     def proj(x, name, weight):
@@ -199,6 +230,8 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
                          k_scale=k_scale, v_scale=v_scale)
     attn = attn.transpose(1, 2).reshape(b, t, nq * hd)
     attn_out = proj(attn, "out_proj", att.out_proj.weight)
+    if tp is not None:  # row-parallel: sum the ranks' partial products
+        attn_out = tp.all_reduce(attn_out)
 
     normed_ff = fused_add_rmsnorm(
         attn_out, block.norm2.weight, config.rms_norm_eps, residual=h, impl=impl
@@ -213,6 +246,8 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
     else:
         inter = fused_swiglu(normed_ff, w_gate, w_up, impl=impl)
     ff_out = proj(inter, "w_down", ff.w_down.weight)
+    if tp is not None:
+        ff_out = tp.all_reduce(ff_out)
     # residual-stream drop: the block input h is not added back
     out = attn_out + ff_out
     if not collect_stats:
@@ -220,6 +255,20 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
     return out, {"norm1_absmean": normed.float().abs().mean(dim=(0, 1)),
                  "norm2_absmean": normed_ff.float().abs().mean(dim=(0, 1)),
                  "inter_absmean": inter.float().abs().mean(dim=(0, 1))}
+
+
+def embed_tokens(model: LlamaModel, config: LLAMA32Config, ids: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``ids`` (clamped to the vocabulary; the
+    ``<image>`` id may equal its size). A vocab-parallel rank looks up the
+    ids in its range, zeroes the other rows and all-reduces."""
+    ids = ids.clamp(0, config.vocab_size - 1)
+    tp = model.tp
+    if tp is None:
+        return model.tok_emb[ids]
+    local = ids - tp.vocab_start
+    outside = (local < 0) | (local >= tp.vocab_rows)
+    h = model.tok_emb[local.clamp(0, tp.vocab_rows - 1)].masked_fill(outside[..., None], 0)
+    return tp.all_reduce(h)
 
 
 def _structured_mask(attention_mask, b: int, t: int, kv_cache: Optional[KVCache],
@@ -246,6 +295,17 @@ def _structured_mask(attention_mask, b: int, t: int, kv_cache: Optional[KVCache]
     kv_valid[:, :pos] = 1
     kv_valid[:, pos:pos + t] = base
     return AttnMask(kv_valid=kv_valid, q_offset=pos)
+
+
+def _refuse_under_tp(model: LlamaModel, lora, remat: bool, collect_stats: bool) -> None:
+    """The training-side features a tensor-parallel decoder does not run yet
+    (the collectives are not recorded for backward)."""
+    if lora and lora.get("blocks") is not None:
+        not_in_slice("LoRA under tensor parallelism")
+    if remat or collect_stats:
+        not_in_slice("remat and collect_stats under tensor parallelism")
+    if torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters()):
+        not_in_slice("training under tensor parallelism")
 
 
 def llama_forward(
@@ -275,10 +335,13 @@ def llama_forward(
     additive, ``[B, 1, Tq, Tk]``) runs every layer's attention densely."""
     if gemv_routes is not None:
         not_in_slice("gemv_routes")
+    tp = model.tp
+    if tp is not None:
+        _refuse_under_tp(model, lora, remat, collect_stats)
     if input_embeds is not None:
         h = input_embeds
     elif input_ids is not None:
-        h = model.tok_emb[input_ids.clamp(0, config.vocab_size - 1)]
+        h = embed_tokens(model, config, input_ids)
     else:
         raise ValueError("Either input_ids or input_embeds must be provided")
 
@@ -311,7 +374,7 @@ def llama_forward(
             dropouts = {name: Dropout(lora_dropout, seeds[i * n_drop + j])
                         for j, name in enumerate(LORA_TARGETS)}
         args = (h, block, i, config, cos, sin, structured, kv_cache, impl, blocks_lora, dropouts,
-                dense_mask, collect_stats)
+                dense_mask, collect_stats, tp)
         if remat and torch.is_grad_enabled():
             h = checkpoint(_block_forward, *args, use_reentrant=False)
         else:
@@ -335,9 +398,15 @@ def lm_head_apply(lm: CausalLM, config: LLAMA32Config, hidden: torch.Tensor,
     """Logits; a tied head reads the ``[vocab, hidden]`` embedding as it is
     (the JAX package's ``tok_emb.T``), a quantized head goes through
     ``qlinear``. ``lora`` is the head's flat adapter, or a bank's head
-    gathered by row (``[B, in, r]``: one adapter per row of ``hidden``)."""
+    gathered by row (``[B, in, r]``: one adapter per row of ``hidden``).
+    A vocab-parallel head all-gathers its ranks' logits."""
     w = lm.model.tok_emb if lm.lm_head is None else lm.lm_head.weight
-    return maybe_lora(hidden, linear(hidden, w, impl), lora, dropout=dropout)
+    tp = lm.model.tp
+    if tp is None:
+        return maybe_lora(hidden, linear(hidden, w, impl), lora, dropout=dropout)
+    if lora is not None:
+        not_in_slice("head LoRA under tensor parallelism")
+    return tp.all_gather(linear(hidden, w, impl))
 
 
 def causal_lm_forward(lm: CausalLM, config: LLAMA32Config, input_ids=None, input_embeds=None,

@@ -14,6 +14,11 @@ each layer then takes the explicit form, as the JAX package does:
 weights from one generator a layer (seeded from ``dropout_rng``), then the
 product with v. Inference stays on flash and is deterministic. The dropout
 bits are not JAX's; only the rule is.
+
+Tensor parallelism (``shard_params(..., vision_tp=True)``): a tower with a
+``TPShard`` holds its rank's heads and ``fc1`` columns; ``out_proj`` and
+``fc2`` all-reduce their partial products and add their bias once, after
+the reduction.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch import nn
 from llama32mm_tpu_torch.configs import VisionEncoderConfig
 from llama32mm_tpu_torch.models.common import Linear, Norm, empty_param
 from llama32mm_tpu_torch.ops.attention import AttnMask, gqa_attention
+from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 
 
 def layer_norm(x: torch.Tensor, norm: Norm, eps: float) -> torch.Tensor:
@@ -46,6 +52,14 @@ def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
 
 def _affine(x: torch.Tensor, lin: Linear) -> torch.Tensor:
     return torch.matmul(x, lin.weight.t()) + lin.bias
+
+
+def _row_affine(x: torch.Tensor, lin: Linear, tp) -> torch.Tensor:
+    """A row-parallel linear: the ranks' partial products summed, then the
+    bias, added once."""
+    if tp is None:
+        return _affine(x, lin)
+    return tp.all_reduce(torch.matmul(x, lin.weight.t())) + lin.bias
 
 
 def dropout_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rate: float,
@@ -75,9 +89,11 @@ class VisionBlock(nn.Module):
         self.fc2 = Linear(inter, d, True, device, dtype)
 
     def attention(self, x: torch.Tensor, config: VisionEncoderConfig, impl: str,
-                  dropout: Optional[tuple] = None) -> torch.Tensor:
+                  dropout: Optional[tuple] = None, tp=None) -> torch.Tensor:
         b, n, d = x.shape
         heads, hd = config.num_attention_heads, config.head_dim
+        if tp is not None:
+            heads = tp.heads
 
         def split(t):
             return t.reshape(b, n, heads, hd).transpose(1, 2)
@@ -90,19 +106,22 @@ class VisionBlock(nn.Module):
             ctx = gqa_attention(q, k, v, every_key, causal=False, impl=impl)
         else:
             ctx = dropout_attention(q, k, v, *dropout)
-        return _affine(ctx.transpose(1, 2).reshape(b, n, d), self.out_proj)
+        return _row_affine(ctx.transpose(1, 2).reshape(b, n, heads * hd), self.out_proj, tp)
 
     def forward(self, h: torch.Tensor, config: VisionEncoderConfig, impl: str,
-                dropout: Optional[tuple] = None) -> torch.Tensor:
-        """``dropout``: ``(rate, seed)`` of the attention dropout, or None."""
+                dropout: Optional[tuple] = None, tp=None) -> torch.Tensor:
+        """``dropout``: ``(rate, seed)`` of the attention dropout, or None;
+        ``tp``: the tower's ``TPShard``, or None."""
         eps = config.layer_norm_eps
-        h = h + self.attention(layer_norm(h, self.layernorm1, eps), config, impl, dropout)
+        h = h + self.attention(layer_norm(h, self.layernorm1, eps), config, impl, dropout, tp)
         y = F.gelu(_affine(layer_norm(h, self.layernorm2, eps), self.fc1))
-        return h + _affine(y, self.fc2)
+        return h + _row_affine(y, self.fc2, tp)
 
 
 class VisionEncoder(nn.Module):
     """``[B, C, H, W] → [B, num_patches, hidden_size]``."""
+
+    tp = None  # a TPShard when the tower is tensor-parallel (vision_tp)
 
     def __init__(self, config: VisionEncoderConfig, device, dtype):
         super().__init__()
@@ -141,10 +160,12 @@ class VisionEncoder(nn.Module):
         h = h + self.position_embedding[None].to(h.dtype)
         drops = [None] * len(self.layers)
         if dropout_rng is not None and rate > 0.0:
+            if self.tp is not None:
+                not_in_slice("ViT attention dropout under tensor parallelism")
             seeds = torch.randint(0, 2**62, (len(self.layers),), generator=dropout_rng,
                                   device=dropout_rng.device).tolist()
             drops = [(rate, seed) for seed in seeds]
         for layer, drop in zip(self.layers, drops):
-            h = layer(h, cfg, impl, drop)
+            h = layer(h, cfg, impl, drop, self.tp)
         return layer_norm(h, self.post_layernorm, cfg.layer_norm_eps)
 

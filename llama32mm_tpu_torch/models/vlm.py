@@ -11,7 +11,12 @@ Training extras: ``dropout_rng`` with ``vision_config.attention_dropout > 0``
 turns on the ViT's attention dropout (``models/vision.py``);
 ``loss_chunk=N`` computes the loss by ``chunked_shifted_cross_entropy``, so
 the ``[B, T, V]`` logits never exist; ``collect_stats=True`` returns the
-decoder's per-layer activation statistics (``ops/awq.py``)."""
+decoder's per-layer activation statistics (``ops/awq.py``).
+
+``encode_image`` runs under the profiler phases ``"vision_encode"`` and
+``"mm_projector"``, the splice under ``"image_splice"``
+(``utils/profiling.py::annotate``), the JAX package's names. The module's
+``forward`` is ``vlm_forward`` returning the reference's dict."""
 
 from __future__ import annotations
 
@@ -30,12 +35,14 @@ from llama32mm_tpu_torch.models.language import (
     CausalLM,
     Dropout,
     dropout_seeds,
+    embed_tokens,
     llama_forward,
     lm_head_apply,
     maybe_lora,
 )
 from llama32mm_tpu_torch.models.vision import VisionEncoder
 from llama32mm_tpu_torch.utils.kvcache import KVCache
+from llama32mm_tpu_torch.utils.profiling import annotate
 
 
 class VLMOutput(NamedTuple):
@@ -57,6 +64,17 @@ class MllamaForConditionalGeneration(nn.Module):
         self.multi_modal_projector = Linear(
             config.vision_config.hidden_size, config.text_config.hidden_size, True, device, dtype)
         self.language_model = CausalLM(config.text_config, device, dtype, tie_weights)
+
+    def forward(self, input_ids=None, pixel_values=None, attention_mask=None, position_ids=None,
+                labels=None, kv_cache=None, lora=None, impl: str = "auto", **kwargs) -> dict:
+        """``vlm_forward`` (other keywords pass through to it), returned as
+        the reference's dict ``{"logits", "loss", "hidden_states",
+        "kv_cache"}``."""
+        out = vlm_forward(self, self.config, input_ids=input_ids, pixel_values=pixel_values,
+                          attention_mask=attention_mask, position_ids=position_ids,
+                          labels=labels, kv_cache=kv_cache, lora=lora, impl=impl, **kwargs)
+        return {"logits": out.logits, "loss": out.loss, "hidden_states": out.hidden_states,
+                "kv_cache": out.kv_cache}
 
 
 def init_vlm(config: MLLAMAConfig, device, gen: torch.Generator,
@@ -109,11 +127,12 @@ def encode_image(model: MllamaForConditionalGeneration, config: MLLAMAConfig,
     ``lora`` is the projector's flat adapter; ``dropout_rng`` drives the
     tower's attention dropout."""
     frozen = not any(p.requires_grad for p in model.vision_model.parameters())
-    with torch.no_grad() if frozen else contextlib.nullcontext():
+    with annotate("vision_encode"), torch.no_grad() if frozen else contextlib.nullcontext():
         feats = model.vision_model(pixel_values, impl=impl, dropout_rng=dropout_rng,
                                    attention_dropout=config.vision_config.attention_dropout)
-    proj = model.multi_modal_projector
-    out = torch.matmul(feats, proj.weight.t()) + proj.bias
+    with annotate("mm_projector"):
+        proj = model.multi_modal_projector
+        out = torch.matmul(feats, proj.weight.t()) + proj.bias
     return maybe_lora(feats, out, lora, dropout=dropout)
 
 
@@ -153,13 +172,14 @@ def vlm_forward(
 
     inputs_embeds = None
     if input_ids is not None:
-        inputs_embeds = lm.model.tok_emb[input_ids.clamp(0, tc.vocab_size - 1)]
+        inputs_embeds = embed_tokens(lm.model, tc, input_ids)
     if pixel_values is not None and inputs_embeds is not None:
         feats = encode_image(model, config, pixel_values.to(inputs_embeds.dtype), impl=impl,
                              lora=lora.get("projector"), dropout=dropout(proj_seed),
                              dropout_rng=dropout_rng)
-        inputs_embeds, attention_mask = merge_input_ids_with_image_features(
-            feats, inputs_embeds, input_ids, attention_mask, config.image_token_index)
+        with annotate("image_splice"):
+            inputs_embeds, attention_mask = merge_input_ids_with_image_features(
+                feats, inputs_embeds, input_ids, attention_mask, config.image_token_index)
 
     out = llama_forward(
         lm.model, tc, input_embeds=inputs_embeds, attention_mask=attention_mask,

@@ -36,10 +36,16 @@ def _scale(absmax: torch.Tensor, qmax: float, compiled: bool) -> torch.Tensor:
     return torch.where(absmax > 0, s, torch.ones_like(absmax))
 
 
-def quantize_weight(w: torch.Tensor, compiled: bool = False) -> dict:
-    """``[out, in]`` float → ``{"q": int8 [out, in], "scale": fp32 [out]}``."""
+def quantize_weight(w: torch.Tensor, compiled: bool = False,
+                    absmax: torch.Tensor = None) -> dict:
+    """``[out, in]`` float → ``{"q": int8 [out, in], "scale": fp32 [out]}``.
+    ``absmax`` (fp32 ``[out]``): each channel's absolute maximum when ``w``
+    holds only part of its inputs (a row-parallel slice: the maximum over
+    the whole row, reduced across the ranks), by default ``w``'s own."""
     w32 = w.to(torch.float32)
-    scale = _scale(w32.abs().amax(dim=1), 127.0, compiled)  # per output channel
+    if absmax is None:
+        absmax = w32.abs().amax(dim=1)
+    scale = _scale(absmax, 127.0, compiled)  # per output channel
     q = torch.clamp(torch.round(w32 / scale[:, None]), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale}
 

@@ -7,6 +7,10 @@ Without autograd it runs the inference forward; under autograd it is a
 residual`` and the fp32 ``rms``) and the backward, with the same ``dt`` for x
 and the residual and no ``+1e-6`` on rms (PARITY §2.9 #13, #16), as the
 Pallas custom VJP.
+
+``LLAMARMSNorm`` is the reference's module (``Model/model.py:158-171``):
+an ``nn.Module`` holding the ``[emb_dim]`` scale, whose ``forward(x,
+residual=None)`` is ``fused_add_rmsnorm`` (on the card, ``rmsnorm.cu``).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
 from llama32mm_tpu_torch.ops.cuda.rmsnorm import (
     fused_add_rmsnorm_cuda,
@@ -62,3 +67,20 @@ def fused_add_rmsnorm(
     if impl == "cuda":
         return fused_add_rmsnorm_cuda(x, weight, eps, residual)
     return fused_add_rmsnorm_plain(x, weight, eps, residual)
+
+
+class LLAMARMSNorm(nn.Module):
+    """Module-style parity with the reference ``LLAMARMSNorm``: the
+    ``[emb_dim]`` scale (ones, no gradient until a trainer asks for one) and
+    the fused op."""
+
+    def __init__(self, emb_dim: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                 impl: str = "auto", device="cuda"):
+        super().__init__()
+        self.eps = eps
+        self.impl = impl
+        self.weight = nn.Parameter(torch.ones(emb_dim, dtype=dtype, device=device),
+                                   requires_grad=False)
+
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return fused_add_rmsnorm(x, self.weight, self.eps, residual=residual, impl=self.impl)

@@ -17,7 +17,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
+from torch import nn
 
 from llama32mm_tpu_torch.ops.cuda.swiglu import (
     fused_swiglu_bwd_cuda,
@@ -97,3 +100,32 @@ def swiglu_down(
     if impl == "cuda":
         return swiglu_down_cuda(x.contiguous(), w_gate, w_up, w_down)
     return swiglu_down_plain(x, w_gate, w_up, w_down)
+
+
+class FusedSwiGLU(nn.Module):
+    """Module-style parity with the reference ``FusedSwiGLU``: ``[hidden,
+    inter]`` gate and up weights, U(±1/sqrt(hidden)) from ``generator``
+    (one seeded 0 on ``device`` by default), optional zero biases."""
+
+    def __init__(self, hidden_size: int, intermediate_size: int, bias: bool = False,
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32,
+                 impl: str = "auto", device="cuda"):
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator(device).manual_seed(0)
+        bound = 1.0 / math.sqrt(hidden_size)
+        self.impl = impl
+
+        def weight():
+            w = torch.empty(intermediate_size, hidden_size, dtype=torch.float32, device=device)
+            w.uniform_(-bound, bound, generator=gen)
+            return nn.Parameter(w.to(dtype).t(), requires_grad=False)  # [hidden, inter]
+
+        self.w_gate = weight()
+        self.w_up = weight()
+        zeros = [nn.Parameter(torch.zeros(intermediate_size, dtype=dtype, device=device),
+                              requires_grad=False) if bias else None for _ in range(2)]
+        self.b_gate, self.b_up = zeros
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_swiglu(x, self.w_gate.t(), self.w_up.t(), self.b_gate, self.b_up,
+                            impl=self.impl)

@@ -1,0 +1,263 @@
+"""Tensor-parallel layout of the model (counterpart of
+``llama32mm_tpu/parallel/sharding.py``), Megatron style.
+
+Each rank holds plain local tensors in the same ``nn.Module`` tree, so the
+hand kernels see ordinary contiguous tensors at the sharded shapes; the
+forward calls its collectives itself (``models/language.py``,
+``models/vision.py``). The layout over ``tp`` (the JAX package's rules,
+``[out, in]`` here where JAX stores ``[in, out]``):
+
+- column-parallel: ``W_query``, ``w_gate``, ``w_up`` (split by query heads
+  and by intermediate columns: dim 0), and ``W_key`` / ``W_value`` by kv
+  head (below);
+- row-parallel: ``out_proj``, ``w_down`` (dim 1); their partial products
+  are all-reduced;
+- vocab-parallel: ``tok_emb`` and the head (dim 0), tied or untied; the
+  lookup zeroes the rows outside a rank's range and all-reduces, the head's
+  logits are all-gathered;
+- replicated: the norms, the projector and, by default, the ViT. With
+  ``vision_tp`` the ViT's ``q/k/v_proj`` and ``fc1`` (weights and biases)
+  are column-parallel, its ``out_proj`` and ``fc2`` weights row-parallel,
+  their biases replicated and added once, after the all-reduce.
+
+Kv heads are split per head, not per raw column, and this departs from the
+JAX layout: with ``tp`` above ``n_kv_groups`` the JAX spec splits
+``W_key``'s out axis ``tp`` ways, which cuts a head's ``head_dim`` apart
+(GSPMD then gathers it back). Here each rank keeps whole the kv head its
+query heads read, replicated across the ``tp / n_kv_groups`` ranks that
+read it, so a rank's attention is ordinary GQA over whole heads. The KV
+cache follows: each rank holds ``[L, B, n_kv_local, S, hd]``.
+
+Quantized leaves (``QuantLinear`` buffers): ``q`` / ``q4`` take the float
+weight's split. The int8 per-channel ``scale [N]`` follows the out axis, so
+it is split for column-parallel leaves and replicated for row-parallel ones;
+the int4 group scales ``[N, K/g]`` follow the weight on either axis. A
+row-parallel int4 split falls on group boundaries (``K/tp`` a multiple of
+``g``), so each group's ``g/2`` packed bytes stay whole on one rank.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from llama32mm_tpu_torch.configs import MLLAMAConfig
+from llama32mm_tpu_torch.models.common import copy_module
+from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_PP, AXIS_SP, AXIS_TP, Mesh
+
+
+class Placement:
+    """Where one tensor's slices live along a mesh axis: ``dim`` split into
+    ``parts`` equal slices (None: replicated), rank ``r`` of the axis's
+    ``n`` ranks holding slice ``r * parts // n``. ``parts`` is the axis size
+    except for kv heads fewer than ``tp``, which each several ranks hold."""
+
+    __slots__ = ("mesh", "dim", "parts", "axis")
+
+    def __init__(self, mesh: Mesh, dim: Optional[int] = None, parts: int = 1,
+                 axis: str = AXIS_TP):
+        self.mesh, self.dim, self.parts, self.axis = mesh, dim, parts, axis
+
+    @property
+    def index(self) -> int:
+        return self.mesh.rank(self.axis) * self.parts // self.mesh.shape[self.axis]
+
+    def local_range(self, size: int) -> tuple:
+        """``(start, length)`` of this rank's slice of a dim of ``size``."""
+        if self.dim is None:
+            return 0, size
+        chunk = size // self.parts
+        return self.index * chunk, chunk
+
+    def local_shape(self, shape) -> tuple:
+        shape = tuple(shape)
+        if self.dim is None:
+            return shape
+        return shape[:self.dim] + (shape[self.dim] // self.parts,) + shape[self.dim + 1:]
+
+    def full_shape(self, local_shape) -> tuple:
+        shape = tuple(local_shape)
+        if self.dim is None:
+            return shape
+        return shape[:self.dim] + (shape[self.dim] * self.parts,) + shape[self.dim + 1:]
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole tensor ``t`` (a view)."""
+        if self.dim is None:
+            return t
+        start, length = self.local_range(t.shape[self.dim])
+        return t.narrow(self.dim, start, length)
+
+    def __repr__(self) -> str:
+        if self.dim is None:
+            return "Placement(replicated)"
+        return f"Placement(dim={self.dim}, parts={self.parts}, axis={self.axis!r})"
+
+
+class TPShard:
+    """A tower's tensor-parallel state on one rank: its local head counts,
+    its vocabulary range (the decoder), and the collectives of its ``tp``
+    group. A module without one runs on one device, with no collective."""
+
+    def __init__(self, mesh: Mesh, heads: int, kv_heads: int, vocab_start: int = 0,
+                 vocab_rows: int = 0):
+        self.mesh = mesh
+        self.heads = heads
+        self.kv_heads = kv_heads
+        self.vocab_start = vocab_start
+        self.vocab_rows = vocab_rows
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce(x, AXIS_TP)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Vocab-sharded ``[..., V/tp]`` → the full ``[..., V]``."""
+        return self.mesh.all_gather(x, AXIS_TP, dim=-1)
+
+
+_COLUMN = frozenset({"W_query", "w_gate", "w_up"})
+_KV = frozenset({"W_key", "W_value"})
+_ROW = frozenset({"out_proj", "w_down"})
+_VIS_COLUMN = frozenset({"q_proj", "k_proj", "v_proj", "fc1"})
+_VIS_ROW = frozenset({"out_proj", "fc2"})
+
+
+def _text_config(config):
+    return getattr(config, "text_config", config)
+
+
+def _check_divides(config, tp: int, vision_tp: bool) -> None:
+    tc = _text_config(config)
+    what = {"n_heads": tc.n_heads, "hidden_dim": tc.hidden_dim, "vocab_size": tc.vocab_size}
+    if vision_tp:
+        vc = config.vision_config
+        what.update({"vision num_attention_heads": vc.num_attention_heads,
+                     "vision intermediate_size": vc.intermediate_size})
+    for name, n in what.items():
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide {name}={n}")
+    nkv = tc.n_kv_groups
+    if nkv % tp and tp % nkv:
+        raise ValueError(f"tp={tp} must divide n_kv_groups={nkv} or be a multiple of it")
+
+
+def _rule(name: str, t: torch.Tensor, nkv: int, tp: int, vision_tp: bool) -> tuple:
+    """``(dim, parts)`` of the parameter or buffer ``name`` (a
+    ``state_dict`` name of the VLM or of a ``CausalLM``)."""
+    parts = name.split(".")
+    leaf, owner = parts[-1], parts[-2] if len(parts) > 1 else ""
+    if "vision_model" in parts:
+        if not (vision_tp and "layers" in parts):
+            return None, 1
+        if owner in _VIS_COLUMN:
+            return 0, tp
+        if owner in _VIS_ROW and leaf == "weight":
+            return 1, tp
+        return None, 1
+    if leaf == "tok_emb" or owner == "lm_head":
+        return 0, tp
+    if "blocks" not in parts:
+        return None, 1
+    if owner in _COLUMN:
+        return 0, tp
+    if owner in _KV:
+        return 0, min(tp, nkv)
+    if owner in _ROW:
+        if leaf == "scale" and t.dim() == 1:  # int8 per-channel scales follow the out axis
+            return None, 1
+        return 1, tp
+    return None, 1
+
+
+def param_shardings(config: MLLAMAConfig, mesh: Mesh, model: Optional[nn.Module] = None,
+                    vision_tp: bool = False) -> Dict[str, Placement]:
+    """``{state_dict name: Placement}`` for every parameter and buffer of
+    ``model`` (by default an untied, unquantized model of ``config``, built
+    on the ``meta`` device); raises ``ValueError`` where ``tp`` does not
+    divide a split axis (heads, intermediate, vocabulary, a row-parallel int4
+    leaf's groups)."""
+    tp = mesh.shape[AXIS_TP]
+    _check_divides(config, tp, vision_tp)
+    if model is None:
+        from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration
+
+        model = MllamaForConditionalGeneration(config, "meta", tie_weights=False)
+    nkv = _text_config(config).n_kv_groups
+    out = {}
+    named = list(model.named_parameters()) + list(model.named_buffers())
+    for name, t in named:
+        dim, parts = _rule(name, t, nkv, tp, vision_tp)
+        if dim is not None and t.shape[dim] % parts:
+            raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)} does not split into "
+                             f"{parts} (tp={tp})")
+        out[name] = Placement(mesh, dim, parts if dim is not None else 1)
+    return out
+
+
+def kv_cache_sharding(mesh: Mesh, config) -> Dict[str, tuple]:
+    """The KV cache's layout, per tensor the placements of its split dims:
+    ``k`` / ``v`` ``[L, B, n_kv, S, hd]`` and the int8 scales ``[L, B, n_kv,
+    S]``, batch on ``dp`` and kv heads on ``tp`` (whole heads, as the
+    weights)."""
+    nkv = _text_config(config).n_kv_groups
+    tp = mesh.shape[AXIS_TP]
+    both = (Placement(mesh, 1, mesh.shape[AXIS_DP], AXIS_DP),
+            Placement(mesh, 2, min(tp, nkv), AXIS_TP))
+    return {"k": both, "v": both, "k_scale": both, "v_scale": both}
+
+
+def _localize(mod: nn.Module, prefix: str, plan: Dict[str, Placement]) -> nn.Module:
+    """A copy of ``mod`` whose split tensors are this rank's slices (fresh,
+    contiguous), the replicated ones shared with ``mod``."""
+    new = copy_module(mod)
+    for slot in ("_parameters", "_buffers"):
+        for name, t in getattr(mod, slot).items():
+            pl = plan.get(prefix + name)
+            if t is None or pl is None or pl.dim is None:
+                continue
+            local = pl.local(t).clone(memory_format=torch.contiguous_format)
+            if slot == "_parameters":
+                local = nn.Parameter(local, requires_grad=t.requires_grad)
+            getattr(new, slot)[name] = local
+    for name, child in mod._modules.items():
+        if child is not None:
+            new._modules[name] = _localize(child, f"{prefix}{name}.", plan)
+    return new
+
+
+def shard_params(model: nn.Module, config: MLLAMAConfig, mesh: Mesh,
+                 vision_tp: bool = False) -> nn.Module:
+    """This rank's local model: a copy of ``model`` (a VLM, or a
+    ``CausalLM`` with its ``LLAMA32Config``) holding its slices of the split
+    tensors (``param_shardings``) and sharing the replicated ones, with a
+    ``TPShard`` on the decoder (and on the ViT with ``vision_tp``). Float and
+    quantized (int8, int4) leaves alike; works on the ``meta`` device too
+    (the sharded checkpoint loader builds the local model that way)."""
+    if not mesh.member:
+        raise ValueError("this rank is not in the mesh")
+    if mesh.shape[AXIS_SP] > 1 or mesh.shape[AXIS_PP] > 1:
+        not_in_slice("sequence and pipeline parallelism (sp, pp > 1)")
+    tp = mesh.shape[AXIS_TP]
+    plan = param_shardings(config, mesh, model, vision_tp)
+    lm = getattr(model, "language_model", model)
+    if lm.model.tp is not None:
+        raise ValueError("the model is already sharded")
+    new = _localize(model, "", plan)
+    tc = _text_config(config)
+    vocab_rows = tc.vocab_size // tp
+    new_lm = getattr(new, "language_model", new)
+    new_lm.model.tp = TPShard(mesh, tc.n_heads // tp, max(1, tc.n_kv_groups // tp),
+                              mesh.rank(AXIS_TP) * vocab_rows, vocab_rows)
+    if vision_tp:
+        heads = config.vision_config.num_attention_heads // tp
+        new.vision_model.tp = TPShard(mesh, heads, heads)
+    return new
+
+
+def tp_of(model: nn.Module) -> Optional[TPShard]:
+    """The decoder's ``TPShard`` of a VLM or a ``CausalLM`` (None on one
+    device)."""
+    return getattr(model, "language_model", model).model.tp

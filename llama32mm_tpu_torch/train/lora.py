@@ -109,12 +109,11 @@ def _unflatten(flat: dict) -> dict:
     return out
 
 
-def zero_lora_params(config, rank: int = 16, device=None, **kw) -> dict:
+def zero_lora_params(config, rank: int = 16, device="cuda", **kw) -> dict:
     """An identity adapter (B = 0, as at init; A from a generator seeded 0
-    on ``device``, the CPU by default): entry 0 of a serving bank, so that
-    requests without an adapter run the base model exactly. ``kw`` as
-    ``init_lora_params``."""
-    gen = torch.Generator(device=device if device is not None else "cpu").manual_seed(0)
+    on ``device``): entry 0 of a serving bank, so that requests without an
+    adapter run the base model exactly. ``kw`` as ``init_lora_params``."""
+    gen = torch.Generator(device=device).manual_seed(0)
     return init_lora_params(gen, config, rank=rank, device=device, **kw)
 
 

@@ -122,14 +122,18 @@ def init_kv_cache(
     device: torch.device,
     max_length: Optional[int] = None,
     dtype: Optional[torch.dtype] = None,
+    n_kv_heads: Optional[int] = None,
 ) -> KVCache:
     """``dtype=torch.int8`` allocates the quantized serving cache: int8 slots
-    plus fp32 per-position scales (half the bytes of a bf16 cache)."""
+    plus fp32 per-position scales (half the bytes of a bf16 cache).
+    ``n_kv_heads``: a tensor-parallel rank's kv heads (``TPShard.kv_heads``),
+    by default the config's."""
     max_length = max_length or config.max_cache_length
     dtype = dtype or config.torch_dtype
     if not (dtype.is_floating_point or dtype == torch.int8):
         raise ValueError(f"KV cache dtype must be a float dtype or torch.int8, got {dtype}")
-    shape = (config.n_layers, batch_size, config.n_kv_groups, max_length, config.head_dim)
+    shape = (config.n_layers, batch_size, n_kv_heads or config.n_kv_groups, max_length,
+             config.head_dim)
     k_scale = v_scale = None
     if dtype == torch.int8:
         k_scale = torch.zeros(shape[:-1], dtype=torch.float32, device=device)

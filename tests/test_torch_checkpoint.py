@@ -447,5 +447,9 @@ def test_save_refuses_quantized_and_sharded_loads_refused(tmp_path):
     model = from_jax_params(_np_tree(params), cfg, "cpu")
     with pytest.raises(ValueError, match="cannot save int8-quantized weight"):
         ck.save_checkpoint_params(str(tmp_path / "q"), quantize_llama_params(model), cfg)
-    with pytest.raises(NotImplementedError, match="shardings"):
+    # sharded loads are ported (tests/test_torch_tp.py); a layout that is not
+    # param_shardings' is refused
+    with pytest.raises(ValueError, match="shardings"):
         ck.load_checkpoint_params(str(tmp_path), cfg, "cpu", shardings={})
+    with pytest.raises(ValueError, match="shardings"):
+        ck.load_checkpoint_params(str(tmp_path), cfg, "cpu", shardings={"tok_emb": 0})

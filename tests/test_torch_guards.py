@@ -42,7 +42,10 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.inference.cli", "llama32mm_tpu_torch.evaluate",
     "llama32mm_tpu_torch.ops.awq", "llama32mm_tpu_torch.train.data",
     "llama32mm_tpu_torch.train.finetune", "llama32mm_tpu_torch.io.distributed",
-    "llama32mm_tpu_torch.train.optim",
+    "llama32mm_tpu_torch.train.optim", "llama32mm_tpu_torch",
+    "llama32mm_tpu_torch.models.wrapper", "llama32mm_tpu_torch.utils.profiling",
+    "llama32mm_tpu_torch.parallel", "llama32mm_tpu_torch.parallel.mesh",
+    "llama32mm_tpu_torch.parallel.sharding",
 ]
 
 
@@ -295,8 +298,10 @@ def test_refusals_of_earlier_slices_are_gone(tiny_model, feature):
 
 def test_not_in_slice_sites_left():
     """The refusals left in the port's sources: gemv routes (engine, server,
-    language), the fused layout, shardings, ZeRO and the sharded
-    checkpointer."""
+    language), the fused layout, ZeRO, the sharded checkpointer, and what
+    tensor parallelism does not run yet (training and LoRA in the decoder,
+    the ViT's dropout, adapter banks, the server at dp > 1, draft models, the
+    HTTP front end, sequence and pipeline meshes)."""
     import glob
 
     sites = []
@@ -308,9 +313,10 @@ def test_not_in_slice_sites_left():
                     sites.append(os.path.relpath(path, ROOT))
     assert sorted(set(sites)) == [
         "llama32mm_tpu_torch/convert.py", "llama32mm_tpu_torch/inference/engine.py",
-        "llama32mm_tpu_torch/inference/server.py", "llama32mm_tpu_torch/io/checkpoint.py",
-        "llama32mm_tpu_torch/io/distributed.py", "llama32mm_tpu_torch/models/language.py",
-        "llama32mm_tpu_torch/train/full.py"]
+        "llama32mm_tpu_torch/inference/http_server.py",
+        "llama32mm_tpu_torch/inference/server.py", "llama32mm_tpu_torch/io/distributed.py",
+        "llama32mm_tpu_torch/models/language.py", "llama32mm_tpu_torch/models/vision.py",
+        "llama32mm_tpu_torch/parallel/sharding.py", "llama32mm_tpu_torch/train/full.py"]
 
 
 def test_int8_kv_cache_refused():
@@ -380,3 +386,46 @@ def test_new_entry_points_run_on_the_gpu_unless_asked(entry):
             finetune.main(["--steps", "1"])  # smoke mode on "cuda"
         else:
             next(prefetch_to_device(iter([{"x": np.zeros(1)}])))
+
+
+def _new_entry_points():
+    from llama32mm_tpu_torch.models import wrapper
+    from llama32mm_tpu_torch.ops.rmsnorm import LLAMARMSNorm
+    from llama32mm_tpu_torch.ops.swiglu import FusedSwiGLU
+    from llama32mm_tpu_torch.parallel import mesh
+    from llama32mm_tpu_torch.train.lora import zero_lora_params
+    from llama32mm_tpu_torch.utils.profiling import trace
+
+    return {"zero_lora_params": zero_lora_params, "trace": trace,
+            "init_distributed": mesh.init_distributed,
+            "single_device_mesh": mesh.single_device_mesh,
+            "MllamaForConditionalGeneration": wrapper.MllamaForConditionalGeneration,
+            "Llama3ForCausalLM": wrapper.Llama3ForCausalLM, "Llama3Model": wrapper.Llama3Model,
+            "LLAMARMSNorm": LLAMARMSNorm, "FusedSwiGLU": FusedSwiGLU}
+
+
+@pytest.mark.parametrize("name", ["zero_lora_params", "trace", "init_distributed",
+                                  "single_device_mesh", "MllamaForConditionalGeneration",
+                                  "Llama3ForCausalLM", "Llama3Model", "LLAMARMSNorm",
+                                  "FusedSwiGLU"])
+def test_entry_points_of_this_slice_default_to_cuda(name):
+    """The object API, the profiler, the mesh and the identity adapter pick
+    the card unless the caller asks for the CPU; without a card
+    ``zero_lora_params`` fails instead of building on the CPU."""
+    import inspect
+
+    assert inspect.signature(_new_entry_points()[name]).parameters["device"].default == "cuda"
+    if name == "zero_lora_params" and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            _new_entry_points()[name](tiny_mllama_config().text_config, rank=2)
+
+
+def test_create_mesh_needs_a_device_or_a_single_process():
+    """Without ``init_distributed`` a one-process mesh defaults to the card;
+    no rule picks the CPU by itself."""
+    from llama32mm_tpu_torch.parallel import create_mesh
+
+    assert create_mesh().device == torch.device("cuda")
+    assert create_mesh(device="cpu").device == torch.device("cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        create_mesh(tp=2)

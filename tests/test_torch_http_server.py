@@ -360,7 +360,7 @@ def test_adapter_id_over_http(tiny):
     adapter = init_lora_params(gen, cfg.text_config, rank=4)
     for ad in [*adapter["blocks"].values(), adapter["lm_head"]]:
         ad["lora_b"].normal_(generator=gen).mul_(0.05)
-    bank = stack_adapter_bank([zero_lora_params(cfg.text_config, rank=4), adapter])
+    bank = stack_adapter_bank([zero_lora_params(cfg.text_config, rank=4, device="cpu"), adapter])
     lv = _Live(tiny, adapter_bank=bank)
     try:
         ids = _ids(9, 19)

@@ -168,8 +168,13 @@ def test_checkpoint_manager_refusals(tmp_path):
         mgr.restore({"w": torch.zeros(4)})
     with pytest.raises(KeyError):
         mgr.restore({"v": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="shardings"):
-        abstract_state({"w": torch.zeros(3)}, shardings={"w": None})
+    # a target layout is ported (tests/test_torch_tp.py): a placed leaf takes
+    # this rank's local shape, an unplaced one stays whole
+    from llama32mm_tpu_torch.parallel import Mesh, Placement
+
+    spec = abstract_state({"w": torch.zeros(4, 3), "b": torch.zeros(3)},
+                          shardings={"w": Placement(Mesh({"tp": 2}), 0, 2), "b": None})
+    assert spec["w"].shape == (2, 3) and spec["b"].shape == (3,)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ShardedCheckpointer()
     every2 = TrainCheckpointManager(str(tmp_path / "run2"), save_interval_steps=2,
