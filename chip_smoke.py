@@ -155,6 +155,22 @@
    at its sharded shape and no plain version, the ranks' tokens are equal,
    and the prefill logits stay within twice the one-device kernel path's
    distance from ``impl="torch"`` of that path.
+21. ``tp_lora_11b``: ``lora_11b`` at tp=2 (the tied bf16 11B at full
+   depth, rank-16 adapters with the head's, B=1 S=1632, a warm-up and 3
+   timed steps): both ranks' losses and adapters bit-equal after every
+   step, the base unchanged, the first loss within twice the one-device
+   kernel path's distance from ``impl="torch"`` of ``lora_11b``'s first
+   loss, the flash LSE forward, dq and dk/dv at 16 query and 4 kv heads and
+   the training RMSNorm at 4096 on every rank, no plain version;
+22. ``zero1_full_ft_3b``: full fine-tuning of the 3B bench widths (cut to
+   ``ZERO1_DEPTH``) at dp=2 × tp=2, four ranks (fp32 masters, bf16
+   compute, AdamW, clip 1.0, B=2 S=1632), 3 steps without ZeRO-1 and 3
+   with ZeRO-1 and dp-sharded masters: the losses within rtol 3e-4 of each
+   other, each decoder matrix's Adam moments a quarter of the whole, the
+   SwiGLU tile forward and backward at I=4096 and the flash training
+   kernels at 12 / 4 heads on every rank; a ``ShardedCheckpointer`` save
+   after step 2, step 3 from the restored state bit-equal to the straight
+   run's, and the saved masters restored onto dp=4 × tp=1 equal to them.
 
 The flash forward runs as three kernels: the tensor-core forward for bf16
 calls with many query rows (prefill, the ViT, training), the split-KV decode
@@ -276,7 +292,17 @@ from llama32mm_tpu_torch.train.lora import (
     stack_adapter_bank,
     zero_lora_params,
 )
-from llama32mm_tpu_torch.parallel import create_mesh, init_distributed, shard_params
+from llama32mm_tpu_torch.io.distributed import ShardedCheckpointer, abstract_state
+from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration
+from llama32mm_tpu_torch.parallel import (
+    AXIS_TP,
+    create_mesh,
+    data_sharding,
+    init_distributed,
+    placement_of,
+    shard_params,
+    zero1_shardings,
+)
 from llama32mm_tpu_torch.utils import st_file
 from llama32mm_tpu_torch.utils.profiling import trace
 from llama32mm_tpu_torch.utils.kvcache import init_kv_cache, quantize_kv
@@ -446,10 +472,14 @@ PATH_KERNELS.update({
     "eval_11b_agreement": ("rmsnorm", "swiglu_tc", "flash_attention_tc", "qmatmul_tc"),
     "calibrate_11b": ("rmsnorm", "swiglu_tc", "flash_attention_tc", "gemv_tc"),
 })
-# Tensor-parallel serving (each rank at its tp=2 shapes) runs its kind's kernels.
+# Tensor-parallel serving (each rank at its tp=2 shapes) runs its kind's kernels;
+# so does training across ranks: LoRA at tp=2 (gate and up adapted: no SwiGLU
+# kernel), full fine-tuning at dp=2 x tp=2 (the SwiGLU tile forward and backward).
 PATH_KERNELS.update({"tp_11b_bf16": PATH_KERNELS["bf16"],
                      "tp_11b_int4_mixed": PATH_KERNELS["int4_mixed"],
-                     "tp_11b_server_bf16": PATH_KERNELS["server_bf16"]})
+                     "tp_11b_server_bf16": PATH_KERNELS["server_bf16"],
+                     "tp_lora_11b": TRAIN_BF16_KERNELS,
+                     "zero1_full_ft_3b": PATH_KERNELS["full_ft_3b"]})
 # The SIMT fp32 forward and backward: the bf16 paths above must never
 # launch them; nor the wmma dequantizing GEMM ("qmatmul"), which every
 # bf16 prefill shape leaves to the wgmma one; nor the CUDA-core gemvs
@@ -471,7 +501,7 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
     """What a path's run got wrong: kernels it should have launched and did
     not, SIMT flash kernels launched on a bf16 path, plain versions called."""
     faults = [f"skipped {k}" for k in PATH_KERNELS[path] if launches[k] == 0]
-    if path == "full_ft_3b":  # every SwiGLU call there has R = 1632
+    if path in ("full_ft_3b", "zero1_full_ft_3b"):  # every SwiGLU call there has R = 1632
         faults += [f"launched the wmma {k} {launches[k]} times" for k in ("swiglu", "swiglu_bwd")
                    if launches[k]]
     if path != "swiglu_down_op":
@@ -829,6 +859,46 @@ def tp_kernel_cases(rnd, valid, q8, q4, kv8):
             (name, "tp=2 server decode B=4 nq=16 nkv=4 per-row q_offset Tk=2048 hd=128",
              (rnd(4, 16, 1, 128), *kv(4, 4, 2048, 128), kvv, offsets, True), False),
         ]
+    return cases + tp_training_kernel_cases(rnd, valid)
+
+
+def tp_training_kernel_cases(rnd, valid):
+    """The kernels of the tensor-parallel training paths at a rank's shapes:
+    ``tp_lora_11b`` (the 11B at tp=2: attention over 16 query and 4 kv
+    heads, the replicated RMSNorm at 4096) and ``zero1_full_ft_3b`` (the 3B
+    at tp=2: 12 and 4 heads, SwiGLU at I=4096, RMSNorm at 3072); the SwiGLU
+    backward also at the 11B's tp=2 I=7168. B=1, S=1632."""
+    def norm_bwd(r, c):
+        t = rnd(r, c)
+        rms = t.float().square().mean(-1).add(1e-5).sqrt()
+        return (rnd(r, c), t, rnd(c), rms, True)
+
+    cases = [
+        ("rmsnorm_fwd_train", "tp=2 replicated R=1632 C=4096 +residual",
+         (rnd(1632, 4096), rnd(4096), 1e-5, rnd(1632, 4096)), False),
+        ("rmsnorm_fwd_train", "tp=2 3B replicated R=1632 C=3072 +residual",
+         (rnd(1632, 3072), rnd(3072), 1e-5, rnd(1632, 3072)), False),
+        ("rmsnorm_bwd", "tp=2 replicated R=1632 C=4096", norm_bwd(1632, 4096), False),
+        ("rmsnorm_bwd", "tp=2 3B replicated R=1632 C=3072", norm_bwd(1632, 3072), False),
+        ("swiglu_tc", "tp=2 3B R=1632 H=3072 I=4096",
+         (rnd(1632, 3072), rnd(4096, 3072, scale=0.02), rnd(4096, 3072, scale=0.02)), False),
+        ("swiglu_bwd_tc", "tp=2 3B R=1632 H=3072 I=4096",
+         (rnd(1632, 3072), rnd(4096, 3072, scale=0.02), rnd(4096, 3072, scale=0.02),
+          rnd(1632, 4096)), False),
+        ("swiglu_bwd_tc", "tp=2 11B R=1632 H=4096 I=7168",
+         (rnd(1632, 4096), rnd(7168, 4096, scale=0.02), rnd(7168, 4096, scale=0.02),
+          rnd(1632, 7168)), False),
+    ]
+    for label, nq in (("tp=2 11B nq=16 nkv=4 T=1632 hd=128 causal", 16),
+                      ("tp=2 3B nq=12 nkv=4 T=1632 hd=128 causal", 12)):
+        fwd = (rnd(1, nq, 1632, 128), rnd(1, 4, 1632, 128), rnd(1, 4, 1632, 128),
+               valid(1, 1632, 1632), 0, True)
+        out, lse = kernels.flash_attention_fwd_lse_plain(*fwd)
+        dout = rnd(*fwd[0].shape)
+        bwd = (*fwd, lse, dout.float().mul(out.float()).sum(-1), dout)
+        cases += [("flash_attention_tc_lse", label, fwd, False),
+                  ("flash_attention_bwd_dq_tc", label, bwd, False),
+                  ("flash_attention_bwd_dkv_tc", label, bwd, False)]
     return cases
 
 
@@ -1906,15 +1976,15 @@ def checksums(tensors) -> torch.Tensor:
                         for t in tensors])
 
 
-def train_batch(cfg, dev):
-    """B=1, S=1632: the 560x560 image's 1600 ``<image>`` ids then 32 text
-    ids, labels -100 on the image positions; a random uint8 image."""
+def train_batch(cfg, dev, b: int = 1):
+    """B=b (1), S=1632: the 560x560 image's 1600 ``<image>`` ids then 32 text
+    ids, labels -100 on the image positions; a random uint8 image a row."""
     tc, vc = cfg.text_config, cfg.vision_config
     gen = torch.Generator(device=dev).manual_seed(0)
-    raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen, device=dev,
+    raw = torch.randint(0, 256, (b, vc.image_size, vc.image_size, 3), generator=gen, device=dev,
                         dtype=torch.uint8)
-    text = torch.randint(0, tc.vocab_size, (1, 32), generator=gen, device=dev)
-    image = torch.full((1, vc.num_patches), cfg.image_token_index, device=dev)
+    text = torch.randint(0, tc.vocab_size, (b, 32), generator=gen, device=dev)
+    image = torch.full((b, vc.num_patches), cfg.image_token_index, device=dev)
     ids = torch.cat([image, text], dim=1)
     labels = torch.cat([torch.full_like(image, cfg.ignore_index), text], dim=1)
     px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
@@ -1923,13 +1993,15 @@ def train_batch(cfg, dev):
 
 def run_steps(path: str, step, state, batch, opt_moments):
     """One warm-up step, then 3 timed steps with the counters set to 0 just
-    before them; checks losses and moments, returns ``(state, launches)``."""
+    before them; checks losses and moments, returns ``(state, launches, the
+    warm-up step's loss)``."""
     tokens = batch["input_ids"].numel()
     torch.cuda.synchronize()
     t = time.perf_counter()
     state, loss = step(state, batch)
     torch.cuda.synchronize()
-    log(f"[{path}] warm-up step {time.perf_counter() - t:.4f} s loss {loss.item():.6g}")
+    first = loss.item()
+    log(f"[{path}] warm-up step {time.perf_counter() - t:.4f} s loss {first:.6g}")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
     losses, times = [], []
@@ -1953,12 +2025,14 @@ def run_steps(path: str, step, state, batch, opt_moments):
     faults = path_faults(path, launches, plain_calls)
     if faults:
         raise RuntimeError(f"[{path}] {faults}")
-    return state, launches
+    return state, launches, first
 
 
-def run_lora_11b(dev) -> dict:
+def run_lora_11b(dev, keep: dict) -> dict:
     """LoRA fine-tuning at Llama-3.2-11B-Vision, bf16 base (tied head), rank
-    16, alpha 16, the default targets and a head adapter, Adam lr 1e-4."""
+    16, alpha 16, the default targets and a head adapter, Adam lr 1e-4.
+    ``keep`` takes the first step's loss and its distance from the plain
+    path's (``tp_lora_11b``'s reference)."""
     cfg, model = build_11b(dev, tie_weights=True)
     base = [p for p in model.parameters()]
     before = checksums(base)
@@ -1971,8 +2045,11 @@ def run_lora_11b(dev) -> dict:
                             pixel_values=batch["pixel_values"], labels=batch["labels"],
                             lora=lora, impl="torch").loss.item()
     log(f"[lora_11b] initial loss, plain path: {plain:.6g}")
-    state, launches = run_steps("lora_11b", lambda st, b: step(model, st, b), state, batch,
-                                lambda st: st.opt_state.mu.values())
+    state, launches, first = run_steps("lora_11b", lambda st, b: step(model, st, b), state,
+                                       batch, lambda st: st.opt_state.mu.values())
+    keep["lora_11b"] = {"loss": first, "dl_plain": abs(first - plain)}
+    log(f"[lora_11b] first loss {first:.8g}, plain path {plain:.8g}: |difference| "
+        f"{abs(first - plain):.6g}")
     if not torch.equal(checksums(base), before) or any(p.requires_grad for p in base):
         raise RuntimeError("[lora_11b] the base weights changed or require gradients")
     return launches
@@ -2004,7 +2081,8 @@ def run_full_ft_3b(dev) -> dict:
                                        freeze_vision=True, compute_dtype="bfloat16")
     state = init_state(model)
     batch = train_batch(bench_3b_config("bfloat16"), dev)
-    state, launches = run_steps("full_ft_3b", step, state, batch, lambda st: st.opt_state.mu.values())
+    state, launches, _ = run_steps("full_ft_3b", step, state, batch,
+                                   lambda st: st.opt_state.mu.values())
     frozen_in_opt = [n for n in state.opt_state.mu if n.startswith("vision_model.")]
     if not torch.equal(checksums(vision), before) or frozen_in_opt:
         raise RuntimeError("[full_ft_3b] the vision tower changed or has optimizer state")
@@ -3132,14 +3210,16 @@ def run_wrapper_profiling(dev) -> dict:
     return launches
 
 
-# Tensor-parallel serving (tp_tiny, tp_11b_*): TP_WORLD ranks, NCCL with a GPU
-# each or gloo on one shared card. The entries each rank's model calls, whose
-# argument shapes record_shapes notes.
+# Tensor-parallel serving (tp_tiny, tp_11b_*) and training across ranks
+# (tp_lora_11b, zero1_full_ft_3b): a world of ranks a phase (TP_WORLD, or 4 for
+# dp=2 x tp=2), NCCL with a GPU each or gloo on one shared card. The entries
+# each rank's model calls, whose argument shapes record_shapes notes.
 TP_WORLD = 2
 _SHAPE_ENTRIES = ((gemv_mod, ("gemv_cuda", "gemv_int8_cuda", "gemv_int4_cuda", "qmatmul_cuda",
                               "gemv_int4_w4a8_cuda")),
-                  (swiglu_mod, ("fused_swiglu_cuda",)),
-                  (rmsnorm_mod, ("fused_add_rmsnorm_cuda",)))
+                  (swiglu_mod, ("fused_swiglu_cuda", "fused_swiglu_bwd_cuda")),
+                  (rmsnorm_mod, ("fused_add_rmsnorm_cuda", "rmsnorm_fwd_train_cuda",
+                                 "rmsnorm_bwd_cuda")))
 
 
 class record_shapes:
@@ -3186,10 +3266,11 @@ class record_shapes:
         """The first argument's last axis (the normed activations' width)."""
         return {shapes[0][-1] for name, shapes in self.seen if name == entry and shapes}
 
-    def heads(self) -> set:
-        """(query heads, kv heads) of every flash call."""
+    def heads(self, names=None) -> set:
+        """(query heads, kv heads) of every flash call (of the kernels in
+        ``names``, when given)."""
         return {(shapes[0][1], shapes[1][1]) for name, shapes in self.seen
-                if name.startswith("flash")}
+                if name.startswith("flash") and (names is None or name in names)}
 
 
 def tp_shape_faults(path: str, rec: record_shapes, kind: str) -> list:
@@ -3224,28 +3305,28 @@ def tp_compute_mode() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def run_tp_world(phase: str, fn_name: str, args: dict) -> list:
-    """Run ``TP_PHASES[fn_name](rank, device, args)`` on TP_WORLD spawned
-    ranks; return each rank's result. Two or more GPUs: NCCL, a GPU each;
-    one GPU: the ranks share it over gloo (not possible in the
+def run_tp_world(phase: str, fn_name: str, args: dict, world: int = TP_WORLD) -> list:
+    """Run ``TP_PHASES[fn_name](rank, device, args)`` on ``world`` spawned
+    ranks; return each rank's result. As many GPUs: NCCL, a GPU each;
+    fewer: the ranks share cuda:0 over gloo (not possible in the
     Exclusive_Process compute mode, which fails here)."""
     n = torch.cuda.device_count()
     mode = tp_compute_mode()
-    how = ("NCCL, one GPU a rank" if n >= TP_WORLD else
-           f"gloo, {TP_WORLD} ranks sharing cuda:0 (times are not multi-GPU times)")
-    log(f"[{phase}] {TP_WORLD} ranks over {how}; compute mode {mode}")
-    if n < TP_WORLD and "Exclusive_Process" in mode:
-        raise RuntimeError(f"[{phase}] {TP_WORLD} processes cannot share the one card in compute "
+    how = ("NCCL, one GPU a rank" if n >= world else
+           f"gloo, {world} ranks sharing cuda:0 (times are not multi-GPU times)")
+    log(f"[{phase}] {world} ranks over {how}; compute mode {mode}")
+    if n < world and "Exclusive_Process" in mode:
+        raise RuntimeError(f"[{phase}] {world} processes cannot share the one card in compute "
                            f"mode {mode}")
     ctx = torch.multiprocessing.get_context("spawn")
     queue = ctx.SimpleQueue()
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    procs = torch.multiprocessing.spawn(_tp_rank, args=(fn_name, port, args, queue),
-                                        nprocs=TP_WORLD, join=False)
+    procs = torch.multiprocessing.spawn(_tp_rank, args=(fn_name, port, args, queue, world),
+                                        nprocs=world, join=False)
     results = {}
-    while len(results) < TP_WORLD:
+    while len(results) < world:
         if not queue.empty():
             rank, value = queue.get()
             results[rank] = value
@@ -3255,9 +3336,9 @@ def run_tp_world(phase: str, fn_name: str, args: dict) -> list:
             break
     procs.join()  # raises with the failed rank's traceback
     failed = {r: v[1] for r, v in results.items() if isinstance(v, tuple) and v[0] == "error"}
-    if failed or len(results) < TP_WORLD:
+    if failed or len(results) < world:
         raise RuntimeError(f"[{phase}] ranks failed: {failed or 'no result'}")
-    return [results[r] for r in range(TP_WORLD)]
+    return [results[r] for r in range(world)]
 
 
 def _host(obj):
@@ -3272,10 +3353,10 @@ def _host(obj):
     return obj
 
 
-def _tp_rank(rank: int, fn_name: str, port: int, args: dict, queue) -> None:
+def _tp_rank(rank: int, fn_name: str, port: int, args: dict, queue, world: int) -> None:
     import traceback
 
-    dev = init_distributed(rank, TP_WORLD, f"tcp://localhost:{port}", device="cuda",
+    dev = init_distributed(rank, world, f"tcp://localhost:{port}", device="cuda",
                            share_device=True)
     try:
         queue.put((rank, _host(TP_PHASES[fn_name](rank, dev, args))))
@@ -3387,24 +3468,35 @@ def run_tp_tiny(dev) -> dict:
 TP_11B_KINDS = ("bf16", "int4_mixed")
 
 
+def one_rank_at_a_time(rank, dev, build):
+    """``build()`` on every rank, one rank after the other when they share a
+    card (each builds a whole model, keeps its shard and frees the rest)."""
+    world = torch.distributed.get_world_size()
+    shared = torch.cuda.device_count() < world
+    out = None
+    for turn in range(world):
+        if turn == (rank if shared else 0):
+            out = build()
+            free_device_memory()
+        torch.distributed.barrier()
+    return out
+
+
 def tp_11b_model(rank, dev, mesh, kind: str):
     """This rank's shard of the seeded 11B (bf16 with a tied head, or the
     untied one quantized to INT4_MIXED_RECIPE at g=128): the whole model is
     built, sharded and freed one rank at a time on a shared card."""
-    shared = torch.cuda.device_count() < TP_WORLD
-    cfg, sharded = llama32_11b_vision_config(), None
-    for turn in range(TP_WORLD):
-        if turn == (rank if shared else 0):
-            model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0),
-                             tie_weights=kind == "bf16")
-            if kind == "int4_mixed":
-                model = quantize_llama_params(model, bits=4, group_size=128,
-                                              recipe=INT4_MIXED_RECIPE, free_originals=True)
-            sharded = shard_params(model, cfg, mesh)
-            del model
-            free_device_memory()
-        torch.distributed.barrier()
-    return cfg, sharded
+    cfg = llama32_11b_vision_config()
+
+    def build():
+        model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                         tie_weights=kind == "bf16")
+        if kind == "int4_mixed":
+            model = quantize_llama_params(model, bits=4, group_size=128,
+                                          recipe=INT4_MIXED_RECIPE, free_originals=True)
+        return shard_params(model, cfg, mesh)
+
+    return cfg, one_rank_at_a_time(rank, dev, build)
 
 
 def tp_11b_rank(rank, dev, args) -> dict:
@@ -3522,7 +3614,274 @@ def run_tp_11b(keep: dict, kinds=TP_11B_KINDS) -> dict:
     return by_path
 
 
-TP_PHASES = {"tp_tiny": tp_tiny_rank, "tp_11b": tp_11b_rank}
+def adapters_flat(state) -> torch.Tensor:
+    return torch.cat([t.detach().float().reshape(-1) for t in lora_leaves(state.lora).values()])
+
+
+def same_on_every_rank(mesh, x: torch.Tensor, axis: str) -> bool:
+    """Whether ``x`` is bit-equal on every rank of this rank's ``axis``
+    group (each rank compares the gathered copies)."""
+    parts = mesh.all_gather(x.reshape(1, -1), axis, dim=0)
+    return all(torch.equal(parts[0], p) for p in parts[1:])
+
+
+def tp_lora_11b_rank(rank, dev, args) -> dict:
+    """lora_11b at tp=2: the tied bf16 11B's shard, rank-16 adapters (the
+    default targets and the head), Adam lr 1e-4, B=1 S=1632; a warm-up and
+    3 timed steps, each followed by a check that both ranks hold the same
+    loss and adapters."""
+    mesh = create_mesh(tp=2)
+    cfg, model = tp_11b_model(rank, dev, mesh, "bf16")
+    base = list(model.parameters())
+    before = checksums(base)
+    lora = init_lora_params(torch.Generator(device=dev).manual_seed(1), cfg, rank=16, alpha=16.0)
+    init_state, step = make_lora_train_step(cfg, learning_rate=1e-4)
+    state = init_state(lora)
+    batch = train_batch(cfg, dev)
+    out = {"losses": [], "equal": [], "times": []}
+
+    def one_step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = step(model, state, batch)
+        torch.cuda.synchronize()
+        out["times"].append(time.perf_counter() - t)
+        out["losses"].append(loss.item())
+        out["equal"].append(same_on_every_rank(mesh, loss, AXIS_TP)
+                            and same_on_every_rank(mesh, adapters_flat(state), AXIS_TP))
+
+    one_step()  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counters()
+    with record_shapes() as rec:
+        for _ in range(3):
+            one_step()
+    launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+    faults = path_faults("tp_lora_11b", launches, plain_calls)
+    train_heads = rec.heads(("flash_attention_tc_lse", "flash_attention_bwd_dq_tc",
+                             "flash_attention_bwd_dkv_tc"))
+    if train_heads != {(16, 4)}:
+        faults.append(f"flash LSE forward and backward at heads {sorted(train_heads)}, not "
+                      f"[(16, 4)]")
+    for entry in ("rmsnorm_fwd_train_cuda", "rmsnorm_bwd_cuda"):
+        if rec.widths(entry) != {4096}:
+            faults.append(f"{entry} at widths {sorted(rec.widths(entry))}, not [4096]")
+    log(f"[tp_lora_11b rank {rank}] flash (q heads, kv heads): training {sorted(train_heads)}, "
+        f"all {sorted(rec.heads())}; RMSNorm training widths "
+        f"{sorted(rec.widths('rmsnorm_fwd_train_cuda') | rec.widths('rmsnorm_bwd_cuda'))}")
+    out.update(launches=launches, faults=faults,
+               base_unchanged=bool(torch.equal(checksums(base), before))
+               and not any(p.requires_grad for p in base),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    return out
+
+
+def run_tp_lora_11b(keep: dict) -> dict:
+    """tp_lora_11b: both ranks' losses and adapters bit-equal after every
+    step, the base unchanged, the first loss within twice the one-device
+    kernel path's distance from the plain path of the one-device lora_11b
+    first loss (``keep``), the path's kernels at the rank's shapes (flash
+    LSE, dq and dk/dv over 16 query and 4 kv heads, the training RMSNorm at
+    4096) and no plain version."""
+    res = run_tp_world("tp_lora_11b", "tp_lora_11b", {})
+    faults = [f"rank {r}: {f}" for r, one in enumerate(res) for f in one["faults"]]
+    if not all(all(one["equal"]) for one in res) or res[0]["losses"] != res[1]["losses"]:
+        faults.append(f"the ranks' losses or adapters differ: {[one['equal'] for one in res]}, "
+                      f"{[one['losses'] for one in res]}")
+    if not all(one["base_unchanged"] for one in res):
+        faults.append("the base weights changed or require gradients")
+    ref = keep["lora_11b"]
+    dl = abs(res[0]["losses"][0] - ref["loss"])
+    if not dl <= 2 * ref["dl_plain"]:
+        faults.append(f"first loss {res[0]['losses'][0]} is {dl} from the one-device kernel "
+                      f"path's {ref['loss']}, over twice that path's distance from impl='torch' "
+                      f"({ref['dl_plain']})")
+    ms = 1e3 * statistics.median(res[0]["times"][1:])
+    log(f"[tp_lora_11b] losses {res[0]['losses']} (warm-up first), equal on both ranks after "
+        f"every step; first loss {dl:.6g} from the one-device kernel path's (its distance from "
+        f"the plain path {ref['dl_plain']:.6g})")
+    log(f"[tp_lora_11b] rank 0: steps (s) {[round(x, 4) for x in res[0]['times']]}, median "
+        f"{ms:.2f} ms/step ({1632 / ms * 1e3:.1f} tokens/s; two ranks sharing one card over gloo, "
+        f"not multi-GPU times); peak {res[0]['peak_gib']:.3f} / {res[1]['peak_gib']:.3f} GiB a "
+        f"rank; launches {({k: n for k, n in res[0]['launches'].items() if n})}")
+    if faults:
+        raise RuntimeError(f"[tp_lora_11b] {faults}")
+    return res[0]["launches"]
+
+
+# zero1_full_ft_3b: the 3B bench widths at a depth four ranks on one card fit
+# (with the checkpoint's round trips in the time and disk of the smoke)
+ZERO1_DEPTH = {"decoder": 8, "vit": 8}
+
+
+def zero1_3b_config(dtype: str) -> MLLAMAConfig:
+    cfg = bench_3b_config(dtype)
+    return dataclasses.replace(
+        cfg, text_config=dataclasses.replace(cfg.text_config, n_layers=ZERO1_DEPTH["decoder"]),
+        vision_config=dataclasses.replace(cfg.vision_config,
+                                          num_hidden_layers=ZERO1_DEPTH["vit"]))
+
+
+def gather_whole(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole tensor of a rank's slice ``t`` (its placement's splits
+    all-gathered)."""
+    pl = placement_of(t)
+    for dim, parts, axis in ([] if pl is None else pl.splits):
+        if parts > 1:
+            t = mesh.all_gather(t.contiguous(), axis, dim)
+    return t
+
+
+def zero1_3b_rank(rank, dev, args) -> dict:
+    """Full fine-tuning at dp=2 x tp=2, fp32 masters, bf16 compute, frozen
+    ViT, AdamW lr 1e-5, clip 1.0, B=2 (a row a dp rank), S=1632: 3 steps
+    without ZeRO-1, then 3 with ZeRO-1 and dp-sharded masters, a
+    ShardedCheckpointer save after step 2, step 3 again from the restored
+    state, and a restore onto dp=4 x tp=1."""
+    mesh = create_mesh(dp=2, tp=2)
+    cfg = zero1_3b_config("float32")
+    batch = {k: data_sharding(mesh).local(v).contiguous()
+             for k, v in train_batch(zero1_3b_config("bfloat16"), dev, b=2).items()}
+
+    def build():
+        model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+        return shard_params(model, cfg, mesh)
+
+    def steps(step, state, n, save_after=None):
+        losses, times = [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(loss.item())
+            if save_after == i + 1:
+                t = time.perf_counter()
+                ck.save(path, state)
+                out["save_s"] = time.perf_counter() - t
+        return state, losses, times
+
+    out, ck, path = {}, ShardedCheckpointer(), os.path.join(args["dir"], "zero1_3b")
+    kw = dict(learning_rate=1e-5, max_grad_norm=1.0, freeze_vision=True,
+              compute_dtype="bfloat16")
+    model = one_rank_at_a_time(rank, dev, build)
+    init_state, step = make_train_step(cfg, **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, out["plain_losses"], out["plain_times"] = steps(step, init_state(model), 3)
+    out["plain_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del model, init_state, step, state
+    free_device_memory()
+
+    model = one_rank_at_a_time(rank, dev, build)
+    init_state, step = make_train_step(cfg, zero1_params=model, zero1_masters=True, **kw)
+    state = init_state(model)
+    del model  # the masters are the state's dp slices now; the forward runs its bf16 twin
+    free_device_memory()
+    moments = {}  # name: (elements on this rank, whole elements, dims)
+    for name, m in state.opt_state.mu.items():
+        moments[name] = (m.numel(), math.prod(placement_of(m).full_shape(m.shape)), m.dim())
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counters()
+    with record_shapes() as rec:
+        state, out["losses"], out["times"] = steps(step, state, 3, save_after=2)
+    out["launches"], plain_calls = kernels.launch_counts(), kernels.plain_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    faults = path_faults("zero1_full_ft_3b", out["launches"], plain_calls)
+    for entry in ("fused_swiglu_cuda", "fused_swiglu_bwd_cuda"):
+        if rec.weights(entry) != {(4096, 3072)}:
+            faults.append(f"{entry} at {sorted(rec.weights(entry))}, not [(4096, 3072)]")
+    heads = rec.heads(("flash_attention_tc_lse", "flash_attention_bwd_dq_tc",
+                       "flash_attention_bwd_dkv_tc"))
+    if heads != {(12, 4)}:
+        faults.append(f"flash LSE forward and backward at heads {sorted(heads)}, not [(12, 4)]")
+    quarter = [n for n, (local, whole, dims) in moments.items()
+               if ".blocks." in n and dims == 2 and local * 4 != whole]
+    if quarter:
+        faults.append(f"decoder matrices' moments not a quarter of their whole: {quarter}")
+    out["moment_elems"] = (sum(v[0] for v in moments.values()),
+                           sum(v[1] for v in moments.values()))
+    log(f"[zero1_full_ft_3b rank {rank}] SwiGLU tile at {sorted(rec.weights('fused_swiglu_cuda'))},"
+        f" backward at {sorted(rec.weights('fused_swiglu_bwd_cuda'))}; flash training heads "
+        f"{sorted(heads)}; Adam moments {out['moment_elems'][0]} of {out['moment_elems'][1]} "
+        f"elements on this rank")
+
+    # step 3 again, from the state saved after step 2, on the same mesh
+    last = {n: t.clone() for n, t in state.params.items()}
+    restored = ck.restore(path, abstract_state(state))
+    t = time.perf_counter()
+    restored, loss = step(restored, batch)
+    out["restore_s"] = time.perf_counter() - t
+    out["resume_equal"] = (loss.item() == out["losses"][2]
+                           and all(torch.equal(restored.params[n], v) for n, v in last.items())
+                           and all(torch.equal(restored.opt_state.mu[n], v)
+                                   for n, v in state.opt_state.mu.items()))
+    del restored, last
+    free_device_memory()
+
+    # the step-2 state onto dp=4 x tp=1: each rank's quarter of the whole masters
+    mesh_b = create_mesh(dp=4, tp=1)
+    whole = dict(MllamaForConditionalGeneration(cfg, "meta").named_parameters())
+    z1_b = zero1_shardings(shard_params(MllamaForConditionalGeneration(cfg, "meta"), cfg,
+                                        mesh_b))
+    names = list(state.params)
+    template = {"params": {n: whole[n] for n in names}}
+    got = ck.restore(path, abstract_state(template, {"params": {n: z1_b[n] for n in names}}))
+    saved = ck.restore(path, abstract_state({"params": state.params}))  # the step-2 masters
+    mismatched = []
+    for n in names:
+        w = gather_whole(saved["params"][n], mesh)
+        if not torch.equal(z1_b[n].local(w), got["params"][n]):
+            mismatched.append(n)
+        del w
+    out["other_mesh_mismatched"] = mismatched
+    out["faults"] = faults
+    ck.close()
+    return out
+
+
+def run_zero1_full_ft_3b(tmp_dir: str) -> dict:
+    """zero1_full_ft_3b: the SwiGLU tile forward and backward at I=4096 and
+    the flash training kernels at 12 / 4 heads on every rank, each Adam
+    moment of a decoder matrix a quarter of its whole, the losses within
+    rtol 3e-4 of the run without ZeRO-1, the step after a restore bit-equal
+    to the straight run's, and the restore onto dp=4 x tp=1 equal to the
+    saved masters."""
+    res = run_tp_world("zero1_full_ft_3b", "zero1_3b", {"dir": tmp_dir}, world=4)
+    faults = [f"rank {r}: {f}" for r, one in enumerate(res) for f in one["faults"]]
+    for key in ("losses", "plain_losses"):
+        if any(one[key] != res[0][key] for one in res):
+            faults.append(f"the ranks' {key} differ: {[one[key] for one in res]}")
+    got, want = np.asarray(res[0]["losses"]), np.asarray(res[0]["plain_losses"])
+    if not np.allclose(got, want, rtol=3e-4, atol=0):
+        faults.append(f"ZeRO-1 losses {got.tolist()} not within rtol 3e-4 of {want.tolist()}")
+    if not all(one["resume_equal"] for one in res):
+        faults.append("step 3 from the restored state differs from the straight run's")
+    bad = {r: one["other_mesh_mismatched"] for r, one in enumerate(res)
+           if one["other_mesh_mismatched"]}
+    if bad:
+        faults.append(f"the dp=4 x tp=1 restore differs from the saved masters: {bad}")
+    ms, plain_ms = (1e3 * statistics.median(res[0][k]) for k in ("times", "plain_times"))
+    log(f"[zero1_full_ft_3b] ({ZERO1_DEPTH['decoder']} decoder and {ZERO1_DEPTH['vit']} ViT "
+        f"layers of the 3B bench config) losses ZeRO-1 {got.tolist()}, without "
+        f"{want.tolist()} (max relative {float(np.max(np.abs(got - want) / np.abs(want))):.3g})")
+    log(f"[zero1_full_ft_3b] rank 0: ms/step ZeRO-1 {ms:.2f}, without {plain_ms:.2f} (four ranks "
+        f"sharing one card over gloo, not multi-GPU times); save {res[0]['save_s']:.3f} s, "
+        f"restore + step {res[0]['restore_s']:.3f} s; peak a rank "
+        f"{[round(one['peak_gib'], 3) for one in res]} GiB (without ZeRO-1 "
+        f"{[round(one['plain_peak_gib'], 3) for one in res]}); Adam moments "
+        f"{res[0]['moment_elems'][0]} of {res[0]['moment_elems'][1]} elements a rank; step 3 "
+        f"after the restore bit-equal; the dp=4 x tp=1 restore equal to the saved masters")
+    log(f"[zero1_full_ft_3b] rank 0 launches "
+        f"{({k: n for k, n in res[0]['launches'].items() if n})}")
+    if faults:
+        raise RuntimeError(f"[zero1_full_ft_3b] {faults}")
+    return res[0]["launches"]
+
+
+TP_PHASES = {"tp_tiny": tp_tiny_rank, "tp_11b": tp_11b_rank,
+             "tp_lora_11b": tp_lora_11b_rank, "zero1_3b": zero1_3b_rank}
 
 
 def run_11b_paths(dev, keep: dict) -> dict:
@@ -3646,13 +4005,18 @@ def main() -> int:
     free_device_memory()
     by_path.update(run_load_11b(dev))
     free_device_memory()
-    by_path["lora_11b"] = run_lora_11b(dev)
+    by_path["lora_11b"] = run_lora_11b(dev, tp_reference)
     free_device_memory()
     by_path["full_ft_3b"] = run_full_ft_3b(dev)
     free_device_memory()
     by_path["tp_tiny"] = run_tp_tiny(dev)
     free_device_memory()
     by_path.update(run_tp_11b(tp_reference))
+    by_path["tp_lora_11b"] = run_tp_lora_11b(tp_reference)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="zero1_3b_", dir=root) as tmp_dir:
+        by_path["zero1_full_ft_3b"] = run_zero1_full_ft_3b(tmp_dir)
     log(f"all phases {time.perf_counter() - t_start:.1f} s")
 
     out = []

@@ -33,11 +33,22 @@ Reference semantics kept from the JAX package:
   Tq, Tk]`` mask, which passes through to the plain dense attention;
 - tensor parallelism (``parallel/sharding.py::shard_params``): a decoder
   with a ``TPShard`` holds its rank's heads, FFN columns and vocabulary
-  rows; each block all-reduces ``attn_out`` after ``out_proj`` (before
-  ``norm2`` reads it) and ``ff_out`` after ``w_down``, the embedding
-  all-reduces the rows its rank looked up, and the head all-gathers the
-  vocab-sharded logits, so every rank holds the full ``[B, T, V]``. Without
-  one (``tp`` None) no collective is called.
+  rows; each block sums ``attn_out`` over ``tp`` after ``out_proj`` (before
+  ``norm2`` reads it) and ``ff_out`` after ``w_down`` (Megatron's ``g``),
+  the embedding sums the rows its rank looked up, and the head all-gathers
+  the vocab-sharded logits, so every rank holds the full ``[B, T, V]``. The
+  inputs of the column-parallel linears (norm1's and norm2's outputs, the
+  head's) pass through ``f``, whose backward sums their partial gradients,
+  so the residual stream's gradient and the norms' are whole on every rank
+  (``parallel/mesh.py``). A replicated adapter is sliced to the rank's
+  shard: ``lora_b``'s output columns on a column-parallel linear (the
+  head's vocabulary too), ``lora_a``'s input rows on a row-parallel one,
+  whose partial delta joins the partial product before the sum. Dropout
+  masks are drawn at the one-device shape and sliced the same way (and to
+  the rank's batch rows under ``dp``), so a sharded step equals the
+  one-device step. ``collect_stats`` gathers ``inter_absmean`` over ``tp``
+  and averages every statistic over ``dp``. Without a ``TPShard`` (``tp``
+  None) no collective is called.
 
 One module per layer (no ``[L, ...]`` stacks). Float linears with at most 32
 input rows run the decode gemv kernel, others (and every linear under
@@ -63,6 +74,7 @@ from llama32mm_tpu_torch.ops.quant import is_quantized
 from llama32mm_tpu_torch.ops.rmsnorm import fused_add_rmsnorm
 from llama32mm_tpu_torch.ops.rope import apply_rotary_pos_emb, rope_cos_sin
 from llama32mm_tpu_torch.ops.swiglu import fused_swiglu
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_TP
 from llama32mm_tpu_torch.utils.kvcache import KVCache
 
 
@@ -159,10 +171,31 @@ LORA_TARGETS = ("W_query", "W_key", "W_value", "out_proj", "w_gate", "w_up", "w_
 
 class Dropout(NamedTuple):
     """LoRA input dropout at ``rate``; ``seed`` starts its own generator, so
-    a recomputed block (``remat``) draws the same mask."""
+    a recomputed block (``remat``) draws the same mask. ``rows``: ``(start,
+    total)`` of this data-parallel rank's batch rows, the mask drawn for all
+    ``total`` and sliced (None: the input's own rows)."""
 
     rate: float
     seed: int
+    rows: Optional[tuple] = None
+
+
+def dropout_mask(x: torch.Tensor, dropout: Dropout, feats: Optional[tuple] = None):
+    """The keep mask of ``x [B, ..., F]``: drawn at the one-device shape,
+    ``dropout.rows`` and ``feats`` (``(start, total)`` of a row-parallel
+    input's features) giving this rank's slice of it."""
+    shape = list(x.shape)
+    if dropout.rows is not None:
+        shape[0] = dropout.rows[1]
+    if feats is not None:
+        shape[-1] = feats[1]
+    gen = torch.Generator(device=x.device).manual_seed(dropout.seed)
+    keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - dropout.rate
+    if dropout.rows is not None:
+        keep = keep.narrow(0, dropout.rows[0], x.shape[0])
+    if feats is not None:
+        keep = keep.narrow(-1, feats[0], x.shape[-1])
+    return keep
 
 
 def dropout_seeds(gen: Optional[torch.Generator], n: int) -> list:
@@ -173,23 +206,34 @@ def dropout_seeds(gen: Optional[torch.Generator], n: int) -> list:
 
 
 def maybe_lora(x: torch.Tensor, base_out: torch.Tensor, adapter: Optional[dict],
-               layer: Optional[int] = None, dropout: Optional[Dropout] = None) -> torch.Tensor:
+               layer: Optional[int] = None, dropout: Optional[Dropout] = None,
+               tp=None) -> torch.Tensor:
     """``base_out + scaling * (dropout(x) @ A) @ B`` (the JAX package's
     ``_maybe_lora``); ``layer`` picks one layer of a stacked adapter. The
     scaling multiplies the rank-r product, so autograd keeps only that
     ``[..., r]`` tensor for the scaling's gradient. A 3-D ``A`` (``[B, in,
     r]``, with ``B [B, r, out]`` and ``scaling [B]``: a bank gathered by
     row) gives each row of ``x [B, t, in]`` its own adapter, scaled after
-    both products as in JAX."""
+    both products as in JAX. With ``tp`` (a ``TPShard``) a linear whose
+    output is narrower than ``B`` takes the rank's columns of ``B``, one
+    whose input is narrower than ``A`` the rank's rows of ``A`` (and of the
+    dropout mask)."""
     if adapter is None:
         return base_out
     a, b, scaling = adapter["lora_a"], adapter["lora_b"], adapter["scaling"]
     if layer is not None:
         a, b, scaling = a[layer], b[layer], scaling[layer]
+    feats = None
+    if tp is not None:
+        n_in, n_out = x.shape[-1], base_out.shape[-1]
+        if n_in != a.shape[-2]:  # row-parallel: this rank's input features
+            feats = (tp.slice_start(a.shape[-2], n_in), a.shape[-2])
+            a = a.narrow(-2, feats[0], n_in)
+        if n_out != b.shape[-1]:  # column-parallel: this rank's output columns
+            b = b.narrow(-1, tp.slice_start(b.shape[-1], n_out), n_out)
     xin = x
     if dropout is not None and dropout.rate > 0.0:
-        gen = torch.Generator(device=x.device).manual_seed(dropout.seed)
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - dropout.rate
+        keep = dropout_mask(x, dropout, feats)
         xin = torch.where(keep, x / (1.0 - dropout.rate), torch.zeros((), dtype=x.dtype)).to(x.dtype)
     if a.dim() == 3:
         delta = torch.bmm(torch.bmm(xin, a.to(x.dtype)), b.to(x.dtype))
@@ -215,12 +259,13 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
         out = linear(x, weight, impl)
         if lora is None or lora.get(name) is None:
             return out
-        return maybe_lora(x, out, lora[name], layer_idx, (dropouts or {}).get(name))
+        return maybe_lora(x, out, lora[name], layer_idx, (dropouts or {}).get(name), tp)
 
     normed = fused_add_rmsnorm(h, block.norm1.weight, config.rms_norm_eps, impl=impl)
-    q = proj(normed, "W_query", att.W_query.weight).reshape(b, t, nq, hd).transpose(1, 2)
-    k = proj(normed, "W_key", att.W_key.weight).reshape(b, t, nkv, hd).transpose(1, 2)
-    v = proj(normed, "W_value", att.W_value.weight).reshape(b, t, nkv, hd).transpose(1, 2)
+    x_qkv = normed if tp is None else tp.copy_in(normed)  # f: column-parallel q, k, v
+    q = proj(x_qkv, "W_query", att.W_query.weight).reshape(b, t, nq, hd).transpose(1, 2)
+    k = proj(x_qkv, "W_key", att.W_key.weight).reshape(b, t, nkv, hd).transpose(1, 2)
+    v = proj(x_qkv, "W_value", att.W_value.weight).reshape(b, t, nkv, hd).transpose(1, 2)
     q, k = apply_rotary_pos_emb(q, k, cos, sin)
     k_scale = v_scale = None
     if kv_cache is not None:  # post-RoPE keys cached; int8 caches return their scales
@@ -230,31 +275,46 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
                          k_scale=k_scale, v_scale=v_scale)
     attn = attn.transpose(1, 2).reshape(b, t, nq * hd)
     attn_out = proj(attn, "out_proj", att.out_proj.weight)
-    if tp is not None:  # row-parallel: sum the ranks' partial products
-        attn_out = tp.all_reduce(attn_out)
+    if tp is not None:  # row-parallel: sum the ranks' partial products (g)
+        attn_out = tp.reduce(attn_out)
 
     normed_ff = fused_add_rmsnorm(
         attn_out, block.norm2.weight, config.rms_norm_eps, residual=h, impl=impl
     )
     w_gate, w_up = ff.w_gate.weight, ff.w_up.weight
+    x_ff = normed_ff if tp is None else tp.copy_in(normed_ff)  # f: column-parallel gate, up
     gateup_lora = lora is not None and (lora.get("w_gate") is not None
                                         or lora.get("w_up") is not None)
     if is_quantized(w_gate) or is_quantized(w_up) or gateup_lora:
-        gate = proj(normed_ff, "w_gate", w_gate)
-        up = proj(normed_ff, "w_up", w_up)
+        gate = proj(x_ff, "w_gate", w_gate)
+        up = proj(x_ff, "w_up", w_up)
         inter = (F.silu(gate.float()) * up.float()).to(gate.dtype)
     else:
-        inter = fused_swiglu(normed_ff, w_gate, w_up, impl=impl)
+        inter = fused_swiglu(x_ff, w_gate, w_up, impl=impl)
     ff_out = proj(inter, "w_down", ff.w_down.weight)
     if tp is not None:
-        ff_out = tp.all_reduce(ff_out)
+        ff_out = tp.reduce(ff_out)
     # residual-stream drop: the block input h is not added back
     out = attn_out + ff_out
     if not collect_stats:
         return out
-    return out, {"norm1_absmean": normed.float().abs().mean(dim=(0, 1)),
-                 "norm2_absmean": normed_ff.float().abs().mean(dim=(0, 1)),
-                 "inter_absmean": inter.float().abs().mean(dim=(0, 1))}
+    stats = {"norm1_absmean": normed.float().abs().mean(dim=(0, 1)),
+             "norm2_absmean": normed_ff.float().abs().mean(dim=(0, 1)),
+             "inter_absmean": inter.float().abs().mean(dim=(0, 1))}
+    if tp is not None:
+        stats = _mesh_stats(stats, tp.mesh)
+    return out, stats
+
+
+def _mesh_stats(stats: dict, mesh) -> dict:
+    """A sharded rank's statistics made the one-device ones: the SwiGLU
+    output's means gathered over ``tp``, every mean averaged over ``dp``
+    (each rank's mean covers as many rows)."""
+    stats = dict(stats, inter_absmean=mesh.all_gather(stats["inter_absmean"], AXIS_TP, dim=0))
+    n = mesh.shape[AXIS_DP]
+    if n > 1:
+        stats = {k: mesh.all_reduce(v, AXIS_DP) / n for k, v in stats.items()}
+    return stats
 
 
 def embed_tokens(model: LlamaModel, config: LLAMA32Config, ids: torch.Tensor) -> torch.Tensor:
@@ -268,7 +328,7 @@ def embed_tokens(model: LlamaModel, config: LLAMA32Config, ids: torch.Tensor) ->
     local = ids - tp.vocab_start
     outside = (local < 0) | (local >= tp.vocab_rows)
     h = model.tok_emb[local.clamp(0, tp.vocab_rows - 1)].masked_fill(outside[..., None], 0)
-    return tp.all_reduce(h)
+    return tp.reduce(h)  # forward sum, gradient through (the vocab-parallel embedding)
 
 
 def _structured_mask(attention_mask, b: int, t: int, kv_cache: Optional[KVCache],
@@ -295,17 +355,6 @@ def _structured_mask(attention_mask, b: int, t: int, kv_cache: Optional[KVCache]
     kv_valid[:, :pos] = 1
     kv_valid[:, pos:pos + t] = base
     return AttnMask(kv_valid=kv_valid, q_offset=pos)
-
-
-def _refuse_under_tp(model: LlamaModel, lora, remat: bool, collect_stats: bool) -> None:
-    """The training-side features a tensor-parallel decoder does not run yet
-    (the collectives are not recorded for backward)."""
-    if lora and lora.get("blocks") is not None:
-        not_in_slice("LoRA under tensor parallelism")
-    if remat or collect_stats:
-        not_in_slice("remat and collect_stats under tensor parallelism")
-    if torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters()):
-        not_in_slice("training under tensor parallelism")
 
 
 def llama_forward(
@@ -336,8 +385,6 @@ def llama_forward(
     if gemv_routes is not None:
         not_in_slice("gemv_routes")
     tp = model.tp
-    if tp is not None:
-        _refuse_under_tp(model, lora, remat, collect_stats)
     if input_embeds is not None:
         h = input_embeds
     elif input_ids is not None:
@@ -367,11 +414,12 @@ def llama_forward(
     n_drop = len(LORA_TARGETS)
     use_dropout = blocks_lora is not None and lora_dropout > 0.0
     seeds = dropout_seeds(dropout_rng if use_dropout else None, config.n_layers * n_drop)
+    rows = None if tp is None else tp.dp_rows(b)
     layer_stats = []
     for i, block in enumerate(model.blocks):
         dropouts = None
         if use_dropout and seeds[0] is not None:
-            dropouts = {name: Dropout(lora_dropout, seeds[i * n_drop + j])
+            dropouts = {name: Dropout(lora_dropout, seeds[i * n_drop + j], rows)
                         for j, name in enumerate(LORA_TARGETS)}
         args = (h, block, i, config, cos, sin, structured, kv_cache, impl, blocks_lora, dropouts,
                 dense_mask, collect_stats, tp)
@@ -399,14 +447,15 @@ def lm_head_apply(lm: CausalLM, config: LLAMA32Config, hidden: torch.Tensor,
     (the JAX package's ``tok_emb.T``), a quantized head goes through
     ``qlinear``. ``lora`` is the head's flat adapter, or a bank's head
     gathered by row (``[B, in, r]``: one adapter per row of ``hidden``).
-    A vocab-parallel head all-gathers its ranks' logits."""
+    A vocab-parallel head takes ``hidden`` through ``f`` and all-gathers its
+    ranks' logits (its adapter's ``lora_b`` sliced to the rank's
+    vocabulary)."""
     w = lm.model.tok_emb if lm.lm_head is None else lm.lm_head.weight
     tp = lm.model.tp
     if tp is None:
         return maybe_lora(hidden, linear(hidden, w, impl), lora, dropout=dropout)
-    if lora is not None:
-        not_in_slice("head LoRA under tensor parallelism")
-    return tp.all_gather(linear(hidden, w, impl))
+    hidden = tp.copy_in(hidden)
+    return tp.gather(maybe_lora(hidden, linear(hidden, w, impl), lora, dropout=dropout, tp=tp))
 
 
 def causal_lm_forward(lm: CausalLM, config: LLAMA32Config, input_ids=None, input_embeds=None,

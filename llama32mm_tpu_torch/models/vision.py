@@ -16,9 +16,12 @@ product with v. Inference stays on flash and is deterministic. The dropout
 bits are not JAX's; only the rule is.
 
 Tensor parallelism (``shard_params(..., vision_tp=True)``): a tower with a
-``TPShard`` holds its rank's heads and ``fc1`` columns; ``out_proj`` and
-``fc2`` all-reduce their partial products and add their bias once, after
-the reduction.
+``TPShard`` holds its rank's heads and ``fc1`` columns; the layer norms'
+outputs pass through ``f`` into the column-parallel ``q/k/v_proj`` and
+``fc1``, and ``out_proj`` and ``fc2`` sum their partial products with ``g``
+and add their bias once, after the sum (``parallel/mesh.py``), so the tower
+trains as it serves. Under ``dp`` the attention dropout's mask is drawn for
+the whole batch and sliced to the rank's rows; under ``tp`` it is refused.
 """
 
 from __future__ import annotations
@@ -59,18 +62,23 @@ def _row_affine(x: torch.Tensor, lin: Linear, tp) -> torch.Tensor:
     bias, added once."""
     if tp is None:
         return _affine(x, lin)
-    return tp.all_reduce(torch.matmul(x, lin.weight.t())) + lin.bias
+    return tp.reduce(torch.matmul(x, lin.weight.t())) + lin.bias
 
 
 def dropout_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rate: float,
-                      seed: int) -> torch.Tensor:
+                      seed: int, rows: Optional[tuple] = None) -> torch.Tensor:
     """Training attention with dropout on the weights (the JAX package's
-    explicit ``_vit_attention`` branch): ``[B, heads, N, hd]`` in and out."""
+    explicit ``_vit_attention`` branch): ``[B, heads, N, hd]`` in and out.
+    ``rows``: ``(start, total)`` of a data-parallel rank's batch rows, the
+    mask drawn for all of them and sliced."""
     scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype)
     scores = torch.matmul(q, k.transpose(-1, -2)) * scale
     weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     gen = torch.Generator(device=q.device).manual_seed(seed)
-    keep = torch.rand(weights.shape, generator=gen, device=q.device) < 1.0 - rate
+    shape = weights.shape if rows is None else (rows[1],) + tuple(weights.shape[1:])
+    keep = torch.rand(shape, generator=gen, device=q.device) < 1.0 - rate
+    if rows is not None:
+        keep = keep.narrow(0, rows[0], weights.shape[0])
     weights = torch.where(keep, weights / (1.0 - rate), torch.zeros((), dtype=weights.dtype))
     return torch.matmul(weights.to(q.dtype), v)
 
@@ -98,6 +106,8 @@ class VisionBlock(nn.Module):
         def split(t):
             return t.reshape(b, n, heads, hd).transpose(1, 2)
 
+        if tp is not None:
+            x = tp.copy_in(x)
         q = split(_affine(x, self.q_proj))
         k = split(_affine(x, self.k_proj))
         v = split(_affine(x, self.v_proj))
@@ -114,7 +124,8 @@ class VisionBlock(nn.Module):
         ``tp``: the tower's ``TPShard``, or None."""
         eps = config.layer_norm_eps
         h = h + self.attention(layer_norm(h, self.layernorm1, eps), config, impl, dropout, tp)
-        y = F.gelu(_affine(layer_norm(h, self.layernorm2, eps), self.fc1))
+        x = layer_norm(h, self.layernorm2, eps)
+        y = F.gelu(_affine(x if tp is None else tp.copy_in(x), self.fc1))
         return h + _row_affine(y, self.fc2, tp)
 
 
@@ -149,10 +160,12 @@ class VisionEncoder(nn.Module):
 
     def forward(self, pixel_values: torch.Tensor, impl: str = "auto",
                 dropout_rng: Optional[torch.Generator] = None,
-                attention_dropout: Optional[float] = None) -> torch.Tensor:
+                attention_dropout: Optional[float] = None,
+                rows: Optional[tuple] = None) -> torch.Tensor:
         """``dropout_rng`` turns on training attention dropout at
         ``attention_dropout`` (the caller's config's rate; this tower's by
-        default), a seed a layer drawn from the generator."""
+        default), a seed a layer drawn from the generator; ``rows`` as in
+        ``dropout_attention``."""
         cfg = self.config
         rate = cfg.attention_dropout if attention_dropout is None else attention_dropout
         patches = patchify(pixel_values, cfg.patch_size)
@@ -164,7 +177,7 @@ class VisionEncoder(nn.Module):
                 not_in_slice("ViT attention dropout under tensor parallelism")
             seeds = torch.randint(0, 2**62, (len(self.layers),), generator=dropout_rng,
                                   device=dropout_rng.device).tolist()
-            drops = [(rate, seed) for seed in seeds]
+            drops = [(rate, seed, rows) for seed in seeds]
         for layer, drop in zip(self.layers, drops):
             h = layer(h, cfg, impl, drop, self.tp)
         return layer_norm(h, self.post_layernorm, cfg.layer_norm_eps)

@@ -13,6 +13,14 @@ turns on the ViT's attention dropout (``models/vision.py``);
 the ``[B, T, V]`` logits never exist; ``collect_stats=True`` returns the
 decoder's per-layer activation statistics (``ops/awq.py``).
 
+Data parallelism (a sharded model on a mesh with ``dp > 1``, each rank
+given its rows of the batch): the loss is the global token mean, every
+rank's NLL sum over the valid-target count summed over ``dp``, then summed
+over ``dp`` forward with the gradient passed through (``g`` over ``dp``),
+so every rank reports the one-device loss and its gradient is its own
+share of the one-device gradient (the trainers sum them). A rank whose rows
+are all padding adds 0 and no NaN.
+
 ``encode_image`` runs under the profiler phases ``"vision_encode"`` and
 ``"mm_projector"``, the splice under ``"image_splice"``
 (``utils/profiling.py::annotate``), the JAX package's names. The module's
@@ -41,6 +49,7 @@ from llama32mm_tpu_torch.models.language import (
     maybe_lora,
 )
 from llama32mm_tpu_torch.models.vision import VisionEncoder
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, reduce_from_tp
 from llama32mm_tpu_torch.utils.kvcache import KVCache
 from llama32mm_tpu_torch.utils.profiling import annotate
 
@@ -122,14 +131,17 @@ def merge_input_ids_with_image_features(
 def encode_image(model: MllamaForConditionalGeneration, config: MLLAMAConfig,
                  pixel_values: torch.Tensor, impl: str = "auto", lora: Optional[dict] = None,
                  dropout: Optional[Dropout] = None,
-                 dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                 dropout_rng: Optional[torch.Generator] = None,
+                 rows: Optional[tuple] = None) -> torch.Tensor:
     """Vision tower + projector: ``[B, C, H, W] → [B, N, text_hidden]``.
     ``lora`` is the projector's flat adapter; ``dropout_rng`` drives the
-    tower's attention dropout."""
+    tower's attention dropout (``rows``: this data-parallel rank's batch
+    rows, as ``Dropout.rows``)."""
     frozen = not any(p.requires_grad for p in model.vision_model.parameters())
     with annotate("vision_encode"), torch.no_grad() if frozen else contextlib.nullcontext():
         feats = model.vision_model(pixel_values, impl=impl, dropout_rng=dropout_rng,
-                                   attention_dropout=config.vision_config.attention_dropout)
+                                   attention_dropout=config.vision_config.attention_dropout,
+                                   rows=rows)
     with annotate("mm_projector"):
         proj = model.multi_modal_projector
         out = torch.matmul(feats, proj.weight.t()) + proj.bias
@@ -166,9 +178,14 @@ def vlm_forward(
     lm = model.language_model
     lora = lora or {}
     proj_seed, head_seed = dropout_seeds(dropout_rng if lora_dropout > 0.0 else None, 2)
+    tp = lm.model.tp
+    mesh = None if tp is None else tp.mesh
+    rows = None
+    if tp is not None:
+        rows = tp.dp_rows((input_ids if input_ids is not None else pixel_values).shape[0])
 
     def dropout(seed):
-        return None if seed is None else Dropout(lora_dropout, seed)
+        return None if seed is None else Dropout(lora_dropout, seed, rows)
 
     inputs_embeds = None
     if input_ids is not None:
@@ -176,7 +193,7 @@ def vlm_forward(
     if pixel_values is not None and inputs_embeds is not None:
         feats = encode_image(model, config, pixel_values.to(inputs_embeds.dtype), impl=impl,
                              lora=lora.get("projector"), dropout=dropout(proj_seed),
-                             dropout_rng=dropout_rng)
+                             dropout_rng=dropout_rng, rows=rows)
         with annotate("image_splice"):
             inputs_embeds, attention_mask = merge_input_ids_with_image_features(
                 feats, inputs_embeds, input_ids, attention_mask, config.image_token_index)
@@ -199,12 +216,13 @@ def vlm_forward(
             raise ValueError("loss_chunk requires labels")
         loss = chunked_shifted_cross_entropy(lm, tc, hidden, labels, config.ignore_index,
                                              chunk=loss_chunk, lora=lora.get("lm_head"),
-                                             impl=impl)
+                                             impl=impl, mesh=mesh)
         return VLMOutput(logits=None, loss=loss, hidden_states=out.hidden_states,
                          kv_cache=out.kv_cache, stats=out.stats)
     logits = lm_head_apply(lm, tc, hidden, impl=impl, lora=lora.get("lm_head"),
                            dropout=dropout(head_seed))
-    loss = None if labels is None else shifted_cross_entropy(logits, labels, config.ignore_index)
+    loss = None if labels is None else shifted_cross_entropy(logits, labels, config.ignore_index,
+                                                             mesh)
     return VLMOutput(logits=logits, loss=loss, hidden_states=out.hidden_states,
                      kv_cache=out.kv_cache, stats=out.stats)
 
@@ -213,23 +231,37 @@ def _chunk_nll(lm: CausalLM, config, lora, impl: str, ignore_index: int, h_c: to
                t_c: torch.Tensor):
     """``(sum of the chunk's NLL, its valid targets)`` in fp32."""
     logits = lm_head_apply(lm, config, h_c, impl=impl, lora=lora)
-    valid = t_c != ignore_index
+    return _nll_sum(logits, t_c, ignore_index)
+
+
+def _nll_sum(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int):
+    valid = targets != ignore_index
     logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, torch.where(valid, t_c, 0)[..., None].long())[..., 0]
+    nll = -torch.gather(logp, -1, torch.where(valid, targets, 0)[..., None].long())[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum(), valid.sum()
+
+
+def _mean_over_mesh(nll_sum: torch.Tensor, count: torch.Tensor, mesh) -> torch.Tensor:
+    """``nll_sum / count``; under ``dp`` the count is summed over the ranks
+    first and the rank's quotient summed over them forward only (the
+    global token mean on every rank, each rank's gradient its own share)."""
+    if mesh is None or mesh.shape[AXIS_DP] == 1:
+        return nll_sum / count.clamp(min=1)
+    count = mesh.all_reduce(count.detach().clone(), AXIS_DP)
+    return reduce_from_tp(nll_sum / count.clamp(min=1), mesh, AXIS_DP)
 
 
 def chunked_shifted_cross_entropy(lm: CausalLM, config, hidden: torch.Tensor,
                                   labels: torch.Tensor, ignore_index: int, chunk: int = 1024,
                                   lora: Optional[dict] = None,
-                                  impl: str = "auto") -> torch.Tensor:
+                                  impl: str = "auto", mesh=None) -> torch.Tensor:
     """``shifted_cross_entropy`` without the full ``[B, T, V]`` logits: the
     shifted positions stream through the head and an fp32 log-softmax
     ``chunk`` at a time, each chunk under ``torch.utils.checkpoint``, so the
     backward recomputes one chunk's logits from its saved hidden slice (the
     JAX package's rematerialized ``lax.scan``). ``lora`` is the head's
-    adapter."""
+    adapter; ``mesh`` as in ``shifted_cross_entropy``."""
     sh, st = hidden[:, :-1], labels[:, 1:]
     n = sh.shape[1]
     chunk = int(min(chunk, n))
@@ -244,16 +276,13 @@ def chunked_shifted_cross_entropy(lm: CausalLM, config, hidden: torch.Tensor,
             part, valid = _chunk_nll(*args)
         nll_sum = nll_sum + part
         cnt = cnt + valid
-    return nll_sum / cnt.clamp(min=1)
+    return _mean_over_mesh(nll_sum, cnt, mesh)
 
 
 def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          ignore_index: int) -> torch.Tensor:
-    """Next-token cross entropy, mean over labels that are not ``ignore_index``."""
-    shift_logits = logits[:, :-1].float()
-    shift_labels = labels[:, 1:]
-    valid = shift_labels != ignore_index
-    logp = F.log_softmax(shift_logits, dim=-1)
-    nll = -torch.gather(logp, -1, torch.where(valid, shift_labels, 0)[..., None].long())[..., 0]
-    nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp(min=1)
+                          ignore_index: int, mesh=None) -> torch.Tensor:
+    """Next-token cross entropy, mean over labels that are not
+    ``ignore_index``; with a ``mesh`` of ``dp > 1`` (each rank holding its
+    rows), the mean over every rank's labels."""
+    nll_sum, count = _nll_sum(logits[:, :-1], labels[:, 1:], ignore_index)
+    return _mean_over_mesh(nll_sum, count, mesh)

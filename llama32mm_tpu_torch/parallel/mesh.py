@@ -6,7 +6,28 @@ tp)``, ``tp`` innermost, as the JAX package lays out its devices: the ranks
 of one tensor-parallel group are consecutive. Each axis of size > 1 has one
 process group per line of the grid; a rank keeps the group of its own line.
 Where the JAX package lets the compiler emit its collectives, the port's
-forward calls them itself (``Mesh.all_reduce`` / ``Mesh.all_gather``).
+forward calls them itself (``Mesh.all_reduce`` / ``Mesh.all_gather`` /
+``Mesh.reduce_scatter``, in place or on plain tensors).
+
+The differentiable collectives below are the Megatron pair and its
+companions, each a ``torch.autograd.Function`` that returns a new tensor
+(an all-reduce in place would overwrite a tensor autograd saved). With one
+rank on the axis each is the identity and makes no call; outside autograd
+(no gradient wanted) each is the plain collective:
+
+- ``copy_to_tp`` (Megatron's ``f``): identity forward, the gradient summed
+  over ``tp`` backward; on the input of every column-parallel linear, whose
+  ranks each give a partial gradient of the replicated activation;
+- ``reduce_from_tp`` (``g``): the partial products summed forward, identity
+  backward; after every row-parallel linear, and the vocab-parallel
+  embedding's masked lookups (the same pair: each rank's rows sum, and the
+  replicated activation's gradient is whole on every rank);
+- ``gather_from_tp``: vocab-parallel logits all-gathered forward, the
+  rank's slice of the (whole, replicated) gradient backward;
+- ``all_gather`` / ``reduce_scatter`` along any axis (ZeRO's ``dp``): each
+  the other's transpose. ``torch.distributed.nn.functional.all_reduce`` is
+  not used: its backward all-reduces the gradient again, which under this
+  layout would count a replicated gradient ``tp`` times.
 
 Which backend and device a rank uses (``init_distributed``):
 
@@ -112,8 +133,131 @@ class Mesh:
         dist.all_gather(parts, x, group=self.groups[axis])
         return torch.cat(parts, dim=dim)
 
+    def reduce_scatter(self, x: torch.Tensor, axis: str = AXIS_DP, dim: int = 0) -> torch.Tensor:
+        """``x`` summed over this rank's group along ``axis`` and cut into
+        as many equal slices along ``dim``: this rank's slice (a new
+        tensor; ``x`` itself is unchanged)."""
+        n = self.shape[axis]
+        if n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not split "
+                             f"into {n}")
+        parts = [p.contiguous() for p in x.split(x.shape[dim] // n, dim=dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=self.groups[axis])
+        return out
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, coords={self.coords}, device={self.device})"
+
+
+def _live(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x`` here."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = grad.clone(memory_format=torch.contiguous_format)
+        return ctx.mesh.all_reduce(total, ctx.axis), None, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.clone(memory_format=torch.contiguous_format), axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Forward all-gather along ``dim``; backward ``slice`` keeps the rank's
+    slice of a replicated gradient, otherwise the gradient is
+    reduce-scattered (the transpose of a gather whose result each rank
+    differentiates on its own)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, slice_back):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.slice_back = mesh, axis, dim, slice_back
+        ctx.size = x.shape[dim]
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.slice_back:
+            start = ctx.mesh.rank(ctx.axis) * ctx.size
+            out = grad.narrow(ctx.dim, start, ctx.size).contiguous()
+        else:
+            out = ctx.mesh.reduce_scatter(grad, ctx.axis, ctx.dim)
+        return out, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_gather(grad, ctx.axis, ctx.dim), None, None, None
+
+
+def copy_to_tp(x: torch.Tensor, mesh: Mesh, axis: str = AXIS_TP) -> torch.Tensor:
+    """Megatron's ``f``: ``x`` as it is; its gradient summed over ``axis``."""
+    if mesh.shape[axis] == 1 or not _live(x):
+        return x
+    return _CopyToTP.apply(x, mesh, axis)
+
+
+def reduce_from_tp(x: torch.Tensor, mesh: Mesh, axis: str = AXIS_TP) -> torch.Tensor:
+    """Megatron's ``g``: ``x`` summed over ``axis``; the gradient passes
+    through. Outside autograd the sum is made in ``x`` itself, as the
+    serving forward does."""
+    if mesh.shape[axis] == 1:
+        return x
+    if not _live(x):
+        return mesh.all_reduce(x, axis)
+    return _ReduceFromTP.apply(x, mesh, axis)
+
+
+def gather_from_tp(x: torch.Tensor, mesh: Mesh, axis: str = AXIS_TP, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``; backward, the rank's
+    slice of the gradient (which is whole on every rank)."""
+    if mesh.shape[axis] == 1:
+        return x
+    if not _live(x):
+        return mesh.all_gather(x, axis, dim)
+    return _AllGather.apply(x, mesh, axis, dim % x.dim(), True)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = AXIS_DP, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``; backward, the gradient
+    reduce-scattered over ``axis``."""
+    if mesh.shape[axis] == 1:
+        return x
+    if not _live(x):
+        return mesh.all_gather(x, axis, dim)
+    return _AllGather.apply(x, mesh, axis, dim % x.dim(), False)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str = AXIS_DP, dim: int = 0) -> torch.Tensor:
+    """``x`` summed over ``axis``, this rank's slice along ``dim``;
+    backward, the gradient all-gathered."""
+    if mesh.shape[axis] == 1:
+        return x
+    if not _live(x):
+        return mesh.reduce_scatter(x, axis, dim)
+    return _ReduceScatter.apply(x, mesh, axis, dim % x.dim())
 
 
 def _grid(shape: Dict[str, int]):

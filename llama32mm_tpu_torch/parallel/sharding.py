@@ -38,6 +38,7 @@ row-parallel int4 split falls on group boundaries (``K/tp`` a multiple of
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -46,55 +47,138 @@ from torch import nn
 from llama32mm_tpu_torch.configs import MLLAMAConfig
 from llama32mm_tpu_torch.models.common import copy_module
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
-from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_PP, AXIS_SP, AXIS_TP, Mesh
+from llama32mm_tpu_torch.parallel.mesh import (
+    AXIS_DP,
+    AXIS_PP,
+    AXIS_SP,
+    AXIS_TP,
+    Mesh,
+    copy_to_tp,
+    gather_from_tp,
+    reduce_from_tp,
+)
 
 
 class Placement:
-    """Where one tensor's slices live along a mesh axis: ``dim`` split into
-    ``parts`` equal slices (None: replicated), rank ``r`` of the axis's
-    ``n`` ranks holding slice ``r * parts // n``. ``parts`` is the axis size
-    except for kv heads fewer than ``tp``, which each several ranks hold."""
+    """Where one tensor's slices live on a mesh. Its first split is ``dim``
+    cut into ``parts`` equal slices along the mesh axis ``axis`` (None:
+    replicated), rank ``r`` of the axis's ``n`` ranks holding slice ``r *
+    parts // n``; ``parts`` is the axis size except for kv heads fewer than
+    ``tp``, which each several ranks hold. ``extend`` adds a split along
+    another axis on another dim (ZeRO-1's ``dp`` split of the optimizer
+    state, ``zero1_shardings``); ``splits`` lists them all as ``(dim,
+    parts, axis)``."""
 
-    __slots__ = ("mesh", "dim", "parts", "axis")
+    __slots__ = ("mesh", "splits")
 
     def __init__(self, mesh: Mesh, dim: Optional[int] = None, parts: int = 1,
-                 axis: str = AXIS_TP):
-        self.mesh, self.dim, self.parts, self.axis = mesh, dim, parts, axis
+                 axis: str = AXIS_TP, splits: tuple = ()):
+        self.mesh = mesh
+        self.splits = tuple(splits) if splits else (
+            () if dim is None else ((dim, parts, axis),))
+
+    @property
+    def dim(self) -> Optional[int]:
+        return self.splits[0][0] if self.splits else None
+
+    @property
+    def parts(self) -> int:
+        return self.splits[0][1] if self.splits else 1
+
+    @property
+    def axis(self) -> str:
+        return self.splits[0][2] if self.splits else AXIS_TP
+
+    def _index(self, parts: int, axis: str, coords: Optional[dict] = None) -> int:
+        r = self.mesh.rank(axis) if coords is None else coords[axis]
+        return r * parts // self.mesh.shape[axis]
 
     @property
     def index(self) -> int:
-        return self.mesh.rank(self.axis) * self.parts // self.mesh.shape[self.axis]
+        return self._index(self.parts, self.axis)
+
+    def extend(self, dim: int, parts: int, axis: str) -> "Placement":
+        """This placement with ``dim`` also cut into ``parts`` along ``axis``."""
+        return Placement(self.mesh, splits=self.splits + ((dim, parts, axis),))
+
+    def drop(self, dim: int) -> "Placement":
+        """The placement of a reduction of the tensor over ``dim`` (that
+        dim's splits gone, the later dims one lower)."""
+        return Placement(self.mesh, splits=tuple((d - (d > dim), parts, axis)
+                                                 for d, parts, axis in self.splits if d != dim))
 
     def local_range(self, size: int) -> tuple:
-        """``(start, length)`` of this rank's slice of a dim of ``size``."""
+        """``(start, length)`` of this rank's slice of the first split's dim."""
         if self.dim is None:
             return 0, size
         chunk = size // self.parts
         return self.index * chunk, chunk
 
+    def box(self, shape, coords: Optional[dict] = None) -> list:
+        """``[(start, length)]`` per dim of the slice that the rank at
+        ``coords`` (default: this rank) holds of a tensor of the whole
+        ``shape``."""
+        box = [[0, n] for n in shape]
+        for dim, parts, axis in self.splits:
+            length = box[dim][1] // parts
+            box[dim] = [box[dim][0] + self._index(parts, axis, coords) * length, length]
+        return [tuple(b) for b in box]
+
     def local_shape(self, shape) -> tuple:
-        shape = tuple(shape)
-        if self.dim is None:
-            return shape
-        return shape[:self.dim] + (shape[self.dim] // self.parts,) + shape[self.dim + 1:]
+        shape = list(shape)
+        for dim, parts, _ in self.splits:
+            shape[dim] //= parts
+        return tuple(shape)
 
     def full_shape(self, local_shape) -> tuple:
-        shape = tuple(local_shape)
-        if self.dim is None:
-            return shape
-        return shape[:self.dim] + (shape[self.dim] * self.parts,) + shape[self.dim + 1:]
+        shape = list(local_shape)
+        for dim, parts, _ in self.splits:
+            shape[dim] *= parts
+        return tuple(shape)
 
     def local(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the whole tensor ``t`` (a view)."""
-        if self.dim is None:
-            return t
-        start, length = self.local_range(t.shape[self.dim])
-        return t.narrow(self.dim, start, length)
+        for dim, (start, length) in enumerate(self.box(t.shape)):
+            if length != t.shape[dim]:
+                t = t.narrow(dim, start, length)
+        return t
+
+    def split_over(self, axis: str) -> int:
+        """How many slices this placement cuts along ``axis`` (1: none)."""
+        return math.prod(parts for _, parts, a in self.splits if a == axis)
+
+    def replicas(self, axis: str) -> int:
+        """How many ranks along ``axis`` hold each of its slices."""
+        return self.mesh.shape[axis] // self.split_over(axis)
 
     def __repr__(self) -> str:
-        if self.dim is None:
+        if not self.splits:
             return "Placement(replicated)"
-        return f"Placement(dim={self.dim}, parts={self.parts}, axis={self.axis!r})"
+        if len(self.splits) == 1:
+            return f"Placement(dim={self.dim}, parts={self.parts}, axis={self.axis!r})"
+        return f"Placement(splits={self.splits})"
+
+
+# The attribute a local tensor of a sharded model or train state carries its
+# Placement in (a torch tensor has no layout of its own, where a JAX array
+# carries its sharding): set by shard_params, the optimizers and the
+# checkpointer's restore, read by the trainers, the optimizers and the
+# checkpointer. Copies (``detach``, ``state_dict()``) do not carry it.
+_PLACEMENT = "_llama32mm_placement"
+
+
+def set_placement(t: torch.Tensor, placement: Optional[Placement]) -> torch.Tensor:
+    """Note ``t``'s placement (None: a one-device tensor); returns ``t``."""
+    if placement is not None:
+        setattr(t, _PLACEMENT, placement)
+    elif hasattr(t, _PLACEMENT):
+        delattr(t, _PLACEMENT)
+    return t
+
+
+def placement_of(t: torch.Tensor) -> Optional[Placement]:
+    """The placement noted for ``t``, or None (a one-device tensor)."""
+    return getattr(t, _PLACEMENT, None)
 
 
 class TPShard:
@@ -110,12 +194,41 @@ class TPShard:
         self.vocab_start = vocab_start
         self.vocab_rows = vocab_rows
 
+    @property
+    def rank(self) -> int:
+        return self.mesh.rank(AXIS_TP)
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape[AXIS_TP]
+
+    def slice_start(self, full: int, local: int) -> int:
+        """Where this rank's ``local`` columns start in a ``full``-wide
+        axis split into ``full // local`` slices over ``tp`` (kv heads
+        fewer than ``tp`` repeat across ranks)."""
+        return self.rank * (full // local) // self.size * local
+
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_reduce(x, AXIS_TP)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Vocab-sharded ``[..., V/tp]`` → the full ``[..., V]``."""
-        return self.mesh.all_gather(x, AXIS_TP, dim=-1)
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """``f`` on a column-parallel linear's input (``mesh.copy_to_tp``)."""
+        return copy_to_tp(x, self.mesh)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``g`` on row-parallel partial products (``mesh.reduce_from_tp``)."""
+        return reduce_from_tp(x, self.mesh)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Vocab-sharded ``[..., V/tp]`` logits → the full ``[..., V]``
+        (``gather_from_tp``)."""
+        return gather_from_tp(x, self.mesh)
+
+    def dp_rows(self, local_rows: int) -> Optional[tuple]:
+        """``(start, total)`` of this rank's batch rows under ``dp``, or None
+        when the mesh has one data-parallel rank."""
+        n = self.mesh.shape[AXIS_DP]
+        return None if n == 1 else (self.mesh.rank(AXIS_DP) * local_rows, local_rows * n)
 
 
 _COLUMN = frozenset({"W_query", "w_gate", "w_up"})
@@ -221,7 +334,7 @@ def _localize(mod: nn.Module, prefix: str, plan: Dict[str, Placement]) -> nn.Mod
             local = pl.local(t).clone(memory_format=torch.contiguous_format)
             if slot == "_parameters":
                 local = nn.Parameter(local, requires_grad=t.requires_grad)
-            getattr(new, slot)[name] = local
+            getattr(new, slot)[name] = set_placement(local, pl)
     for name, child in mod._modules.items():
         if child is not None:
             new._modules[name] = _localize(child, f"{prefix}{name}.", plan)
@@ -257,7 +370,64 @@ def shard_params(model: nn.Module, config: MLLAMAConfig, mesh: Mesh,
     return new
 
 
+def data_sharding(mesh: Mesh, ndim: int = 2) -> Placement:
+    """Batch-sharded tensors: ``[B, ...]`` on ``dp`` (each data-parallel
+    rank's rows: ``data_sharding(mesh).local(batch)``). ``ndim`` is kept
+    for the JAX signature; the split is dim 0 whatever it is."""
+    del ndim
+    return Placement(mesh, 0, mesh.shape[AXIS_DP], AXIS_DP)
+
+
+def lora_shardings(mesh: Mesh, lora_like: dict) -> dict:
+    """LoRA adapters: replicated on every rank, as the JAX package keeps
+    them (each tensor-parallel rank reads the slice of ``lora_b``'s columns
+    or ``lora_a``'s rows that its shard of the base weight needs)."""
+    return {k: lora_shardings(mesh, v) if isinstance(v, dict) else Placement(mesh)
+            for k, v in lora_like.items()}
+
+
+def zero1_extend(placement: Placement, shape, axis: str = AXIS_DP) -> Placement:
+    """``placement`` (of a tensor whose whole shape is ``shape``) extended
+    with ``axis`` on its largest still-unsplit dim that the axis's size
+    divides (the first of equals), as the JAX package's ``_zero1_extend``;
+    unchanged when the axis has one rank, is already used, or no dim
+    qualifies."""
+    size = placement.mesh.shape[axis]
+    if size == 1 or placement.split_over(axis) > 1:
+        return placement
+    used = {dim for dim, _, _ in placement.splits}
+    best_dim, best = -1, 0
+    for d, n in enumerate(shape):
+        if d not in used and n % size == 0 and n > best:
+            best, best_dim = n, d
+    if best_dim < 0:
+        return placement
+    return placement.extend(best_dim, size, axis)
+
+
+def zero1_shardings(params: nn.Module, axis: str = AXIS_DP) -> Dict[str, Placement]:
+    """ZeRO-1 optimizer-state placements: ``{name: Placement}`` for every
+    parameter of ``params`` (a rank's local model from ``shard_params``),
+    its tensor-parallel placement (replicated where it has none) extended
+    over ``axis`` (``zero1_extend``). Adam moments placed this way hold
+    ``1 / |axis|`` of the tensor-parallel layout's bytes on a rank."""
+    mesh = mesh_of(params)
+    if mesh is None:
+        raise ValueError("zero1_shardings: pass the local model of shard_params")
+    out = {}
+    for name, t in params.named_parameters():
+        pl = placement_of(t) or Placement(mesh)
+        out[name] = zero1_extend(pl, pl.full_shape(t.shape), axis)
+    return out
+
+
 def tp_of(model: nn.Module) -> Optional[TPShard]:
     """The decoder's ``TPShard`` of a VLM or a ``CausalLM`` (None on one
     device)."""
     return getattr(model, "language_model", model).model.tp
+
+
+def mesh_of(model: nn.Module) -> Optional[Mesh]:
+    """The mesh a sharded model runs on (None on one device)."""
+    tp = tp_of(model)
+    return None if tp is None else tp.mesh

@@ -8,6 +8,15 @@ scaling included, as every leaf of the JAX tree is differentiated and
 stepped by ``optax.adam``. The base model stays frozen: its parameters do
 not require gradients. The step updates the adapters and the Adam moments in
 place.
+
+On a mesh (the model from ``parallel.shard_params``, each rank given its
+rows of the batch) the adapters stay replicated, as the JAX package keeps
+them (``parallel.lora_shardings``); each tensor-parallel rank reads its
+slice (``models/language.py``), so the decoder's and the head's adapter
+gradients are partial sums, summed over ``tp``, while the projector's is
+whole on every rank. Every gradient is then summed over ``dp`` (each
+rank's share of the global token mean), so every rank takes the same Adam
+step.
 """
 
 from __future__ import annotations
@@ -23,7 +32,9 @@ from llama32mm_tpu_torch.configs import LLAMA32Config, MLLAMAConfig
 from llama32mm_tpu_torch.models.common import Linear, copy_module
 from llama32mm_tpu_torch.models.language import LORA_TARGETS, Dropout, maybe_lora
 from llama32mm_tpu_torch.models.vlm import vlm_forward
-from llama32mm_tpu_torch.train.accum import accumulate_grads, loss_and_grads
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_TP
+from llama32mm_tpu_torch.parallel.sharding import mesh_of
+from llama32mm_tpu_torch.train.accum import accumulate_grads, all_reduce_flat, loss_and_grads
 from llama32mm_tpu_torch.train.optim import Adam, AdamState
 from llama32mm_tpu_torch.utils import st_file
 
@@ -279,12 +290,17 @@ def make_lora_train_step(
     def train_step(model, state: LoraTrainState, batch: dict, rng=None):
         flat = lora_leaves(state.lora)
         wrt = list(flat.values())
+        mesh = mesh_of(model)
         with torch.enable_grad():
             if accum_steps > 1:
                 loss, grads = accumulate_grads(lambda mb: loss_fn(model, state.lora, mb, rng),
-                                               wrt, batch, accum_steps, config.ignore_index)
+                                               wrt, batch, accum_steps, config.ignore_index, mesh)
             else:
                 loss, grads = loss_and_grads(loss_fn(model, state.lora, batch, rng), wrt)
+        # the rank's slices give partial gradients (not the projector's: it is whole)
+        all_reduce_flat([g for name, g in zip(flat, grads) if not name.startswith("projector.")],
+                        mesh, AXIS_TP)
+        all_reduce_flat(grads, mesh, AXIS_DP)
         opt_state = tx.step(flat, dict(zip(flat, grads)), state.opt_state)
         return LoraTrainState(lora=state.lora, opt_state=opt_state, step=state.step + 1), loss
 

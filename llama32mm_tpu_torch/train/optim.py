@@ -29,23 +29,65 @@ runs over all of a stack's layers.
 
 Parameters are updated in place, one at a time, so the temporaries of a step
 are those of the largest parameter rather than of the whole model.
+
+Sharded parameters (``layouts``: ``{name: parallel.Placement}``, each
+tensor a rank's slice): every reduction the rules make over a whole tensor
+or the whole tree is made over the mesh. The global norm sums each rank's
+squares, a tensor held by several ranks counted once (its sum divided by
+its replicas), over ``tp`` and ``dp``; Adafactor's factoring follows the
+whole shape, its row and column means over a split dim are summed over the
+split's axis, and each block's RMS sums over the mesh as the norm does.
+Those sums of squares accumulate in fp64, so the norm and the RMS round to
+the same fp32 bits however the tensors are split: with bf16 compute, an
+fp32 sum's order would move the clip's last bits, and the masters' bf16
+casts would turn them into different weights. The result equals the
+one-device optimizer's up to the order of Adafactor's means.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
 import torch
 
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_TP
+from llama32mm_tpu_torch.parallel.sharding import set_placement
 
-def _global_norm_clip(grads: dict, max_norm: Optional[float]):
-    """optax's ``clip_by_global_norm``: the norm to divide by, or None when
-    the global norm is below ``max_norm`` (or there is no clip)."""
+
+def _weight(pl) -> float:
+    """``1 / `` the number of ranks that hold the same slice (1 unsharded)."""
+    return 1.0 if pl is None else 1.0 / (pl.replicas(AXIS_TP) * pl.replicas(AXIS_DP))
+
+
+def _mesh_sum(x: torch.Tensor, layouts: Optional[dict]) -> torch.Tensor:
+    """``x`` (per-rank partial sums, each already divided by its replicas)
+    summed over the mesh of ``layouts`` (no call on one device)."""
+    pl = next((p for p in (layouts or {}).values() if p is not None), None)
+    if pl is None:
+        return x
+    for axis in (AXIS_TP, AXIS_DP):
+        x = pl.mesh.all_reduce(x, axis)
+    return x
+
+
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x``'s fp32 squares, accumulated in fp64: the same bits
+    (after rounding to fp32) however the tensor is split and summed over
+    the mesh, where an fp32 sum's order moves its last bits."""
+    return x.float().square().sum(dtype=torch.float64)
+
+
+def _global_norm_clip(grads: dict, max_norm: Optional[float], layouts: Optional[dict] = None):
+    """optax's ``clip_by_global_norm``: the norm to divide by (fp32), or
+    None when the global norm is below ``max_norm`` (or there is no clip)."""
     if max_norm is None:
         return None
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+    layouts = layouts or {}
+    sq = sum(_sum_squares(g) * _weight(layouts.get(name)) for name, g in grads.items())
+    norm = torch.sqrt(_mesh_sum(sq, layouts)).float()
     return None if bool(norm < max_norm) else norm
 
 
@@ -68,18 +110,25 @@ class Adam:
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
 
-    def init(self, params: dict) -> AdamState:
-        zeros = {name: torch.zeros_like(p, requires_grad=False) for name, p in params.items()}
-        return AdamState(count=0, mu=zeros,
-                         nu={name: torch.zeros_like(p, requires_grad=False)
-                             for name, p in params.items()})
+    def init(self, params: dict, layouts: Optional[dict] = None) -> AdamState:
+        """Zero moments shaped like ``params``; ``layouts`` (as in ``step``)
+        notes each moment's placement, its parameter's."""
+        layouts = layouts or {}
+
+        def zeros():
+            return {name: set_placement(torch.zeros_like(p, requires_grad=False),
+                                        layouts.get(name)) for name, p in params.items()}
+
+        return AdamState(count=0, mu=zeros(), nu=zeros())
 
     @torch.no_grad()
-    def step(self, params: dict, grads: dict, state: AdamState) -> AdamState:
+    def step(self, params: dict, grads: dict, state: AdamState,
+             layouts: Optional[dict] = None) -> AdamState:
         """Update ``params`` in place from ``grads`` (same keys; a gradient
         may be of a lower precision than its parameter) and return the new
-        state (its moments are updated in place)."""
-        clip = _global_norm_clip(grads, self.max_grad_norm)
+        state (its moments are updated in place). ``layouts``: each sharded
+        parameter's placement (see the module's notes)."""
+        clip = _global_norm_clip(grads, self.max_grad_norm, layouts)
         lr = self.learning_rate(state.count) if callable(self.learning_rate) else self.learning_rate
         count = state.count + 1
         bc1, bc2 = 1.0 - self.b1**count, 1.0 - self.b2**count
@@ -97,6 +146,27 @@ class Adam:
                 u.add_(p, alpha=self.weight_decay)
             p.add_(u, alpha=-lr)
         return AdamState(count=count, mu=state.mu, nu=state.nu)
+
+
+def _whole(p: torch.Tensor, name: str, layouts: Optional[dict]) -> tuple:
+    """The whole shape of the parameter whose (local) tensor is ``p``."""
+    pl = (layouts or {}).get(name)
+    return tuple(p.shape) if pl is None else pl.full_shape(p.shape)
+
+
+def _mean(x: torch.Tensor, dim: int, whole_dim: int, pl, keepdim: bool = True) -> torch.Tensor:
+    """``x.mean(dim)`` of the whole tensor: where ``whole_dim`` (the dim's
+    index in the parameter) is split, the slices' sums are summed over the
+    split's axis (every rank of it: a slice that several ranks hold counts
+    as often) before dividing by the whole size as often."""
+    axes = [] if pl is None else [axis for d, parts, axis in pl.splits
+                                  if d == whole_dim and parts > 1]
+    if not axes:
+        return x.mean(dim=dim, keepdim=keepdim)
+    total = x.sum(dim=dim, keepdim=keepdim)
+    for axis in axes:
+        total = pl.mesh.all_reduce(total, axis)
+    return total / (x.shape[dim] * math.prod(pl.mesh.shape[a] for a in axes))
 
 
 def stacked_leaf(name: str) -> str:
@@ -143,38 +213,47 @@ class Adafactor:
         self.weight_decay_rate = weight_decay_rate
         self.max_grad_norm = max_grad_norm
 
-    def init(self, params: dict) -> AdafactorState:
+    def init(self, params: dict, layouts: Optional[dict] = None) -> AdafactorState:
+        """Zero statistics; ``layouts`` as in ``step`` (the factoring
+        follows each parameter's whole shape)."""
         v_row, v_col, v = {}, {}, {}
         for name, p in params.items():
-            dims = _factored_dims(p.shape, self.MIN_DIM_SIZE_TO_FACTOR)
+            pl = (layouts or {}).get(name)
+            dims = _factored_dims(_whole(p, name, layouts), self.MIN_DIM_SIZE_TO_FACTOR)
             if dims is None:
-                v[name] = torch.zeros_like(p, requires_grad=False)
+                v[name] = set_placement(torch.zeros_like(p, requires_grad=False), pl)
             else:
                 d1, d0 = dims
-                v_row[name] = torch.zeros_like(p.select(d0, 0), requires_grad=False)
-                v_col[name] = torch.zeros_like(p.select(d1, 0), requires_grad=False)
+                v_row[name] = set_placement(torch.zeros_like(p.select(d0, 0), requires_grad=False),
+                                            None if pl is None else pl.drop(d0))
+                v_col[name] = set_placement(torch.zeros_like(p.select(d1, 0), requires_grad=False),
+                                            None if pl is None else pl.drop(d1))
         return AdafactorState(count=0, v_row=v_row, v_col=v_col, v=v)
 
-    def _update(self, name: str, p: torch.Tensor, g: torch.Tensor,
-                state: AdafactorState) -> torch.Tensor:
+    def _update(self, name: str, p: torch.Tensor, g: torch.Tensor, state: AdafactorState,
+                layouts: dict) -> torch.Tensor:
         """``g`` scaled by the (new) second-moment statistics."""
-        dims = _factored_dims(p.shape, self.MIN_DIM_SIZE_TO_FACTOR)
+        pl = layouts.get(name)
+        dims = _factored_dims(_whole(p, name, layouts), self.MIN_DIM_SIZE_TO_FACTOR)
         if dims is None:
             return g * state.v[name].rsqrt()
         d1, d0 = dims
         row = state.v_row[name]
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_factor = (row / row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+        row_mean = _mean(row, reduced_d1, d1, pl)
+        row_factor = (row / row_mean).rsqrt()
         return g * row_factor.unsqueeze(d0) * state.v_col[name].rsqrt().unsqueeze(d1)
 
     @torch.no_grad()
-    def step(self, params: dict, grads: dict, state: AdafactorState) -> AdafactorState:
+    def step(self, params: dict, grads: dict, state: AdafactorState,
+             layouts: Optional[dict] = None) -> AdafactorState:
         """Update ``params`` in place from ``grads`` and return the new state
         (its statistics updated in place). Two passes over the parameters:
         the first updates the statistics and sums each block's squared
         update, the second recomputes the update, clips it by its block's
-        RMS and applies it."""
-        clip = _global_norm_clip(grads, self.max_grad_norm)
+        RMS and applies it. ``layouts`` as in ``Adam.step``."""
+        layouts = layouts or {}
+        clip = _global_norm_clip(grads, self.max_grad_norm, layouts)
         lr = self.learning_rate(state.count) if callable(self.learning_rate) else self.learning_rate
         t = torch.tensor(float(state.count + 1), dtype=torch.float32)
         decay = float(1.0 - t ** (-self.DECAY_RATE))
@@ -187,22 +266,27 @@ class Adafactor:
         for name, p in params.items():
             g = grad(name, p)
             g2 = g.square() + self.EPSILON
-            dims = _factored_dims(p.shape, self.MIN_DIM_SIZE_TO_FACTOR)
+            pl = layouts.get(name)
+            dims = _factored_dims(_whole(p, name, layouts), self.MIN_DIM_SIZE_TO_FACTOR)
             if dims is None:
                 state.v[name].mul_(decay).add_((1.0 - decay) * g2)
             else:
                 d1, d0 = dims
-                state.v_row[name].mul_(decay).add_((1.0 - decay) * g2.mean(dim=d0))
-                state.v_col[name].mul_(decay).add_((1.0 - decay) * g2.mean(dim=d1))
+                state.v_row[name].mul_(decay).add_((1.0 - decay) * _mean(g2, d0, d0, pl, False))
+                state.v_col[name].mul_(decay).add_((1.0 - decay) * _mean(g2, d1, d1, pl, False))
             del g2
             block = stacked_leaf(name)
-            u = self._update(name, p, g, state)
-            sq_sum[block] = sq_sum.get(block, 0.0) + u.float().square().sum()
-            size[block] = size.get(block, 0) + u.numel()
+            u = self._update(name, p, g, state, layouts)
+            sq_sum[block] = sq_sum.get(block, 0.0) + _sum_squares(u) * _weight(pl)
+            size[block] = size.get(block, 0) + math.prod(_whole(p, name, layouts))
+        if layouts:  # every block's sum over the mesh, in one call an axis
+            names = list(sq_sum)
+            sums = _mesh_sum(torch.stack([sq_sum[b] for b in names]), layouts)
+            sq_sum = dict(zip(names, sums.unbind(0)))
         for name, p in params.items():
-            u = self._update(name, p, grad(name, p), state)
+            u = self._update(name, p, grad(name, p), state, layouts)
             block = stacked_leaf(name)
-            rms = torch.sqrt(sq_sum[block] / size[block])
+            rms = torch.sqrt(sq_sum[block] / size[block]).float()
             u = u / torch.clamp(rms / self.CLIPPING_THRESHOLD, min=1.0).to(u.dtype)
             u = u * lr
             if self.weight_decay_rate is not None:

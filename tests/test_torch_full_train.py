@@ -278,16 +278,51 @@ def test_split_trainable_freezes_the_vision_tower(jax_params):
 
 @pytest.mark.parametrize("kwargs,error,match", [
     ({"optimizer": "adagrad"}, ValueError, "optimizer must be"),
-    ({"zero1_params": {}}, NotImplementedError, "ROADMAP.md"),
-    ({"zero1_masters": True}, NotImplementedError, "ROADMAP.md"),
-    ({"zero1_params": {}, "loss_chunk": 4}, NotImplementedError, "ROADMAP.md"),
 ])
 def test_refused_options_raise(kwargs, error, match):
-    """ZeRO partitioning stays refused and an unknown optimizer is an
-    error; ``optimizer="adafactor"`` and ``loss_chunk`` are ported
-    (tests/test_torch_train_ext.py)."""
+    """An unknown optimizer is an error; ``optimizer="adafactor"`` and
+    ``loss_chunk`` are ported (tests/test_torch_train_ext.py), and so is
+    ZeRO-1 (below; across ranks: tests/test_torch_tp_train.py)."""
     with pytest.raises(error, match=match):
         make_train_step(tiny_mllama_config(), **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"zero1_params": True},
+    {"zero1_masters": True},
+    {"zero1_params": True, "zero1_masters": True, "loss_chunk": 4},
+])
+def test_once_refused_zero1_options_run(jax_params, kwargs):
+    """The ZeRO-1 options that were refused now train. On a one-rank mesh
+    (``shard_params`` over ``single_device_mesh``) there is no ``dp`` axis
+    to split over, so two steps equal the plain step's bit for bit; with
+    ``zero1_masters`` the masters are the state's own copies, and the
+    model's parameters stay as they were."""
+    from llama32mm_tpu_torch.parallel import shard_params, single_device_mesh
+
+    cfg = tiny_mllama_config()
+    batch = _t(_batch())
+    kw = {k: v for k, v in kwargs.items() if k != "zero1_params"}
+    plain_init, plain_step = make_train_step(cfg, learning_rate=1e-3,
+                                             loss_chunk=kw.get("loss_chunk"))
+    want = plain_init(_model(jax_params))
+    model = shard_params(_model(jax_params), cfg, single_device_mesh("cpu"))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    if kwargs.get("zero1_params"):
+        kw["zero1_params"] = model
+    init, step = make_train_step(cfg, learning_rate=1e-3, **kw)
+    state = init(model)
+    for _ in range(2):
+        want, loss_want = plain_step(want, batch)
+        state, loss = step(state, batch)
+        assert torch.equal(loss, loss_want)
+    assert state.opt_state.count == 2
+    for name, t in want.params.items():
+        assert torch.equal(state.params[name], t), name
+        assert torch.equal(state.opt_state.mu[name], want.opt_state.mu[name]), name
+    masters_apart = kwargs.get("zero1_params") and kwargs.get("zero1_masters")
+    for name, p in model.named_parameters():
+        assert torch.equal(p, before[name]) == bool(masters_apart), name
 
 
 def test_vit_attention_dropout_refused(jax_params):

@@ -45,7 +45,8 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.train.optim", "llama32mm_tpu_torch",
     "llama32mm_tpu_torch.models.wrapper", "llama32mm_tpu_torch.utils.profiling",
     "llama32mm_tpu_torch.parallel", "llama32mm_tpu_torch.parallel.mesh",
-    "llama32mm_tpu_torch.parallel.sharding",
+    "llama32mm_tpu_torch.parallel.sharding", "llama32mm_tpu_torch.train.accum",
+    "llama32mm_tpu_torch.train.lora", "llama32mm_tpu_torch.train.full",
 ]
 
 
@@ -298,10 +299,11 @@ def test_refusals_of_earlier_slices_are_gone(tiny_model, feature):
 
 def test_not_in_slice_sites_left():
     """The refusals left in the port's sources: gemv routes (engine, server,
-    language), the fused layout, ZeRO, the sharded checkpointer, and what
-    tensor parallelism does not run yet (training and LoRA in the decoder,
-    the ViT's dropout, adapter banks, the server at dp > 1, draft models, the
-    HTTP front end, sequence and pipeline meshes)."""
+    language), the fused layout, and what tensor parallelism does not run
+    yet (the ViT's dropout, adapter banks, the server at dp > 1, draft
+    models, the HTTP front end, sequence and pipeline meshes). ZeRO, the
+    sharded checkpointer and training under tensor parallelism are
+    ported."""
     import glob
 
     sites = []
@@ -314,9 +316,9 @@ def test_not_in_slice_sites_left():
     assert sorted(set(sites)) == [
         "llama32mm_tpu_torch/convert.py", "llama32mm_tpu_torch/inference/engine.py",
         "llama32mm_tpu_torch/inference/http_server.py",
-        "llama32mm_tpu_torch/inference/server.py", "llama32mm_tpu_torch/io/distributed.py",
+        "llama32mm_tpu_torch/inference/server.py",
         "llama32mm_tpu_torch/models/language.py", "llama32mm_tpu_torch/models/vision.py",
-        "llama32mm_tpu_torch/parallel/sharding.py", "llama32mm_tpu_torch/train/full.py"]
+        "llama32mm_tpu_torch/parallel/sharding.py"]
 
 
 def test_int8_kv_cache_refused():

@@ -403,11 +403,18 @@ def test_abstract_state_takes_the_local_shapes(world2):
 # -- what is not ported under TP ---------------------------------------------------
 
 
-@pytest.mark.parametrize("feature", ["lora", "adapter_bank", "draft", "http", "training",
-                                     "sequence_parallel"])
+@pytest.mark.parametrize("feature", ["adapter_bank", "draft", "http", "sequence_parallel"])
 def test_not_ported_under_tp_raises(world2, feature):
     for r in _ok(world2, "refusals"):
         assert r[feature] == "not_in_slice", r[feature]
+
+
+@pytest.mark.parametrize("feature", ["lora", "training"])
+def test_once_refused_under_tp_runs(world2, feature):
+    """LoRA and gradients under tensor parallelism, once refused, now run
+    (their agreement with the JAX package: tests/test_torch_tp_train.py)."""
+    for r in _ok(world2, "refusals"):
+        assert r[feature] == "ran", r[feature]
 
 
 def test_server_at_dp2_raises(world4):
