@@ -170,7 +170,33 @@
    SwiGLU tile forward and backward at I=4096 and the flash training
    kernels at 12 / 4 heads on every rank; a ``ShardedCheckpointer`` save
    after step 2, step 3 from the restored state bit-equal to the straight
-   run's, and the saved masters restored onto dp=4 × tp=1 equal to them.
+   run's, and the saved masters restored onto dp=4 × tp=1 equal to them;
+23. ``sp_lora_11b``: ``lora_11b`` at sp=2 (two ranks, the tied bf16 11B at
+   full width and depth, B=1 S=4096, 2048 tokens a rank, the image in the
+   first chunk; ``remat``, ``loss_chunk=1024``; a warm-up and 3 timed
+   steps): both ranks' losses and adapters bit-equal after every step, the
+   base unchanged, the first loss within twice the distance between the
+   one-device kernel path and ``impl="torch"`` on the same batch
+   (``run_lora_11b`` keeps both), and on every rank exactly 2 ring steps of
+   the flash LSE forward (twice: ``remat``), dq and dk/dv a layer at 32 / 8
+   heads and Tq = Tk = 2048, the training RMSNorm at 4096, no plain
+   version; ms a step, peak GiB and the bytes ``ppermute`` sent a step;
+24. ``pp_full_ft_3b``: ``make_pipeline_train_step`` over the 3B bench
+   widths, text only, at ``ZERO1_DEPTH``'s decoder depth split into 2
+   stages, four ranks at pp=2 × dp=2 (bf16, Adam lr 1e-4, 2 microbatches,
+   B=4 S=1632, ``loss_chunk=512``), 3 steps: each loss within twice the
+   distance between the unpipelined kernel path and the unpipelined
+   ``impl="torch"`` path at that step (both trained on one device first),
+   the replicated leaves bit-equal on every rank after every step, and on
+   every rank the SwiGLU tile forward and backward at I=8192 and the flash
+   training kernels at 24 / 8 heads exactly (M + pp - 1) x the stage's 4
+   layers a step; ms a step, the bubble share and peak GiB.
+
+The ``ring`` kernel cases of step 3 run the flash LSE forward, dq and dk/dv
+at the ring's shapes (32 / 8 heads, Tq = Tk = 2048) at a chunk wholly in the
+future (``q_offset = -2048``: the output and every gradient exactly 0, the
+LSE exactly ``NEG_BIG``), the diagonal and a chunk wholly in the past, and
+a backward fed the LSE and delta of a two-chunk merge.
 
 The flash forward runs as three kernels: the tensor-core forward for bf16
 calls with many query rows (prefill, the ViT, training), the split-KV decode
@@ -294,15 +320,23 @@ from llama32mm_tpu_torch.train.lora import (
 )
 from llama32mm_tpu_torch.io.distributed import ShardedCheckpointer, abstract_state
 from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration
+from llama32mm_tpu_torch.models.vlm import chunked_shifted_cross_entropy
 from llama32mm_tpu_torch.parallel import (
+    AXIS_DP,
+    AXIS_PP,
+    AXIS_SP,
     AXIS_TP,
+    Mesh,
     create_mesh,
     data_sharding,
     init_distributed,
     placement_of,
+    seq_data_sharding,
     shard_params,
     zero1_shardings,
 )
+from llama32mm_tpu_torch.parallel.pipeline import make_pipeline_train_step, pipeline_shard_params
+from llama32mm_tpu_torch.train.optim import Adam
 from llama32mm_tpu_torch.utils import st_file
 from llama32mm_tpu_torch.utils.profiling import trace
 from llama32mm_tpu_torch.utils.kvcache import init_kv_cache, quantize_kv
@@ -480,6 +514,11 @@ PATH_KERNELS.update({"tp_11b_bf16": PATH_KERNELS["bf16"],
                      "tp_11b_server_bf16": PATH_KERNELS["server_bf16"],
                      "tp_lora_11b": TRAIN_BF16_KERNELS,
                      "zero1_full_ft_3b": PATH_KERNELS["full_ft_3b"]})
+# Sequence parallelism: the ring's chunks through the flash training kernels
+# (and the frozen ViT's no-grad forward); the pipeline: text only (no ViT),
+# each stage's layers through the SwiGLU tile and the flash training kernels.
+PATH_KERNELS.update({"sp_lora_11b": TRAIN_BF16_KERNELS,
+                     "pp_full_ft_3b": TRAIN_BF16_KERNELS[:-1] + ("swiglu_tc", "swiglu_bwd_tc")})
 # The SIMT fp32 forward and backward: the bf16 paths above must never
 # launch them; nor the wmma dequantizing GEMM ("qmatmul"), which every
 # bf16 prefill shape leaves to the wgmma one; nor the CUDA-core gemvs
@@ -501,7 +540,7 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
     """What a path's run got wrong: kernels it should have launched and did
     not, SIMT flash kernels launched on a bf16 path, plain versions called."""
     faults = [f"skipped {k}" for k in PATH_KERNELS[path] if launches[k] == 0]
-    if path in ("full_ft_3b", "zero1_full_ft_3b"):  # every SwiGLU call there has R = 1632
+    if path in ("full_ft_3b", "zero1_full_ft_3b", "pp_full_ft_3b"):  # R = 1632 a SwiGLU call
         faults += [f"launched the wmma {k} {launches[k]} times" for k in ("swiglu", "swiglu_bwd")
                    if launches[k]]
     if path != "swiglu_down_op":
@@ -789,7 +828,7 @@ def kernel_cases(dev, gen):
     ]
     return (cases + spec_kernel_cases(rnd, valid) + int8_gemv_cases(rnd, q8)
             + server_kernel_cases(rnd, q4, q4_stepped, kv8) + training_kernel_cases(rnd, valid)
-            + tp_kernel_cases(rnd, valid, q8, q4, kv8))
+            + tp_kernel_cases(rnd, valid, q8, q4, kv8) + ring_kernel_cases(rnd, valid))
 
 
 def tp_kernel_cases(rnd, valid, q8, q4, kv8):
@@ -900,6 +939,61 @@ def tp_training_kernel_cases(rnd, valid):
                   ("flash_attention_bwd_dq_tc", label, bwd, False),
                   ("flash_attention_bwd_dkv_tc", label, bwd, False)]
     return cases
+
+
+RING_T = 2048  # sp_lora_11b: S=4096 over sp=2
+
+
+def ring_kernel_cases(rnd, valid):
+    """The flash training kernels at the ring steps of ``sp_lora_11b`` (the
+    11B's 32 query and 8 kv heads, hd 128, a rank's Tq = Tk = 2048 tokens,
+    causal), at the chunk offsets a ring step gives: -2048 (a chunk wholly in
+    the future: every row masked), 0 (the diagonal), 2048 (wholly in the
+    past: every key seen); and the backward of the past chunk fed the LSE
+    and ``rowsum(dO * O)`` of the merged output of both chunks, as the
+    ring's backward feeds every chunk."""
+    t = RING_T
+    q = rnd(1, 32, t, 128)
+    chunks = [(rnd(1, 8, t, 128), rnd(1, 8, t, 128)) for _ in range(2)]  # keys 0-2047, 2048-4095
+    kvv = valid(1, t, t)
+    dout = rnd(1, 32, t, 128)
+    cases = []
+    for q_offset, (k, v) in ((-t, chunks[1]), (0, chunks[1]), (t, chunks[0])):
+        fwd = (q, k, v, kvv, q_offset, True)
+        out, lse = kernels.flash_attention_fwd_lse_plain(*fwd)
+        bwd = (*fwd, lse, dout.float().mul(out.float()).sum(-1), dout)
+        label = f"ring nq=32 nkv=8 Tq=Tk={t} hd=128 q_offset={q_offset}"
+        cases += [("flash_attention_tc_lse", label, fwd, False),
+                  ("flash_attention_bwd_dq_tc", label, bwd, False),
+                  ("flash_attention_bwd_dkv_tc", label, bwd, False)]
+    # the query chunk at rows 2048-4095: the past chunk (offset 2048) and the
+    # diagonal (offset 0) merged as attention._ring_merge does
+    parts = [kernels.flash_attention_fwd_lse_plain(q, *chunks[i], kvv, off, True)
+             for i, off in ((0, t), (1, 0))]
+    merged, lse = attention_mod._ring_merge(
+        torch.zeros(q.shape, dtype=torch.float32, device=q.device),
+        torch.full(q.shape[:3], NEG_BIG, dtype=torch.float32, device=q.device), *parts[0])
+    merged, lse = attention_mod._ring_merge(merged, lse, *parts[1])
+    merged = merged.to(q.dtype)
+    bwd = (q, *chunks[0], kvv, t, True, lse, dout.float().mul(merged.float()).sum(-1), dout)
+    label = f"ring nq=32 nkv=8 Tq=Tk={t} hd=128 q_offset={t} merged LSE and delta"
+    cases += [("flash_attention_bwd_dq_tc", label, bwd, False),
+              ("flash_attention_bwd_dkv_tc", label, bwd, False)]
+    return cases
+
+
+def check_ring_masked(name, label, got) -> None:
+    """A ring step whose key chunk lies wholly in the future: the output and
+    every gradient exactly 0, the LSE exactly ``NEG_BIG``."""
+    got = got if isinstance(got, tuple) else (got,)
+    zero = all(bool((g == 0).all()) for g in (got if name != "flash_attention_tc_lse"
+                                              else got[:1]))
+    lse_ok = name != "flash_attention_tc_lse" or bool((got[1] == NEG_BIG).all())
+    if not (zero and lse_ok):
+        raise RuntimeError(f"{name} [{label}]: a wholly masked chunk gave a nonzero output or "
+                           f"gradient, or an LSE other than NEG_BIG")
+    log(f"kernel {name} [{label}]: every row masked: exactly 0"
+        f"{', the LSE exactly NEG_BIG' if name == 'flash_attention_tc_lse' else ''}")
 
 
 def spec_kernel_cases(rnd, valid):
@@ -1412,6 +1506,8 @@ def compare_kernels(dev, only=None) -> dict:
             continue
         if main and name.startswith("flash_decode"):
             check_rows_alone(name, wrapper, args, got)
+        if label.startswith("ring") and label.endswith(f"q_offset={-RING_T}"):
+            check_ring_masked(name, label, got)
         if name in BWD_TC or name in ("gemv_int4", "rmsnorm_bwd"):
             check_same_bits(name, label, wrapper, args, got)
         if name == "gemv_int4" and label.startswith("w_gate R="):
@@ -1976,14 +2072,15 @@ def checksums(tensors) -> torch.Tensor:
                         for t in tensors])
 
 
-def train_batch(cfg, dev, b: int = 1):
-    """B=b (1), S=1632: the 560x560 image's 1600 ``<image>`` ids then 32 text
-    ids, labels -100 on the image positions; a random uint8 image a row."""
+def train_batch(cfg, dev, b: int = 1, text_ids: int = 32):
+    """B=b (1), S=1600+text_ids (1632): the 560x560 image's 1600 ``<image>``
+    ids then the text ids, labels -100 on the image positions; a random
+    uint8 image a row."""
     tc, vc = cfg.text_config, cfg.vision_config
     gen = torch.Generator(device=dev).manual_seed(0)
     raw = torch.randint(0, 256, (b, vc.image_size, vc.image_size, 3), generator=gen, device=dev,
                         dtype=torch.uint8)
-    text = torch.randint(0, tc.vocab_size, (b, 32), generator=gen, device=dev)
+    text = torch.randint(0, tc.vocab_size, (b, text_ids), generator=gen, device=dev)
     image = torch.full((b, vc.num_patches), cfg.image_token_index, device=dev)
     ids = torch.cat([image, text], dim=1)
     labels = torch.cat([torch.full_like(image, cfg.ignore_index), text], dim=1)
@@ -2052,7 +2149,34 @@ def run_lora_11b(dev, keep: dict) -> dict:
         f"{abs(first - plain):.6g}")
     if not torch.equal(checksums(base), before) or any(p.requires_grad for p in base):
         raise RuntimeError("[lora_11b] the base weights changed or require gradients")
+    del state
+    free_device_memory()
+    keep["sp_lora_11b"] = sp_references(dev, cfg, model)
     return launches
+
+
+SP_SEQ = 2 * RING_T  # sp_lora_11b: B=1, S=4096 over sp=2
+SP_LOSS_CHUNK = 1024
+
+
+def sp_references(dev, cfg, model) -> dict:
+    """``sp_lora_11b``'s one-device references on its S=4096 batch: the
+    first step's loss on the kernel path (the training kernels: the fresh
+    adapters require gradients) and on ``impl="torch"``."""
+    lora = init_lora_params(torch.Generator(device=dev).manual_seed(1), cfg, rank=16, alpha=16.0)
+    batch = train_batch(cfg, dev, text_ids=SP_SEQ - cfg.vision_config.num_patches)
+    kw = dict(input_ids=batch["input_ids"], pixel_values=batch["pixel_values"],
+              labels=batch["labels"], lora=lora, remat=True, loss_chunk=SP_LOSS_CHUNK)
+    for t in lora_leaves(lora).values():
+        t.requires_grad_(True)
+    with torch.enable_grad():
+        kernel = vlm_forward(model, cfg, **kw).loss.item()
+    with torch.inference_mode():
+        plain = vlm_forward(model, cfg, impl="torch", **kw).loss.item()
+    log(f"[sp_lora_11b] one-device references at S={SP_SEQ}: kernel path {kernel:.8g}, "
+        f"impl='torch' {plain:.8g} (|difference| {abs(kernel - plain):.6g})")
+    free_device_memory()
+    return {"loss": kernel, "dl_plain": abs(kernel - plain)}
 
 
 def bench_3b_config(dtype: str) -> MLLAMAConfig:
@@ -3880,8 +4004,280 @@ def run_zero1_full_ft_3b(tmp_dir: str) -> dict:
     return res[0]["launches"]
 
 
+class count_ppermute_bytes:
+    """Within the block, the bytes ``Mesh.ppermute`` sends from this rank."""
+
+    def __enter__(self):
+        self.bytes, self._orig = 0, Mesh.ppermute
+
+        def counted(mesh, x, axis, shift=1):
+            if mesh.shape[axis] > 1:
+                self.bytes += x.numel() * x.element_size()
+            return self._orig(mesh, x, axis, shift)
+
+        Mesh.ppermute = counted
+        return self
+
+    def __exit__(self, *exc):
+        Mesh.ppermute = self._orig
+        return False
+
+
+RING_KERNELS = ("flash_attention_tc_lse", "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")
+
+
+def flash_shapes(rec: record_shapes, names) -> set:
+    """(q heads, kv heads, Tq, Tk) of every call of the flash kernels ``names``."""
+    return {(shapes[0][1], shapes[1][1], shapes[0][2], shapes[1][2])
+            for name, shapes in rec.seen if name in names}
+
+
+def sp_lora_11b_rank(rank, dev, args) -> dict:
+    """lora_11b at sp=2: the tied bf16 11B (whole on both ranks), rank-16
+    adapters with the head's, Adam lr 1e-4, ``remat``, ``loss_chunk``; B=1
+    S=4096, this rank's 2048 tokens; a warm-up and 3 timed steps, each
+    followed by a check that both ranks hold the same loss and adapters."""
+    mesh = create_mesh(sp=2)
+    cfg = llama32_11b_vision_config()
+
+    def build():
+        model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0), tie_weights=True)
+        return shard_params(model, cfg, mesh)
+
+    model = one_rank_at_a_time(rank, dev, build)
+    base = list(model.parameters())
+    before = checksums(base)
+    lora = init_lora_params(torch.Generator(device=dev).manual_seed(1), cfg, rank=16, alpha=16.0)
+    init_state, step = make_lora_train_step(cfg, learning_rate=1e-4, remat=True,
+                                            loss_chunk=SP_LOSS_CHUNK)
+    state = init_state(lora)
+    whole = train_batch(cfg, dev, text_ids=SP_SEQ - cfg.vision_config.num_patches)
+    batch = {k: (seq_data_sharding(mesh) if k != "pixel_values" else data_sharding(mesh))
+             .local(v).contiguous() for k, v in whole.items()}
+    out = {"losses": [], "equal": [], "times": []}
+
+    def one_step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = step(model, state, batch)
+        torch.cuda.synchronize()
+        out["times"].append(time.perf_counter() - t)
+        out["losses"].append(loss.item())
+        out["equal"].append(same_on_every_rank(mesh, loss, AXIS_SP)
+                            and same_on_every_rank(mesh, adapters_flat(state), AXIS_SP))
+
+    one_step()  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counters()
+    with record_shapes() as rec, count_ppermute_bytes() as sent:
+        for _ in range(3):
+            one_step()
+    launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+    faults = path_faults("sp_lora_11b", launches, plain_calls)
+    layers, ring = cfg.text_config.n_layers, mesh.shape[AXIS_SP]
+    # a ring step per rank of the axis, a layer; the forward twice (remat)
+    want = {"flash_attention_tc_lse": 3 * 2 * ring * layers,
+            "flash_attention_bwd_dq_tc": 3 * ring * layers,
+            "flash_attention_bwd_dkv_tc": 3 * ring * layers}
+    faults += [f"{k} launched {launches[k]} times, not {n}" for k, n in want.items()
+               if launches[k] != n]
+    shapes = flash_shapes(rec, RING_KERNELS)
+    if shapes != {(32, 8, RING_T, RING_T)}:
+        faults.append(f"ring kernels at (heads, kv heads, Tq, Tk) {sorted(shapes)}, not "
+                      f"[(32, 8, {RING_T}, {RING_T})]")
+    for entry in ("rmsnorm_fwd_train_cuda", "rmsnorm_bwd_cuda"):
+        if rec.widths(entry) != {4096}:
+            faults.append(f"{entry} at widths {sorted(rec.widths(entry))}, not [4096]")
+    log(f"[sp_lora_11b rank {rank}] ring kernels at {sorted(shapes)}; launches "
+        f"{({k: launches[k] for k in want})} (want {want}); RMSNorm training widths "
+        f"{sorted(rec.widths('rmsnorm_fwd_train_cuda') | rec.widths('rmsnorm_bwd_cuda'))}")
+    out.update(launches=launches, faults=faults, ppermute_bytes=sent.bytes / 3,
+               base_unchanged=bool(torch.equal(checksums(base), before))
+               and not any(p.requires_grad for p in base),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    return out
+
+
+def run_sp_lora_11b(keep: dict) -> dict:
+    """sp_lora_11b: both ranks' losses and adapters bit-equal after every
+    step, the base unchanged, the first loss within twice the one-device
+    kernel path's distance from the plain path on the same S=4096 batch
+    (``keep``), the ring's launches exact at the rank's shapes and no plain
+    version."""
+    res = run_tp_world("sp_lora_11b", "sp_lora_11b", {})
+    faults = [f"rank {r}: {f}" for r, one in enumerate(res) for f in one["faults"]]
+    if not all(all(one["equal"]) for one in res) or res[0]["losses"] != res[1]["losses"]:
+        faults.append(f"the ranks' losses or adapters differ: {[one['equal'] for one in res]}, "
+                      f"{[one['losses'] for one in res]}")
+    if not all(one["base_unchanged"] for one in res):
+        faults.append("the base weights changed or require gradients")
+    ref = keep["sp_lora_11b"]
+    dl = abs(res[0]["losses"][0] - ref["loss"])
+    if not dl <= 2 * ref["dl_plain"]:
+        faults.append(f"first loss {res[0]['losses'][0]} is {dl} from the one-device kernel "
+                      f"path's {ref['loss']}, over twice that path's distance from impl='torch' "
+                      f"({ref['dl_plain']})")
+    ms = 1e3 * statistics.median(res[0]["times"][1:])
+    log(f"[sp_lora_11b] losses {res[0]['losses']} (warm-up first), equal on both ranks after "
+        f"every step; first loss {dl:.6g} from the one-device kernel path's (its distance from "
+        f"the plain path {ref['dl_plain']:.6g})")
+    log(f"[sp_lora_11b] rank 0: steps (s) {[round(x, 4) for x in res[0]['times']]}, median "
+        f"{ms:.2f} ms/step ({SP_SEQ / ms * 1e3:.1f} tokens/s; two ranks sharing one card over "
+        f"gloo, not multi-GPU times); peak {res[0]['peak_gib']:.3f} / {res[1]['peak_gib']:.3f} "
+        f"GiB a rank; ppermute {res[0]['ppermute_bytes'] / 2**20:.2f} MiB sent a step a rank; "
+        f"launches {({k: n for k, n in res[0]['launches'].items() if n})}")
+    if faults:
+        raise RuntimeError(f"[sp_lora_11b] {faults}")
+    return res[0]["launches"]
+
+
+PP_STAGES, PP_MICRO, PP_BATCH, PP_CHUNK, PP_LR = 2, 2, 4, 512, 1e-4
+
+
+def pp_3b_config() -> LLAMA32Config:
+    """The 3B bench's text widths at ``ZERO1_DEPTH``'s decoder depth, bf16."""
+    return dataclasses.replace(bench_3b_config("bfloat16").text_config,
+                               n_layers=ZERO1_DEPTH["decoder"])
+
+
+def pp_model(dev) -> CausalLM:
+    lm = CausalLM(pp_3b_config(), dev, torch.bfloat16)
+    with torch.no_grad():
+        lm.init_(torch.Generator(device=dev).manual_seed(0))
+    return lm
+
+
+def pp_batch(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(0, pp_3b_config().vocab_size, (PP_BATCH, 1632), generator=gen, device=dev)
+    return {"input_ids": ids, "labels": ids}
+
+
+def pp_unpipelined(dev, impl: str) -> list:
+    """3 Adam steps (no decay, no clip) of the unpipelined 3B text model on
+    one device: its losses."""
+    lm, tc, batch = pp_model(dev), pp_3b_config(), pp_batch(dev)
+    params = dict(lm.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    tx, losses = Adam(PP_LR), []
+    state = tx.init(params)
+    for _ in range(3):
+        with torch.enable_grad():
+            h = language_mod.llama_forward(lm.model, tc, input_ids=batch["input_ids"],
+                                           impl=impl).hidden_states
+            loss = chunked_shifted_cross_entropy(lm, tc, h, batch["labels"], -100,
+                                                 chunk=PP_CHUNK, impl=impl)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        state = tx.step(params, dict(zip(params, grads)), state)
+        losses.append(loss.item())
+        del h, grads
+    del lm, params, state
+    free_device_memory()
+    return losses
+
+
+def replicated_checksums(model) -> torch.Tensor:
+    """Two int64 sums a replicated leaf (the embedding, the final norm, an
+    untied head): its bytes as int16, plain and position-weighted."""
+    sums = []
+    for name, p in model.named_parameters():
+        if ".blocks." in name:
+            continue
+        w = p.detach().contiguous().view(torch.int16).reshape(-1).to(torch.int64)
+        sums += [w.sum(), (w * (torch.arange(w.numel(), device=w.device) % 65521)).sum()]
+    return torch.stack(sums)
+
+
+def pp_3b_rank(rank, dev, args) -> dict:
+    """make_pipeline_train_step at pp=2 x dp=2 on the 3B text widths (4 + 4
+    layers): 3 steps, the replicated leaves compared over pp and dp after
+    each."""
+    mesh = create_mesh(dp=2, pp=PP_STAGES)
+    tc = pp_3b_config()
+    model = one_rank_at_a_time(rank, dev, lambda: pipeline_shard_params(pp_model(dev), mesh))
+    batch = {k: data_sharding(mesh).local(v).contiguous() for k, v in pp_batch(dev).items()}
+    init_state, step = make_pipeline_train_step(tc, mesh, PP_MICRO, learning_rate=PP_LR,
+                                                loss_chunk=PP_CHUNK)
+    state = init_state(model)
+    out = {"losses": [], "equal": [], "times": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counters()
+    with record_shapes() as rec:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            out["times"].append(time.perf_counter() - t)
+            out["losses"].append(loss.item())
+            sums = replicated_checksums(state.model)
+            out["equal"].append(same_on_every_rank(mesh, sums, AXIS_PP)
+                                and same_on_every_rank(mesh, sums, AXIS_DP))
+    launches, plain_calls = kernels.launch_counts(), kernels.plain_counts()
+    faults = path_faults("pp_full_ft_3b", launches, plain_calls)
+    per_step = (PP_MICRO + PP_STAGES - 1) * len(state.model.model.blocks)
+    want = {k: 3 * per_step for k in ("swiglu_tc", "swiglu_bwd_tc") + RING_KERNELS}
+    faults += [f"{k} launched {launches[k]} times, not {n}" for k, n in want.items()
+               if launches[k] != n]
+    for entry in ("fused_swiglu_cuda", "fused_swiglu_bwd_cuda"):
+        if rec.weights(entry) != {(8192, 3072)}:
+            faults.append(f"{entry} at {sorted(rec.weights(entry))}, not [(8192, 3072)]")
+    heads = rec.heads(RING_KERNELS)
+    if heads != {(24, 8)}:
+        faults.append(f"flash LSE forward and backward at heads {sorted(heads)}, not [(24, 8)]")
+    log(f"[pp_full_ft_3b rank {rank}] stage {mesh.rank(AXIS_PP)} layers "
+        f"{state.model.model.stage.first_layer}-"
+        f"{state.model.model.stage.first_layer + len(state.model.model.blocks) - 1}; SwiGLU at "
+        f"{sorted(rec.weights('fused_swiglu_cuda'))}; flash heads {sorted(heads)}; launches "
+        f"{({k: launches[k] for k in want})} (want {want})")
+    out.update(launches=launches, faults=faults,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    return out
+
+
+def run_pp_full_ft_3b() -> dict:
+    """pp_full_ft_3b: the unpipelined kernel and ``impl="torch"`` runs on one
+    device first, then the four ranks; each pipelined loss within twice the
+    two unpipelined runs' distance at its step, the replicated leaves
+    bit-equal on every rank after every step, the kernels' exact launches at
+    the stage's shapes."""
+    dev = torch.device("cuda", 0)
+    kernel, plain = pp_unpipelined(dev, "auto"), pp_unpipelined(dev, "torch")
+    log(f"[pp_full_ft_3b] unpipelined one-device losses: kernel path {kernel}, impl='torch' "
+        f"{plain}")
+    res = run_tp_world("pp_full_ft_3b", "pp_3b", {}, world=2 * PP_STAGES)
+    faults = [f"rank {r}: {f}" for r, one in enumerate(res) for f in one["faults"]]
+    if any(one["losses"] != res[0]["losses"] for one in res):
+        faults.append(f"the ranks' losses differ: {[one['losses'] for one in res]}")
+    if not all(all(one["equal"]) for one in res):
+        faults.append(f"replicated leaves differ across ranks: {[one['equal'] for one in res]}")
+    dist_ = [abs(a - b) for a, b in zip(res[0]["losses"], kernel)]
+    bound_ = [2 * abs(a - b) for a, b in zip(kernel, plain)]
+    if not all(d <= b for d, b in zip(dist_, bound_)):
+        faults.append(f"pipelined losses {res[0]['losses']} are {dist_} from the unpipelined "
+                      f"kernel path's {kernel}: over twice its distance from impl='torch' "
+                      f"({bound_})")
+    ms = 1e3 * statistics.median(res[0]["times"])
+    log(f"[pp_full_ft_3b] ({ZERO1_DEPTH['decoder']} decoder layers of the 3B bench config, "
+        f"{PP_STAGES} stages) pipelined losses {res[0]['losses']}: {[f'{d:.6g}' for d in dist_]} "
+        f"from the unpipelined kernel path (limits {[f'{b:.6g}' for b in bound_]}); replicated "
+        f"leaves equal on every rank after every step")
+    log(f"[pp_full_ft_3b] rank 0: steps (s) {[round(x, 4) for x in res[0]['times']]}, median "
+        f"{ms:.2f} ms/step ({PP_BATCH * 1632 / ms * 1e3:.1f} tokens/s; four ranks sharing one "
+        f"card over gloo, not multi-GPU times); bubble share (pp-1)/(M+pp-1) = "
+        f"{(PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1):.4f}; peak a rank "
+        f"{[round(one['peak_gib'], 3) for one in res]} GiB; rank 0 launches "
+        f"{({k: n for k, n in res[0]['launches'].items() if n})}")
+    if faults:
+        raise RuntimeError(f"[pp_full_ft_3b] {faults}")
+    return res[0]["launches"]
+
+
 TP_PHASES = {"tp_tiny": tp_tiny_rank, "tp_11b": tp_11b_rank,
-             "tp_lora_11b": tp_lora_11b_rank, "zero1_3b": zero1_3b_rank}
+             "tp_lora_11b": tp_lora_11b_rank, "zero1_3b": zero1_3b_rank,
+             "sp_lora_11b": sp_lora_11b_rank, "pp_3b": pp_3b_rank}
 
 
 def run_11b_paths(dev, keep: dict) -> dict:
@@ -4017,6 +4413,8 @@ def main() -> int:
     root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="zero1_3b_", dir=root) as tmp_dir:
         by_path["zero1_full_ft_3b"] = run_zero1_full_ft_3b(tmp_dir)
+    by_path["sp_lora_11b"] = run_sp_lora_11b(tp_reference)
+    by_path["pp_full_ft_3b"] = run_pp_full_ft_3b()
     log(f"all phases {time.perf_counter() - t_start:.1f} s")
 
     out = []

@@ -48,7 +48,18 @@ Reference semantics kept from the JAX package:
   the rank's batch rows under ``dp``), so a sharded step equals the
   one-device step. ``collect_stats`` gathers ``inter_absmean`` over ``tp``
   and averages every statistic over ``dp``. Without a ``TPShard`` (``tp``
-  None) no collective is called.
+  None) no collective is called;
+- sequence parallelism (a mesh with ``sp > 1``, each rank given its
+  contiguous token chunk, ``parallel/sharding.py::seq_data_sharding``):
+  RoPE's positions and the causal ``q_offset`` start at ``sp_rank * T_loc``,
+  attention runs the ring over ``sp`` (``ops/attention.py``) with the
+  rank's key-validity chunk riding with its K/V, dropout masks are drawn
+  at the one-device shape and the rank's tokens taken, and
+  ``collect_stats`` averages over ``dp`` and ``sp``. Everything else runs
+  on the local tokens as it is. A KV cache holds whole sequences: it is
+  not taken under ``sp``;
+- a pipeline stage (``parallel/pipeline.py``) holds only its layers and
+  runs through the pipeline's schedule, never ``llama_forward``.
 
 One module per layer (no ``[L, ...]`` stacks). Float linears with at most 32
 input rows run the decode gemv kernel, others (and every linear under
@@ -74,7 +85,7 @@ from llama32mm_tpu_torch.ops.quant import is_quantized
 from llama32mm_tpu_torch.ops.rmsnorm import fused_add_rmsnorm
 from llama32mm_tpu_torch.ops.rope import apply_rotary_pos_emb, rope_cos_sin
 from llama32mm_tpu_torch.ops.swiglu import fused_swiglu
-from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_TP
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP, AXIS_TP
 from llama32mm_tpu_torch.utils.kvcache import KVCache
 
 
@@ -108,6 +119,7 @@ class DecoderBlock(nn.Module):
 
 class LlamaModel(nn.Module):
     tp = None  # a TPShard on a rank of a tensor-parallel mesh (parallel/sharding.py)
+    stage = None  # a PipelineStage on a pipeline stage's rank (parallel/pipeline.py)
 
     def __init__(self, config: LLAMA32Config, device, dtype):
         super().__init__()
@@ -173,26 +185,32 @@ class Dropout(NamedTuple):
     """LoRA input dropout at ``rate``; ``seed`` starts its own generator, so
     a recomputed block (``remat``) draws the same mask. ``rows``: ``(start,
     total)`` of this data-parallel rank's batch rows, the mask drawn for all
-    ``total`` and sliced (None: the input's own rows)."""
+    ``total`` and sliced (None: the input's own rows); ``tokens`` the same
+    for a sequence-parallel rank's token chunk (dim 1)."""
 
     rate: float
     seed: int
     rows: Optional[tuple] = None
+    tokens: Optional[tuple] = None
 
 
 def dropout_mask(x: torch.Tensor, dropout: Dropout, feats: Optional[tuple] = None):
     """The keep mask of ``x [B, ..., F]``: drawn at the one-device shape,
-    ``dropout.rows`` and ``feats`` (``(start, total)`` of a row-parallel
-    input's features) giving this rank's slice of it."""
+    ``dropout.rows``, ``dropout.tokens`` and ``feats`` (``(start, total)``
+    of a row-parallel input's features) giving this rank's slice of it."""
     shape = list(x.shape)
     if dropout.rows is not None:
         shape[0] = dropout.rows[1]
+    if dropout.tokens is not None:
+        shape[1] = dropout.tokens[1]
     if feats is not None:
         shape[-1] = feats[1]
     gen = torch.Generator(device=x.device).manual_seed(dropout.seed)
     keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - dropout.rate
     if dropout.rows is not None:
         keep = keep.narrow(0, dropout.rows[0], x.shape[0])
+    if dropout.tokens is not None:
+        keep = keep.narrow(1, dropout.tokens[0], x.shape[1])
     if feats is not None:
         keep = keep.narrow(-1, feats[0], x.shape[-1])
     return keep
@@ -272,7 +290,8 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
         k, v, k_scale, v_scale = kv_cache.update(layer_idx, k, v)
 
     attn = gqa_attention(q, k, v, structured, causal=True, impl=impl, mask=dense_mask,
-                         k_scale=k_scale, v_scale=v_scale)
+                         k_scale=k_scale, v_scale=v_scale,
+                         sp_mesh=None if tp is None else tp.mesh)
     attn = attn.transpose(1, 2).reshape(b, t, nq * hd)
     attn_out = proj(attn, "out_proj", att.out_proj.weight)
     if tp is not None:  # row-parallel: sum the ranks' partial products (g)
@@ -308,12 +327,13 @@ def _block_forward(h, block: DecoderBlock, layer_idx: int, config: LLAMA32Config
 
 def _mesh_stats(stats: dict, mesh) -> dict:
     """A sharded rank's statistics made the one-device ones: the SwiGLU
-    output's means gathered over ``tp``, every mean averaged over ``dp``
-    (each rank's mean covers as many rows)."""
+    output's means gathered over ``tp``, every mean averaged over ``dp`` and
+    ``sp`` (each rank's mean covers as many rows and tokens)."""
     stats = dict(stats, inter_absmean=mesh.all_gather(stats["inter_absmean"], AXIS_TP, dim=0))
-    n = mesh.shape[AXIS_DP]
-    if n > 1:
-        stats = {k: mesh.all_reduce(v, AXIS_DP) / n for k, v in stats.items()}
+    for axis in (AXIS_DP, AXIS_SP):
+        n = mesh.shape[axis]
+        if n > 1:
+            stats = {k: mesh.all_reduce(v, axis) / n for k, v in stats.items()}
     return stats
 
 
@@ -332,7 +352,10 @@ def embed_tokens(model: LlamaModel, config: LLAMA32Config, ids: torch.Tensor) ->
 
 
 def _structured_mask(attention_mask, b: int, t: int, kv_cache: Optional[KVCache],
-                     device) -> AttnMask:
+                     device, q_offset: int = 0) -> AttnMask:
+    """The structured mask of ``t`` new tokens; ``q_offset``: the global
+    position of a sequence-parallel rank's first token (its chunk's keys
+    are the 2D mask's own)."""
     if isinstance(attention_mask, AttnMask):
         return attention_mask
     if attention_mask is not None and attention_mask.dim() != 2:
@@ -342,7 +365,7 @@ def _structured_mask(attention_mask, b: int, t: int, kv_cache: Optional[KVCache]
     base = (torch.ones(b, t, dtype=torch.int32, device=device) if attention_mask is None
             else attention_mask.to(torch.int32))
     if kv_cache is None:
-        return AttnMask(kv_valid=base, q_offset=0)
+        return AttnMask(kv_valid=base, q_offset=q_offset)
     # the 2D mask covers the current tokens; cached slots are valid
     pos = kv_cache.pos
     if kv_cache.per_row:  # row b's tokens land at pos[b] .. pos[b]+t-1
@@ -381,9 +404,14 @@ def llama_forward(
     ``lora`` is the adapter tree (its
     ``"blocks"``); ``dropout_rng`` seeds one dropout stream per layer and
     target when ``lora_dropout > 0``. A 4D ``attention_mask`` (dense,
-    additive, ``[B, 1, Tq, Tk]``) runs every layer's attention densely."""
+    additive, ``[B, 1, Tq, Tk]``) runs every layer's attention densely.
+    Under sequence parallelism (the module's notes) the inputs and the
+    returned hidden states are this rank's token chunk."""
     if gemv_routes is not None:
         not_in_slice("gemv_routes")
+    if model.stage is not None:
+        raise ValueError("a pipeline stage's model holds only its layers: run it through "
+                         "parallel.pipeline (pipeline_causal_lm_loss)")
     tp = model.tp
     if input_embeds is not None:
         h = input_embeds
@@ -393,16 +421,21 @@ def llama_forward(
         raise ValueError("Either input_ids or input_embeds must be provided")
 
     b, t, _ = h.shape
+    tokens = None if tp is None else tp.seq_tokens(t)
+    if tokens is not None and kv_cache is not None:
+        raise ValueError("a KV cache under sequence parallelism: the cache holds whole "
+                         "sequences, and sp shards training batches")
+    seq0 = 0 if tokens is None else tokens[0]
     # a 0-dim host tensor: no host-to-device copy (and stream sync) per forward
     h = h * torch.tensor(math.sqrt(config.hidden_size), dtype=h.dtype)
     dense_mask = structured = None
     if isinstance(attention_mask, torch.Tensor) and attention_mask.dim() == 4:
         dense_mask = attention_mask.to(h.dtype)  # prebuilt dense: pass through
     else:
-        structured = _structured_mask(attention_mask, b, t, kv_cache, h.device)
+        structured = _structured_mask(attention_mask, b, t, kv_cache, h.device, seq0)
 
     if position_ids is None:
-        pos0 = kv_cache.pos if kv_cache is not None else 0
+        pos0 = kv_cache.pos if kv_cache is not None else seq0
         if isinstance(pos0, torch.Tensor):
             position_ids = pos0[:, None] + torch.arange(t, device=h.device)
         else:
@@ -419,7 +452,7 @@ def llama_forward(
     for i, block in enumerate(model.blocks):
         dropouts = None
         if use_dropout and seeds[0] is not None:
-            dropouts = {name: Dropout(lora_dropout, seeds[i * n_drop + j], rows)
+            dropouts = {name: Dropout(lora_dropout, seeds[i * n_drop + j], rows, tokens)
                         for j, name in enumerate(LORA_TARGETS)}
         args = (h, block, i, config, cos, sin, structured, kv_cache, impl, blocks_lora, dropouts,
                 dense_mask, collect_stats, tp)

@@ -21,6 +21,15 @@ so every rank reports the one-device loss and its gradient is its own
 share of the one-device gradient (the trainers sum them). A rank whose rows
 are all padding adds 0 and no NaN.
 
+Sequence parallelism (``sp > 1``, each rank given its rows' contiguous
+token chunk; ``pixel_values`` whole for its rows): every sequence-parallel
+rank runs the ViT and the projector on the same pixels; the splice finds
+each row's first ``<image>`` in the row's ids gathered over ``sp`` and takes
+the feature rows that fall in the rank's chunk; the labels are shifted over
+the whole row (``shifted_targets``: the label after a chunk's last position
+comes from the next rank), and the loss is the token mean over ``dp`` and
+``sp``.
+
 ``encode_image`` runs under the profiler phases ``"vision_encode"`` and
 ``"mm_projector"``, the splice under ``"image_splice"``
 (``utils/profiling.py::annotate``), the JAX package's names. The module's
@@ -49,7 +58,7 @@ from llama32mm_tpu_torch.models.language import (
     maybe_lora,
 )
 from llama32mm_tpu_torch.models.vision import VisionEncoder
-from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, reduce_from_tp
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP, reduce_from_tp
 from llama32mm_tpu_torch.utils.kvcache import KVCache
 from llama32mm_tpu_torch.utils.profiling import annotate
 
@@ -106,19 +115,24 @@ def merge_input_ids_with_image_features(
     input_ids: torch.Tensor,  # [B, S]
     attention_mask,  # [B, S] tensor, an AttnMask, or None
     image_token_index: int,
+    row_ids: Optional[torch.Tensor] = None,
+    offset: int = 0,
 ):
     """Overwrite each row's first run of ``<image>`` positions,
-    ``[first, first + N)`` clipped to S, with the patch features, and mark
-    those positions attended in a 2D mask (other masks pass through)."""
+    ``[first, first + N)`` clipped to the row, with the patch features, and
+    mark those positions attended in a 2D mask (other masks pass through).
+    A sequence-parallel rank passes its chunk (``input_ids``), the whole
+    rows' ids (``row_ids [B, T]``, where the first ``<image>`` is found) and
+    the chunk's global start ``offset``."""
     b, s = input_ids.shape
     n, hdim = image_features.shape[1], image_features.shape[2]
     if attention_mask is None:
         attention_mask = torch.ones_like(input_ids)
 
-    is_img = input_ids == image_token_index
+    is_img = (input_ids if row_ids is None else row_ids) == image_token_index
     has_img = is_img.any(dim=1)
     start = is_img.to(torch.int32).argmax(dim=1)  # first occurrence; 0 when none
-    rel = torch.arange(s, device=input_ids.device)[None, :] - start[:, None]
+    rel = offset + torch.arange(s, device=input_ids.device)[None, :] - start[:, None]
     in_span = (rel >= 0) & (rel < n) & has_img[:, None]
     idx = rel.clamp(0, n - 1)[:, :, None].expand(b, s, hdim)
     gathered = torch.gather(image_features, 1, idx).to(inputs_embeds.dtype)
@@ -180,23 +194,34 @@ def vlm_forward(
     proj_seed, head_seed = dropout_seeds(dropout_rng if lora_dropout > 0.0 else None, 2)
     tp = lm.model.tp
     mesh = None if tp is None else tp.mesh
-    rows = None
+    rows = tokens = None
     if tp is not None:
         rows = tp.dp_rows((input_ids if input_ids is not None else pixel_values).shape[0])
+        if input_ids is not None:
+            tokens = tp.seq_tokens(input_ids.shape[1])
+    if tokens is not None and logits_positions is not None:
+        raise ValueError("logits_positions under sequence parallelism: prefill runs whole "
+                         "sequences")
 
-    def dropout(seed):
-        return None if seed is None else Dropout(lora_dropout, seed, rows)
+    def dropout(seed, seq=True):
+        return None if seed is None else Dropout(lora_dropout, seed, rows,
+                                                 tokens if seq else None)
 
     inputs_embeds = None
     if input_ids is not None:
         inputs_embeds = embed_tokens(lm.model, tc, input_ids)
     if pixel_values is not None and inputs_embeds is not None:
+        # the image features are whole on every sequence-parallel rank
         feats = encode_image(model, config, pixel_values.to(inputs_embeds.dtype), impl=impl,
-                             lora=lora.get("projector"), dropout=dropout(proj_seed),
+                             lora=lora.get("projector"), dropout=dropout(proj_seed, seq=False),
                              dropout_rng=dropout_rng, rows=rows)
         with annotate("image_splice"):
+            row_ids, offset = None, 0
+            if tokens is not None:
+                row_ids, offset = mesh.all_gather(input_ids, AXIS_SP, dim=1), tokens[0]
             inputs_embeds, attention_mask = merge_input_ids_with_image_features(
-                feats, inputs_embeds, input_ids, attention_mask, config.image_token_index)
+                feats, inputs_embeds, input_ids, attention_mask, config.image_token_index,
+                row_ids, offset)
 
     out = llama_forward(
         lm.model, tc, input_embeds=inputs_embeds, attention_mask=attention_mask,
@@ -243,13 +268,39 @@ def _nll_sum(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int):
 
 
 def _mean_over_mesh(nll_sum: torch.Tensor, count: torch.Tensor, mesh) -> torch.Tensor:
-    """``nll_sum / count``; under ``dp`` the count is summed over the ranks
-    first and the rank's quotient summed over them forward only (the
-    global token mean on every rank, each rank's gradient its own share)."""
-    if mesh is None or mesh.shape[AXIS_DP] == 1:
+    """``nll_sum / count``; under ``dp`` and ``sp`` the count is summed over
+    the ranks first and the rank's quotient summed over them forward only
+    (the global token mean on every rank, each rank's gradient its own
+    share)."""
+    axes = [] if mesh is None else [a for a in (AXIS_DP, AXIS_SP) if mesh.shape[a] > 1]
+    if not axes:
         return nll_sum / count.clamp(min=1)
-    count = mesh.all_reduce(count.detach().clone(), AXIS_DP)
-    return reduce_from_tp(nll_sum / count.clamp(min=1), mesh, AXIS_DP)
+    count = count.detach().clone()
+    for axis in axes:
+        count = mesh.all_reduce(count, axis)
+    loss = nll_sum / count.clamp(min=1)
+    for axis in axes:
+        loss = reduce_from_tp(loss, mesh, axis)
+    return loss
+
+
+def shifted_targets(labels: torch.Tensor, ignore_index: int, mesh=None) -> torch.Tensor:
+    """The next-token targets of ``labels``: ``labels[:, 1:]``, or under
+    ``sp`` (a rank's token chunk) the chunk's labels from its second on,
+    then the next rank's first label (``ignore_index`` on the last rank), so
+    each of the chunk's positions has the target the whole row gives it."""
+    if mesh is None or mesh.shape[AXIS_SP] == 1:
+        return labels[:, 1:]
+    nxt = mesh.ppermute(labels[:, :1].contiguous(), AXIS_SP, shift=-1)
+    if mesh.rank(AXIS_SP) == mesh.shape[AXIS_SP] - 1:
+        nxt = torch.full_like(nxt, ignore_index)
+    return torch.cat([labels[:, 1:], nxt], dim=1)
+
+
+def _shifted(hidden: torch.Tensor, labels: torch.Tensor, ignore_index: int, mesh):
+    """The positions that predict a next token, and their targets."""
+    targets = shifted_targets(labels, ignore_index, mesh)
+    return hidden[:, :targets.shape[1]], targets
 
 
 def chunked_shifted_cross_entropy(lm: CausalLM, config, hidden: torch.Tensor,
@@ -262,7 +313,7 @@ def chunked_shifted_cross_entropy(lm: CausalLM, config, hidden: torch.Tensor,
     backward recomputes one chunk's logits from its saved hidden slice (the
     JAX package's rematerialized ``lax.scan``). ``lora`` is the head's
     adapter; ``mesh`` as in ``shifted_cross_entropy``."""
-    sh, st = hidden[:, :-1], labels[:, 1:]
+    sh, st = _shifted(hidden, labels, ignore_index, mesh)
     n = sh.shape[1]
     chunk = int(min(chunk, n))
     nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -282,7 +333,8 @@ def chunked_shifted_cross_entropy(lm: CausalLM, config, hidden: torch.Tensor,
 def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           ignore_index: int, mesh=None) -> torch.Tensor:
     """Next-token cross entropy, mean over labels that are not
-    ``ignore_index``; with a ``mesh`` of ``dp > 1`` (each rank holding its
-    rows), the mean over every rank's labels."""
-    nll_sum, count = _nll_sum(logits[:, :-1], labels[:, 1:], ignore_index)
+    ``ignore_index``; with a ``mesh`` of ``dp > 1`` or ``sp > 1`` (each rank
+    holding its rows, its token chunk), the mean over every rank's labels."""
+    logits, targets = _shifted(logits, labels, ignore_index, mesh)
+    nll_sum, count = _nll_sum(logits, targets, ignore_index)
     return _mean_over_mesh(nll_sum, count, mesh)

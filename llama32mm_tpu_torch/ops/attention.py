@@ -34,6 +34,29 @@ A dense additive ``[B, 1, Tq, Tk]`` mask (the reference's own form, which the
 JAX ``llama_forward`` passes through) has no structure for a kernel to use:
 such a call runs ``dense_attention``, the JAX package's XLA attention in
 plain PyTorch, on any device and under autograd.
+
+Sequence parallelism (``sp_mesh``, a mesh with ``sp > 1``; the JAX
+package's SPMD rules of ``ops/pallas/attention.py``): each rank holds a
+contiguous chunk of the queries, and ``structured.q_offset`` is the global
+position of its row 0. Two layouts:
+
+- the ring (unscaled calls, the training path): K/V and their validity row
+  stay sequence-sharded. Over ``sp`` steps each rank runs the LSE forward
+  on its queries against the chunk it holds, the causal offset rebased to
+  that chunk's first key (``q_offset - owner * Tk_loc``, negative for a
+  chunk wholly in the future, where every row is masked), merges the
+  partial result into fp32 ``(out, lse)`` by ``logaddexp`` (from ``lse =
+  NEG_BIG``) and passes the chunk on (``Mesh.ppermute``). The backward
+  sends K/V round again with fp32 dk/dv accumulators: each rank adds its
+  queries' share through the dq and dk/dv kernels, with the merged LSE and
+  ``rowsum(dO * O)`` of the merged output; after ``sp`` hops each
+  accumulator is home. Every chunk goes through the kernels, masked ones
+  too.
+- the all-gather layout (``sp_layout="gather"``, and every int8-KV call):
+  K/V (and the scales, the validity row) are all-gathered over ``sp``, each
+  rank runs the kernel on its queries against all keys; backward, dk/dv
+  are reduce-scattered (summed over the ranks' queries, each rank keeping
+  its chunk).
 """
 
 from __future__ import annotations
@@ -43,8 +66,10 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from llama32mm_tpu_torch.ops.cuda import KERNELS
+from llama32mm_tpu_torch.ops.cuda.attention import NEG_BIG
 from llama32mm_tpu_torch.ops.cuda.flash_decode import DECODE_MAX_ROWS
 from llama32mm_tpu_torch.ops.dispatch import needs_grad, resolve_impl
+from llama32mm_tpu_torch.parallel.mesh import AXIS_SP, all_gather
 
 
 class AttnMask(NamedTuple):
@@ -120,6 +145,88 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+def _ring_merge(out, lse, o_s, lse_s):
+    """Online-softmax merge of a chunk's normalized partial attention into
+    the fp32 running ``(out, lse)``; a chunk with no allowed key (output 0,
+    ``lse_s = NEG_BIG``) changes neither."""
+    new = torch.logaddexp(lse, lse_s)
+    out = out * torch.exp(lse - new)[..., None] + o_s.float() * torch.exp(lse_s - new)[..., None]
+    return out, new
+
+
+class _RingFlashAttention(torch.autograd.Function):
+    """Ring attention over ``sp`` (see the module's notes): the hand LSE
+    forward, dq and dk/dv kernels on every (query chunk, key chunk) pair."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, q_offset, causal, impl, bwd_names, mesh):
+        cuda = impl == "cuda"
+        fwd = KERNELS[_route(q.dtype, q.shape[2], 1, False, True)][0 if cuda else 1]
+        n, me, tk = mesh.shape[AXIS_SP], mesh.rank(AXIS_SP), k.shape[2]
+        out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.full(q.shape[:3], NEG_BIG, dtype=torch.float32, device=q.device)
+        chunk = (k, v, kv_valid)
+        for s in range(n):
+            owner = (me - s) % n
+            o_s, lse_s = fwd(q, *chunk, q_offset - owner * tk, causal)
+            out, lse = _ring_merge(out, lse, o_s, lse_s)
+            if s < n - 1:
+                chunk = tuple(mesh.ppermute(t, AXIS_SP) for t in chunk)
+        out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, kv_valid, out, lse)
+        ctx.q_offset, ctx.causal, ctx.cuda, ctx.bwd_names, ctx.mesh = (
+            q_offset, causal, cuda, bwd_names, mesh)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_valid, out, lse = ctx.saved_tensors
+        mesh = ctx.mesh
+        n, me, tk = mesh.shape[AXIS_SP], mesh.rank(AXIS_SP), k.shape[2]
+        dout = dout.contiguous()
+        delta = (dout.float() * out.float()).sum(dim=-1)  # of the merged output
+        dq_fn, dkv_fn = (KERNELS[name][0 if ctx.cuda else 1] for name in ctx.bwd_names)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        chunk = (k, v, kv_valid)
+        for s in range(n):
+            owner = (me - s) % n
+            args = (q, *chunk, ctx.q_offset - owner * tk, ctx.causal, lse, delta, dout)
+            dq += dq_fn(*args).float()
+            dk_s, dv_s = dkv_fn(*args)
+            dk += dk_s.float()
+            dv += dv_s.float()
+            if s < n - 1:
+                chunk = tuple(mesh.ppermute(t, AXIS_SP) for t in chunk)
+            # the accumulators travel with their chunk; the last hop brings them home
+            dk, dv = mesh.ppermute(dk, AXIS_SP), mesh.ppermute(dv, AXIS_SP)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None,
+                None)
+
+
+def _seq_parallel_attention(q, k, v, structured: AttnMask, causal: bool, impl: str, mesh,
+                            layout: str, k_scale, v_scale) -> torch.Tensor:
+    """Attention of this rank's query chunk over the whole sequence, whose
+    keys are sharded over ``sp`` like the queries (the module's notes)."""
+    q_offset = structured.q_offset
+    if isinstance(q_offset, torch.Tensor):
+        raise NotImplementedError("per-row query offsets under sequence parallelism")
+    q_offset = int(q_offset)
+    kv_valid = structured.kv_valid.to(torch.int32).contiguous()
+    if layout not in ("ring", "gather"):
+        raise ValueError(f"sp_layout must be 'ring' or 'gather', got {layout!r}")
+    if layout == "gather" or k_scale is not None:
+        k, v = (all_gather(t, mesh, AXIS_SP, dim=2) for t in (k, v))
+        if k_scale is not None:
+            k_scale, v_scale = (mesh.all_gather(t, AXIS_SP, dim=2) for t in (k_scale, v_scale))
+        whole = AttnMask(mesh.all_gather(kv_valid, AXIS_SP, dim=1), q_offset)
+        return gqa_attention(q, k, v, whole, causal, impl, k_scale=k_scale, v_scale=v_scale)
+    impl = resolve_impl(impl, q)
+    return _RingFlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv_valid,
+                                     q_offset, causal, impl, _route_bwd(q.dtype), mesh)
+
+
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
                     k_scale: Optional[torch.Tensor] = None,
                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -152,10 +259,21 @@ def gqa_attention(
     mask: Optional[torch.Tensor] = None,
     k_scale: Optional[torch.Tensor] = None,  # [B, nkv, Tk] fp32, int8 K only
     v_scale: Optional[torch.Tensor] = None,
+    sp_mesh=None,
+    sp_layout: str = "ring",
 ) -> torch.Tensor:
     """Grouped-query attention: query head ``h`` reads kv head
     ``h // (nq // nkv)``. Returns ``[B, nq, Tq, hd]``. A dense additive
-    ``mask`` takes the place of ``structured`` (``dense_attention``)."""
+    ``mask`` takes the place of ``structured`` (``dense_attention``).
+    ``sp_mesh`` (a mesh with ``sp > 1``): ``q``, ``k``, ``v`` and
+    ``structured.kv_valid`` are this rank's sequence chunks,
+    ``structured.q_offset`` the global position of its query row 0, and
+    ``sp_layout`` the ring or the all-gather layout (the module's notes)."""
+    if sp_mesh is not None and sp_mesh.shape[AXIS_SP] > 1:
+        if mask is not None:
+            raise ValueError("a dense mask under sequence parallelism: pass the structured one")
+        return _seq_parallel_attention(q, k, v, structured, causal, impl, sp_mesh, sp_layout,
+                                       k_scale, v_scale)
     if mask is not None:
         return dense_attention(q, k, v, mask, k_scale, v_scale)
     impl = resolve_impl(impl, q)

@@ -25,7 +25,12 @@ rank on the axis each is the identity and makes no call; outside autograd
 - ``gather_from_tp``: vocab-parallel logits all-gathered forward, the
   rank's slice of the (whole, replicated) gradient backward;
 - ``all_gather`` / ``reduce_scatter`` along any axis (ZeRO's ``dp``): each
-  the other's transpose. ``torch.distributed.nn.functional.all_reduce`` is
+  the other's transpose;
+- ``ppermute``: a rotation along an axis (rank ``i`` sends to ``i + shift``
+  and receives from ``i - shift``, modulo the axis size), whose backward is
+  the reverse rotation, as ``jax.lax.ppermute``'s transpose; the ring of
+  sequence parallelism and the stage hops of the pipeline.
+  ``torch.distributed.nn.functional.all_reduce`` is
   not used: its backward all-reduces the gradient again, which under this
   layout would count a replicated gradient ``tp`` times.
 
@@ -99,10 +104,12 @@ class Mesh:
     enough for ``param_shardings`` to check how a configuration divides."""
 
     def __init__(self, shape: Dict[str, int], coords: Optional[Dict[str, int]] = None,
-                 groups: Optional[dict] = None, device=None):
+                 groups: Optional[dict] = None, device=None, lines: Optional[dict] = None):
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
         self.coords = coords
         self.groups = groups or {}
+        # the global ranks of this rank's line along each grouped axis, in coordinate order
+        self.lines = lines or {}
         self.device = None if device is None else torch.device(device)
 
     @property
@@ -147,6 +154,29 @@ class Mesh:
         out = torch.empty_like(parts[0])
         dist.reduce_scatter(out, parts, group=self.groups[axis])
         return out
+
+    def ppermute(self, x: torch.Tensor, axis: str, shift: int = 1) -> torch.Tensor:
+        """``x`` rotated along ``axis``: this rank sends its ``x`` to the rank
+        ``shift`` coordinates on and returns what the rank ``shift``
+        coordinates back sent (modulo the axis size; a new tensor). Every
+        rank of the line calls it; the sends and receives go in one
+        ``batch_isend_irecv``, so the ring cannot deadlock. Gloo takes host
+        memory: a CUDA tensor on a gloo group is staged through the host
+        (the ranks that share one card); NCCL sends device to device."""
+        n = self.shape[axis]
+        if n == 1:
+            return x
+        line, me = self.lines[axis], self.rank(axis)
+        send = x.contiguous()
+        staged = send.is_cuda and dist.get_backend(self.groups[axis]) == "gloo"
+        if staged:
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send, line[(me + shift) % n], self.groups[axis]),
+               dist.P2POp(dist.irecv, recv, line[(me - shift) % n], self.groups[axis])]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return recv.to(x.device) if staged else recv
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, coords={self.coords}, device={self.device})"
@@ -199,6 +229,17 @@ class _AllGather(torch.autograd.Function):
         else:
             out = ctx.mesh.reduce_scatter(grad, ctx.axis, ctx.dim)
         return out, None, None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return mesh.ppermute(x, axis, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.ppermute(grad, ctx.axis, -ctx.shift), None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -260,6 +301,16 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str = AXIS_DP, dim: int = 
     return _ReduceScatter.apply(x, mesh, axis, dim % x.dim())
 
 
+def ppermute(x: torch.Tensor, mesh: Mesh, axis: str, shift: int = 1) -> torch.Tensor:
+    """``Mesh.ppermute`` under autograd: the gradient rotates back (``-shift``).
+    With one rank on the axis, ``x`` itself and no call."""
+    if mesh.shape[axis] == 1:
+        return x
+    if not _live(x):
+        return mesh.ppermute(x, axis, shift)
+    return _PPermute.apply(x, mesh, axis, shift)
+
+
 def _grid(shape: Dict[str, int]):
     """Global rank of each coordinate tuple, ``tp`` fastest."""
     grid, rank = {}, 0
@@ -300,7 +351,7 @@ def create_mesh(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1, device=None)
     for c, r in grid.items():
         if r == me:
             coords = dict(zip(AXES, c))
-    groups = {}
+    groups, own_lines = {}, {}
     for i, axis in enumerate(AXES):
         if shape[axis] == 1:
             continue
@@ -311,8 +362,8 @@ def create_mesh(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1, device=None)
         for line in lines.values():
             g = dist.new_group(line)
             if me in line:
-                groups[axis] = g
-    return Mesh(shape, coords, groups, device)
+                groups[axis], own_lines[axis] = g, line
+    return Mesh(shape, coords, groups, device, own_lines)
 
 
 def single_device_mesh(device="cuda") -> Mesh:

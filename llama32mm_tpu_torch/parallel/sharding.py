@@ -34,6 +34,14 @@ it is split for column-parallel leaves and replicated for row-parallel ones;
 the int4 group scales ``[N, K/g]`` follow the weight on either axis. A
 row-parallel int4 split falls on group boundaries (``K/tp`` a multiple of
 ``g``), so each group's ``g/2`` packed bytes stay whole on one rank.
+
+Sequence parallelism (``sp``): the parameters are replicated over ``sp``
+(the TP placement only, as in the JAX package) and each ``(dp, sp)`` rank
+takes its rows and its contiguous token chunk of the batch
+(``seq_data_sharding``); the forward reads the mesh from the ``TPShard``
+(``models/language.py``, ``ops/attention.py``). Pipeline stages are placed
+by ``parallel/pipeline.py``; ``shard_params`` on a mesh with ``pp > 1``
+replicates over ``pp``, as the JAX package's rules do.
 """
 
 from __future__ import annotations
@@ -46,7 +54,6 @@ from torch import nn
 
 from llama32mm_tpu_torch.configs import MLLAMAConfig
 from llama32mm_tpu_torch.models.common import copy_module
-from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 from llama32mm_tpu_torch.parallel.mesh import (
     AXIS_DP,
     AXIS_PP,
@@ -137,7 +144,12 @@ class Placement:
         return tuple(shape)
 
     def local(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of the whole tensor ``t`` (a view)."""
+        """This rank's slice of the whole tensor ``t`` (a view); raises
+        ``ValueError`` where a split dim does not divide."""
+        for dim, parts, axis in self.splits:
+            if t.shape[dim] % parts:
+                raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split into {parts} "
+                                 f"over {axis!r}")
         for dim, (start, length) in enumerate(self.box(t.shape)):
             if length != t.shape[dim]:
                 t = t.narrow(dim, start, length)
@@ -229,6 +241,17 @@ class TPShard:
         when the mesh has one data-parallel rank."""
         n = self.mesh.shape[AXIS_DP]
         return None if n == 1 else (self.mesh.rank(AXIS_DP) * local_rows, local_rows * n)
+
+    @property
+    def sp(self) -> int:
+        """The number of sequence-parallel ranks (1: whole sequences)."""
+        return self.mesh.shape[AXIS_SP]
+
+    def seq_tokens(self, local_tokens: int) -> Optional[tuple]:
+        """``(start, total)`` of this rank's token chunk under ``sp``, or
+        None when the mesh has one sequence-parallel rank."""
+        n = self.sp
+        return None if n == 1 else (self.mesh.rank(AXIS_SP) * local_tokens, local_tokens * n)
 
 
 _COLUMN = frozenset({"W_query", "w_gate", "w_up"})
@@ -351,8 +374,9 @@ def shard_params(model: nn.Module, config: MLLAMAConfig, mesh: Mesh,
     (the sharded checkpoint loader builds the local model that way)."""
     if not mesh.member:
         raise ValueError("this rank is not in the mesh")
-    if mesh.shape[AXIS_SP] > 1 or mesh.shape[AXIS_PP] > 1:
-        not_in_slice("sequence and pipeline parallelism (sp, pp > 1)")
+    if mesh.shape[AXIS_SP] > 1 and mesh.shape[AXIS_PP] > 1:
+        raise ValueError("a mesh with both sp > 1 and pp > 1: the pipeline (parallel/pipeline.py) "
+                         "does not compose with sequence parallelism, as in the JAX package")
     tp = mesh.shape[AXIS_TP]
     plan = param_shardings(config, mesh, model, vision_tp)
     lm = getattr(model, "language_model", model)
@@ -376,6 +400,18 @@ def data_sharding(mesh: Mesh, ndim: int = 2) -> Placement:
     for the JAX signature; the split is dim 0 whatever it is."""
     del ndim
     return Placement(mesh, 0, mesh.shape[AXIS_DP], AXIS_DP)
+
+
+def seq_data_sharding(mesh: Mesh, ndim: int = 2) -> Placement:
+    """Batch- and sequence-sharded token tensors: ``[B, T, ...]`` with the
+    rows on ``dp`` and a contiguous chunk of ``T / sp`` tokens on ``sp``
+    (``seq_data_sharding(mesh).local(input_ids)``; ``local`` raises when
+    ``sp`` does not divide ``T``). Images (``[B, C, H, W]``) take
+    ``data_sharding``: every sequence-parallel rank of a row runs its ViT."""
+    if ndim < 2:
+        raise ValueError("sequence sharding needs at least [B, T]")
+    return Placement(mesh, splits=((0, mesh.shape[AXIS_DP], AXIS_DP),
+                                   (1, mesh.shape[AXIS_SP], AXIS_SP)))
 
 
 def lora_shardings(mesh: Mesh, lora_like: dict) -> dict:

@@ -11,7 +11,9 @@ Under data parallelism each rank holds its rows of every microbatch, the
 loss is the global token mean (``models/vlm.py``) and ``n_i`` is the
 microbatch's valid-target count summed over ``dp``: each rank's result is
 then its share of the one-device gradient, which the trainers sum over
-``dp``. A rank whose rows of a microbatch are all padding is fine; a
+``dp``. Under sequence parallelism the count is that of the rank's chunk's
+targets shifted over the whole row (``models/vlm.py::shifted_targets``),
+summed over ``dp`` and ``sp``. A rank whose rows of a microbatch are all padding is fine; a
 microbatch that is all padding on every rank has weight 0.
 """
 
@@ -21,15 +23,19 @@ from typing import Callable, Sequence
 
 import torch
 
-from llama32mm_tpu_torch.parallel.mesh import AXIS_DP
+from llama32mm_tpu_torch.models.vlm import shifted_targets
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP
 
 
 def valid_target_count(labels: torch.Tensor, ignore_index: int, mesh=None) -> torch.Tensor:
     """Number of positions the shifted CE scores: targets are ``labels[:, 1:]``
-    minus ``ignore_index`` entries (fp32); with a ``mesh``, summed over its
-    ``dp`` ranks."""
-    n = (labels[:, 1:] != ignore_index).sum().to(torch.float32)
-    return n if mesh is None else mesh.all_reduce(n, AXIS_DP)
+    (``shifted_targets``) minus ``ignore_index`` entries (fp32); with a
+    ``mesh``, summed over its ``dp`` and ``sp`` ranks."""
+    n = (shifted_targets(labels, ignore_index, mesh) != ignore_index).sum().to(torch.float32)
+    if mesh is not None:
+        for axis in (AXIS_DP, AXIS_SP):
+            n = mesh.all_reduce(n, axis)
+    return n
 
 
 def loss_and_grads(loss: torch.Tensor, wrt: Sequence[torch.Tensor]):

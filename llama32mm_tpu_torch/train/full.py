@@ -21,7 +21,9 @@
   (tensor-parallel) layout, are whole for the rank's slice, except a kv
   head that several ranks hold (``tp`` above ``n_kv_groups``), whose
   partial gradients are summed over those ranks; every gradient is then
-  summed over ``dp``. The moments follow the parameters' layout (each
+  summed over ``sp`` (each sequence-parallel rank's token chunk gives its
+  share; the ViT's weights too, whose gradient only the chunk holding the
+  image tokens gives) and ``dp``. The moments follow the parameters' layout (each
   ``dp`` rank a copy), the optimizer's norm and statistics sum over the
   mesh (``optim.py``).
 - **ZeRO-1** (``zero1_params=`` the local model, ``zero1_axis="dp"``): the
@@ -46,7 +48,13 @@ from torch import nn
 from llama32mm_tpu_torch.configs import MLLAMAConfig, resolve_dtype
 from llama32mm_tpu_torch.models.common import copy_module
 from llama32mm_tpu_torch.models.vlm import MllamaForConditionalGeneration, vlm_forward
-from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_TP, all_gather, reduce_scatter
+from llama32mm_tpu_torch.parallel.mesh import (
+    AXIS_DP,
+    AXIS_SP,
+    AXIS_TP,
+    all_gather,
+    reduce_scatter,
+)
 from llama32mm_tpu_torch.parallel.sharding import (
     Placement,
     mesh_of,
@@ -250,6 +258,7 @@ def make_train_step(
             pl = placement_of(compute[name])
             if _kv_partial(pl):
                 grads[name] = _sum_kv_partial(grads[name], pl)
+        all_reduce_flat([grads[n] for n in names], mesh, AXIS_SP)
         # the data-parallel sum: reduce-scattered into ZeRO-1's slices, else all-reduced
         all_reduce_flat([grads[n] for n in names if not _splits(layouts[n], zero1_axis)], mesh,
                         zero1_axis)

@@ -14,9 +14,11 @@ rows of the batch) the adapters stay replicated, as the JAX package keeps
 them (``parallel.lora_shardings``); each tensor-parallel rank reads its
 slice (``models/language.py``), so the decoder's and the head's adapter
 gradients are partial sums, summed over ``tp``, while the projector's is
-whole on every rank. Every gradient is then summed over ``dp`` (each
-rank's share of the global token mean), so every rank takes the same Adam
-step.
+whole on every rank. Every gradient is then summed over ``dp`` and
+``sp`` (each rank's share of the global token mean: under sequence
+parallelism a rank's gradient holds its token chunk's share, the
+projector's too, which only the chunks holding image tokens give), so
+every rank takes the same Adam step.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from llama32mm_tpu_torch.configs import LLAMA32Config, MLLAMAConfig
 from llama32mm_tpu_torch.models.common import Linear, copy_module
 from llama32mm_tpu_torch.models.language import LORA_TARGETS, Dropout, maybe_lora
 from llama32mm_tpu_torch.models.vlm import vlm_forward
-from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_TP
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP, AXIS_TP
 from llama32mm_tpu_torch.parallel.sharding import mesh_of
 from llama32mm_tpu_torch.train.accum import accumulate_grads, all_reduce_flat, loss_and_grads
 from llama32mm_tpu_torch.train.optim import Adam, AdamState
@@ -300,7 +302,8 @@ def make_lora_train_step(
         # the rank's slices give partial gradients (not the projector's: it is whole)
         all_reduce_flat([g for name, g in zip(flat, grads) if not name.startswith("projector.")],
                         mesh, AXIS_TP)
-        all_reduce_flat(grads, mesh, AXIS_DP)
+        for axis in (AXIS_DP, AXIS_SP):
+            all_reduce_flat(grads, mesh, axis)
         opt_state = tx.step(flat, dict(zip(flat, grads)), state.opt_state)
         return LoraTrainState(lora=state.lora, opt_state=opt_state, step=state.step + 1), loss
 

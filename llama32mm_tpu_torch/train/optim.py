@@ -34,7 +34,7 @@ Sharded parameters (``layouts``: ``{name: parallel.Placement}``, each
 tensor a rank's slice): every reduction the rules make over a whole tensor
 or the whole tree is made over the mesh. The global norm sums each rank's
 squares, a tensor held by several ranks counted once (its sum divided by
-its replicas), over ``tp`` and ``dp``; Adafactor's factoring follows the
+its replicas), over ``tp``, ``dp``, ``sp`` and ``pp``; Adafactor's factoring follows the
 whole shape, its row and column means over a split dim are summed over the
 split's axis, and each block's RMS sums over the mesh as the norm does.
 Those sums of squares accumulate in fp64, so the norm and the RMS round to
@@ -53,13 +53,15 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_TP
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_PP, AXIS_SP, AXIS_TP
 from llama32mm_tpu_torch.parallel.sharding import set_placement
+
+_NORM_AXES = (AXIS_TP, AXIS_DP, AXIS_SP, AXIS_PP)  # the order of the norm's sums
 
 
 def _weight(pl) -> float:
     """``1 / `` the number of ranks that hold the same slice (1 unsharded)."""
-    return 1.0 if pl is None else 1.0 / (pl.replicas(AXIS_TP) * pl.replicas(AXIS_DP))
+    return 1.0 if pl is None else 1.0 / math.prod(pl.replicas(axis) for axis in _NORM_AXES)
 
 
 def _mesh_sum(x: torch.Tensor, layouts: Optional[dict]) -> torch.Tensor:
@@ -68,7 +70,7 @@ def _mesh_sum(x: torch.Tensor, layouts: Optional[dict]) -> torch.Tensor:
     pl = next((p for p in (layouts or {}).values() if p is not None), None)
     if pl is None:
         return x
-    for axis in (AXIS_TP, AXIS_DP):
+    for axis in _NORM_AXES:
         x = pl.mesh.all_reduce(x, axis)
     return x
 

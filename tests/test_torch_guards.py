@@ -47,6 +47,7 @@ PORT_MODULES = [
     "llama32mm_tpu_torch.parallel", "llama32mm_tpu_torch.parallel.mesh",
     "llama32mm_tpu_torch.parallel.sharding", "llama32mm_tpu_torch.train.accum",
     "llama32mm_tpu_torch.train.lora", "llama32mm_tpu_torch.train.full",
+    "llama32mm_tpu_torch.parallel.pipeline",
 ]
 
 
@@ -301,8 +302,8 @@ def test_not_in_slice_sites_left():
     """The refusals left in the port's sources: gemv routes (engine, server,
     language), the fused layout, and what tensor parallelism does not run
     yet (the ViT's dropout, adapter banks, the server at dp > 1, draft
-    models, the HTTP front end, sequence and pipeline meshes). ZeRO, the
-    sharded checkpointer and training under tensor parallelism are
+    models, the HTTP front end). ZeRO, the sharded checkpointer, training
+    under tensor parallelism, sequence parallelism and the pipeline are
     ported."""
     import glob
 
@@ -317,8 +318,7 @@ def test_not_in_slice_sites_left():
         "llama32mm_tpu_torch/convert.py", "llama32mm_tpu_torch/inference/engine.py",
         "llama32mm_tpu_torch/inference/http_server.py",
         "llama32mm_tpu_torch/inference/server.py",
-        "llama32mm_tpu_torch/models/language.py", "llama32mm_tpu_torch/models/vision.py",
-        "llama32mm_tpu_torch/parallel/sharding.py"]
+        "llama32mm_tpu_torch/models/language.py", "llama32mm_tpu_torch/models/vision.py"]
 
 
 def test_int8_kv_cache_refused():

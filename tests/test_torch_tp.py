@@ -403,16 +403,19 @@ def test_abstract_state_takes_the_local_shapes(world2):
 # -- what is not ported under TP ---------------------------------------------------
 
 
-@pytest.mark.parametrize("feature", ["adapter_bank", "draft", "http", "sequence_parallel"])
+@pytest.mark.parametrize("feature", ["adapter_bank", "draft", "http"])
 def test_not_ported_under_tp_raises(world2, feature):
     for r in _ok(world2, "refusals"):
         assert r[feature] == "not_in_slice", r[feature]
 
 
-@pytest.mark.parametrize("feature", ["lora", "training"])
+@pytest.mark.parametrize("feature", ["lora", "training", "sequence_parallel"])
 def test_once_refused_under_tp_runs(world2, feature):
     """LoRA and gradients under tensor parallelism, once refused, now run
-    (their agreement with the JAX package: tests/test_torch_tp_train.py)."""
+    (their agreement with the JAX package: tests/test_torch_tp_train.py);
+    so does a mesh with ``sp = 2``, whose chunks' logits equal the
+    one-device forward's (tests/test_torch_seq_parallel.py holds training
+    over ``sp`` to the JAX package)."""
     for r in _ok(world2, "refusals"):
         assert r[feature] == "ran", r[feature]
 

@@ -281,12 +281,14 @@ def case_abstract_state(c: Ctx):
 
 
 def case_refusals(c: Ctx):
-    """Each feature that is not ported under TP raises NotImplementedError."""
+    """Each feature that is not ported under TP raises NotImplementedError;
+    those once refused run (sequence parallelism: a forward at sp=2 whose
+    token chunks' logits equal the one-device forward's)."""
     from llama32mm_tpu_torch.inference.engine import InferenceEngine
     from llama32mm_tpu_torch.inference.http_server import ServingFrontend
     from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
     from llama32mm_tpu_torch.models.vlm import vlm_forward
-    from llama32mm_tpu_torch.parallel import Mesh, shard_params
+    from llama32mm_tpu_torch.parallel import AXIS_SP, create_mesh, shard_params
     from llama32mm_tpu_torch.train.lora import (
         init_lora_params,
         stack_adapter_bank,
@@ -312,8 +314,13 @@ def case_refusals(c: Ctx):
             norm.requires_grad_(False)
 
     def sp_mesh():
-        shard_params(c.models["tied"], c.cfg, Mesh({"tp": 1, "sp": 2}, {"dp": 0, "pp": 0,
-                                                                       "sp": 0, "tp": 0}))
+        mesh = create_mesh(sp=2)
+        chunk = slice(3 * mesh.rank(AXIS_SP), 3 * mesh.rank(AXIS_SP) + 3)
+        with torch.no_grad():
+            want = vlm_forward(c.models["tied"], c.cfg, input_ids=ids).logits[:, chunk]
+            got = vlm_forward(shard_params(c.models["tied"], c.cfg, mesh), c.cfg,
+                              input_ids=ids[:, chunk].contiguous()).logits
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
     attempts = {
         "lora": lambda: vlm_forward(model, c.cfg, input_ids=ids, lora=lora),
