@@ -148,13 +148,34 @@
    widths names the three phases and the hand kernels;
 19. ``tp_tiny``: the tiny model at tp=2 (fp32, int8 and int4-mixed
    weights): every rank's engine and server tokens (monolithic and chunked,
-   float and int8 KV) equal the one-device kernel path's exactly;
+   float and int8 KV) equal the one-device kernel path's exactly; then, on
+   the fp32 kernel path, the features once refused under tensor
+   parallelism: ``tp_tiny_bank`` (the 3-adapter bank's traffic, each rank's
+   tokens equal to the one-device bank server's), ``tp_tiny_draft`` (the
+   one-layer draft whole and sharded, the one-device draft engine's
+   tokens), ``tp_tiny_http`` (rank 0 serves the HTTP traffic on loopback,
+   rank 1 follows its log: the direct one-device server's tokens, equal
+   records on both ranks), ``tp_tiny_vit_dropout`` (a full fine-tuning step
+   with ``vision_tp`` and ViT attention dropout: loss and the tower's
+   gradients within ``TINY_VIT_TOL`` of the one-device step's) and
+   ``tp_tiny_dp_server`` (a 4-slot pool, greedy, sampled and chunked over
+   int8 KV, at dp=2 x tp=2 on four ranks, equal to tp=2's), each launching
+   its kernels and no plain version;
 20. ``tp_11b_bf16``, ``tp_11b_server_bf16`` and ``tp_11b_int4_mixed``: the
    11B at full depth and tp=2 (NCCL with a GPU a rank, else two ranks
    sharing the card over gloo): every rank launches each kernel of the path
    at its sharded shape and no plain version, the ranks' tokens are equal,
    and the prefill logits stay within twice the one-device kernel path's
-   distance from ``impl="torch"`` of that path.
+   distance from ``impl="torch"`` of that path; on the bf16 model,
+   ``tp_11b_server_bf16_lora`` (the 4 requests with ``server_bf16_lora``'s
+   bank, adapters ``i % 3``, no SwiGLU kernel), ``tp_11b_bf16_spec_draft``
+   (the random 1B-width draft whole on each rank, K=4, 32 tokens, the exact
+   launches) and ``tp_11b_http_bf16`` (the 4 requests over loopback HTTP,
+   rank 1 following: the direct tp=2 server's tokens); every rank's tokens
+   equal; ``tp_dp_server_11b``: the 11B widths cut to ``TP_DP_DEPTH`` (8 of
+   40 decoder, 8 of 32 ViT layers), 8 image requests (4 greedy, 4 sampled)
+   through 8 slots at tp=2, then at dp=2 x tp=2 on four ranks: every rank's
+   tokens equal tp=2's;
 21. ``tp_lora_11b``: ``lora_11b`` at tp=2 (the tied bf16 11B at full
    depth, rank-16 adapters with the head's, B=1 S=1632, a warm-up and 3
    timed steps): both ranks' losses and adapters bit-equal after every
@@ -277,7 +298,7 @@ from llama32mm_tpu_torch.configs import (
 )
 from llama32mm_tpu_torch import evaluate
 from llama32mm_tpu_torch.inference.engine import InferenceEngine, structured_prefill_mask
-from llama32mm_tpu_torch.inference.http_server import ServingFrontend, serve_forever
+from llama32mm_tpu_torch.inference.http_server import ServingFrontend, follow, serve_forever
 from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
 from llama32mm_tpu_torch.io.checkpoint import (
     build_config_from_hf,
@@ -509,6 +530,12 @@ PATH_KERNELS.update({
 # Tensor-parallel serving (each rank at its tp=2 shapes) runs its kind's kernels;
 # so does training across ranks: LoRA at tp=2 (gate and up adapted: no SwiGLU
 # kernel), full fine-tuning at dp=2 x tp=2 (the SwiGLU tile forward and backward).
+# The features once refused under tensor parallelism at tp=2: the bank server, the
+# draft engine, the HTTP front end; and the server at dp=2 x tp=2.
+PATH_KERNELS.update({"tp_11b_server_bf16_lora": PATH_KERNELS["server_bf16_lora"],
+                     "tp_11b_bf16_spec_draft": PATH_KERNELS["bf16_spec_draft"],
+                     "tp_11b_http_bf16": PATH_KERNELS["http_bf16"],
+                     "tp_dp_server_11b": PATH_KERNELS["server_bf16"]})
 PATH_KERNELS.update({"tp_11b_bf16": PATH_KERNELS["bf16"],
                      "tp_11b_int4_mixed": PATH_KERNELS["int4_mixed"],
                      "tp_11b_server_bf16": PATH_KERNELS["server_bf16"],
@@ -838,7 +865,8 @@ def tp_kernel_cases(rnd, valid, q8, q4, kv8):
     N=64128), its row-parallel ones (out_proj K=2048, w_down K=7168; int4
     ones split on g=128 group boundaries), SwiGLU at I=7168 (the prefill's
     TMA tile, the decode rows kernel) and attention over 16 query and 4 kv
-    heads, in bf16, int8 and int4, for one request and the 4-slot server."""
+    heads, in bf16, int8 and int4, for one request and the 4-slot server; and
+    the adapter bank's unfused gate and up (N=7168) at the 4-slot server."""
     h, vl, il, ol, kvl = 4096, 64128, 7168, 2048, 512
     dev = rnd(1).device
     offsets = torch.tensor([1664, 1700, 1727, 1690], dtype=torch.int32, device=dev)
@@ -854,6 +882,8 @@ def tp_kernel_cases(rnd, valid, q8, q4, kv8):
         ("gemv_tc", "tp=2 w_down R=1 N=4096 K=7168", (rnd(1, il), rnd(h, il, scale=0.01)), False),
         ("gemv_tc", "tp=2 server lm_head R=4 N=64128 K=4096", (rnd(4, h), rnd(vl, h)), False),
         ("gemv_tc", "tp=2 server w_down R=4 N=4096 K=7168", (rnd(4, il), rnd(h, il, scale=0.01)),
+         False),
+        ("gemv_tc", "tp=2 bank gate/up R=4 N=7168 K=4096", (rnd(4, h), rnd(il, h, scale=0.02)),
          False),
         ("swiglu_tc", "tp=2 prefill R=1632 H=4096 I=7168",
          (rnd(1632, h), rnd(il, h, scale=0.02), rnd(il, h, scale=0.02)), False),
@@ -1796,26 +1826,25 @@ def tiny_adapter(tc, dev, seed: int) -> dict:
     return lora
 
 
-def check_tiny_bank(dev) -> None:
-    """On the tiny fp32 model, on the kernel path: a 3-adapter bank (the
-    identity and two seeded adapters with nonzero B) serving 4 requests
-    through 3 slots (adapters 0 / 1 / 2, then 1 after a step, into a freed
-    slot) and one through a prefix of adapter 2 (matched on its own); each
-    gives the tokens of a solo ``InferenceEngine`` on the model with its
-    adapter merged (``merge_lora_into_params``), and no plain version runs."""
-    cfg = tiny_mllama_config(max_cache_length=64)
+def tiny_bank_traffic(cfg, dev) -> tuple:
+    """``(adapters, prompts, prefix, adapter ids)``: the identity and two
+    seeded adapters with nonzero B; 4 prompts of adapters 0 / 1 / 2 / 1 and
+    a fifth, of adapter 2, extending the prefix."""
     tc = cfg.text_config
-    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
     adapters = [zero_lora_params(tc, rank=4, device=dev), tiny_adapter(tc, dev, 101),
                 tiny_adapter(tc, dev, 102)]
-    engines = [InferenceEngine(merge_lora_into_params(model, a), cfg, dev) for a in adapters]
     gen = torch.Generator(device=dev).manual_seed(8)
     prompts = [torch.randint(0, 240, (s,), generator=gen, device=dev) for s in (9, 12, 10, 11)]
     prefix = torch.randint(0, 240, (8,), generator=gen, device=dev)
     prompts.append(torch.cat([prefix, prompts[0][:5]]))
-    aids = [0, 1, 2, 1, 2]
-    want = [engines[a].generate(p[None], max_new_tokens=6).tokens[0].tolist()
-            for p, a in zip(prompts, aids)]
+    return adapters, prompts, prefix, [0, 1, 2, 1, 2]
+
+
+def tiny_bank_served(model, cfg, dev, adapters, prompts, prefix, aids) -> tuple:
+    """The bank server (3 slots) over ``model``: the prefix registered with
+    adapter 2, the first 3 prompts submitted, a step, then the rest (the
+    last matches the prefix on its own); ``(tokens of each, stats, plain
+    calls)`` from counters zeroed after the registration."""
     srv = ContinuousBatchingServer(model, cfg, dev, slots=3, prompt_buckets=None,
                                    steps_per_sync=2, adapter_bank=stack_adapter_bank(adapters))
     srv.register_prefix(prefix, adapter_id=2)
@@ -1826,9 +1855,24 @@ def check_tiny_bank(dev) -> None:
     rids += [srv.submit(p, None, max_new_tokens=6, adapter_id=a)
              for p, a in zip(prompts[3:], aids[3:])]
     results = srv.run()
-    got = [results[r].tolist() for r in rids]
-    plain_calls = {k: n for k, n in kernels.plain_counts().items() if n}
-    st = srv.stats()
+    return ([results[r].tolist() for r in rids], srv.stats(),
+            {k: n for k, n in kernels.plain_counts().items() if n})
+
+
+def check_tiny_bank(dev) -> None:
+    """On the tiny fp32 model, on the kernel path: a 3-adapter bank (the
+    identity and two seeded adapters with nonzero B) serving 4 requests
+    through 3 slots (adapters 0 / 1 / 2, then 1 after a step, into a freed
+    slot) and one through a prefix of adapter 2 (matched on its own); each
+    gives the tokens of a solo ``InferenceEngine`` on the model with its
+    adapter merged (``merge_lora_into_params``), and no plain version runs."""
+    cfg = tiny_mllama_config(max_cache_length=64)
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    adapters, prompts, prefix, aids = tiny_bank_traffic(cfg, dev)
+    engines = [InferenceEngine(merge_lora_into_params(model, a), cfg, dev) for a in adapters]
+    want = [engines[a].generate(p[None], max_new_tokens=6).tokens[0].tolist()
+            for p, a in zip(prompts, aids)]
+    got, st, plain_calls = tiny_bank_served(model, cfg, dev, adapters, prompts, prefix, aids)
     log(f"tiny fp32 adapter bank (adapters {aids}, the last through a prefix of adapter 2): "
         f"tokens {got} merged solo engines {want}; {st}")
     if got != want or st["prefix_hits"] != 1 or plain_calls:
@@ -1920,14 +1964,9 @@ def http_traffic(port: int, bodies: list, timeout: float) -> list:
     return [o[1]["tokens"] for o in out]
 
 
-def check_tiny_http(dev) -> None:
-    """On the tiny fp32 model, on the kernel path: the HTTP front end on
-    127.0.0.1 (a free port), driven over ``http.client``: ``POST /prefix``
-    (a text prefix), ``/generate``, a concurrent pair of ``/generate`` and a
-    ``/generate_stream``, then ``DELETE /prefix``; each reply's tokens equal
-    the direct server's on the same requests, and no plain version runs."""
-    cfg = tiny_mllama_config(max_cache_length=64)
-    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+def tiny_http_traffic(cfg, dev) -> tuple:
+    """``(prefix, requests)``: 3 text requests extending a seeded 8-id
+    prefix and an image request, ``(ids, pixel values or None, budget)``."""
     gen = torch.Generator(device=dev).manual_seed(9)
     prefix = torch.randint(0, 240, (8,), generator=gen, device=dev)
     image = torch.randint(0, 240, (12,), generator=gen, device=dev)
@@ -1936,7 +1975,35 @@ def check_tiny_http(dev) -> None:
     reqs = [(torch.cat([prefix, torch.randint(0, 240, (s,), generator=gen, device=dev)]), None, n)
             for s, n in ((5, 6), (7, 5), (4, 7))]
     reqs.insert(2, (image, px, 6))
+    return prefix, reqs
 
+
+def tiny_http_drive(port: int, prefix, reqs) -> tuple:
+    """``POST /prefix``, then ``/generate`` alone, a concurrent pair and a
+    ``/generate_stream``, then ``DELETE /prefix``: ``(tokens of each
+    request, /stats, the DELETE's reply)``."""
+    status, reply = http_call(port, "POST", "/prefix", {"input_ids": prefix.tolist()})
+    if status != 200:
+        raise RuntimeError(f"POST /prefix: {status} {reply}")
+    bodies = [{"input_ids": ids.tolist(), "max_new_tokens": n,
+               **({} if p is None else {"pixel_values": p.cpu().numpy().tolist()})}
+              for ids, p, n in reqs]
+    got = http_traffic(port, bodies[:1], timeout=60)
+    got += http_traffic(port, bodies[1:3], timeout=60)
+    got += http_traffic(port, bodies[3:], timeout=60)  # the stream
+    stats = http_call(port, "GET", "/stats")[1]
+    return got, stats, http_call(port, "DELETE", f"/prefix/{reply['prefix_id']}")
+
+
+def check_tiny_http(dev) -> None:
+    """On the tiny fp32 model, on the kernel path: the HTTP front end on
+    127.0.0.1 (a free port), driven over ``http.client``: ``POST /prefix``
+    (a text prefix), ``/generate``, a concurrent pair of ``/generate`` and a
+    ``/generate_stream``, then ``DELETE /prefix``; each reply's tokens equal
+    the direct server's on the same requests, and no plain version runs."""
+    cfg = tiny_mllama_config(max_cache_length=64)
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    prefix, reqs = tiny_http_traffic(cfg, dev)
     direct, srv = [ContinuousBatchingServer(model, cfg, dev, slots=2, prompt_buckets=None,
                                             steps_per_sync=3) for _ in range(2)]
     direct.register_prefix(prefix)
@@ -1944,17 +2011,7 @@ def check_tiny_http(dev) -> None:
     live = LiveFrontend(srv)
     try:
         kernels.reset_counters()
-        status, reply = http_call(live.port, "POST", "/prefix", {"input_ids": prefix.tolist()})
-        if status != 200:
-            raise RuntimeError(f"POST /prefix: {status} {reply}")
-        bodies = [{"input_ids": ids.tolist(), "max_new_tokens": n,
-                   **({} if p is None else {"pixel_values": p.cpu().numpy().tolist()})}
-                  for ids, p, n in reqs]
-        got = http_traffic(live.port, bodies[:1], timeout=60)
-        got += http_traffic(live.port, bodies[1:3], timeout=60)
-        got += http_traffic(live.port, bodies[3:], timeout=60)  # the stream
-        stats = http_call(live.port, "GET", "/stats")[1]
-        dropped = http_call(live.port, "DELETE", f"/prefix/{reply['prefix_id']}")
+        got, stats, dropped = tiny_http_drive(live.port, prefix, reqs)
         plain_calls = {k: n for k, n in kernels.plain_counts().items() if n}
     finally:
         live.close()
@@ -2308,12 +2365,12 @@ PHOTO = (3024, 4032)  # a 12 MP phone photo, height x width
 RESIZE_TOL = 1e-3  # card vs CPU, on the 0-255 scale (fp32 sums in other orders)
 
 
-def load_11b_config() -> MLLAMAConfig:
+def load_11b_config(depth: dict = LOAD_DEPTH) -> MLLAMAConfig:
+    """Llama-3.2-11B-Vision's widths at ``depth``'s decoder and ViT layers."""
     full = llama32_11b_vision_config()
     return MLLAMAConfig(
-        vision_config=dataclasses.replace(full.vision_config,
-                                          num_hidden_layers=LOAD_DEPTH["vit"]),
-        text_config=dataclasses.replace(full.text_config, n_layers=LOAD_DEPTH["decoder"]),
+        vision_config=dataclasses.replace(full.vision_config, num_hidden_layers=depth["vit"]),
+        text_config=dataclasses.replace(full.text_config, n_layers=depth["decoder"]),
         projection_dim=full.projection_dim, hidden_size=full.hidden_size,
     )
 
@@ -3434,11 +3491,13 @@ def run_tp_world(phase: str, fn_name: str, args: dict, world: int = TP_WORLD) ->
     ranks; return each rank's result. As many GPUs: NCCL, a GPU each;
     fewer: the ranks share cuda:0 over gloo (not possible in the
     Exclusive_Process compute mode, which fails here)."""
+    free_device_memory()  # the parent's cached blocks, before the ranks share the card
     n = torch.cuda.device_count()
     mode = tp_compute_mode()
     how = ("NCCL, one GPU a rank" if n >= world else
            f"gloo, {world} ranks sharing cuda:0 (times are not multi-GPU times)")
-    log(f"[{phase}] {world} ranks over {how}; compute mode {mode}")
+    log(f"[{phase}] {world} ranks over {how}; compute mode {mode}; the parent holds "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB")
     if n < world and "Exclusive_Process" in mode:
         raise RuntimeError(f"[{phase}] {world} processes cannot share the one card in compute "
                            f"mode {mode}")
@@ -3543,6 +3602,129 @@ def tiny_tp_model(cfg, dev, weights: str):
     return model, px, prompts
 
 
+# tp_tiny's serving features once refused under tensor parallelism: each
+# path's kernels on the fp32 kernel path (a bank's gate/up adapters run the
+# FFN unfused: no SwiGLU kernel; the ViT dropout step trains through the SIMT
+# flash kernels)
+TINY_FEATURE_KERNELS = {
+    "tp_tiny_bank": ("rmsnorm", "gemv", "flash_decode"),
+    "tp_tiny_draft": ("rmsnorm", "gemv", "swiglu", "flash_decode"),
+    "tp_tiny_http": ("rmsnorm", "gemv", "swiglu", "flash_decode"),
+    "tp_tiny_vit_dropout": TRAIN_KERNELS,
+    "tp_tiny_dp_server": ("rmsnorm", "gemv", "swiglu", "flash_decode", "flash_decode_int8kv"),
+}
+TINY_VIT_DROPOUT = 0.25
+TINY_VIT_TOL = 1e-4  # fp32 |Δ| over the tower's largest gradient: partial sums in other orders
+
+
+def tiny_spec_prompt(cfg, dev) -> tuple:
+    """check_tiny_spec's prompt: 12 ids, the first 4 ``<image>``, and its
+    pixel values."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ids = torch.randint(0, 240, (1, 12), generator=gen, device=dev)
+    ids[:, :4] = cfg.image_token_index
+    return ids, torch.randn(1, 3, 28, 28, generator=gen, device=dev)
+
+
+def tiny_pool_tokens(model, cfg, dev) -> dict:
+    """tp_tiny's three prompts through 4 slots: greedy, sampled under a
+    seeded generator, and chunked over an int8 KV cache."""
+    _, px, prompts = tiny_tp_traffic(cfg, dev)
+    out = {}
+    for name, kw in (("greedy", dict(prompt_buckets=(16, 24))),
+                     ("sampled", dict(temperature=0.9, top_k=20,
+                                      rng=torch.Generator(device=dev).manual_seed(7))),
+                     ("chunked", dict(prefill_chunk=4, kv_dtype="int8"))):
+        srv = ContinuousBatchingServer(model, cfg, dev, slots=4, steps_per_sync=4,
+                                       **{"prompt_buckets": None, **kw})
+        rids = [srv.submit(ids, px, max_new_tokens=n) for ids, n in prompts]
+        results = srv.run()
+        out[name] = [results[r].tolist() for r in rids]
+    return out
+
+
+def tiny_vit_dropout_step(cfg, dev, model) -> dict:
+    """One full fine-tuning step's loss and the tower's gradients (this
+    rank's slices) with the ViT's attention dropout, from a seeded batch
+    and generator."""
+    batch = tiny_batch(cfg, dev, torch.Generator(device=dev).manual_seed(12))
+    params = dict(model.vision_model.named_parameters())
+    for t in params.values():
+        t.requires_grad_(True)
+    loss = vlm_forward(model, cfg, **batch,
+                       dropout_rng=torch.Generator(device=dev).manual_seed(13)).loss
+    grads = {n: (placement_of(t), g)
+             for (n, t), g in zip(params.items(), torch.autograd.grad(loss, list(params.values())))}
+    for t in params.values():
+        t.requires_grad_(False)
+    init, step = make_train_step(cfg, learning_rate=1e-3)
+    _, step_loss = step(init(model), batch, torch.Generator(device=dev).manual_seed(13))
+    return {"loss": loss.item(), "step_loss": float(step_loss), "grads": grads}
+
+
+def tiny_tp_features(rank, dev, mesh) -> dict:
+    """The tiny fp32 model sharded at tp=2, on the kernel path: the bank
+    server (check_tiny_bank's traffic), draft speculation (check_tiny_spec's
+    prompt; the draft whole on every rank and sharded), the HTTP front end
+    (check_tiny_http's traffic; rank 0 serves on loopback, rank 1 follows),
+    full fine-tuning with ``vision_tp`` and ViT attention dropout (against
+    the one-device step on this rank), and the 4-slot pool that
+    ``tp_tiny_dp`` repeats at dp=2 x tp=2. Each with its launches."""
+    cfg = tiny_mllama_config(max_cache_length=64)
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    sharded = shard_params(model, cfg, mesh)
+    out = {}
+
+    def counted(path, fn):
+        kernels.reset_counters()
+        out[path] = {"value": fn()}
+        out[path].update(launches=kernels.launch_counts(), plain=kernels.plain_counts())
+
+    counted("tp_tiny_bank", lambda: tiny_bank_served(sharded, cfg, dev,
+                                                     *tiny_bank_traffic(cfg, dev))[:2])
+    draft, dcfg = tiny_draft(cfg, dev)
+    ids, px = tiny_spec_prompt(cfg, dev)
+    counted("tp_tiny_draft", lambda: [
+        InferenceEngine(sharded, cfg, dev, spec_draft=3, draft_params=d, draft_config=dcfg)
+        .generate(ids, px, max_new_tokens=24).tokens[0].tolist()
+        for d in (draft, shard_params(draft, dcfg, mesh))])
+
+    def http():
+        prefix, reqs = tiny_http_traffic(cfg, dev)
+        srv = ContinuousBatchingServer(sharded, cfg, dev, slots=2, prompt_buckets=None,
+                                       steps_per_sync=3)
+        got = None
+        if rank == 0:
+            live = LiveFrontend(srv)
+            try:
+                got, stats, dropped = tiny_http_drive(live.port, prefix, reqs)
+            finally:
+                live.close()
+            got = {"tokens": got, "prefix_hits": stats.get("prefix_hits"),
+                   "dropped": dropped[0]}
+        else:
+            follow(srv)
+        return {"http": got, "records": {rid: r.tokens for rid, r in srv._results.items()}}
+
+    counted("tp_tiny_http", http)
+    vcfg = dataclasses.replace(cfg, vision_config=dataclasses.replace(
+        cfg.vision_config, attention_dropout=TINY_VIT_DROPOUT))
+    whole = tiny_vit_dropout_step(vcfg, dev, init_vlm(vcfg, dev, torch.Generator(
+        device=dev).manual_seed(3)))
+    counted("tp_tiny_vit_dropout", lambda: tiny_vit_dropout_step(vcfg, dev, shard_params(
+        init_vlm(vcfg, dev, torch.Generator(device=dev).manual_seed(3)), vcfg, mesh,
+        vision_tp=True)))
+    got = out["tp_tiny_vit_dropout"]["value"]
+    scale = max(g.abs().max().item() for _, g in whole["grads"].values())
+    err = max((g - (whole["grads"][n][1] if pl is None else pl.local(whole["grads"][n][1])))
+              .abs().max().item() for n, (pl, g) in got["grads"].items())
+    out["tp_tiny_vit_dropout"]["value"] = {
+        "loss": (got["loss"], whole["loss"]), "step_loss": (got["step_loss"], whole["step_loss"]),
+        "grad_err": err, "grad_scale": scale}
+    counted("tp_tiny_pool", lambda: tiny_pool_tokens(sharded, cfg, dev))
+    return out
+
+
 def tp_tiny_rank(rank, dev, args) -> dict:
     cfg = tiny_mllama_config(max_cache_length=64)
     mesh = create_mesh(tp=TP_WORLD)
@@ -3553,13 +3735,96 @@ def tp_tiny_rank(rank, dev, args) -> dict:
         kernels.reset_counters()
         out[weights] = {"tokens": tiny_tp_tokens(sharded, cfg, dev, px, prompts),
                         "launches": kernels.launch_counts(), "plain": kernels.plain_counts()}
+    out["features"] = tiny_tp_features(rank, dev, mesh)
     return out
+
+
+def tp_tiny_dp_rank(rank, dev, args) -> dict:
+    """tp_tiny's 4-slot pool at dp=2 x tp=2, four ranks."""
+    cfg = tiny_mllama_config(max_cache_length=64)
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    sharded = shard_params(model, cfg, create_mesh(dp=2, tp=2))
+    kernels.reset_counters()
+    tokens = tiny_pool_tokens(sharded, cfg, dev)
+    return {"tokens": tokens, "launches": kernels.launch_counts(),
+            "plain": kernels.plain_counts()}
+
+
+def tiny_feature_faults(path: str, results: list) -> list:
+    """Every rank launched ``path``'s kernels and no plain version."""
+    faults = []
+    for r, res in enumerate(results):
+        faults += [f"{path} rank {r} skipped {k}" for k in TINY_FEATURE_KERNELS[path]
+                   if res["launches"][k] == 0]
+        if any(res["plain"].values()):
+            faults.append(f"{path} rank {r} ran plain versions {res['plain']}")
+    if path == "tp_tiny_bank":  # gate/up adapters: the FFN unfused
+        faults += [f"{path} rank {r} launched SwiGLU {res['launches']['swiglu']} times"
+                   for r, res in enumerate(results) if res["launches"]["swiglu"]]
+    return faults
+
+
+def run_tp_tiny_features(dev, ranks) -> tuple:
+    """``tp_tiny``'s features against the one-device kernel path, and the
+    pool at dp=2 x tp=2 (four ranks) against tp=2: ``(faults, launches by
+    path)``."""
+    cfg = tiny_mllama_config(max_cache_length=64)
+    model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(2), tie_weights=False)
+    feats = [rank["features"] for rank in ranks]
+    faults, by_path = [], {}
+    bank_want = tiny_bank_served(model, cfg, dev, *tiny_bank_traffic(cfg, dev))[0]
+    draft, dcfg = tiny_draft(cfg, dev)
+    ids, px = tiny_spec_prompt(cfg, dev)
+    draft_want = InferenceEngine(model, cfg, dev, spec_draft=3, draft_params=draft,
+                                 draft_config=dcfg).generate(ids, px, max_new_tokens=24)
+    prefix, reqs = tiny_http_traffic(cfg, dev)
+    direct = ContinuousBatchingServer(model, cfg, dev, slots=2, prompt_buckets=None,
+                                      steps_per_sync=3)
+    direct.register_prefix(prefix)
+    http_want, _ = tiny_served(direct, [(i, p, n, {}) for i, p, n in reqs])
+    for r, f in enumerate(feats):
+        bank, st = f["tp_tiny_bank"]["value"]
+        if bank != bank_want or st["prefix_hits"] != 1:
+            faults.append(f"bank rank {r}: {bank} != one device {bank_want} or prefix missed")
+        if any(t != draft_want.tokens[0].tolist() for t in f["tp_tiny_draft"]["value"]):
+            faults.append(f"draft rank {r}: {f['tp_tiny_draft']['value']} != one device "
+                          f"{draft_want.tokens[0].tolist()}")
+        if f["tp_tiny_http"]["value"]["records"] != feats[0]["tp_tiny_http"]["value"]["records"]:
+            faults.append(f"http rank {r}'s records differ from rank 0's")
+        v = f["tp_tiny_vit_dropout"]["value"]
+        rel = max(abs(a - b) / abs(b) for a, b in (v["loss"], v["step_loss"]))
+        if not (rel <= TINY_VIT_TOL and v["grad_err"] <= TINY_VIT_TOL * v["grad_scale"]):
+            faults.append(f"vit dropout rank {r}: losses {v['loss']} {v['step_loss']}, "
+                          f"gradient |Δ| {v['grad_err']} over {v['grad_scale']}")
+        log(f"[tp_tiny_vit_dropout rank {r}] vision_tp step with attention dropout "
+            f"{TINY_VIT_DROPOUT}: loss {v['loss'][0]:.8g} against one device {v['loss'][1]:.8g},"
+            f" step loss {v['step_loss'][0]:.8g} / {v['step_loss'][1]:.8g}, largest gradient "
+            f"|Δ| {v['grad_err']:.3g} of {v['grad_scale']:.3g}")
+    http = feats[0]["tp_tiny_http"]["value"]["http"]
+    if http["tokens"] != http_want or http["prefix_hits"] != 3 or http["dropped"] != 200:
+        faults.append(f"http over tp=2: {http} != the direct one-device server's {http_want}")
+    log(f"[tp_tiny features] bank {feats[0]['tp_tiny_bank']['value'][0]} (one device "
+        f"{bank_want}); draft whole / sharded {feats[0]['tp_tiny_draft']['value']} (one device "
+        f"{draft_want.tokens[0].tolist()}); HTTP {http['tokens']} (direct {http_want})")
+    dp = run_tp_world("tp_tiny_dp", "tp_tiny_dp", {}, world=4)
+    pool = feats[0]["tp_tiny_pool"]["value"]
+    faults += [f"dp=2 x tp=2 rank {r}: {res['tokens']} != tp=2 {pool}"
+               for r, res in enumerate(dp) if res["tokens"] != pool]
+    log(f"[tp_tiny_dp_server] dp=2 x tp=2 tokens equal tp=2's on all four ranks: "
+        f"{all(res['tokens'] == pool for res in dp)} ({pool})")
+    for path in TINY_FEATURE_KERNELS:
+        results = dp if path == "tp_tiny_dp_server" else [f[path] for f in feats]
+        faults += tiny_feature_faults(path, results)
+        by_path[path] = results[0]["launches"]
+    return faults, by_path
 
 
 def run_tp_tiny(dev) -> dict:
     """The tiny model at tp=2, fp32, int8 and int4-mixed: each rank's engine
     and server tokens equal the one-device kernel path's exactly; each rank
-    launches its path's kernels and no plain version."""
+    launches its path's kernels and no plain version. Then the features once
+    refused under tensor parallelism (``run_tp_tiny_features``). Returns the
+    launches by path."""
     cfg = tiny_mllama_config(max_cache_length=64)
     want = {}
     for weights in TINY_TP_WEIGHTS:
@@ -3567,7 +3832,8 @@ def run_tp_tiny(dev) -> dict:
         want[weights] = tiny_tp_tokens(model, cfg, dev, px, prompts)
         del model
     ranks = run_tp_world("tp_tiny", "tp_tiny", {})
-    faults, launches = [], {}
+    faults, launches = run_tp_tiny_features(dev, ranks)
+    by_path, launches = launches, {}
     for weights, (_, path_kernels) in TINY_TP_WEIGHTS.items():
         equal = all(rank[weights]["tokens"] == want[weights] for rank in ranks)
         for r, res in enumerate(rank[weights] for rank in ranks):
@@ -3586,7 +3852,7 @@ def run_tp_tiny(dev) -> dict:
             f"{ {k: n for k, n in ranks[0][weights]['launches'].items() if n} }")
     if faults:
         raise RuntimeError(f"[tp_tiny] {faults}")
-    return launches
+    return {"tp_tiny": launches, **by_path}
 
 
 TP_11B_KINDS = ("bf16", "int4_mixed")
@@ -3681,11 +3947,172 @@ def tp_11b_rank(rank, dev, args) -> dict:
             one["server_launches"] = kernels.launch_counts()
             one["faults"] += path_faults("server_bf16", one["server_launches"],
                                          kernels.plain_counts())
-            del srv, reqs
+            del srv
+            one.update(tp_11b_features(rank, dev, cfg, model, reqs))
+            del reqs
         out[kind] = one
         del engine, model
         free_device_memory()
     return out
+
+
+def time_decode_chunks(srv) -> list:
+    """Wrap ``srv._decode`` to note each decode chunk's ``(steps,
+    seconds)``, synchronized; returns the list it fills."""
+    chunks, decode = [], srv._decode
+
+    def counted(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode(n)
+        torch.cuda.synchronize()
+        chunks.append((n, time.perf_counter() - t))
+        return out
+
+    srv._decode = counted
+    return chunks
+
+
+def chunk_numbers(chunks, tokens) -> dict:
+    """``{"steps", "step_ms", "tok_s"}`` of a server run's decode chunks and
+    its requests' tokens (the first of each from its admission)."""
+    steps, secs = sum(n for n, _ in chunks), sum(t for _, t in chunks)
+    return {"steps": steps, "step_ms": 1e3 * secs / max(steps, 1),
+            "tok_s": (sum(len(t) for t in tokens) - len(tokens)) / secs if secs else 0.0}
+
+
+def timed(fn):
+    """``(fn(), seconds, launches, plain calls)``, from zeroed counters to a
+    synchronized end."""
+    kernels.reset_counters()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, kernels.launch_counts(), kernels.plain_counts()
+
+
+def tp_11b_features(rank, dev, cfg, model, reqs) -> dict:
+    """The bf16 11B at tp=2 (``model``, this rank's shard): the 4 requests
+    of ``tp_11b_server_bf16`` (``reqs``) served with ``server_bf16_lora``'s
+    bank (request ``i`` adapter ``i % 3``), then over the HTTP front end on
+    loopback (rank 0 serves, rank 1 follows); and ``bf16_spec_draft``'s
+    random 1B-width draft, whole on each rank, K=4, 32 tokens after
+    ``spec_prompt``. Tokens, seconds, launches, peak GiB."""
+    tc, vc = cfg.text_config, cfg.vision_config
+    out = {}
+    bank = server_bank(cfg, dev)
+    srv = ContinuousBatchingServer(model, cfg, dev, slots=4, max_cache_length=2048,
+                                   adapter_bank=bank)
+    torch.cuda.reset_peak_memory_stats(dev)
+    chunks = time_decode_chunks(srv)
+
+    def serve():
+        rids = [srv.submit(ids, px, max_new_tokens=n, adapter_id=i % 3)
+                for i, (ids, px, n) in enumerate(reqs)]
+        results = srv.run()
+        return [results[r].tolist() for r in rids]
+
+    toks, secs, launches, plain = timed(serve)
+    out["tp_11b_server_bf16_lora"] = {
+        "tokens": toks, "s": secs, "launches": launches, **chunk_numbers(chunks, toks),
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "faults": path_faults("server_bf16_lora", launches, plain)
+        + [f"launched {k} {launches[k]} times with a gate/up bank"
+           for k in ("swiglu", "swiglu_tc", "swiglu_rows_tc") if launches[k]]}
+    del srv, bank
+    free_device_memory()
+
+    draft, dcfg = llama32_1b_draft(dev)
+    engine = InferenceEngine(model, cfg, dev, max_cache_length=2048, spec_draft=4,
+                             draft_params=draft, draft_config=dcfg)
+    ids, raw = spec_prompt(cfg, dev)
+
+    def generate(n):
+        px = preprocess_image_device(raw, vc.image_size, dtype=tc.torch_dtype)
+        return engine.generate(ids, px, max_new_tokens=n, temperature=0.0)
+
+    generate(2)  # warm-up
+    _, ttft, _, _ = timed(lambda: generate(1))
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, secs, launches, plain = timed(lambda: generate(32))
+    steps = int(res.steps)
+    want, _ = spec_launches(tc, 4, steps, ids.shape[1], dcfg)
+    out["tp_11b_bf16_spec_draft"] = {
+        "tokens": res.tokens[0].tolist(), "steps": steps, "s": secs, "ttft_s": ttft,
+        "step_ms": 1e3 * (secs - ttft) / steps, "tok_s": 31 / (secs - ttft),
+        "launches": launches, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "faults": path_faults("bf16_spec_draft", launches, plain)
+        + [f"launched {k} {launches[k]} times, not {n}" for k, n in want.items()
+           if launches[k] != n]}
+    del engine, draft
+    free_device_memory()
+
+    srv = ContinuousBatchingServer(model, cfg, dev, slots=4, max_cache_length=2048)
+    chunks = time_decode_chunks(srv)
+    torch.cuda.reset_peak_memory_stats(dev)
+    bodies = [{"input_ids": ids_r.tolist(), "max_new_tokens": n,
+               "pixel_values": px_r[0].float().cpu().numpy().tolist()} for ids_r, px_r, n in reqs]
+    if rank == 0:
+        def over_http():
+            live = LiveFrontend(srv)
+            try:
+                return http_traffic(live.port, bodies, timeout=600)
+            finally:
+                live.close()
+
+        toks, secs, launches, plain = timed(over_http)
+    else:
+        _, secs, launches, plain = timed(lambda: follow(srv))
+        toks = None
+    records = {rid: r.tokens for rid, r in srv._results.items()}
+    out["tp_11b_http_bf16"] = {
+        "tokens": toks, "records": records, "s": secs, "launches": launches,
+        **chunk_numbers(chunks, list(records.values())),
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "faults": path_faults("http_bf16", launches, plain)}
+    del srv
+    free_device_memory()
+    return out
+
+
+TP_11B_FEATURES = ("tp_11b_server_bf16_lora", "tp_11b_bf16_spec_draft", "tp_11b_http_bf16")
+
+
+def check_tp_11b_features(res: list, by_path: dict) -> list:
+    """``tp_11b_features``'s results on both ranks: the same tokens (and, over
+    HTTP, the records and the direct tp=2 server's tokens), every rank's
+    launches. Prints each path's numbers."""
+    faults = []
+    direct = res[0]["server_tokens"]
+    for path in TP_11B_FEATURES:
+        ranks = [r[path] for r in res]
+        faults += [f"{path} rank {r}: {f}" for r, one in enumerate(ranks) for f in one["faults"]]
+        key = "records" if path == "tp_11b_http_bf16" else "tokens"
+        if any(one[key] != ranks[0][key] for one in ranks):
+            faults.append(f"{path}: the ranks' {key} differ")
+        by_path[path] = ranks[0]["launches"]
+        for r, one in enumerate(ranks):
+            log(f"[{path} rank {r}] {one['s']:.3f} s; {one['step_ms']:.2f} ms a "
+                f"{'verify' if 'spec' in path else 'decode'} step, {one['tok_s']:.2f} tok/s, peak "
+                f"{one['peak_gib']:.3f} GiB; launches "
+                f"{ {k: n for k, n in one['launches'].items() if n} }")
+    bank = res[0]["tp_11b_server_bf16_lora"]
+    same = sum(a == b for a, b in zip(bank["tokens"][::3], direct[::3]))
+    log(f"[tp_11b_server_bf16_lora] 4 image requests (adapters 0 / 1 / 2 / 0) through 4 slots, "
+        f"tokens equal on every rank; the identity adapter's requests equal the plain tp=2 "
+        f"server's (information: the unfused FFN rounds otherwise): {same}/2")
+    spec = res[0]["tp_11b_bf16_spec_draft"]
+    log(f"[tp_11b_bf16_spec_draft] K=4, 32 tokens: TTFT {spec['ttft_s'] * 1e3:.2f} ms, "
+        f"{spec['steps']} verify steps, {31 / spec['steps']:.4f} tokens a step; tokens equal on "
+        f"every rank: {spec['tokens']}")
+    http = res[0]["tp_11b_http_bf16"]
+    if http["tokens"] != direct:
+        faults.append(f"tp_11b_http_bf16: {http['tokens']} != the direct tp=2 server's {direct}")
+    log(f"[tp_11b_http_bf16] 4 requests (3 /generate, 1 /generate_stream) over loopback, "
+        f"tokens equal to the direct tp=2 server's: {http['tokens'] == direct}; every rank's "
+        f"records equal")
+    return faults
 
 
 def run_tp_11b(keep: dict, kinds=TP_11B_KINDS) -> dict:
@@ -3732,10 +4159,95 @@ def run_tp_11b(keep: dict, kinds=TP_11B_KINDS) -> dict:
             log(f"[{path}] server: 4 image requests through 4 slots in {res[0]['server_s']:.3f} s"
                 f" ({sum(lens) / res[0]['server_s']:.2f} tok/s), tokens equal on every rank")
             by_path["tp_11b_server_bf16"] = res[0]["server_launches"]
+            faults += check_tp_11b_features(res, by_path)
         if faults:
             raise RuntimeError(f"[{path}] {faults}")
         by_path[path] = res[0]["launches"]
     return by_path
+
+
+# tp_dp_server_11b: four ranks' shards of the 11B widths share the card; 8 of
+# 40 decoder and 8 of 32 ViT layers keep the phase short
+TP_DP_DEPTH = {"decoder": 8, "vit": 8}
+TP_DP_SAMPLED = dict(temperature=20.0, top_k=50)  # requests 4-7: random weights give sharp logits
+
+
+def serve_8(model, cfg, dev, reqs) -> dict:
+    """``reqs`` through 8 slots, the last four sampled from a seeded
+    generator: tokens, seconds, decode steps and their seconds, launches,
+    plain calls."""
+    srv = ContinuousBatchingServer(model, cfg, dev, slots=8, max_cache_length=2048,
+                                   rng=torch.Generator(device=dev).manual_seed(5))
+    chunks = time_decode_chunks(srv)
+
+    def serve():
+        rids = [srv.submit(ids, px, max_new_tokens=n, **(TP_DP_SAMPLED if i >= 4 else {}))
+                for i, (ids, px, n) in enumerate(reqs)]
+        results = srv.run()
+        return [results[r].tolist() for r in rids]
+
+    toks, secs, launches, plain = timed(serve)
+    return {"tokens": toks, "s": secs, "launches": launches, "plain": plain,
+            **chunk_numbers(chunks, toks)}
+
+
+def tp_dp_server_11b_rank(rank, dev, args) -> dict:
+    """The 11B widths at ``TP_DP_DEPTH``, bf16, tied: 8 image requests
+    (``server_requests``) through 8 slots at tp=2 (ranks 0-1, the others
+    waiting), then at dp=2 x tp=2 on the same weights (four slots a
+    group)."""
+    cfg = load_11b_config(TP_DP_DEPTH)
+    dp_mesh, tp_mesh = create_mesh(dp=2, tp=2), create_mesh(tp=2)
+
+    def build():
+        model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+        return (shard_params(model, cfg, dp_mesh),
+                shard_params(model, cfg, tp_mesh) if tp_mesh.member else None)
+
+    dp_model, tp_model = one_rank_at_a_time(rank, dev, build)
+    reqs = server_requests(cfg, dev, n=8)
+    out = {}
+    if tp_model is not None:
+        out["tp2"] = serve_8(tp_model, cfg, dev, reqs)
+        del tp_model
+    free_device_memory()
+    torch.distributed.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["dp2"] = serve_8(dp_model, cfg, dev, reqs)
+    out["dp2"]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["dp2"]["faults"] = path_faults("tp_dp_server_11b", out["dp2"]["launches"],
+                                       out["dp2"]["plain"])
+    return out
+
+
+def run_tp_dp_server_11b() -> dict:
+    """``tp_dp_server_11b``: every rank's dp=2 x tp=2 tokens equal the tp=2
+    server's on the same weights, sampled requests included; every rank
+    launches the server's kernels and no plain version. Prints each rank's
+    ms a decode step, tokens/s and peak GiB."""
+    ranks = run_tp_world("tp_dp_server_11b", "tp_dp_server_11b", {}, world=4)
+    want = ranks[0]["tp2"]["tokens"]
+    faults = [f"rank {r}: {f}" for r, res in enumerate(ranks) for f in res["dp2"]["faults"]]
+    faults += [f"rank {r}: tp=2 tokens {res['tp2']['tokens']} differ from rank 0's"
+               for r, res in enumerate(ranks[:2]) if res["tp2"]["tokens"] != want]
+    faults += [f"rank {r}: dp=2 x tp=2 tokens {res['dp2']['tokens']} != tp=2 {want}"
+               for r, res in enumerate(ranks) if res["dp2"]["tokens"] != want]
+    for name in ("tp2", "dp2"):
+        for r, res in enumerate(ranks):
+            if name not in res:
+                continue
+            one = res[name]
+            log(f"[tp_dp_server_11b {name} rank {r}] 8 requests in {one['s']:.3f} s; "
+                f"{one['steps']} decode steps, {one['step_ms']:.4f} ms a step, "
+                f"{one['tok_s']:.2f} decode tok/s; "
+                + (f"peak {one['peak_gib']:.3f} GiB; " if "peak_gib" in one else "")
+                + f"launches { {k: n for k, n in one['launches'].items() if n} }")
+    log(f"[tp_dp_server_11b] {TP_DP_DEPTH['decoder']} of 40 decoder and {TP_DP_DEPTH['vit']} of "
+        f"32 ViT layers; dp=2 x tp=2 tokens equal the tp=2 server's on every rank (4 greedy, 4 "
+        f"sampled): {not faults}; tokens {want}")
+    if faults:
+        raise RuntimeError(f"[tp_dp_server_11b] {faults}")
+    return ranks[0]["dp2"]["launches"]
 
 
 def adapters_flat(state) -> torch.Tensor:
@@ -4172,7 +4684,7 @@ def pp_unpipelined(dev, impl: str) -> list:
             grads = torch.autograd.grad(loss, list(params.values()))
         state = tx.step(params, dict(zip(params, grads)), state)
         losses.append(loss.item())
-        del h, grads
+        del h, grads, loss  # the last step's graph too, before the cache is returned
     del lm, params, state
     free_device_memory()
     return losses
@@ -4185,8 +4697,15 @@ def replicated_checksums(model) -> torch.Tensor:
     for name, p in model.named_parameters():
         if ".blocks." in name:
             continue
-        w = p.detach().contiguous().view(torch.int16).reshape(-1).to(torch.int64)
-        sums += [w.sum(), (w * (torch.arange(w.numel(), device=w.device) % 65521)).sum()]
+        w = p.detach().contiguous().view(torch.int16).reshape(-1)
+        plain = weighted = 0
+        # 2^24 elements at a time: four ranks widening the whole embedding to
+        # int64 at once would not fit beside their training state
+        for start in range(0, w.numel(), 2**24):
+            c = w[start:start + 2**24].to(torch.int64)
+            pos = torch.arange(start, start + c.numel(), device=w.device) % 65521
+            plain, weighted = plain + c.sum(), weighted + (c * pos).sum()
+        sums += [plain, weighted]
     return torch.stack(sums)
 
 
@@ -4275,7 +4794,8 @@ def run_pp_full_ft_3b() -> dict:
     return res[0]["launches"]
 
 
-TP_PHASES = {"tp_tiny": tp_tiny_rank, "tp_11b": tp_11b_rank,
+TP_PHASES = {"tp_tiny": tp_tiny_rank, "tp_tiny_dp": tp_tiny_dp_rank, "tp_11b": tp_11b_rank,
+             "tp_dp_server_11b": tp_dp_server_11b_rank,
              "tp_lora_11b": tp_lora_11b_rank, "zero1_3b": zero1_3b_rank,
              "sp_lora_11b": sp_lora_11b_rank, "pp_3b": pp_3b_rank}
 
@@ -4405,9 +4925,10 @@ def main() -> int:
     free_device_memory()
     by_path["full_ft_3b"] = run_full_ft_3b(dev)
     free_device_memory()
-    by_path["tp_tiny"] = run_tp_tiny(dev)
+    by_path.update(run_tp_tiny(dev))
     free_device_memory()
     by_path.update(run_tp_11b(tp_reference))
+    by_path["tp_dp_server_11b"] = run_tp_dp_server_11b()
     by_path["tp_lora_11b"] = run_tp_lora_11b(tp_reference)
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(exist_ok=True)

@@ -28,8 +28,10 @@ every rank of a ``tp`` group runs this loop on the same inputs; the
 all-gathered logits are the same bits on every rank and samplers seeded
 alike draw alike, so every rank produces the same tokens. With ``dp > 1`` on
 the mesh each dp group serves its share of the batch rows and the results
-are all-gathered over ``dp``. Draft-model speculation is not ported under
-TP.
+are all-gathered over ``dp``. A speculation draft is whole on every rank (a
+``CausalLM`` without a ``TPShard``) or sharded on the same mesh; either way
+every rank runs the same draft steps on the same tokens, so every rank
+proposes and commits the same tokens.
 """
 
 from __future__ import annotations
@@ -70,6 +72,36 @@ def structured_decode_mask(padding_mask: torch.Tensor, cur_len: int, max_len: in
     pad_ok = F.pad(padding_mask.to(torch.int32), (0, max_len - s), value=1).bool()
     kv_valid = ((k < cur_len) & pad_ok).to(torch.int32)
     return AttnMask(kv_valid=kv_valid, q_offset=cur_len - 1)
+
+
+def build_prefill_mask(padding_mask: torch.Tensor, max_len: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The dense form of ``structured_prefill_mask`` (the JAX package's
+    ``build_prefill_mask``): ``[B, S]`` padding mask → ``[B, 1, S, max_len]``
+    additive mask, causal over the first S key slots, padding and the cache
+    tail blocked."""
+    s = padding_mask.shape[1]
+    dev = padding_mask.device
+    q = torch.arange(s, device=dev)[:, None]
+    k = torch.arange(max_len, device=dev)[None, :]
+    key_pad_ok = F.pad(padding_mask.bool(), (0, max_len - s))
+    ok = ((k <= q) & (k < s))[None] & key_pad_ok[:, None, :]
+    return torch.where(ok[:, None], torch.zeros((), dtype=dtype, device=dev),
+                       torch.tensor(torch.finfo(dtype).min, dtype=dtype, device=dev))
+
+
+def build_decode_mask(padding_mask: torch.Tensor, cur_len, max_len: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The dense form of ``structured_decode_mask`` (the JAX package's
+    ``build_decode_mask``): ``[B, 1, 1, max_len]``, the prompt's padding
+    blocked, the slots below ``cur_len`` attendable, the tail blocked."""
+    s = padding_mask.shape[1]
+    dev = padding_mask.device
+    k = torch.arange(max_len, device=dev)[None, :]
+    key_pad_ok = F.pad(padding_mask.bool(), (0, max_len - s))
+    ok = (k < cur_len) & torch.where(k < s, key_pad_ok, True)
+    return torch.where(ok[:, None, None, :], torch.zeros((), dtype=dtype, device=dev),
+                       torch.tensor(torch.finfo(dtype).min, dtype=dtype, device=dev))
 
 
 def bucketed_len(s: int, max_new_tokens: int, cache_len: int, buckets) -> int:
@@ -142,8 +174,9 @@ class InferenceEngine:
         if prompt_buckets is not None and prompt_buckets != "auto":
             prompt_buckets = tuple(sorted(int(b) for b in prompt_buckets))
         self.tp = tp_of(model)
-        if self.tp is not None and spec_draft:
-            not_in_slice("draft-model speculative decoding under tensor parallelism")
+        dtp = tp_of(draft_params) if spec_draft else None
+        if dtp is not None and (self.tp is None or dtp.mesh is not self.tp.mesh):
+            raise ValueError("a sharded draft must be sharded on the target's mesh")
         self.model = model
         self.config = config
         self.device = torch.device(device)
@@ -331,8 +364,9 @@ class InferenceEngine:
             seq = torch.where(idx < tl, F.pad(ids[0], (0, max_new_tokens)), 0)
             seq.scatter_(0, tl, first)
         else:
-            dtc = self.draft_config
-            dcache = init_kv_cache(dtc, 1, dev, max_length=max_len, dtype=dtc.torch_dtype)
+            dtc, dtp = self.draft_config, tp_of(self.draft_params)
+            dcache = init_kv_cache(dtc, 1, dev, max_length=max_len, dtype=dtc.torch_dtype,
+                                   n_kv_heads=None if dtp is None else dtp.kv_heads)
             llama_forward(self.draft_params.model, dtc,
                           input_ids=torch.where(ids == cfg.image_token_index, 0, ids),
                           attention_mask=structured_prefill_mask(pad, max_len),

@@ -30,12 +30,29 @@ Standard library only (``http.server`` and a scheduler thread):
 
 One lock serializes every call into the scheduler.
 
+Over a sharded server (a model from ``parallel/sharding.py::shard_params``
+on a mesh of several ranks, tensor- and data-parallel alike) every rank must
+make the same scheduler calls in the same order, since each call may run
+collectives. So each call (``submit``, ``cancel`` with ``release``,
+``register_prefix``, ``drop_prefix``) becomes an entry of one ordered log:
+world rank 0 runs this front end and the HTTP listener, and before each
+``step()`` its scheduler thread broadcasts the entries queued since the last
+one to the world (ids and sampler fields as Python objects, pixel values as
+tensors) and applies them; every other rank runs ``follow(server)``, which
+applies the same entries in the same order, steps when rank 0 does and
+returns when rank 0 shuts down. Request and prefix ids then agree on every
+rank by construction, and each round checks that they do. A disconnecting
+client's cancel reaches every rank as an entry; drain and shutdown reach
+every rank through the rounds.
+
 Run: ``python -m llama32mm_tpu_torch.inference.http_server --hf-weights DIR
 [--quantize int8|int4] [--slots N] [--port P]`` (the GPU; ``--cpu`` for the
 CPU): loads the checkpoint (``io/checkpoint.py::load_hf_model``), builds the
 server and the processor, warms the decode chunks up and serves until
 interrupted, then drains. In Python, build a ``ServingFrontend`` over a
-server and pass it to ``serve_forever``.
+server and pass it to ``serve_forever``; over a sharded server, spawn the
+ranks, build the server on each, serve from rank 0 and call
+``follow(server)`` on the others (README.md).
 """
 
 from __future__ import annotations
@@ -48,35 +65,168 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from llama32mm_tpu_torch.inference.server import QueueFullError
-from llama32mm_tpu_torch.ops.dispatch import not_in_slice
+
+# the errors a scheduler call answers a client with (400, 404, 429); a rank
+# that follows rank 0 meets the same one, which rank 0 has answered
+_CALL_ERRORS = (KeyError, ValueError, TypeError, QueueFullError)
+
+
+def _world(server) -> int:
+    """The ranks that serve ``server`` together: the world of a sharded
+    server (its mesh must span it), else 1."""
+    if server.tp is None or not dist.is_initialized():
+        return 1
+    world, mesh = dist.get_world_size(), server.tp.mesh
+    if world > 1 and np.prod(list(mesh.shape.values())) != world:
+        raise ValueError(f"the server's mesh {mesh.shape} must span the world of {world} ranks")
+    return world
+
+
+def _pending(server) -> bool:
+    return bool(server._queue or server._inflight is not None
+                or any(r is not None for r in server._by_slot))
+
+
+def _apply(server, op: str, args: tuple):
+    """One scheduler call (an entry of the log) on ``server``."""
+    if op == "submit":
+        ids, px, max_new_tokens, kw = args
+        return server.submit(ids, px, max_new_tokens, **kw)
+    if op == "cancel":  # cancel a live request; on a finished one, drop its record
+        ok = server.cancel(args[0])
+        if not ok:
+            server.release(args[0])
+        return ok
+    if op == "register_prefix":
+        ids, px, adapter_id = args
+        return server.register_prefix(ids, px, adapter_id=adapter_id)
+    if op == "drop_prefix":
+        return server.drop_prefix(args[0])
+    raise ValueError(f"unknown scheduler call {op!r}")
+
+
+_PIXELS = ("submit", "register_prefix")  # the calls whose args[1] is pixel values or None
+
+
+def _ids_of(server) -> tuple:
+    return server._next_id, server._next_prefix_id
+
+
+def _sync_round(server, entries: Optional[list], stop: bool = False) -> tuple:
+    """One round of the log over the world: world rank 0 passes its entries
+    (``(op, args)``, the pixel values of ``submit`` and ``register_prefix``
+    in ``args[1]``) and whether it stops; every other rank passes None and
+    receives them. Returns ``(entries, stop)`` on every rank, the pixel
+    values as float32 tensors. Python objects go through
+    ``broadcast_object_list`` and the pixel values as tensors (on the
+    server's device under NCCL; gloo takes them from the host). Each round
+    carries rank 0's next request and prefix ids, which every rank must
+    share before it applies the round."""
+    nccl = dist.get_backend() == "nccl"
+    dev = server.device if nccl else torch.device("cpu")
+    obj_dev = dev if nccl else None
+    if entries is not None:  # rank 0
+        tensors = [None if op not in _PIXELS or args[1] is None else
+                   torch.as_tensor(np.asarray(args[1], np.float32), device=dev)
+                   for op, args in entries]
+        header = [([(op, (args[0], None, *args[2:]) if op in _PIXELS else args)
+                    for op, args in entries],
+                   [None if t is None else tuple(t.shape) for t in tensors],
+                   stop, _ids_of(server))]
+        dist.broadcast_object_list(header, src=0, device=obj_dev)
+    else:
+        header = [None]
+        dist.broadcast_object_list(header, src=0, device=obj_dev)
+        entries, shapes, stop, ids = header[0]
+        if _ids_of(server) != ids:
+            raise RuntimeError(f"this rank's next (request, prefix) ids {_ids_of(server)} "
+                               f"differ from rank 0's {ids}")
+        tensors = [None if shape is None else torch.empty(shape, dtype=torch.float32, device=dev)
+                   for shape in shapes]
+    for t in tensors:
+        if t is not None:
+            dist.broadcast(t, src=0)
+    return [(op, (args[0], t, *args[2:]) if op in _PIXELS else args)
+            for (op, args), t in zip(entries, tensors)], stop
 
 
 class ServingFrontend:
-    """Owns a ``ContinuousBatchingServer`` and the thread that steps it."""
+    """Owns a ``ContinuousBatchingServer`` and the thread that steps it (on a
+    sharded server: world rank 0's, the other ranks in ``follow``)."""
 
     def __init__(self, server, tokenizer=None, processor=None):
-        if server.tp is not None:
-            not_in_slice("the HTTP front end over a tensor-parallel server")
         self.srv = server
+        self._world = _world(server)
+        if self._world > 1 and dist.get_rank() != 0:
+            raise ValueError("world rank 0 serves a sharded server; the other ranks call "
+                             "follow(server)")
         self.tokenizer = tokenizer
         self.processor = processor  # prompt + image bodies (MllamaImageProcessor's surface)
         self._lock = threading.Lock()
         self._work = threading.Event()
         self._done_events: dict[int, threading.Event] = {}
+        self._log: list = []  # a sharded server's entries queued since the last round
         self._stop = False
         self._draining = False
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
     def _pending(self) -> bool:
-        s = self.srv
-        return bool(s._queue or s._inflight is not None or any(r is not None for r in s._by_slot))
+        return _pending(self.srv)
+
+    def _apply_here(self, op: str, args: tuple):
+        """Apply one call on this rank's server (the lock held)."""
+        out = _apply(self.srv, op, args)
+        if op == "submit":
+            self._done_events[out] = threading.Event()
+        return out
+
+    def _call(self, op: str, *args):
+        """One scheduler call: at once on a one-device server; on a sharded
+        server an entry of the log, which the scheduler thread applies on
+        every rank at its next round, handing back the result or error."""
+        entry = {"op": op, "args": args, "done": threading.Event()}
+        with self._lock:
+            if op == "submit" and self._draining:
+                raise QueueFullError("server is draining — not accepting requests")
+            if self._world == 1:
+                return self._apply_here(op, args)
+            if self._stop:
+                raise QueueFullError("the front end is shut down")
+            self._log.append(entry)
+        self._work.set()
+        entry["done"].wait()
+        if "error" in entry:
+            raise entry["error"]
+        return entry["result"]
+
+    def _round(self, stop: bool) -> None:
+        """Rank 0's round of the log (the lock held): broadcast the queued
+        entries, then apply them in order."""
+        queued, self._log = self._log, []
+        entries, _ = _sync_round(self.srv, [(e["op"], e["args"]) for e in queued], stop)
+        for entry, (op, args) in zip(queued, entries):
+            try:
+                entry["result"] = self._apply_here(op, args)
+            except Exception as e:  # handed to the caller; a fault also stops the thread
+                entry["error"] = e
+                if not isinstance(e, _CALL_ERRORS):
+                    raise
+            finally:
+                entry["done"].set()
 
     def _loop(self):
-        while not self._stop:
+        while True:
             with self._lock:
+                stop = self._stop
+                if self._world > 1:
+                    self._round(stop)
+                if stop:
+                    break
                 pending = self._pending()
                 finished = self.srv.step() if pending else []
             for rid in finished:
@@ -94,15 +244,10 @@ class ServingFrontend:
                prefix_id: Optional[int] = None, adapter_id: int = 0,
                temperature=None, top_p=None, top_k=None, min_p=None, repetition_penalty=None,
                timeout_s: Optional[float] = None) -> int:
-        with self._lock:
-            if self._draining:
-                raise QueueFullError("server is draining — not accepting requests")
-            rid = self.srv.submit(
-                input_ids, pixel_values, max_new_tokens, prefix_id=prefix_id,
-                adapter_id=adapter_id, temperature=temperature, top_p=top_p, top_k=top_k,
-                min_p=min_p, repetition_penalty=repetition_penalty, timeout_s=timeout_s,
-            )
-            self._done_events[rid] = threading.Event()
+        kw = dict(prefix_id=prefix_id, adapter_id=adapter_id, temperature=temperature,
+                  top_p=top_p, top_k=top_k, min_p=min_p,
+                  repetition_penalty=repetition_penalty, timeout_s=timeout_s)
+        rid = self._call("submit", input_ids, pixel_values, max_new_tokens, kw)
         self._work.set()
         return rid
 
@@ -143,12 +288,10 @@ class ServingFrontend:
                 np.asarray(out["pixel_values"][0], np.float32))
 
     def register_prefix(self, input_ids, pixel_values=None, adapter_id: int = 0) -> int:
-        with self._lock:
-            return self.srv.register_prefix(input_ids, pixel_values, adapter_id=adapter_id)
+        return self._call("register_prefix", input_ids, pixel_values, adapter_id)
 
     def drop_prefix(self, prefix_id: int) -> None:
-        with self._lock:
-            self.srv.drop_prefix(prefix_id)
+        self._call("drop_prefix", prefix_id)
 
     def tokens_so_far(self, rid: int) -> tuple:
         with self._lock:
@@ -157,10 +300,7 @@ class ServingFrontend:
     def cancel(self, rid: int) -> bool:
         """Cancel a live request; on a finished one, drop its record instead
         (``DELETE /request/<id>`` doubles as cleanup)."""
-        with self._lock:
-            ok = self.srv.cancel(rid)
-            if not ok:
-                self.srv.release(rid)
+        ok = self._call("cancel", rid)
         ev = self._done_events.pop(rid, None)
         if ev is not None:
             ev.set()  # release a /generate waiter
@@ -213,6 +353,27 @@ class ServingFrontend:
         self._stop = True
         self._work.set()
         self._thread.join(timeout=5)
+
+
+def follow(server) -> None:
+    """The loop of every rank of a sharded server's world but rank 0, which
+    serves HTTP through ``ServingFrontend``: each round, apply rank 0's
+    entries in its order, then step when there is work, as rank 0 does;
+    return when rank 0 shuts down. An entry that fails here fails alike on
+    rank 0, which answers its client."""
+    if _world(server) == 1 or dist.get_rank() == 0:
+        raise ValueError("follow() runs on the ranks other than 0 of a sharded server's world")
+    while True:
+        entries, stop = _sync_round(server, None)
+        for op, args in entries:
+            try:
+                _apply(server, op, args)
+            except _CALL_ERRORS:
+                pass
+        if stop:
+            return
+        if _pending(server):
+            server.step()
 
 
 def make_handler(frontend: ServingFrontend):

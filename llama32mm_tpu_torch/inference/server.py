@@ -56,13 +56,24 @@
   ``QueueFullError``), ``release`` of finished records.
 
 Tensor parallelism (a model from ``parallel/sharding.py::shard_params``):
-every rank of the ``tp`` group runs this same host loop on the same requests
-(SPMD); the all-gathered logits are the same bits on every rank and the
-generators are seeded alike, so every rank draws the same tokens. A deadline
-expires on every rank as soon as it has on one (an all-reduce of the expired
-flags), so the ranks' clocks cannot split the loop. Each rank's cache holds
-its kv heads. Adapter banks and a mesh with ``dp > 1`` are not
-ported under TP.
+every rank of the mesh runs this same host loop on the same requests (SPMD)
+and keeps the whole pool's host state; the all-gathered logits are the same
+bits on every rank and the generators are seeded alike, so every rank draws
+the same tokens. A deadline expires on every rank as soon as it has on one
+(an all-reduce of the expired flags over the whole mesh), so the ranks'
+clocks cannot split the loop. Each rank's cache holds its kv heads. An
+adapter bank stays whole on every rank, and each adapted linear takes its
+shard's slice of the adapter (``models/language.py::maybe_lora``).
+
+With ``dp > 1`` on the mesh, data-parallel group ``g`` owns slots ``[g·B/dp,
+(g+1)·B/dp)`` and holds the device state of those rows only. Every rank runs
+the same scheduler decisions; an admission runs on the owning group, which
+hands the first token to the others (an all-reduce over ``dp``); a decode
+chunk runs on each group's rows and its tokens are all-gathered over ``dp``
+at the chunk's one device-to-host copy. Samplers draw at the whole pool's
+shape and each group takes its rows, so the tokens are those of the server
+at ``dp = 1`` under the same generator. Registered prefixes are computed and
+held by every group.
 
 Greedy requests produce the tokens of a solo ``InferenceEngine.generate``
 on the full prompt, with a bank adapter those of an engine on the model
@@ -91,7 +102,7 @@ from llama32mm_tpu_torch.models.vlm import (
 )
 from llama32mm_tpu_torch.ops.attention import AttnMask
 from llama32mm_tpu_torch.ops.dispatch import not_in_slice
-from llama32mm_tpu_torch.parallel.mesh import AXIS_DP
+from llama32mm_tpu_torch.parallel.mesh import AXIS_DP, AXIS_TP
 from llama32mm_tpu_torch.parallel.sharding import tp_of
 from llama32mm_tpu_torch.train.lora import first_leaf, gather_adapter_bank
 from llama32mm_tpu_torch.utils.kvcache import KVCache, init_kv_cache
@@ -227,11 +238,12 @@ class ContinuousBatchingServer:
         if prompt_buckets is not None and prompt_buckets != "auto":
             prompt_buckets = tuple(sorted(int(b) for b in prompt_buckets))
         self.tp = tp_of(model)
-        if self.tp is not None:
-            if self.tp.mesh.shape[AXIS_DP] > 1:
-                not_in_slice("the continuous-batching server on a mesh with dp > 1")
-            if adapter_bank is not None:
-                not_in_slice("adapter banks under tensor parallelism")
+        self.dp = 1 if self.tp is None else self.tp.mesh.shape[AXIS_DP]
+        if slots % self.dp:
+            raise ValueError(f"slots={slots} do not split over dp={self.dp}")
+        rows = slots // self.dp  # this data-parallel group's slots
+        self._row0 = 0 if self.tp is None else self.tp.mesh.rank(AXIS_DP) * rows
+        self._rows = slice(self._row0, self._row0 + rows)
         self.model = model
         self.config = config
         self.device = torch.device(device)
@@ -253,13 +265,13 @@ class ContinuousBatchingServer:
         s_max, dev = self.max_cache_length, self.device
         with torch.inference_mode():
             self.state = BatchState(
-                cache=self._new_cache(slots),
-                pos=torch.zeros(slots, dtype=torch.long, device=dev),
-                kv_valid=torch.zeros(slots, s_max, dtype=torch.int32, device=dev),
-                rope_pos=torch.zeros(slots, dtype=torch.long, device=dev),
-                last_token=torch.zeros(slots, dtype=torch.long, device=dev),
-                seq=torch.zeros(slots, s_max, dtype=torch.long, device=dev),
-                rope_end=torch.zeros(slots, dtype=torch.long, device=dev),
+                cache=self._new_cache(rows),
+                pos=torch.zeros(rows, dtype=torch.long, device=dev),
+                kv_valid=torch.zeros(rows, s_max, dtype=torch.int32, device=dev),
+                rope_pos=torch.zeros(rows, dtype=torch.long, device=dev),
+                last_token=torch.zeros(rows, dtype=torch.long, device=dev),
+                seq=torch.zeros(rows, s_max, dtype=torch.long, device=dev),
+                rope_end=torch.zeros(rows, dtype=torch.long, device=dev),
             )
             self._karange = torch.arange(s_max, device=dev)[None, :]
         self._queue: deque[_Request] = deque()
@@ -287,6 +299,12 @@ class ContinuousBatchingServer:
                              dtype=torch.int8 if self.kv_dtype == "int8" else None,
                              n_kv_heads=None if self.tp is None else self.tp.kv_heads)
 
+    def _local(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this group's device state, or None when another
+        data-parallel group owns it."""
+        row = slot - self._row0
+        return row if 0 <= row < self.state.pos.shape[0] else None
+
     def _tensor(self, values, dtype) -> torch.Tensor:
         return torch.tensor(values, dtype=dtype, device=self.device)
 
@@ -300,8 +318,8 @@ class ContinuousBatchingServer:
         """``(active [B] bool, sampler tensors)`` for decode, rebuilt only when a
         slot changes hands (a host-to-device copy, outside any decode chunk)."""
         if self._slot_dev is None:
-            active = self._tensor([r is not None for r in self._by_slot], torch.bool)
-            self._slot_dev = (active, self._samp_args(self._slot_sampler))
+            active = self._tensor([r is not None for r in self._by_slot[self._rows]], torch.bool)
+            self._slot_dev = (active, self._samp_args(self._slot_sampler[self._rows]))
         return self._slot_dev
 
     @staticmethod
@@ -313,18 +331,29 @@ class ContinuousBatchingServer:
         return any(s[4] != 1.0 for s in samplers)
 
     def _first_token(self, logits, ids_row, true_len: int, sampler) -> torch.Tensor:
-        """The request's first token from its prefill logits ``[1, V]``; the
-        penalty's context is the prompt (image placeholders excluded)."""
-        samp = self._samp_args([sampler])
-        pres = penalty = None
-        if self._penalised([sampler]):
-            safe = torch.where(ids_row == self.config.image_token_index, -1, ids_row)
-            pres = presence_from_tokens(safe, self._tensor([true_len], torch.long),
-                                        self.config.text_config.vocab_size)
-            penalty = samp[4]
-        return select_next_token_traced(
-            logits, samp[0], samp[1], samp[2], samp[3], presence=pres, penalty=penalty,
-            all_greedy=self._all_greedy([sampler]), generator=self._rng)
+        """The request's first token ``[1]`` from its prefill logits ``[1,
+        V]`` (None on the data-parallel groups that do not own its slot);
+        the penalty's context is the prompt (image placeholders excluded)."""
+        vocab = self.config.text_config.vocab_size
+        greedy = self._all_greedy([sampler])
+        # every group draws, so that the generators stay in step
+        uniforms = None if greedy else torch.rand(1, vocab, generator=self._rng,
+                                                  device=self.device)
+        if logits is None:  # another group's slot: its token arrives below
+            first = torch.zeros(1, dtype=torch.long, device=self.device)
+        else:
+            samp = self._samp_args([sampler])
+            pres = penalty = None
+            if self._penalised([sampler]):
+                safe = torch.where(ids_row == self.config.image_token_index, -1, ids_row)
+                pres = presence_from_tokens(safe, self._tensor([true_len], torch.long), vocab)
+                penalty = samp[4]
+            first = select_next_token_traced(
+                logits, samp[0], samp[1], samp[2], samp[3], presence=pres, penalty=penalty,
+                all_greedy=greedy, uniforms=uniforms)
+        if self.dp > 1:  # the owning group's token, summed with the others' zeros
+            first = self.tp.mesh.all_reduce(first, AXIS_DP)
+        return first
 
     def _adapter(self, adapter_id: int) -> Optional[dict]:
         """The request's adapter for its admission (None without a bank)."""
@@ -338,7 +367,7 @@ class ContinuousBatchingServer:
         head), gathered again only when a slot's adapter id changes."""
         if self.adapter_bank is None:
             return None
-        ids = tuple(self._slot_adapter)
+        ids = tuple(self._slot_adapter[self._rows])
         if self._slot_bank is None or self._slot_bank[0] != ids:
             self._slot_bank = None  # free the old gather before the new one
             bank = {k: v for k, v in self.adapter_bank.items() if k in ("blocks", "lm_head")}
@@ -349,17 +378,18 @@ class ContinuousBatchingServer:
                  filled: int) -> None:
         """Make ``slot`` live for ``req``: its prompt's ``filled`` cache slots
         are written; the first token is pending at RoPE position
-        ``prompt_len``."""
-        st, s = self.state, req.prompt_len
-        st.pos[slot] = filled
-        st.kv_valid[slot] = 0
-        st.kv_valid[slot, :s] = 1
-        st.rope_pos[slot] = s
-        st.rope_end[slot] = s + req.max_new_tokens - 1
-        st.last_token[slot:slot + 1] = first
-        st.seq[slot] = 0
-        st.seq[slot, :s] = ids_row[0, :s]
-        st.seq[slot, s:s + 1] = first
+        ``prompt_len``. The device state changes on the owning group only."""
+        st, s, row = self.state, req.prompt_len, self._local(slot)
+        if row is not None:
+            st.pos[row] = filled
+            st.kv_valid[row] = 0
+            st.kv_valid[row, :s] = 1
+            st.rope_pos[row] = s
+            st.rope_end[row] = s + req.max_new_tokens - 1
+            st.last_token[row:row + 1] = first
+            st.seq[row] = 0
+            st.seq[row, :s] = ids_row[0, :s]
+            st.seq[row, s:s + 1] = first
         req.slot = slot
         self._by_slot[slot] = req
         self._slot_sampler[slot] = req.sampler
@@ -423,15 +453,19 @@ class ContinuousBatchingServer:
         s = req.prompt_len
         bucket = bucketed_len(s, req.max_new_tokens + self.spec_lookup, self.max_cache_length,
                               self.prompt_buckets)
-        ids, pad, px = self._prompt(req, bucket)
-        out = vlm_forward(
-            self.model, self.config, input_ids=ids, pixel_values=px,
-            attention_mask=structured_prefill_mask(pad, self.max_cache_length),
-            kv_cache=self.state.cache.slot(slot), impl=self.impl,
-            logits_positions=torch.full((1, 1), s - 1, device=self.device),
-            lora=self._adapter(req.adapter_id),
-        )
-        first = self._first_token(out.logits[:, 0], ids, s, req.sampler)
+        ids = logits = None
+        row = self._local(slot)
+        if row is not None:
+            ids, pad, px = self._prompt(req, bucket)
+            out = vlm_forward(
+                self.model, self.config, input_ids=ids, pixel_values=px,
+                attention_mask=structured_prefill_mask(pad, self.max_cache_length),
+                kv_cache=self.state.cache.slot(row), impl=self.impl,
+                logits_positions=torch.full((1, 1), s - 1, device=self.device),
+                lora=self._adapter(req.adapter_id),
+            )
+            logits = out.logits[:, 0]
+        first = self._first_token(logits, ids, s, req.sampler)
         self._install(req, slot, first, ids, bucket)
 
     def _start_admission(self, req: _Request, slot: int) -> None:
@@ -453,39 +487,45 @@ class ContinuousBatchingServer:
         bucket = base + -(-n_suffix // c) * c
         if bucket > self.max_cache_length - req.max_new_tokens - self.spec_lookup:
             bucket = s  # chunk alignment would overflow: the last chunk runs ragged
-        ids, pad, px = self._prompt(req, bucket)
-        embeds = self._embed(ids[:, base:], pad[:, base:], px)
+        self._inflight = {"req": req, "slot": slot, "embeds": None, "pad_row": None,
+                          "ids": None, "off": base, "base": base, "chunk": c, "bucket": bucket,
+                          "lora": self._adapter(req.adapter_id), "logits": None}
+        row = self._local(slot)
+        if row is not None:  # the owning group prefills; the others follow the offsets
+            ids, pad, px = self._prompt(req, bucket)
+            embeds = self._embed(ids[:, base:], pad[:, base:], px)
+            if pfx is not None:
+                view, src = self.state.cache.slot(row), pfx.cache
+                view.k[:, :, :, :base].copy_(src.k)
+                view.v[:, :, :, :base].copy_(src.v)
+                if view.quantized:
+                    view.k_scale[..., :base].copy_(src.k_scale)
+                    view.v_scale[..., :base].copy_(src.v_scale)
+            # decode steps between the chunks advance the live slots and write
+            # this idle slot at its offset; S-1 is a cache slot the request never uses
+            self.state.pos[row] = self.max_cache_length - 1
+            pad_row = torch.zeros(1, self.max_cache_length, dtype=torch.int32,
+                                  device=self.device)
+            pad_row[0, :s] = 1
+            self._inflight.update(embeds=embeds, pad_row=pad_row, ids=ids)
         if pfx is not None:
-            view, src = self.state.cache.slot(slot), pfx.cache
-            view.k[:, :, :, :base].copy_(src.k)
-            view.v[:, :, :, :base].copy_(src.v)
-            if view.quantized:
-                view.k_scale[..., :base].copy_(src.k_scale)
-                view.v_scale[..., :base].copy_(src.v_scale)
             pfx.hits += 1
             self._release_if_dropped(pfx)
-        # decode steps between the chunks advance the live slots and write this
-        # idle slot at its offset; S-1 is a cache slot the request never uses
-        self.state.pos[slot] = self.max_cache_length - 1
-        pad_row = torch.zeros(1, self.max_cache_length, dtype=torch.int32, device=self.device)
-        pad_row[0, :s] = 1
-        self._inflight = {"req": req, "slot": slot, "embeds": embeds, "pad_row": pad_row,
-                          "ids": ids, "off": base, "base": base, "chunk": c, "bucket": bucket,
-                          "lora": self._adapter(req.adapter_id), "logits": None}
 
     def _advance_admission(self) -> None:
         fl = self._inflight
         req, slot, off, bucket, base = fl["req"], fl["slot"], fl["off"], fl["bucket"], fl["base"]
         n = min(fl["chunk"], bucket - off)
         lora = fl["lora"]
-        out = self._prefill_rows(fl["embeds"][:, off - base:off - base + n], fl["pad_row"], off,
-                                 self.state.cache.slot(slot), lora)
-        last = req.prompt_len - 1
-        if off <= last < off + n:  # the chunk holding the prompt's last token
-            h_last = out.hidden_states[:, last - off:last - off + 1]
-            fl["logits"] = lm_head_apply(self.model.language_model, self.config.text_config,
-                                         h_last, impl=self.impl,
-                                         lora=None if lora is None else lora.get("lm_head"))[:, 0]
+        if fl["embeds"] is not None:  # the owning group
+            out = self._prefill_rows(fl["embeds"][:, off - base:off - base + n], fl["pad_row"],
+                                     off, self.state.cache.slot(self._local(slot)), lora)
+            last = req.prompt_len - 1
+            if off <= last < off + n:  # the chunk holding the prompt's last token
+                h_last = out.hidden_states[:, last - off:last - off + 1]
+                fl["logits"] = lm_head_apply(
+                    self.model.language_model, self.config.text_config, h_last,
+                    impl=self.impl, lora=None if lora is None else lora.get("lm_head"))[:, 0]
         fl["off"] = off + n
         if fl["off"] >= bucket:
             self._inflight = None
@@ -517,8 +557,9 @@ class ContinuousBatchingServer:
         image_id, vocab = self.config.image_token_index, self.config.text_config.vocab_size
         cache, karange, eos = st.cache, self._karange, self.eos_token_id
         jr = torch.arange(k + 1, device=self.device)
+        rows = (self._row0, self.slots)  # this group's rows of the pool
         # tokens [B, n, T] and, in the last column, the counts: one copy back
-        out_buf = torch.empty(self.slots, n, k + 2, dtype=torch.long, device=self.device)
+        out_buf = torch.empty(st.pos.shape[0], n, k + 2, dtype=torch.long, device=self.device)
         for i in range(n):
             seq, rp, last = st.seq, st.rope_pos, st.last_token
             ids = last[:, None]
@@ -546,19 +587,25 @@ class ContinuousBatchingServer:
             if k:
                 nxt, acc_bit = spec_verify_tokens(
                     out.logits, drafts, self._rng, samp[0], samp[1], samp[2], samp[3],
-                    presence=pres, penalty=penalty, all_greedy=all_greedy)
+                    presence=pres, penalty=penalty, all_greedy=all_greedy, rows=rows)
                 n_commit = torch.cumprod(acc_bit.long(), dim=1).sum(dim=1) + 1
                 eos_hit = (jr < n_commit[:, None]) & (nxt == eos)
                 n_commit = torch.minimum(n_commit, torch.where(eos_hit, jr, k + 1).amin(dim=1) + 1)
                 n_commit = torch.minimum(n_commit, budget)
             else:
+                uniforms = None  # drawn for the whole pool, this group's rows taken
+                if not all_greedy:
+                    uniforms = torch.rand(self.slots, vocab, generator=self._rng,
+                                          device=self.device)[self._rows]
                 nxt = select_next_token_traced(
                     out.logits[:, -1], samp[0], samp[1], samp[2], samp[3], presence=pres,
-                    penalty=penalty, all_greedy=all_greedy, generator=self._rng)[:, None]
+                    penalty=penalty, all_greedy=all_greedy, uniforms=uniforms)[:, None]
                 n_commit = budget.clamp(0, 1)
             self._commit(nxt, n_commit, wp)
             out_buf[:, i, :k + 1] = nxt
             out_buf[:, i, k + 1] = n_commit
+        if self.dp > 1:  # every group's rows, at the chunk's one copy back
+            out_buf = self.tp.mesh.all_gather(out_buf, AXIS_DP, dim=0)
         host = out_buf.cpu().numpy()
         return host[:, :, :k + 1], host[:, :, k + 1]
 
@@ -749,7 +796,9 @@ class ContinuousBatchingServer:
             # each rank reads its own clock: a request expires on every rank
             # once it has on one, so the ranks admit and decode the same slots
             flags = torch.tensor(expired, dtype=torch.int32, device=self.device)
-            expired = self.tp.all_reduce(flags).gt(0).tolist()
+            for axis in (AXIS_TP, AXIS_DP):
+                self.tp.mesh.all_reduce(flags, axis)
+            expired = flags.gt(0).tolist()
         for req in [r for r, e in zip(timed, expired) if e]:
             req.timed_out = True
             self._timeouts += 1
@@ -839,8 +888,9 @@ class ContinuousBatchingServer:
         """Run every chunk length of the ladder once with every slot inactive
         (a no-op for the slots: inactive slots advance nothing, and their
         writes land where the next step or admission writes again)."""
-        self._slot_dev = (torch.zeros(self.slots, dtype=torch.bool, device=self.device),
-                          self._samp_args(self._slot_sampler))
+        self._slot_dev = (torch.zeros(self.state.pos.shape[0], dtype=torch.bool,
+                                      device=self.device),
+                          self._samp_args(self._slot_sampler[self._rows]))
         n = 1
         while True:
             self._decode(self._chunk_steps(n))

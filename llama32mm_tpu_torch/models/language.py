@@ -171,6 +171,56 @@ class CausalLM(nn.Module):
                                  position_ids=position_ids, kv_cache=kv_cache, impl=impl)
 
 
+def init_llama_params(config: LLAMA32Config, device, gen: torch.Generator,
+                      dtype: Optional[torch.dtype] = None) -> LlamaModel:
+    """A random-init decoder with the JAX package's ``init_llama_params``
+    distributions, drawn from ``gen`` (a generator on ``device``)."""
+    model = LlamaModel(config, device, dtype or config.torch_dtype)
+    with torch.no_grad():
+        model.init_(gen)
+    return model
+
+
+def init_causal_lm_params(config: LLAMA32Config, device, gen: torch.Generator,
+                          tie_weights: bool = True,
+                          dtype: Optional[torch.dtype] = None) -> CausalLM:
+    """A random-init decoder and head (the JAX package's
+    ``init_causal_lm_params``); a tied head reads the embedding."""
+    lm = CausalLM(config, device, dtype or config.torch_dtype, tie_weights)
+    with torch.no_grad():
+        lm.init_(gen)
+    return lm
+
+
+def prepare_attention_mask(attention_mask: Optional[torch.Tensor], batch: int, seq_len: int,
+                           dtype: torch.dtype, device) -> torch.Tensor:
+    """The reference's ``_prepare_attention_mask`` (the JAX package's
+    ``prepare_attention_mask``): a 4D mask passes through; a 2D padding mask
+    (None: all ones) becomes the dense additive ``[B, 1, T, T]`` mask, an
+    upper-triangular ``-inf`` causal term plus ``(1 - mask) · finfo.min``
+    on padded keys."""
+    if attention_mask is not None and attention_mask.dim() == 4:
+        return attention_mask.to(dtype)
+    if attention_mask is None:
+        base = torch.ones(batch, seq_len, dtype=dtype, device=device)
+    elif attention_mask.dim() == 2:
+        base = attention_mask.to(dtype)
+    else:
+        raise ValueError("attention_mask must be 2D or 4D")
+    causal = torch.full((seq_len, seq_len), float("-inf"), dtype=dtype, device=base.device)
+    causal = causal.triu(1)[None, None].expand(batch, 1, seq_len, seq_len)
+    padding = ((1.0 - base) * torch.finfo(dtype).min)[:, None, None, :]
+    return causal + padding
+
+
+def prepare_position_ids(position_ids: Optional[torch.Tensor], batch: int, seq_len: int,
+                         device) -> torch.Tensor:
+    """``position_ids`` as given, or ``0..seq_len-1`` for every row."""
+    if position_ids is not None:
+        return position_ids
+    return torch.arange(seq_len, device=device)[None].expand(batch, seq_len)
+
+
 class LlamaOutput(NamedTuple):
     hidden_states: torch.Tensor
     kv_cache: Optional[KVCache]

@@ -20,8 +20,9 @@ Tensor parallelism (``shard_params(..., vision_tp=True)``): a tower with a
 outputs pass through ``f`` into the column-parallel ``q/k/v_proj`` and
 ``fc1``, and ``out_proj`` and ``fc2`` sum their partial products with ``g``
 and add their bias once, after the sum (``parallel/mesh.py``), so the tower
-trains as it serves. Under ``dp`` the attention dropout's mask is drawn for
-the whole batch and sliced to the rank's rows; under ``tp`` it is refused.
+trains as it serves. The attention dropout's mask is drawn at the one-device
+shape ``[B, heads, N, N]`` and sliced to the rank's batch rows (``dp``) and
+heads (``tp``), so a sharded step equals the one-device step.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from torch import nn
 from llama32mm_tpu_torch.configs import VisionEncoderConfig
 from llama32mm_tpu_torch.models.common import Linear, Norm, empty_param
 from llama32mm_tpu_torch.ops.attention import AttnMask, gqa_attention
-from llama32mm_tpu_torch.ops.dispatch import not_in_slice
 
 
 def layer_norm(x: torch.Tensor, norm: Norm, eps: float) -> torch.Tensor:
@@ -66,19 +66,25 @@ def _row_affine(x: torch.Tensor, lin: Linear, tp) -> torch.Tensor:
 
 
 def dropout_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rate: float,
-                      seed: int, rows: Optional[tuple] = None) -> torch.Tensor:
+                      seed: int, rows: Optional[tuple] = None,
+                      heads: Optional[tuple] = None) -> torch.Tensor:
     """Training attention with dropout on the weights (the JAX package's
     explicit ``_vit_attention`` branch): ``[B, heads, N, hd]`` in and out.
-    ``rows``: ``(start, total)`` of a data-parallel rank's batch rows, the
-    mask drawn for all of them and sliced."""
+    ``rows`` and ``heads``: ``(start, total)`` of a data-parallel rank's
+    batch rows and a tensor-parallel rank's heads, the mask drawn for all of
+    them and sliced."""
     scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype)
     scores = torch.matmul(q, k.transpose(-1, -2)) * scale
     weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     gen = torch.Generator(device=q.device).manual_seed(seed)
-    shape = weights.shape if rows is None else (rows[1],) + tuple(weights.shape[1:])
+    shape = list(weights.shape)
+    for dim, part in ((0, rows), (1, heads)):
+        if part is not None:
+            shape[dim] = part[1]
     keep = torch.rand(shape, generator=gen, device=q.device) < 1.0 - rate
-    if rows is not None:
-        keep = keep.narrow(0, rows[0], weights.shape[0])
+    for dim, part in ((0, rows), (1, heads)):
+        if part is not None:
+            keep = keep.narrow(dim, part[0], weights.shape[dim])
     weights = torch.where(keep, weights / (1.0 - rate), torch.zeros((), dtype=weights.dtype))
     return torch.matmul(weights.to(q.dtype), v)
 
@@ -120,7 +126,7 @@ class VisionBlock(nn.Module):
 
     def forward(self, h: torch.Tensor, config: VisionEncoderConfig, impl: str,
                 dropout: Optional[tuple] = None, tp=None) -> torch.Tensor:
-        """``dropout``: ``(rate, seed)`` of the attention dropout, or None;
+        """``dropout``: ``dropout_attention``'s ``(rate, seed, rows, heads)``, or None;
         ``tp``: the tower's ``TPShard``, or None."""
         eps = config.layer_norm_eps
         h = h + self.attention(layer_norm(h, self.layernorm1, eps), config, impl, dropout, tp)
@@ -173,12 +179,32 @@ class VisionEncoder(nn.Module):
         h = h + self.position_embedding[None].to(h.dtype)
         drops = [None] * len(self.layers)
         if dropout_rng is not None and rate > 0.0:
-            if self.tp is not None:
-                not_in_slice("ViT attention dropout under tensor parallelism")
+            tp = self.tp
+            heads = None if tp is None else (tp.rank * tp.heads, tp.size * tp.heads)
             seeds = torch.randint(0, 2**62, (len(self.layers),), generator=dropout_rng,
                                   device=dropout_rng.device).tolist()
-            drops = [(rate, seed, rows) for seed in seeds]
+            drops = [(rate, seed, rows, heads) for seed in seeds]
         for layer, drop in zip(self.layers, drops):
             h = layer(h, cfg, impl, drop, self.tp)
         return layer_norm(h, self.post_layernorm, cfg.layer_norm_eps)
 
+
+
+def init_vision_params(config: VisionEncoderConfig, device, gen: torch.Generator,
+                       dtype: torch.dtype = torch.float32) -> VisionEncoder:
+    """A random-init tower with the JAX package's ``init_vision_params``
+    distributions, drawn from ``gen`` (a generator on ``device``)."""
+    tower = VisionEncoder(config, device, dtype)
+    with torch.no_grad():
+        tower.init_(gen)
+    return tower
+
+
+def vision_encoder_forward(model: VisionEncoder, config: VisionEncoderConfig,
+                           pixel_values: torch.Tensor, impl: str = "auto",
+                           dropout_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The JAX package's ``vision_encoder_forward``: ``[B, C, H, W] →
+    [B, num_patches, D]``; ``dropout_rng`` turns on the attention dropout at
+    ``config.attention_dropout``."""
+    return model(pixel_values, impl=impl, dropout_rng=dropout_rng,
+                 attention_dropout=config.attention_dropout)

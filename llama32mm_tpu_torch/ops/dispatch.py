@@ -19,6 +19,14 @@ import torch
 _VALID = ("auto", "cuda", "torch")
 
 
+def default_impl() -> str:
+    """The implementation the port's entry points take by default:
+    ``"auto"``, the hand kernels on the card (the JAX package's
+    ``default_impl`` names its TPU's Pallas kernels there and XLA
+    elsewhere; here ``"auto"`` is the plain version on the CPU)."""
+    return "auto"
+
+
 def resolve_impl(impl: str, x: torch.Tensor) -> str:
     """Resolve ``impl`` for an op whose operands live where ``x`` lives;
     returns ``"cuda"`` or ``"torch"``."""

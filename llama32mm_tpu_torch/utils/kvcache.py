@@ -46,6 +46,42 @@ def quantize_kv(x: torch.Tensor):
     return q, scale
 
 
+def update_layer_cache(k_layer: torch.Tensor, v_layer: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, pos: int):
+    """Write ``[B, n_kv, T, hd]`` entries into one layer's ``[B, n_kv,
+    S_max, hd]`` buffers at slots ``pos .. pos+T-1``, in place (the JAX
+    package's ``update_layer_cache``, which returns new arrays); returns
+    the buffers."""
+    slots = slice(pos, pos + k_new.shape[2])
+    k_layer[:, :, slots] = k_new
+    v_layer[:, :, slots] = v_new
+    return k_layer, v_layer
+
+
+def _row_slots(pos: torch.Tensor, t: int) -> torch.Tensor:
+    """``[B, T]``: row ``b``'s slots ``pos[b] .. pos[b]+t-1``."""
+    idx = pos.long()[:, None]
+    return idx + torch.arange(t, device=idx.device) if t > 1 else idx
+
+
+def update_stacked(k_all: torch.Tensor, v_all: torch.Tensor, k_new: torch.Tensor,
+                   v_new: torch.Tensor, layer_idx: int, pos):
+    """One layer's write into the stacked ``[L, B, n_kv, S_max, hd]`` cache,
+    in place (the JAX package's ``update_stacked``): at slot ``pos`` (an
+    int), or with ``pos`` an int64 ``[B]`` tensor row ``b``'s ``T`` entries
+    at ``pos[b] .. pos[b]+T-1`` (one scatter per tensor). Returns the
+    stacked buffers."""
+    k_l, v_l = k_all[layer_idx], v_all[layer_idx]
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        b, nkv, t, hd = k_new.shape
+        idx = _row_slots(pos, t)[:, None, :, None].expand(b, nkv, t, hd)
+        k_l.scatter_(2, idx, k_new.to(k_l.dtype))
+        v_l.scatter_(2, idx, v_new.to(v_l.dtype))
+    else:
+        update_layer_cache(k_l, v_l, k_new, v_new, int(pos))
+    return k_all, v_all
+
+
 class KVCache:
     def __init__(self, k: torch.Tensor, v: torch.Tensor, pos: int = 0,
                  k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None):
@@ -80,35 +116,27 @@ class KVCache:
         ``pos .. pos+T-1`` (per row with a ``[B]`` ``pos``; quantized first in
         the int8 mode) and return that layer's full buffers ``(k, v, k_scale,
         v_scale)``; the scales are None in a float cache."""
-        b, nkv, t, hd = k_new.shape
+        b, nkv, t, _ = k_new.shape
         if self.quantized:
             k_new, ks = quantize_kv(k_new)
             v_new, vs = quantize_kv(v_new)
+        if not self.per_row and self.pos + t > self.max_length:
+            raise ValueError(
+                f"KV cache overflow: {self.pos} + {t} > capacity {self.max_length}"
+            )
+        update_stacked(self.k, self.v, k_new, v_new, layer_idx, self.pos)
         k_l, v_l = self.k[layer_idx], self.v[layer_idx]
-        if self.per_row:
-            idx = self.pos.long()[:, None]  # [B, T]
-            if t > 1:
-                idx = idx + torch.arange(t, device=idx.device)
-            k_l.scatter_(2, idx[:, None, :, None].expand(b, nkv, t, hd), k_new.to(k_l.dtype))
-            v_l.scatter_(2, idx[:, None, :, None].expand(b, nkv, t, hd), v_new.to(v_l.dtype))
-            if self.quantized:
-                sidx = idx[:, None, :].expand(b, nkv, t)
-                self.k_scale[layer_idx].scatter_(2, sidx, ks)
-                self.v_scale[layer_idx].scatter_(2, sidx, vs)
-        else:
-            if self.pos + t > self.max_length:
-                raise ValueError(
-                    f"KV cache overflow: {self.pos} + {t} > capacity {self.max_length}"
-                )
-            slots = slice(self.pos, self.pos + t)
-            if self.quantized:
-                self.k_scale[layer_idx, :, :, slots] = ks
-                self.v_scale[layer_idx, :, :, slots] = vs
-            k_l[:, :, slots] = k_new
-            v_l[:, :, slots] = v_new
         if not self.quantized:
             return k_l, v_l, None, None
-        return k_l, v_l, self.k_scale[layer_idx], self.v_scale[layer_idx]
+        ks_l, vs_l = self.k_scale[layer_idx], self.v_scale[layer_idx]
+        if self.per_row:
+            sidx = _row_slots(self.pos, t)[:, None, :].expand(b, nkv, t)
+            ks_l.scatter_(2, sidx, ks)
+            vs_l.scatter_(2, sidx, vs)
+        else:
+            ks_l[:, :, self.pos:self.pos + t] = ks
+            vs_l[:, :, self.pos:self.pos + t] = vs
+        return k_l, v_l, ks_l, vs_l
 
     def advance(self, n: int) -> None:
         if self.per_row:

@@ -191,6 +191,7 @@ def spec_verify_tokens(
     presence: Optional[torch.Tensor] = None,  # [B, V] bool context presence at chunk start
     penalty: Optional[torch.Tensor] = None,  # [B], 1.0 = off
     all_greedy: bool = False,
+    rows: Optional[tuple] = None,
 ) -> tuple:
     """Rejection-sampling verification of deterministic drafts. Returns
     ``(nxt [B, K+1] long, acc [B, K] bool)``: the caller commits ``nxt[:,
@@ -214,7 +215,10 @@ def spec_verify_tokens(
     The draws cannot reproduce the JAX package's bits: they come from the
     one ``generator`` in a fixed order, the acceptance uniforms ``[B, K]``,
     then the replacements' ``[B, K, V]`` and the bonus tokens' ``[B, V]``
-    (both by the Gumbel-max rule)."""
+    (both by the Gumbel-max rule). ``rows``: ``(start, total)`` of these
+    rows in a pool of ``total`` (a data-parallel server group's slots), the
+    draws made for the whole pool and this group's rows taken, so that the
+    pool draws as on one device."""
     b, k1, v = logits.shape
     k = k1 - 1
     dev = logits.device
@@ -239,9 +243,10 @@ def spec_verify_tokens(
     in_vocab = (drafts >= 0) & (drafts < v)
     p_draft = torch.gather(p[:, :k], 2, drafts.clamp(0, v - 1)[..., None])[..., 0]
     p_draft = p_draft.masked_fill(~in_vocab, 0.0)
-    u_acc = torch.rand(b, k, generator=generator, device=dev)
-    u_repl = torch.rand(b, k, v, generator=generator, device=dev)
-    u_bonus = torch.rand(b, v, generator=generator, device=dev)
+    start, total = (0, b) if rows is None else rows
+    u_acc = torch.rand(total, k, generator=generator, device=dev)[start:start + b]
+    u_repl = torch.rand(total, k, v, generator=generator, device=dev)[start:start + b]
+    u_bonus = torch.rand(total, v, generator=generator, device=dev)[start:start + b]
     accept = u_acc < p_draft
     repl = gumbel_argmax(filt[:, :k].masked_fill(draft_hot, float("-inf")), uniforms=u_repl)
     bonus = gumbel_argmax(filt[:, k], uniforms=u_bonus)

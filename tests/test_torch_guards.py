@@ -245,10 +245,15 @@ def test_vlm_forward_refuses_unported_options(tiny_model, kwargs, error, match):
 
 
 def _once_refused_features(cfg, model):
-    """Each feature that the port once refused with ``not_in_slice``, run once."""
+    """Each feature that the port once refused with ``not_in_slice``, run once;
+    those once refused under tensor parallelism on a one-rank mesh (a
+    sharded model whose collectives make no call)."""
     import dataclasses
 
+    from llama32mm_tpu_torch.inference.http_server import ServingFrontend
+    from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
     from llama32mm_tpu_torch.models.quantize import quantize_llama_params
+    from llama32mm_tpu_torch.parallel import shard_params, single_device_mesh
     from llama32mm_tpu_torch.train.full import make_optimizer, make_train_step
     from llama32mm_tpu_torch.train.lora import (
         init_lora_params,
@@ -260,6 +265,32 @@ def _once_refused_features(cfg, model):
     dense = torch.zeros(1, 1, 6, 6).masked_fill(torch.ones(6, 6).triu(1).bool(), float("-inf"))
     vit = dataclasses.replace(cfg, vision_config=dataclasses.replace(
         cfg.vision_config, attention_dropout=0.1))
+
+    def one_rank(**kw):
+        return shard_params(model, cfg, single_device_mesh("cpu"), **kw)
+
+    def server(**kw):
+        return ContinuousBatchingServer(one_rank(), cfg, "cpu", slots=2, max_cache_length=32,
+                                        prompt_buckets=None, eos_token_id=-1, **kw)
+
+    def bank():
+        from llama32mm_tpu_torch.train.lora import stack_adapter_bank, zero_lora_params
+
+        tc = cfg.text_config
+        srv = server(adapter_bank=stack_adapter_bank([zero_lora_params(tc, rank=2, device="cpu"),
+                                                      init_lora_params(torch.Generator(), tc,
+                                                                       rank=2)]))
+        rid = srv.submit(ids[0], max_new_tokens=3, adapter_id=1)
+        return torch.as_tensor(srv.run()[rid])
+
+    def http():
+        frontend = ServingFrontend(server())
+        try:
+            rid = frontend.submit(ids[0].numpy(), None, 3)
+            assert frontend.wait(rid, timeout=60)
+            return torch.tensor(frontend.result(rid)["tokens"])
+        finally:
+            frontend.shutdown()
 
     def qlora():
         lora = init_lora_params(torch.Generator().manual_seed(1), cfg.text_config, rank=2)
@@ -285,11 +316,23 @@ def _once_refused_features(cfg, model):
             {"w": torch.zeros(128, 128)}).v_row["w"],
         "dense_mask": lambda: vlm_forward(model, cfg, input_ids=ids,
                                           attention_mask=dense).logits,
+        "bank_on_a_one_rank_mesh": bank,
+        "draft_on_a_one_rank_mesh": lambda: InferenceEngine(
+            one_rank(), cfg, "cpu", max_cache_length=32, spec_draft=2,
+            draft_params=model.language_model, draft_config=cfg.text_config).generate(
+                ids, max_new_tokens=3).tokens,
+        "http_on_a_one_rank_mesh": http,
+        "vit_dropout_on_a_one_rank_mesh": lambda: vlm_forward(
+            one_rank(vision_tp=True), vit, input_ids=ids, pixel_values=torch.randn(1, 3, 28, 28),
+            dropout_rng=torch.Generator().manual_seed(0)).logits,
     }
 
 
 @pytest.mark.parametrize("feature", ["qlora", "collect_stats", "loss_chunk", "loss_chunk_steps",
-                                     "vit_attention_dropout", "adafactor", "dense_mask"])
+                                     "vit_attention_dropout", "adafactor", "dense_mask",
+                                     "bank_on_a_one_rank_mesh", "draft_on_a_one_rank_mesh",
+                                     "http_on_a_one_rank_mesh",
+                                     "vit_dropout_on_a_one_rank_mesh"])
 def test_refusals_of_earlier_slices_are_gone(tiny_model, feature):
     """Features the port once refused with ``not_in_slice`` now run (their
     agreement with the JAX package: tests/test_torch_{qlora,awq,train_ext}.py)."""
@@ -300,11 +343,11 @@ def test_refusals_of_earlier_slices_are_gone(tiny_model, feature):
 
 def test_not_in_slice_sites_left():
     """The refusals left in the port's sources: gemv routes (engine, server,
-    language), the fused layout, and what tensor parallelism does not run
-    yet (the ViT's dropout, adapter banks, the server at dp > 1, draft
-    models, the HTTP front end). ZeRO, the sharded checkpointer, training
-    under tensor parallelism, sequence parallelism and the pipeline are
-    ported."""
+    language) and the fused layout, both on ROADMAP.md's "Do not port"
+    list. ZeRO, the sharded checkpointer, training under tensor
+    parallelism, sequence parallelism, the pipeline, and the ViT's dropout,
+    adapter banks, the server at dp > 1, draft models and the HTTP front
+    end under tensor parallelism are ported."""
     import glob
 
     sites = []
@@ -316,9 +359,7 @@ def test_not_in_slice_sites_left():
                     sites.append(os.path.relpath(path, ROOT))
     assert sorted(set(sites)) == [
         "llama32mm_tpu_torch/convert.py", "llama32mm_tpu_torch/inference/engine.py",
-        "llama32mm_tpu_torch/inference/http_server.py",
-        "llama32mm_tpu_torch/inference/server.py",
-        "llama32mm_tpu_torch/models/language.py", "llama32mm_tpu_torch/models/vision.py"]
+        "llama32mm_tpu_torch/inference/server.py", "llama32mm_tpu_torch/models/language.py"]
 
 
 def test_int8_kv_cache_refused():

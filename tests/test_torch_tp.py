@@ -400,25 +400,29 @@ def test_abstract_state_takes_the_local_shapes(world2):
         assert shapes["vision_model.layers.0.q_proj.weight"] == (32, 32)
 
 
-# -- what is not ported under TP ---------------------------------------------------
+# -- what was once refused under TP ------------------------------------------------
 
 
-@pytest.mark.parametrize("feature", ["adapter_bank", "draft", "http"])
-def test_not_ported_under_tp_raises(world2, feature):
-    for r in _ok(world2, "refusals"):
-        assert r[feature] == "not_in_slice", r[feature]
-
-
-@pytest.mark.parametrize("feature", ["lora", "training", "sequence_parallel"])
+@pytest.mark.parametrize("feature", ["lora", "training", "sequence_parallel", "adapter_bank",
+                                     "draft", "http"])
 def test_once_refused_under_tp_runs(world2, feature):
     """LoRA and gradients under tensor parallelism, once refused, now run
     (their agreement with the JAX package: tests/test_torch_tp_train.py);
     so does a mesh with ``sp = 2``, whose chunks' logits equal the
     one-device forward's (tests/test_torch_seq_parallel.py holds training
-    over ``sp`` to the JAX package)."""
+    over ``sp`` to the JAX package), and so do the adapter bank server, the
+    draft engine and the HTTP front end over the sharded server
+    (tests/test_torch_tp_serving.py holds their tokens to the JAX
+    package)."""
     for r in _ok(world2, "refusals"):
         assert r[feature] == "ran", r[feature]
 
 
-def test_server_at_dp2_raises(world4):
-    assert _ok(world4, "server_dp2_refused") == ["not_in_slice"] * 4
+def test_server_at_dp2_runs(world4, jax_params):
+    """The server at dp=2 x tp=2 (one slot a data-parallel group), once
+    refused: every rank returns every request's tokens, the JAX engine's."""
+    res = _ok(world4, "server_dp2")
+    want = _server_oracle(jax_params, prompt_buckets=(16, 24))
+    for i in range(len(want)):
+        got = _same_on_every_rank([r[i] for r in res])
+        np.testing.assert_array_equal(got, want[i], err_msg=f"request {i}")

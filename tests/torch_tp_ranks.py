@@ -6,11 +6,14 @@ module computes the JAX oracles in the parent.
 ``run_world(world, inputs)`` starts ``world`` ranks, each of which runs every
 case of its world size in the same order (meshes and collectives are
 collective calls) and sends back, per case, a picklable result (numpy arrays,
-numbers, strings) or the error it raised.
+numbers, strings) or the error it raised. ``run_world(..., module=)`` runs
+another rank module's ``Ctx`` and ``CASES`` the same way
+(``tests/torch_tp_serving_ranks.py``).
 """
 
 from __future__ import annotations
 
+import importlib
 import os
 import socket
 import time
@@ -281,11 +284,13 @@ def case_abstract_state(c: Ctx):
 
 
 def case_refusals(c: Ctx):
-    """Each feature that is not ported under TP raises NotImplementedError;
-    those once refused run (sequence parallelism: a forward at sp=2 whose
-    token chunks' logits equal the one-device forward's)."""
+    """Each feature once refused under TP runs (sequence parallelism: a
+    forward at sp=2 whose token chunks' logits equal the one-device
+    forward's; the bank server, the draft engine and the HTTP front end
+    serve a request; tests/test_torch_tp_serving.py holds their tokens to
+    the JAX package)."""
     from llama32mm_tpu_torch.inference.engine import InferenceEngine
-    from llama32mm_tpu_torch.inference.http_server import ServingFrontend
+    from llama32mm_tpu_torch.inference.http_server import ServingFrontend, follow
     from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
     from llama32mm_tpu_torch.models.vlm import vlm_forward
     from llama32mm_tpu_torch.parallel import AXIS_SP, create_mesh, shard_params
@@ -299,11 +304,31 @@ def case_refusals(c: Ctx):
     tc = c.cfg.text_config
     ids = torch.as_tensor(prompt(6, 3, image=False))
     lora = init_lora_params(torch.Generator().manual_seed(1), tc, rank=2)
-    bank = stack_adapter_bank([zero_lora_params(tc, rank=2, device="cpu"), lora])
+    bank_tree = stack_adapter_bank([zero_lora_params(tc, rank=2, device="cpu"), lora])
 
     def server(**kw):
         return ContinuousBatchingServer(model, c.cfg, "cpu", slots=2, max_cache_length=MAX_LEN,
                                         **kw)
+
+    def bank():
+        srv = server(adapter_bank=bank_tree, eos_token_id=-1)
+        srv.submit(ids[0], max_new_tokens=3, adapter_id=1)
+        srv.run()
+
+    def draft():
+        eng = InferenceEngine(model, c.cfg, "cpu", max_cache_length=MAX_LEN, spec_draft=2,
+                              draft_params=c.models["tied"].language_model, draft_config=tc)
+        eng.generate(ids, max_new_tokens=3, eos_token_id=-1)
+
+    def http():
+        srv = server(eos_token_id=-1)
+        if c.rank > 0:
+            return follow(srv)
+        frontend = ServingFrontend(srv)
+        try:
+            frontend.wait(frontend.submit(ids[0].numpy(), None, 3), timeout=60)
+        finally:
+            frontend.shutdown()
 
     def training():
         norm = model.language_model.model.final_norm.weight  # shared with the whole model
@@ -324,11 +349,9 @@ def case_refusals(c: Ctx):
 
     attempts = {
         "lora": lambda: vlm_forward(model, c.cfg, input_ids=ids, lora=lora),
-        "adapter_bank": lambda: server(adapter_bank=bank),
-        "draft": lambda: InferenceEngine(model, c.cfg, "cpu", spec_draft=2,
-                                         draft_params=c.models["tied"].language_model,
-                                         draft_config=tc),
-        "http": lambda: ServingFrontend(server()),
+        "adapter_bank": bank,
+        "draft": draft,
+        "http": http,
         "training": training,
         "sequence_parallel": sp_mesh,
     }
@@ -375,17 +398,12 @@ def case_engine_dp2_tp2_int8(c: Ctx):
                      max_new_tokens=6, kv_dtype="int8")
 
 
-def case_server_dp2_refused(c: Ctx):
-    from llama32mm_tpu_torch.inference.server import ContinuousBatchingServer
+def case_server_dp2(c: Ctx):
+    """The server at dp=2 x tp=2, a slot per data-parallel group."""
     from llama32mm_tpu_torch.parallel import create_mesh
 
     mesh = create_mesh(dp=2, tp=2)
-    try:
-        ContinuousBatchingServer(c.sharded("tied", mesh=mesh), c.cfg, "cpu", slots=2,
-                                 max_cache_length=MAX_LEN)
-    except NotImplementedError as e:
-        return "not_in_slice" if "ROADMAP.md" in str(e) else repr(e)
-    return "ran"
+    return _serve(c, c.sharded("untied", mesh=mesh), prompt_buckets=(16, 24))
 
 
 CASES = {
@@ -393,18 +411,19 @@ CASES = {
         case_int8_forward, case_int4_forward, case_engine_greedy, case_engine_sampled,
         case_engine_int4_mixed, case_server_monolithic, case_server_chunked_int8kv,
         case_deadline_skew, case_prefix, case_spec_lookup, case_load_sharded, case_abstract_state, case_refusals],
-    4: [case_mesh4, case_forward_tp4, case_engine_dp2_tp2_int8, case_server_dp2_refused],
+    4: [case_mesh4, case_forward_tp4, case_engine_dp2_tp2_int8, case_server_dp2],
 }
 
 
-def _rank_main(rank: int, world: int, port: int, inputs: dict, queue) -> None:
+def _rank_main(rank: int, world: int, port: int, inputs: dict, queue, module: str) -> None:
     from llama32mm_tpu_torch.parallel import init_distributed
 
     torch.set_num_threads(1)
     init_distributed(rank, world, f"tcp://localhost:{port}", device="cpu", timeout_s=120)
     try:
-        ctx = Ctx(rank, world, inputs)
-        for fn in CASES[world]:
+        mod = importlib.import_module(module)
+        ctx = mod.Ctx(rank, world, inputs)
+        for fn in mod.CASES[world]:
             name = fn.__name__[len("case_"):]
             try:
                 queue.put((name, rank, fn(ctx)))
@@ -416,17 +435,18 @@ def _rank_main(rank: int, world: int, port: int, inputs: dict, queue) -> None:
         dist.destroy_process_group()
 
 
-def run_world(world: int, inputs: dict) -> dict:
-    """``{case: [result of rank 0, ..., rank world-1]}``; a case that raised
-    on a rank holds ``("error", traceback)`` there. Cases after a failed one
-    are missing (the ranks' collectives would no longer line up)."""
+def run_world(world: int, inputs: dict, module: str = __name__) -> dict:
+    """``{case: [result of rank 0, ..., rank world-1]}`` of ``module``'s
+    cases; a case that raised on a rank holds ``("error", traceback)``
+    there. Cases after a failed one are missing (the ranks' collectives
+    would no longer line up)."""
     os.environ.setdefault("OMP_NUM_THREADS", "1")
     ctx = mp.get_context("spawn")
     queue = ctx.SimpleQueue()
-    procs = mp.spawn(_rank_main, args=(world, free_port(), inputs, queue), nprocs=world,
-                     join=False)
+    procs = mp.spawn(_rank_main, args=(world, free_port(), inputs, queue, module),
+                     nprocs=world, join=False)
     results: dict = {}
-    expected = world * len(CASES[world])
+    expected = world * len(importlib.import_module(module).CASES[world])
     while sum(len(v) for v in results.values()) < expected:
         if not queue.empty():
             name, rank, value = queue.get()
