@@ -7,8 +7,8 @@
    sm_90a);
 3. compares every kernel with its plain PyTorch version at the shapes the
    bf16, the quantized and the training paths give it, and at ragged
-   edges, in bf16, and times both (and the effective weight GB/s of the
-   gemvs);
+   edges, in bf16 (and the fp32 flash kernels in fp32 too), and times both
+   (and the effective weight GB/s of the gemvs);
 4. checks, on a tiny fp32 model, that the kernel path and the plain path
    generate the same tokens: in float, and quantized to int8 and to the
    int4-mixed recipe with an int8 KV cache;
@@ -17,7 +17,12 @@
    tower training) agree between the kernel and the plain path, and that
    the kernel path launched every training kernel and no plain version;
    and, on the tiny model in bf16, that 3 LoRA steps give the plain path's
-   losses through the tensor-core flash backward;
+   losses through the tensor-core flash backward; then ``vit_h_fp32``: the
+   11B's ViT-H/14 tower, all 32 layers, in fp32 on one 560x560 image, the
+   kernel path within 1e-4 of the plain path with the 3xTF32 forward
+   launched once a layer; and ``fp32_autograd``: ``gqa_attention`` under
+   autograd in fp32 at the decoder and ViT-H shapes, out, dq, dk and dv
+   within 1e-5 of ``impl="torch"``;
 6. builds Llama-3.2-11B-Vision shapes in bf16 from a seed, preprocesses a
    560x560 uint8 image on the card and runs ``InferenceEngine.generate``
    greedily for 64 tokens after a 1600-image-token + 32-text-token prompt,
@@ -221,38 +226,43 @@ a backward fed the LSE and delta of a two-chunk merge.
 
 The flash forward runs as three kernels: the tensor-core forward for bf16
 calls with many query rows (prefill, the ViT, training), the split-KV decode
-kernel for calls with few rows per kv head (decode), and the SIMT forward
-for fp32 (the tiny exactness phases). The flash backward runs as two pairs:
-the tensor-core dq and dk/dv kernels for bf16 (every training path at 11B
-and 3B), the SIMT pair for fp32. Step 3 also checks that every row of a B=8
-decode call equals, bit for bit, a B=1 call on that row, and that two calls
-of a tensor-core backward kernel give the same bits; that each row of the
-int4 W4A16 gemv's R=8, 16 and 32 calls equals its R=1 call bit for bit and
-two calls of each int4 case give the same bits; that 50 calls of the
-tensor-core forward at hd 8 (bf16 and int8 KV) give the same bits (the
-zero-fill of its head-dim padding once raced its copies); that the model's
-entry ``qmatmul_cuda`` routes each wgmma GEMM case to the wgmma kernel,
-two of its calls give the same bits, and rows 0-96 of each R=1632 call
-equal an R=97 call bit for bit; that the model's gemv entry routes each
-tensor-core gemv case there, two calls give the same bits and each row of
-an R = 2-32 call equals its R = 1 call; that the model's SwiGLU entries
-route each TMA-tile case (forward and backward) there, two calls give the
-same bits and rows 0-96 of each R=1632 call equal an R=97 call; and prints
-the tensor-core forward's and backward's times beside the SIMT kernels' and
-SDPA's at the same shapes. The tensor-core SwiGLU rows kernel and W4A8
-gemv get the same three checks as the tensor-core gemv (routed by the
-model's entry, two calls bit-equal, each row of an R > 1 call equal to its
-R = 1 call), and so does the tensor-core int8 gemv, with a case whose x
-starts 2 bytes off alignment that the model's entry must route to the
-CUDA-core int8 gemv; the TMA SwiGLU backward one case whose cotangent
-starts at an odd element; two calls of each RMSNorm backward case give the
-same bits (dt, and dw when asked for). Every bf16 path at 11B and 3B must
-launch the new kernels and never a SIMT forward or backward, nor the wmma
-dequantizing GEMM, nor a CUDA-core gemv; the bf16 generate and server launch the
-tensor-core gemv 201 times a decode step (and once for each prefill's
-head), the TMA SwiGLU tile 40 times a prefill and the tensor-core SwiGLU
-rows kernel 40 times a decode step, never the weight-streaming rows kernel
-or the wmma tile; the 3B full fine-tuning never the wmma tile.
+kernel for calls with few rows per kv head (decode), and the 3xTF32 forward
+for fp32 (the tiny exactness phases, ``vit_h_fp32``). The flash backward
+runs as two pairs: the tensor-core dq and dk/dv kernels for bf16 (every
+training path at 11B and 3B), and for fp32 the SIMT dq and the 3xTF32
+dk/dv. Step 3 also checks that every row of a B=8 decode call equals, bit
+for bit, a B=1 call on that row, and that two calls of a tensor-core
+backward kernel give the same bits; that each row of the int4 W4A16 gemv's
+R=8, 16 and 32 calls equals its R=1 call bit for bit and two calls of each
+int4 case give the same bits; that 50 calls of the tensor-core forward at hd
+8 (bf16 and int8 KV) give the same bits (the zero-fill of its head-dim
+padding once raced its copies); that the model's entry ``qmatmul_cuda``
+routes each wgmma GEMM case to the wgmma kernel, two of its calls give the
+same bits, and rows 0-96 of each R=1632 call equal an R=97 call bit for bit;
+that the model's gemv entry routes each tensor-core gemv case there, two
+calls give the same bits and each row of an R = 2-32 call equals its R = 1
+call; that the model's SwiGLU entries route each TMA-tile case (forward and
+backward) there, two calls give the same bits and rows 0-96 of each R=1632
+call equal an R=97 call; and prints the tensor-core forward's and backward's
+times beside the fp32 kernels' and SDPA's at the same shapes. The fp32
+kernels (3xTF32 forward, LSE, int8 KV and dk/dv; SIMT dq) run fp32 cases
+held to 1e-5 of the plain version's largest magnitude (the bf16 cases to
+``TOL``), each twice with the same bits (50 times at hd 8), with their bound
+as three TF32 products at 494.7 TFLOP/s beside the CUDA-core bound at 67.
+The tensor-core SwiGLU rows kernel and W4A8 gemv get the same three checks
+as the tensor-core gemv (routed by the model's entry, two calls bit-equal,
+each row of an R > 1 call equal to its R = 1 call), and so does the tensor-
+core int8 gemv, with a case whose x starts 2 bytes off alignment that the
+model's entry must route to the CUDA-core int8 gemv; the TMA SwiGLU backward
+one case whose cotangent starts at an odd element; two calls of each RMSNorm
+backward case give the same bits (dt, and dw when asked for). Every bf16
+path at 11B and 3B must launch the new kernels and never an fp32 flash
+forward or backward, nor the wmma dequantizing GEMM, nor a CUDA-core gemv;
+the bf16 generate and server launch the tensor-core gemv 201 times a decode
+step (and once for each prefill's head), the TMA SwiGLU tile 40 times a
+prefill and the tensor-core SwiGLU rows kernel 40 times a decode step, never
+the weight-streaming rows kernel or the wmma tile; the 3B full fine-tuning
+never the wmma tile.
 
 Each kernel case also reports its bound (the larger of the bytes it must
 move over 3.35 TB/s and its operations over the dense peak for its type)
@@ -310,9 +320,11 @@ from llama32mm_tpu_torch.models.common import QuantLinear
 from llama32mm_tpu_torch.models import language as language_mod
 from llama32mm_tpu_torch.models import wrapper
 from llama32mm_tpu_torch.models.language import CausalLM
+from llama32mm_tpu_torch.models.vision import init_vision_params, vision_encoder_forward
 from llama32mm_tpu_torch.models.vlm import init_vlm, vlm_forward
 from llama32mm_tpu_torch.ops import cuda as kernels
 from llama32mm_tpu_torch.ops import attention as attention_mod
+from llama32mm_tpu_torch.ops.attention import AttnMask, gqa_attention
 from llama32mm_tpu_torch.ops import gemv as gemv_mod
 from llama32mm_tpu_torch.ops import rmsnorm as rmsnorm_mod
 from llama32mm_tpu_torch.ops import swiglu as swiglu_mod
@@ -368,28 +380,32 @@ from llama32mm_tpu_torch.utils.kvcache import init_kv_cache, quantize_kv
 # and up in SwiGLU, bf16 vs fp32 probabilities in attention) and sum in
 # different orders.
 TOL = 1.6e-2
+# fp32 cases of the fp32 flash kernels: |kernel - plain| <= FP32_TOL *
+# max|plain| (out, LSE, dq, dk, dv). Both sides compute in fp32 (the 3xTF32
+# products as exact as fp32's), in other orders.
+FP32_TOL = 1e-5
 
 KERNEL_INFO = {
     "rmsnorm": ("llama32mm_tpu_torch/csrc/rmsnorm.cu", "llama32mm_tpu/ops/pallas/rmsnorm.py:55"),
     "gemv": ("llama32mm_tpu_torch/csrc/gemv.cu", "llama32mm_tpu/ops/pallas/gemv.py:655"),
     "swiglu": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:69"),
-    "flash_attention": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention": ("llama32mm_tpu_torch/csrc/flash_attention_tf32.cu",
                         "llama32mm_tpu/ops/pallas/attention.py:36"),
     "gemv_int8": ("llama32mm_tpu_torch/csrc/qgemv.cu", "llama32mm_tpu/ops/pallas/gemv.py:162"),
     "gemv_int4": ("llama32mm_tpu_torch/csrc/qgemv.cu", "llama32mm_tpu/ops/pallas/gemv.py:272"),
     "qmatmul": ("llama32mm_tpu_torch/csrc/qmatmul.cu",
                 "llama32mm_tpu/ops/pallas/quant_matmul.py:29"),
-    "flash_attention_int8kv": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_int8kv": ("llama32mm_tpu_torch/csrc/flash_attention_tf32.cu",
                                "llama32mm_tpu/ops/pallas/attention.py:36"),
     "rmsnorm_fwd_train": ("llama32mm_tpu_torch/csrc/rmsnorm.cu",
                           "llama32mm_tpu/ops/pallas/rmsnorm.py:44"),
     "rmsnorm_bwd": ("llama32mm_tpu_torch/csrc/rmsnorm.cu", "llama32mm_tpu/ops/pallas/rmsnorm.py:62"),
     "swiglu_bwd": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:136"),
-    "flash_attention_lse": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_lse": ("llama32mm_tpu_torch/csrc/flash_attention_tf32.cu",
                             "llama32mm_tpu/ops/pallas/attention.py:36"),
     "flash_attention_bwd_dq": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
                                "llama32mm_tpu/ops/pallas/attention.py:251"),
-    "flash_attention_bwd_dkv": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dkv": ("llama32mm_tpu_torch/csrc/flash_attention_tf32.cu",
                                 "llama32mm_tpu/ops/pallas/attention.py:322"),
     "gemv_int4_w4a8": ("llama32mm_tpu_torch/csrc/qgemv.cu", "llama32mm_tpu/ops/pallas/gemv.py:353"),
     "swiglu_down": ("llama32mm_tpu_torch/csrc/swiglu_down.cu",
@@ -500,8 +516,9 @@ PATH_KERNELS = {
 PATH_KERNELS.update({f"load_11b_{kind}": PATH_KERNELS[kind]
                      for kind in ("bf16", "int8", "int4_mixed")})
 # The kernels each training path must launch: the fp32 tiny model's flash
-# forward with the LSE and backward are the SIMT kernels, the bf16 models'
-# the tensor-core ones (the frozen ViT's no-grad forward too).
+# forward with the LSE and backward are the fp32 kernels (3xTF32 forward and
+# dk/dv, SIMT dq), the bf16 models' the bf16 tensor-core ones (the frozen
+# ViT's no-grad forward too).
 TRAIN_KERNELS = ("rmsnorm_fwd_train", "rmsnorm_bwd", "flash_attention_lse",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 TRAIN_BF16_KERNELS = ("rmsnorm_fwd_train", "rmsnorm_bwd", "flash_attention_tc_lse",
@@ -546,15 +563,16 @@ PATH_KERNELS.update({"tp_11b_bf16": PATH_KERNELS["bf16"],
 # each stage's layers through the SwiGLU tile and the flash training kernels.
 PATH_KERNELS.update({"sp_lora_11b": TRAIN_BF16_KERNELS,
                      "pp_full_ft_3b": TRAIN_BF16_KERNELS[:-1] + ("swiglu_tc", "swiglu_bwd_tc")})
-# The SIMT fp32 forward and backward: the bf16 paths above must never
+# The fp32 flash kernels (the 3xTF32 forward, its int8-KV and LSE
+# instantiations and dk/dv; the SIMT dq): the bf16 paths above must never
 # launch them; nor the wmma dequantizing GEMM ("qmatmul"), which every
 # bf16 prefill shape leaves to the wgmma one; nor the CUDA-core gemvs
 # ("gemv", "gemv_int4_w4a8", "gemv_int8"), which every decode linear at these
 # widths leaves to the tensor-core ones.
-SIMT_FORWARD = ("flash_attention", "flash_attention_int8kv", "flash_attention_lse")
-SIMT_BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+FP32_FORWARD = ("flash_attention", "flash_attention_int8kv", "flash_attention_lse")
+FP32_BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # The tiny fp32 model's quantized paths: a 40-token prefill over the int8
-# cache (SIMT), the 5-token ViT and decode (split-KV).
+# cache (3xTF32), the 5-token ViT and decode (split-KV).
 TINY_KERNELS = {
     "int8": ("rmsnorm", "gemv_int8", "qmatmul", "flash_attention_int8kv", "flash_decode",
              "flash_decode_int8kv"),
@@ -565,14 +583,14 @@ TINY_KERNELS = {
 
 def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
     """What a path's run got wrong: kernels it should have launched and did
-    not, SIMT flash kernels launched on a bf16 path, plain versions called."""
+    not, fp32 flash kernels launched on a bf16 path, plain versions called."""
     faults = [f"skipped {k}" for k in PATH_KERNELS[path] if launches[k] == 0]
     if path in ("full_ft_3b", "zero1_full_ft_3b", "pp_full_ft_3b"):  # R = 1632 a SwiGLU call
         faults += [f"launched the wmma {k} {launches[k]} times" for k in ("swiglu", "swiglu_bwd")
                    if launches[k]]
     if path != "swiglu_down_op":
-        faults += [f"launched the SIMT {k} {launches[k]} times"
-                   for k in SIMT_FORWARD + SIMT_BACKWARD if launches[k]]
+        faults += [f"launched the fp32 {k} {launches[k]} times"
+                   for k in FP32_FORWARD + FP32_BACKWARD if launches[k]]
         if launches["qmatmul"]:
             faults.append(f"launched the wmma qmatmul {launches['qmatmul']} times")
         if launches["gemv"]:
@@ -766,7 +784,7 @@ def kernel_cases(dev, gen):
          (rnd(3, 96), rnd(200, 96, scale=0.1), rnd(200, 96, scale=0.1)), False),
         ("flash_attention", "decoder prefill nq=32 nkv=8 Tq=1632 Tk=2048 hd=128 causal",
          (rnd(1, 32, 1632, 128), rnd(1, 8, 2048, 128), rnd(1, 8, 2048, 128),
-          valid(1, 2048, 1632), 0, True), True),
+          valid(1, 2048, 1632), 0, True), False),
         ("flash_attention", "ViT-H nq=nkv=16 T=1600 hd=80 non-causal",
          (rnd(1, 16, 1600, 80), rnd(1, 16, 1600, 80), rnd(1, 16, 1600, 80),
           valid(1, 1600, 1600), 0, False), False),
@@ -818,7 +836,7 @@ def kernel_cases(dev, gen):
          (rnd(70, 512), *q4_stepped(300, 512, 64)), False),
         ("qmatmul_tc", "odd N int8 R=130 N=999 K=256", (rnd(130, 256), *q8(999, 256)), False),
         ("flash_attention_int8kv", "decoder prefill nq=32 nkv=8 Tq=1632 Tk=2048 hd=128 causal",
-         (rnd(1, 32, 1632, 128), *kv8(1, 8, 2048, 128), valid(1, 2048, 1632), 0, True), True),
+         (rnd(1, 32, 1632, 128), *kv8(1, 8, 2048, 128), valid(1, 2048, 1632), 0, True), False),
         ("flash_attention_int8kv", "decode Tq=1 Tk=2048 q_offset=1700 hd=128",
          (rnd(1, 32, 1, 128), *kv8(1, 8, 2048, 128), valid(1, 2048, 1701), 1700, True), False),
         ("flash_attention_int8kv", "ragged B=2 Tq=37 Tk=100 q_offset=5 hd=16 padded keys",
@@ -855,7 +873,8 @@ def kernel_cases(dev, gen):
     ]
     return (cases + spec_kernel_cases(rnd, valid) + int8_gemv_cases(rnd, q8)
             + server_kernel_cases(rnd, q4, q4_stepped, kv8) + training_kernel_cases(rnd, valid)
-            + tp_kernel_cases(rnd, valid, q8, q4, kv8) + ring_kernel_cases(rnd, valid))
+            + tp_kernel_cases(rnd, valid, q8, q4, kv8) + ring_kernel_cases(rnd, valid)
+            + fp32_flash_cases(dev, gen))
 
 
 def tp_kernel_cases(rnd, valid, q8, q4, kv8):
@@ -972,6 +991,8 @@ def tp_training_kernel_cases(rnd, valid):
 
 
 RING_T = 2048  # sp_lora_11b: S=4096 over sp=2
+FP32_MAIN_FWD = "fp32 decoder prefill nq=32 nkv=8 Tq=1632 Tk=2048 hd=128 causal"
+FP32_MAIN_TRAIN = "fp32 decoder nq=32 nkv=8 T=1632 hd=128 causal"
 
 
 def ring_kernel_cases(rnd, valid):
@@ -1012,18 +1033,115 @@ def ring_kernel_cases(rnd, valid):
     return cases
 
 
+def fp32_flash_cases(dev, gen):
+    """The fp32 flash kernels on fp32 inputs, the dtype that the route sends
+    them (the cases above are bf16): the 3xTF32 forward, its LSE and int8-KV
+    instantiations (fp32 q, int8 K/V) and dk/dv, and the SIMT dq, at the
+    decoder prefill (the main case), ViT-H, the 3B, decode, a ragged hd 16
+    call with a fully masked row, per-row offsets at B=8 (the forwards: a
+    gradient takes one offset), the ring's offsets and merged LSE, and hd 8,
+    32 and 96 with Tq and Tk off the 64-row tiles."""
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def valid(b, tk, n):
+        kvv = torch.zeros(b, tk, dtype=torch.int32, device=dev)
+        kvv[:, :n] = 1
+        return kvv
+
+    def kv8(*shape):
+        (kq, ks), (vq, vs) = quantize_kv(rnd(*shape)), quantize_kv(rnd(*shape))
+        return kq, vq, ks, vs
+
+    masked = valid(2, 100, 90)
+    masked[0, :6] = 0  # batch 0, query 0 (position 5) sees no key
+    offsets = torch.tensor([0, 10, 57, 120, 160, 3, 99, 150], dtype=torch.int32, device=dev)
+    # label: (q shape, k/v shape, kv_valid, q_offset, causal, main?)
+    edges = {  # the forwards' and the training calls' alike
+        "fp32 ViT-H nq=nkv=16 T=1600 hd=80 non-causal":
+            ((1, 16, 1600, 80), (1, 16, 1600, 80), valid(1, 1600, 1600), 0, False, False),
+        "fp32 decode Tq=1 Tk=2048 q_offset=1700 hd=128":
+            ((1, 32, 1, 128), (1, 8, 2048, 128), valid(1, 2048, 1701), 1700, True, False),
+        "fp32 ragged B=2 Tq=37 Tk=100 q_offset=5 hd=16 padded keys, a fully masked row":
+            ((2, 4, 37, 16), (2, 2, 100, 16), masked, 5, True, False),
+        "hd=32 fp32 B=2 nq=8 nkv=1 Tq=200 Tk=260 q_offset=60 causal":
+            ((2, 8, 200, 32), (2, 1, 260, 32), valid(2, 260, 260), 60, True, False),
+        "hd=96 fp32 nq=nkv=2 Tq=150 Tk=170 non-causal padded keys":
+            ((1, 2, 150, 96), (1, 2, 170, 96), valid(1, 170, 160), 0, False, False),
+    }
+    fwd_shapes = {
+        FP32_MAIN_FWD:
+            ((1, 32, 1632, 128), (1, 8, 2048, 128), valid(1, 2048, 1632), 0, True, True),
+        "fp32 3B prefill nq=24 nkv=8 Tq=1632 Tk=2048 hd=128 causal":
+            ((1, 24, 1632, 128), (1, 8, 2048, 128), valid(1, 2048, 1632), 0, True, False),
+        "fp32 per-row q_offset B=8 nq=8 nkv=2 Tq=40 Tk=200 hd=64":
+            ((8, 8, 40, 64), (8, 2, 200, 64), valid(8, 200, 200), offsets, True, False),
+        "hd=8 fp32 nq=4 nkv=2 Tq=70 Tk=90 q_offset=20 causal":
+            ((1, 4, 70, 8), (1, 2, 90, 8), valid(1, 90, 90), 20, True, False),
+        **edges,
+    }
+    cases = []
+    for label, (qs, kvs, kvv, q_offset, causal, main) in fwd_shapes.items():
+        q = rnd(*qs)
+        cases.append(("flash_attention", label, (q, rnd(*kvs), rnd(*kvs), kvv, q_offset, causal),
+                      main))
+        if "ViT" not in label:  # the ViT has no KV cache
+            cases.append(("flash_attention_int8kv", label,
+                          (q, *kv8(*kvs), kvv, q_offset, causal), main))
+    t = RING_T
+    train_shapes = {  # the training calls: one offset
+        FP32_MAIN_TRAIN:
+            ((1, 32, 1632, 128), (1, 8, 1632, 128), valid(1, 1632, 1632), 0, True, True),
+        "fp32 3B nq=24 nkv=8 T=1632 hd=128 causal":
+            ((1, 24, 1632, 128), (1, 8, 1632, 128), valid(1, 1632, 1632), 0, True, False),
+        **edges,
+    }
+    for label, (qs, kvs, kvv, q_offset, causal, main) in train_shapes.items():
+        fwd = (rnd(*qs), rnd(*kvs), rnd(*kvs), kvv, q_offset, causal)
+        out, lse = kernels.flash_attention_fwd_lse_plain(*fwd)
+        dout = rnd(*qs)
+        bwd = (*fwd, lse, (dout * out).sum(-1), dout)
+        cases += [("flash_attention_lse", label, fwd, main),
+                  ("flash_attention_bwd_dkv", label, bwd, main)]
+        if label.startswith(("fp32 decoder", "fp32 3B", "fp32 ViT-H")):
+            cases.append(("flash_attention_bwd_dq", label, bwd, main))
+    # the ring's steps (sp_lora_11b's shapes): a chunk wholly in the future,
+    # the diagonal, a chunk wholly in the past, and the past chunk's backward
+    # fed the merged LSE and delta
+    q, dout, kvv = rnd(1, 32, t, 128), rnd(1, 32, t, 128), valid(1, t, t)
+    chunks = [(rnd(1, 8, t, 128), rnd(1, 8, t, 128)) for _ in range(2)]
+    for q_offset, (k, v) in ((-t, chunks[1]), (0, chunks[1]), (t, chunks[0])):
+        fwd = (q, k, v, kvv, q_offset, True)
+        out, lse = kernels.flash_attention_fwd_lse_plain(*fwd)
+        label = f"ring fp32 nq=32 nkv=8 Tq=Tk={t} hd=128 q_offset={q_offset}"
+        cases += [("flash_attention_lse", label, fwd, False),
+                  ("flash_attention_bwd_dkv", label, (*fwd, lse, (dout * out).sum(-1), dout),
+                   False)]
+    parts = [kernels.flash_attention_fwd_lse_plain(q, *chunks[i], kvv, off, True)
+             for i, off in ((0, t), (1, 0))]
+    merged, lse = attention_mod._ring_merge(
+        torch.zeros(q.shape, dtype=torch.float32, device=dev),
+        torch.full(q.shape[:3], NEG_BIG, dtype=torch.float32, device=dev), *parts[0])
+    merged, lse = attention_mod._ring_merge(merged, lse, *parts[1])
+    label = f"ring fp32 nq=32 nkv=8 Tq=Tk={t} hd=128 q_offset={t} merged LSE and delta"
+    cases.append(("flash_attention_bwd_dkv", label,
+                  (q, *chunks[0], kvv, t, True, lse, (dout * merged).sum(-1), dout), False))
+    return cases
+
+
 def check_ring_masked(name, label, got) -> None:
     """A ring step whose key chunk lies wholly in the future: the output and
     every gradient exactly 0, the LSE exactly ``NEG_BIG``."""
     got = got if isinstance(got, tuple) else (got,)
-    zero = all(bool((g == 0).all()) for g in (got if name != "flash_attention_tc_lse"
-                                              else got[:1]))
-    lse_ok = name != "flash_attention_tc_lse" or bool((got[1] == NEG_BIG).all())
+    lse_fwd = name.endswith("_lse")
+    zero = all(bool((g == 0).all()) for g in (got[:1] if lse_fwd else got))
+    lse_ok = not lse_fwd or bool((got[1] == NEG_BIG).all())
     if not (zero and lse_ok):
         raise RuntimeError(f"{name} [{label}]: a wholly masked chunk gave a nonzero output or "
                            f"gradient, or an LSE other than NEG_BIG")
     log(f"kernel {name} [{label}]: every row masked: exactly 0"
-        f"{', the LSE exactly NEG_BIG' if name == 'flash_attention_tc_lse' else ''}")
+        f"{', the LSE exactly NEG_BIG' if lse_fwd else ''}")
 
 
 def spec_kernel_cases(rnd, valid):
@@ -1277,11 +1395,11 @@ def training_kernel_cases(rnd, valid):
         dout = rnd(*q.shape)
         delta = (dout.float() * out.float()).sum(-1)
         bwd = (*fwd, lse, delta, dout)
-        if simt:
-            cases += [("flash_attention_lse", label, fwd, main),
+        if simt:  # the fp32 kernels' main cases are fp32 (fp32_flash_cases)
+            cases += [("flash_attention_lse", label, fwd, False),
                       ("flash_attention_tc_lse", label, fwd, main),
-                      ("flash_attention_bwd_dq", label, bwd, main),
-                      ("flash_attention_bwd_dkv", label, bwd, main)]
+                      ("flash_attention_bwd_dq", label, bwd, False),
+                      ("flash_attention_bwd_dkv", label, bwd, False)]
         cases += [("flash_attention_bwd_dq_tc", label, bwd, main),
                   ("flash_attention_bwd_dkv_tc", label, bwd, main)]
     return cases
@@ -1315,6 +1433,10 @@ def max_err(got, want):
 # per operand type the peak that its operations could run at.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+# The fp32 flash kernels run each fp32 product as three TF32 products on the
+# tensor cores (494.7 TFLOP/s dense); their bound counts that, and the
+# CUDA-core bound (67) is logged beside it.
+TF32X3_OPS = 494.7e12 / 3
 
 
 def _nbytes(tensors) -> int:
@@ -1328,11 +1450,18 @@ def _allowed(kv_valid, q_offset, causal, tq):
         b, 1, 1, tq, tk)[:, 0, 0]
 
 
-def bound(name, args, out):
+def fp32_flash(name, args) -> bool:
+    """An fp32 flash kernel's case on fp32 inputs."""
+    return name in FP32_FORWARD + FP32_BACKWARD and args[0].dtype == torch.float32
+
+
+def bound(name, args, out, cuda_cores: bool = False):
     """``(bound_ms, bound_by)``: the larger of the bytes the function must
     move (each input read once, each output written once; for causal
     attention only the keys below each row's limit) over the HBM rate and
-    its operations over the peak for its operand type."""
+    its operations over the peak for its operand type: for an fp32 flash
+    kernel's fp32 case three TF32 products each, or with ``cuda_cores`` the
+    CUDA cores' fp32 rate."""
     outs = out if isinstance(out, tuple) else (out,)
     x = args[0]
     in_bytes = _nbytes(args)
@@ -1357,6 +1486,8 @@ def bound(name, args, out):
     else:  # RMSNorm: a few operations per element
         ops = 4 * x.numel()
     peak = PEAK_OPS[torch.int8 if name.startswith("gemv_int4_w4a8") else x.dtype]
+    if fp32_flash(name, args) and not cuda_cores:
+        peak = TF32X3_OPS
     t_bytes = (in_bytes + _nbytes(outs)) / HBM_BYTES_PER_S
     t_ops = ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1429,8 +1560,10 @@ def check_rows_alone(name, wrapper, args, got) -> None:
 
 BWD_TC = ("flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")
 # The tensor-core forward zero-fills its hd 8 padding beside cp.async copies
-# into the same tiles; 50 calls compared bit for bit guard that.
-HD8_RACE = ("flash_attention_tc", "flash_attention_tc_int8kv")
+# into the same tiles; 50 calls compared bit for bit guard that, and the
+# 3xTF32 forward's ring of cp.async tiles at hd 8.
+HD8_RACE = ("flash_attention_tc", "flash_attention_tc_int8kv", "flash_attention",
+            "flash_attention_int8kv")
 
 
 def check_same_bits(name, label, wrapper, args, got, calls: int = 1) -> None:
@@ -1527,9 +1660,10 @@ def compare_kernels(dev, only=None) -> dict:
         got, want = wrapper(*args), plain(*args)
         torch.cuda.synchronize()
         err, scale = max_err(got, want)
-        if not err <= TOL * scale:
+        tol = FP32_TOL if fp32_flash(name, args) else TOL
+        if not err <= tol * scale:
             failures.append(f"{name} [{label}] disagrees with its plain version: "
-                            f"{err} > {TOL} * {scale}")
+                            f"{err} > {tol} * {scale}")
             log(failures[-1])
             if only is None:
                 break
@@ -1538,7 +1672,7 @@ def compare_kernels(dev, only=None) -> dict:
             check_rows_alone(name, wrapper, args, got)
         if label.startswith("ring") and label.endswith(f"q_offset={-RING_T}"):
             check_ring_masked(name, label, got)
-        if name in BWD_TC or name in ("gemv_int4", "rmsnorm_bwd"):
+        if name in BWD_TC + FP32_FORWARD + FP32_BACKWARD or name in ("gemv_int4", "rmsnorm_bwd"):
             check_same_bits(name, label, wrapper, args, got)
         if name == "gemv_int4" and label.startswith("w_gate R="):
             check_gemv_rows_alone(name, label, wrapper, args, got)
@@ -1551,6 +1685,8 @@ def compare_kernels(dev, only=None) -> dict:
         bound_ms, bound_by = bound(name, args, want)
         times[name, label] = (ms, lib_ms)
         rate = ""
+        if fp32_flash(name, args):
+            rate = f" cuda_core_bound_ms={bound(name, args, want, cuda_cores=True)[0]:.6g}"
         if name.startswith("gemv"):  # weight (and scale) bytes streamed per call
             wbytes = sum(t.numel() * t.element_size() for t in args[1:])
             rate = f" weight_GB/s={wbytes / ms / 1e6:.6g} plain_weight_GB/s={wbytes / plain_ms / 1e6:.6g}"
@@ -1568,26 +1704,35 @@ def compare_kernels(dev, only=None) -> dict:
                   "server decode B=8 per-row q_offset Tk=2048 hd=128"):
         new = "flash_decode" if label.startswith("server") else "flash_attention_tc"
         if (new, label) in times and ("flash_attention", label) in times:
-            (ms, lib), (simt, _) = times[new, label], times["flash_attention", label]
-            log(f"yardstick [{label}]: {new} {ms:.6g} ms, SIMT flash_attention {simt:.6g} ms "
-                f"({simt / ms:.3g}x), SDPA {lib} ms ({'no slower' if lib and ms <= lib else 'SLOWER'}"
-                f" than SDPA)")
+            (ms, lib), (fp32, _) = times[new, label], times["flash_attention", label]
+            log(f"yardstick [{label}]: {new} {ms:.6g} ms, 3xTF32 flash_attention on bf16 "
+                f"{fp32:.6g} ms ({fp32 / ms:.3g}x), SDPA {lib} ms "
+                f"({'no slower' if lib and ms <= lib else 'SLOWER'} than SDPA)")
     label = "decoder nq=32 nkv=8 T=1632 hd=128 causal"
-    simt = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-    if all((n, label) in times for n in BWD_TC + simt):
+    if all((n, label) in times for n in BWD_TC + FP32_BACKWARD):
         tc_ms = sum(times[n, label][0] for n in BWD_TC)
-        simt_ms = sum(times[n, label][0] for n in simt)
+        fp32_ms = sum(times[n, label][0] for n in FP32_BACKWARD)
         lib = times[BWD_TC[0], label][1]
-        log(f"yardstick [{label}] backward: tensor-core dq + dk/dv {tc_ms:.6g} ms, SIMT pair "
-            f"{simt_ms:.6g} ms ({simt_ms / tc_ms:.3g}x), SDPA backward (dq, dk, dv) {lib} ms "
+        log(f"yardstick [{label}] backward: tensor-core dq + dk/dv {tc_ms:.6g} ms, fp32 pair on "
+            f"bf16 {fp32_ms:.6g} ms ({fp32_ms / tc_ms:.3g}x), SDPA backward (dq, dk, dv) {lib} ms "
             f"({'no slower' if lib and tc_ms <= lib else 'SLOWER'} than SDPA)")
+    for name, label in (("flash_attention", FP32_MAIN_FWD),
+                        ("flash_attention_lse", FP32_MAIN_TRAIN),
+                        ("flash_attention_bwd_dkv", FP32_MAIN_TRAIN)):
+        if (name, label) in times:  # the targets: no slower than SDPA on the same fp32 inputs
+            ms, lib = times[name, label]
+            log(f"yardstick fp32 [{label}]: {name} {ms:.6g} ms, SDPA"
+                f"{' (whole backward)' if 'bwd' in name else ''} on fp32 {lib} ms "
+                f"({'no slower' if lib and ms <= lib else 'SLOWER'} than SDPA)")
     if failures:
         raise RuntimeError("; ".join(failures))
     return summary
 
 
-def check_tiny_paths_agree(dev) -> None:
-    """On a tiny fp32 model, the kernel path and the plain path agree."""
+def check_tiny_paths_agree(dev) -> dict:
+    """On a tiny fp32 model, the kernel path and the plain path agree.
+    Returns the quantized generates' launches (``tiny_int8``,
+    ``tiny_int4_mixed``: the 40-token prefill's 3xTF32 int8-KV forward)."""
     cfg = tiny_mllama_config(max_cache_length=64)
     model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0), tie_weights=False)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1607,6 +1752,7 @@ def check_tiny_paths_agree(dev) -> None:
     # linears above the gemv limit, on the dequantizing GEMM.
     ids = torch.randint(0, 240, (1, 40), generator=gen, device=dev)
     ids[:, :4] = cfg.image_token_index
+    by_path = {}
     for mode, kw in (("int8", dict(bits=8)),
                      ("int4_mixed", dict(bits=4, group_size=32, recipe=INT4_MIXED_RECIPE))):
         qmodel = quantize_llama_params(model, **kw)
@@ -1624,6 +1770,8 @@ def check_tiny_paths_agree(dev) -> None:
         if dl > 1e-4 or not torch.equal(res["cuda"].tokens, res["torch"].tokens) or missing:
             raise RuntimeError(f"tiny {mode} model: kernel path and plain path disagree "
                                f"(or skipped {missing})")
+        by_path[f"tiny_{mode}"] = launches
+    return by_path
 
 
 def check_tiny_server(dev) -> None:
@@ -2089,6 +2237,80 @@ def check_tiny_training(dev) -> None:
                                f"{missing}, or ran plain versions {plain_calls}")
 
 
+VIT_FP32_TOL = 1e-4  # the tower's output, 32 layers deep: of its largest magnitude
+
+
+def run_vit_h_fp32(dev) -> dict:
+    """The 11B's ViT-H/14 tower, whole (32 layers, 16 heads of 80, 1600
+    patches), in fp32 on one 560x560 image: the kernel path within
+    VIT_FP32_TOL of the plain path, the 3xTF32 forward launched once a layer
+    and no plain version called on the kernel path. Returns its launches."""
+    t = time.perf_counter()
+    vc = llama32_11b_vision_config().vision_config
+    tower = init_vision_params(vc, dev, torch.Generator(device=dev).manual_seed(11))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    raw = torch.randint(0, 256, (1, vc.image_size, vc.image_size, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    px = preprocess_image_device(raw, vc.image_size)
+    with torch.no_grad():
+        out, launches, plain_calls = counted(
+            lambda: vision_encoder_forward(tower, vc, px, impl="cuda"))
+        ref = vision_encoder_forward(tower, vc, px, impl="torch")
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    flash = {k: n for k, n in launches.items() if k.startswith("flash") and n}
+    log(f"[vit_h_fp32] {vc.num_hidden_layers} layers, out {tuple(out.shape)} fp32: max|kernel - "
+        f"plain| {err:.6g} of max|plain| {scale:.6g} ({err / scale:.3g}, bar {VIT_FP32_TOL}); "
+        f"flash launches {flash}; {time.perf_counter() - t:.1f} s")
+    faults = [] if flash == {"flash_attention": vc.num_hidden_layers} else [
+        f"flash launches {flash}, not flash_attention once a layer"]
+    faults += [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
+    if not bool(torch.isfinite(out).all()) or not err <= VIT_FP32_TOL * scale or faults:
+        raise RuntimeError(f"[vit_h_fp32] kernel path vs plain: {err} > {VIT_FP32_TOL} * {scale}, "
+                           f"or non-finite, or {faults}")
+    del tower, out, ref
+    return launches
+
+
+def run_fp32_autograd(dev) -> dict:
+    """``gqa_attention`` under autograd in fp32 at the decoder (32 / 8 heads,
+    T=1632, causal) and ViT-H (16 heads of 80, T=1600) shapes: out, dq, dk
+    and dv of the kernel path (the 3xTF32 LSE forward and dk/dv, the SIMT
+    dq) within FP32_TOL of ``impl="torch"``'s largest magnitude. Returns the
+    kernel path's launches."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    total, faults = {}, []
+    for label, (qs, kvs, causal) in {
+            "decoder nq=32 nkv=8 T=1632 hd=128 causal": ((1, 32, 1632, 128), (1, 8, 1632, 128),
+                                                        True),
+            "ViT-H nq=nkv=16 T=1600 hd=80 non-causal": ((1, 16, 1600, 80), (1, 16, 1600, 80),
+                                                       False)}.items():
+        leaves = [torch.randn(*shape, generator=gen, device=dev) for shape in (qs, kvs, kvs)]
+        g = torch.randn(*qs, generator=gen, device=dev)
+        mask = AttnMask(torch.ones(1, qs[2], dtype=torch.int32, device=dev), 0)
+
+        def run(impl):
+            q, k, v = (t.detach().requires_grad_() for t in leaves)
+            out = gqa_attention(q, k, v, mask, causal=causal, impl=impl)
+            out.backward(g)
+            return out.detach(), q.grad, k.grad, v.grad
+
+        got, launches, plain_calls = counted(lambda: run("cuda"))
+        want = run("torch")
+        errs = [(a - b).abs().max().item() / b.abs().max().item() for a, b in zip(got, want)]
+        log(f"[fp32_autograd {label}] |kernel - plain| / max|plain|: out {errs[0]:.3g}, dq "
+            f"{errs[1]:.3g}, dk {errs[2]:.3g}, dv {errs[3]:.3g} (bar {FP32_TOL})")
+        if not all(e <= FP32_TOL for e in errs):
+            faults.append(f"{label}: {errs}")
+        faults += [f"{label}: skipped {k}" for k in FP32_FORWARD[2:] + FP32_BACKWARD
+                   if launches[k] != 1]
+        faults += [f"{label}: ran plain {k}" for k, n in plain_calls.items() if n]
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    if faults:
+        raise RuntimeError(f"[fp32_autograd] {faults}")
+    return total
+
+
 def check_tiny_bf16_lora(dev) -> None:
     """On the tiny model in bf16, 3 LoRA steps on the kernel path give the
     plain path's losses within 1e-2 relative: bf16 rounds at other places on
@@ -2096,7 +2318,7 @@ def check_tiny_bf16_lora(dev) -> None:
     backward rounds p and ds as its plain version does, the other kernels
     not), which the loss, a mean over tokens, shows far less than one
     element does. The kernel path must launch the tensor-core flash backward
-    pair, no SIMT flash kernel and no plain version."""
+    pair, no fp32 flash kernel and no plain version."""
     cfg = tiny_mllama_config(dtype="bfloat16")
     batch = tiny_batch(cfg, dev, torch.Generator(device=dev).manual_seed(5))
     res = {}
@@ -2116,7 +2338,7 @@ def check_tiny_bf16_lora(dev) -> None:
     log(f"tiny bf16 LoRA, 3 steps: losses cuda={res['cuda']} torch={res['torch']} "
         f"max_rel_dloss={dloss:.3g}; launches {launches}")
     faults = [f"skipped {k}" for k in BWD_TC + ("flash_attention_tc_lse",) if launches[k] == 0]
-    faults += [f"launched the SIMT {k}" for k in SIMT_FORWARD + SIMT_BACKWARD if launches[k]]
+    faults += [f"launched the fp32 {k}" for k in FP32_FORWARD + FP32_BACKWARD if launches[k]]
     faults += [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
     if not dloss <= 1e-2 or faults:
         raise RuntimeError(f"tiny bf16 LoRA: losses differ by {dloss} relative, or {faults}")
@@ -3604,7 +3826,7 @@ def tiny_tp_model(cfg, dev, weights: str):
 
 # tp_tiny's serving features once refused under tensor parallelism: each
 # path's kernels on the fp32 kernel path (a bank's gate/up adapters run the
-# FFN unfused: no SwiGLU kernel; the ViT dropout step trains through the SIMT
+# FFN unfused: no SwiGLU kernel; the ViT dropout step trains through the fp32
 # flash kernels)
 TINY_FEATURE_KERNELS = {
     "tp_tiny_bank": ("rmsnorm", "gemv", "flash_decode"),
@@ -4903,7 +5125,7 @@ def main() -> int:
     if only is not None:
         return 0
     free_device_memory()
-    check_tiny_paths_agree(dev)
+    tiny_quantized = check_tiny_paths_agree(dev)
     check_tiny_server(dev)
     check_tiny_spec(dev)
     check_tiny_prefix(dev)
@@ -4914,10 +5136,16 @@ def main() -> int:
     finetune_cli = run_finetune_cli_tiny(dev)
     wrapper_profiling = run_wrapper_profiling(dev)
     free_device_memory()
+    vit_h_fp32 = run_vit_h_fp32(dev)
+    fp32_autograd = run_fp32_autograd(dev)
+    free_device_memory()
     tp_reference = {}
     by_path = run_11b_paths(dev, tp_reference)
     by_path["finetune_cli_tiny"] = finetune_cli
     by_path["wrapper_profiling"] = wrapper_profiling
+    by_path.update(tiny_quantized)
+    by_path["vit_h_fp32"] = vit_h_fp32
+    by_path["fp32_autograd"] = fp32_autograd
     free_device_memory()
     by_path.update(run_load_11b(dev))
     free_device_memory()

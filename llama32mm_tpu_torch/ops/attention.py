@@ -13,7 +13,8 @@ and types:
   decode) goes to the split-KV decode kernel, which reads each K/V byte once
   for the whole group of query heads;
 - a longer bf16 call (prefill, the ViT) goes to the tensor-core forward;
-- a longer fp32 call goes to the SIMT forward.
+- a longer fp32 call goes to the fp32 forward on tensor cores (each fp32
+  product as three TF32 products, ``csrc/flash_attention_tf32.cu``).
 
 ``q_offset`` is one int, or an int ``[B]`` tensor when the rows sit at
 different fill levels (the continuous-batching server's decode): the
@@ -25,10 +26,10 @@ instantiation.
 
 Under autograd the float path is a ``torch.autograd.Function`` (the Pallas
 custom VJP ``_flash_train``): the forward with the log-sum-exp, then the dq
-and dk/dv kernels, all three on tensor cores for bf16 and SIMT for fp32
-(``_route`` and ``_route_bwd``). The int8-KV path is
-inference-only, as in the JAX package, and raises under autograd. On the
-CPU the same route picks each kernel's plain version.
+and dk/dv kernels, all three on bf16 tensor cores for bf16; for fp32 the
+3xTF32 forward and dk/dv and the SIMT dq (``_route`` and ``_route_bwd``).
+The int8-KV path is inference-only, as in the JAX package, and raises under
+autograd. On the CPU the same route picks each kernel's plain version.
 
 A dense additive ``[B, 1, Tq, Tk]`` mask (the reference's own form, which the
 JAX ``llama_forward`` passes through) has no structure for a kernel to use:
@@ -114,8 +115,9 @@ def _route(dtype: torch.dtype, tq: int, group: int, int8_kv: bool, grad: bool) -
 
 def _route_bwd(dtype: torch.dtype) -> tuple:
     """The ``KERNELS`` names of the dq and dk/dv kernels a training call's
-    backward goes through: the tensor-core pair for bf16, the SIMT pair for
-    fp32 (and the fp64 of the gradient checks)."""
+    backward goes through: the tensor-core pair for bf16, the fp32 pair (the
+    SIMT dq, the 3xTF32 dk/dv) for fp32 (and the fp64 of the gradient
+    checks, on the CPU)."""
     if dtype == torch.bfloat16:
         return "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc"
     return "flash_attention_bwd_dq", "flash_attention_bwd_dkv"

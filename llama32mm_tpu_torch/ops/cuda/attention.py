@@ -2,11 +2,11 @@
 version, replacing ``llama32mm_tpu/ops/pallas/attention.py::_flash_kernel``:
 K/V in q's float dtype (``flash_attention_*``), or int8 with per-position
 fp32 scales (``*_int8kv_*``, the kernel's ``scaled_kv`` inputs). Two
-forwards compute the same function: the SIMT fp32 one
-(``csrc/flash_attention.cu``, fp32 and bf16 q) and the tensor-core one
-(``csrc/flash_attention_tc.cu``, ``flash_attention_tc*``, bf16 q only);
-``ops/attention.py`` routes between them and the split-KV decode kernel
-(``flash_decode.py``).
+forwards compute the same function: the fp32-precision one on tensor cores
+(``csrc/flash_attention_tf32.cu``, every fp32 product as three TF32
+products; fp32 and bf16 q) and the bf16 one (``csrc/flash_attention_tc.cu``,
+``flash_attention_tc*``, bf16 q only); ``ops/attention.py`` routes between
+them and the split-KV decode kernel (``flash_decode.py``).
 
 Mask: key ``k`` is allowed for query row ``i`` of batch row ``b`` iff
 ``kv_valid[b, k] != 0`` and, when causal, ``k <= q_offset + i``. The forward
@@ -25,11 +25,12 @@ kernels replacing ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``:
 with ``p = exp(s / sqrt(hd) - lse)`` on allowed keys,
 ``ds = p (dO · v - delta) / sqrt(hd)`` and ``delta = rowsum(dO * O)``,
 ``dq = ds k``, ``dk = ds^T q`` and ``dv = p^T dO``, dk and dv summed over
-each kv head's group of q heads. The SIMT pair (``flash_attention_bwd_*``,
-``csrc/flash_attention.cu``) keeps p and ds in fp32 and serves fp32; the
-tensor-core pair (``flash_attention_bwd_*_tc``,
-``csrc/flash_attention_bwd_tc.cu``) serves bf16 and rounds p and ds to bf16
-before the products, as the Pallas kernels round them to q's dtype.
+each kv head's group of q heads. The fp32 pair (``flash_attention_bwd_*``)
+keeps p and ds in fp32: dq on CUDA cores (``csrc/flash_attention.cu``), dk/dv
+on 3xTF32 tensor cores (``csrc/flash_attention_tf32.cu``); the bf16 pair
+(``flash_attention_bwd_*_tc``, ``csrc/flash_attention_bwd_tc.cu``) rounds p
+and ds to bf16 before the products, as the Pallas kernels round them to q's
+dtype.
 """
 
 from __future__ import annotations
@@ -77,25 +78,32 @@ def _q_offsets(q_offset, q):
     return 0, offsets
 
 
+def _aligned16(*tensors):
+    """The tensors, each copied to fresh storage if its data does not start
+    on 16 bytes (the 3xTF32 kernels stage tiles by 16-byte copies)."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
+
+
 def _launch(q, k, v, kv_valid, q_offset, causal, k_scale=None, v_scale=None, lse=False):
-    """Launch the float (with ``lse``: also the log-sum-exp) or the int8-KV
-    forward kernel."""
+    """Launch the 3xTF32 forward (``csrc/flash_attention_tf32.cu``): float
+    K/V (with ``lse``: also the log-sum-exp) or int8 K/V with scales."""
     kvv, shape = _check(q, k, v, kv_valid, k_scale, v_scale)
     scalar, offsets = _q_offsets(q_offset, q)
     offsets_ptr = None if offsets is None else offsets.data_ptr()
+    q, k, v = _aligned16(q, k, v)
     out = torch.empty_like(q)
     lse_out = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse else None
     lib = load_library()
     common = (*shape, scalar, int(bool(causal)), dtype_code(q), stream_of(q))
     if k_scale is None:
-        status = lib.l32_flash_attn_fwd(
+        status = lib.l32_flash_attn_tf32_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kvv.data_ptr(), offsets_ptr, out.data_ptr(),
             None if lse_out is None else lse_out.data_ptr(), *common)
     else:
-        status = lib.l32_flash_attn_fwd_int8kv(
+        status = lib.l32_flash_attn_tf32_fwd_int8kv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             kvv.data_ptr(), offsets_ptr, out.data_ptr(), *common)
-    check(status, "flash attention kernel")
+    check(status, "3xTF32 flash attention kernel")
     return (out, lse_out) if lse else out
 
 
@@ -261,9 +269,10 @@ def flash_attention_tc_lse_plain(
 
 def _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq: bool,
                 tc: bool = False):
-    """Launch the SIMT backward (``csrc/flash_attention.cu``, fp32 or bf16)
-    or, with ``tc``, the tensor-core one (``csrc/flash_attention_bwd_tc.cu``,
-    bf16 only): dq, or (dk, dv)."""
+    """Launch the fp32-precision backward (fp32 or bf16): the SIMT dq
+    (``csrc/flash_attention.cu``) or the 3xTF32 dk/dv
+    (``csrc/flash_attention_tf32.cu``); or, with ``tc``, the bf16
+    tensor-core one (``csrc/flash_attention_bwd_tc.cu``): dq, or (dk, dv)."""
     kvv, shape = _check(q, k, v, kv_valid)
     if tc and q.dtype != torch.bfloat16:
         raise TypeError(f"the tensor-core flash backward takes bfloat16 q, got {q.dtype}")
@@ -273,6 +282,8 @@ def _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq: 
     tail = (*shape, int(q_offset), int(bool(causal)))
     tail += (stream_of(q),) if tc else (dtype_code(q), stream_of(q))
     lib = load_library()
+    if not (tc or want_dq):
+        q, k, v, dout = _aligned16(q, k, v, dout)
     operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kvv.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dout.data_ptr())
     kind = "tensor-core flash attention" if tc else "flash attention"
@@ -282,7 +293,7 @@ def _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq: 
         check(fn(*operands, dq.data_ptr(), *tail), f"{kind} dq kernel")
         return dq
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = lib.l32_flash_attn_bwd_dkv_tc if tc else lib.l32_flash_attn_bwd_dkv
+    fn = lib.l32_flash_attn_bwd_dkv_tc if tc else lib.l32_flash_attn_tf32_bwd_dkv
     check(fn(*operands, dk.data_ptr(), dv.data_ptr(), *tail), f"{kind} dk/dv kernel")
     return dk, dv
 

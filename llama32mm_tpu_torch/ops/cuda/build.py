@@ -113,14 +113,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         #  l32_swiglu_fwd's), launched kernel (out), stream)
         "l32_swiglu_bwd": [p, p, p, p, p, p, i, i, i, i, i, p, p],
         # (q, k, v, kv_valid, q_offsets|NULL, out, lse|NULL, b, nq, nkv, tq, tk, hd, q_offset,
-        #  causal, dtype, stream)
-        "l32_flash_attn_fwd": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        #  causal, dtype, stream); 3xTF32 tensor cores
+        "l32_flash_attn_tf32_fwd": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (q, k, v, kv_valid, lse, delta, dout, dq, b, nq, nkv, tq, tk, hd, q_offset, causal,
         #  dtype, stream)
         "l32_flash_attn_bwd_dq": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (q, k, v, kv_valid, lse, delta, dout, dk, dv, b, nq, nkv, tq, tk, hd, q_offset,
-        #  causal, dtype, stream)
-        "l32_flash_attn_bwd_dkv": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        #  causal, dtype, stream); 3xTF32 tensor cores
+        "l32_flash_attn_tf32_bwd_dkv": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (q, k, v, kv_valid, lse, delta, dout, dq, b, nq, nkv, tq, tk, hd, q_offset, causal,
         #  stream); bf16
         "l32_flash_attn_bwd_dq_tc": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
@@ -128,8 +128,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         #  stream); bf16
         "l32_flash_attn_bwd_dkv_tc": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
         # (q, k, v, k_scale, v_scale, kv_valid, q_offsets|NULL, out, b, nq, nkv, tq, tk, hd,
-        #  q_offset, causal, dtype, stream)
-        "l32_flash_attn_fwd_int8kv": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        #  q_offset, causal, dtype, stream); 3xTF32 tensor cores
+        "l32_flash_attn_tf32_fwd_int8kv": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (x, q, scale, out, rows, n, k, dtype, kernel (-1: routed, 0: CUDA cores, 1: tensor
         #  cores), launched kernel (out), stream)
         "l32_gemv_int8": [p, p, p, p, i, i, i, i, i, p, p],

@@ -37,10 +37,10 @@ from llama32mm_tpu_torch.train.lora import init_lora_params, make_lora_train_ste
 CATEGORIES = (
     ("flash_bwd_dq_tc", "flash bwd dq (tensor cores)"),
     ("flash_bwd_dkv_tc", "flash bwd dk/dv (tensor cores)"),
-    ("flash_bwd_dq", "flash bwd dq (SIMT)"), ("flash_bwd_dkv", "flash bwd dk/dv (SIMT)"),
+    ("flash_bwd_dq", "flash bwd dq (SIMT)"), ("flash_tf32_bwd_dkv", "flash bwd dk/dv (3xTF32)"),
     ("flash_tc", "flash fwd (tensor cores)"), ("flash_decode_combine", "flash decode combine"),
     ("flash_decode", "flash decode (split-KV)"),
-    ("flash_fwd", "flash fwd (SIMT)"), ("rmsnorm_bwd", "rmsnorm bwd"), ("dw_sum", "rmsnorm bwd"),
+    ("flash_tf32_fwd", "flash fwd (3xTF32)"), ("rmsnorm_bwd", "rmsnorm bwd"), ("dw_sum", "rmsnorm bwd"),
     ("rmsnorm_fwd", "rmsnorm fwd"), ("swiglu_tma", "swiglu (TMA tile)"),
     ("swiglu_rows_tc", "swiglu rows (tensor cores)"),
     ("swiglu_rows", "swiglu rows (decode)"), ("swiglu", "swiglu (wmma tile, loop)"),
