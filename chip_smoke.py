@@ -229,8 +229,9 @@ calls with many query rows (prefill, the ViT, training), the split-KV decode
 kernel for calls with few rows per kv head (decode), and the 3xTF32 forward
 for fp32 (the tiny exactness phases, ``vit_h_fp32``). The flash backward
 runs as two pairs: the tensor-core dq and dk/dv kernels for bf16 (every
-training path at 11B and 3B), and for fp32 the SIMT dq and the 3xTF32
-dk/dv. Step 3 also checks that every row of a B=8 decode call equals, bit
+training path at 11B and 3B), and for fp32 the 3xTF32 dq and dk/dv. The
+SwiGLU's fp32 calls above 8 rows and every fp32 SwiGLU backward run the
+3xTF32 tile (``swiglu_tf32``, ``swiglu_bwd_tf32``). Step 3 also checks that every row of a B=8 decode call equals, bit
 for bit, a B=1 call on that row, and that two calls of a tensor-core
 backward kernel give the same bits; that each row of the int4 W4A16 gemv's
 R=8, 16 and 32 calls equals its R=1 call bit for bit and two calls of each
@@ -244,11 +245,14 @@ calls give the same bits and each row of an R = 2-32 call equals its R = 1
 call; that the model's SwiGLU entries route each TMA-tile case (forward and
 backward) there, two calls give the same bits and rows 0-96 of each R=1632
 call equal an R=97 call; and prints the tensor-core forward's and backward's
-times beside the fp32 kernels' and SDPA's at the same shapes. The fp32
-kernels (3xTF32 forward, LSE, int8 KV and dk/dv; SIMT dq) run fp32 cases
-held to 1e-5 of the plain version's largest magnitude (the bf16 cases to
-``TOL``), each twice with the same bits (50 times at hd 8), with their bound
-as three TF32 products at 494.7 TFLOP/s beside the CUDA-core bound at 67.
+times beside the fp32 kernels' and SDPA's at the same shapes. The 3xTF32
+kernels (flash forward, LSE, int8 KV, dq and dk/dv; the SwiGLU tile forward
+and backward) run fp32 cases held to 1e-5 of the plain version's largest
+magnitude (the bf16 cases to ``TOL``), each twice with the same bits (50
+times at hd 8), with their bound as three TF32 products at 494.7 TFLOP/s
+beside the CUDA-core bound at 67; the model's SwiGLU entries route each
+fp32 tile case there, and rows 0-96 of each R=1632 call (all rows of a
+smaller one) equal an R=97 call.
 The tensor-core SwiGLU rows kernel and W4A8 gemv get the same three checks
 as the tensor-core gemv (routed by the model's entry, two calls bit-equal,
 each row of an R > 1 call equal to its R = 1 call), and so does the tensor-
@@ -403,7 +407,7 @@ KERNEL_INFO = {
     "swiglu_bwd": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:136"),
     "flash_attention_lse": ("llama32mm_tpu_torch/csrc/flash_attention_tf32.cu",
                             "llama32mm_tpu/ops/pallas/attention.py:36"),
-    "flash_attention_bwd_dq": ("llama32mm_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dq": ("llama32mm_tpu_torch/csrc/flash_attention_tf32.cu",
                                "llama32mm_tpu/ops/pallas/attention.py:251"),
     "flash_attention_bwd_dkv": ("llama32mm_tpu_torch/csrc/flash_attention_tf32.cu",
                                 "llama32mm_tpu/ops/pallas/attention.py:322"),
@@ -436,6 +440,9 @@ KERNEL_INFO = {
                           "llama32mm_tpu/ops/pallas/gemv.py:353"),
     "gemv_int8_tc": ("llama32mm_tpu_torch/csrc/qgemv.cu",
                      "llama32mm_tpu/ops/pallas/gemv.py:162"),
+    "swiglu_tf32": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:69"),
+    "swiglu_bwd_tf32": ("llama32mm_tpu_torch/csrc/swiglu.cu",
+                        "llama32mm_tpu/ops/pallas/swiglu.py:136"),
 }
 # Pallas functions a kernel folds in beside the one it is listed against, and
 # the pl.pallas_call sites that its Pallas functions reach.
@@ -449,6 +456,8 @@ ALSO_REPLACES = {
     "swiglu_tc": [_P + "swiglu.py:98"],
     "swiglu_bwd_tc": [_P + "swiglu.py:98"],
     "swiglu_rows_tc": [_P + "swiglu.py:98"],
+    "swiglu_tf32": [_P + "swiglu.py:98"],
+    "swiglu_bwd_tf32": [_P + "swiglu.py:98"],
     "swiglu_down": [_P + "swiglu.py:255"],
     "flash_attention": [_P + "attention.py:198"],
     "flash_attention_int8kv": [_P + "attention.py:198"],
@@ -516,9 +525,9 @@ PATH_KERNELS = {
 PATH_KERNELS.update({f"load_11b_{kind}": PATH_KERNELS[kind]
                      for kind in ("bf16", "int8", "int4_mixed")})
 # The kernels each training path must launch: the fp32 tiny model's flash
-# forward with the LSE and backward are the fp32 kernels (3xTF32 forward and
-# dk/dv, SIMT dq), the bf16 models' the bf16 tensor-core ones (the frozen
-# ViT's no-grad forward too).
+# forward with the LSE and backward are the fp32 kernels (3xTF32 forward, dq
+# and dk/dv), the bf16 models' the bf16 tensor-core ones (the frozen ViT's
+# no-grad forward too).
 TRAIN_KERNELS = ("rmsnorm_fwd_train", "rmsnorm_bwd", "flash_attention_lse",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 TRAIN_BF16_KERNELS = ("rmsnorm_fwd_train", "rmsnorm_bwd", "flash_attention_tc_lse",
@@ -563,17 +572,21 @@ PATH_KERNELS.update({"tp_11b_bf16": PATH_KERNELS["bf16"],
 # each stage's layers through the SwiGLU tile and the flash training kernels.
 PATH_KERNELS.update({"sp_lora_11b": TRAIN_BF16_KERNELS,
                      "pp_full_ft_3b": TRAIN_BF16_KERNELS[:-1] + ("swiglu_tc", "swiglu_bwd_tc")})
-# The fp32 flash kernels (the 3xTF32 forward, its int8-KV and LSE
-# instantiations and dk/dv; the SIMT dq): the bf16 paths above must never
-# launch them; nor the wmma dequantizing GEMM ("qmatmul"), which every
+# The fp32 kernels (the 3xTF32 flash forward, its int8-KV and LSE
+# instantiations, dq and dk/dv; the 3xTF32 SwiGLU tile forward and
+# backward): the bf16 paths above must never launch them; nor the wmma
+# dequantizing GEMM ("qmatmul"), which every
 # bf16 prefill shape leaves to the wgmma one; nor the CUDA-core gemvs
 # ("gemv", "gemv_int4_w4a8", "gemv_int8"), which every decode linear at these
 # widths leaves to the tensor-core ones.
 FP32_FORWARD = ("flash_attention", "flash_attention_int8kv", "flash_attention_lse")
 FP32_BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-# The tiny fp32 model's quantized paths: a 40-token prefill over the int8
-# cache (3xTF32), the 5-token ViT and decode (split-KV).
+FP32_SWIGLU = ("swiglu_tf32", "swiglu_bwd_tf32")
+# The tiny fp32 model's paths: float (a 12-token prefill's SwiGLU on the
+# 3xTF32 tile, decode's on the rows kernel), and quantized: a 40-token
+# prefill over the int8 cache (3xTF32), the 5-token ViT and decode (split-KV).
 TINY_KERNELS = {
+    "fp32": ("rmsnorm", "gemv", "swiglu", "swiglu_tf32", "flash_decode"),
     "int8": ("rmsnorm", "gemv_int8", "qmatmul", "flash_attention_int8kv", "flash_decode",
              "flash_decode_int8kv"),
     "int4_mixed": ("rmsnorm", "gemv_int8", "gemv_int4", "qmatmul", "flash_attention_int8kv",
@@ -583,14 +596,14 @@ TINY_KERNELS = {
 
 def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
     """What a path's run got wrong: kernels it should have launched and did
-    not, fp32 flash kernels launched on a bf16 path, plain versions called."""
+    not, fp32 kernels launched on a bf16 path, plain versions called."""
     faults = [f"skipped {k}" for k in PATH_KERNELS[path] if launches[k] == 0]
     if path in ("full_ft_3b", "zero1_full_ft_3b", "pp_full_ft_3b"):  # R = 1632 a SwiGLU call
         faults += [f"launched the wmma {k} {launches[k]} times" for k in ("swiglu", "swiglu_bwd")
                    if launches[k]]
     if path != "swiglu_down_op":
         faults += [f"launched the fp32 {k} {launches[k]} times"
-                   for k in FP32_FORWARD + FP32_BACKWARD if launches[k]]
+                   for k in FP32_FORWARD + FP32_BACKWARD + FP32_SWIGLU if launches[k]]
         if launches["qmatmul"]:
             faults.append(f"launched the wmma qmatmul {launches['qmatmul']} times")
         if launches["gemv"]:
@@ -874,7 +887,7 @@ def kernel_cases(dev, gen):
     return (cases + spec_kernel_cases(rnd, valid) + int8_gemv_cases(rnd, q8)
             + server_kernel_cases(rnd, q4, q4_stepped, kv8) + training_kernel_cases(rnd, valid)
             + tp_kernel_cases(rnd, valid, q8, q4, kv8) + ring_kernel_cases(rnd, valid)
-            + fp32_flash_cases(dev, gen))
+            + fp32_flash_cases(dev, gen) + fp32_swiglu_cases(dev, gen))
 
 
 def tp_kernel_cases(rnd, valid, q8, q4, kv8):
@@ -1036,11 +1049,11 @@ def ring_kernel_cases(rnd, valid):
 def fp32_flash_cases(dev, gen):
     """The fp32 flash kernels on fp32 inputs, the dtype that the route sends
     them (the cases above are bf16): the 3xTF32 forward, its LSE and int8-KV
-    instantiations (fp32 q, int8 K/V) and dk/dv, and the SIMT dq, at the
-    decoder prefill (the main case), ViT-H, the 3B, decode, a ragged hd 16
-    call with a fully masked row, per-row offsets at B=8 (the forwards: a
-    gradient takes one offset), the ring's offsets and merged LSE, and hd 8,
-    32 and 96 with Tq and Tk off the 64-row tiles."""
+    instantiations (fp32 q, int8 K/V), dq and dk/dv, at the decoder prefill
+    (the main case), ViT-H, the 3B, decode, a ragged hd 16 call with a fully
+    masked row, per-row offsets at B=8 (the forwards: a gradient takes one
+    offset), the ring's offsets and merged LSE, and hd 8, 32 and 96 with Tq
+    and Tk off the 64-row tiles."""
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -1095,6 +1108,8 @@ def fp32_flash_cases(dev, gen):
             ((1, 32, 1632, 128), (1, 8, 1632, 128), valid(1, 1632, 1632), 0, True, True),
         "fp32 3B nq=24 nkv=8 T=1632 hd=128 causal":
             ((1, 24, 1632, 128), (1, 8, 1632, 128), valid(1, 1632, 1632), 0, True, False),
+        "hd=8 fp32 nq=4 nkv=2 T=70 q_offset=0 causal":
+            ((1, 4, 70, 8), (1, 2, 70, 8), valid(1, 70, 70), 0, True, False),
         **edges,
     }
     for label, (qs, kvs, kvv, q_offset, causal, main) in train_shapes.items():
@@ -1103,9 +1118,8 @@ def fp32_flash_cases(dev, gen):
         dout = rnd(*qs)
         bwd = (*fwd, lse, (dout * out).sum(-1), dout)
         cases += [("flash_attention_lse", label, fwd, main),
+                  ("flash_attention_bwd_dq", label, bwd, main),
                   ("flash_attention_bwd_dkv", label, bwd, main)]
-        if label.startswith(("fp32 decoder", "fp32 3B", "fp32 ViT-H")):
-            cases.append(("flash_attention_bwd_dq", label, bwd, main))
     # the ring's steps (sp_lora_11b's shapes): a chunk wholly in the future,
     # the diagonal, a chunk wholly in the past, and the past chunk's backward
     # fed the merged LSE and delta
@@ -1115,9 +1129,10 @@ def fp32_flash_cases(dev, gen):
         fwd = (q, k, v, kvv, q_offset, True)
         out, lse = kernels.flash_attention_fwd_lse_plain(*fwd)
         label = f"ring fp32 nq=32 nkv=8 Tq=Tk={t} hd=128 q_offset={q_offset}"
+        bwd = (*fwd, lse, (dout * out).sum(-1), dout)
         cases += [("flash_attention_lse", label, fwd, False),
-                  ("flash_attention_bwd_dkv", label, (*fwd, lse, (dout * out).sum(-1), dout),
-                   False)]
+                  ("flash_attention_bwd_dq", label, bwd, False),
+                  ("flash_attention_bwd_dkv", label, bwd, False)]
     parts = [kernels.flash_attention_fwd_lse_plain(q, *chunks[i], kvv, off, True)
              for i, off in ((0, t), (1, 0))]
     merged, lse = attention_mod._ring_merge(
@@ -1125,8 +1140,47 @@ def fp32_flash_cases(dev, gen):
         torch.full(q.shape[:3], NEG_BIG, dtype=torch.float32, device=dev), *parts[0])
     merged, lse = attention_mod._ring_merge(merged, lse, *parts[1])
     label = f"ring fp32 nq=32 nkv=8 Tq=Tk={t} hd=128 q_offset={t} merged LSE and delta"
-    cases.append(("flash_attention_bwd_dkv", label,
-                  (q, *chunks[0], kvv, t, True, lse, (dout * merged).sum(-1), dout), False))
+    bwd = (q, *chunks[0], kvv, t, True, lse, (dout * merged).sum(-1), dout)
+    cases += [("flash_attention_bwd_dq", label, bwd, False),
+              ("flash_attention_bwd_dkv", label, bwd, False)]
+    return cases
+
+
+FP32_SWIGLU_MAIN = "fp32 11B R=1632 H=4096 I=14336"
+
+
+def fp32_swiglu_cases(dev, gen):
+    """The fp32 SwiGLU tile on fp32 inputs, forward and backward: the 11B
+    prefill and training widths at R=1632 (the main cases), the 3B's, R=9
+    (the forward's first row count above the rows kernel), a ragged R=33
+    H=100 I=200 call (H not a multiple of the tile's 64-k stages nor of its
+    16-byte copies), x and the cotangent one element into their buffers (the
+    plain-load route), and a backward at R=3 (no rows kernel backward)."""
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def off(*shape):  # a contiguous view one element into its buffer
+        return rnd(math.prod(shape) + 1)[1:].view(*shape)
+
+    h, inter = 4096, 14336
+    shapes = [  # (label, R, H, I, weight scale, x and g offset, main?)
+        (FP32_SWIGLU_MAIN, 1632, h, inter, 0.02, False, True),
+        ("fp32 3B R=1632 H=3072 I=8192", 1632, 3072, 8192, 0.02, False, False),
+        ("fp32 R=9 H=4096 I=14336", 9, h, inter, 0.02, False, False),
+        ("fp32 ragged R=33 H=100 I=200", 33, 100, 200, 0.1, False, False),
+        ("fp32 x and g offset by one element R=130 H=256 I=300", 130, 256, 300, 0.1, True,
+         False),
+        ("fp32 R=3 H=4096 I=14336", 3, h, inter, 0.02, False, False),
+    ]
+    cases = []
+    for label, r, hh, ii, scale, offset, main in shapes:
+        x = off(r, hh) if offset else rnd(r, hh)
+        g = off(r, ii) if offset else rnd(r, ii)
+        wg, wu = rnd(ii, hh, scale=scale), rnd(ii, hh, scale=scale)
+        if r > 8:  # the forward's rows kernel takes 8 rows or fewer
+            cases.append(("swiglu_tf32", label, (x, wg, wu), main))
+        cases.append(("swiglu_bwd_tf32", label, (x, wg, wu, g), main))
     return cases
 
 
@@ -1388,14 +1442,14 @@ def training_kernel_cases(rnd, valid):
         ("hd=96 nq=nkv=2 T=150 non-causal padded keys", rnd(1, 2, 150, 96), rnd(1, 2, 150, 96),
          rnd(1, 2, 150, 96), valid(1, 150, 140), 0, False, False),
     ]
-    for simt, (label, q, k, v, kvv, q_offset, causal, main) in (
+    for fp32_pair, (label, q, k, v, kvv, q_offset, causal, main) in (
             [(True, c) for c in attn] + [(False, c) for c in tc_only]):
         fwd = (q, k, v, kvv, q_offset, causal)
         out, lse = kernels.flash_attention_fwd_lse_plain(*fwd)
         dout = rnd(*q.shape)
         delta = (dout.float() * out.float()).sum(-1)
         bwd = (*fwd, lse, delta, dout)
-        if simt:  # the fp32 kernels' main cases are fp32 (fp32_flash_cases)
+        if fp32_pair:  # the fp32 kernels' main cases are fp32 (fp32_flash_cases)
             cases += [("flash_attention_lse", label, fwd, False),
                       ("flash_attention_tc_lse", label, fwd, main),
                       ("flash_attention_bwd_dq", label, bwd, False),
@@ -1450,16 +1504,17 @@ def _allowed(kv_valid, q_offset, causal, tq):
         b, 1, 1, tq, tk)[:, 0, 0]
 
 
-def fp32_flash(name, args) -> bool:
-    """An fp32 flash kernel's case on fp32 inputs."""
-    return name in FP32_FORWARD + FP32_BACKWARD and args[0].dtype == torch.float32
+def fp32_case(name, args) -> bool:
+    """A 3xTF32 kernel's case on fp32 inputs."""
+    return (name in FP32_FORWARD + FP32_BACKWARD + FP32_SWIGLU
+            and args[0].dtype == torch.float32)
 
 
 def bound(name, args, out, cuda_cores: bool = False):
     """``(bound_ms, bound_by)``: the larger of the bytes the function must
     move (each input read once, each output written once; for causal
     attention only the keys below each row's limit) over the HBM rate and
-    its operations over the peak for its operand type: for an fp32 flash
+    its operations over the peak for its operand type: for a 3xTF32
     kernel's fp32 case three TF32 products each, or with ``cuda_cores`` the
     CUDA cores' fp32 rate."""
     outs = out if isinstance(out, tuple) else (out,)
@@ -1486,7 +1541,7 @@ def bound(name, args, out, cuda_cores: bool = False):
     else:  # RMSNorm: a few operations per element
         ops = 4 * x.numel()
     peak = PEAK_OPS[torch.int8 if name.startswith("gemv_int4_w4a8") else x.dtype]
-    if fp32_flash(name, args) and not cuda_cores:
+    if fp32_case(name, args) and not cuda_cores:
         peak = TF32X3_OPS
     t_bytes = (in_bytes + _nbytes(outs)) / HBM_BYTES_PER_S
     t_ops = ops / peak
@@ -1602,6 +1657,8 @@ ROUTED_BY = {
     "swiglu_tc": kernels.fused_swiglu_cuda,
     "swiglu_bwd_tc": kernels.fused_swiglu_bwd_cuda,
     "qmatmul_tc": kernels.qmatmul_cuda,
+    "swiglu_tf32": kernels.fused_swiglu_cuda,
+    "swiglu_bwd_tf32": kernels.fused_swiglu_bwd_cuda,
 }
 
 
@@ -1633,7 +1690,7 @@ def check_routed(name, label, args, got) -> None:
     log(f"kernel {name} [{label}]: the model's entry launched {name}, the same bits")
     check_same_bits(name, label, wrapper, args, got)
     rows = args[0].shape[0]
-    tile = name == "swiglu_tc"
+    tile = name in ("swiglu_tc",) + FP32_SWIGLU
     if 1 < rows <= 32 and not tile:
         check_gemv_rows_alone(name, label, wrapper, args, got[0])
     if rows == 1632 or (tile and rows <= 32):
@@ -1660,7 +1717,7 @@ def compare_kernels(dev, only=None) -> dict:
         got, want = wrapper(*args), plain(*args)
         torch.cuda.synchronize()
         err, scale = max_err(got, want)
-        tol = FP32_TOL if fp32_flash(name, args) else TOL
+        tol = FP32_TOL if fp32_case(name, args) else TOL
         if not err <= tol * scale:
             failures.append(f"{name} [{label}] disagrees with its plain version: "
                             f"{err} > {tol} * {scale}")
@@ -1685,7 +1742,7 @@ def compare_kernels(dev, only=None) -> dict:
         bound_ms, bound_by = bound(name, args, want)
         times[name, label] = (ms, lib_ms)
         rate = ""
-        if fp32_flash(name, args):
+        if fp32_case(name, args):
             rate = f" cuda_core_bound_ms={bound(name, args, want, cuda_cores=True)[0]:.6g}"
         if name.startswith("gemv"):  # weight (and scale) bytes streamed per call
             wbytes = sum(t.numel() * t.element_size() for t in args[1:])
@@ -1718,12 +1775,18 @@ def compare_kernels(dev, only=None) -> dict:
             f"({'no slower' if lib and tc_ms <= lib else 'SLOWER'} than SDPA)")
     for name, label in (("flash_attention", FP32_MAIN_FWD),
                         ("flash_attention_lse", FP32_MAIN_TRAIN),
+                        ("flash_attention_bwd_dq", FP32_MAIN_TRAIN),
                         ("flash_attention_bwd_dkv", FP32_MAIN_TRAIN)):
         if (name, label) in times:  # the targets: no slower than SDPA on the same fp32 inputs
             ms, lib = times[name, label]
             log(f"yardstick fp32 [{label}]: {name} {ms:.6g} ms, SDPA"
                 f"{' (whole backward)' if 'bwd' in name else ''} on fp32 {lib} ms "
                 f"({'no slower' if lib and ms <= lib else 'SLOWER'} than SDPA)")
+    if all((n, FP32_MAIN_TRAIN) in times for n in FP32_BACKWARD):
+        pair = sum(times[n, FP32_MAIN_TRAIN][0] for n in FP32_BACKWARD)
+        lib = times[FP32_BACKWARD[0], FP32_MAIN_TRAIN][1]
+        log(f"yardstick fp32 [{FP32_MAIN_TRAIN}] backward: dq + dk/dv {pair:.6g} ms, SDPA whole "
+            f"backward {lib} ms ({'no slower' if lib and pair <= lib else 'SLOWER'} than SDPA)")
     if failures:
         raise RuntimeError("; ".join(failures))
     return summary
@@ -1731,8 +1794,9 @@ def compare_kernels(dev, only=None) -> dict:
 
 def check_tiny_paths_agree(dev) -> dict:
     """On a tiny fp32 model, the kernel path and the plain path agree.
-    Returns the quantized generates' launches (``tiny_int8``,
-    ``tiny_int4_mixed``: the 40-token prefill's 3xTF32 int8-KV forward)."""
+    Returns the generates' launches (``tiny_fp32``: the 12-token prefill's
+    3xTF32 SwiGLU tile; ``tiny_int8``, ``tiny_int4_mixed``: the 40-token
+    prefill's 3xTF32 int8-KV forward)."""
     cfg = tiny_mllama_config(max_cache_length=64)
     model = init_vlm(cfg, dev, torch.Generator(device=dev).manual_seed(0), tie_weights=False)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1740,19 +1804,24 @@ def check_tiny_paths_agree(dev) -> dict:
     ids[:, :4] = cfg.image_token_index
     raw = torch.randint(0, 256, (1, 28, 28, 3), generator=gen, device=dev, dtype=torch.uint8)
     px = preprocess_image_device(raw, cfg.vision_config.image_size)
-    res = {impl: InferenceEngine(model, cfg, dev, impl=impl).generate(ids, px, max_new_tokens=8)
-           for impl in ("cuda", "torch")}
+    res = {}
+    for impl in ("cuda", "torch"):
+        kernels.reset_counters()
+        res[impl] = InferenceEngine(model, cfg, dev, impl=impl).generate(ids, px, max_new_tokens=8)
+        if impl == "cuda":
+            by_path = {"tiny_fp32": kernels.launch_counts()}
     dl = (res["cuda"].prefill_logits - res["torch"].prefill_logits).abs().max().item()
     log(f"tiny fp32: tokens cuda={res['cuda'].tokens.tolist()} torch={res['torch'].tokens.tolist()} "
-        f"max_abs_dlogit={dl:.3g}")
-    if dl > 1e-4 or not torch.equal(res["cuda"].tokens, res["torch"].tokens):
-        raise RuntimeError("tiny model: kernel path and plain path disagree")
+        f"max_abs_dlogit={dl:.3g}; launches {by_path['tiny_fp32']}")
+    missing = [k for k in TINY_KERNELS["fp32"] if by_path["tiny_fp32"][k] == 0]
+    if dl > 1e-4 or not torch.equal(res["cuda"].tokens, res["torch"].tokens) or missing:
+        raise RuntimeError(f"tiny model: kernel path and plain path disagree (or skipped "
+                           f"{missing})")
 
     # Quantized, with the int8 cache. The 40-token prompt puts the prefill's
     # linears above the gemv limit, on the dequantizing GEMM.
     ids = torch.randint(0, 240, (1, 40), generator=gen, device=dev)
     ids[:, :4] = cfg.image_token_index
-    by_path = {}
     for mode, kw in (("int8", dict(bits=8)),
                      ("int4_mixed", dict(bits=4, group_size=32, recipe=INT4_MIXED_RECIPE))):
         qmodel = quantize_llama_params(model, **kw)
@@ -2218,7 +2287,7 @@ def check_tiny_training(dev) -> None:
         return losses, state.params
 
     for label, run, need in (("LoRA", lora_run, TRAIN_KERNELS),
-                             ("full FT", full_run, TRAIN_KERNELS + ("swiglu", "swiglu_bwd"))):
+                             ("full FT", full_run, TRAIN_KERNELS + FP32_SWIGLU)):
         res = {}
         for impl in ("torch", "cuda"):
             kernels.reset_counters()
@@ -2274,8 +2343,8 @@ def run_vit_h_fp32(dev) -> dict:
 def run_fp32_autograd(dev) -> dict:
     """``gqa_attention`` under autograd in fp32 at the decoder (32 / 8 heads,
     T=1632, causal) and ViT-H (16 heads of 80, T=1600) shapes: out, dq, dk
-    and dv of the kernel path (the 3xTF32 LSE forward and dk/dv, the SIMT
-    dq) within FP32_TOL of ``impl="torch"``'s largest magnitude. Returns the
+    and dv of the kernel path (the 3xTF32 LSE forward, dq and dk/dv) within
+    FP32_TOL of ``impl="torch"``'s largest magnitude. Returns the
     kernel path's launches."""
     gen = torch.Generator(device=dev).manual_seed(13)
     total, faults = {}, []
@@ -2338,7 +2407,8 @@ def check_tiny_bf16_lora(dev) -> None:
     log(f"tiny bf16 LoRA, 3 steps: losses cuda={res['cuda']} torch={res['torch']} "
         f"max_rel_dloss={dloss:.3g}; launches {launches}")
     faults = [f"skipped {k}" for k in BWD_TC + ("flash_attention_tc_lse",) if launches[k] == 0]
-    faults += [f"launched the fp32 {k}" for k in FP32_FORWARD + FP32_BACKWARD if launches[k]]
+    faults += [f"launched the fp32 {k}" for k in FP32_FORWARD + FP32_BACKWARD + FP32_SWIGLU
+               if launches[k]]
     faults += [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
     if not dloss <= 1e-2 or faults:
         raise RuntimeError(f"tiny bf16 LoRA: losses differ by {dloss} relative, or {faults}")
@@ -3809,7 +3879,8 @@ def tiny_tp_tokens(model, cfg, dev, px, prompts) -> dict:
 # kernels its path must launch (prompts of at most 24 rows: every quantized
 # linear is a gemv; tp_11b_int4_mixed runs the prefill GEMM)
 TINY_TP_WEIGHTS = {
-    "fp32": (None, ("rmsnorm", "gemv", "swiglu", "flash_decode", "flash_decode_int8kv")),
+    "fp32": (None, ("rmsnorm", "gemv", "swiglu", "swiglu_tf32", "flash_decode",
+                    "flash_decode_int8kv")),
     "int8": (dict(bits=8), ("rmsnorm", "gemv_int8", "flash_decode", "flash_decode_int8kv")),
     "int4_mixed": (dict(bits=4, group_size=32, recipe=INT4_MIXED_RECIPE),
                    ("rmsnorm", "gemv_int8", "gemv_int4", "flash_decode", "flash_decode_int8kv")),
@@ -3826,14 +3897,16 @@ def tiny_tp_model(cfg, dev, weights: str):
 
 # tp_tiny's serving features once refused under tensor parallelism: each
 # path's kernels on the fp32 kernel path (a bank's gate/up adapters run the
-# FFN unfused: no SwiGLU kernel; the ViT dropout step trains through the fp32
-# flash kernels)
+# FFN unfused: no SwiGLU kernel; prefills above 8 rows on the 3xTF32 SwiGLU
+# tile, decode steps on the rows kernel; the ViT dropout step trains through
+# the fp32 flash kernels and the 3xTF32 SwiGLU tile, forward and backward)
 TINY_FEATURE_KERNELS = {
     "tp_tiny_bank": ("rmsnorm", "gemv", "flash_decode"),
-    "tp_tiny_draft": ("rmsnorm", "gemv", "swiglu", "flash_decode"),
-    "tp_tiny_http": ("rmsnorm", "gemv", "swiglu", "flash_decode"),
-    "tp_tiny_vit_dropout": TRAIN_KERNELS,
-    "tp_tiny_dp_server": ("rmsnorm", "gemv", "swiglu", "flash_decode", "flash_decode_int8kv"),
+    "tp_tiny_draft": ("rmsnorm", "gemv", "swiglu", "swiglu_tf32", "flash_decode"),
+    "tp_tiny_http": ("rmsnorm", "gemv", "swiglu", "swiglu_tf32", "flash_decode"),
+    "tp_tiny_vit_dropout": TRAIN_KERNELS + FP32_SWIGLU,
+    "tp_tiny_dp_server": ("rmsnorm", "gemv", "swiglu", "swiglu_tf32", "flash_decode",
+                          "flash_decode_int8kv"),
 }
 TINY_VIT_DROPOUT = 0.25
 TINY_VIT_TOL = 1e-4  # fp32 |Δ| over the tower's largest gradient: partial sums in other orders
@@ -3981,8 +4054,9 @@ def tiny_feature_faults(path: str, results: list) -> list:
         if any(res["plain"].values()):
             faults.append(f"{path} rank {r} ran plain versions {res['plain']}")
     if path == "tp_tiny_bank":  # gate/up adapters: the FFN unfused
-        faults += [f"{path} rank {r} launched SwiGLU {res['launches']['swiglu']} times"
-                   for r, res in enumerate(results) if res["launches"]["swiglu"]]
+        faults += [f"{path} rank {r} launched {k} {res['launches'][k]} times"
+                   for r, res in enumerate(results) for k in ("swiglu", "swiglu_tf32")
+                   if res["launches"][k]]
     return faults
 
 

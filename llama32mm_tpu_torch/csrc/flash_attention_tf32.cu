@@ -1,54 +1,43 @@
-// Flash GQA attention forward and dk/dv backward on Hopper's tensor cores at
-// fp32 precision: every fp32 product is three TF32 mma.sync products (3xTF32).
+// Flash GQA attention forward and backward (dq, dk/dv) on Hopper's tensor
+// cores at fp32 precision: every fp32 product is three TF32 mma.sync products
+// (3xTF32, tf32.cuh).
 //
 // Replaces llama32mm_tpu/ops/pallas/attention.py::_flash_kernel (its
-// pallas_call through _flash_forward, the emit_lse output included) and
-// ::_flash_bwd_dkv_kernel (through _flash_backward) for every call that
-// ops/attention.py routes to the float kernels: fp32 prefill and ViT calls
-// with more than a few query rows per kv head, and the fp32 training forward
-// and dk/dv. The function is the Pallas kernels': q [B, nq, Tq, hd], k/v
-// [B, nkv, Tk, hd], query head h reads kv head h / (nq / nkv); key `key` is
-// allowed for query i of batch row b iff kv_valid[b, key] != 0, key < Tk and,
-// when causal, key <= q_offset + i (q_offset one int, or int32 [B] per row in
-// the forward). Allowed logits are s / sqrt(hd) (mask-then-scale), blocked
-// keys get probability exactly 0, and a row with no allowed key outputs 0 and
-// lse -0.7 * FLT_MAX (a negative q_offset, a ring chunk wholly in the future,
-// masks every row). int8 K/V carry fp32 per-position scales [B, nkv, Tk]:
-// k_scale multiplies the score before the mask and the 1/sqrt(hd), v_scale
-// multiplies p in the PV product but not in the denominator. q is fp32 or
-// bf16 (staged as fp32); K/V are q's dtype or int8. No atomics: a second call
-// gives the same bits.
+// pallas_call through _flash_forward, the emit_lse output included),
+// ::_flash_bwd_dq_kernel and ::_flash_bwd_dkv_kernel (through
+// _flash_backward) for every call that ops/attention.py routes to the float
+// kernels: fp32 prefill and ViT calls with more than a few query rows per kv
+// head, and the fp32 training forward, dq and dk/dv. The function is the
+// Pallas kernels': q [B, nq, Tq, hd], k/v [B, nkv, Tk, hd], query head h
+// reads kv head h / (nq / nkv); key `key` is allowed for query i of batch row
+// b iff kv_valid[b, key] != 0, key < Tk and, when causal, key <= q_offset + i
+// (q_offset one int, or int32 [B] per row in the forward). Allowed logits are
+// s / sqrt(hd) (mask-then-scale), blocked keys get probability exactly 0, and
+// a row with no allowed key outputs 0 and lse -0.7 * FLT_MAX (a negative
+// q_offset, a ring chunk wholly in the future, masks every row; its dq is 0).
+// int8 K/V carry fp32 per-position scales [B, nkv, Tk]: k_scale multiplies the
+// score before the mask and the 1/sqrt(hd), v_scale multiplies p in the PV
+// product but not in the denominator. q is fp32 or bf16 (staged as fp32); K/V
+// are q's dtype or int8. No atomics: a second call gives the same bits.
 //
 // Bound on the H100: operations. The fp32 decoder prefill (Tq 1632, Tk 2048,
 // 32/8 heads, hd 128, causal) is 21.8 GFLOP a call: 0.326 ms at the 67
 // TFLOP/s of the CUDA cores, 0.133 ms as three TF32 products at 494.7 TFLOP/s.
-// One TF32 product (10 mantissa bits) would miss the fp32 contract by three
-// orders of magnitude, so each operand is split, x = big + small with big =
-// x rounded to TF32 and small = x - big (exact), and a b ~ a_s b_b + a_b b_s +
-// a_b b_b (the small x small term is below fp32 rounding). bf16 and int8
-// values are exact in TF32: their small part is 0 and its product is skipped.
-// The mma reads the top 19 bits of a register, so big is rounded by integer
-// add and mask, and small goes in as it is (truncated to TF32: 2^-21 of x).
 //
-// Design, shared by both kernels:
-//  - mma.sync m16n8k8 tf32 (A row-major 16x8, B col-major 8x8, fp32 C). A
-//    lane (gid = lane / 4, t = lane % 4) holds C at rows gid, gid + 8 and
-//    columns 2t, 2t + 1. Its k slots t and t + 4 may stand for any two k
-//    indices as long as A and B agree; the second product of each kernel
-//    maps them to k 2t and 2t + 1 of the chunk, so the first product's C
-//    registers are the second product's A fragment as they are (no shuffle
-//    through shared memory). Its B operand is then rows 2t and 2t + 1 of a
-//    shared tile; a lane loads VW (4, 2 or 1) adjacent columns of each with
-//    one instruction and they feed VW n8 tiles, so a lane's outputs are 2 VW
+// Design, shared by the three kernels:
+//  - mma.sync m16n8k8 tf32 (tf32.cuh): the first product (product_rows) of
+//    each kernel leaves its C registers as the second's (product_p) A
+//    fragment. The second's B operand is rows 2t and 2t + 1 of a shared tile;
+//    a lane loads VW (4, 2 or 1) adjacent columns of each with one
+//    instruction and they feed VW n8 tiles, so a lane's outputs are 2 VW
 //    adjacent columns of its two rows.
 //  - Every shared tile is fp32 with rows of hd + 4 floats: the first
 //    product's loads (8 rows x 4 columns a warp) and the second's (4 row
 //    pairs x 8 VW columns) are both free of bank conflicts at every hd.
-//  - The tensor cores round their fp32 accumulation toward zero, which over a
-//    chain of a few hundred adds drifts by about 1e-5 of the sum, the whole
-//    fp32 tolerance. So the second product sums each 32 keys (or queries) in
-//    fresh registers and adds them to the running accumulator in fp32; the
-//    first product's chain is hd / 8 k-steps, short.
+//  - The tensor cores round their fp32 accumulation toward zero, so the
+//    second product sums each 32 keys (or queries) in fresh registers and
+//    adds them to the running accumulator in fp32; the first product's chain
+//    is hd / 8 k-steps, short.
 //  - fp32 tiles arrive by 16-byte cp.async, double-buffered one tile ahead of
 //    the math; bf16 and int8 tiles are loaded, converted and stored.
 // Forward: a block of 8 warps owns 128 query rows of one (b, q head), 16 a
@@ -59,6 +48,13 @@
 // registers (exp2 of logits prescaled by log2(e) / sqrt(hd)), O += P V with
 // P straight from S's registers. O takes 64 floats a thread at hd 128.
 // Shared memory at hd 128: Q 66 KB, two stages of K and V 132 KB.
+// dq: the forward's grid and warps (128 query rows of one (b, q head), the
+// longest causal rows first), Q and dO staged once (132 KB at hd 128) and
+// 32-key tiles of K and V double-buffered (66 KB), a warp skipping tiles past
+// its rows' limit. S = Q K^T and dP = dO V^T (32 keys: 16 floats each), then
+// P = exp(S / sqrt(hd) - lse) on allowed pairs, dS = P (dP - delta) /
+// sqrt(hd) in S's registers, and dQ += dS K in one fresh 32-key chunk a tile
+// (64 floats a thread at hd 128).
 // dk/dv: a block of 8 warps owns 64 keys of one (b, kv head), 16 a warp pair;
 // it stages K and V once and sweeps the GQA group's q heads x 32-query tiles
 // from the first tile that the causal mask lets see its keys. The block's two
@@ -77,6 +73,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -85,155 +82,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStages = 2;  // cp.async ring depth: one tile ahead
-
-// Tile geometry for head size HD.
-template <int HD>
-struct Geom {
-  static constexpr int LD = HD + 4;  // floats a shared row
-  static constexpr int VW = HD % 32 == 0 ? 4 : HD % 16 == 0 ? 2 : 1;
-  static constexpr int NG = HD / (8 * VW);  // column groups of the second product
-  static constexpr int KS = HD / 8;         // k8 steps over the head dim
-};
-
-// ---------------------------------------------------------------------------
-// 3xTF32 products
-// ---------------------------------------------------------------------------
-
-struct FragA {
-  uint32_t big[4], small[4];
-};
-struct FragB {
-  uint32_t big[2], small[2];
-};
-
-// x ~ big + small; unsplit (kSplit false) for values exact in TF32.
-template <bool kSplit>
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  const uint32_t bits = __float_as_uint(x);
-  if constexpr (kSplit) {
-    big = (bits + 0x1000u) & 0xffffe000u;  // round to nearest on the 10-bit mantissa
-    small = __float_as_uint(x - __uint_as_float(big));
-  } else {
-    big = bits;
-    small = 0u;
-  }
-}
-
-// A fragment in register order: (row gid, slot t), (gid + 8, t), (gid, t + 4),
-// (gid + 8, t + 4).
-template <bool kSplit>
-__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2, float a3) {
-  FragA f;
-  split_tf32<kSplit>(a0, f.big[0], f.small[0]);
-  split_tf32<kSplit>(a1, f.big[1], f.small[1]);
-  split_tf32<kSplit>(a2, f.big[2], f.small[2]);
-  split_tf32<kSplit>(a3, f.big[3], f.small[3]);
-  return f;
-}
-
-// B fragment: (slot t, column gid), (slot t + 4, column gid).
-template <bool kSplit>
-__device__ __forceinline__ FragB frag_b(float b0, float b1) {
-  FragB f;
-  split_tf32<kSplit>(b0, f.big[0], f.small[0]);
-  split_tf32<kSplit>(b1, f.big[1], f.small[1]);
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// C += A B at fp32 precision: the small products first, then big x big.
-template <bool kSplitA, bool kSplitB>
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
-  if constexpr (kSplitA) mma_tf32(c, a.small, b.big[0], b.big[1]);
-  if constexpr (kSplitB) mma_tf32(c, a.big, b.small[0], b.small[1]);
-  mma_tf32(c, a.big, b.big[0], b.big[1]);
-}
-
-// VW adjacent floats of a shared row, one load.
-template <int VW>
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[VW]) {
-  if constexpr (VW == 4) {
-    const float4 r = *reinterpret_cast<const float4*>(p);
-    x[0] = r.x, x[1] = r.y, x[2] = r.z, x[3] = r.w;
-  } else if constexpr (VW == 2) {
-    const float2 r = *reinterpret_cast<const float2*>(p);
-    x[0] = r.x, x[1] = r.y;
-  } else {
-    x[0] = *p;
-  }
-}
-
-// S (+)= A B^T over the head dim for one warp: A rows a_rows[gid], [gid + 8]
-// (16 rows), B rows b_rows[8 nt + gid] (NT n8 tiles), both [.][LD] fp32 in
-// shared memory; k slots t, t + 4 are head-dim columns 8 kk + t, 8 kk + t + 4.
-template <int HD, int NT, bool kSplitA, bool kSplitB>
-__device__ __forceinline__ void product_rows(float (&s)[NT][4], const float* a_rows,
-                                             const float* b_rows, int gid, int t4) {
-  constexpr int LD = Geom<HD>::LD;
-#pragma unroll 2
-  for (int kk = 0; kk < Geom<HD>::KS; ++kk) {
-    const float* ap = a_rows + gid * LD + 8 * kk + t4;
-    const FragA a = frag_a<kSplitA>(ap[0], ap[8 * LD], ap[4], ap[8 * LD + 4]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float* bp = b_rows + (8 * nt + gid) * LD + 8 * kk + t4;
-      mma3<kSplitA, kSplitB>(s[nt], a, frag_b<kSplitB>(bp[0], bp[4]));
-    }
-  }
-}
-
-// acc += P B for one warp: P [16][8 NT] in the C registers of product_rows
-// (k slots t, t + 4 = P's columns 2t, 2t + 1 of n8 tile nt), B rows
-// b_rows[8 nt + 2t], [8 nt + 2t + 1] of [.][LD] fp32 in shared memory.
-// acc[VW g + i] holds the output columns 8 VW g + VW c + i for C column c.
-// The tensor cores round their accumulation toward zero, so a chain of
-// thousands of adds in one C register would drift by about 1e-5 of the sum:
-// each 32 keys (kKC n8 tiles) go into fresh registers, added to acc in fp32.
-constexpr int kKC = 4;
-
-template <int HD, int NT, bool kSplitB>
-__device__ __forceinline__ void product_p(float (&acc)[HD / 8][4], const float (&p)[NT][4],
-                                          const float* b_rows, int gid, int t4) {
-  using G = Geom<HD>;
-  constexpr int LD = G::LD, VW = G::VW;
-  static_assert(NT % kKC == 0, "P's columns go in chunks of kKC n8 tiles");
-#pragma unroll
-  for (int h = 0; h < NT / kKC; ++h) {
-    FragA a[kKC];
-#pragma unroll
-    for (int j = 0; j < kKC; ++j) {
-      const int nt = kKC * h + j;
-      a[j] = frag_a<true>(p[nt][0], p[nt][2], p[nt][1], p[nt][3]);
-    }
-#pragma unroll
-    for (int g = 0; g < G::NG; ++g) {
-      float c[VW][4];
-#pragma unroll
-      for (int i = 0; i < VW; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKC; ++j) {
-        const float* bp = b_rows + (8 * (kKC * h + j) + 2 * t4) * LD + VW * gid + 8 * VW * g;
-        float x0[VW], x1[VW];
-        load_vec<VW>(bp, x0);
-        load_vec<VW>(bp + LD, x1);
-#pragma unroll
-        for (int i = 0; i < VW; ++i)
-          mma3<true, kSplitB>(c[i], a[j], frag_b<kSplitB>(x0[i], x1[i]));
-      }
-#pragma unroll
-      for (int i = 0; i < VW; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[VW * g + i][e] += c[i][e];
-    }
-  }
-}
 
 // Write a warp's 16 x HD accumulator rows (row0 + gid, row0 + gid + 8, those
 // below `rows`) to dst rows of HD elements.
@@ -462,6 +310,111 @@ flash_tf32_fwd_kernel(const T* __restrict__ q, const KV* __restrict__ k, const K
       if (r < q_rows) lse[row0 + r] = l[ri] > 0.f ? (m[ri] + log2f(l[ri])) * kLn2 : kNegBig;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// dq backward
+// ---------------------------------------------------------------------------
+
+constexpr int kDqN = 32;          // keys a tile: one fresh chunk of product_p
+constexpr int kDqNT = kDqN / 8;   // n8 tiles of a warp's S and dP
+static_assert(kDqNT == kKC, "a tile is one chunk of dS K");
+
+template <int HD>
+constexpr int dq_smem_bytes() {
+  return ((2 * kBM + 2 * kStages * kDqN) * Geom<HD>::LD + kStages * kDqN) * 4;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_tf32_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                         const int* __restrict__ kv_valid, const float* __restrict__ lse,
+                         const float* __restrict__ delta, const T* __restrict__ dout,
+                         T* __restrict__ dq, int bh_total, int nq, int nkv, int tq, int tk,
+                         int q_offset, int causal, int n_qtiles, float scale, float scale_log2) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  using G = Geom<HD>;
+  constexpr int LD = G::LD;
+  extern __shared__ float4 smem_f4[];
+  float* qs = reinterpret_cast<float*>(smem_f4);  // [kBM][LD]
+  float* dos = qs + kBM * LD;                     // [kBM][LD]
+  float* ks = dos + kBM * LD;                     // [kStages][kDqN][LD]
+  float* vs = ks + kStages * kDqN * LD;
+  int* valid_s = reinterpret_cast<int*>(vs + kStages * kDqN * LD);  // [kStages][kDqN]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x % bh_total;
+  const int qt = n_qtiles - 1 - static_cast<int>(blockIdx.x) / bh_total;  // longest rows first
+  const int b = bh / nq, kvh = bh % nq / (nq / nkv);
+  const int q0 = qt * kBM, q_rows = min(kBM, tq - q0);
+  const int n_keys = causal ? max(0, min(tk, q_offset + q0 + q_rows)) : tk;
+  const int n_tiles = (n_keys + kDqN - 1) / kDqN;
+  // This warp's rows: r0 .. r0 + warp_rows - 1; the causal limit only grows along them.
+  const int r0 = 16 * warp;
+  const int warp_rows = max(0, min(16, q_rows - r0));
+  const int warp_keys = causal ? max(0, min(tk, q_offset + q0 + r0 + warp_rows)) : tk;
+  const int warp_tiles = warp_rows == 0 ? 0 : (warp_keys + kDqN - 1) / kDqN;
+  const size_t kvrow0 = static_cast<size_t>(b * nkv + kvh) * tk;
+  const size_t qrow0 = static_cast<size_t>(bh) * tq;
+  const int* validb = kv_valid + static_cast<size_t>(b) * tk;
+
+  stage_tile<T, HD>(qs, q + qrow0 * HD, q0, kBM, tq, tid, kFwdThreads);
+  stage_tile<T, HD>(dos, dout + qrow0 * HD, q0, kBM, tq, tid, kFwdThreads);
+  auto issue = [&](int t) {  // K/V tile t (keys 32 t ...) into stage t % kStages
+    const int st = t % kStages, k0 = t * kDqN;
+    stage_tile<T, HD>(ks + st * kDqN * LD, k + kvrow0 * HD, k0, kDqN, tk, tid, kFwdThreads);
+    stage_tile<T, HD>(vs + st * kDqN * LD, v + kvrow0 * HD, k0, kDqN, tk, tid, kFwdThreads);
+    stage_row(valid_s + st * kDqN, validb, k0, kDqN, tk, tid, kFwdThreads);
+  };
+  if (n_tiles > 0) issue(0);
+  async_commit();
+
+  // This lane's rows gid, gid + 8: their lse in log2 units and delta.
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qi = q0 + r0 + gid + 8 * ri;
+    lse2[ri] = qi < tq ? lse[qrow0 + qi] * kLog2e : 0.f;
+    dlt[ri] = qi < tq ? delta[qrow0 + qi] : 0.f;
+  }
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) issue(t + 1);
+    async_commit();
+    async_wait<1>();  // tile t (and Q, dO) landed
+    __syncthreads();
+    if (t < warp_tiles) {
+      const int st = t % kStages, k0 = t * kDqN;
+      const float* kt = ks + st * kDqN * LD;
+      float s[kDqNT][4], dp[kDqNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kDqNT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[nt][c] = dp[nt][c] = 0.f;
+      product_rows<HD, kDqNT, kSplit, kSplit>(s, qs + r0 * LD, kt, gid, t4);                 // S
+      product_rows<HD, kDqNT, kSplit, kSplit>(dp, dos + r0 * LD, vs + st * kDqN * LD, gid, t4);  // dP
+      const int* valid_t = valid_s + st * kDqN;
+#pragma unroll
+      for (int nt = 0; nt < kDqNT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {  // row gid + 8 (c / 2), key 8 nt + 2 t4 + c % 2
+          const int ri = c >> 1, kl = 8 * nt + 2 * t4 + (c & 1);
+          const int qi = q0 + r0 + gid + 8 * ri, key = k0 + kl;
+          const bool allowed = qi < tq && key < tk && valid_t[kl] != 0 &&
+                               (!causal || key <= q_offset + qi);
+          const float p = allowed ? exp2f(fmaf(s[nt][c], scale_log2, -lse2[ri])) : 0.f;
+          s[nt][c] = p * (dp[nt][c] - dlt[ri]) * scale;  // dS
+        }
+      product_p<HD, kDqNT, kSplit>(acc, s, kt, gid, t4);  // dQ += dS K
+    }
+    __syncthreads();  // stage t % kStages consumed before tile t + 2 overwrites it
+  }
+  async_wait<0>();
+  store_rows<T, HD>(dq + (qrow0 + q0) * HD, acc, r0, q_rows, gid, t4);
 }
 
 // ---------------------------------------------------------------------------
@@ -708,18 +661,46 @@ int launch_dkv(const DkvArgs& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dkv_hd(const DkvArgs& a, int hd, cudaStream_t s) {
+template <typename T, int HD>
+int launch_dq(const DkvArgs& a, cudaStream_t s) {
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.dout))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int n_qtiles = (a.tq + kBM - 1) / kBM;
+  const long long blocks = static_cast<long long>(a.b) * a.nq * n_qtiles;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_tf32_bwd_dq_kernel<T, HD>;
+  constexpr int smem = dq_smem_bytes<HD>();
+  if (const int e = allow_smem(kernel, smem)) return e;
+  const double inv = 1.0 / sqrt(static_cast<double>(HD));
+  kernel<<<static_cast<int>(blocks), kFwdThreads, smem, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.kv_valid, a.lse, a.delta, static_cast<const T*>(a.dout), static_cast<T*>(a.dk),
+      a.b * a.nq, a.nq, a.nkv, a.tq, a.tk, a.q_offset, a.causal, n_qtiles,
+      static_cast<float>(inv), static_cast<float>(inv * 1.4426950408889634));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dk/dv (kDq false) or dq (kDq true, written to a.dk) at head size hd.
+template <typename T, bool kDq>
+int launch_bwd_hd(const DkvArgs& a, int hd, cudaStream_t s) {
   switch (hd) {
-    case 8: return launch_dkv<T, 8>(a, s);
-    case 16: return launch_dkv<T, 16>(a, s);
-    case 32: return launch_dkv<T, 32>(a, s);
-    case 64: return launch_dkv<T, 64>(a, s);
-    case 80: return launch_dkv<T, 80>(a, s);
-    case 96: return launch_dkv<T, 96>(a, s);
-    case 128: return launch_dkv<T, 128>(a, s);
+    case 8: return kDq ? launch_dq<T, 8>(a, s) : launch_dkv<T, 8>(a, s);
+    case 16: return kDq ? launch_dq<T, 16>(a, s) : launch_dkv<T, 16>(a, s);
+    case 32: return kDq ? launch_dq<T, 32>(a, s) : launch_dkv<T, 32>(a, s);
+    case 64: return kDq ? launch_dq<T, 64>(a, s) : launch_dkv<T, 64>(a, s);
+    case 80: return kDq ? launch_dq<T, 80>(a, s) : launch_dkv<T, 80>(a, s);
+    case 96: return kDq ? launch_dq<T, 96>(a, s) : launch_dkv<T, 96>(a, s);
+    case 128: return kDq ? launch_dq<T, 128>(a, s) : launch_dkv<T, 128>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <bool kDq>
+int dispatch_bwd(const DkvArgs& a, int hd, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == L32_F32) return launch_bwd_hd<float, kDq>(a, hd, s);
+  if (dtype == L32_BF16) return launch_bwd_hd<__nv_bfloat16, kDq>(a, hd, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -764,8 +745,20 @@ extern "C" int l32_flash_attn_tf32_bwd_dkv(const void* q, const void* k, const v
   const DkvArgs a{q, k, v, dout, static_cast<const int*>(kv_valid),
                   static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv, b, nq,
                   nkv, tq, tk, q_offset, causal};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == L32_F32) return launch_dkv_hd<float>(a, hd, s);
-  if (dtype == L32_BF16) return launch_dkv_hd<__nv_bfloat16>(a, hd, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_bwd<false>(a, hd, dtype, stream);
+}
+
+// dq [b, nq, tq, hd] from the same operands as l32_flash_attn_tf32_bwd_dkv
+// (0 for every row when tk is 0).
+extern "C" int l32_flash_attn_tf32_bwd_dq(const void* q, const void* k, const void* v,
+                                          const void* kv_valid, const void* lse,
+                                          const void* delta, const void* dout, void* dq, int b,
+                                          int nq, int nkv, int tq, int tk, int hd, int q_offset,
+                                          int causal, int dtype, void* stream) {
+  if (b == 0 || tq == 0) return 0;
+  if (nkv <= 0 || nq % nkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const DkvArgs a{q, k, v, dout, static_cast<const int*>(kv_valid),
+                  static_cast<const float*>(lse), static_cast<const float*>(delta), dq, nullptr,
+                  b, nq, nkv, tq, tk, q_offset, causal};
+  return dispatch_bwd<true>(a, hd, dtype, stream);
 }

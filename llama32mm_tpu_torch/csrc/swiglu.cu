@@ -65,8 +65,25 @@
 //    staged through a two-deep cp.async ring, silu(g) * u through shared
 //    memory to one rounded write per element; ragged R, H and I zero-filled
 //    at staging, an H that is not a multiple of 8 staged with plain loads.
-// 4. fp32 inputs with more rows take a plain SIMT loop (one thread per
-//    output, both dot products in fp32): the tiny fp32 checks.
+// 4. fp32 inputs with more rows take the fp32 tile (tf32::swiglu_tf32_kernel):
+//    the wmma tile's dual-B GEMM (a 128 x 64 output tile, eight warps of 32 x
+//    32) on mma.sync m16n8k8 TF32, every fp32 product as three TF32 products
+//    (tf32.cuh). Bound by operations: at R = 1632, H = 4096, I = 14336 the
+//    383 GFLOP take 2.325 ms as three TF32 products at 494.7 TFLOP/s, 5.72 ms
+//    on the CUDA cores. Both operands are K-major as stored, so x and both
+//    weights are staged as they are: 64-k stages of fp32 rows of 68 floats
+//    (conflict-free fragment loads) in a three-stage 16-byte cp.async ring
+//    (plain zero-filling loads where H % 4 != 0 or a pointer is not 16-byte
+//    aligned). A k8 step splits each x fragment once for both weights and
+//    each weight fragment once for both of a warp's row tiles. The tensor
+//    cores round their accumulation toward zero, so each stage's 64 k go
+//    into fresh registers (24 mma adds a chain) and are added to the running
+//    fp32 sums: a one-chain 3xTF32 product over H = 4096 errs by ~7e-5 of
+//    the output, the staged one by ~1.4e-6 (a CPU emulation against fp64;
+//    32-k stages ~6e-7 ran 16% slower, a block barrier every 192 mma a warp).
+//    128 sums a thread (running and stage; 195 registers, no spill), one
+//    block an SM, silu(gate) * up or the backward's epilogue in fp32 from
+//    registers, one write an output.
 //
 // Backward (l32_swiglu_bwd). Replaces llama32mm_tpu/ops/pallas/swiglu.py::
 // _bwd_kernel: with g the output's cotangent, it recomputes gate and up with
@@ -74,12 +91,12 @@
 // d_up = g * silu(gate), silu'(x) = s (1 + x (1 - s)), s = sigmoid(x), in x's
 // type; gate and up never reach device memory. It is the forward's body with
 // another epilogue (the kBwd template parameter of the TMA tile, the wmma
-// tile and the fp32 loop), routed as the forward above 8 rows (pick) and to
-// the wmma tile at 8 or fewer. The TMA tile reads g at each
-// accumulator's (row, column) from device memory, in bf16 pairs where g is
-// 4-byte aligned and one element at a time where it is not (a contiguous
-// view may start at an odd element); the wmma tile stages the g tile
-// through shared memory into fragments of the accumulators' layout.
+// tile and the fp32 tile), routed as the forward above 8 rows (pick), and at
+// 8 or fewer to the wmma tile (bf16) or the fp32 tile. The TMA and fp32 tiles
+// read g at each accumulator's (row, column) from device memory, in pairs
+// where g's pointer allows and one element at a time where it does not (a
+// contiguous view may start at an odd element); the wmma tile stages the g
+// tile through shared memory into fragments of the accumulators' layout.
 // Bound as the forward at R = 1632 (tensor-core FLOPs). dx = d_gate @ w_gate
 // + d_up @ w_up and the weight gradients are cuBLAS GEMMs in the wrapper's
 // autograd function.
@@ -87,6 +104,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "tf32.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -451,29 +469,6 @@ void launch_rows_tc(const void* x, const void* wg, const void* wu, void* out, in
     swiglu_rows_tc_kernel<16><<<blocks, 16 * 32, 0, s>>>(xb, gb, ub, o, rows, h, inter);
 }
 
-template <bool kBwd>  // as swiglu_bf16_kernel
-__global__ void swiglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
-                                  const float* __restrict__ wu, const float* __restrict__ gin,
-                                  float* __restrict__ out, float* __restrict__ out2, int rows,
-                                  int h, int inter) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (i >= inter) return;
-  const float* xr = x + static_cast<size_t>(r) * h;
-  const float* gr = wg + static_cast<size_t>(i) * h;
-  const float* ur = wu + static_cast<size_t>(i) * h;
-  float g = 0.f, u = 0.f;
-  for (int k = 0; k < h; ++k) {
-    g = fmaf(xr[k], gr[k], g);
-    u = fmaf(xr[k], ur[k], u);
-  }
-  const size_t o = static_cast<size_t>(r) * inter + i;
-  if (kBwd)
-    swiglu_grad(g, u, gin[o], out[o], out2[o]);
-  else
-    out[o] = silu(g) * u;
-}
-
 template <bool kBwd>
 int launch_tile(const void* x, const void* wg, const void* wu, const void* g, void* out,
                 void* out2, int rows, int h, int inter, cudaStream_t s) {
@@ -488,17 +483,199 @@ int launch_tile(const void* x, const void* wg, const void* wu, const void* g, vo
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 tile: fp32 x, weights (and cotangent), more than 8 rows (forward)
+// or any rows (backward), on 3xTF32 mma.sync (tf32.cuh).
+// ---------------------------------------------------------------------------
+namespace tf32 {
+
+constexpr int kBM = 128;       // x rows a block: 32 a warp
+constexpr int kBN = 64;        // intermediate columns a block, of gate and of up: 32 a warp
+constexpr int kBK = 64;        // k a stage: each stage's products summed in fresh registers
+constexpr int kStages = 3;     // cp.async ring: two stages ahead of the math
+constexpr int kThreads = 256;  // 8 warps, 4 x 2 over the 128 x 64 tile
+constexpr int LD = Geom<kBK>::LD;  // 68 floats a staged row: conflict-free fragment loads
+constexpr int kStageFloats = (kBM + 2 * kBN) * LD;  // x, gate and up slices
+constexpr int kSmem = kStages * kStageFloats * 4;   // 208,896 bytes
+
+// Stage a [ROWS, kBK] slice of a row-major [rows_total, h] fp32 matrix at
+// (row0, k0), zeros outside it: by 16-byte cp.async (kVec: h % 4 == 0 and a
+// 16-byte-aligned matrix; the caller commits and waits) or plain loads.
+template <int ROWS, bool kVec>
+__device__ __forceinline__ void stage_slice(float* dst, const float* src, int row0, int rows_total,
+                                            int k0, int h) {
+  if constexpr (kVec) {
+    for (int u = threadIdx.x; u < ROWS * (kBK / 4); u += kThreads) {
+      const int r = u / (kBK / 4), c = 4 * (u % (kBK / 4));
+      const bool in = row0 + r < rows_total && k0 + c < h;
+      async_copy<16>(dst + r * LD + c, in ? src + static_cast<size_t>(row0 + r) * h + k0 + c : src,
+                     in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * kBK; e += kThreads) {
+      const int r = e / kBK, c = e % kBK;
+      const bool in = row0 + r < rows_total && k0 + c < h;
+      dst[r * LD + c] = in ? src[static_cast<size_t>(row0 + r) * h + k0 + c] : 0.f;
+    }
+  }
+}
+
+// kBwd false: out = silu(gate) * up. kBwd true: gin is the cotangent g,
+// out = d_gate and out2 = d_up. A warp owns 32 rows x 32 columns: two m16
+// row tiles x four n8 column tiles of gate and of up. Each k8 step splits its
+// two x fragments once for both weights and each weight fragment once for
+// both row tiles.
+template <bool kVec, bool kBwd>
+__global__ void __launch_bounds__(kThreads, 1)
+swiglu_tf32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
+                   const float* __restrict__ wu, const float* __restrict__ gin,
+                   float* __restrict__ out, float* __restrict__ out2, int rows, int h,
+                   int inter) {
+  extern __shared__ float4 smem_f4[];
+  float* ring = reinterpret_cast<float*>(smem_f4);  // [kStages][x, gate, up rows][LD]
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, t4 = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int nk = (h + kBK - 1) / kBK;
+
+  auto issue = [&](int t) {  // k-stage t into ring slot t % kStages
+    float* st = ring + (t % kStages) * kStageFloats;
+    stage_slice<kBM, kVec>(st, x, m0, rows, t * kBK, h);
+    stage_slice<kBN, kVec>(st + kBM * LD, wg, n0, inter, t * kBK, h);
+    stage_slice<kBN, kVec>(st + (kBM + kBN) * LD, wu, n0, inter, t * kBK, h);
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nk) issue(t);
+    async_commit();
+  }
+
+  // Running fp32 sums: [row tile][n8 tile][C register], rows wm + 16 mi + gid
+  // (+ 8 for registers 2, 3), columns wn + 8 nt + 2 t4 (+ 1 for 1, 3).
+  float accg[2][4][4], accu[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accg[mi][nt][e] = accu[mi][nt][e] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    async_wait<kStages - 2>();  // stage t landed (this thread's copies) ...
+    __syncthreads();            // ... and everyone's; slot (t - 1) % kStages is free
+    if (t + kStages - 1 < nk) issue(t + kStages - 1);
+    async_commit();
+    const float* xs = ring + (t % kStages) * kStageFloats;
+    const float* gs = xs + kBM * LD;
+    const float* us = gs + kBN * LD;
+    float pg[2][4][4], pu[2][4][4];  // this stage's products, fresh registers
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pg[mi][nt][e] = pu[mi][nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      FragA a[2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* ap = xs + (wm + 16 * mi + gid) * LD + 8 * kk + t4;
+        a[mi] = frag_a<true>(ap[0], ap[8 * LD], ap[4], ap[8 * LD + 4]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int o = (wn + 8 * nt + gid) * LD + 8 * kk + t4;
+        const FragB bg = frag_b<true>(gs[o], gs[o + 4]);
+        const FragB bu = frag_b<true>(us[o], us[o + 4]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma3<true, true>(pg[mi][nt], a[mi], bg);
+          mma3<true, true>(pu[mi][nt], a[mi], bu);
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          accg[mi][nt][e] += pg[mi][nt][e];
+          accu[mi][nt][e] += pu[mi][nt][e];
+        }
+  }
+  async_wait<0>();
+
+  // Epilogue from registers, one rounding per output; pairs of columns as
+  // float2 where the row stride (and for g its pointer) allows.
+  const bool pairs = (inter & 1) == 0;
+  const bool gpairs = pairs && (reinterpret_cast<uintptr_t>(gin) & 7) == 0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = n0 + wn + 8 * nt + 2 * t4;
+      if (col >= inter) continue;
+      const bool two = col + 1 < inter;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm + 16 * mi + gid + 8 * half;
+        if (row >= rows) continue;
+        const size_t o = static_cast<size_t>(row) * inter + col;
+        float a0, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+        if (kBwd) {
+          float g0, g1 = 0.f;
+          if (gpairs && two) {
+            const float2 gv = *reinterpret_cast<const float2*>(gin + o);
+            g0 = gv.x, g1 = gv.y;
+          } else {
+            g0 = gin[o];
+            if (two) g1 = gin[o + 1];
+          }
+          swiglu_grad(accg[mi][nt][2 * half], accu[mi][nt][2 * half], g0, a0, b0);
+          swiglu_grad(accg[mi][nt][2 * half + 1], accu[mi][nt][2 * half + 1], g1, a1, b1);
+        } else {
+          a0 = silu(accg[mi][nt][2 * half]) * accu[mi][nt][2 * half];
+          a1 = silu(accg[mi][nt][2 * half + 1]) * accu[mi][nt][2 * half + 1];
+        }
+        if (pairs && two) {
+          *reinterpret_cast<float2*>(out + o) = make_float2(a0, a1);
+          if (kBwd) *reinterpret_cast<float2*>(out2 + o) = make_float2(b0, b1);
+        } else {
+          out[o] = a0;
+          if (two) out[o + 1] = a1;
+          if (kBwd) {
+            out2[o] = b0;
+            if (two) out2[o + 1] = b1;
+          }
+        }
+      }
+    }
+}
+
+// Row tiles on the grid's x axis, so that the blocks that run together share
+// their weight tiles in L2. Tiles depend on I alone and the k order on H: a
+// row's bits never depend on R or on its row tile.
 template <bool kBwd>
-int launch_f32(const void* x, const void* wg, const void* wu, const void* g, void* out,
-               void* out2, int rows, int h, int inter, cudaStream_t s) {
-  if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((inter + 127) / 128, rows);
-  swiglu_f32_kernel<kBwd><<<grid, 128, 0, s>>>(
+int launch(const void* x, const void* wg, const void* wu, const void* g, void* out, void* out2,
+           int rows, int h, int inter, cudaStream_t s) {
+  const bool vec = h % 4 == 0 && aligned16(x) && aligned16(wg) && aligned16(wu);
+  const int n_tiles = (inter + kBN - 1) / kBN;
+  if (n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = vec ? swiglu_tf32_kernel<true, kBwd> : swiglu_tf32_kernel<false, kBwd>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3((rows + kBM - 1) / kBM, n_tiles), kThreads, kSmem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(wg), static_cast<const float*>(wu),
       static_cast<const float*>(g), static_cast<float*>(out), static_cast<float*>(out2), rows, h,
       inter);
   return 0;
 }
+
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // The TMA tile: bf16 x with H a multiple of 64 and 16-byte-aligned x and
@@ -681,11 +858,12 @@ int launch(const void* x, const void* wg, const void* wu, const void* g, void* o
 }  // namespace tma
 
 // l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, route
-// among the base kernels (the rows kernel, the wmma tile, the loop: neither
-// the TMA tile nor the tensor-core rows kernel), or ask for the TMA tile or
-// the tensor-core rows kernel; and the kernels they report in *launched.
+// among the base kernels (the rows kernel, the wmma tile, the fp32 tile:
+// neither the TMA tile nor the tensor-core rows kernel), or ask for the TMA
+// tile, the tensor-core rows kernel or the fp32 tile; and the kernels they
+// report in *launched.
 enum { kRouted = -1, kRoutedBase = -2 };
-enum { kRows = 0, kWmma = 1, kLoop = 2, kTma = 3, kRowsTc = 4 };
+enum { kRows = 0, kWmma = 1, kTma = 3, kRowsTc = 4, kTf32 = 5 };
 
 bool tma_takes(const void* x, const void* wg, const void* wu, int h, int dtype) {
   return dtype == L32_BF16 && h > 0 && h % tma::kBK == 0 && aligned16(x) && aligned16(wg) &&
@@ -701,28 +879,29 @@ bool rows_tc_takes(const void* x, const void* wg, const void* wu, int rows, int 
 // rows kernel at most at 8 rows (the backward has none): the tensor-core
 // one where it takes the call, else the weight-streaming one; more rows in
 // bf16 take the TMA tile where it takes the call, else the wmma tile; fp32
-// the loop.
+// the fp32 tile.
 int pick(int kernel, const void* x, const void* wg, const void* wu, int rows, int h, int dtype,
          bool bwd) {
   const bool tma = tma_takes(x, wg, wu, h, dtype);
   const bool rows_tc = !bwd && rows_tc_takes(x, wg, wu, rows, h, dtype);
   if (kernel == kTma) return tma ? kTma : -1;
   if (kernel == kRowsTc) return rows_tc ? kRowsTc : -1;
+  if (kernel == kTf32) return dtype == L32_F32 ? kTf32 : -1;
   if ((kernel != kRouted && kernel != kRoutedBase) || (dtype != L32_BF16 && dtype != L32_F32))
     return -1;
   if (!bwd && rows <= kSmallRows) return kernel == kRouted && rows_tc ? kRowsTc : kRows;
-  if (dtype == L32_F32) return kLoop;
+  if (dtype == L32_F32) return kTf32;
   return kernel == kRouted && tma && rows > kSmallRows ? kTma : kWmma;
 }
 
 }  // namespace
 
 // kernel: -1 routes by shape (pick), -2 routes among the base kernels, 3
-// asks for the TMA tile, 4 for the tensor-core rows kernel, and a kernel
-// that does not take the call is an error. *launched is set to the kernel
-// launched (0 rows kernel, 1 wmma tile, 2 fp32 loop, 3 TMA tile, 4
-// tensor-core rows kernel), or -1 where none was (no rows or no columns, or
-// an error).
+// asks for the TMA tile, 4 for the tensor-core rows kernel, 5 for the fp32
+// tile, and a kernel that does not take the call is an error. *launched is
+// set to the kernel launched (0 rows kernel, 1 wmma tile, 3 TMA tile, 4
+// tensor-core rows kernel, 5 fp32 tile), or -1 where none was (no rows or no
+// columns, or an error).
 extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, void* out,
                               int rows, int h, int inter, int dtype, int kernel, int* launched,
                               void* stream) {
@@ -740,8 +919,8 @@ extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, voi
     launch_rows<float>(x, wg, wu, out, rows, h, inter, s);
   else if (kernel == kWmma)
     err = launch_tile<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
-  else if (kernel == kLoop)
-    err = launch_f32<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
+  else if (kernel == kTf32)
+    err = tf32::launch<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
   else
     err = tma::launch<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
   if (!err) err = static_cast<int>(cudaGetLastError());
@@ -762,8 +941,8 @@ extern "C" int l32_swiglu_bwd(const void* x, const void* wg, const void* wu, con
   int err;
   if (kernel == kWmma)
     err = launch_tile<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
-  else if (kernel == kLoop)
-    err = launch_f32<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
+  else if (kernel == kTf32)
+    err = tf32::launch<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
   else
     err = tma::launch<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
   if (!err) err = static_cast<int>(cudaGetLastError());

@@ -26,8 +26,8 @@ instantiation.
 
 Under autograd the float path is a ``torch.autograd.Function`` (the Pallas
 custom VJP ``_flash_train``): the forward with the log-sum-exp, then the dq
-and dk/dv kernels, all three on bf16 tensor cores for bf16; for fp32 the
-3xTF32 forward and dk/dv and the SIMT dq (``_route`` and ``_route_bwd``).
+and dk/dv kernels, all three on bf16 tensor cores for bf16, on 3xTF32
+tensor cores for fp32 (``_route`` and ``_route_bwd``).
 The int8-KV path is inference-only, as in the JAX package, and raises under
 autograd. On the CPU the same route picks each kernel's plain version.
 
@@ -116,8 +116,8 @@ def _route(dtype: torch.dtype, tq: int, group: int, int8_kv: bool, grad: bool) -
 def _route_bwd(dtype: torch.dtype) -> tuple:
     """The ``KERNELS`` names of the dq and dk/dv kernels a training call's
     backward goes through: the tensor-core pair for bf16, the fp32 pair (the
-    SIMT dq, the 3xTF32 dk/dv) for fp32 (and the fp64 of the gradient
-    checks, on the CPU)."""
+    3xTF32 dq and dk/dv) for fp32 (and the fp64 of the gradient checks, on
+    the CPU)."""
     if dtype == torch.bfloat16:
         return "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc"
     return "flash_attention_bwd_dq", "flash_attention_bwd_dkv"

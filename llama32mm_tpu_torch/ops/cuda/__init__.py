@@ -63,11 +63,13 @@ from llama32mm_tpu_torch.ops.cuda.swiglu import (
     fused_swiglu_bwd_cuda,
     fused_swiglu_bwd_plain,
     fused_swiglu_bwd_tc_cuda,
+    fused_swiglu_bwd_tf32_cuda,
     fused_swiglu_bwd_wmma_cuda,
     fused_swiglu_cuda,
     fused_swiglu_plain,
     fused_swiglu_rows_tc_cuda,
     fused_swiglu_tc_cuda,
+    fused_swiglu_tf32_cuda,
     fused_swiglu_wmma_cuda,
     swiglu_down_cuda,
     swiglu_down_plain,
@@ -106,6 +108,8 @@ KERNELS = {
     "swiglu_rows_tc": (fused_swiglu_rows_tc_cuda, fused_swiglu_plain),
     "gemv_int4_w4a8_tc": (gemv_int4_w4a8_tc_cuda, gemv_int4_w4a8_plain),
     "gemv_int8_tc": (gemv_int8_tc_cuda, gemv_int8_plain),
+    "swiglu_tf32": (fused_swiglu_tf32_cuda, fused_swiglu_plain),
+    "swiglu_bwd_tf32": (fused_swiglu_bwd_tf32_cuda, fused_swiglu_bwd_plain),
 }
 
 
@@ -122,8 +126,9 @@ def launch_counts() -> dict:
 def plain_counts() -> dict:
     """Each plain version's calls, once, under the first name KERNELS gives it
     (``qmatmul`` and ``qmatmul_tc`` share one, as do ``gemv`` and ``gemv_tc``,
-    ``swiglu``, ``swiglu_tc`` and ``swiglu_rows_tc``, ``swiglu_bwd`` and
-    ``swiglu_bwd_tc``, ``gemv_int4_w4a8`` and ``gemv_int4_w4a8_tc``,
+    ``swiglu``, ``swiglu_tc``, ``swiglu_rows_tc`` and ``swiglu_tf32``,
+    ``swiglu_bwd``, ``swiglu_bwd_tc`` and ``swiglu_bwd_tf32``,
+    ``gemv_int4_w4a8`` and ``gemv_int4_w4a8_tc``,
     ``gemv_int8`` and ``gemv_int8_tc``)."""
     names = {}
     for name, (_, plain) in KERNELS.items():

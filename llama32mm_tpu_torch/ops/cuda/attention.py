@@ -26,8 +26,8 @@ with ``p = exp(s / sqrt(hd) - lse)`` on allowed keys,
 ``ds = p (dO · v - delta) / sqrt(hd)`` and ``delta = rowsum(dO * O)``,
 ``dq = ds k``, ``dk = ds^T q`` and ``dv = p^T dO``, dk and dv summed over
 each kv head's group of q heads. The fp32 pair (``flash_attention_bwd_*``)
-keeps p and ds in fp32: dq on CUDA cores (``csrc/flash_attention.cu``), dk/dv
-on 3xTF32 tensor cores (``csrc/flash_attention_tf32.cu``); the bf16 pair
+keeps p and ds in fp32, both kernels on 3xTF32 tensor cores
+(``csrc/flash_attention_tf32.cu``); the bf16 pair
 (``flash_attention_bwd_*_tc``, ``csrc/flash_attention_bwd_tc.cu``) rounds p
 and ds to bf16 before the products, as the Pallas kernels round them to q's
 dtype.
@@ -269,9 +269,8 @@ def flash_attention_tc_lse_plain(
 
 def _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq: bool,
                 tc: bool = False):
-    """Launch the fp32-precision backward (fp32 or bf16): the SIMT dq
-    (``csrc/flash_attention.cu``) or the 3xTF32 dk/dv
-    (``csrc/flash_attention_tf32.cu``); or, with ``tc``, the bf16
+    """Launch the fp32-precision backward (fp32 or bf16): the 3xTF32 dq or
+    dk/dv (``csrc/flash_attention_tf32.cu``); or, with ``tc``, the bf16
     tensor-core one (``csrc/flash_attention_bwd_tc.cu``): dq, or (dk, dv)."""
     kvv, shape = _check(q, k, v, kv_valid)
     if tc and q.dtype != torch.bfloat16:
@@ -282,14 +281,14 @@ def _launch_bwd(q, k, v, kv_valid, q_offset, causal, lse, delta, dout, want_dq: 
     tail = (*shape, int(q_offset), int(bool(causal)))
     tail += (stream_of(q),) if tc else (dtype_code(q), stream_of(q))
     lib = load_library()
-    if not (tc or want_dq):
+    if not tc:
         q, k, v, dout = _aligned16(q, k, v, dout)
     operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kvv.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dout.data_ptr())
     kind = "tensor-core flash attention" if tc else "flash attention"
     if want_dq:
         dq = torch.empty_like(q)
-        fn = lib.l32_flash_attn_bwd_dq_tc if tc else lib.l32_flash_attn_bwd_dq
+        fn = lib.l32_flash_attn_bwd_dq_tc if tc else lib.l32_flash_attn_tf32_bwd_dq
         check(fn(*operands, dq.data_ptr(), *tail), f"{kind} dq kernel")
         return dq
     dk, dv = torch.empty_like(k), torch.empty_like(v)

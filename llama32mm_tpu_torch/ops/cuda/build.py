@@ -106,8 +106,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         #  launched kernel (out), stream)
         "l32_gemv": [p, p, p, i, i, i, i, i, p, p],
         # (x, w_gate, w_up, out, rows, hidden, inter, dtype, kernel (-1: routed, -2: routed
-        #  among the base kernels, 3: the TMA tile, 4: the tensor-core rows kernel), launched
-        #  kernel (out), stream)
+        #  among the base kernels, 3: the TMA tile, 4: the tensor-core rows kernel, 5: the fp32
+        #  tile), launched kernel (out), stream)
         "l32_swiglu_fwd": [p, p, p, p, i, i, i, i, i, p, p],
         # (x, w_gate, w_up, g, d_gate, d_up, rows, hidden, inter, dtype, kernel (as
         #  l32_swiglu_fwd's), launched kernel (out), stream)
@@ -116,8 +116,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         #  causal, dtype, stream); 3xTF32 tensor cores
         "l32_flash_attn_tf32_fwd": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (q, k, v, kv_valid, lse, delta, dout, dq, b, nq, nkv, tq, tk, hd, q_offset, causal,
-        #  dtype, stream)
-        "l32_flash_attn_bwd_dq": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
+        #  dtype, stream); 3xTF32 tensor cores
+        "l32_flash_attn_tf32_bwd_dq": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (q, k, v, kv_valid, lse, delta, dout, dk, dv, b, nq, nkv, tq, tk, hd, q_offset,
         #  causal, dtype, stream); 3xTF32 tensor cores
         "l32_flash_attn_tf32_bwd_dkv": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],

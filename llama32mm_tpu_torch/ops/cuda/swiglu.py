@@ -18,11 +18,14 @@ shape and report the kernel they launched. bf16 x with H a multiple of 64,
 fed by TMA), counted by ``fused_swiglu_tc_cuda`` / ``fused_swiglu_bwd_tc_cuda``;
 a bf16 forward with at most 8 rows, H a multiple of 32 and aligned operands
 the tensor-core rows kernel (``mma.sync``), counted by
-``fused_swiglu_rows_tc_cuda``; every other call the base kernels (the
-weight-streaming rows kernel for at most 8 rows in the forward, the wmma
-tile for other bf16 shapes, a loop for fp32), counted by
+``fused_swiglu_rows_tc_cuda``; an fp32 call with more than 8 rows, and
+every fp32 backward, the fp32 tile (3xTF32 ``mma.sync``), counted by
+``fused_swiglu_tf32_cuda`` / ``fused_swiglu_bwd_tf32_cuda``; every other
+call the base kernels (the weight-streaming rows kernel for at most 8 rows
+in the forward, the wmma tile for other bf16 shapes), counted by
 ``fused_swiglu_wmma_cuda`` / ``fused_swiglu_bwd_wmma_cuda``. Called
-directly, each of those five forces its own kernels.
+directly, each of those seven forces its own kernels (the base ones send
+fp32 calls above 8 rows to the fp32 tile: there is no other).
 """
 
 from __future__ import annotations
@@ -47,9 +50,10 @@ def _check(x, w_gate, w_up):
 
 
 # l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, route
-# among the base kernels, or ask for the TMA tile or the tensor-core rows
-# kernel (also the values they report when they launched those).
-ROUTED, ROUTED_BASE, TMA, ROWS_TC = -1, -2, 3, 4
+# among the base kernels, or ask for the TMA tile, the tensor-core rows
+# kernel or the fp32 tile (also the values they report when they launched
+# those).
+ROUTED, ROUTED_BASE, TMA, ROWS_TC, TF32 = -1, -2, 3, 4, 5
 
 
 def _forward(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, kernel: int):
@@ -65,6 +69,8 @@ def _forward(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, kernel: 
         fused_swiglu_tc_cuda.launches += 1
     elif launched.value == ROWS_TC:
         fused_swiglu_rows_tc_cuda.launches += 1
+    elif launched.value == TF32:
+        fused_swiglu_tf32_cuda.launches += 1
     elif launched.value >= 0:
         fused_swiglu_wmma_cuda.launches += 1
     return out
@@ -91,9 +97,16 @@ def fused_swiglu_rows_tc_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch
 
 
 @counted("launches")
+def fused_swiglu_tf32_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
+    """The fp32 tile (fp32 operands, any rows); raises for a call it does
+    not take."""
+    return _forward(x, w_gate, w_up, TF32)
+
+
+@counted("launches")
 def fused_swiglu_wmma_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
     """The weight-streaming rows kernel (at most 8 rows), else the wmma tile
-    (bf16) or the fp32 loop: any shape."""
+    (bf16; fp32 takes the fp32 tile): any shape."""
     return _forward(x, w_gate, w_up, ROUTED_BASE)
 
 
@@ -162,6 +175,8 @@ def _backward(x, w_gate, w_up, g, kernel: int):
     check(status, "swiglu backward kernel")
     if launched.value == TMA:
         fused_swiglu_bwd_tc_cuda.launches += 1
+    elif launched.value == TF32:
+        fused_swiglu_bwd_tf32_cuda.launches += 1
     elif launched.value >= 0:
         fused_swiglu_bwd_wmma_cuda.launches += 1
     return d_gate, d_up
@@ -182,8 +197,16 @@ def fused_swiglu_bwd_tc_cuda(x, w_gate, w_up, g):
 
 
 @counted("launches")
+def fused_swiglu_bwd_tf32_cuda(x, w_gate, w_up, g):
+    """The fp32 tile's backward (fp32 operands); raises for a call it does
+    not take."""
+    return _backward(x, w_gate, w_up, g, TF32)
+
+
+@counted("launches")
 def fused_swiglu_bwd_wmma_cuda(x, w_gate, w_up, g):
-    """The wmma tile's backward (bf16) or the fp32 loop: any shape."""
+    """The wmma tile's backward (bf16; fp32 takes the fp32 tile): any
+    shape."""
     return _backward(x, w_gate, w_up, g, ROUTED_BASE)
 
 

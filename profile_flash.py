@@ -8,7 +8,7 @@ Forwards: for each shape (the 11B decoder prefill, ViT-H, the server's
 kernel, the fp32 (3xTF32) forward on the same bf16 inputs and
 ``F.scaled_dot_product_attention`` (a yardstick the port never calls).
 Backwards: for each training shape (the 11B and 3B decoders at T=1632,
-ViT-H) the tensor-core dq and dk/dv kernels, the fp32 pair (SIMT dq, 3xTF32
+ViT-H) the tensor-core dq and dk/dv kernels, the fp32 pair (3xTF32 dq and
 dk/dv) and SDPA's autograd backward (dq, dk, dv). Each time is CUDA
 events around 20 back-to-back calls queued behind a ``torch.cuda._sleep``,
 so that the host's launch overhead is hidden and the number is device time;
@@ -131,8 +131,13 @@ def fp32_main(tree) -> int:
         "SDPA backward (dq, dk, dv), training T=1632":
             lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True),
     }
+    times = {}
     for what, fn in calls.items():
-        print(f"  {what:48s} {device_ms(fn):.6g} ms")
+        times[what] = device_ms(fn)
+        print(f"  {what:48s} {times[what]:.6g} ms")
+    pair = (times["flash_attention_bwd_dq, training T=1632"]
+            + times["flash_attention_bwd_dkv, training T=1632"])
+    print(f"  {'fp32 backward pair dq + dk/dv, training T=1632':48s} {pair:.6g} ms")
     return 0
 
 

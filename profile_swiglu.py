@@ -45,6 +45,21 @@ their own, the plain version and two ``F.linear`` calls (the products
 alone, a yardstick the port never calls), each beside its bound (the
 weights' bytes), the weights cycled past the L2 as above; then the sums
 over one decode step's 40 launches at 11B.
+
+    python3 profile_swiglu.py --fp32 [--tree DIR]
+
+instead times the fp32 SwiGLU at R = 1632, forward and backward, at the 11B
+(H=4096, I=14336) and 3B (H=3072, I=8192) widths: the routed entry
+(``fused_swiglu_cuda`` / ``fused_swiglu_bwd_cuda``, which the fp32 models
+call; it prints the kernel it launched) beside two fp32 ``F.linear`` calls
+on the same tensors (``x @ w_gate.T`` and ``x @ w_up.T`` in full fp32,
+``allow_tf32`` off as PyTorch's default: the products alone, a yardstick the
+port never calls) and the bound (operations as three TF32 products at 494.7
+TFLOP/s), with the same device timing. ``--tree DIR`` imports the port
+package and this script's helpers from another checkout (built into its own
+``build/``), so that one chip call can time a parent commit's kernels beside
+this tree's: run parent, tree, tree, parent. One call of a slow parent
+kernel may take a few hundred ms: the 20 timed calls then take seconds.
 """
 
 from __future__ import annotations
@@ -56,15 +71,19 @@ import subprocess
 import sys
 import time
 from functools import partial
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-import chip_smoke as cs
-from llama32mm_tpu_torch.inference.engine import InferenceEngine
-from llama32mm_tpu_torch.ops import cuda as kernels
-from llama32mm_tpu_torch.preprocess.image import preprocess_image_device
-from profile_qgemv import L2_SPAN, device_ms, kernel_rows
+if __name__ == "__main__" and "--tree" in sys.argv[1:]:  # another checkout's port package
+    sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()))
+
+import chip_smoke as cs  # noqa: E402
+from llama32mm_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
+from llama32mm_tpu_torch.ops import cuda as kernels  # noqa: E402
+from llama32mm_tpu_torch.preprocess.image import preprocess_image_device  # noqa: E402
+from profile_qgemv import L2_SPAN, device_ms, kernel_rows  # noqa: E402
 
 ROWS = 1632
 SHAPES = {  # label: (H, I, backward?)
@@ -75,6 +94,13 @@ SHAPES = {  # label: (H, I, backward?)
 PREFILL = {"11B forward H=4096 I=14336": 40}  # launches in one 11B prefill
 DECODE_SHAPES = {"11B H=4096 I=14336": (4096, 14336), "3B H=3072 I=8192": (3072, 8192)}
 DECODE_ROWS = (1, 8)
+FP32_SHAPES = {  # label: (H, I, backward?)
+    "11B forward H=4096 I=14336": (4096, 14336, False),
+    "11B backward H=4096 I=14336": (4096, 14336, True),
+    "3B forward H=3072 I=8192": (3072, 8192, False),
+    "3B backward H=3072 I=8192": (3072, 8192, True),
+}
+TF32X3_OPS = 494.7e12 / 3  # an fp32 product as three TF32 products at the dense TF32 rate
 
 
 def ttft(dev, card: str, reps: int = 5) -> None:
@@ -155,6 +181,44 @@ def decode_rows(dev, card: str) -> None:
     print(json.dumps({"card": card, "decode_device_ms": results, "decode_step_ms": steps}))
 
 
+def fp32_tiles(dev, card: str) -> None:
+    """The fp32 SwiGLU at R = 1632, as the module docstring says."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # F.linear in full fp32 (PyTorch's default)
+    tree = Path(kernels.__file__).resolve().parents[3]
+    print(f"kernels of {tree}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for label, (h, inter, bwd) in FP32_SHAPES.items():
+        x = torch.randn(ROWS, h, generator=gen, device=dev)
+        wg, wu = (torch.randn(inter, h, generator=gen, device=dev) * 0.02 for _ in range(2))
+        args = (x, wg, wu) + ((torch.randn(ROWS, inter, generator=gen, device=dev),) if bwd
+                              else ())
+        routed = kernels.fused_swiglu_bwd_cuda if bwd else kernels.fused_swiglu_cuda
+        plain = kernels.fused_swiglu_bwd_plain if bwd else kernels.fused_swiglu_plain
+        kernels.reset_counters()
+        got = routed(*args)
+        launched = {k: n for k, n in kernels.launch_counts().items() if n}
+        err, scale = cs.max_err(got, plain(*args))
+        ops = 4 * ROWS * h * inter
+        nbytes = 4 * (sum(t.numel() for t in args) + (2 if bwd else 1) * ROWS * inter)
+        bound_ms = 1e3 * max(ops / TF32X3_OPS, nbytes / 3.35e12)
+        row = {"launched": launched, "max_abs_err": err, "max_abs_plain": scale,
+               "bound_ms": bound_ms}
+        print(f"== fp32 {label} R={ROWS}: routed entry launched {launched}, |routed - plain| "
+              f"{err:.6g} of {scale:.6g} ({err / scale:.3g}); bound {bound_ms:.6g} ms "
+              f"(three TF32 products a product)")
+        calls = {"routed": [partial(routed, *args)],
+                 "F.linear x2 (fp32)": [lambda: (F.linear(x, wg), F.linear(x, wu))]}
+        for what, fns in calls.items():
+            ms = device_ms(fns)
+            row[what] = ms
+            print(f"  {what:22s} {ms:.6g} ms  (share of bound {bound_ms / ms:.4g})")
+        results[label] = row
+        del x, wg, wu, args, got
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "tree": str(tree), "rows": ROWS, "fp32_device_ms": results}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_swiglu: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -165,6 +229,9 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
     cs.build_library()
+    if "--fp32" in sys.argv[1:]:
+        fp32_tiles(dev, card)
+        return 0
     if "--ttft" in sys.argv[1:]:
         ttft(dev, card)
         return 0

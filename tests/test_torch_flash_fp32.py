@@ -1,12 +1,12 @@
 """The fp32 flash kernels' plain versions (the functions that the 3xTF32
-forward, its LSE and int8-KV instantiations and the dk/dv backward compute on
-the card) against the JAX package's Pallas kernels in fp32:
+forward, its LSE and int8-KV instantiations and the dq and dk/dv backward
+compute on the card) against the JAX package's Pallas kernels in fp32:
 ``_flash_forward(..., emit_lse=True)`` and ``_flash_backward``, interpret
 mode on the CPU. The cases sit at the edges the kernels' tiles create: hd
 32 / 64 / 96 / 128, Tq and Tk on both sides of the 64-row tiles, GQA groups
 3 and 4, a negative ``q_offset`` (a ring chunk wholly in the future) and one
 at or past Tk (a chunk wholly in the past), int8 K/V with fp32 q, and a fully
-masked row. Then the routes: fp32 calls reach the four fp32 kernels' names,
+masked row. Then the routes: fp32 calls reach the five fp32 kernels' names,
 bf16 calls never.
 
 Inputs come from numpy with a fixed seed. Tolerance: 1e-5 of the largest
@@ -28,7 +28,7 @@ from llama32mm_tpu_torch.utils.kvcache import quantize_kv
 
 TOL = 1e-5
 FP32_KERNELS = ("flash_attention", "flash_attention_int8kv", "flash_attention_lse",
-                "flash_attention_bwd_dkv")
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 # (b, nq, nkv, tq, tk, hd, q_offset, causal, key validity)
 CASES = {
@@ -122,6 +122,28 @@ def test_fp32_dkv_matches_pallas(case):
     _close(dv, want_dv)
     if q_offset < 0 and causal:
         assert not dk.any() and not dv.any()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fp32_dq_matches_pallas(case):
+    """``flash_attention_bwd_dq``: each side fed its own forward's output
+    and LSE; a row with no allowed key (and every row of a chunk wholly in
+    the future) gets dq exactly 0."""
+    q, k, v, do, kv_valid, q_offset, causal = _inputs(case)
+    want_out, want_lse = _jax_forward(q, k, v, kv_valid, q_offset, causal)
+    want_dq, _, _ = _flash_backward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv_valid), q_offset, want_out,
+        want_lse, jnp.asarray(do), causal, 64, 128)
+    out, lse = kernels.flash_attention_fwd_lse_plain(_t(q), _t(k), _t(v), _t(kv_valid), q_offset,
+                                                     causal)
+    delta = (_t(do) * out).sum(-1)
+    dq = kernels.flash_attention_bwd_dq_plain(_t(q), _t(k), _t(v), _t(kv_valid), q_offset, causal,
+                                              lse, delta, _t(do))
+    _close(dq, want_dq)
+    empty = (lse <= NEG_BIG / 2).reshape(-1)
+    assert not dq.reshape(-1, q.shape[-1])[empty].any()
+    if q_offset < 0 and causal:
+        assert empty.all()
 
 
 @pytest.mark.parametrize("case", ["hd32_group4_tq_tk_cross_64", "hd128_group3_negative_offset",

@@ -113,14 +113,14 @@ def _cpu_args(name):
         return x, torch.ones(16), 1e-5
     if name == "rmsnorm_bwd":
         return x, x, torch.ones(16), torch.ones(3)
-    if name in ("swiglu_bwd", "swiglu_bwd_tc"):
+    if name in ("swiglu_bwd", "swiglu_bwd_tc", "swiglu_bwd_tf32"):
         return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(3, 8)
     if name.startswith("flash_attention_bwd"):
         q, lse = torch.randn(1, 2, 3, 16), torch.zeros(1, 2, 3)
         return q, q, q, torch.ones(1, 3), 0, True, lse, lse, q
     if name in ("gemv", "gemv_tc"):
         return x, torch.randn(8, 16)
-    if name in ("swiglu", "swiglu_tc", "swiglu_rows_tc"):
+    if name in ("swiglu", "swiglu_tc", "swiglu_rows_tc", "swiglu_tf32"):
         return x, torch.randn(8, 16), torch.randn(8, 16)
     if name == "swiglu_down":
         return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(16, 8)
