@@ -255,17 +255,24 @@ fp32 tile case there, and rows 0-96 of each R=1632 call (all rows of a
 smaller one) equal an R=97 call.
 The tensor-core SwiGLU rows kernel and W4A8 gemv get the same three checks
 as the tensor-core gemv (routed by the model's entry, two calls bit-equal,
-each row of an R > 1 call equal to its R = 1 call), and so does the tensor-
-core int8 gemv, with a case whose x starts 2 bytes off alignment that the
-model's entry must route to the CUDA-core int8 gemv; the TMA SwiGLU backward
-one case whose cotangent starts at an odd element; two calls of each RMSNorm
-backward case give the same bits (dt, and dw when asked for). Every bf16
+each row of an R > 1 call equal to its R = 1 call), and so do the CUDA-core
+SwiGLU rows kernel (fp32 at the 11B widths, R = 1, 2, 5, 8; H=100; x one
+element into its buffer; bf16 ragged H) and the tensor-core int8 gemv, with
+a case whose x starts 2 bytes off alignment that the model's entry must
+route to the CUDA-core int8 gemv; the TMA SwiGLU backward one case whose
+cotangent starts at an odd element; two calls of each RMSNorm backward case
+give the same bits (dt, and dw when asked for); two calls of each SwiGLU +
+down case give the same bits and each row of an R > 1 call equals its R = 1
+call (bf16 and fp32 at the 11B widths, the 3B's in bf16, ragged I and
+rows), and the bf16 and fp32 11B cases print their time beside the unfused
+SwiGLU + gemv pair's. The fp32 cases of the rows kernel and of SwiGLU +
+down are held to 1e-5 of max|plain|. Every bf16
 path at 11B and 3B must launch the new kernels and never an fp32 flash
 forward or backward, nor the wmma dequantizing GEMM, nor a CUDA-core gemv;
 the bf16 generate and server launch the tensor-core gemv 201 times a decode
 step (and once for each prefill's head), the TMA SwiGLU tile 40 times a
 prefill and the tensor-core SwiGLU rows kernel 40 times a decode step, never
-the weight-streaming rows kernel or the wmma tile; the 3B full fine-tuning
+the CUDA-core rows kernel or the wmma tile; the 3B full fine-tuning
 never the wmma tile.
 
 Each kernel case also reports its bound (the larger of the bytes it must
@@ -443,6 +450,7 @@ KERNEL_INFO = {
     "swiglu_tf32": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:69"),
     "swiglu_bwd_tf32": ("llama32mm_tpu_torch/csrc/swiglu.cu",
                         "llama32mm_tpu/ops/pallas/swiglu.py:136"),
+    "swiglu_rows": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:69"),
 }
 # Pallas functions a kernel folds in beside the one it is listed against, and
 # the pl.pallas_call sites that its Pallas functions reach.
@@ -458,6 +466,7 @@ ALSO_REPLACES = {
     "swiglu_rows_tc": [_P + "swiglu.py:98"],
     "swiglu_tf32": [_P + "swiglu.py:98"],
     "swiglu_bwd_tf32": [_P + "swiglu.py:98"],
+    "swiglu_rows": [_P + "swiglu.py:98"],
     "swiglu_down": [_P + "swiglu.py:255"],
     "flash_attention": [_P + "attention.py:198"],
     "flash_attention_int8kv": [_P + "attention.py:198"],
@@ -491,7 +500,7 @@ ALSO_REPLACES = {
 # linears through the tensor-core gemv, the bf16 prefill's SwiGLU through
 # the TMA tile and its decode SwiGLU (at most 8 rows) through the
 # tensor-core rows kernel (run_11b and run_server hold both to their counts,
-# and "swiglu", the base rows kernel and the wmma tile, to 0), the int4
+# and the CUDA-core rows kernel and the wmma tile to 0), the int4
 # server's W4A8 gemvs through the tensor-core W4A8 kernel, and every int8
 # decode linear through the tensor-core int8 gemv (run_11b and run_server
 # hold it to its count, path_faults the CUDA-core one to 0).
@@ -583,10 +592,11 @@ FP32_FORWARD = ("flash_attention", "flash_attention_int8kv", "flash_attention_ls
 FP32_BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 FP32_SWIGLU = ("swiglu_tf32", "swiglu_bwd_tf32")
 # The tiny fp32 model's paths: float (a 12-token prefill's SwiGLU on the
-# 3xTF32 tile, decode's on the rows kernel), and quantized: a 40-token
-# prefill over the int8 cache (3xTF32), the 5-token ViT and decode (split-KV).
+# 3xTF32 tile, decode's on the CUDA-core rows kernel), and quantized: a
+# 40-token prefill over the int8 cache (3xTF32), the 5-token ViT and decode
+# (split-KV).
 TINY_KERNELS = {
-    "fp32": ("rmsnorm", "gemv", "swiglu", "swiglu_tf32", "flash_decode"),
+    "fp32": ("rmsnorm", "gemv", "swiglu_rows", "swiglu_tf32", "flash_decode"),
     "int8": ("rmsnorm", "gemv_int8", "qmatmul", "flash_attention_int8kv", "flash_decode",
              "flash_decode_int8kv"),
     "int4_mixed": ("rmsnorm", "gemv_int8", "gemv_int4", "qmatmul", "flash_attention_int8kv",
@@ -618,11 +628,13 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
 def swiglu_faults(launches: dict, layers: int, prefills: int, decode_steps: int) -> list:
     """A bf16 generate's or server's SwiGLU launches: the TMA tile once a
     layer per prefill, the tensor-core rows kernel once a layer per decode
-    step, and "swiglu" (the base rows kernel, or the wmma tile) never."""
-    want = {"swiglu_tc": layers * prefills, "swiglu_rows_tc": layers * decode_steps, "swiglu": 0}
+    step, and the CUDA-core rows kernel and the wmma tile never."""
+    want = {"swiglu_tc": layers * prefills, "swiglu_rows_tc": layers * decode_steps,
+            "swiglu_rows": 0, "swiglu": 0}
     log(f"SwiGLU launches: TMA tile {launches['swiglu_tc']} (want {want['swiglu_tc']}), "
         f"tensor-core rows kernel {launches['swiglu_rows_tc']} (want {want['swiglu_rows_tc']}), "
-        f"base rows kernel or wmma tile {launches['swiglu']} (want 0)")
+        f"CUDA-core rows kernel {launches['swiglu_rows']} (want 0), wmma tile "
+        f"{launches['swiglu']} (want 0)")
     return [f"launched {k} {launches[k]} times, not {n}" for k, n in want.items()
             if launches[k] != n]
 
@@ -772,14 +784,14 @@ def kernel_cases(dev, gen):
         ("gemv_tc", "ragged N R=5 N=1000 K=4096", (rnd(5, h), rnd(1000, h, scale=0.02)), False),
         ("swiglu", "prefill R=1632 H=4096 I=14336",
          (rnd(1632, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), True),
-        ("swiglu", "decode R=1 H=4096 I=14336",
-         (rnd(1, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), False),
-        ("swiglu", "server decode rows R=8 H=4096 I=14336",
-         (rnd(8, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), False),
         ("swiglu", "ragged R=33 H=100 I=200",
          (rnd(33, 100), rnd(200, 100, scale=0.1), rnd(200, 100, scale=0.1)), False),
-        ("swiglu", "ragged decode rows R=3 H=100 I=200",
+        ("swiglu", "decode rows R=3 H=4096 I=14336",
+         (rnd(3, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), False),
+        ("swiglu_rows", "ragged H R=3 H=100 I=200",
          (rnd(3, 100), rnd(200, 100, scale=0.1), rnd(200, 100, scale=0.1)), False),
+        ("swiglu_rows", "ragged H R=8 H=4100 I=14336",
+         (rnd(8, 4100), rnd(inter, 4100, scale=0.02), rnd(inter, 4100, scale=0.02)), False),
         ("swiglu_tc", "prefill R=1632 H=4096 I=14336",
          (rnd(1632, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), True),
         ("swiglu_tc", "3B prefill R=1632 H=3072 I=8192",
@@ -1181,6 +1193,31 @@ def fp32_swiglu_cases(dev, gen):
         if r > 8:  # the forward's rows kernel takes 8 rows or fewer
             cases.append(("swiglu_tf32", label, (x, wg, wu), main))
         cases.append(("swiglu_bwd_tf32", label, (x, wg, wu, g), main))
+    return cases + fp32_rows_cases(rnd, off)
+
+
+def fp32_rows_cases(rnd, off):
+    """The kernels of at most 8 rows on fp32 inputs: the CUDA-core SwiGLU rows
+    kernel at the 11B widths at R = 1, 2, 5 and 8 (the main case, the server's
+    8 slots), H=100 (element loads) and x one element into its buffer; the
+    SwiGLU + down fusion at the 11B widths at R = 1 and 8 and a ragged R=9
+    call (two blocks of rows, I not a multiple of its tile)."""
+    h, inter = 4096, 14336
+    wg, wu = rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)
+    wd = rnd(h, inter, scale=0.01)
+    cases = [("swiglu_rows", f"fp32 {'server ' if r == 8 else ''}decode R={r} H=4096 I=14336",
+              (rnd(r, h), wg, wu), r == 8) for r in (1, 2, 5, 8)]
+    cases += [
+        ("swiglu_rows", "fp32 ragged H R=3 H=100 I=200",
+         (rnd(3, 100), rnd(200, 100, scale=0.1), rnd(200, 100, scale=0.1)), False),
+        ("swiglu_rows", "fp32 x offset by one element R=4 H=256 I=300",
+         (off(4, 256), rnd(300, 256, scale=0.1), rnd(300, 256, scale=0.1)), False),
+    ]
+    cases += [("swiglu_down", f"fp32 R={r} H=4096 I=14336", (rnd(r, h), wg, wu, wd), False)
+              for r in (1, 8)]
+    cases.append(("swiglu_down", "fp32 ragged I R=9 H=96 I=200",
+                  (rnd(9, 96), rnd(200, 96, scale=0.1), rnd(200, 96, scale=0.1),
+                   rnd(96, 200, scale=0.1)), False))
     return cases
 
 
@@ -1307,6 +1344,9 @@ def server_kernel_cases(rnd, q4, q4_stepped, kv8):
         ("swiglu_down", "R=8 H=4096 I=14336",
          (rnd(8, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02),
           rnd(h, inter, scale=0.01)), False),
+        ("swiglu_down", "3B R=8 H=3072 I=8192",
+         (rnd(8, 3072), rnd(8192, 3072, scale=0.02), rnd(8192, 3072, scale=0.02),
+          rnd(3072, 8192, scale=0.01)), False),
         ("swiglu_down", "ragged I R=9 H=96 I=200",
          (rnd(9, 96), rnd(200, 96, scale=0.1), rnd(200, 96, scale=0.1), rnd(96, 200, scale=0.1)),
          False),
@@ -1510,6 +1550,16 @@ def fp32_case(name, args) -> bool:
             and args[0].dtype == torch.float32)
 
 
+# The SwiGLU kernels of at most 8 rows a block whose fp32 cases run on the
+# CUDA cores: held to FP32_TOL too (fp32 sums on both sides, in other orders).
+FP32_SIMT_SWIGLU = ("swiglu_rows", "swiglu_down")
+
+
+def held_to_fp32_tol(name, args) -> bool:
+    """A case compared with its plain version at FP32_TOL, not TOL."""
+    return fp32_case(name, args) or (name in FP32_SIMT_SWIGLU and args[0].dtype == torch.float32)
+
+
 def bound(name, args, out, cuda_cores: bool = False):
     """``(bound_ms, bound_by)``: the larger of the bytes the function must
     move (each input read once, each output written once; for causal
@@ -1659,6 +1709,7 @@ ROUTED_BY = {
     "qmatmul_tc": kernels.qmatmul_cuda,
     "swiglu_tf32": kernels.fused_swiglu_cuda,
     "swiglu_bwd_tf32": kernels.fused_swiglu_bwd_cuda,
+    "swiglu_rows": kernels.fused_swiglu_cuda,
 }
 
 
@@ -1717,7 +1768,7 @@ def compare_kernels(dev, only=None) -> dict:
         got, want = wrapper(*args), plain(*args)
         torch.cuda.synchronize()
         err, scale = max_err(got, want)
-        tol = FP32_TOL if fp32_case(name, args) else TOL
+        tol = FP32_TOL if held_to_fp32_tol(name, args) else TOL
         if not err <= tol * scale:
             failures.append(f"{name} [{label}] disagrees with its plain version: "
                             f"{err} > {tol} * {scale}")
@@ -1733,6 +1784,10 @@ def compare_kernels(dev, only=None) -> dict:
             check_same_bits(name, label, wrapper, args, got)
         if name == "gemv_int4" and label.startswith("w_gate R="):
             check_gemv_rows_alone(name, label, wrapper, args, got)
+        if name == "swiglu_down":  # tiles from I alone, sums in a fixed order
+            check_same_bits(name, label, wrapper, args, got)
+            if args[0].shape[0] > 1:
+                check_gemv_rows_alone(name, label, wrapper, args, got)
         if name in HD8_RACE and label.startswith("hd=8"):  # the zero-fill race, repaired
             check_same_bits(name, label, wrapper, args, got, calls=49)
         if routed_entry(name, label) is not None:
@@ -1741,6 +1796,12 @@ def compare_kernels(dev, only=None) -> dict:
         lib_ms = library_ms(name, label, args)
         bound_ms, bound_by = bound(name, args, want)
         times[name, label] = (ms, lib_ms)
+        if name == "swiglu_down" and args[0].shape[0] <= 8 and args[0].shape[-1] == 4096:
+            # the yardstick: the unfused pair a decode step runs instead
+            pair_ms = time_ms(lambda: kernels.gemv_cuda(kernels.fused_swiglu_cuda(*args[:3]),
+                                                        args[3]))
+            log(f"yardstick swiglu_down [{label}]: fused {ms:.6g} ms, SwiGLU + gemv {pair_ms:.6g}"
+                f" ms ({'no slower' if ms <= pair_ms else 'SLOWER'} than the pair)")
         rate = ""
         if fp32_case(name, args):
             rate = f" cuda_core_bound_ms={bound(name, args, want, cuda_cores=True)[0]:.6g}"
@@ -2868,7 +2929,7 @@ def spec_launches(tc, k: int, steps: int, prompt_len: int, draft_cfg=None):
         prefill["gemv_tc"] += 5 * dl * (prompt_len <= 32)
         prefill["swiglu_tc"] += dl
     want = {name: n * steps + prefill.get(name, 0) for name, n in per_step.items()}
-    return {**want, "swiglu_tc": prefill["swiglu_tc"], "swiglu": 0}, per_step
+    return {**want, "swiglu_tc": prefill["swiglu_tc"], "swiglu_rows": 0, "swiglu": 0}, per_step
 
 
 def run_11b_spec(dev, cfg, model, path: str, spec: dict, image: bool = True,
@@ -3142,14 +3203,15 @@ def run_server(dev, cfg, model, path: str, kv_dtype=None, spec_lookup: int = 0,
     if path == "server_bf16_lora":  # 7 linears a layer and the head, the FFN unfused
         want = {"gemv_tc": (7 * tc.n_layers + 1) * steps + len(rids),
                 "flash_decode": tc.n_layers * steps,
-                "swiglu_tc": 0, "swiglu_rows_tc": 0, "swiglu": 0}
+                "swiglu_tc": 0, "swiglu_rows_tc": 0, "swiglu_rows": 0, "swiglu": 0}
         log(f"[{path}] exact launches over {steps} decode steps and {len(rids)} prefills: {want}")
         faults += [f"launched {name} {launches[name]} times, not {n}"
                    for name, n in want.items() if launches[name] != n]
     if path == "server_bf16_spec":  # 8 x (K+1) = 32 rows a verify: the gemv, the TMA tile
         want = {"gemv_tc": (5 * tc.n_layers + 1) * steps + len(rids),
                 "flash_decode": tc.n_layers * steps,
-                "swiglu_tc": tc.n_layers * (steps + len(rids)), "swiglu_rows_tc": 0, "swiglu": 0}
+                "swiglu_tc": tc.n_layers * (steps + len(rids)), "swiglu_rows_tc": 0,
+                "swiglu_rows": 0, "swiglu": 0}
         log(f"[{path}] exact launches over {steps} verify steps and {len(rids)} prefills: "
             f"{want}")
         faults += [f"launched {name} {launches[name]} times, not {n}"
@@ -3416,8 +3478,8 @@ def run_qlora_11b(dev, cfg, qmodel, path: str) -> dict:
     want = qlora_launches(tc.n_layers, steps=3)
     faults += [f"launched {k} {launches[k]} times, not {n}" for k, n in want.items()
                if launches[k] != n]
-    faults += [f"launched {k} {launches[k]} times" for k in ("swiglu", "swiglu_tc", "gemv_tc")
-               if launches[k]]
+    faults += [f"launched {k} {launches[k]} times"
+               for k in ("swiglu", "swiglu_rows", "swiglu_tc", "gemv_tc") if launches[k]]
     if not all(math.isfinite(x) for x in losses):
         faults.append(f"non-finite loss {losses}")
     if not torch.equal(quantized_checksums(qmodel), before):
@@ -3879,7 +3941,7 @@ def tiny_tp_tokens(model, cfg, dev, px, prompts) -> dict:
 # kernels its path must launch (prompts of at most 24 rows: every quantized
 # linear is a gemv; tp_11b_int4_mixed runs the prefill GEMM)
 TINY_TP_WEIGHTS = {
-    "fp32": (None, ("rmsnorm", "gemv", "swiglu", "swiglu_tf32", "flash_decode",
+    "fp32": (None, ("rmsnorm", "gemv", "swiglu_rows", "swiglu_tf32", "flash_decode",
                     "flash_decode_int8kv")),
     "int8": (dict(bits=8), ("rmsnorm", "gemv_int8", "flash_decode", "flash_decode_int8kv")),
     "int4_mixed": (dict(bits=4, group_size=32, recipe=INT4_MIXED_RECIPE),
@@ -3902,10 +3964,10 @@ def tiny_tp_model(cfg, dev, weights: str):
 # the fp32 flash kernels and the 3xTF32 SwiGLU tile, forward and backward)
 TINY_FEATURE_KERNELS = {
     "tp_tiny_bank": ("rmsnorm", "gemv", "flash_decode"),
-    "tp_tiny_draft": ("rmsnorm", "gemv", "swiglu", "swiglu_tf32", "flash_decode"),
-    "tp_tiny_http": ("rmsnorm", "gemv", "swiglu", "swiglu_tf32", "flash_decode"),
+    "tp_tiny_draft": ("rmsnorm", "gemv", "swiglu_rows", "swiglu_tf32", "flash_decode"),
+    "tp_tiny_http": ("rmsnorm", "gemv", "swiglu_rows", "swiglu_tf32", "flash_decode"),
     "tp_tiny_vit_dropout": TRAIN_KERNELS + FP32_SWIGLU,
-    "tp_tiny_dp_server": ("rmsnorm", "gemv", "swiglu", "swiglu_tf32", "flash_decode",
+    "tp_tiny_dp_server": ("rmsnorm", "gemv", "swiglu_rows", "swiglu_tf32", "flash_decode",
                           "flash_decode_int8kv"),
 }
 TINY_VIT_DROPOUT = 0.25
@@ -4055,7 +4117,7 @@ def tiny_feature_faults(path: str, results: list) -> list:
             faults.append(f"{path} rank {r} ran plain versions {res['plain']}")
     if path == "tp_tiny_bank":  # gate/up adapters: the FFN unfused
         faults += [f"{path} rank {r} launched {k} {res['launches'][k]} times"
-                   for r, res in enumerate(results) for k in ("swiglu", "swiglu_tf32")
+                   for r, res in enumerate(results) for k in ("swiglu_rows", "swiglu_tf32")
                    if res["launches"][k]]
     return faults
 
@@ -4315,7 +4377,7 @@ def tp_11b_features(rank, dev, cfg, model, reqs) -> dict:
         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "faults": path_faults("server_bf16_lora", launches, plain)
         + [f"launched {k} {launches[k]} times with a gate/up bank"
-           for k in ("swiglu", "swiglu_tc", "swiglu_rows_tc") if launches[k]]}
+           for k in ("swiglu", "swiglu_rows", "swiglu_tc", "swiglu_rows_tc") if launches[k]]}
     del srv, bank
     free_device_memory()
 

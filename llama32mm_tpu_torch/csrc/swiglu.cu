@@ -40,24 +40,39 @@
 // 2. With at most 8 rows (decode), bf16 x with H a multiple of 32 and
 //    16-byte-aligned x and weights take the tensor-core rows kernel
 //    (swiglu_rows_tc_kernel): gemv.cu's swap-AB mma.sync m16n8k16 form with
-//    two A streams. 16 intermediate columns of gate and of up are the M side
+//    two A streams (swiglu_rows.cuh::gate_up_tc, shared with the SwiGLU +
+//    down fusion). 16 intermediate columns of gate and of up are the M side
 //    of two products and the <= 8 rows of x the N side, so a lane's x
-//    fragment feeds four products and x is read once per 16 columns (the
-//    weight-streaming kernel below reads it once per column: at R = 8 as
-//    many x bytes through L1/L2 as weight bytes and 128 FMAs per two weight
-//    loads, issue-bound at 38% of the bound). 16-byte weight loads with the
-//    L2::256B hint, 4 spans in flight a lane (108 registers, no spills; 2
-//    spans lost 3% at R = 1), warps from tc_warps (8 at I = 14336) taking
-//    fixed spans of H, gate and up summed in warp order in shared memory,
-//    silu(gate) * up in fp32, one rounding: a row's bits never depend on R.
+//    fragment feeds four products and x is read once per 16 columns.
+//    16-byte weight loads with the L2::256B hint, 4 spans in flight a lane
+//    (108 registers, no spills; 2 spans lost 3% at R = 1), warps from
+//    tc_warps (8 at I = 14336) taking fixed spans of H, gate and up summed in
+//    warp order in shared memory, silu(gate) * up in fp32, one rounding: a
+//    row's bits never depend on R.
 //    Measured (profile_swiglu.py --rows, device time, NVIDIA H100 80GB HBM3
-//    at 700 W, H = 4096, I = 14336): 0.0848 ms at R = 8 (the
-//    weight-streaming kernel 0.1859, the plain version 0.1027, two F.linear
-//    0.0837, bound 0.0702), 0.0813 at R = 1 (weight-streaming 0.0788).
+//    at 700 W, H = 4096, I = 14336): 0.0848 ms at R = 8 (the plain version
+//    0.1027, two F.linear 0.0837, bound 0.0702), 0.0813 at R = 1.
 //    Other calls of at most 8 rows (fp32, ragged H, misaligned pointers)
-//    take the weight-streaming form: one warp per output column i reads
-//    wg[i, :] and wu[i, :] with 16-byte loads, applies them to every row of
-//    x, reduces both fp32 sums with shuffles and writes silu(g) * u.
+//    take the rows kernel (swiglu_rows_kernel) on the CUDA cores: a warp owns
+//    4 intermediate columns of gate and of up (swiglu_rows.cuh::
+//    gate_up_simt) and streams their 8 weight rows with 16-byte loads (the
+//    next span's in flight during this one's products), reading each row of
+//    x once a span for all 8 (it replaced a kernel that gave each column its
+//    own warp, which re-read x for every column: at R = 8 and the fp32 11B
+//    widths 1.88 GB of x through L1/L2 against 470 MB of weights). At R = 8,
+//    fp32, 2 R H I FMAs are 20% of the weights' byte time at 67 TFLOP/s: no
+//    tensor cores. The partial sums are reduce-scattered over the warp, so
+//    each lane writes one output.
+//    Measured (profile_swiglu.py --rows --fp32, device time, NVIDIA H100 80GB
+//    HBM3 at 700 W, fp32, H = 4096, I = 14336, bound 0.1402 ms): 0.1526-0.1577
+//    ms at R = 1, 0.1540-0.1598 at R = 2, 0.1716-0.1755 at R = 5, 0.1943-0.1980
+//    at R = 8 (the replaced kernel 0.1531-0.1579 / 0.1558-0.1629 /
+//    0.2320-0.2434 / 0.2823-0.2917; two fp32 F.linear 0.1624-0.1685 /
+//    0.1919-0.2006 / 0.2023-0.2055 / 0.2868-0.2894). At R = 8 a lane's 64
+//    sums and two spans of weights take 151 registers, 12 warps an SM: the
+//    loads in flight do not cover the products (2 R H I FMAs, 28 us at the
+//    CUDA cores' peak). Tried and slower: L2 prefetches of later spans (254
+//    registers), a per-warp cp.async ring (0.45 ms), 128 registers (spills).
 // 3. Other bf16 shapes (ragged H, misaligned pointers) take the wmma tile
 //    (swiglu_bf16_kernel): a 128 x 64 output tile, eight warps (4 x 2, 32 x
 //    32 each) of bf16 16x16x16 mma.sync (nvcuda::wmma) into fp32
@@ -104,6 +119,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "swiglu_rows.cuh"
 #include "tf32.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
@@ -122,8 +138,6 @@ constexpr int kRingBytes = 2 * kStageElems * 2;        // two stages of bf16
 constexpr int kEpilogueBytes = BM * LDC * 4;
 constexpr int kSmemBytes = kRingBytes > kEpilogueBytes ? kRingBytes : kEpilogueBytes;
 static_assert(kSmemBytes <= 48 * 1024, "static shared memory limit");
-
-__device__ __forceinline__ float silu(float g) { return g / (1.f + expf(-g)); }
 
 // The backward epilogue on one (gate, up, g) triple: d_gate, d_up.
 __device__ __forceinline__ void swiglu_grad(float gate, float up, float g, float& d_gate,
@@ -287,60 +301,32 @@ swiglu_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
 }
 
 constexpr int kSmallRows = 8;
-constexpr int kRowWarps = 4;
 
+// ---------------------------------------------------------------------------
+// The rows kernel: at most 8 rows of fp32, or of bf16 that the tensor-core
+// rows kernel does not take (H not a multiple of 32, misaligned pointers).
+// ---------------------------------------------------------------------------
+constexpr int kRowWarps = 4;  // warps a block
+
+// A warp owns kSimtCols intermediate columns of gate and of up
+// (swiglu_rows.cuh::gate_up_simt): its lanes read x once a span for all of
+// them, then the 2 x kSimtCols x MAXR partial sums are reduce-scattered, so
+// lane r * kSimtCols + c ends with column c of row r and writes
+// silu(gate) * up, formed in fp32 and rounded once.
 template <typename T, int MAXR, bool kVec>
 __global__ void __launch_bounds__(kRowWarps * 32)
 swiglu_rows_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __restrict__ wu,
                    T* __restrict__ out, int rows, int h, int inter) {
+  constexpr int NV = kSimtCols * MAXR;
   const int lane = threadIdx.x & 31;
-  const int col = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
-  if (col >= inter) return;
-  const T* gr = wg + static_cast<size_t>(col) * h;
-  const T* ur = wu + static_cast<size_t>(col) * h;
-  constexpr int V = Vec16<T>::N;
-
-  float ag[MAXR], au[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) ag[r] = au[r] = 0.f;
-
-  if (kVec) {
-    for (int c = lane * V; c < h; c += 32 * V) {
-      const Vec16<T> gv = load16(gr + c), uv = load16(ur + c);
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        if (r < rows) {
-          const Vec16<T> xv = load16(x + static_cast<size_t>(r) * h + c);
-#pragma unroll
-          for (int j = 0; j < V; ++j) {
-            const float xf = to_f32(xv[j]);
-            ag[r] = fmaf(xf, to_f32(gv[j]), ag[r]);
-            au[r] = fmaf(xf, to_f32(uv[j]), au[r]);
-          }
-        }
-      }
-    }
-  } else {
-    for (int c = lane; c < h; c += 32) {
-      const float g = to_f32(gr[c]), u = to_f32(ur[c]);
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        if (r < rows) {
-          const float xf = to_f32(x[static_cast<size_t>(r) * h + c]);
-          ag[r] = fmaf(xf, g, ag[r]);
-          au[r] = fmaf(xf, u, au[r]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    if (r < rows) {
-      const float g = warp_sum(ag[r]), u = warp_sum(au[r]);
-      if (lane == 0) out[static_cast<size_t>(r) * inter + col] = from_f32<T>(silu(g) * u);
-    }
-  }
+  const int col0 = (blockIdx.x * kRowWarps + (threadIdx.x >> 5)) * kSimtCols;
+  if (col0 >= inter) return;
+  float g[NV], u[NV];
+  gate_up_simt<T, MAXR, kVec>(x, wg, wu, rows, h, inter, col0, g, u);
+  const float gs = reduce_scatter<NV>(g), us = reduce_scatter<NV>(u);
+  const int r = (lane % NV) / kSimtCols, col = col0 + lane % kSimtCols;
+  if (lane < NV && r < rows && col < inter)
+    out[static_cast<size_t>(r) * inter + col] = from_f32<T>(silu(gs) * us);
 }
 
 template <typename T, int MAXR>
@@ -348,11 +334,13 @@ void launch_rows_r(const void* x, const void* wg, const void* wu, void* out, int
                    int inter, cudaStream_t s) {
   const bool vec = h % Vec16<T>::N == 0 && aligned16(x) && aligned16(wg) && aligned16(wu);
   auto kernel = vec ? swiglu_rows_kernel<T, MAXR, true> : swiglu_rows_kernel<T, MAXR, false>;
-  kernel<<<(inter + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0, s>>>(
+  constexpr int kCols = kRowWarps * kSimtCols;
+  kernel<<<(inter + kCols - 1) / kCols, kRowWarps * 32, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(wg), static_cast<const T*>(wu),
       static_cast<T*>(out), rows, h, inter);
 }
 
+// The smallest instantiation that holds the rows (registers: the sums).
 template <typename T>
 void launch_rows(const void* x, const void* wg, const void* wu, void* out, int rows, int h,
                  int inter, cudaStream_t s) {
@@ -366,18 +354,12 @@ void launch_rows(const void* x, const void* wg, const void* wu, void* out, int r
 // The tensor-core rows kernel: bf16 x with at most 8 rows, H a multiple of
 // 32, 16-byte-aligned x and weights (every decode step of the bf16 models).
 // ---------------------------------------------------------------------------
-constexpr int kRowsTcUnroll = 4;  // spans whose weight loads a lane keeps in flight
 
-// gemv.cu's gemv_bf16_tc_kernel with two A streams. One m16 tile: 16
-// intermediate columns (rows of both weights); one n8 tile: the <= 8 rows of
-// x. A span is 32 k: lane (gid, t) loads 16 bytes of gate rows gid and
-// gid + 8, of up rows gid and gid + 8, and of x row gid at k 8t, and each
-// pair of weight words feeds one product as loaded (see gemv.cu), so the
-// lane's x fragment serves four products, two into the gate sums and two
-// into the up sums. The W warps take fixed parts of H's spans; both fp32
-// totals are summed in shared memory in warp order, then silu(gate) * up is
-// formed in fp32 and rounded once. W comes from I and H alone (tc_warps), so
-// a row's bits never depend on R.
+// One m16 tile of 16 intermediate columns (swiglu_rows.cuh::gate_up_tc); the
+// W warps take fixed parts of H's spans; both fp32 totals are summed in shared
+// memory in warp order, then silu(gate) * up is formed in fp32 and rounded
+// once. W comes from I and H alone (tc_warps), so a row's bits never depend on
+// R.
 template <int W>
 __global__ void __launch_bounds__(W * 32)
 swiglu_rows_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wg,
@@ -388,49 +370,9 @@ swiglu_rows_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
   const int gid = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * 16;
   const int spans = h / 32;
-  const int ubeg = warp * spans / W, uend = (warp + 1) * spans / W;
-
-  // This lane's weight rows (row 0 stands in past I: never loaded) and x row.
-  bool in[2];
-  size_t wofs[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int col = n0 + 8 * hh + gid;
-    in[hh] = col < inter;
-    wofs[hh] = static_cast<size_t>(in[hh] ? col : 0) * h + 8 * t;
-  }
-  const bool xin = gid < rows;
-  const __nv_bfloat16* xrow = x + static_cast<size_t>(xin ? gid : 0) * h + 8 * t;
-
   float accg[4] = {0.f, 0.f, 0.f, 0.f}, accu[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int u0 = ubeg; u0 < uend; u0 += kRowsTcUnroll) {
-    uint4 gv[kRowsTcUnroll][2], uv[kRowsTcUnroll][2];
-#pragma unroll
-    for (int s = 0; s < kRowsTcUnroll; ++s)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const bool load = u0 + s < uend && in[hh];
-        const size_t o = wofs[hh] + static_cast<size_t>(u0 + s) * 32;
-        gv[s][hh] = load ? load_stream16(wg + o) : make_uint4(0u, 0u, 0u, 0u);
-        uv[s][hh] = load ? load_stream16(wu + o) : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-    for (int s = 0; s < kRowsTcUnroll; ++s) {
-      const int u = u0 + s;
-      if (u >= uend) break;
-      const uint4 xv = xin ? *reinterpret_cast<const uint4*>(xrow + u * 32)
-                           : make_uint4(0u, 0u, 0u, 0u);
-      const uint4 g0 = gv[s][0], g1 = gv[s][1], u0v = uv[s][0], u1v = uv[s][1];
-      const uint32_t glo[4] = {g0.x, g1.x, g0.y, g1.y};  // k 8t .. 8t + 3
-      const uint32_t ghi[4] = {g0.z, g1.z, g0.w, g1.w};  // k 8t + 4 .. 8t + 7
-      const uint32_t ulo[4] = {u0v.x, u1v.x, u0v.y, u1v.y};
-      const uint32_t uhi[4] = {u0v.z, u1v.z, u0v.w, u1v.w};
-      mma_16816(accg, glo, xv.x, xv.y);
-      mma_16816(accg, ghi, xv.z, xv.w);
-      mma_16816(accu, ulo, xv.x, xv.y);
-      mma_16816(accu, uhi, xv.z, xv.w);
-    }
-  }
+  gate_up_tc<true>(x, wg, wu, rows, h, inter, n0, warp * spans / W, (warp + 1) * spans / W, accg,
+                   accu);
   // C element i of a lane: column gid + 8 (i / 2), x row 2t + i % 2.
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -857,13 +799,13 @@ int launch(const void* x, const void* wg, const void* wu, const void* g, void* o
 
 }  // namespace tma
 
-// l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, route
-// among the base kernels (the rows kernel, the wmma tile, the fp32 tile:
-// neither the TMA tile nor the tensor-core rows kernel), or ask for the TMA
-// tile, the tensor-core rows kernel or the fp32 tile; and the kernels they
-// report in *launched.
+// l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, ask
+// for the base tile (the wmma tile for bf16, the fp32 tile for fp32: neither
+// the TMA tile nor a rows kernel), or ask for the TMA tile, the tensor-core
+// rows kernel, the fp32 tile or the rows kernel; and the kernels they report
+// in *launched.
 enum { kRouted = -1, kRoutedBase = -2 };
-enum { kRows = 0, kWmma = 1, kTma = 3, kRowsTc = 4, kTf32 = 5 };
+enum { kWmma = 1, kTma = 3, kRowsTc = 4, kTf32 = 5, kRows = 6 };
 
 bool tma_takes(const void* x, const void* wg, const void* wu, int h, int dtype) {
   return dtype == L32_BF16 && h > 0 && h % tma::kBK == 0 && aligned16(x) && aligned16(wg) &&
@@ -877,9 +819,9 @@ bool rows_tc_takes(const void* x, const void* wg, const void* wu, int rows, int 
 
 // The kernel a call takes, or -1 for an error. Routed, the forward takes a
 // rows kernel at most at 8 rows (the backward has none): the tensor-core
-// one where it takes the call, else the weight-streaming one; more rows in
-// bf16 take the TMA tile where it takes the call, else the wmma tile; fp32
-// the fp32 tile.
+// one where it takes the call, else the CUDA-core one; more rows in bf16
+// take the TMA tile where it takes the call, else the wmma tile; fp32 the
+// fp32 tile.
 int pick(int kernel, const void* x, const void* wg, const void* wu, int rows, int h, int dtype,
          bool bwd) {
   const bool tma = tma_takes(x, wg, wu, h, dtype);
@@ -887,21 +829,23 @@ int pick(int kernel, const void* x, const void* wg, const void* wu, int rows, in
   if (kernel == kTma) return tma ? kTma : -1;
   if (kernel == kRowsTc) return rows_tc ? kRowsTc : -1;
   if (kernel == kTf32) return dtype == L32_F32 ? kTf32 : -1;
-  if ((kernel != kRouted && kernel != kRoutedBase) || (dtype != L32_BF16 && dtype != L32_F32))
-    return -1;
-  if (!bwd && rows <= kSmallRows) return kernel == kRouted && rows_tc ? kRowsTc : kRows;
+  if (dtype != L32_BF16 && dtype != L32_F32) return -1;
+  if (kernel == kRows) return !bwd && rows <= kSmallRows ? kRows : -1;
+  if (kernel == kRoutedBase) return dtype == L32_F32 ? kTf32 : kWmma;
+  if (kernel != kRouted) return -1;
+  if (!bwd && rows <= kSmallRows) return rows_tc ? kRowsTc : kRows;
   if (dtype == L32_F32) return kTf32;
-  return kernel == kRouted && tma && rows > kSmallRows ? kTma : kWmma;
+  return tma && rows > kSmallRows ? kTma : kWmma;
 }
 
 }  // namespace
 
-// kernel: -1 routes by shape (pick), -2 routes among the base kernels, 3
-// asks for the TMA tile, 4 for the tensor-core rows kernel, 5 for the fp32
-// tile, and a kernel that does not take the call is an error. *launched is
-// set to the kernel launched (0 rows kernel, 1 wmma tile, 3 TMA tile, 4
-// tensor-core rows kernel, 5 fp32 tile), or -1 where none was (no rows or no
-// columns, or an error).
+// kernel: -1 routes by shape (pick), -2 asks for the base tile (the wmma
+// tile, or for fp32 the fp32 tile), 3 for the TMA tile, 4 for the tensor-core
+// rows kernel, 5 for the fp32 tile, 6 for the rows kernel, and a kernel that
+// does not take the call is an error. *launched is set to the kernel launched
+// (1 wmma tile, 3 TMA tile, 4 tensor-core rows kernel, 5 fp32 tile, 6 rows
+// kernel), or -1 where none was (no rows or no columns, or an error).
 extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, void* out,
                               int rows, int h, int inter, int dtype, int kernel, int* launched,
                               void* stream) {

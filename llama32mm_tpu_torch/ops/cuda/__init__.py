@@ -67,6 +67,7 @@ from llama32mm_tpu_torch.ops.cuda.swiglu import (
     fused_swiglu_bwd_wmma_cuda,
     fused_swiglu_cuda,
     fused_swiglu_plain,
+    fused_swiglu_rows_cuda,
     fused_swiglu_rows_tc_cuda,
     fused_swiglu_tc_cuda,
     fused_swiglu_tf32_cuda,
@@ -110,6 +111,7 @@ KERNELS = {
     "gemv_int8_tc": (gemv_int8_tc_cuda, gemv_int8_plain),
     "swiglu_tf32": (fused_swiglu_tf32_cuda, fused_swiglu_plain),
     "swiglu_bwd_tf32": (fused_swiglu_bwd_tf32_cuda, fused_swiglu_bwd_plain),
+    "swiglu_rows": (fused_swiglu_rows_cuda, fused_swiglu_plain),
 }
 
 
@@ -126,7 +128,8 @@ def launch_counts() -> dict:
 def plain_counts() -> dict:
     """Each plain version's calls, once, under the first name KERNELS gives it
     (``qmatmul`` and ``qmatmul_tc`` share one, as do ``gemv`` and ``gemv_tc``,
-    ``swiglu``, ``swiglu_tc``, ``swiglu_rows_tc`` and ``swiglu_tf32``,
+    ``swiglu``, ``swiglu_tc``, ``swiglu_rows_tc``, ``swiglu_tf32`` and
+    ``swiglu_rows``,
     ``swiglu_bwd``, ``swiglu_bwd_tc`` and ``swiglu_bwd_tf32``,
     ``gemv_int4_w4a8`` and ``gemv_int4_w4a8_tc``,
     ``gemv_int8`` and ``gemv_int8_tc``)."""

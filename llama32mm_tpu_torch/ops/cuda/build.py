@@ -106,8 +106,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         #  launched kernel (out), stream)
         "l32_gemv": [p, p, p, i, i, i, i, i, p, p],
         # (x, w_gate, w_up, out, rows, hidden, inter, dtype, kernel (-1: routed, -2: routed
-        #  among the base kernels, 3: the TMA tile, 4: the tensor-core rows kernel, 5: the fp32
-        #  tile), launched kernel (out), stream)
+        #  base tile, 3: the TMA tile, 4: the tensor-core rows kernel, 5: the fp32 tile, 6: the
+        #  rows kernel), launched kernel (out), stream)
         "l32_swiglu_fwd": [p, p, p, p, i, i, i, i, i, p, p],
         # (x, w_gate, w_up, g, d_gate, d_up, rows, hidden, inter, dtype, kernel (as
         #  l32_swiglu_fwd's), launched kernel (out), stream)
@@ -138,8 +138,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # (x, q4, scale, xq, ax, out, rows, n, k, group, dtype, kernel (-1: routed, 0: CUDA
         #  cores, 1: tensor cores), launched kernel (out), stream)
         "l32_gemv_int4_w4a8": [p, p, p, p, p, p, i, i, i, i, i, i, p, p],
-        # (x, w_gate, w_up, w_down, partial_ws, out, rows, hidden, inter, dtype, stream)
-        "l32_swiglu_down": [p, p, p, p, p, p, i, i, i, i, p],
+        # (x, w_gate, w_up, w_down, partial_ws, out, rows, hidden, inter, tile, dtype, stream)
+        "l32_swiglu_down": [p, p, p, p, p, p, i, i, i, i, i, p],
         # (x, q|q4, scale, out, rows, n, k, group (0: int8), dtype, kernel (-1: routed),
         #  launched kernel (out), stream)
         "l32_qmatmul": [p, p, p, p, i, i, i, i, i, i, p, p],

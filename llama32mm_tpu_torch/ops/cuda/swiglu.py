@@ -18,14 +18,15 @@ shape and report the kernel they launched. bf16 x with H a multiple of 64,
 fed by TMA), counted by ``fused_swiglu_tc_cuda`` / ``fused_swiglu_bwd_tc_cuda``;
 a bf16 forward with at most 8 rows, H a multiple of 32 and aligned operands
 the tensor-core rows kernel (``mma.sync``), counted by
-``fused_swiglu_rows_tc_cuda``; an fp32 call with more than 8 rows, and
-every fp32 backward, the fp32 tile (3xTF32 ``mma.sync``), counted by
+``fused_swiglu_rows_tc_cuda``; every other forward with at most 8 rows
+(fp32, ragged H, misaligned pointers) the CUDA-core rows kernel, counted by
+``fused_swiglu_rows_cuda``; an fp32 call with more than 8 rows, and every
+fp32 backward, the fp32 tile (3xTF32 ``mma.sync``), counted by
 ``fused_swiglu_tf32_cuda`` / ``fused_swiglu_bwd_tf32_cuda``; every other
-call the base kernels (the weight-streaming rows kernel for at most 8 rows
-in the forward, the wmma tile for other bf16 shapes), counted by
-``fused_swiglu_wmma_cuda`` / ``fused_swiglu_bwd_wmma_cuda``. Called
-directly, each of those seven forces its own kernels (the base ones send
-fp32 calls above 8 rows to the fp32 tile: there is no other).
+bf16 call the wmma tile, counted by ``fused_swiglu_wmma_cuda`` /
+``fused_swiglu_bwd_wmma_cuda``. Called directly, each of those eight forces
+its own kernel (the wmma ones send fp32 calls to the fp32 tile: there is no
+other).
 """
 
 from __future__ import annotations
@@ -49,11 +50,12 @@ def _check(x, w_gate, w_up):
     return h, w_gate.shape[0], (x.numel() // h if h else 0)
 
 
-# l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, route
-# among the base kernels, or ask for the TMA tile, the tensor-core rows
-# kernel or the fp32 tile (also the values they report when they launched
-# those).
-ROUTED, ROUTED_BASE, TMA, ROWS_TC, TF32 = -1, -2, 3, 4, 5
+# l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, ask for
+# the base tile (the wmma tile, or the fp32 tile for fp32), or ask for the TMA
+# tile, the tensor-core rows kernel, the fp32 tile or the CUDA-core rows kernel
+# (also the values they report when they launched those: WMMA for the wmma
+# tile).
+ROUTED, ROUTED_BASE, WMMA, TMA, ROWS_TC, TF32, ROWS = -1, -2, 1, 3, 4, 5, 6
 
 
 def _forward(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, kernel: int):
@@ -65,14 +67,11 @@ def _forward(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, kernel: 
         dtype_code(x), kernel, ctypes.byref(launched), stream_of(x),
     )
     check(status, "swiglu kernel")
-    if launched.value == TMA:
-        fused_swiglu_tc_cuda.launches += 1
-    elif launched.value == ROWS_TC:
-        fused_swiglu_rows_tc_cuda.launches += 1
-    elif launched.value == TF32:
-        fused_swiglu_tf32_cuda.launches += 1
-    elif launched.value >= 0:
-        fused_swiglu_wmma_cuda.launches += 1
+    counter = {WMMA: fused_swiglu_wmma_cuda, TMA: fused_swiglu_tc_cuda,
+               ROWS_TC: fused_swiglu_rows_tc_cuda, TF32: fused_swiglu_tf32_cuda,
+               ROWS: fused_swiglu_rows_cuda}.get(launched.value)
+    if counter is not None:
+        counter.launches += 1
     return out
 
 
@@ -104,9 +103,15 @@ def fused_swiglu_tf32_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Te
 
 
 @counted("launches")
+def fused_swiglu_rows_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
+    """The CUDA-core rows kernel (fp32 or bf16, at most 8 rows); raises for a
+    call it does not take."""
+    return _forward(x, w_gate, w_up, ROWS)
+
+
+@counted("launches")
 def fused_swiglu_wmma_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
-    """The weight-streaming rows kernel (at most 8 rows), else the wmma tile
-    (bf16; fp32 takes the fp32 tile): any shape."""
+    """The wmma tile (bf16; fp32 takes the fp32 tile): any shape."""
     return _forward(x, w_gate, w_up, ROUTED_BASE)
 
 
@@ -121,25 +126,40 @@ def fused_swiglu_plain(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor
     return (F.silu(gate) * up).to(x.dtype)
 
 
-SWIGLU_DOWN_TILE = 32  # intermediate columns per block of csrc/swiglu_down.cu (BI)
+SWIGLU_DOWN_SPAN = 32  # intermediate columns of one k step of csrc/swiglu_down.cu's products
+SWIGLU_DOWN_MAX_SPANS = 4  # spans a tile at most
+SWIGLU_DOWN_TILES = 112  # tile count the width aims at: 14 clusters of 8 blocks, one wave on H100
+SWIGLU_DOWN_CLUSTER = 8  # tiles a thread-block cluster sums in distributed shared memory
+
+
+def swiglu_down_tiles(rows: int, hidden: int, inter: int) -> tuple:
+    """``(tile, tiles, workspace)`` of ``csrc/swiglu_down.cu``: each block owns
+    ``tile`` intermediate columns (the fewest 32-column spans, at most 4, that
+    keep ``tiles = ceil(inter / tile)`` at most 112); each cluster of 8 tiles
+    writes its partial ``[rows, hidden]`` product to an fp32 workspace of
+    ``workspace`` floats. The tiles depend on ``inter`` alone."""
+    spans = -(-inter // SWIGLU_DOWN_SPAN)
+    tile = SWIGLU_DOWN_SPAN * min(SWIGLU_DOWN_MAX_SPANS, max(1, -(-spans // SWIGLU_DOWN_TILES)))
+    tiles = -(-inter // tile)
+    return tile, tiles, -(-tiles // SWIGLU_DOWN_CLUSTER) * rows * hidden
 
 
 @counted("launches")
 def swiglu_down_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                      w_down: torch.Tensor) -> torch.Tensor:
     """x ``[..., H]``, w_gate/w_up ``[I, H]``, w_down ``[H, I]`` → ``[..., H]``:
-    each block's tile of I goes to an fp32 ``[tiles, R, H]`` workspace, a
-    second kernel sums the tiles in order."""
+    each cluster of 8 blocks' tiles of I (``swiglu_down_tiles``) goes to an
+    fp32 ``[clusters, R, H]`` workspace, a second kernel sums them in order."""
     h, inter, rows = _check(x, w_gate, w_up)
     require("w_down", w_down, x, (h, inter))
     if inter == 0:
         raise ValueError("swiglu_down needs an intermediate size > 0")
     out = torch.empty_like(x)
-    tiles = -(-inter // SWIGLU_DOWN_TILE)
-    part = torch.empty(tiles * rows * h, dtype=torch.float32, device=x.device)
+    tile, _, workspace = swiglu_down_tiles(rows, h, inter)
+    part = torch.empty(workspace, dtype=torch.float32, device=x.device)
     status = load_library().l32_swiglu_down(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), part.data_ptr(),
-        out.data_ptr(), rows, h, inter, dtype_code(x), stream_of(x),
+        out.data_ptr(), rows, h, inter, tile, dtype_code(x), stream_of(x),
     )
     check(status, "swiglu down kernel")
     swiglu_down_cuda.launches += 1

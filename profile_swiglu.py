@@ -40,9 +40,9 @@ one generate.
 instead times the decode SwiGLU at R = 1 (a B=1 decode step) and R = 8
 (the 8-slot server) at the 11B (H=4096, I=14336) and 3B (H=3072, I=8192)
 widths: the routed entry (the tensor-core rows kernel at these shapes), the
-tensor-core rows kernel and the weight-streaming rows kernel it replaces on
-their own, the plain version and two ``F.linear`` calls (the products
-alone, a yardstick the port never calls), each beside its bound (the
+tensor-core rows kernel and the CUDA-core rows kernel (which takes fp32 and
+ragged calls) on their own, the plain version and two ``F.linear`` calls
+(the products alone, a yardstick the port never calls), each beside its bound (the
 weights' bytes), the weights cycled past the L2 as above; then the sums
 over one decode step's 40 launches at 11B.
 
@@ -60,12 +60,37 @@ package and this script's helpers from another checkout (built into its own
 ``build/``), so that one chip call can time a parent commit's kernels beside
 this tree's: run parent, tree, tree, parent. One call of a slow parent
 kernel may take a few hundred ms: the 20 timed calls then take seconds.
+
+    python3 profile_swiglu.py --down [--tree DIR]
+
+instead times the SwiGLU + down fusion (``swiglu_down_cuda``) in bf16 and
+fp32 at R = 1 and R = 8 at the 11B widths (H=4096, I=14336) and in bf16 at
+R = 8 at the 3B widths (H=3072, I=8192), beside its plain version and the
+unfused pair a decode step would run instead (the routed SwiGLU entry, then
+the routed gemv on ``w_down``), each beside the bound (the bytes of the three
+weights, x and the output), with the same device timing and the weights
+cycled past the L2; then the kernels of one call (the tiles' kernel and the
+reduce) by ``torch.profiler``.
+
+    python3 profile_swiglu.py --rows --fp32 [--tree DIR]
+
+instead times the rows kernel that takes the SwiGLU calls of at most 8 rows
+the tensor-core rows kernel does not: fp32 at the 11B widths at R = 1, 2, 5
+and 8, and a bf16 ragged-H call (R = 8, H = 4100, I = 14336), through the
+routed entry (which prints the kernel it launched), beside the plain version
+and two ``F.linear`` calls on the same tensors (the products alone, in full
+fp32; a yardstick the port never calls) and the bound (the bytes).
+
+Both modes first print ``ptxas -v``'s registers, stack and spills of their
+kernels (``swiglu_down.cu``; ``swiglu.cu``'s rows kernel), compiled from the
+sources of the tree they import.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -101,6 +126,18 @@ FP32_SHAPES = {  # label: (H, I, backward?)
     "3B backward H=3072 I=8192": (3072, 8192, True),
 }
 TF32X3_OPS = 494.7e12 / 3  # an fp32 product as three TF32 products at the dense TF32 rate
+HBM_BYTES_PER_S = 3.35e12
+DOWN_CASES = [  # (label, H, I, dtype, rows)
+    ("11B bf16 R=1 H=4096 I=14336", 4096, 14336, torch.bfloat16, 1),
+    ("11B bf16 R=8 H=4096 I=14336", 4096, 14336, torch.bfloat16, 8),
+    ("11B fp32 R=1 H=4096 I=14336", 4096, 14336, torch.float32, 1),
+    ("11B fp32 R=8 H=4096 I=14336", 4096, 14336, torch.float32, 8),
+    ("3B bf16 R=8 H=3072 I=8192", 3072, 8192, torch.bfloat16, 8),
+]
+ROWS_CASES = [  # (label, H, I, dtype, rows)
+    *[(f"11B fp32 R={r} H=4096 I=14336", 4096, 14336, torch.float32, r) for r in (1, 2, 5, 8)],
+    ("bf16 ragged H R=8 H=4100 I=14336", 4100, 14336, torch.bfloat16, 8),
+]
 
 
 def ttft(dev, card: str, reps: int = 5) -> None:
@@ -153,7 +190,7 @@ def decode_rows(dev, card: str) -> None:
             calls = {}
             for what, fn in (("routed", kernels.fused_swiglu_cuda),
                              ("swiglu_rows_tc", kernels.fused_swiglu_rows_tc_cuda),
-                             ("rows kernel (base)", kernels.fused_swiglu_wmma_cuda),
+                             ("rows kernel (CUDA cores)", kernels.fused_swiglu_rows_cuda),
                              ("plain", kernels.fused_swiglu_plain)):
                 calls[what] = [partial(fn, x, *c) for c in copies]
                 err, scale = cs.max_err(fn(*args), want)
@@ -219,6 +256,125 @@ def fp32_tiles(dev, card: str) -> None:
     print(json.dumps({"card": card, "tree": str(tree), "rows": ROWS, "fp32_device_ms": results}))
 
 
+def ptxas_report(sources: dict) -> None:
+    """``ptxas -v``'s registers, stack and spills of the kernels whose names
+    match, compiled from the imported tree's ``csrc`` (one nvcc a source, in
+    parallel). ``sources``: file name -> kernel name pattern."""
+    from llama32mm_tpu_torch.ops.cuda import build
+
+    nvcc = build.find_nvcc()
+    procs = {src: subprocess.Popen(
+        [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(build.CSRC / src), "-o", "/dev/null"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in sources}
+    for src, proc in procs.items():
+        lines = proc.communicate()[0].splitlines()
+        for i, line in enumerate(lines):
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if not m or not re.search(sources[src], m.group(1)):
+                continue
+            short = re.search(r"\d(swiglu_\w*?kernel)(I\w*?E)E", m.group(1))
+            name = short.group(1) + short.group(2) if short else m.group(1)
+            props = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                             if "stack frame" in x or "Used" in x)
+            print(f"ptxas {src} {name[:70]}: {props}")
+
+
+def copies_of(gen, dev, shapes, dtype, scale) -> list:
+    """Tuples of random weights of ``shapes`` covering ``L2_SPAN`` bytes."""
+    size = sum(math.prod(sh) for sh in shapes) * torch.finfo(dtype).bits // 8
+    return [tuple((torch.randn(*sh, generator=gen, device=dev) * scale).to(dtype) for sh in shapes)
+            for _ in range(max(1, math.ceil(L2_SPAN / size)))]
+
+
+def bytes_bound_ms(args, out) -> float:
+    """Each input read once and the output written once, over the HBM rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, out))
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def timed_calls(calls: dict, bound_ms: float, row: dict) -> None:
+    """Device time of each entry of ``calls`` into ``row``, printed beside
+    its share of the bound."""
+    for what, fns in calls.items():
+        ms = device_ms(fns)
+        row[what] = ms
+        print(f"  {what:24s} {ms:.6g} ms  (share of bound {bound_ms / ms:.4g})")
+
+
+def down_cases(dev, card: str) -> None:
+    """The SwiGLU + down fusion, as the module docstring says."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain version in full fp32
+    tree = Path(kernels.__file__).resolve().parents[3]
+    print(f"kernels of {tree}")
+    ptxas_report({"swiglu_down.cu": "swiglu_down"})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for label, h, inter, dtype, rows in DOWN_CASES:
+        copies = copies_of(gen, dev, [(inter, h), (inter, h), (h, inter)], dtype, 0.02)
+        x = torch.randn(rows, h, generator=gen, device=dev).to(dtype)
+        args = (x, *copies[0])
+        want = kernels.swiglu_down_plain(*args)
+        got = kernels.swiglu_down_cuda(*args)
+        err, scale = cs.max_err(got, want)
+        bound_ms = bytes_bound_ms(args, want)
+        row = {"max_abs_err": err, "max_abs_plain": scale, "bound_ms": bound_ms,
+               "copies": len(copies)}
+        print(f"== swiglu_down {label}: |kernel - plain| {err:.6g} of {scale:.6g} "
+              f"({err / scale:.3g}); bound {bound_ms:.6g} ms (bytes), {len(copies)} weight copies")
+        calls = {
+            "swiglu_down": [partial(kernels.swiglu_down_cuda, x, *c) for c in copies],
+            "unfused pair": [partial(lambda wg, wu, wd: kernels.gemv_cuda(
+                kernels.fused_swiglu_cuda(x, wg, wu), wd), *c) for c in copies],
+            "plain": [partial(kernels.swiglu_down_plain, x, *c) for c in copies],
+        }
+        kernels.reset_counters()
+        calls["unfused pair"][0]()
+        row["unfused launched"] = {k: n for k, n in kernels.launch_counts().items() if n}
+        print(f"  unfused pair launches {row['unfused launched']}")
+        timed_calls(calls, bound_ms, row)
+        for key, us in kernel_rows(calls["swiglu_down"]):
+            print(f"    {us:9.2f} us  {key[:100]}")
+        results[label] = row
+        del copies, calls, args, x, want, got
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "tree": str(tree), "down_device_ms": results}))
+
+
+def rows_fp32_cases(dev, card: str) -> None:
+    """The rows kernel, as the module docstring says."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # F.linear in full fp32 (PyTorch's default)
+    tree = Path(kernels.__file__).resolve().parents[3]
+    print(f"kernels of {tree}")
+    ptxas_report({"swiglu.cu": "swiglu_rows_kernel"})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for label, h, inter, dtype, rows in ROWS_CASES:
+        copies = copies_of(gen, dev, [(inter, h), (inter, h)], dtype, 0.02)
+        x = torch.randn(rows, h, generator=gen, device=dev).to(dtype)
+        args = (x, *copies[0])
+        want = kernels.fused_swiglu_plain(*args)
+        kernels.reset_counters()
+        got = kernels.fused_swiglu_cuda(*args)
+        launched = {k: n for k, n in kernels.launch_counts().items() if n}
+        err, scale = cs.max_err(got, want)
+        bound_ms = bytes_bound_ms(args, want)
+        row = {"launched": launched, "max_abs_err": err, "max_abs_plain": scale,
+               "bound_ms": bound_ms, "copies": len(copies)}
+        print(f"== rows {label}: routed entry launched {launched}, |routed - plain| {err:.6g} "
+              f"of {scale:.6g} ({err / scale:.3g}); bound {bound_ms:.6g} ms (bytes)")
+        calls = {
+            "routed": [partial(kernels.fused_swiglu_cuda, x, *c) for c in copies],
+            "plain": [partial(kernels.fused_swiglu_plain, x, *c) for c in copies],
+            "F.linear x2": [partial(lambda wg, wu: (F.linear(x, wg), F.linear(x, wu)), *c)
+                            for c in copies],
+        }
+        timed_calls(calls, bound_ms, row)
+        results[label] = row
+        del copies, calls, args, x, want, got
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "tree": str(tree), "rows_device_ms": results}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_swiglu: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -229,6 +385,12 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
     cs.build_library()
+    if "--down" in sys.argv[1:]:
+        down_cases(dev, card)
+        return 0
+    if "--rows" in sys.argv[1:] and "--fp32" in sys.argv[1:]:
+        rows_fp32_cases(dev, card)
+        return 0
     if "--fp32" in sys.argv[1:]:
         fp32_tiles(dev, card)
         return 0

@@ -120,7 +120,7 @@ def _cpu_args(name):
         return q, q, q, torch.ones(1, 3), 0, True, lse, lse, q
     if name in ("gemv", "gemv_tc"):
         return x, torch.randn(8, 16)
-    if name in ("swiglu", "swiglu_tc", "swiglu_rows_tc", "swiglu_tf32"):
+    if name in ("swiglu", "swiglu_tc", "swiglu_rows_tc", "swiglu_tf32", "swiglu_rows"):
         return x, torch.randn(8, 16), torch.randn(8, 16)
     if name == "swiglu_down":
         return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(16, 8)
