@@ -44,35 +44,60 @@
 // dot(xsum, scale) correction that cancels a raw sum ~16x the result).
 // Here the nibbles are unpacked with masks and shifts, and the offset is
 // removed per weight, exactly, as the weight becomes a float.
-// Which kernel runs: bf16 x with g/2 a multiple of 16 and 16-byte aligned x
-// and q4 (the decode path: g=128, and per-channel g=K) takes the tensor-core
-// kernel, gemv_int4_tc_kernel, at every row count up to 32; fp32 x, other
-// group sizes and misaligned pointers take the CUDA-core gemv_int4_kernel
-// (the tiny fp32 checks). The tensor-core kernel computes as the Pallas
-// kernel does: bf16 x against exact bf16 nibbles (u - 8), fp32 sums per
-// group, each multiplied by its fp32 group scale and added to the total.
+// Every call of at most 32 rows runs on the tensor cores: x as bf16 against
+// exact bf16 nibbles (u - 8) on mma.sync m16n8k16 in the swap-AB form (16
+// output columns as M, up to 8 rows of x as N: one B fragment serves 16
+// columns; R <= 8 runs one n8 tile, R <= 16 two, R <= 32 four with two m16
+// tiles a warp, halving the x reads), fp32 sums per group, each multiplied by
+// its fp32 group scale and added to the total. 16-byte weight loads that
+// bypass L1, four spans of them in flight a thread; 4 warps a block split K,
+// summed in shared memory in warp order, no atomics.
+// 1. bf16 x with g/2 a multiple of 16 and 16-byte-aligned x and q4 (the decode
+//    path: g=128, and per-channel g=K) is read as it is, by
+//    gemv_int4_tc_kernel.
+// 2. Otherwise a pre-pass (split_rows_kernel, one block a row) writes x once a
+//    call as bf16 planes: fp32 x as three, x = b0 + b1 + b2 by truncation
+//    (exact for normal x: each product b_i * (u - 8) is exact in fp32), and
+//    misaligned bf16 x as one aligned copy (which gemv_int4_tc_kernel reads).
+//    gemv_int4_planes_kernel, the same loop, takes the planes of fp32 x as
+//    more rows of x (virtual rows p * R + r), summed apart and added at the
+//    end: against the same A fragments, so the weight-side work, which sets
+//    the pace, does not grow, and at R <= 2 the three planes fill one n8 tile,
+//    no product more than bf16 x. Above 2 rows, blocks take chunks of 8 rows
+//    (three n8 tiles) with two m16 tiles a warp, so a block reads its planes
+//    once for 32 columns. (2xTF32 on m16n8k8, the weights made fp32, would
+//    take four products a k16 against three and twice the A fragments: not
+//    tried.)
+// 3. Group sizes whose g/2 is not a multiple of 16, and q4 that is not 16-byte
+//    aligned (K/2 not a multiple of 16, a view), take the packed order: the
+//    pre-pass lays each x row out beside the weight bytes (the x of byte c's
+//    low nibble at c, of its high nibble at K/2 rounded up + c), and a span of
+//    16 weight bytes, one 4-byte word a lane, may straddle groups. A lane's B
+//    slots are its A slots, so the span takes one product a group it touches
+//    with the x of the other groups' bytes zeroed in B, each group's sum
+//    scaled apart. Words of rows that are not 4-byte aligned are joined from
+//    two aligned loads by a funnel shift.
 // Bound: the weight bytes (K/2 per output column, plus K/g fp32 scales), the
-// same at R = 1 and 32. The CUDA-core kernel re-reads 64 bytes of x from L1
-// per row of x for every 16 weight bytes and spends 8 fp32 FMAs a weight at
-// R=8, several times the byte bound. The tensor-core kernel reuses x through
-// mma.sync m16n8k16 in the swap-AB form (16 output columns as M, up to 8
-// rows of x as N): one B fragment serves 16 columns; R <= 8 runs one n8
-// tile, R <= 16 two, R <= 32 four (with two m16 tiles a warp there, halving
-// the x reads). 16-byte weight loads that bypass L1, four spans of them in
-// flight a thread; 4 warps a block split K, summed in shared memory in warp
-// order, no atomics.
+// same at R = 1 and 32. The tensor cores round their fp32 accumulation
+// toward zero: fp32 x sums each span apart (a per-channel group's 256
+// products in one chain would drift by ~1e-5 of the sum); bf16 x, held to
+// bf16's bar, sums a group in one chain as the Pallas kernel does.
 // Measured (profile_qgemv.py, device time, weights from HBM; NVIDIA H100
 // 80GB HBM3, 700 W): the int4 head (R=1, N=128256, K=4096, g=128) 0.110 ms,
-// 76% of its 0.0834 ms bound (the CUDA-core kernel 0.134,
-// torch._weight_int4pack_mm 0.137); w_gate (N=14336) 0.0178 ms at R=1, 0.0195
-// at R=8, 0.0246 at R=16, 0.0367 at R=32 (CUDA-core 0.019, 0.088, 0.166,
-// 0.494). The kernel is bound by its instruction issue more than by its
-// loads: taking the two integer divisions by the spans-per-group count out
-// of every span cut the head from 0.122 to 0.110 ms, while deeper prefetch
-// was slower in every form tried (8 spans in flight a thread, a persistent
-// grid with double-buffered registers, cp.async rings in shared memory,
-// warp-wide coalesced staging), and so were 8 blocks an SM at 2 spans in
-// flight (PERF.md §6).
+// 76% of its 0.0834 ms bound (torch._weight_int4pack_mm 0.137); w_gate
+// (N=14336) 0.0178 ms at R=1, 0.0195 at R=8, 0.0246 at R=16, 0.0367 at R=32.
+// The kernel is bound by its instruction issue more than by its loads:
+// taking the two integer divisions by the spans-per-group count out of every
+// span cut the head from 0.122 to 0.110 ms, while deeper prefetch was slower
+// in every form tried (8 spans in flight a thread, a persistent grid with
+// double-buffered registers, cp.async rings in shared memory, warp-wide
+// coalesced staging), and so were 8 blocks an SM at 2 spans in flight
+// (PERF.md §6). The calls the CUDA-core kernel took before (same timing,
+// that kernel's time in parentheses): fp32 x at w_gate R = 1 / 8 / 32
+// 0.0222 / 0.0341 / 0.0948 ms (0.0351 / 0.2670 / 1.0821), the fp32 int4
+// head at R=1 0.1295 (0.2720), bf16 x at g=16 w_gate R=8 0.0824 (0.2687):
+// with two groups a 16-byte span, the masked products, flushes and scale
+// loads issue about 2.5x the instructions a byte of g=128.
 //
 // int4 W4A8 (l32_gemv_int4_w4a8): the same packed weights against int8
 // activations. Replaces _int4_kernel_w4a8 and folds _int4_kernel_w4a8b of
@@ -86,44 +111,34 @@
 // Mosaic lacks narrow shifts; here each nibble is masked out of its 32-bit
 // word four at a time and __vsub4 takes 8 off every byte, which leaves u - 8
 // as exact signed bytes (nibbles_s8): the same integers as the TPU's algebra.
-// The dot reads only xq, so either kernel takes any x dtype.
-// 1. g/2 a multiple of 16 with 16-byte-aligned q4 and xq (the decode path:
-//    g=128, per-channel g=K) takes the tensor-core kernel,
-//    gemv_w4a8_tc_kernel: the W4A16 kernel's swap-AB layout on mma.sync
-//    m16n8k32 s8. A packed word's four low nibbles and its four high ones
-//    are each one A word as nibbles_s8 leaves them, and four xq bytes one B
-//    word as loaded, so nothing is repacked or converted to float. Each
-//    group's int32 sum is exact and takes one fp32 FMA with the group's
-//    scale, in k order; the warps' totals are summed in warp order and ax[r]
-//    multiplies once, so a row's bits never depend on R. Row buckets as in
-//    W4A16. Measured (profile_qgemv.py --int4, device time of both launches,
-//    weights from HBM; NVIDIA H100 80GB HBM3, 700 W): w_gate 0.0190 / 0.0217
-//    / 0.0238 / 0.0326 ms at R = 1 / 8 / 16 / 32 (the CUDA-core kernel
-//    0.0180 / 0.0464 / 0.0856 / 0.1678, W4A16 0.0174 / 0.0193 / 0.0242 /
-//    0.0365, bound 0.0093-0.0097), the int4 head at R = 1 0.0913 (bound
-//    0.0834); the row quantization is 2.6 us of each call.
-// 2. Other group sizes (and misaligned rows) take the CUDA-core kernel,
-//    gemv_w4a8_kernel: __dp4a accumulates xq * (u - 8) in int32, one 16-byte
-//    chunk of a weight row at a time (inside one group when g/2 is a
-//    multiple of 16, so its int32 dot takes one fp32 FMA with the group's
-//    scale), with the CUDA-core W4A16 kernel's warp layout and row buckets,
-//    or a per-byte scalar loop with the same integer products. It reloads
-//    two 16-byte xq vectors per row of x for every 16 weight bytes (16 x
-//    loads per weight load at R = 8).
+// The dot reads only xq, so it takes any x dtype, and every call runs on the
+// tensor cores: the W4A16 kernel's swap-AB layout and spans on mma.sync
+// m16n8k32 s8 (gemv_w4a8_tc_kernel; gemv_w4a8_packed_kernel in packed order).
+// A packed word's four low nibbles and its four high ones are each one A word
+// as nibbles_s8 leaves them, and four xq bytes one B word as loaded, so
+// nothing is repacked or converted to float. Each group's int32 sum is exact
+// and takes one fp32 FMA with the group's scale, in k order; the warps' totals
+// are summed in warp order and ax[r] multiplies once, so a row's bits never
+// depend on R. The row quantization writes xq in natural order where g/2 is a
+// multiple of 16 and q4 is 16-byte aligned, else in the packed order above
+// (spans that straddle groups: one product a group, the other groups' xq bytes
+// zeroed).
+// Measured (profile_qgemv.py --int4, device time of both launches, weights
+// from HBM; NVIDIA H100 80GB HBM3, 700 W): w_gate 0.0190 / 0.0217 / 0.0238 /
+// 0.0326 ms at R = 1 / 8 / 16 / 32 (W4A16 0.0174 / 0.0193 / 0.0242 /
+// 0.0365, bound 0.0093-0.0097), the int4 head at R = 1 0.0913 (bound
+// 0.0834); the row quantization is 2.6 us of each call. g=16 w_gate R=8 in
+// packed order: 0.0697 ms, where the CUDA-core kernel that took it before
+// ran 0.3250.
 //
 // Bound on the H100: device-memory bytes of the weight, K bytes per output
 // row in int8 (half of bf16) and K/2 in int4; each weight byte serves r <= 32
 // rows, far below the ~295 FLOPs per byte where tensor cores would matter
 // for speed (the tensor-core kernels use them to reuse x, above).
-// Design of the CUDA-core kernels (that of gemv.cu): one warp per output row
-// n reads the row once with coalesced 16-byte loads (16 int8 weights, or 32
-// int4 weights) and applies each loaded vector to every row of x (x is small
-// and stays in L1/L2), r fp32 accumulators per lane, warp-shuffle reduction.
-// In int4 one 16-byte chunk lies inside one group (g/2 is a multiple of 16)
-// and holds the low weights of 16 consecutive k and the high weights of the
-// 16 k that follow g/2 later, so both x slices are contiguous; the chunk's
-// fp32 partial is multiplied by its group scale once (legal: the scale is
-// constant within a group). Other group sizes run a per-byte scalar loop. An int8 K that is
+// Design of the CUDA-core int8 kernel (that of gemv.cu): one warp per output
+// row n reads the row once with coalesced 16-byte loads (16 int8 weights)
+// and applies each loaded vector to every row of x (x is small and stays in
+// L1/L2), r fp32 accumulators per lane, warp-shuffle reduction. A K that is
 // not a multiple of 16 (or a misaligned row) runs a scalar head up to the
 // row's 16-byte boundary, the vector body and a scalar tail. Bytes become
 // floats by placing them in the mantissa of 2^23 (a byte permute and one
@@ -148,7 +163,6 @@ __device__ __forceinline__ void bytes_to_f32(uint32_t w, float bias, float* f) {
 }
 
 constexpr float kInt8Bias = 8388608.f + 128.f;  // signed byte, stored with its top bit flipped
-constexpr float kInt4Bias = 8388608.f + 8.f;    // nibble u = q + 8
 
 template <typename T, int MAXR>
 __device__ __forceinline__ void store_rows(const float (&acc)[MAXR], float scale, T* out,
@@ -233,76 +247,70 @@ gemv_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   store_rows<T, MAXR>(acc, scale[col], out, rows, n, col, lane);
 }
 
-template <typename T, int MAXR, bool kVec>
-__global__ void __launch_bounds__(kWarps * 32)
-gemv_int4_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q4,
-                 const float* __restrict__ scale, T* __restrict__ out, int rows, int n, int k,
-                 int g) {
-  const int lane = threadIdx.x & 31;
-  const int col = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (col >= n) return;
-  const int k2 = k / 2, g2 = g / 2, ng = k / g;
-  const uint8_t* wr = q4 + static_cast<size_t>(col) * k2;
-  const float* sr = scale + static_cast<size_t>(col) * ng;
-
-  float acc[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
-
-  if (kVec) {  // g/2 % 16 == 0: a 16-byte chunk never straddles two groups
-    for (int c = lane * 16; c < k2; c += 32 * 16) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(wr + c);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-      float lo[16], hi[16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        bytes_to_f32(w[i] & 0x0F0F0F0Fu, kInt4Bias, lo + 4 * i);
-        bytes_to_f32((w[i] >> 4) & 0x0F0F0F0Fu, kInt4Bias, hi + 4 * i);
-      }
-      const int grp = c / g2;
-      const int xa = grp * g + (c - grp * g2);  // k of the low weights; high ones at xa + g/2
-      float part[MAXR];
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r) part[r] = 0.f;
-      dot16_vec<T, MAXR>(part, x, rows, k, xa, lo);
-      dot16_vec<T, MAXR>(part, x, rows, k, xa + g2, hi);
-      const float s = sr[grp];
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r) acc[r] = fmaf(part[r], s, acc[r]);
-    }
-  } else {
-    for (int c = lane; c < k2; c += 32) {
-      const int bv = wr[c];
-      const int grp = c / g2;
-      const int xa = grp * g + (c - grp * g2);
-      const float lo = static_cast<float>((bv & 0xF) - 8), hi = static_cast<float>((bv >> 4) - 8);
-      const float s = sr[grp];
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        if (r < rows) {
-          const T* xr = x + static_cast<size_t>(r) * k;
-          acc[r] = fmaf(s, fmaf(to_f32(xr[xa]), lo, to_f32(xr[xa + g2]) * hi), acc[r]);
-        }
-      }
-    }
-  }
-  store_rows<T, MAXR>(acc, 1.f, out, rows, n, col, lane);
-}
-
-// ---- W4A16 on the tensor cores (bf16 x, g/2 a multiple of 16) ----
+// ---- The int4 gemvs on the tensor cores: what W4A16 and W4A8 share ----
 
 constexpr int kTcWarps = 4;   // K slices of a block, one warp each
-constexpr int kTcUnroll = 4;  // spans whose weight loads a thread keeps in flight
+constexpr int kTcUnroll = 4;  // spans whose weights a thread keeps in flight (8 in packed order)
+constexpr int kQuantThreads = 256;
 
-// The nibbles u at bits 0-3 and 16-19 of w as two bf16 values u - 8, exactly:
-// OR-ing in 0x4300 (bf16 128) makes the mantissa's low bits u, i.e. 128 + u,
-// and one bf16x2 FMA, (128 + u) * 1 - 136, leaves u - 8 (small integers, no
-// rounding anywhere).
-__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t w) {
-  const uint32_t v = (w & 0x000F000Fu) | 0x43004300u;
-  uint32_t r;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
-  return r;
+// Bytes of one half (low or high nibbles) of a packed x row: K/2 rounded up
+// to whole 16-byte spans, so that every span reads inside the row.
+__host__ __device__ constexpr int packed_half(int k) { return (k / 2 + 15) / 16 * 16; }
+
+// The k whose x a packed x row holds at element e (e < packed_half(k): the
+// low nibble of weight byte e; from packed_half(k) on: the high nibble of
+// byte e - packed_half(k)), or -1 in the padding past K/2.
+__device__ __forceinline__ int packed_source(int e, int k, int g) {
+  const int half = packed_half(k), g2 = g / 2;
+  const int hi = e >= half, c = e - hi * half;
+  if (c >= k / 2) return -1;
+  const int grp = c / g2;
+  return grp * g + hi * g2 + (c - grp * g2);
+}
+
+// The group a span starts in and its byte offset there.
+struct SpanAt {
+  int grp, off;
+};
+
+// The group and byte offset where spans u0 .. u0 + U - 1 of SPAN bytes
+// start. Natural order (g/2 a multiple of SPAN): one division a batch (an
+// integer division by a runtime value costs tens of instructions), then a
+// compare a span. Packed order: `next`, the walk's place, carried from span
+// to span (a span may cross several small groups).
+template <int U, int SPAN, bool kPacked>
+__device__ __forceinline__ void span_groups(SpanAt (&at)[U], SpanAt& next, int u0, int g2) {
+  if constexpr (kPacked) {
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      at[s] = next;
+      next.off += SPAN;
+      while (next.off >= g2) {
+        next.off -= g2;
+        ++next.grp;
+      }
+    }
+  } else {
+    const int per_group = g2 / SPAN;
+    at[0].grp = u0 / per_group;
+    at[0].off = (u0 - at[0].grp * per_group) * SPAN;
+#pragma unroll
+    for (int s = 1; s < U; ++s) {
+      const bool nxt = at[s - 1].off + SPAN == g2;
+      at[s].grp = at[s - 1].grp + nxt;
+      at[s].off = nxt ? 0 : at[s - 1].off + SPAN;
+    }
+  }
+}
+
+// 0xFF in each byte of a lane's 4-byte word that belongs to a group, whose
+// first byte lies `at` bytes before the word's byte 0 (at < 0: after it)
+// and which holds g2 bytes.
+__device__ __forceinline__ uint32_t group_bytes(int at, int g2) {
+  if (at >= 0 && at + 4 <= g2) return 0xFFFFFFFFu;  // the whole word (4 | g/2: every word in)
+  if (at + 4 <= 0 || at >= g2) return 0u;
+  const int lo = min(max(-at, 0), 4), hi = min(max(g2 - at, 0), 4);
+  return static_cast<uint32_t>(((1ull << (8 * hi)) - 1) & ~((1ull << (8 * lo)) - 1));
 }
 
 // CB packed bytes of one weight row: loaded once, so they bypass L1 (which
@@ -323,6 +331,46 @@ __device__ __forceinline__ Piece<CB> load_stream(const uint8_t* p) {
   return r;
 }
 
+// The 4 bytes of a weight row at p, at any alignment, from the aligned
+// words that hold them (a funnel shift joins two). The row ends at `end`:
+// bytes past it are whatever the next row holds (the caller's group masks
+// drop them), and a word wholly past it is not read.
+__device__ __forceinline__ uint32_t load_word_any(const uint8_t* p, const uint8_t* end) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint8_t* w = reinterpret_cast<const uint8_t*>(a & ~static_cast<uintptr_t>(3));
+  const uint32_t sh = static_cast<uint32_t>(a & 3) * 8;
+  const uint32_t lo = load_stream<4>(w).w[0];
+  const uint32_t hi = sh && w + 4 < end ? load_stream<4>(w + 4).w[0] : 0u;
+  return __funnelshift_r(lo, hi, sh);
+}
+
+// The lane's CB weight bytes at byte c of a row of k2 bytes: one streaming
+// load in natural order; in packed order (CB = 4) a word inside the row,
+// aligned (kAny false: K/2 a multiple of 4, q4 4-byte aligned) or not.
+template <int CB, bool kPacked, bool kAny>
+__device__ __forceinline__ Piece<CB> load_weights(const uint8_t* row, int c, int k2) {
+  if constexpr (!kPacked) {
+    return load_stream<CB>(row + c);
+  } else {
+    Piece<CB> r;
+    r.w[0] = c >= k2 ? 0u : kAny ? load_word_any(row + c, row + k2) : load_stream<4>(row + c).w[0];
+    return r;
+  }
+}
+
+// ---- W4A16 (bf16 x, or fp32 x as three bf16 planes) ----
+
+// The nibbles u at bits 0-3 and 16-19 of w as two bf16 values u - 8, exactly:
+// OR-ing in 0x4300 (bf16 128) makes the mantissa's low bits u, i.e. 128 + u,
+// and one bf16x2 FMA, (128 + u) * 1 - 136, leaves u - 8 (small integers, no
+// rounding anywhere).
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t w) {
+  const uint32_t v = (w & 0x000F000Fu) | 0x43004300u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
 // CB consecutive bf16 of x (2 CB bytes, aligned to them) as CB / 2 words.
 template <int CB>
 __device__ __forceinline__ void load_x(uint32_t (&d)[CB / 2], const __nv_bfloat16* p) {
@@ -340,6 +388,66 @@ __device__ __forceinline__ void load_x(uint32_t (&d)[CB / 2], const __nv_bfloat1
       d[4 * i + 3] = v.w;
     }
   }
+}
+
+// fp32 x = b0 + b1 + b2 in bf16, exactly for every normal x whose low part
+// stays normal (|x| above ~2^-110; below, bits under bf16's smallest
+// subnormal are lost): each plane is the top 16 bits of what the planes
+// before it leave (truncation, so no plane can round up to inf near
+// FLT_MAX), and each remainder is exact in fp32. A product b_i * (u - 8) is
+// exact in fp32, so the tensor cores add the three terms of every product
+// as fp32 would.
+__device__ __forceinline__ void split_bf16x3(float x, uint16_t (&b)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const uint32_t u = __float_as_uint(x);
+    b[i] = static_cast<uint16_t>(u >> 16);
+    x -= __uint_as_float(u & 0xFFFF0000u);
+  }
+}
+
+// The W4A16 pre-pass (one block a row of x): x [rows, k] as P bf16 planes
+// [P][rows][ld] in the order the gemv reads them: natural (ld = k, the k
+// order of x: fp32 x split into three planes, or misaligned bf16 x copied to
+// an aligned one) or packed (ld = 2 packed_half(k): element e of a row's
+// low half holds the x of weight byte e's low nibble, of its high half that
+// of byte e's high nibble, zeros past K/2), for group sizes whose spans may
+// straddle groups and rows that are not 16-byte aligned.
+template <typename T, int P, bool kPacked>
+__global__ void __launch_bounds__(kQuantThreads)
+split_rows_kernel(const T* __restrict__ x, uint16_t* __restrict__ planes, int rows, int k, int g,
+                  int ld) {
+  const T* xr = x + static_cast<size_t>(blockIdx.x) * k;
+  for (int e = threadIdx.x; e < ld; e += kQuantThreads) {
+    const int src = kPacked ? packed_source(e, k, g) : e;
+    const float v = src >= 0 ? to_f32(xr[src]) : 0.f;
+    uint16_t b[3];
+    split_bf16x3(v, b);  // bf16 x: b[0] is x, b[1] = b[2] = 0
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      planes[(static_cast<size_t>(p) * rows + blockIdx.x) * ld + e] = b[p];
+  }
+}
+
+// The A fragments of one weight word a lane holds for two rows (w0: row
+// gid, w1: row gid + 8): the low nibbles of bytes (0, 2) are the slots (2t,
+// 2t + 1) and those of bytes (1, 3) the slots (2t + 8, 2t + 9) of one k16
+// step (alo), the high nibbles the same slots of another (ahi).
+__device__ __forceinline__ void nibble_frags(uint32_t w0, uint32_t w1, uint32_t (&alo)[4],
+                                             uint32_t (&ahi)[4]) {
+  alo[0] = nibbles_bf16x2(w0), alo[1] = nibbles_bf16x2(w1);
+  alo[2] = nibbles_bf16x2(w0 >> 8), alo[3] = nibbles_bf16x2(w1 >> 8);
+  ahi[0] = nibbles_bf16x2(w0 >> 4), ahi[1] = nibbles_bf16x2(w1 >> 4);
+  ahi[2] = nibbles_bf16x2(w0 >> 12), ahi[3] = nibbles_bf16x2(w1 >> 12);
+}
+
+// The B fragments of x at k, k + 1, k + 2, k + 3 (two words of bf16 pairs,
+// low nibbles' x0, x1 and high nibbles' y0, y1): slots (k, k + 2) and
+// (k + 1, k + 3), as the A slots hold bytes (0, 2) and (1, 3).
+__device__ __forceinline__ void x_frags(uint32_t x0, uint32_t x1, uint32_t y0, uint32_t y1,
+                                        uint32_t (&b)[4]) {
+  b[0] = __byte_perm(x0, x1, 0x5410), b[1] = __byte_perm(x0, x1, 0x7632);
+  b[2] = __byte_perm(y0, y1, 0x5410), b[3] = __byte_perm(y0, y1, 0x7632);
 }
 
 // out[r, n] = sum_j scale[n, j] * (the fp32 mma sum over group j), in the
@@ -513,22 +621,281 @@ void launch_int4_tc(const __nv_bfloat16* x, const uint8_t* q4, const float* scal
     gemv_int4_tc_kernel<CB, 2, 4><<<(n + 31) / 32, block, 0, s>>>(x, q4, scale, out, rows, n, k, g);
 }
 
-// The tensor-core kernel for bf16 x whose g/2 is a multiple of 16 (aligned
-// pointers, at most 32 rows); false where the CUDA-core kernel must run.
-bool int4_tc(const void* x, const void* q4, const float* scale, void* out, int rows, int n, int k,
-             int g, cudaStream_t s) {
+// gemv_int4_tc_kernel's computation for the calls it does not take, x read
+// from the pre-pass's planes: fp32 x (three planes) and packed order. A
+// span is 4 CB bytes of a weight row as there: in natural order (fp32 x,
+// g/2 a multiple of 16) x at the k the bytes hold; in packed order (CB = 4)
+// x at the bytes' own index, so a span of 16 bytes may straddle groups. A
+// lane's B slots are its A slots, so zeroing the x of the bytes outside a
+// group leaves that group's sum: a span that straddles groups takes one
+// product a group it touches, each scaled apart, from A fragments made once
+// (nibble_frags, x_frags). The columns of the n8 tiles are rows of x (P = 1:
+// bf16 x) or virtual rows v = p * R + r, row r of plane p of fp32 x (P = 3),
+// so that the planes of a row are summed apart and added at the end, ((t0 +
+// t1) + t2): at R <= 2 the three planes fill one n8 tile and cost no product
+// more than bf16 x. Each span is scaled and added to the total apart (the
+// tensor cores round their sums toward zero: a per-channel group's 256
+// products in one chain would drift by ~1e-5), so no chain adds more than
+// one span's 8 products. The warps' totals are summed in warp order, then
+// the planes: an output's arithmetic depends on K, g and x's dtype only,
+// never on R or on the other rows. Blocks take chunks of `crows` rows
+// (consecutive blocks the chunks of one column tile, whose weights the later
+// ones find in L2) where the rows' accumulators would not fit one block.
+template <int CB, int MT, int NT, int P, bool kPacked, bool kAny>
+__global__ void __launch_bounds__(kTcWarps * 32)
+gemv_int4_planes_kernel(const __nv_bfloat16* __restrict__ x, int ld, size_t plane,
+                        const uint8_t* __restrict__ q4, const float* __restrict__ scale,
+                        std::conditional_t<P == 3, float, __nv_bfloat16>* __restrict__ out,
+                        int rows, int crows, int n, int k, int g) {
+  static_assert(!kPacked || CB == 4, "packed order reads 4-byte words");
+  constexpr int BN = 16 * MT, RB = 8 * NT, W = CB / 4, SPAN = 4 * CB;
+  constexpr int U = kPacked ? 2 * kTcUnroll : kTcUnroll;
+  __shared__ float red[kTcWarps][BN][RB + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  int n0 = blockIdx.x * BN;
+  if (crows < rows) {  // this block's chunk of rows
+    const int chunks = (rows + crows - 1) / crows, row0 = blockIdx.x % chunks * crows;
+    n0 = blockIdx.x / chunks * BN;
+    rows = min(crows, rows - row0);
+    x += static_cast<size_t>(row0) * ld;
+    out += static_cast<size_t>(row0) * n;
+  }
+  const int k2 = k / 2, g2 = g / 2, ng = k / g, vrows = P * rows;
+  const int spans = (k2 + SPAN - 1) / SPAN;
+  const int ubeg = warp * spans / kTcWarps, uend = (warp + 1) * spans / kTcWarps;
+  const int hi_at = kPacked ? ld / 2 : g2;  // x elements from a byte's low nibble to its high one
+
+  // This lane's weight and scale rows (row 0 stands in past N: never read).
+  bool in[MT][2];
+  const uint8_t* wrow[MT][2];
+  const float* srow[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 16 * mt + 8 * h + gid;
+      in[mt][h] = col < n;
+      const size_t c = in[mt][h] ? static_cast<size_t>(col) : 0;
+      wrow[mt][h] = q4 + c * k2 + t * CB;
+      srow[mt][h] = scale + c * ng;
+    }
+  // Where this lane's virtual row of each n8 tile starts in x (fp32 x: in
+  // its plane).
+  size_t xoff[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int v = 8 * nt + gid, p = P == 1 ? 0 : v / rows;
+    xoff[nt] = p * plane + static_cast<size_t>(v - p * rows) * ld;
+  }
+
+  float tot[MT][NT][4], part[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tot[mt][nt][i] = part[mt][nt][i] = 0.f;
+
+  auto flush = [&](const float (&sc)[MT][2]) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // C rows: gid (i < 2) and gid + 8
+          tot[mt][nt][i] = fmaf(part[mt][nt][i], sc[mt][i >> 1], tot[mt][nt][i]);
+          part[mt][nt][i] = 0.f;
+        }
+  };
+  // part[mt] += word j's products: A fragments alo, ahi of m16 tile mt, B
+  // the x of its bytes (xl, xh: the span's); with mask, m02 and m13 keep the
+  // bytes (0, 2) and (1, 3) of the group summed.
+  uint32_t xl[NT][CB / 2], xh[NT][CB / 2];
+  auto products = [&](int j, int mt, const uint32_t (&alo)[4], const uint32_t (&ahi)[4], bool mask,
+                      uint32_t m02, uint32_t m13) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (8 * nt < vrows) {
+        uint32_t b[4];
+        x_frags(xl[nt][2 * j], xl[nt][2 * j + 1], xh[nt][2 * j], xh[nt][2 * j + 1], b);
+        if (mask) b[0] &= m02, b[2] &= m02, b[1] &= m13, b[3] &= m13;
+        mma_16816(part[mt][nt], alo, b[0], b[1]);
+        mma_16816(part[mt][nt], ahi, b[2], b[3]);
+      }
+    }
+  };
+
+  SpanAt next;  // packed order's walk
+  if constexpr (kPacked) {
+    next.grp = ubeg * SPAN / g2;
+    next.off = ubeg * SPAN - next.grp * g2;
+  }
+  for (int u0 = ubeg; u0 < uend; u0 += U) {
+    SpanAt at[U];
+    span_groups<U, SPAN, kPacked>(at, next, u0, g2);
+    Piece<CB> wp[U][MT][2];
+    float sc[U][MT][2], sc1[U][MT][2];  // scales of the span's first group and the next
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      const int u = u0 + s;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (u < uend && in[mt][h]) {
+            wp[s][mt][h] = load_weights<CB, kPacked, kAny>(wrow[mt][h], u * SPAN, k2 - t * CB);
+            sc[s][mt][h] = srow[mt][h][at[s].grp];
+            if constexpr (kPacked)
+              sc1[s][mt][h] = at[s].grp + 1 < ng ? srow[mt][h][at[s].grp + 1] : 0.f;
+          } else {
+#pragma unroll
+            for (int j = 0; j < W; ++j) wp[s][mt][h].w[j] = 0u;
+            sc[s][mt][h] = sc1[s][mt][h] = 0.f;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      const int u = u0 + s;
+      if (u >= uend) break;
+      const SpanAt a = at[s];
+      // x element of the lane's byte 0's low nibble
+      const int xk = kPacked ? u * SPAN + t * CB : a.grp * g + a.off + t * CB;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int r = 8 * nt + gid;
+        if (r < vrows) {
+          const __nv_bfloat16* xr = x + xoff[nt] + xk;
+          load_x<CB>(xl[nt], xr);
+          load_x<CB>(xh[nt], xr + hi_at);
+        } else {
+#pragma unroll
+          for (int i = 0; i < CB / 2; ++i) xl[nt][i] = xh[nt][i] = 0u;
+        }
+      }
+      if (!kPacked || a.off + SPAN <= g2) {  // the span lies inside one group
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            uint32_t alo[4], ahi[4];
+            nibble_frags(wp[s][mt][0].w[j], wp[s][mt][1].w[j], alo, ahi);
+            products(j, mt, alo, ahi, false, 0u, 0u);
+          }
+        }
+        flush(sc[s]);
+      } else if constexpr (kPacked) {  // one product a group the span touches
+        uint32_t alo[MT][4], ahi[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          nibble_frags(wp[s][mt][0].w[0], wp[s][mt][1].w[0], alo[mt], ahi[mt]);
+#pragma unroll 1
+        for (int i = 0, grp = a.grp; i * g2 < a.off + SPAN && grp < ng; ++i, ++grp) {
+          const uint32_t m = group_bytes(a.off + t * CB - i * g2, g2);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            products(0, mt, alo[mt], ahi[mt], true, __byte_perm(m, 0u, 0x2200),
+                     __byte_perm(m, 0u, 0x3311));
+          float gsc[MT][2];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              gsc[mt][h] = i == 0 ? sc[s][mt][h]
+                                  : i == 1 ? sc1[s][mt][h] : (in[mt][h] ? srow[mt][h][grp] : 0.f);
+          flush(gsc);
+        }
+      }
+    }
+  }
+  // C element i of a lane: output column gid + 8 (i / 2) of the m16 tile,
+  // virtual row 2t + i % 2 of the n8 tile.
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        red[warp][16 * mt + gid + 8 * (i >> 1)][8 * nt + 2 * t + (i & 1)] = tot[mt][nt][i];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BN * RB; idx += kTcWarps * 32) {
+    const int m = idx % BN, r = idx / BN;
+    if (r < rows && n0 + m < n) {
+      float acc = 0.f;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        float sum = red[0][m][p * rows + r];
+#pragma unroll
+        for (int w = 1; w < kTcWarps; ++w) sum += red[w][m][p * rows + r];
+        acc = p == 0 ? sum : acc + sum;
+      }
+      out[static_cast<size_t>(r) * n + n0 + m] =
+          from_f32<std::conditional_t<P == 3, float, __nv_bfloat16>>(acc);
+    }
+  }
+}
+
+// Row buckets (MT m16 tiles of columns a warp, NT n8 tiles of virtual
+// rows). bf16 x: R <= 8 one n8 tile, <= 16 two, <= 32 four with two m16
+// tiles a warp (halving the x reads). fp32 x (three planes a row): R <= 2
+// one n8 tile; more rows in chunks of 8, three n8 tiles and two m16 tiles a
+// warp (a block reads its planes once for 32 columns; more tiles' x and
+// accumulators would not fit the registers).
+template <int CB, int P, bool kPacked, bool kAny>
+void launch_int4_planes(const __nv_bfloat16* x, int ld, size_t plane, const uint8_t* q4,
+                        const float* scale, void* out, int rows, int n, int k, int g,
+                        cudaStream_t s) {
+  using T = std::conditional_t<P == 3, float, __nv_bfloat16>;
+  T* o = static_cast<T*>(out);
+  const dim3 block(kTcWarps * 32);
+#define L32_INT4(MT, NT, CROWS)                                                      \
+  gemv_int4_planes_kernel<CB, MT, NT, P, kPacked, kAny>                               \
+      <<<(n + 16 * (MT) - 1) / (16 * (MT)) * ((rows + (CROWS) - 1) / (CROWS)), block, 0, \
+         s>>>(x, ld, plane, q4, scale, o, rows, CROWS, n, k, g)
+  if constexpr (P == 1) {
+    if (rows <= 8) L32_INT4(1, 1, rows);
+    else if (rows <= 16) L32_INT4(1, 2, rows);
+    else L32_INT4(2, 4, rows);
+  } else {
+    if (rows <= 2) L32_INT4(1, 1, rows);
+    else L32_INT4(2, 3, 8);
+  }
+#undef L32_INT4
+}
+
+// Natural order, the widest span (4 CB bytes) whose multiple g/2 is: bf16
+// x ([rows][K]: as it is, or the pre-pass's aligned copy) on
+// gemv_int4_tc_kernel, the planes of fp32 x on gemv_int4_planes_kernel.
+template <int P>
+void launch_int4_natural(const __nv_bfloat16* x, int ld, size_t plane, const uint8_t* q4,
+                         const float* scale, void* out, int rows, int n, int k, int g,
+                         cudaStream_t s) {
+  auto launch = [&](auto cb) {
+    constexpr int CB = decltype(cb)::value;
+    if constexpr (P == 1)
+      launch_int4_tc<CB>(x, q4, scale, static_cast<__nv_bfloat16*>(out), rows, n, k, g, s);
+    else
+      launch_int4_planes<CB, P, false, false>(x, ld, plane, q4, scale, out, rows, n, k, g, s);
+  };
   const int g2 = g / 2;
-  if (!aligned16(x) || !aligned16(q4) || g2 % 16 || rows > 32) return false;
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto w = static_cast<const uint8_t*>(q4);
-  auto o = static_cast<__nv_bfloat16*>(out);
   if (g2 % 64 == 0)
-    launch_int4_tc<16>(xb, w, scale, o, rows, n, k, g, s);
+    launch(std::integral_constant<int, 16>());
   else if (g2 % 32 == 0)
-    launch_int4_tc<8>(xb, w, scale, o, rows, n, k, g, s);
+    launch(std::integral_constant<int, 8>());
   else
-    launch_int4_tc<4>(xb, w, scale, o, rows, n, k, g, s);
-  return true;
+    launch(std::integral_constant<int, 4>());
+}
+
+// A span lies inside one group, reading x in its natural k order, when g/2
+// is a multiple of 16 and q4 is 16-byte aligned (so is every row then).
+bool int4_natural(const void* q4, int g) { return (g / 2) % 16 == 0 && aligned16(q4); }
+
+// Weight words of packed order are 4-byte loads when every row is 4-byte
+// aligned.
+bool int4_words_aligned(const void* q4, int k) {
+  return (reinterpret_cast<uintptr_t>(q4) & 3) == 0 && (k / 2) % 4 == 0;
 }
 
 // ---- int8 on the tensor cores (bf16 x, K a multiple of 64) ----
@@ -715,13 +1082,13 @@ bool int8_tc_takes(const void* x, const void* q, int k, int dtype) {
   return dtype == L32_BF16 && k % 64 == 0 && aligned16(x) && aligned16(q);
 }
 
-constexpr int kQuantThreads = 256;
-
-// One block per row of x: ax[r] and xq[r, :] (the W4A8 activations).
-template <typename T>
+// One block per row of x: ax[r] and xq[r, :] (the W4A8 activations), in
+// the dot's natural order (ld = k) or packed order (ld = 2 packed_half(k),
+// as split_rows_kernel lays out x).
+template <typename T, bool kPacked>
 __global__ void __launch_bounds__(kQuantThreads)
 quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ ax,
-                     int k) {
+                     int k, int g, int ld) {
   __shared__ float red[kQuantThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const T* xr = x + static_cast<size_t>(blockIdx.x) * k;
@@ -738,89 +1105,24 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __
   float a = red[0] / 127.f;  // IEEE division: nvcc's default -prec-div=true
   a = a > 0.f ? a : 1.f;
   if (threadIdx.x == 0) ax[blockIdx.x] = a;
-  int8_t* qr = xq + static_cast<size_t>(blockIdx.x) * k;
-  for (int c = threadIdx.x; c < k; c += kQuantThreads)
-    qr[c] = static_cast<int8_t>(fminf(fmaxf(rintf(to_f32(xr[c]) / a), -127.f), 127.f));
+  auto quant = [&](float v) {
+    return static_cast<int8_t>(fminf(fmaxf(rintf(v / a), -127.f), 127.f));
+  };
+  int8_t* qr = xq + static_cast<size_t>(blockIdx.x) * ld;
+  if constexpr (kPacked) {
+    for (int e = threadIdx.x; e < ld; e += kQuantThreads) {
+      const int src = packed_source(e, k, g);
+      qr[e] = src < 0 ? 0 : quant(to_f32(xr[src]));
+    }
+  } else {
+    for (int c = threadIdx.x; c < k; c += kQuantThreads) qr[c] = quant(to_f32(xr[c]));
+  }
 }
 
 // u - 8 for the four low (or, shifted, high) nibbles of w, as signed bytes.
 __device__ __forceinline__ int nibbles_s8(uint32_t w) {
   return static_cast<int>(__vsub4(w & 0x0F0F0F0Fu, 0x08080808u));
 }
-
-template <typename T, int MAXR, bool kVec>
-__global__ void __launch_bounds__(kWarps * 32)
-gemv_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ ax,
-                 const uint8_t* __restrict__ q4, const float* __restrict__ scale,
-                 T* __restrict__ out, int rows, int n, int k, int g) {
-  const int lane = threadIdx.x & 31;
-  const int col = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (col >= n) return;
-  const int k2 = k / 2, g2 = g / 2, ng = k / g;
-  const uint8_t* wr = q4 + static_cast<size_t>(col) * k2;
-  const float* sr = scale + static_cast<size_t>(col) * ng;
-
-  float acc[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
-
-  if (kVec) {  // g/2 % 16 == 0 and 16-byte aligned rows: a chunk is in one group
-    for (int c = lane * 16; c < k2; c += 32 * 16) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(wr + c);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-      int lo[4], hi[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        lo[i] = nibbles_s8(w[i]);
-        hi[i] = nibbles_s8(w[i] >> 4);
-      }
-      const int grp = c / g2;
-      const int xa = grp * g + (c - grp * g2);  // k of the low weights; high ones at xa + g/2
-      const float s = sr[grp];
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        if (r < rows) {
-          const int8_t* xr = xq + static_cast<size_t>(r) * k;
-          const uint4 xl = *reinterpret_cast<const uint4*>(xr + xa);
-          const uint4 xh = *reinterpret_cast<const uint4*>(xr + xa + g2);
-          int d = __dp4a(lo[0], static_cast<int>(xl.x), 0);
-          d = __dp4a(lo[1], static_cast<int>(xl.y), d);
-          d = __dp4a(lo[2], static_cast<int>(xl.z), d);
-          d = __dp4a(lo[3], static_cast<int>(xl.w), d);
-          d = __dp4a(hi[0], static_cast<int>(xh.x), d);
-          d = __dp4a(hi[1], static_cast<int>(xh.y), d);
-          d = __dp4a(hi[2], static_cast<int>(xh.z), d);
-          d = __dp4a(hi[3], static_cast<int>(xh.w), d);
-          acc[r] = fmaf(static_cast<float>(d), s, acc[r]);
-        }
-      }
-    }
-  } else {
-    for (int c = lane; c < k2; c += 32) {
-      const int bv = wr[c];
-      const int grp = c / g2;
-      const int xa = grp * g + (c - grp * g2);
-      const int lo = (bv & 0xF) - 8, hi = (bv >> 4) - 8;
-      const float s = sr[grp];
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        if (r < rows) {
-          const int8_t* xr = xq + static_cast<size_t>(r) * k;
-          acc[r] = fmaf(static_cast<float>(lo * xr[xa] + hi * xr[xa + g2]), s, acc[r]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    if (r < rows) {
-      const float sum = warp_sum(acc[r]);
-      if (lane == 0) out[static_cast<size_t>(r) * n + col] = from_f32<T>(sum * ax[r]);
-    }
-  }
-}
-
-// ---- W4A8 on the tensor cores (g/2 a multiple of 16) ----
 
 // CB bytes of xq (aligned to them) as CB / 4 words.
 template <int CB>
@@ -1014,22 +1316,174 @@ void launch_w4a8_tc(const int8_t* xq, const float* ax, const uint8_t* q4, const 
                                                                      n, k, g);
 }
 
-// The tensor-core kernel reads only xq, so it takes any x dtype: g/2 a
-// multiple of 16 (a span of 16 bytes or more inside one group) and
-// 16-byte-aligned q4 and xq.
-bool w4a8_tc_takes(const void* q4, const void* xq, int g) {
-  return (g / 2) % 16 == 0 && aligned16(q4) && aligned16(xq);
+// gemv_w4a8_tc_kernel's computation for the calls it does not take (g/2 not
+// a multiple of 16, q4 not 16-byte aligned): xq in packed order, a span of
+// 16 weight bytes (one 4-byte word a lane) and xq at the bytes' own index,
+// so a span may straddle groups. Such a span takes one product a group it
+// touches, the xq bytes of the other groups' weights zeroed in B (a lane's B
+// slots are its A slots), from A fragments made once. Each group's int32 sum
+// stays exact and apart and takes one fp32 FMA with the group's scale, in k
+// order; warps and ax[r] as there, so a row's bits never depend on R.
+template <typename T, int MT, int NT, bool kAny>
+__global__ void __launch_bounds__(kTcWarps * 32)
+gemv_w4a8_packed_kernel(const int8_t* __restrict__ xq, int ld, const float* __restrict__ ax,
+                        const uint8_t* __restrict__ q4, const float* __restrict__ scale,
+                        T* __restrict__ out, int rows, int n, int k, int g) {
+  constexpr int BN = 16 * MT, RB = 8 * NT, SPAN = 16, U = 2 * kTcUnroll;
+  __shared__ float red[kTcWarps][BN][RB + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BN;
+  const int k2 = k / 2, g2 = g / 2, ng = k / g, half = ld / 2;
+  const int spans = (k2 + SPAN - 1) / SPAN;
+  const int ubeg = warp * spans / kTcWarps, uend = (warp + 1) * spans / kTcWarps;
+
+  // This lane's weight and scale rows (row 0 stands in past N: never read).
+  bool in[MT][2];
+  const uint8_t* wrow[MT][2];
+  const float* srow[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 16 * mt + 8 * h + gid;
+      in[mt][h] = col < n;
+      const size_t c = in[mt][h] ? static_cast<size_t>(col) : 0;
+      wrow[mt][h] = q4 + c * k2 + 4 * t;
+      srow[mt][h] = scale + c * ng;
+    }
+
+  float tot[MT][NT][4];
+  int part[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tot[mt][nt][i] = 0.f;
+        part[mt][nt][i] = 0;
+      }
+
+  SpanAt next;
+  next.grp = ubeg * SPAN / g2;
+  next.off = ubeg * SPAN - next.grp * g2;
+  for (int u0 = ubeg; u0 < uend; u0 += U) {
+    SpanAt at[U];
+    span_groups<U, SPAN, true>(at, next, u0, g2);
+    uint32_t wp[U][MT][2];
+    float sc[U][MT][2], sc1[U][MT][2];  // scales of the span's first group and the next
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      const int u = u0 + s;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool live = u < uend && in[mt][h];
+          wp[s][mt][h] = live ? load_weights<4, true, kAny>(wrow[mt][h], u * SPAN, k2 - 4 * t).w[0]
+                              : 0u;
+          sc[s][mt][h] = live ? srow[mt][h][at[s].grp] : 0.f;
+          sc1[s][mt][h] = live && at[s].grp + 1 < ng ? srow[mt][h][at[s].grp + 1] : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      const int u = u0 + s;
+      if (u >= uend) break;
+      const SpanAt a = at[s];
+      uint32_t xl[NT], xh[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int r = 8 * nt + gid;
+        const int8_t* xr = xq + static_cast<size_t>(r) * ld + u * SPAN + 4 * t;
+        xl[nt] = r < rows ? *reinterpret_cast<const uint32_t*>(xr) : 0u;
+        xh[nt] = r < rows ? *reinterpret_cast<const uint32_t*>(xr + half) : 0u;
+      }
+      uint32_t af[MT][4];  // the word's four low nibbles, then its four high ones, u - 8
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint32_t w0 = wp[s][mt][0], w1 = wp[s][mt][1];
+        af[mt][0] = static_cast<uint32_t>(nibbles_s8(w0));
+        af[mt][1] = static_cast<uint32_t>(nibbles_s8(w1));
+        af[mt][2] = static_cast<uint32_t>(nibbles_s8(w0 >> 4));
+        af[mt][3] = static_cast<uint32_t>(nibbles_s8(w1 >> 4));
+      }
+      const bool last = u + 1 == uend;  // this warp's part ends: its sums take their scales
+#pragma unroll 1
+      for (int i = 0, grp = a.grp; i * g2 < a.off + SPAN && grp < ng; ++i, ++grp) {
+        const uint32_t m = group_bytes(a.off + 4 * t - i * g2, g2);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          if (8 * nt < rows)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_16832_s8(part[mt][nt], af[mt], xl[nt] & m, xh[nt] & m);
+        if ((i + 1) * g2 <= a.off + SPAN || last) {  // the group (or this warp's part) ends
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {  // C rows: gid (e < 2) and gid + 8
+                const int h = e >> 1;
+                const float gs = i == 0   ? sc[s][mt][h]
+                                 : i == 1 ? sc1[s][mt][h]
+                                          : (in[mt][h] ? srow[mt][h][grp] : 0.f);
+                tot[mt][nt][e] = fmaf(static_cast<float>(part[mt][nt][e]), gs, tot[mt][nt][e]);
+                part[mt][nt][e] = 0;
+              }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        red[warp][16 * mt + gid + 8 * (i >> 1)][8 * nt + 2 * t + (i & 1)] = tot[mt][nt][i];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BN * RB; idx += kTcWarps * 32) {
+    const int m = idx % BN, r = idx / BN;
+    if (r < rows && n0 + m < n) {
+      float acc = red[0][m][r];
+#pragma unroll
+      for (int w = 1; w < kTcWarps; ++w) acc += red[w][m][r];
+      out[static_cast<size_t>(r) * n + n0 + m] = from_f32<T>(acc * ax[r]);
+    }
+  }
 }
 
-// The row quantization, then the dot kernel `kernel` (kSimt or kTc).
+template <typename T, bool kAny>
+void launch_w4a8_packed(const int8_t* xq, int ld, const float* ax, const uint8_t* q4,
+                        const float* scale, T* out, int rows, int n, int k, int g,
+                        cudaStream_t s) {
+  const dim3 block(kTcWarps * 32);
+  if (rows <= 8)
+    gemv_w4a8_packed_kernel<T, 1, 1, kAny>
+        <<<(n + 15) / 16, block, 0, s>>>(xq, ld, ax, q4, scale, out, rows, n, k, g);
+  else if (rows <= 16)
+    gemv_w4a8_packed_kernel<T, 1, 2, kAny>
+        <<<(n + 15) / 16, block, 0, s>>>(xq, ld, ax, q4, scale, out, rows, n, k, g);
+  else  // two m16 tiles a warp halve the xq reads of R=32
+    gemv_w4a8_packed_kernel<T, 2, 4, kAny>
+        <<<(n + 31) / 32, block, 0, s>>>(xq, ld, ax, q4, scale, out, rows, n, k, g);
+}
+
+// The row quantization, then the dot: natural order (the widest span whose
+// multiple g/2 is) where int4_natural holds, else packed order.
 template <typename T>
 void launch_w4a8(const void* x, const void* q4, const float* scale, int8_t* xq, float* ax,
-                 void* out, int rows, int n, int k, int g, int kernel, cudaStream_t s) {
-  quantize_rows_kernel<T><<<rows, kQuantThreads, 0, s>>>(static_cast<const T*>(x), xq, ax, k);
+                 void* out, int rows, int n, int k, int g, cudaStream_t s) {
   const uint8_t* w = static_cast<const uint8_t*>(q4);
+  const T* xt = static_cast<const T*>(x);
   T* o = static_cast<T*>(out);
-  if (kernel == kTc) {
-    const int g2 = g / 2;
+  const int g2 = g / 2;
+  if (int4_natural(q4, g)) {
+    quantize_rows_kernel<T, false><<<rows, kQuantThreads, 0, s>>>(xt, xq, ax, k, g, k);
     if (g2 % 64 == 0)
       launch_w4a8_tc<T, 16>(xq, ax, w, scale, o, rows, n, k, g, s);
     else if (g2 % 32 == 0)
@@ -1038,53 +1492,32 @@ void launch_w4a8(const void* x, const void* q4, const float* scale, int8_t* xq, 
       launch_w4a8_tc<T, 4>(xq, ax, w, scale, o, rows, n, k, g, s);
     return;
   }
-  const bool vec = aligned16(q4) && aligned16(xq) && (g / 2) % 16 == 0;
-  const int blocks = (n + kWarps - 1) / kWarps;
-#define L32_ROWS(R)                                                                     \
-  if (rows <= R) {                                                                      \
-    auto dot = vec ? gemv_w4a8_kernel<T, R, true> : gemv_w4a8_kernel<T, R, false>;      \
-    dot<<<blocks, kWarps * 32, 0, s>>>(xq, ax, w, scale, o, rows, n, k, g);             \
-    return;                                                                             \
-  }
-  L32_ROWS(1)
-  L32_ROWS(2)
-  L32_ROWS(4)
-  L32_ROWS(8)
-  L32_ROWS(16)
-  L32_ROWS(32)
-#undef L32_ROWS
+  const int ld = 2 * packed_half(k);
+  quantize_rows_kernel<T, true><<<rows, kQuantThreads, 0, s>>>(xt, xq, ax, k, g, ld);
+  if (int4_words_aligned(q4, k))
+    launch_w4a8_packed<T, false>(xq, ld, ax, w, scale, o, rows, n, k, g, s);
+  else
+    launch_w4a8_packed<T, true>(xq, ld, ax, w, scale, o, rows, n, k, g, s);
 }
 
 // One launch per row bucket: the rows of x live in MAXR registers per lane.
 template <typename T, int MAXR>
-void launch_r(bool int4, bool vec, const void* x, const void* w, const float* scale, void* out,
-              int rows, int n, int k, int g, cudaStream_t s) {
-  const int blocks = (n + kWarps - 1) / kWarps;
-  const T* xt = static_cast<const T*>(x);
-  T* o = static_cast<T*>(out);
-  if (int4) {
-    auto kernel = vec ? gemv_int4_kernel<T, MAXR, true> : gemv_int4_kernel<T, MAXR, false>;
-    kernel<<<blocks, kWarps * 32, 0, s>>>(xt, static_cast<const uint8_t*>(w), scale, o, rows, n,
-                                          k, g);
-  } else {
-    auto kernel = vec ? gemv_int8_kernel<T, MAXR, true> : gemv_int8_kernel<T, MAXR, false>;
-    kernel<<<blocks, kWarps * 32, 0, s>>>(xt, static_cast<const int8_t*>(w), scale, o, rows, n,
-                                          k);
-  }
+void launch_int8_r(bool vec, const void* x, const void* q, const float* scale, void* out,
+                   int rows, int n, int k, cudaStream_t s) {
+  auto kernel = vec ? gemv_int8_kernel<T, MAXR, true> : gemv_int8_kernel<T, MAXR, false>;
+  kernel<<<(n + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(q), scale, static_cast<T*>(out), rows,
+      n, k);
 }
 
 template <typename T>
-int launch(bool int4, const void* x, const void* w, const float* scale, void* out, int rows,
-           int n, int k, int g, cudaStream_t s) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (int4 && int4_tc(x, w, scale, out, rows, n, k, g, s)) return 0;
-  }
-  const bool aligned = aligned16(x) && aligned16(w);
-  const bool vec = int4 ? aligned && (g / 2) % 16 == 0 : aligned && k % 16 == 0;
-#define L32_ROWS(R)                                                   \
-  if (rows <= R) {                                                    \
-    launch_r<T, R>(int4, vec, x, w, scale, out, rows, n, k, g, s);    \
-    return 0;                                                         \
+void launch_int8_simt(const void* x, const void* q, const float* scale, void* out, int rows,
+                      int n, int k, cudaStream_t s) {
+  const bool vec = aligned16(x) && aligned16(q) && k % 16 == 0;
+#define L32_ROWS(R)                                                \
+  if (rows <= R) {                                                 \
+    launch_int8_r<T, R>(vec, x, q, scale, out, rows, n, k, s);     \
+    return;                                                        \
   }
   L32_ROWS(1)
   L32_ROWS(2)
@@ -1093,24 +1526,6 @@ int launch(bool int4, const void* x, const void* w, const float* scale, void* ou
   L32_ROWS(16)
   L32_ROWS(32)
 #undef L32_ROWS
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int dispatch(bool int4, const void* x, const void* w, const void* scale, void* out, int rows,
-             int n, int k, int g, int dtype, void* stream) {
-  if (rows == 0 || n == 0) return 0;
-  if (int4 && (g <= 0 || g % 2 || k % g)) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  int err;
-  if (dtype == L32_BF16)
-    err = launch<__nv_bfloat16>(int4, x, w, sc, out, rows, n, k, g, s);
-  else if (dtype == L32_F32)
-    err = launch<float>(int4, x, w, sc, out, rows, n, k, g, s);
-  else
-    err = static_cast<int>(cudaErrorInvalidValue);
-  if (err) return err;
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1130,49 +1545,86 @@ extern "C" int l32_gemv_int8(const void* x, const void* q, const void* scale, vo
   const bool tc = int8_tc_takes(x, q, k, dtype);
   if (kernel == kRouted) kernel = tc ? kTc : kSimt;
   if (kernel != kSimt && !(kernel == kTc && tc)) return static_cast<int>(cudaErrorInvalidValue);
-  int err;
-  if (kernel == kTc) {
-    launch_int8_tc(x, q, static_cast<const float*>(scale), out, rows, n, k,
-                   static_cast<cudaStream_t>(stream));
-    err = static_cast<int>(cudaGetLastError());
-  } else {
-    err = dispatch(false, x, q, scale, out, rows, n, k, 0, dtype, stream);
-  }
+  auto s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  if (kernel == kTc)
+    launch_int8_tc(x, q, sc, out, rows, n, k, s);
+  else if (dtype == L32_BF16)
+    launch_int8_simt<__nv_bfloat16>(x, q, sc, out, rows, n, k, s);
+  else
+    launch_int8_simt<float>(x, q, sc, out, rows, n, k, s);
+  const int err = static_cast<int>(cudaGetLastError());
   if (!err) *launched = kernel;
   return err;
 }
 
-extern "C" int l32_gemv_int4(const void* x, const void* q4, const void* scale, void* out,
-                             int rows, int n, int k, int g, int dtype, void* stream) {
-  return dispatch(true, x, q4, scale, out, rows, n, k, g, dtype, stream);
-}
-
-// xq [rows, k] int8 and ax [rows] fp32: workspace the caller allocates.
-// kernel -1 routes by shape (w4a8_tc_takes: the tensor-core kernel, else the
-// CUDA-core one); 0 (CUDA cores) or 1 (tensor cores) asks for that kernel,
-// and a kernel that does not take the call is an error. *launched is set to
-// the dot kernel launched after the row quantization, or -1 where none was
-// (no rows or no columns, or an error).
-extern "C" int l32_gemv_int4_w4a8(const void* x, const void* q4, const void* scale, void* xq,
-                                  void* ax, void* out, int rows, int n, int k, int g, int dtype,
-                                  int kernel, int* launched, void* stream) {
-  *launched = -1;
+// planes: workspace the caller allocates unless x is bf16, x and q4 are
+// 16-byte aligned and g/2 is a multiple of 16 (then x is read as it is):
+// P * rows * 2 * packed_half(k) bf16, P = 3 for fp32 x, 1 for bf16; NULL
+// otherwise.
+extern "C" int l32_gemv_int4(const void* x, const void* q4, const void* scale, void* planes,
+                             void* out, int rows, int n, int k, int g, int dtype, void* stream) {
   if (rows == 0 || n == 0) return 0;
   if (g <= 0 || g % 2 || k % g || rows > 32 || (dtype != L32_BF16 && dtype != L32_F32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool tc = w4a8_tc_takes(q4, xq, g);
-  if (kernel == kRouted) kernel = tc ? kTc : kSimt;
-  if (kernel != kSimt && !(kernel == kTc && tc))
+  auto s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const uint8_t* w = static_cast<const uint8_t*>(q4);
+  const bool natural = int4_natural(q4, g);
+  if (dtype == L32_BF16 && natural && aligned16(x)) {  // the decode path: x as it is
+    launch_int4_natural<1>(static_cast<const __nv_bfloat16*>(x), k, 0, w, sc, out, rows, n, k, g,
+                           s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (planes == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  auto pl = static_cast<uint16_t*>(planes);
+  auto xp = static_cast<const __nv_bfloat16*>(planes);
+  const int ld = natural ? k : 2 * packed_half(k);
+  const size_t plane = static_cast<size_t>(rows) * ld;
+  const bool fp32 = dtype == L32_F32;
+  if (fp32 && natural)
+    split_rows_kernel<float, 3, false><<<rows, kQuantThreads, 0, s>>>(
+        static_cast<const float*>(x), pl, rows, k, g, ld);
+  else if (fp32)
+    split_rows_kernel<float, 3, true><<<rows, kQuantThreads, 0, s>>>(
+        static_cast<const float*>(x), pl, rows, k, g, ld);
+  else if (natural)
+    split_rows_kernel<__nv_bfloat16, 1, false><<<rows, kQuantThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), pl, rows, k, g, ld);
+  else
+    split_rows_kernel<__nv_bfloat16, 1, true><<<rows, kQuantThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), pl, rows, k, g, ld);
+  const bool words = int4_words_aligned(q4, k);
+  if (fp32 && natural)
+    launch_int4_natural<3>(xp, ld, plane, w, sc, out, rows, n, k, g, s);
+  else if (fp32 && words)
+    launch_int4_planes<4, 3, true, false>(xp, ld, plane, w, sc, out, rows, n, k, g, s);
+  else if (fp32)
+    launch_int4_planes<4, 3, true, true>(xp, ld, plane, w, sc, out, rows, n, k, g, s);
+  else if (natural)
+    launch_int4_natural<1>(xp, ld, plane, w, sc, out, rows, n, k, g, s);
+  else if (words)
+    launch_int4_planes<4, 1, true, false>(xp, ld, plane, w, sc, out, rows, n, k, g, s);
+  else
+    launch_int4_planes<4, 1, true, true>(xp, ld, plane, w, sc, out, rows, n, k, g, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xq [rows * 2 * packed_half(k)] int8 and ax [rows] fp32: workspace the
+// caller allocates.
+extern "C" int l32_gemv_int4_w4a8(const void* x, const void* q4, const void* scale, void* xq,
+                                  void* ax, void* out, int rows, int n, int k, int g, int dtype,
+                                  void* stream) {
+  if (rows == 0 || n == 0) return 0;
+  if (g <= 0 || g % 2 || k % g || rows > 32 || (dtype != L32_BF16 && dtype != L32_F32))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   int8_t* q = static_cast<int8_t*>(xq);
   float* a = static_cast<float*>(ax);
   if (dtype == L32_BF16)
-    launch_w4a8<__nv_bfloat16>(x, q4, sc, q, a, out, rows, n, k, g, kernel, s);
+    launch_w4a8<__nv_bfloat16>(x, q4, sc, q, a, out, rows, n, k, g, s);
   else
-    launch_w4a8<float>(x, q4, sc, q, a, out, rows, n, k, g, kernel, s);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (!err) *launched = kernel;
-  return err;
+    launch_w4a8<float>(x, q4, sc, q, a, out, rows, n, k, g, s);
+  return static_cast<int>(cudaGetLastError());
 }

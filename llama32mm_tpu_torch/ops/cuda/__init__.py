@@ -38,8 +38,6 @@ from llama32mm_tpu_torch.ops.cuda.qgemv import (
     gemv_int4_plain,
     gemv_int4_w4a8_cuda,
     gemv_int4_w4a8_plain,
-    gemv_int4_w4a8_simt_cuda,
-    gemv_int4_w4a8_tc_cuda,
     gemv_int8_cuda,
     gemv_int8_plain,
     gemv_int8_simt_cuda,
@@ -92,7 +90,7 @@ KERNELS = {
     "flash_attention_lse": (flash_attention_fwd_lse_cuda, flash_attention_fwd_lse_plain),
     "flash_attention_bwd_dq": (flash_attention_bwd_dq_cuda, flash_attention_bwd_dq_plain),
     "flash_attention_bwd_dkv": (flash_attention_bwd_dkv_cuda, flash_attention_bwd_dkv_plain),
-    "gemv_int4_w4a8": (gemv_int4_w4a8_simt_cuda, gemv_int4_w4a8_plain),
+    "gemv_int4_w4a8": (gemv_int4_w4a8_cuda, gemv_int4_w4a8_plain),
     "swiglu_down": (swiglu_down_cuda, swiglu_down_plain),
     "flash_attention_tc": (flash_attention_tc_cuda, flash_attention_tc_plain),
     "flash_attention_tc_int8kv": (flash_attention_tc_int8kv_cuda, flash_attention_tc_int8kv_plain),
@@ -107,7 +105,6 @@ KERNELS = {
     "swiglu_tc": (fused_swiglu_tc_cuda, fused_swiglu_plain),
     "swiglu_bwd_tc": (fused_swiglu_bwd_tc_cuda, fused_swiglu_bwd_plain),
     "swiglu_rows_tc": (fused_swiglu_rows_tc_cuda, fused_swiglu_plain),
-    "gemv_int4_w4a8_tc": (gemv_int4_w4a8_tc_cuda, gemv_int4_w4a8_plain),
     "gemv_int8_tc": (gemv_int8_tc_cuda, gemv_int8_plain),
     "swiglu_tf32": (fused_swiglu_tf32_cuda, fused_swiglu_plain),
     "swiglu_bwd_tf32": (fused_swiglu_bwd_tf32_cuda, fused_swiglu_bwd_plain),
@@ -131,8 +128,8 @@ def plain_counts() -> dict:
     ``swiglu``, ``swiglu_tc``, ``swiglu_rows_tc``, ``swiglu_tf32`` and
     ``swiglu_rows``,
     ``swiglu_bwd``, ``swiglu_bwd_tc`` and ``swiglu_bwd_tf32``,
-    ``gemv_int4_w4a8`` and ``gemv_int4_w4a8_tc``,
-    ``gemv_int8`` and ``gemv_int8_tc``)."""
+    ``gemv_int8`` and ``gemv_int8_tc``; ``gemv_int4`` and ``gemv_int4_w4a8``
+    are one kernel each, on the tensor cores at every call)."""
     names = {}
     for name, (_, plain) in KERNELS.items():
         names.setdefault(plain, name)

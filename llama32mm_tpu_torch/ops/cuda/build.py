@@ -133,11 +133,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # (x, q, scale, out, rows, n, k, dtype, kernel (-1: routed, 0: CUDA cores, 1: tensor
         #  cores), launched kernel (out), stream)
         "l32_gemv_int8": [p, p, p, p, i, i, i, i, i, p, p],
-        # (x, q4, scale, out, rows, n, k, group, dtype, stream)
-        "l32_gemv_int4": [p, p, p, p, i, i, i, i, i, p],
-        # (x, q4, scale, xq, ax, out, rows, n, k, group, dtype, kernel (-1: routed, 0: CUDA
-        #  cores, 1: tensor cores), launched kernel (out), stream)
-        "l32_gemv_int4_w4a8": [p, p, p, p, p, p, i, i, i, i, i, i, p, p],
+        # (x, q4, scale, planes|NULL, out, rows, n, k, group, dtype, stream)
+        "l32_gemv_int4": [p, p, p, p, p, i, i, i, i, i, p],
+        # (x, q4, scale, xq, ax, out, rows, n, k, group, dtype, stream)
+        "l32_gemv_int4_w4a8": [p, p, p, p, p, p, i, i, i, i, i, p],
         # (x, w_gate, w_up, w_down, partial_ws, out, rows, hidden, inter, tile, dtype, stream)
         "l32_swiglu_down": [p, p, p, p, p, p, i, i, i, i, i, p],
         # (x, q|q4, scale, out, rows, n, k, group (0: int8), dtype, kernel (-1: routed),

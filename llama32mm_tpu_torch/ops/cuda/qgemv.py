@@ -17,6 +17,10 @@ nn.Linear's ``[N, K]`` orientation.
   ``scale [N, K/g]``; ``out = x @ dequant(q4, scale).T``. Replaces
   ``_int4_kernel_post`` (``variant="post"``/``"post-cat"``) and folds
   ``_int4_kernel`` (``"pre"``): the three differ only in how a TPU unpacks.
+  ``gemv_int4_cuda`` runs every call on the tensor cores (``mma.sync``):
+  bf16 x with g/2 a multiple of 16 and 16-byte-aligned x and q4 as it is,
+  anything else after a pre-pass that writes x as bf16 planes
+  (``split_bf16_planes``: three for fp32 x) in the order the kernel reads.
 - int4 W4A8 (``gemv_int4_w4a8_*``): the same weights against activations
   quantized per row to int8, ``x ≈ ax·xq`` with ``ax = max|x_row| / 127``
   (1 for an all-zero row) and ``xq = clamp(round(x / ax), -127, 127)``
@@ -24,12 +28,9 @@ nn.Linear's ``[N, K]`` orientation.
   integers per group. Replaces ``_int4_kernel_w4a8`` (``variant="w4a8"``)
   and folds ``_int4_kernel_w4a8b`` (``"w4a8b"``, the same math batched for
   Mosaic). The activation rounding is the one numerical change against
-  W4A16. ``gemv_int4_w4a8_cuda`` is the entry the model calls:
-  ``l32_gemv_int4_w4a8`` quantizes the rows, then routes the dot by shape
-  to the tensor-core kernel (``mma.sync`` s8; g/2 a multiple of 16, aligned
-  operands, any x dtype) or else the CUDA-core one, and reports which it
-  launched; ``gemv_int4_w4a8_tc_cuda`` and ``gemv_int4_w4a8_simt_cuda``
-  count those launches and, called directly, force their own kernel.
+  W4A16. ``gemv_int4_w4a8_cuda`` quantizes the rows, then runs the dot on
+  the tensor cores (``mma.sync`` s8) at every group size, alignment and x
+  dtype.
 """
 
 from __future__ import annotations
@@ -114,18 +115,49 @@ def gemv_int8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     return int8_matmul_plain(x, q, scale)
 
 
+def packed_half(k: int) -> int:
+    """Elements of one half of a packed x row (``csrc/qgemv.cu``): K/2
+    rounded up to whole 16-byte weight spans."""
+    return (k // 2 + 15) // 16 * 16
+
+
+def split_bf16_planes(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` as three bf16 planes ``[3, *x.shape]`` with ``x = b0 + b1 +
+    b2`` exactly (for normal x whose low part stays normal: |x| above about
+    2^-110): each plane is the top 16 bits of what the planes before it
+    leave, truncated, so none rounds up to inf near the fp32 maximum. The
+    W4A16 pre-pass (``split_rows_kernel``) computes it on the card."""
+    r, planes = x.float(), []
+    for _ in range(3):
+        top = (r.view(torch.int32) & -65536).view(torch.float32)  # bits 0xFFFF0000
+        planes.append(top.to(torch.bfloat16))  # exact: the low 16 bits are zero
+        r = r - top
+    return torch.stack(planes)
+
+
+def _int4_planes(x, q4, rows, k, g):
+    """The pre-pass's workspace, or None where the kernel reads x as it is
+    (bf16 x, 16-byte-aligned x and q4, g/2 a multiple of 16)."""
+    if (x.dtype == torch.bfloat16 and (g // 2) % 16 == 0 and x.data_ptr() % 16 == 0
+            and q4.data_ptr() % 16 == 0):
+        return None
+    planes = 3 if x.dtype == torch.float32 else 1
+    return torch.empty(planes * rows * 2 * packed_half(k), dtype=torch.bfloat16, device=x.device)
+
+
 @counted("launches")
 def gemv_int4_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``x [..., K] @ dequant(q4, scale).T`` for ``q4 [N, K/2] uint8`` and
-    ``scale [N, K/g]``, at most 32 rows of x, fp32 accumulation with the
-    group scale applied to each fp32 partial, output in x's dtype. bf16 x
-    with g/2 a multiple of 16 runs on the tensor cores (``mma.sync``), each
-    row's bits independent of the other rows; fp32 x and other group sizes
-    on the CUDA cores."""
+    ``scale [N, K/g]``, at most 32 rows of x, on the tensor cores: fp32 sums
+    with the group scale applied to each, output in x's dtype, each row's
+    bits independent of the other rows. fp32 x is summed as three exact bf16
+    planes."""
     rows, n, k, g = _gemv_rows(x, q4, scale, packed=True)
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    planes = _int4_planes(x, q4, rows, k, g) if rows and n else None
     status = load_library().l32_gemv_int4(
-        x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, n, k, g,
+        x.data_ptr(), q4.data_ptr(), scale.data_ptr(),
+        None if planes is None else planes.data_ptr(), out.data_ptr(), rows, n, k, g,
         dtype_code(x), stream_of(x),
     )
     check(status, "int4 gemv kernel")
@@ -140,44 +172,22 @@ def gemv_int4_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> t
     return int4_matmul_plain(x, q4, scale)
 
 
-def _w4a8(x, q4, scale, kernel: int) -> torch.Tensor:
-    rows, n, k, g = _gemv_rows(x, q4, scale, packed=True)
-    out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
-    xq = torch.empty(rows, k, dtype=torch.int8, device=x.device)
-    ax = torch.empty(rows, dtype=torch.float32, device=x.device)
-    launched = ctypes.c_int(-1)
-    status = load_library().l32_gemv_int4_w4a8(
-        x.data_ptr(), q4.data_ptr(), scale.data_ptr(), xq.data_ptr(), ax.data_ptr(),
-        out.data_ptr(), rows, n, k, g, dtype_code(x), kernel, ctypes.byref(launched),
-        stream_of(x),
-    )
-    check(status, "int4 W4A8 gemv kernel")
-    if launched.value == TC:
-        gemv_int4_w4a8_tc_cuda.launches += 1
-    elif launched.value == SIMT:
-        gemv_int4_w4a8_simt_cuda.launches += 1
-    return out
-
-
+@counted("launches")
 def gemv_int4_w4a8_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """W4A8: ``x [..., K]`` quantized per row to int8 by a first kernel, then
-    int32 dots with ``q4 [N, K/2]`` per group, ``scale [N, K/g]``, at most 32
-    rows of x; output in x's dtype. Through the dot kernel the call's shape
-    routes to."""
-    return _w4a8(x, q4, scale, ROUTED)
-
-
-@counted("launches")
-def gemv_int4_w4a8_tc_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor):
-    """The tensor-core W4A8 dot (``mma.sync`` s8); raises for a call it does
-    not take."""
-    return _w4a8(x, q4, scale, TC)
-
-
-@counted("launches")
-def gemv_int4_w4a8_simt_cuda(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor):
-    """The CUDA-core W4A8 dot (``__dp4a``): any group size and alignment."""
-    return _w4a8(x, q4, scale, SIMT)
+    int32 dots with ``q4 [N, K/2]`` per group on the tensor cores, ``scale
+    [N, K/g]``, at most 32 rows of x; output in x's dtype."""
+    rows, n, k, g = _gemv_rows(x, q4, scale, packed=True)
+    out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    xq = torch.empty(rows * 2 * packed_half(k), dtype=torch.int8, device=x.device)
+    ax = torch.empty(rows, dtype=torch.float32, device=x.device)
+    status = load_library().l32_gemv_int4_w4a8(
+        x.data_ptr(), q4.data_ptr(), scale.data_ptr(), xq.data_ptr(), ax.data_ptr(),
+        out.data_ptr(), rows, n, k, g, dtype_code(x), stream_of(x),
+    )
+    check(status, "int4 W4A8 gemv kernel")
+    gemv_int4_w4a8_cuda.launches += 1
+    return out
 
 
 @counted("calls")

@@ -44,8 +44,8 @@ CATEGORIES = (
     ("rmsnorm_fwd", "rmsnorm fwd"), ("swiglu_tma", "swiglu (TMA tile)"),
     ("swiglu_rows_tc", "swiglu rows (tensor cores)"),
     ("swiglu_rows", "swiglu rows (decode)"), ("swiglu", "swiglu (wmma tile, loop)"),
-    ("gemv_w4a8_tc", "W4A8 gemv (tensor cores)"),
-    ("gemv_w4a8", "W4A8 gemv"), ("quantize_rows", "W4A8 row quantize"),
+    ("gemv_w4a8", "W4A8 gemv (tensor cores)"), ("quantize_rows", "W4A8 row quantize"),
+    ("split_rows", "int4 gemv x planes"),
     ("gemv_int8_tc", "int8 gemv (tensor cores)"), ("gemv_int8", "int8 gemv (CUDA cores)"),
     ("gemv_int4", "int4 gemv"),
     ("gemv_bf16_tc", "bf16 gemv (tensor cores)"), ("gemv_kernel", "bf16 gemv (CUDA cores)"),

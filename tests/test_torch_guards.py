@@ -126,7 +126,7 @@ def _cpu_args(name):
         return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(16, 8)
     if name in ("gemv_int8", "gemv_int8_tc", "qmatmul", "qmatmul_tc"):
         return x, torch.randint(-127, 128, (8, 16), dtype=torch.int8), torch.rand(8)
-    if name in ("gemv_int4", "gemv_int4_w4a8", "gemv_int4_w4a8_tc"):  # group size 8
+    if name in ("gemv_int4", "gemv_int4_w4a8"):  # group size 8
         return x, torch.randint(0, 256, (8, 8), dtype=torch.uint8), torch.rand(8, 2)
     q = torch.randn(1, 2, 3, 16)
     if name in ("flash_attention_int8kv", "flash_attention_tc_int8kv", "flash_decode_int8kv"):

@@ -16,6 +16,7 @@ from llama32mm_tpu.models.vlm import init_vlm_params
 from llama32mm_tpu.models.vlm import vlm_forward as jax_vlm_forward
 from llama32mm_tpu.ops import quant as jq
 from llama32mm_tpu.ops.pallas.gemv import (
+    int4_gemv_pallas,
     int4_gemv_stacked_pallas,
     int8_gemv_pallas,
     int8_gemv_stacked_pallas,
@@ -28,6 +29,7 @@ from llama32mm_tpu_torch.models.common import QuantLinear
 from llama32mm_tpu_torch.models.quantize import quantize_llama_params
 from llama32mm_tpu_torch.models.vlm import vlm_forward
 from llama32mm_tpu_torch.ops import cuda as kernels
+from llama32mm_tpu_torch.ops.cuda.qgemv import split_bf16_planes
 from llama32mm_tpu_torch.ops.gemv import qlinear
 from llama32mm_tpu_torch.ops.quant import (
     INT4_MIXED_RECIPE,
@@ -176,6 +178,52 @@ def test_int4_gemv_plain_matches_pallas(variant, rows, g):
     got = qlinear(torch.from_numpy(x), quantize_weight_int4(_port(ws[1]), g))
     assert kernels.plain_counts()["gemv_int4"] == 1
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+# (K, g) of the group sizes the card's W4A16 kernel reads in packed order:
+# g/2 not a multiple of 16 (spans of 16 weight bytes straddle groups), and
+# per-channel groups with K % 32 != 0 (rows of K/2 = 100 and 2050 bytes, not
+# 16-byte aligned). The Pallas kernel takes each in interpret mode.
+OTHER_GROUPS = [(192, 16), (192, 24), (200, 200), (4100, 4100)]
+
+
+@pytest.mark.parametrize("k,g", OTHER_GROUPS)
+@pytest.mark.parametrize("rows", [1, 8, 9, 32])  # fp32 x at the kernel's row tiles
+def test_int4_gemv_plain_matches_pallas_other_groups(rows, k, g):
+    """fp32 x through ``qlinear`` (the W4A16 plain version) against
+    ``int4_gemv_pallas`` at those group sizes, within 1e-5 of the largest
+    output: both sides sum in fp32, in other orders."""
+    rs = np.random.RandomState(k + g)
+    w = _rand(rs, k, 150, scale=0.1)
+    x = _rand(rs, rows, k)
+    jqw = jq.quantize_weight_int4(jnp.asarray(w), g)
+    want = np.asarray(int4_gemv_pallas(jnp.asarray(x), jqw["q4"], jqw["scale"], variant="post"))
+    kernels.reset_counters()
+    got = qlinear(torch.from_numpy(x), quantize_weight_int4(_port(w), g))
+    assert kernels.plain_counts()["gemv_int4"] == 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (rows, 150)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("kind", ["normal", "huge", "tiny", "zero"])
+def test_split_bf16_planes_sum_back_exactly(kind):
+    """The W4A16 pre-pass's split of fp32 x into three bf16 planes: each
+    plane is a bf16 value, and the three add back to x exactly (in fp64, and
+    in fp32 from the largest plane down), with signs, near the fp32 maximum
+    (truncation: no plane rounds up to inf) and far below 1."""
+    rs = np.random.RandomState(11)
+    x = rs.randn(7, 33).astype(np.float32)
+    x[0, :4] = [1.0, -1.0, np.float32(1 + 2.0 ** -23), -np.float32(3.0) / np.float32(7.0)]
+    x *= {"normal": 1.0, "huge": 3.0e38 / np.abs(x).max(), "tiny": 1e-30, "zero": 0.0}[kind]
+    planes = split_bf16_planes(torch.from_numpy(x))
+    assert planes.dtype == torch.bfloat16 and tuple(planes.shape) == (3, 7, 33)
+    p = planes.double().numpy()
+    np.testing.assert_array_equal(p.sum(axis=0), x.astype(np.float64))
+    f = planes.float()
+    assert torch.equal((f[0] + f[1]) + f[2], torch.from_numpy(x))
+    assert torch.isfinite(f).all()
+    if kind == "normal":  # every plane carries bits of a generic fp32 value
+        assert (f[1] != 0).any() and (f[2] != 0).any()
 
 
 # (bits, rows, K, N, group): rows above the gemv limit; K=200 is ragged for

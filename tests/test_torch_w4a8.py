@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from llama32mm_tpu.ops import quant as jq
-from llama32mm_tpu.ops.pallas.gemv import int4_gemv_stacked_pallas
+from llama32mm_tpu.ops.pallas.gemv import int4_gemv_pallas, int4_gemv_stacked_pallas
 from llama32mm_tpu_torch.configs import tiny_mllama_config
 from llama32mm_tpu_torch.inference.engine import InferenceEngine
 from llama32mm_tpu_torch.models.quantize import quantize_llama_params
@@ -81,6 +81,31 @@ def test_w4a8_plain_matches_pallas_row_buckets(rows, group, dtype):
     tensor-core W4A8 kernel changes its tiling (one n8 tile of x rows up to
     8, two up to 16, four with two m16 tiles up to 32)."""
     _plain_matches_pallas("w4a8", group, dtype, (rows,))
+
+
+@pytest.mark.parametrize("k,g", [(192, 16), (192, 24), (200, 200), (4100, 4100)])
+@pytest.mark.parametrize("variant", ["w4a8", "w4a8b"])
+def test_w4a8_plain_matches_pallas_other_groups(variant, k, g):
+    """The W4A8 plain version against ``int4_gemv_pallas`` at the group sizes
+    the card's kernel reads in packed order (g/2 not a multiple of 16: spans
+    straddle groups; per-channel K % 32 != 0: rows of K/2 = 100 and 2050
+    bytes), fp32 x at R = 1, 8, 9 and 32 (1e-5 of the largest output: the same
+    integers, fp32 scale sums in other orders) and bf16 x (1.6e-2)."""
+    rs = np.random.RandomState(k + g)
+    w = (rs.randn(k, 150) * 0.1).astype(np.float32)
+    jqw = jq.quantize_weight_int4(jnp.asarray(w), g)
+    q4 = torch.from_numpy(np.array(np.asarray(jqw["q4"]).T, order="C"))
+    scale = torch.from_numpy(np.array(np.asarray(jqw["scale"]).T, order="C"))
+    for rows in (1, 8, 9, 32):
+        x = rs.randn(rows, k).astype(np.float32)
+        for dtype, tol in (("float32", 1e-5), ("bfloat16", 1.6e-2)):
+            xj = jnp.asarray(x, dtype=jnp.dtype(dtype))
+            want = np.asarray(int4_gemv_pallas(xj, jqw["q4"], jqw["scale"], variant=variant),
+                              np.float32)
+            xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(getattr(torch, dtype))
+            got = gemv_int4_w4a8_plain(xt, q4, scale)
+            assert got.dtype == xt.dtype and tuple(got.shape) == (rows, 150)
+            assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
 
 
 def test_w4a8_row_quantization():
