@@ -36,7 +36,8 @@
    one, and the int4-mixed run must launch the W4A16 gemv 81 times a decode
    step (``w_gate`` and ``w_up`` of 40 layers, the head); the tensor-core
    int8 gemv must serve every int8 decode linear (281 a step and the
-   prefill's head in int8, 200 a step in int4-mixed), the CUDA-core one none;
+   prefill's head in int8, 200 a step in int4-mixed), its general route
+   (fp32 x, ragged K, misaligned pointers) none;
 8. LoRA fine-tuning of the 11B bf16 model (rank 16, the default targets
    and a head adapter, Adam) on one B=1, S=1632 batch: a warm-up step and
    3 timed steps; checks finite losses and moments, a bitwise unchanged
@@ -56,8 +57,8 @@
    1632, budgets 64 / 32) through 8 slots, 6 submitted at first and 4 after
    one step, checking budgets, ids and the path's kernels (the W4A8 gemv,
    on the tensor cores at every call, 81 times a decode step and once a
-   prefill's head, the tensor-core int8 gemv 200 times a decode step, the
-   CUDA-core one never); printing
+   prefill's head, the tensor-core int8 gemv 200 times a decode step, its
+   general route never); printing
    aggregate decode tokens/s, ms per decode step with 8 slots busy, peak
    GiB and how many requests equal a solo engine run; and, as information,
    a B=1 generate A/B of the W4A8 and W4A16 int4 gemvs;
@@ -257,9 +258,11 @@ The tensor-core SwiGLU rows kernel and W4A8 gemv get the same three checks
 as the tensor-core gemv (routed by the model's entry, two calls bit-equal,
 each row of an R > 1 call equal to its R = 1 call), and so do the CUDA-core
 SwiGLU rows kernel (fp32 at the 11B widths, R = 1, 2, 5, 8; H=100; x one
-element into its buffer; bf16 ragged H) and the tensor-core int8 gemv, with
-a case whose x starts 2 bytes off alignment that the model's entry must
-route to the CUDA-core int8 gemv; the TMA SwiGLU backward one case whose
+element into its buffer; bf16 ragged H), the tensor-core int8 gemv, and the
+general routes of both gemvs (fp32 x at the head and ``w_gate``, R = 1, 8,
+32, as 3xTF32 products and as three bf16 planes, held to 1e-5 of
+max|plain|; ragged K=4100; x, w or q off 16-byte alignment); the TMA
+SwiGLU backward one case whose
 cotangent starts at an odd element; two calls of each RMSNorm backward case
 give the same bits (dt, and dw when asked for); two calls of each SwiGLU +
 down case give the same bits and each row of an R > 1 call equals its R = 1
@@ -268,7 +271,8 @@ rows), and the bf16 and fp32 11B cases print their time beside the unfused
 SwiGLU + gemv pair's. The fp32 cases of the rows kernel and of SwiGLU +
 down are held to 1e-5 of max|plain|. Every bf16
 path at 11B and 3B must launch the new kernels and never an fp32 flash
-forward or backward, nor the wmma dequantizing GEMM, nor a CUDA-core gemv;
+forward or backward, nor the wmma dequantizing GEMM, nor a gemv's general
+route;
 the bf16 generate and server launch the tensor-core gemv 201 times a decode
 step (and once for each prefill's head), the TMA SwiGLU tile 40 times a
 prefill and the tensor-core SwiGLU rows kernel 40 times a decode step, never
@@ -500,7 +504,7 @@ ALSO_REPLACES = {
 # and the CUDA-core rows kernel and the wmma tile to 0), the int4
 # server's W4A8 gemvs through the W4A8 kernel (tensor cores at every call), and every int8
 # decode linear through the tensor-core int8 gemv (run_11b and run_server
-# hold it to its count, path_faults the CUDA-core one to 0).
+# hold it to its count, path_faults the general route to 0).
 BF16_ATTN = ("flash_attention_tc", "flash_decode")
 INT8_KV_ATTN = ("flash_attention_tc", "flash_attention_tc_int8kv", "flash_decode_int8kv")
 SERVER_INT4_KERNELS = ("rmsnorm", "gemv_int8_tc", "gemv_int4_w4a8", "qmatmul_tc") + INT8_KV_ATTN
@@ -582,9 +586,10 @@ PATH_KERNELS.update({"sp_lora_11b": TRAIN_BF16_KERNELS,
 # instantiations, dq and dk/dv; the 3xTF32 SwiGLU tile forward and
 # backward): the bf16 paths above must never launch them; nor the wmma
 # dequantizing GEMM ("qmatmul"), which every
-# bf16 prefill shape leaves to the wgmma one; nor the CUDA-core gemvs
-# ("gemv", "gemv_int8"), which every decode linear at these widths leaves to
-# the tensor-core ones (both int4 gemvs run on the tensor cores at every call).
+# bf16 prefill shape leaves to the wgmma one; nor the gemvs' general routes
+# ("gemv", "gemv_int8": fp32 x, ragged K, misaligned pointers), which every
+# decode linear at these widths leaves to the tensor-core kernels on x as it
+# is (both int4 gemvs run on the tensor cores at every call).
 FP32_FORWARD = ("flash_attention", "flash_attention_int8kv", "flash_attention_lse")
 FP32_BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 FP32_SWIGLU = ("swiglu_tf32", "swiglu_bwd_tf32")
@@ -614,9 +619,10 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
         if launches["qmatmul"]:
             faults.append(f"launched the wmma qmatmul {launches['qmatmul']} times")
         if launches["gemv"]:
-            faults.append(f"launched the CUDA-core gemv {launches['gemv']} times")
+            faults.append(f"launched the gemv's general route {launches['gemv']} times")
         if launches["gemv_int8"]:
-            faults.append(f"launched the CUDA-core int8 gemv {launches['gemv_int8']} times")
+            faults.append(f"launched the int8 gemv's general route {launches['gemv_int8']} "
+                          f"times")
     return faults + [f"ran plain {k} {n} times" for k, n in plain_calls.items() if n]
 
 
@@ -640,8 +646,8 @@ def int8_gemv_faults(path: str, launches: dict, layers: int, decode_steps: int, 
     linears (7 a layer in int8: W_query, W_key, W_value, out_proj, w_gate,
     w_up, w_down; 5 in the int4-mixed recipe, whose w_gate, w_up and head are
     int4) and an int8 head at each decode step and each prefill's last
-    position, all on the tensor-core kernel (path_faults holds the CUDA-core
-    one to 0). ``kind`` ("int8" or "int4_mixed") defaults to ``path``."""
+    position, all on the tensor-core kernel (path_faults holds the general
+    route to 0). ``kind`` ("int8" or "int4_mixed") defaults to ``path``."""
     per_step = (7 if (kind or path) == "int8" else 5) * layers + int8_head
     want = per_step * decode_steps + int8_head * prefills
     got = launches["gemv_int8_tc"]
@@ -732,6 +738,25 @@ def kernel_cases(dev, gen):
         carries bits."""
         return torch.randn(*shape, generator=gen, device=dev)
 
+    def w32(*shape):
+        """fp32 weights (the tiny fp32 models' linears)."""
+        return torch.randn(*shape, generator=gen, device=dev) * 0.02
+
+    def q8_off(n, k):
+        """q whose data starts 1 byte past an aligned address."""
+        q, sc = q8(n, k)
+        buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=dev)
+        buf[1:].copy_(q.flatten())
+        return buf[1:].view(q.shape), sc
+
+    def q8_stepped(n, k):
+        """Odd columns' weights (so their scales) 1e-3 of the even ones': a
+        scale applied to a neighbouring column shows."""
+        w = rnd(n, k, scale=0.02).float()
+        w[1::2] *= 1e-3
+        qw = quantize_weight(w.to(bf))
+        return qw["q"], qw["scale"]
+
     def q4(n, k, g):
         qw = quantize_weight_int4(rnd(n, k, scale=0.02), g)
         return qw["q4"], qw["scale"]
@@ -758,20 +783,29 @@ def kernel_cases(dev, gen):
 
     h, inter, vocab = 4096, 14336, 128256
     head4, w_gate4 = q4(vocab, h, 128), q4(inter, h, 128)
+    head32, w_gate32 = w32(vocab, h), w32(inter, h)
+    head8, w_gate8 = q8(vocab, h), q8(inter, h)
     cases = [
         ("rmsnorm", "prefill norm2 R=1632 C=4096 +residual",
          (rnd(1632, h), rnd(h), 1e-5, rnd(1632, h)), True),
         ("rmsnorm", "decode norm1 R=1 C=4096", (rnd(1, h), rnd(h), 1e-5, None), False),
         ("rmsnorm", "ragged R=3 C=100 +residual", (rnd(3, 100), rnd(100), 1e-5, rnd(3, 100)), False),
-        ("gemv", "lm_head R=1 N=128256 K=4096", (rnd(1, h), rnd(vocab, h)), True),
-        ("gemv", "W_query R=1 N=4096 K=4096", (rnd(1, h), rnd(h, h, scale=0.02)), False),
-        ("gemv", "W_key R=1 N=1024 K=4096", (rnd(1, h), rnd(1024, h, scale=0.02)), False),
-        ("gemv", "w_down R=1 N=4096 K=14336", (rnd(1, inter), rnd(h, inter, scale=0.01)), False),
+        # the general route: fp32 x and weights (3xTF32), ragged K, x or w
+        # off 16-byte alignment (the pre-pass's padded copy, weight words)
+        ("gemv", "fp32 lm_head R=1 N=128256 K=4096", (rnd32(1, h), head32), False),
+        ("gemv", "fp32 lm_head R=8 N=128256 K=4096", (rnd32(8, h), head32), True),
+        *[("gemv", f"fp32 w_gate R={r} N=14336 K=4096", (rnd32(r, h), w_gate32), False)
+          for r in (1, 8, 32)],
+        ("gemv", "fp32 ragged R=5 N=1000 K=4100", (rnd32(5, 4100), w32(1000, 4100)), False),
         ("gemv", "ragged R=5 N=1000 K=4100", (rnd(5, 4100), rnd(1000, 4100, scale=0.02)), False),
-        ("gemv", "server lm_head R=8 N=128256 K=4096", (rnd(8, h), rnd(vocab, h)), False),
-        ("gemv", "server W_query R=8 N=4096 K=4096", (rnd(8, h), rnd(h, h, scale=0.02)), False),
-        ("gemv", "server w_down R=8 N=4096 K=14336", (rnd(8, inter), rnd(h, inter, scale=0.01)),
-         False),
+        ("gemv", "fp32 x 4 bytes off alignment R=8 N=4096 K=4096",
+         (rnd32(8 * h + 1)[1:].view(8, h), w32(h, h)), False),
+        ("gemv", "fp32 w 4 bytes off alignment R=8 N=4096 K=4096",
+         (rnd32(8, h), w32(h * h + 1)[1:].view(h, h)), False),
+        ("gemv", f"{MISALIGNED_X} R=8 N=4096 K=4096",
+         (rnd(8 * h + 1)[1:].view(8, h), rnd(h, h, scale=0.02)), False),
+        ("gemv", "w 2 bytes off alignment R=8 N=4096 K=4096",
+         (rnd(8, h), rnd(h * h + 1, scale=0.02)[1:].view(h, h)), False),
         ("gemv_tc", "lm_head R=1 N=128256 K=4096", (rnd(1, h), rnd(vocab, h)), False),
         ("gemv_tc", "W_query R=1 N=4096 K=4096", (rnd(1, h), rnd(h, h, scale=0.02)), False),
         ("gemv_tc", "W_key R=1 N=1024 K=4096", (rnd(1, h), rnd(1024, h, scale=0.02)), False),
@@ -827,10 +861,21 @@ def kernel_cases(dev, gen):
         ("flash_attention", "ragged B=2 Tq=37 Tk=100 q_offset=5 hd=16 padded keys",
          (rnd(2, 4, 37, 16), rnd(2, 2, 100, 16), rnd(2, 2, 100, 16),
           valid(2, 100, 90), 5, True), False),
-        ("gemv_int8", "int8 lm_head R=1 N=128256 K=4096", (rnd(1, h), *q8(vocab, h)), True),
-        ("gemv_int8", "w_gate R=1 N=14336 K=4096", (rnd(1, h), *q8(inter, h)), False),
-        ("gemv_int8", "w_down R=1 N=4096 K=14336", (rnd(1, inter), *q8(h, inter)), False),
+        # the general route: fp32 x as three bf16 planes, ragged K, x or q
+        # off 16-byte alignment
+        ("gemv_int8", "fp32 x int8 lm_head R=1 N=128256 K=4096", (rnd32(1, h), *head8), False),
+        ("gemv_int8", "fp32 x int8 lm_head R=8 N=128256 K=4096", (rnd32(8, h), *head8), True),
+        *[("gemv_int8", f"fp32 x w_gate R={r} N=14336 K=4096", (rnd32(r, h), *w_gate8), False)
+          for r in (1, 8, 32)],
+        ("gemv_int8", "fp32 x channel scales 1000x apart R=8 N=1000 K=4096",
+         (rnd32(8, h), *q8_stepped(1000, h)), False),
+        ("gemv_int8", "fp32 x ragged R=5 N=1000 K=4100", (rnd32(5, 4100), *q8(1000, 4100)),
+         False),
         ("gemv_int8", "ragged R=5 N=1000 K=4100", (rnd(5, 4100), *q8(1000, 4100)), False),
+        ("gemv_int8", "fp32 x 4 bytes off alignment R=8 N=4096 K=4096",
+         (rnd32(8 * h + 1)[1:].view(8, h), *q8(h, h)), False),
+        ("gemv_int8", "fp32 x q 1 byte off alignment R=8 N=4096 K=4096",
+         (rnd32(8, h), *q8_off(h, h)), False),
         ("gemv_int4", "int4 lm_head R=1 N=128256 K=4096 g=128",
          (rnd(1, h), *head4), True),
         ("gemv_int4", "w_gate R=1 N=14336 K=4096 g=128", (rnd(1, h), *q4(inter, h, 128)), False),
@@ -1299,8 +1344,8 @@ def spec_kernel_cases(rnd, valid):
     ]
 
 
-# The CUDA-core int8 gemv's case whose x starts 2 bytes past a 16-byte
-# boundary: the model's entry must route it there (check_routed).
+# The cases whose bf16 x starts 2 bytes past a 16-byte boundary: the model's
+# entries route them to the gemvs' general routes (check_routed).
 MISALIGNED_X = "x 2 bytes off alignment"
 
 
@@ -1310,7 +1355,7 @@ def int8_gemv_cases(rnd, q8):
     (main) and 8, the 3B widths, channel scales 1000x apart (a scale applied
     to a neighbouring column shows) with a ragged N; and a call whose x the
     tensor-core kernel does not take, which the model's entry routes to the
-    CUDA-core kernel."""
+    general route."""
     h, inter, vocab = 4096, 14336, 128256
 
     def q8_stepped(n, k):
@@ -1598,13 +1643,15 @@ def fp32_case(name, args) -> bool:
 
 
 # The SwiGLU kernels of at most 8 rows a block whose fp32 cases run on the
-# CUDA cores: held to FP32_TOL too (fp32 sums on both sides, in other orders).
+# CUDA cores, and the gemvs on fp32 x (3xTF32, or three exact bf16 planes):
+# held to FP32_TOL too (fp32 sums on both sides, in other orders).
 FP32_SIMT_SWIGLU = ("swiglu_rows", "swiglu_down")
+FP32_GEMVS = ("gemv", "gemv_int8", "gemv_int4")
 
 
 def held_to_fp32_tol(name, args) -> bool:
     """A case compared with its plain version at FP32_TOL, not TOL."""
-    return fp32_case(name, args) or (name in FP32_SIMT_SWIGLU + ("gemv_int4",)
+    return fp32_case(name, args) or (name in FP32_SIMT_SWIGLU + FP32_GEMVS
                                      and args[0].dtype == torch.float32)
 
 
@@ -1641,8 +1688,10 @@ def bound(name, args, out, cuda_cores: bool = False):
     peak = PEAK_OPS[torch.int8 if name.startswith("gemv_int4_w4a8") else x.dtype]
     if fp32_case(name, args) and not cuda_cores:
         peak = TF32X3_OPS
-    if name == "gemv_int4" and x.dtype == torch.float32:  # three bf16 products a weight
+    if name in ("gemv_int4", "gemv_int8") and x.dtype == torch.float32:  # three bf16 products
         peak = BF16X3_OPS
+    if name == "gemv" and x.dtype == torch.float32:  # three TF32 products
+        peak = TF32X3_OPS
     t_bytes = (in_bytes + _nbytes(outs)) / HBM_BYTES_PER_S
     t_ops = ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1664,6 +1713,8 @@ def library_call(name, args):
     (a yardstick, never called by the port), or None where there is none."""
     x = args[0]
     if name in ("gemv", "gemv_tc"):
+        if x.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("fp32 F.linear would run on TF32 (allow_tf32 is set)")
         return lambda: F.linear(x, args[1])
     if name == "rmsnorm" and args[3] is None:
         return lambda: F.rms_norm(x, (x.shape[-1],), args[1], args[2])
@@ -1750,13 +1801,15 @@ def check_gemv_rows_alone(name, label, wrapper, args, got) -> None:
     log(f"kernel {name} [{label}]: each of the {x.shape[0]} rows equals its R=1 call bit for bit")
 
 
-# The tensor-core kernels that the model's entries choose by shape: kernel
-# name -> that entry. Rows of a gemv-like call (at most 32) are each checked
+# The kernels (and the gemvs' general routes) that the model's entries
+# choose by shape: kernel name -> that entry. Rows of a gemv-like call (at most 32) are each checked
 # against an R = 1 call, those of an R = 1632 GEMM-like call against an
 # R = 97 call.
 ROUTED_BY = {
     "gemv_tc": kernels.gemv_cuda,
     "gemv_int8_tc": kernels.gemv_int8_cuda,
+    "gemv": kernels.gemv_cuda,
+    "gemv_int8": kernels.gemv_int8_cuda,
     "swiglu_rows_tc": kernels.fused_swiglu_cuda,
     "swiglu_tc": kernels.fused_swiglu_cuda,
     "swiglu_bwd_tc": kernels.fused_swiglu_bwd_cuda,
@@ -1765,15 +1818,6 @@ ROUTED_BY = {
     "swiglu_bwd_tf32": kernels.fused_swiglu_bwd_cuda,
     "swiglu_rows": kernels.fused_swiglu_cuda,
 }
-
-
-def routed_entry(name, label):
-    """The model's entry that must launch this case's kernel, or None: a
-    tensor-core kernel's, or the int8 entry for the CUDA-core int8 case whose
-    x the tensor-core kernel does not take."""
-    if name == "gemv_int8" and label.startswith(MISALIGNED_X):
-        return kernels.gemv_int8_cuda
-    return ROUTED_BY.get(name)
 
 
 def check_routed(name, label, args, got) -> None:
@@ -1787,7 +1831,7 @@ def check_routed(name, label, args, got) -> None:
     wrapper = kernels.KERNELS[name][0]
     got = got if isinstance(got, tuple) else (got,)
     before = wrapper.launches
-    routed = routed_entry(name, label)(*args)
+    routed = ROUTED_BY[name](*args)
     routed = routed if isinstance(routed, tuple) else (routed,)
     if wrapper.launches != before + 1 or not all(map(torch.equal, routed, got)):
         raise RuntimeError(f"{name} [{label}]: the model's entry did not route it to {name}, or "
@@ -1844,7 +1888,7 @@ def compare_kernels(dev, only=None) -> dict:
                 check_gemv_rows_alone(name, label, wrapper, args, got)
         if name in HD8_RACE and label.startswith("hd=8"):  # the zero-fill race, repaired
             check_same_bits(name, label, wrapper, args, got, calls=49)
-        if routed_entry(name, label) is not None:
+        if name in ROUTED_BY:
             check_routed(name, label, args, got)
         ms, plain_ms = time_ms(lambda: wrapper(*args)), time_ms(lambda: plain(*args))
         lib_ms = library_ms(name, label, args)

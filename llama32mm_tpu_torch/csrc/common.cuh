@@ -107,6 +107,47 @@ __device__ __forceinline__ uint4 load_stream16(const void* p) {
   return r;
 }
 
+// 4 bytes of a weight row read once (bypassing L1), from an aligned address.
+__device__ __forceinline__ uint32_t load_stream4(const void* p) {
+  uint32_t r;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(r) : "l"(p));
+  return r;
+}
+
+// The 4 bytes of a weight row at p, at any alignment, from the aligned
+// words that hold them (a funnel shift joins two). The row ends at `end`:
+// bytes past it are whatever the next row holds, and a word wholly past it
+// is not read.
+__device__ __forceinline__ uint32_t load_word_any(const uint8_t* p, const uint8_t* end) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint8_t* w = reinterpret_cast<const uint8_t*>(a & ~static_cast<uintptr_t>(3));
+  const uint32_t sh = static_cast<uint32_t>(a & 3) * 8;
+  const uint32_t lo = load_stream4(w);
+  const uint32_t hi = sh && w + 4 < end ? load_stream4(w + 4) : 0u;
+  return __funnelshift_r(lo, hi, sh);
+}
+
+// load_word_any with the bytes at or past `end` read as 0 (nothing is read
+// where p is past it): a ragged row's last span, whose weights past K would
+// otherwise be the next row's (an Inf there times a zero x is NaN).
+__device__ __forceinline__ uint32_t load_word_before(const uint8_t* p, const uint8_t* end) {
+  if (p >= end) return 0u;
+  const uint32_t v = load_word_any(p, end);
+  const long long left = end - p;
+  return left >= 4 ? v : v & ((1u << (8 * left)) - 1u);
+}
+
+// 16 bytes of a weight row at p, the row ending at `end`: one streaming
+// load where they are 16-byte aligned and inside the row, else four words
+// as load_word_before reads them.
+__device__ __forceinline__ uint4 load16_any(const void* p, const void* end) {
+  const uint8_t* b = static_cast<const uint8_t*>(p);
+  const uint8_t* e = static_cast<const uint8_t*>(end);
+  if ((reinterpret_cast<uintptr_t>(b) & 15) == 0 && b + 16 <= e) return load_stream16(b);
+  return make_uint4(load_word_before(b, e), load_word_before(b + 4, e),
+                    load_word_before(b + 8, e), load_word_before(b + 12, e));
+}
+
 // Warps a block of the swap-AB tensor-core gemvs (gemv.cu, the SwiGLU rows
 // kernel): enough blocks x warps to keep loads in flight on every SM at
 // every N (W_key's N = 1024 has 64 groups of 16 columns, w_down's 256 for a

@@ -29,10 +29,19 @@
 //    cover 64 bytes of each of 8 rows where the CUDA-core kernel's cover 512
 //    bytes of one (a timing-only copy with 256-byte runs a row was 2-11%
 //    faster everywhere but w_gate).
-// 2. fp32 x, other K and misaligned pointers take the CUDA-core
-//    gemv_int8_kernel (the tiny fp32 checks): one warp per output column,
-//    16 x values re-read from L1 for each row of x and every 16 weight bytes
-//    (16 x loads per weight load at R = 8) and 16 R fp32 FMAs.
+// 2. Every other call takes the same kernel after a pre-pass
+//    (split_rows_kernel, one block a row) that writes x once a call as bf16
+//    planes padded with zeros to whole 64-k spans: fp32 x as three, x = b0 +
+//    b1 + b2 exactly by truncation (every int8 weight is exact in bf16, so
+//    each plane's products are exact in fp32), bf16 x with other K or a
+//    misaligned pointer as one aligned copy. The planes are more rows of x
+//    (virtual rows p * R + r) against the same A fragments, summed apart
+//    and added at the end; fp32 x sums each span in fresh registers. At R <=
+//    2 the three planes fill one n8 tile; above, blocks take chunks of 8
+//    rows (three n8 tiles, two m16 tiles a warp). Weight rows that are not
+//    16-byte aligned or end inside a span are read as gemv.cu reads them
+//    (load16_any: aligned words joined by a funnel shift where a 16-byte
+//    load cannot serve, the bytes past K zeroed).
 //
 // int4 W4A16 (l32_gemv_int4): q4 [N, K/2] uint8 in the split-half per-group
 // packing (byte j*g/2 + i of a row holds k = j*g + i in its low nibble and
@@ -135,117 +144,11 @@
 // row in int8 (half of bf16) and K/2 in int4; each weight byte serves r <= 32
 // rows, far below the ~295 FLOPs per byte where tensor cores would matter
 // for speed (the tensor-core kernels use them to reuse x, above).
-// Design of the CUDA-core int8 kernel (that of gemv.cu): one warp per output
-// row n reads the row once with coalesced 16-byte loads (16 int8 weights)
-// and applies each loaded vector to every row of x (x is small and stays in
-// L1/L2), r fp32 accumulators per lane, warp-shuffle reduction. A K that is
-// not a multiple of 16 (or a misaligned row) runs a scalar head up to the
-// row's 16-byte boundary, the vector body and a scalar tail. Bytes become
-// floats by placing them in the mantissa of 2^23 (a byte permute and one
-// fp32 subtraction), not by the int-to-float conversion, which issues at a
-// quarter of the fp32 rate: with it the int8 head streamed 1630 GB/s, with
-// the mantissa form 3054 GB/s (same call, NVIDIA H100 80GB HBM3, 700 W).
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int kWarps = 4;
-
-// Four bytes of w as floats minus `bias`, without the quarter-rate
-// integer-to-float conversion: byte b becomes the low mantissa bits of 2^23
-// (bit pattern 0x4B0000bb = 2^23 + b), and one fp32 subtraction of
-// 2^23 + offset leaves b - offset exactly.
-__device__ __forceinline__ void bytes_to_f32(uint32_t w, float bias, float* f) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) f[j] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + j)) - bias;
-}
-
-constexpr float kInt8Bias = 8388608.f + 128.f;  // signed byte, stored with its top bit flipped
-
-template <typename T, int MAXR>
-__device__ __forceinline__ void store_rows(const float (&acc)[MAXR], float scale, T* out,
-                                           int rows, int n, int col, int lane) {
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    if (r < rows) {
-      const float s = warp_sum(acc[r]);
-      if (lane == 0) out[static_cast<size_t>(r) * n + col] = from_f32<T>(s * scale);
-    }
-  }
-}
-
-// acc[r] += sum_j x[r, c + j] * w[j] over 16 consecutive k, x by 16-byte loads.
-template <typename T, int MAXR>
-__device__ __forceinline__ void dot16_vec(float (&acc)[MAXR], const T* x, int rows, int k, int c,
-                                          const float (&w)[16]) {
-  constexpr int V = Vec16<T>::N;
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    if (r < rows) {
-      const T* xr = x + static_cast<size_t>(r) * k + c;
-#pragma unroll
-      for (int h = 0; h < 16; h += V) {
-        const Vec16<T> xv = load16(xr + h);
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[r] = fmaf(to_f32(xv[j]), w[h + j], acc[r]);
-      }
-    }
-  }
-}
-
-template <typename T, int MAXR, bool kVec>
-__global__ void __launch_bounds__(kWarps * 32)
-gemv_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-                 const float* __restrict__ scale, T* __restrict__ out, int rows, int n, int k) {
-  const int lane = threadIdx.x & 31;
-  const int col = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (col >= n) return;
-  const int8_t* wr = q + static_cast<size_t>(col) * k;
-
-  float acc[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
-
-  auto scalar = [&](int c) {
-    const float wf = static_cast<float>(wr[c]);
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r)
-      if (r < rows) acc[r] = fmaf(to_f32(x[static_cast<size_t>(r) * k + c]), wf, acc[r]);
-  };
-  auto unpack = [](const uint4& raw, float (&wf)[16]) {
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) bytes_to_f32(w[i] ^ 0x80808080u, kInt8Bias, wf + 4 * i);
-  };
-
-  if (kVec) {  // k % 16 == 0, rows of q and x 16-byte aligned
-    for (int c = lane * 16; c < k; c += 32 * 16) {
-      float wf[16];
-      unpack(*reinterpret_cast<const uint4*>(wr + c), wf);
-      dot16_vec<T, MAXR>(acc, x, rows, k, c, wf);
-    }
-  } else {
-    const int head = min(k, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(wr) & 15)) & 15));
-    const int body_end = head + (k - head) / 16 * 16;
-    for (int c = lane; c < head; c += 32) scalar(c);
-    for (int c = head + lane * 16; c < body_end; c += 32 * 16) {
-      float wf[16];
-      unpack(*reinterpret_cast<const uint4*>(wr + c), wf);
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        if (r < rows) {
-          const T* xr = x + static_cast<size_t>(r) * k + c;
-#pragma unroll
-          for (int j = 0; j < 16; ++j) acc[r] = fmaf(to_f32(xr[j]), wf[j], acc[r]);
-        }
-      }
-    }
-    for (int c = body_end + lane; c < k; c += 32) scalar(c);
-  }
-  store_rows<T, MAXR>(acc, scale[col], out, rows, n, col, lane);
-}
 
 // ---- The int4 gemvs on the tensor cores: what W4A16 and W4A8 share ----
 
@@ -331,19 +234,6 @@ __device__ __forceinline__ Piece<CB> load_stream(const uint8_t* p) {
   return r;
 }
 
-// The 4 bytes of a weight row at p, at any alignment, from the aligned
-// words that hold them (a funnel shift joins two). The row ends at `end`:
-// bytes past it are whatever the next row holds (the caller's group masks
-// drop them), and a word wholly past it is not read.
-__device__ __forceinline__ uint32_t load_word_any(const uint8_t* p, const uint8_t* end) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  const uint8_t* w = reinterpret_cast<const uint8_t*>(a & ~static_cast<uintptr_t>(3));
-  const uint32_t sh = static_cast<uint32_t>(a & 3) * 8;
-  const uint32_t lo = load_stream<4>(w).w[0];
-  const uint32_t hi = sh && w + 4 < end ? load_stream<4>(w + 4).w[0] : 0u;
-  return __funnelshift_r(lo, hi, sh);
-}
-
 // The lane's CB weight bytes at byte c of a row of k2 bytes: one streaming
 // load in natural order; in packed order (CB = 4) a word inside the row,
 // aligned (kAny false: K/2 a multiple of 4, q4 4-byte aligned) or not.
@@ -419,7 +309,7 @@ split_rows_kernel(const T* __restrict__ x, uint16_t* __restrict__ planes, int ro
                   int ld) {
   const T* xr = x + static_cast<size_t>(blockIdx.x) * k;
   for (int e = threadIdx.x; e < ld; e += kQuantThreads) {
-    const int src = kPacked ? packed_source(e, k, g) : e;
+    const int src = kPacked ? packed_source(e, k, g) : e < k ? e : -1;
     const float v = src >= 0 ? to_f32(xr[src]) : 0.f;
     uint16_t b[3];
     split_bf16x3(v, b);  // bf16 x: b[0] is x, b[1] = b[2] = 0
@@ -898,14 +788,14 @@ bool int4_words_aligned(const void* q4, int k) {
   return (reinterpret_cast<uintptr_t>(q4) & 3) == 0 && (k / 2) % 4 == 0;
 }
 
-// ---- int8 on the tensor cores (bf16 x, K a multiple of 64) ----
+// ---- int8 on the tensor cores ----
 
 // Warps a block: those of the bf16 gemv for the same bytes (a span of 64
 // int8 k holds the bytes of 32 bf16 k). N and K alone decide it.
 int int8_tc_warps(int n, int k) { return tc_warps(n, k / 2); }
 
-// out[r, n] = bf16(scale[n] * sum_k x[r, k] q[n, k]) in the swap-AB form of
-// gemv_bf16_tc_kernel: the 16 rows of an m16 tile are output columns, the 8
+// out[r, n] = scale[n] * sum_k x[r, k] q[n, k] in the swap-AB form of
+// gemv_tc_kernel: the 16 rows of an m16 tile are output columns, the 8
 // columns of an n8 tile rows of x. A span is 64 k: lane (gid, t) loads 16
 // bytes (k 16t .. 16t + 15) of weight rows n0 + gid and n0 + gid + 8 with
 // one streaming load each, and x row 8 nt + gid at the same 16 k. A dot
@@ -921,17 +811,41 @@ int int8_tc_warps(int n, int k) { return tc_warps(n, k / 2); }
 // other rows: a row of an R=8 call equals, bit for bit, the R=1 call on it.
 // A lane loads U spans at a time (U changes no arithmetic: the spans are
 // summed in order either way).
-template <int W, int MT, int NT, int U>
+// x comes as P bf16 planes [P][rows][ldx], ldx whole spans: bf16 x as it is
+// (P = 1, ldx = K) or the pre-pass's aligned copy padded with zeros, fp32 x
+// as split_rows_kernel's three exact planes (P = 3). The planes are more
+// rows of x, virtual row v = p * R + r, against the same A fragments, so
+// the weight-side work, which sets the pace, does not grow; at R <= 2 they
+// fill one n8 tile. Each plane's products are exact in fp32; fp32 x sums
+// each span's four products in fresh registers, added to the total in fp32
+// (the tensor cores round their accumulation toward zero), and the warps'
+// totals are summed in warp order, then the planes, ((t0 + t1) + t2), before
+// the scale. Blocks take chunks of `crows` rows (consecutive blocks the
+// chunks of one column tile) where the rows' accumulators would not fit one
+// block. kAny reads weight rows that are misaligned or end inside a span by
+// words (load16_any), the bytes past K zeroed.
+template <int W, int MT, int NT, int U, int P, bool kAny>
 __global__ void __launch_bounds__(W * 32)
-gemv_int8_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int rows,
-                    int n, int k) {
+gemv_int8_tc_kernel(const __nv_bfloat16* __restrict__ x, int ldx, size_t plane,
+                    const int8_t* __restrict__ q, const float* __restrict__ scale,
+                    std::conditional_t<P == 3, float, __nv_bfloat16>* __restrict__ out,
+                    int rows, int crows, int n, int k) {
   constexpr int BN = 16 * MT, RB = 8 * NT;
   __shared__ float red[W][BN][RB + 1];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * BN;
-  const int spans = k / 64;
+  int n0 = blockIdx.x * BN;
+  if constexpr (P == 3) {
+    if (crows < rows) {  // this block's chunk of rows
+      const int chunks = (rows + crows - 1) / crows, row0 = blockIdx.x % chunks * crows;
+      n0 = blockIdx.x / chunks * BN;
+      rows = min(crows, rows - row0);
+      x += static_cast<size_t>(row0) * ldx;
+      out += static_cast<size_t>(row0) * n;
+    }
+  }
+  const int vrows = P * rows;
+  const int spans = ldx / 64;
   const int ubeg = warp * spans / W, uend = (warp + 1) * spans / W;
   // The channel scale of this thread's outputs (column n0 + threadIdx.x % BN
   // in the epilogue), loaded before the weights.
@@ -953,9 +867,9 @@ gemv_int8_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
   const __nv_bfloat16* xrow[NT];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
-    const int r = 8 * nt + gid;
-    xin[nt] = r < rows;
-    xrow[nt] = x + static_cast<size_t>(xin[nt] ? r : 0) * k + 16 * t;
+    const int v = 8 * nt + gid, p = P == 1 ? 0 : v / rows;
+    xin[nt] = v < vrows;
+    xrow[nt] = x + (xin[nt] ? p * plane + static_cast<size_t>(v - p * rows) * ldx : 0) + 16 * t;
   }
 
   float acc[MT][NT][4];
@@ -973,9 +887,16 @@ gemv_int8_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          wv[s][mt][h] = u0 + s < uend && in[mt][h] ? load_stream16(wrow[mt][h] + (u0 + s) * 64)
-                                                    : make_uint4(0u, 0u, 0u, 0u);
+        for (int h = 0; h < 2; ++h) {
+          const bool live = u0 + s < uend && in[mt][h];
+          if constexpr (kAny)
+            wv[s][mt][h] = live ? load16_any(wrow[mt][h] + (u0 + s) * 64,
+                                                wrow[mt][h] - 16 * t + k)
+                                : make_uint4(0u, 0u, 0u, 0u);
+          else
+            wv[s][mt][h] = live ? load_stream16(wrow[mt][h] + (u0 + s) * 64)
+                                : make_uint4(0u, 0u, 0u, 0u);
+        }
 #pragma unroll
     for (int s = 0; s < U; ++s) {
       const int u = u0 + s;
@@ -1000,19 +921,38 @@ gemv_int8_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
       for (int mt = 0; mt < MT; ++mt) {
         const uint4 v0 = wv[s][mt][0], v1 = wv[s][mt][1];
         const uint32_t w0[4] = {v0.x, v0.y, v0.z, v0.w}, w1[4] = {v1.x, v1.y, v1.z, v1.w};
+        if constexpr (P == 1) {  // one chain, as the Pallas kernel's bf16 dot
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t a[4] = {int8x2_bf16x2(w0[j]), int8x2_bf16x2(w1[j]),
-                                 int8x2_bf16x2(w0[j] >> 8), int8x2_bf16x2(w1[j] >> 8)};
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t a[4] = {int8x2_bf16x2(w0[j]), int8x2_bf16x2(w1[j]),
+                                   int8x2_bf16x2(w0[j] >> 8), int8x2_bf16x2(w1[j] >> 8)};
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            if (8 * nt < rows) mma_16816(acc[mt][nt], a, be[nt][j], bo[nt][j]);
+            for (int nt = 0; nt < NT; ++nt)
+              if (8 * nt < vrows) mma_16816(acc[mt][nt], a, be[nt][j], bo[nt][j]);
+          }
+        } else {  // each span's products in fresh registers
+          uint32_t a[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            a[j][0] = int8x2_bf16x2(w0[j]), a[j][1] = int8x2_bf16x2(w1[j]);
+            a[j][2] = int8x2_bf16x2(w0[j] >> 8), a[j][3] = int8x2_bf16x2(w1[j] >> 8);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (8 * nt < vrows) {
+              float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) mma_16816(c, a[j], be[nt][j], bo[nt][j]);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[mt][nt][i] += c[i];
+            }
+          }
         }
       }
     }
   }
   // C element i of a lane: output column gid + 8 (i / 2) of the m16 tile,
-  // x row 2t + i % 2 of the n8 tile.
+  // virtual row 2t + i % 2 of the n8 tile.
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -1024,10 +964,16 @@ gemv_int8_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
   for (int idx = threadIdx.x; idx < BN * RB; idx += W * 32) {  // idx % BN == threadIdx.x % BN
     const int m = idx % BN, r = idx / BN;
     if (r < rows && n0 + m < n) {
-      float sum = red[0][m][r];
+      float tot = 0.f;
 #pragma unroll
-      for (int v = 1; v < W; ++v) sum += red[v][m][r];
-      out[static_cast<size_t>(r) * n + n0 + m] = __float2bfloat16(sum * sc);
+      for (int p = 0; p < P; ++p) {
+        float sum = red[0][m][p * rows + r];
+#pragma unroll
+        for (int v = 1; v < W; ++v) sum += red[v][m][p * rows + r];
+        tot = p == 0 ? sum : tot + sum;
+      }
+      out[static_cast<size_t>(r) * n + n0 + m] =
+          from_f32<std::conditional_t<P == 3, float, __nv_bfloat16>>(tot * sc);
     }
   }
 }
@@ -1043,44 +989,55 @@ bool int8_two_spans(int rows, int n) {
   return rows <= 8 && blocks >= 128 && blocks <= 264;
 }
 
-template <int W>
-void launch_int8_tc_w(const __nv_bfloat16* x, const int8_t* q, const float* scale,
-                      __nv_bfloat16* out, int rows, int n, int k, cudaStream_t s) {
-  const int b16 = (n + 15) / 16;
-  if (int8_two_spans(rows, n)) {
-    gemv_int8_tc_kernel<W, 1, 1, 2><<<b16, W * 32, 0, s>>>(x, q, scale, out, rows, n, k);
-  } else if (rows <= 8) {
-    gemv_int8_tc_kernel<W, 1, 1, 4><<<b16, W * 32, 0, s>>>(x, q, scale, out, rows, n, k);
-  } else if (rows <= 16) {
-    gemv_int8_tc_kernel<W, 1, 2, 4><<<b16, W * 32, 0, s>>>(x, q, scale, out, rows, n, k);
-  } else if constexpr (W <= 8) {  // two m16 tiles a warp halve the x reads of R = 32
-    gemv_int8_tc_kernel<W, 2, 4, 4><<<(n + 31) / 32, W * 32, 0, s>>>(x, q, scale, out, rows, n,
-                                                                      k);
-  } else {  // (the reduction buffer of 32 columns would not fit)
-    gemv_int8_tc_kernel<W, 1, 4, 4><<<b16, W * 32, 0, s>>>(x, q, scale, out, rows, n, k);
+// Row buckets (MT m16 tiles a warp, NT n8 tiles of virtual rows). One plane:
+// R <= 8 one n8 tile, <= 16 two, <= 32 four with two m16 tiles a warp
+// (halving the x reads) where the reduction buffer of 32 columns fits (W <=
+// 8). Three planes: R <= 2 one n8 tile; more rows in chunks of 8, three n8
+// tiles, with two m16 tiles a warp where they fit, one span of loads at a
+// time (at 4, 181 registers left one block an SM: the head R=8 0.36 ms
+// against 0.23, PERF.md §6).
+template <int W, int P, bool kAny>
+void launch_int8_w(const __nv_bfloat16* x, int ld, size_t plane, const int8_t* q,
+                   const float* scale, void* out, int rows, int n, int k, cudaStream_t s) {
+  using T = std::conditional_t<P == 3, float, __nv_bfloat16>;
+  T* o = static_cast<T*>(out);
+#define L32_INT8(MT, NT, U, CROWS)                                                         \
+  gemv_int8_tc_kernel<W, MT, NT, U, P, kAny>                                                \
+      <<<(n + 16 * (MT) - 1) / (16 * (MT)) * ((rows + (CROWS) - 1) / (CROWS)), W * 32, 0, s>>>( \
+          x, ld, plane, q, scale, o, rows, CROWS, n, k)
+  if constexpr (P == 1) {
+    if (int8_two_spans(rows, n)) L32_INT8(1, 1, 2, rows);
+    else if (rows <= 8) L32_INT8(1, 1, 4, rows);
+    else if (rows <= 16) L32_INT8(1, 2, 4, rows);
+    else if constexpr (W <= 8) L32_INT8(2, 4, 4, rows);
+    else L32_INT8(1, 4, 4, rows);
+  } else {
+    if (rows <= 2) L32_INT8(1, 1, 4, rows);
+    else if constexpr (W <= 8) L32_INT8(2, 3, 1, 8);
+    else L32_INT8(1, 3, 1, 8);
   }
+#undef L32_INT8
 }
 
-void launch_int8_tc(const void* x, const void* q, const float* scale, void* out, int rows, int n,
-                    int k, cudaStream_t s) {
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto w = static_cast<const int8_t*>(q);
-  auto o = static_cast<__nv_bfloat16*>(out);
-  const int warps = int8_tc_warps(n, k);
-  if (warps == 4) launch_int8_tc_w<4>(xb, w, scale, o, rows, n, k, s);
-  else if (warps == 8) launch_int8_tc_w<8>(xb, w, scale, o, rows, n, k, s);
-  else launch_int8_tc_w<16>(xb, w, scale, o, rows, n, k, s);
+template <int P, bool kAny>
+void launch_int8(const __nv_bfloat16* x, int ld, size_t plane, const int8_t* q,
+                 const float* scale, void* out, int rows, int n, int k, cudaStream_t s) {
+  const int warps = int8_tc_warps(n, ld);
+  if (warps == 4) launch_int8_w<4, P, kAny>(x, ld, plane, q, scale, out, rows, n, k, s);
+  else if (warps == 8) launch_int8_w<8, P, kAny>(x, ld, plane, q, scale, out, rows, n, k, s);
+  else launch_int8_w<16, P, kAny>(x, ld, plane, q, scale, out, rows, n, k, s);
 }
 
-// The int8 and W4A8 entries' kernel argument and the kernel they report:
-// route by shape, the CUDA-core kernel, the tensor-core kernel.
-enum { kRouted = -1, kSimt = 0, kTc = 1 };
+// The int8 entry's kernel argument and the kernel it reports: route by
+// shape, the general route, the tensor-core kernel on x as it is.
+enum { kRouted = -1, kGeneral = 0, kTc = 1 };
 
-// The tensor-core int8 kernel's calls: bf16 x, K a multiple of its 64-k
-// span, 16-byte-aligned x and q (so every row of both).
-bool int8_tc_takes(const void* x, const void* q, int k, int dtype) {
-  return dtype == L32_BF16 && k % 64 == 0 && aligned16(x) && aligned16(q);
+// x is read as it is where it is bf16, its rows whole 64-k spans and
+// 16-byte aligned; the weight rows where they are whole spans and aligned.
+bool int8_x_as_is(const void* x, int k, int dtype) {
+  return dtype == L32_BF16 && k % 64 == 0 && aligned16(x);
 }
+bool int8_rows_whole(const void* q, int k) { return k % 64 == 0 && aligned16(q); }
 
 // One block per row of x: ax[r] and xq[r, :] (the W4A8 activations), in
 // the dot's natural order (ld = k) or packed order (ld = 2 packed_half(k),
@@ -1500,59 +1457,54 @@ void launch_w4a8(const void* x, const void* q4, const float* scale, int8_t* xq, 
     launch_w4a8_packed<T, true>(xq, ld, ax, w, scale, o, rows, n, k, g, s);
 }
 
-// One launch per row bucket: the rows of x live in MAXR registers per lane.
-template <typename T, int MAXR>
-void launch_int8_r(bool vec, const void* x, const void* q, const float* scale, void* out,
-                   int rows, int n, int k, cudaStream_t s) {
-  auto kernel = vec ? gemv_int8_kernel<T, MAXR, true> : gemv_int8_kernel<T, MAXR, false>;
-  kernel<<<(n + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(q), scale, static_cast<T*>(out), rows,
-      n, k);
-}
-
-template <typename T>
-void launch_int8_simt(const void* x, const void* q, const float* scale, void* out, int rows,
-                      int n, int k, cudaStream_t s) {
-  const bool vec = aligned16(x) && aligned16(q) && k % 16 == 0;
-#define L32_ROWS(R)                                                \
-  if (rows <= R) {                                                 \
-    launch_int8_r<T, R>(vec, x, q, scale, out, rows, n, k, s);     \
-    return;                                                        \
-  }
-  L32_ROWS(1)
-  L32_ROWS(2)
-  L32_ROWS(4)
-  L32_ROWS(8)
-  L32_ROWS(16)
-  L32_ROWS(32)
-#undef L32_ROWS
-}
-
 }  // namespace
 
-// kernel -1 routes by shape (int8_tc_takes: the tensor-core kernel, else the
-// CUDA-core one); 0 (CUDA cores) or 1 (tensor cores) asks for that kernel,
+// planes: workspace the caller allocates unless x is read as it is (bf16,
+// K a multiple of 64, 16-byte aligned): P * rows * (K rounded up to 64)
+// bf16, P = 3 for fp32 x, 1 for bf16; NULL otherwise. kernel -1 routes by
+// shape (the tensor-core kernel on x as it is against aligned rows of whole
+// spans, else the general route: the pre-pass's planes, weight words where
+// the rows need them); 0 (general) or 1 (tensor cores) asks for that one,
 // and a kernel that does not take the call is an error. *launched is set to
 // the kernel launched, or -1 where none was (no rows or no columns, or an
 // error).
-extern "C" int l32_gemv_int8(const void* x, const void* q, const void* scale, void* out,
-                             int rows, int n, int k, int dtype, int kernel, int* launched,
-                             void* stream) {
+extern "C" int l32_gemv_int8(const void* x, const void* q, const void* scale, void* planes,
+                             void* out, int rows, int n, int k, int dtype, int kernel,
+                             int* launched, void* stream) {
   *launched = -1;
   if (rows == 0 || n == 0) return 0;
-  if (rows > 32 || (dtype != L32_BF16 && dtype != L32_F32))
+  if (rows > 32 || k <= 0 || (dtype != L32_BF16 && dtype != L32_F32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool tc = int8_tc_takes(x, q, k, dtype);
-  if (kernel == kRouted) kernel = tc ? kTc : kSimt;
-  if (kernel != kSimt && !(kernel == kTc && tc)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool as_is = int8_x_as_is(x, k, dtype), whole = int8_rows_whole(q, k);
+  if (kernel == kRouted) kernel = as_is && whole ? kTc : kGeneral;
+  if (kernel != kGeneral && !(kernel == kTc && as_is && whole))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
-  if (kernel == kTc)
-    launch_int8_tc(x, q, sc, out, rows, n, k, s);
-  else if (dtype == L32_BF16)
-    launch_int8_simt<__nv_bfloat16>(x, q, sc, out, rows, n, k, s);
+  const int8_t* w = static_cast<const int8_t*>(q);
+  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  int ld = k;
+  if (!as_is) {
+    if (planes == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    ld = (k + 63) / 64 * 64;
+    auto pl = static_cast<uint16_t*>(planes);
+    if (dtype == L32_F32)
+      split_rows_kernel<float, 3, false><<<rows, kQuantThreads, 0, s>>>(
+          static_cast<const float*>(x), pl, rows, k, 0, ld);
+    else
+      split_rows_kernel<__nv_bfloat16, 1, false><<<rows, kQuantThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), pl, rows, k, 0, ld);
+    xp = static_cast<const __nv_bfloat16*>(planes);
+  }
+  const size_t plane = static_cast<size_t>(rows) * ld;
+  if (dtype == L32_F32 && whole)
+    launch_int8<3, false>(xp, ld, plane, w, sc, out, rows, n, k, s);
+  else if (dtype == L32_F32)
+    launch_int8<3, true>(xp, ld, plane, w, sc, out, rows, n, k, s);
+  else if (whole)
+    launch_int8<1, false>(xp, ld, plane, w, sc, out, rows, n, k, s);
   else
-    launch_int8_simt<float>(x, q, sc, out, rows, n, k, s);
+    launch_int8<1, true>(xp, ld, plane, w, sc, out, rows, n, k, s);
   const int err = static_cast<int>(cudaGetLastError());
   if (!err) *launched = kernel;
   return err;

@@ -50,7 +50,7 @@ __device__ __forceinline__ uint4 load8(const __nv_bfloat16* row, int k, int n, b
 
 constexpr int kTcUnroll = 4;  // spans whose weight loads a lane keeps in flight
 
-// gemv.cu's gemv_bf16_tc_kernel with two A streams. One m16 tile: the 16
+// gemv.cu's gemv_tc_kernel with two A streams. One m16 tile: the 16
 // intermediate columns n0 .. n0 + 15 (rows of both weights; 0 at and past
 // inter); one n8 tile: the rows of x (0 at and past rows). A span is 32 k:
 // lane (gid, t) loads 16 bytes of gate rows gid and gid + 8, of up rows gid and

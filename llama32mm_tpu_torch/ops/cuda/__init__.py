@@ -32,15 +32,20 @@ from llama32mm_tpu_torch.ops.cuda.flash_decode import (
     flash_decode_int8kv_plain,
     flash_decode_plain,
 )
-from llama32mm_tpu_torch.ops.cuda.gemv import gemv_cuda, gemv_plain, gemv_simt_cuda, gemv_tc_cuda
+from llama32mm_tpu_torch.ops.cuda.gemv import (
+    gemv_cuda,
+    gemv_general_cuda,
+    gemv_plain,
+    gemv_tc_cuda,
+)
 from llama32mm_tpu_torch.ops.cuda.qgemv import (
     gemv_int4_cuda,
     gemv_int4_plain,
     gemv_int4_w4a8_cuda,
     gemv_int4_w4a8_plain,
     gemv_int8_cuda,
+    gemv_int8_general_cuda,
     gemv_int8_plain,
-    gemv_int8_simt_cuda,
     gemv_int8_tc_cuda,
 )
 from llama32mm_tpu_torch.ops.cuda.qmatmul import (
@@ -77,10 +82,10 @@ from llama32mm_tpu_torch.ops.cuda.swiglu import (
 # kernel name -> (wrapper, plain version)
 KERNELS = {
     "rmsnorm": (fused_add_rmsnorm_cuda, fused_add_rmsnorm_plain),
-    "gemv": (gemv_simt_cuda, gemv_plain),
+    "gemv": (gemv_general_cuda, gemv_plain),
     "swiglu": (fused_swiglu_wmma_cuda, fused_swiglu_plain),
     "flash_attention": (flash_attention_cuda, flash_attention_plain),
-    "gemv_int8": (gemv_int8_simt_cuda, gemv_int8_plain),
+    "gemv_int8": (gemv_int8_general_cuda, gemv_int8_plain),
     "gemv_int4": (gemv_int4_cuda, gemv_int4_plain),
     "qmatmul": (qmatmul_wmma_cuda, qmatmul_plain),
     "flash_attention_int8kv": (flash_attention_int8kv_cuda, flash_attention_int8kv_plain),

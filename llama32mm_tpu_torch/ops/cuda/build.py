@@ -102,9 +102,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "l32_rmsnorm_fwd": [p, p, p, p, p, p, i, i, f, i, p],
         # (g, t, weight, rms, dt, dw|NULL, workspace|NULL, rows, cols, parts, dtype, stream)
         "l32_rmsnorm_bwd": [p, p, p, p, p, p, p, i, i, i, i, p],
-        # (x, w, out, rows, n, k, dtype, kernel (-1: routed, 0: CUDA cores, 1: tensor cores),
-        #  launched kernel (out), stream)
-        "l32_gemv": [p, p, p, i, i, i, i, i, p, p],
+        # (x, w, pad|NULL, out, rows, n, k, dtype, kernel (-1: routed, 0: the general route,
+        #  1: the tensor-core kernel on x as it is), launched kernel (out), stream)
+        "l32_gemv": [p, p, p, p, i, i, i, i, i, p, p],
         # (x, w_gate, w_up, out, rows, hidden, inter, dtype, kernel (-1: routed, -2: routed
         #  base tile, 3: the TMA tile, 4: the tensor-core rows kernel, 5: the fp32 tile, 6: the
         #  rows kernel), launched kernel (out), stream)
@@ -130,9 +130,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # (q, k, v, k_scale, v_scale, kv_valid, q_offsets|NULL, out, b, nq, nkv, tq, tk, hd,
         #  q_offset, causal, dtype, stream); 3xTF32 tensor cores
         "l32_flash_attn_tf32_fwd_int8kv": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
-        # (x, q, scale, out, rows, n, k, dtype, kernel (-1: routed, 0: CUDA cores, 1: tensor
-        #  cores), launched kernel (out), stream)
-        "l32_gemv_int8": [p, p, p, p, i, i, i, i, i, p, p],
+        # (x, q, scale, planes|NULL, out, rows, n, k, dtype, kernel (-1: routed, 0: the general
+        #  route, 1: the tensor-core kernel on x as it is), launched kernel (out), stream)
+        "l32_gemv_int8": [p, p, p, p, p, i, i, i, i, i, p, p],
         # (x, q4, scale, planes|NULL, out, rows, n, k, group, dtype, stream)
         "l32_gemv_int4": [p, p, p, p, p, i, i, i, i, i, p],
         # (x, q4, scale, xq, ax, out, rows, n, k, group, dtype, stream)

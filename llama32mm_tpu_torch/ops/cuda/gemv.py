@@ -7,11 +7,14 @@ stacked weight is a pointer here) and ``gemv_t_pallas`` of
 ``llama32mm_tpu/ops/pallas/gemv.py``.
 
 ``gemv_cuda`` is the entry the model calls: ``l32_gemv`` routes the call by
-its shape to the tensor-core kernel (bf16 x, K a multiple of 32,
-16-byte-aligned x and w) or else to the CUDA-core kernel, and reports which
-one it launched. ``gemv_tc_cuda`` (tensor cores) and ``gemv_simt_cuda``
-(CUDA cores) count those launches, whoever made them; called directly, each
-forces its own kernel.
+its shape to the tensor-core kernel on x as it is (bf16 x, K a multiple of
+32, 16-byte-aligned x and w) or else to the general route, and reports which
+it launched. The general route runs on the tensor cores too: fp32 x (and
+weights) as 3xTF32 ``mma.sync`` products, bf16 x after a pre-pass that
+copies it to aligned rows of whole spans (``pad_workspace``), and weight
+rows of any alignment or length read by words. ``gemv_tc_cuda`` and
+``gemv_general_cuda`` count those launches, whoever made them; called
+directly, each forces its own route.
 """
 
 from __future__ import annotations
@@ -25,8 +28,18 @@ from llama32mm_tpu_torch.ops.cuda.common import counted, dtype_code, require, st
 
 MAX_ROWS = 32
 
-# l32_gemv's kernel argument: route by shape, or force one kernel.
-ROUTED, SIMT, TC = -1, 0, 1
+# l32_gemv's kernel argument: route by shape, or force one route.
+ROUTED, GENERAL, TC = -1, 0, 1
+
+
+def pad_workspace(x: torch.Tensor, rows: int, k: int):
+    """The pre-pass's padded copy of x (rows of K rounded up to a span: 16 k
+    fp32, 32 k bf16), or None where the kernels read x as it is (K a
+    multiple of the span, x 16-byte aligned)."""
+    span = 16 if x.dtype == torch.float32 else 32
+    if k % span == 0 and x.data_ptr() % 16 == 0:
+        return None
+    return torch.empty(rows * (-(-k // span) * span), dtype=x.dtype, device=x.device)
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, kernel: int) -> torch.Tensor:
@@ -40,29 +53,32 @@ def _launch(x: torch.Tensor, w: torch.Tensor, kernel: int) -> torch.Tensor:
         raise ValueError(f"gemv takes at most {MAX_ROWS} rows, got {rows}")
     n = w.shape[0]
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    pad = pad_workspace(x, rows, k) if rows and n and kernel != TC else None
     launched = ctypes.c_int(-1)
     status = load_library().l32_gemv(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, n, k, dtype_code(x), kernel,
-        ctypes.byref(launched), stream_of(x),
+        x.data_ptr(), w.data_ptr(), None if pad is None else pad.data_ptr(), out.data_ptr(),
+        rows, n, k, dtype_code(x), kernel, ctypes.byref(launched), stream_of(x),
     )
     check(status, "gemv kernel")
     if launched.value == TC:
         gemv_tc_cuda.launches += 1
-    elif launched.value == SIMT:
-        gemv_simt_cuda.launches += 1
+    elif launched.value == GENERAL:
+        gemv_general_cuda.launches += 1
     return out
 
 
 @counted("launches")
 def gemv_tc_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The tensor-core kernel; raises for a call it does not take."""
+    """The tensor-core kernel on bf16 x as it is; raises for a call it does
+    not take."""
     return _launch(x, w, TC)
 
 
 @counted("launches")
-def gemv_simt_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The CUDA-core kernel, any K and alignment, bf16 or fp32."""
-    return _launch(x, w, SIMT)
+def gemv_general_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The general route, any K and alignment: fp32 x on the 3xTF32 kernel,
+    bf16 x padded by the pre-pass where it must be."""
+    return _launch(x, w, GENERAL)
 
 
 def gemv_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -7,11 +7,14 @@ nn.Linear's ``[N, K]`` orientation.
   fp32 sum. Replaces ``_qstacked_kernel`` (``int8_gemv_stacked_pallas``)
   and ``_qkernel`` (``int8_gemv_pallas``) of
   ``llama32mm_tpu/ops/pallas/gemv.py``. ``gemv_int8_cuda`` is the entry the
-  model calls: ``l32_gemv_int8`` routes the call by its shape to the
-  tensor-core kernel (``mma.sync``; bf16 x, K a multiple of 64,
-  16-byte-aligned x and q) or else to the CUDA-core one, and reports which it
-  launched; ``gemv_int8_tc_cuda`` and ``gemv_int8_simt_cuda`` count those
-  launches and, called directly, force their own kernel.
+  model calls: ``l32_gemv_int8`` runs every call on the tensor cores
+  (``mma.sync``, exact bf16 weights): bf16 x with K a multiple of 64 and
+  16-byte-aligned x and q as it is, anything else after a pre-pass that
+  writes x as bf16 planes padded to whole 64-k spans (``int8_planes``: three
+  for fp32 x, ``split_bf16_planes``), weight rows of any alignment or length
+  read by words. It reports which route it launched; ``gemv_int8_tc_cuda``
+  and ``gemv_int8_general_cuda`` count those launches and, called directly,
+  force their own route.
 - int4 W4A16 (``gemv_int4_*``): ``q4 [N, K/2] uint8`` in the split-half
   per-group nibble packing with the ``u = q + 8`` offset and fp32
   ``scale [N, K/g]``; ``out = x @ dequant(q4, scale).T``. Replaces
@@ -41,7 +44,7 @@ import torch
 
 from llama32mm_tpu_torch.ops.cuda.build import check, load_library
 from llama32mm_tpu_torch.ops.cuda.common import counted, dtype_code, require, stream_of
-from llama32mm_tpu_torch.ops.cuda.gemv import MAX_ROWS, ROUTED, SIMT, TC
+from llama32mm_tpu_torch.ops.cuda.gemv import GENERAL, MAX_ROWS, ROUTED, TC
 from llama32mm_tpu_torch.ops.quant import dequantize_weight, unpack_int4
 
 
@@ -71,40 +74,54 @@ def _gemv_rows(x, q, scale, packed: bool):
     return rows, n, k, g
 
 
+def int8_planes(x: torch.Tensor, rows: int, k: int):
+    """The int8 pre-pass's bf16 planes (three for fp32 x, one for bf16; rows
+    of K rounded up to 64), or None where the kernel reads x as it is (bf16
+    x, K a multiple of 64, x 16-byte aligned)."""
+    if x.dtype == torch.bfloat16 and k % 64 == 0 and x.data_ptr() % 16 == 0:
+        return None
+    planes = 3 if x.dtype == torch.float32 else 1
+    return torch.empty(planes * rows * (-(-k // 64) * 64), dtype=torch.bfloat16, device=x.device)
+
+
 def _int8(x, q, scale, kernel: int) -> torch.Tensor:
     rows, n, k, _ = _gemv_rows(x, q, scale, packed=False)
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    planes = int8_planes(x, rows, k) if rows and n and kernel != TC else None
     launched = ctypes.c_int(-1)
     status = load_library().l32_gemv_int8(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, n, k,
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+        None if planes is None else planes.data_ptr(), out.data_ptr(), rows, n, k,
         dtype_code(x), kernel, ctypes.byref(launched), stream_of(x),
     )
     check(status, "int8 gemv kernel")
     if launched.value == TC:
         gemv_int8_tc_cuda.launches += 1
-    elif launched.value == SIMT:
-        gemv_int8_simt_cuda.launches += 1
+    elif launched.value == GENERAL:
+        gemv_int8_general_cuda.launches += 1
     return out
 
 
 def gemv_int8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``(x [..., K] @ q.T) * scale`` for ``q [N, K] int8``, at most 32 rows
-    of x, fp32 accumulation, output in x's dtype, through the kernel the
-    call's shape routes to."""
+    of x, fp32 accumulation, output in x's dtype, through the route the
+    call's shape takes."""
     return _int8(x, q, scale, ROUTED)
 
 
 @counted("launches")
 def gemv_int8_tc_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """The tensor-core int8 gemv (``mma.sync``, exact bf16 weights); raises
-    for a call it does not take."""
+    """The tensor-core int8 gemv on bf16 x as it is; raises for a call it
+    does not take."""
     return _int8(x, q, scale, TC)
 
 
 @counted("launches")
-def gemv_int8_simt_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """The CUDA-core int8 gemv: any K and alignment, bf16 or fp32 x."""
-    return _int8(x, q, scale, SIMT)
+def gemv_int8_general_cuda(x: torch.Tensor, q: torch.Tensor,
+                           scale: torch.Tensor) -> torch.Tensor:
+    """The int8 gemv's general route, any K and alignment: x as the
+    pre-pass's bf16 planes (three for fp32 x) where it must be."""
+    return _int8(x, q, scale, GENERAL)
 
 
 @counted("calls")

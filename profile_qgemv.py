@@ -12,15 +12,15 @@ K=4096), ``W_query`` (N=4096, K=4096), ``W_key`` (N=1024, K=4096) and
 ``w_down`` (N=4096, K=14336), at R = 1, 5, 8, 16 and 32 rows (5 and 32: the
 verify steps of speculative decoding at B=1 and in the 8-slot server). For each it
 times the tensor-core gemv (``gemv_tc_cuda``, what ``gemv_cuda`` routes
-these shapes to), the CUDA-core gemv (``gemv_simt_cuda``) and ``F.linear``
-on the same tensors (a yardstick the port never calls).
+these shapes to) and ``F.linear`` on the same tensors (a yardstick the port
+never calls).
 
 int8: the same four shapes and ``w_gate`` (N=14336, K=4096) with int8
 weights and per-channel scales (``quantize_weight``), the int8 head among
 them, at R = 1, 8, 16 and 32. For each it times the tensor-core int8 gemv
-(``gemv_int8_tc_cuda``, what ``gemv_int8_cuda`` routes these shapes to), the
-CUDA-core one (``gemv_int8_simt_cuda``) and ``torch._weight_int8pack_mm`` on
-the same weights (a yardstick the port never calls).
+(``gemv_int8_tc_cuda``, what ``gemv_int8_cuda`` routes these shapes to) and
+``torch._weight_int8pack_mm`` on the same weights (a yardstick the port
+never calls).
 
 int4: the shapes of the int4-mixed decode path (g=128), the untied int4
 head (R=1, N=128256, K=4096) and ``w_gate`` (N=14336, K=4096) at R = 1, 8,
@@ -29,18 +29,22 @@ head (R=1, N=128256, K=4096) and ``w_gate`` (N=14336, K=4096) at R = 1, 8,
 yardstick the port never calls), and the W4A8 gemv on the same bytes
 (``gemv_int4_w4a8_cuda``, with its row quantization: two launches a call).
 
-``--fp32``: the calls the int4 gemvs took on the CUDA cores before they ran
-every call on the tensor cores, beside the g=128 bf16 calls that never left
-them: W4A16 on fp32 x (three bf16 planes after a pre-pass) at ``w_gate``
-R = 1, 8 and 32 and the int4 head at R = 1; W4A16 and W4A8 at g=16 (spans
-that straddle groups) on ``w_gate`` at R = 8; W4A16 and W4A8 at g=128 on
-bf16 x (``w_gate`` R = 1, 8, 32, the head at R = 1); and the two CUDA-core
-gemvs that fp32 x still reaches, the int8 gemv (``gemv_int8_cuda``) and the
-float gemv (``gemv_cuda``, fp32 weights), on fp32 x at ``lm_head`` and
-``w_gate`` at R = 1 and 8. Each through the entry the model calls, beside
-``torch._weight_int4pack_mm`` where it takes the inputs (bf16 x only) and
-the bound (bytes over 3.35 TB/s; fp32 x in W4A16 as three bf16 products a
-weight at 989 / 3 TFLOP/s). ``--tree DIR`` imports the port package and
+``--fp32``: the calls that once ran on CUDA-core gemvs, beside the bf16
+calls that never did: W4A16 on fp32 x (three bf16 planes after a
+pre-pass) at ``w_gate`` R = 1, 8 and 32 and the int4 head at R = 1; W4A16
+and W4A8 at g=16 (spans that straddle groups) on ``w_gate`` at R = 8;
+W4A16 and W4A8 at g=128 on bf16 x (``w_gate`` R = 1, 8, 32, the head at R
+= 1); the int8 gemv (``gemv_int8_cuda``: three bf16 planes) and the float
+gemv (``gemv_cuda``, fp32 weights: 3xTF32) on fp32 x at ``lm_head`` and
+``w_gate`` at R = 1, 8 and 32; and both on bf16 x at ``lm_head`` and
+``w_down`` at R = 1 and 8 (the tensor-core kernels on x as it is, the
+decode path). Each through the entry the model calls, beside the library
+call where it takes the inputs (``torch._weight_int4pack_mm``: bf16 x only;
+fp32 ``F.linear`` with ``torch.backends.cuda.matmul.allow_tf32`` False, as
+by default, checked; ``torch._weight_int8pack_mm``) and the bound (bytes
+over 3.35 TB/s; fp32 x in W4A16 and int8 as three bf16 products a weight at
+989 / 3 TFLOP/s, in the float gemv as three TF32 products at 494.7 / 3).
+``--tree DIR`` imports the port package and
 ``chip_smoke`` from another checkout (built into its own ``build/``), so
 that one chip call times a parent commit's kernels beside this tree's on
 the same shapes: run parent, tree, tree, parent.
@@ -107,12 +111,16 @@ FP32_MODE_SHAPES = [  # (label, entry, rows, N, K, g, x dtype)
     ("W4A16 int4 lm_head R=1 N=128256 K=4096 g=128", "int4", 1, 128256, 4096, 128, BF),
     *[(f"W4A8 w_gate R={r} N=14336 K=4096 g=128", "w4a8", r, 14336, 4096, 128, BF)
       for r in (1, 8, 32)],
-    *[(f"int8 fp32 x {name} R={r} N={n} K=4096", "int8", r, n, 4096, 0, F32)
-      for name, n in (("lm_head", 128256), ("w_gate", 14336)) for r in (1, 8)],
-    *[(f"float fp32 x {name} R={r} N={n} K=4096", "float", r, n, 4096, 0, F32)
-      for name, n in (("lm_head", 128256), ("w_gate", 14336)) for r in (1, 8)],
+    *[(f"{entry} fp32 x {name} R={r} N={n} K=4096", entry, r, n, 4096, 0, F32)
+      for entry in ("int8", "float") for name, n in (("lm_head", 128256), ("w_gate", 14336))
+      for r in (1, 8, 32)],
+    *[(f"{entry} bf16 x {name} R={r} N={n} K={k}", entry, r, n, k, 0, BF)
+      for entry in ("int8", "float") for name, n, k in (("lm_head", 128256, 4096),
+                                                        ("w_down", 4096, 14336))
+      for r in (1, 8)],
 ]
 BF16X3_OPS = 989e12 / 3  # an fp32 x value as three bf16 planes, three bf16 products
+TF32X3_OPS = 494.7e12 / 3  # an fp32 product as three TF32 products
 
 
 def device_ms(fns) -> float:
@@ -156,7 +164,6 @@ def profile_bf16(dev, gen) -> dict:
             bound_ms, bound_by = cs.bound("gemv_tc", args, want)
             calls = {
                 "gemv_tc": [partial(kernels.gemv_tc_cuda, x, w) for w in copies],
-                "gemv_simt": [partial(kernels.gemv_simt_cuda, x, w) for w in copies],
                 "F.linear": [partial(F.linear, x, w) for w in copies],
             }
             err = (kernels.gemv_tc_cuda(*args).float() - want.float()).abs().max().item()
@@ -194,8 +201,6 @@ def profile_int8(dev, gen) -> dict:
             bound_ms, bound_by = cs.bound("gemv_int8_tc", args, want)
             calls = {
                 "gemv_int8_tc": [partial(kernels.gemv_int8_tc_cuda, x, q, sc) for q, sc in copies],
-                "gemv_int8 (CUDA cores)": [partial(kernels.gemv_int8_simt_cuda, x, q, sc)
-                                           for q, sc in copies],
                 "_weight_int8pack_mm": [partial(torch._weight_int8pack_mm, x, q, sc)
                                         for (q, _), sc in zip(copies, scales)],
             }
@@ -216,11 +221,12 @@ def profile_int8(dev, gen) -> dict:
     return results
 
 
-def _fp32_mode_weights(entry, n, k, g, dev, gen):
-    """One copy of a shape's weights as its entry takes them, and its bytes."""
+def _fp32_mode_weights(entry, n, k, g, dtype, dev, gen):
+    """One copy of a shape's weights as its entry takes them (the float
+    gemv's in x's dtype), and its bytes."""
     w = torch.randn(n, k, generator=gen, device=dev) * 0.02
     if entry == "float":
-        return (w,), 4 * n * k
+        return (w.to(dtype),), (2 if dtype == BF else 4) * n * k
     if entry == "int8":
         qw = quantize_weight(w.to(BF))
         return (qw["q"], qw["scale"]), n * k + 4 * n
@@ -239,12 +245,12 @@ def profile_fp32(dev, gen) -> dict:
                "float": (kernels.gemv_cuda, kernels.gemv_plain)}
     results, weights = {}, {}
     for label, entry, rows, n, k, g, dtype in FP32_MODE_SHAPES:
-        key = (entry, n, k, g)
+        key = (entry, n, k, g, dtype if entry == "float" else None)
         if key not in weights:
             weights.clear()
             torch.cuda.empty_cache()
-            first, nbytes = _fp32_mode_weights(entry, n, k, g, dev, gen)
-            weights[key] = [first] + [_fp32_mode_weights(entry, n, k, g, dev, gen)[0]
+            first, nbytes = _fp32_mode_weights(entry, n, k, g, dtype, dev, gen)
+            weights[key] = [first] + [_fp32_mode_weights(entry, n, k, g, dtype, dev, gen)[0]
                                       for _ in range(max(1, math.ceil(L2_SPAN / nbytes)) - 1)]
         copies = weights[key]
         x = torch.randn(rows, k, generator=gen, device=dev).to(dtype)
@@ -255,7 +261,9 @@ def profile_fp32(dev, gen) -> dict:
         err, scale = cs.max_err(got, plain(x, *copies[0]))
         nbytes = sum(t.numel() * t.element_size() for t in (x, *copies[0], got))
         ops = 2 * rows * n * k
-        peak = BF16X3_OPS if entry == "int4" and dtype == F32 else None
+        peak = None
+        if dtype == F32:
+            peak = {"int4": BF16X3_OPS, "int8": BF16X3_OPS, "float": TF32X3_OPS}.get(entry)
         bound_ms = 1e3 * max(nbytes / cs.HBM_BYTES_PER_S, ops / peak if peak else 0.0)
         row = {"launched": launched, "max_abs_err": err, "max_abs_plain": scale,
                "bound_ms": bound_ms, "copies": len(copies)}
@@ -271,6 +279,19 @@ def profile_fp32(dev, gen) -> dict:
                                                 for p in packed]
             except RuntimeError as e:
                 print(f"  _weight_int4pack_mm unavailable: {str(e).splitlines()[0][:100]}")
+        if entry == "float":
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise RuntimeError("fp32 F.linear would run on TF32: allow_tf32 is set")
+            calls["F.linear"] = [partial(F.linear, x, *w) for w in copies]
+        if entry == "int8":
+            try:
+                scales = [sc.to(dtype) for _, sc in copies]
+                torch._weight_int8pack_mm(x, copies[0][0], scales[0])
+                torch.cuda.synchronize()
+                calls["_weight_int8pack_mm"] = [partial(torch._weight_int8pack_mm, x, q, sc)
+                                                for (q, _), sc in zip(copies, scales)]
+            except RuntimeError as e:
+                print(f"  _weight_int8pack_mm unavailable: {str(e).splitlines()[0][:100]}")
         for what, fns in calls.items():
             ms = device_ms(fns)
             row[what] = ms

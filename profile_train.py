@@ -45,10 +45,9 @@ CATEGORIES = (
     ("swiglu_rows_tc", "swiglu rows (tensor cores)"),
     ("swiglu_rows", "swiglu rows (decode)"), ("swiglu", "swiglu (wmma tile, loop)"),
     ("gemv_w4a8", "W4A8 gemv (tensor cores)"), ("quantize_rows", "W4A8 row quantize"),
-    ("split_rows", "int4 gemv x planes"),
-    ("gemv_int8_tc", "int8 gemv (tensor cores)"), ("gemv_int8", "int8 gemv (CUDA cores)"),
-    ("gemv_int4", "int4 gemv"),
-    ("gemv_bf16_tc", "bf16 gemv (tensor cores)"), ("gemv_kernel", "bf16 gemv (CUDA cores)"),
+    ("split_rows", "int4/int8 gemv x planes"), ("pad_rows", "gemv x padding"),
+    ("gemv_int8_tc", "int8 gemv (tensor cores)"), ("gemv_int4", "int4 gemv"),
+    ("gemv_tc_kernel<float", "fp32 gemv (3xTF32)"), ("gemv_tc", "bf16 gemv (tensor cores)"),
     ("qmatmul", "qmatmul"), ("scatter", "cache writes (scatter)"),
     ("log_softmax", "softmax/CE"),
     ("nvjet", "GEMM (cuBLAS)"), ("gemm", "GEMM (cuBLAS)"), ("xmma", "GEMM (cuBLAS)"),

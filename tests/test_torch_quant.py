@@ -135,8 +135,9 @@ def test_int8_gemv_plain_matches_pallas(rows, pallas_fn):
 @pytest.mark.parametrize("pallas_fn", ["int8_gemv_pallas", "int8_gemv_stacked_pallas"])
 def test_int8_gemv_plain_matches_pallas_bf16(pallas_fn, rows, k):
     """bf16 x, as the decode path gives the int8 gemv. Which kernel runs is
-    decided in C (``l32_gemv_int8``: the tensor-core kernel for bf16 x with K a
-    multiple of 64 and 16-byte-aligned x and q, else the CUDA-core one) and
+    decided in C (``l32_gemv_int8``: the tensor-core kernel on x as it is for
+    bf16 x with K a multiple of 64 and 16-byte-aligned x and q, else the
+    general route after a pre-pass) and
     cannot be tested here, where ``qlinear`` runs ``gemv_int8_plain`` at
     every shape; ``chip_smoke.py`` checks the routing on the card. Tolerance
     2^-7 of the largest output: the plain version rounds the product to bf16
