@@ -32,8 +32,8 @@
 7. does the same with an untied head, quantized to int8 and (from the same
    bf16 weights) to ``INT4_MIXED_RECIPE`` at g=128, each served with
    ``kv_dtype="int8"``; each prefill must run its 280 quantized linears (7
-   a layer) through the wgmma dequantizing GEMM and none through the wmma
-   one, and the int4-mixed run must launch the W4A16 gemv 81 times a decode
+   a layer) through the wgmma dequantizing GEMM on x as it is and none
+   through its general route (a pre-pass, then the same kernel), and the int4-mixed run must launch the W4A16 gemv 81 times a decode
    step (``w_gate`` and ``w_up`` of 40 layers, the head); the tensor-core
    int8 gemv must serve every int8 decode linear (281 a step and the
    prefill's head in int8, 200 a step in int4-mixed), its general route
@@ -239,8 +239,11 @@ R=8, 16 and 32 calls equals its R=1 call bit for bit and two calls of each
 int4 case give the same bits; that 50 calls of the tensor-core forward at hd
 8 (bf16 and int8 KV) give the same bits (the zero-fill of its head-dim
 padding once raced its copies); that the model's entry ``qmatmul_cuda``
-routes each wgmma GEMM case to the wgmma kernel, two of its calls give the
-same bits, and rows 0-96 of each R=1632 call equal an R=97 call bit for bit;
+routes each wgmma GEMM case to the wgmma kernel on x as it is, and each
+case of its general route (fp32 x as three bf16 planes, ragged K, other
+int4 groups, misaligned x or q; the bf16 shapes it would read as they are
+forced there) to that route, two of its calls give the same bits, and rows
+0-96 of each R=1632 call equal an R=97 call bit for bit;
 that the model's gemv entry routes each tensor-core gemv case there, two
 calls give the same bits and each row of an R = 2-32 call equals its R = 1
 call; that the model's SwiGLU entries route each TMA-tile case (forward and
@@ -271,8 +274,8 @@ rows), and the bf16 and fp32 11B cases print their time beside the unfused
 SwiGLU + gemv pair's. The fp32 cases of the rows kernel and of SwiGLU +
 down are held to 1e-5 of max|plain|. Every bf16
 path at 11B and 3B must launch the new kernels and never an fp32 flash
-forward or backward, nor the wmma dequantizing GEMM, nor a gemv's general
-route;
+forward or backward, nor the dequantizing GEMM's general route, nor a
+gemv's general route;
 the bf16 generate and server launch the tensor-core gemv 201 times a decode
 step (and once for each prefill's head), the TMA SwiGLU tile 40 times a
 prefill and the tensor-core SwiGLU rows kernel 40 times a decode step, never
@@ -347,6 +350,8 @@ from llama32mm_tpu_torch.ops.gemv import linear
 from llama32mm_tpu_torch.ops.swiglu import fused_swiglu, swiglu_down
 from llama32mm_tpu_torch.ops.cuda.attention import NEG_BIG, allowed_mask
 from llama32mm_tpu_torch.ops.cuda.build import build_library
+from llama32mm_tpu_torch.ops.cuda.qgemv import check_quant
+from llama32mm_tpu_torch.ops.cuda.qmatmul import reads_as_is
 from llama32mm_tpu_torch.models.quantize import quantize_llama_params
 from llama32mm_tpu_torch.ops.quant import (
     INT4_MIXED_RECIPE,
@@ -584,9 +589,9 @@ PATH_KERNELS.update({"sp_lora_11b": TRAIN_BF16_KERNELS,
                      "pp_full_ft_3b": TRAIN_BF16_KERNELS[:-1] + ("swiglu_tc", "swiglu_bwd_tc")})
 # The fp32 kernels (the 3xTF32 flash forward, its int8-KV and LSE
 # instantiations, dq and dk/dv; the 3xTF32 SwiGLU tile forward and
-# backward): the bf16 paths above must never launch them; nor the wmma
-# dequantizing GEMM ("qmatmul"), which every
-# bf16 prefill shape leaves to the wgmma one; nor the gemvs' general routes
+# backward): the bf16 paths above must never launch them; nor the
+# dequantizing GEMM's general route ("qmatmul": the pre-pass), which every
+# bf16 prefill shape leaves to the kernel on x as it is; nor the gemvs' general routes
 # ("gemv", "gemv_int8": fp32 x, ragged K, misaligned pointers), which every
 # decode linear at these widths leaves to the tensor-core kernels on x as it
 # is (both int4 gemvs run on the tensor cores at every call).
@@ -617,7 +622,7 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
         faults += [f"launched the fp32 {k} {launches[k]} times"
                    for k in FP32_FORWARD + FP32_BACKWARD + FP32_SWIGLU if launches[k]]
         if launches["qmatmul"]:
-            faults.append(f"launched the wmma qmatmul {launches['qmatmul']} times")
+            faults.append(f"launched the qmatmul's general route {launches['qmatmul']} times")
         if launches["gemv"]:
             faults.append(f"launched the gemv's general route {launches['gemv']} times")
         if launches["gemv_int8"]:
@@ -925,6 +930,25 @@ def kernel_cases(dev, gen):
          (rnd(70, 4160), *q4(1000, 4160, 32)), False),
         ("qmatmul", "int4 element path R=40 N=200 K=192 g=24", (rnd(40, 192), *q4(200, 192, 24)),
          False),
+        # the general route's fp32 x (three bf16 planes), other groups, ragged
+        # K, misaligned x and q
+        ("qmatmul", "fp32 x int8 w_gate R=1632 N=14336 K=4096", (rnd32(1632, h), *w_gate8), False),
+        ("qmatmul", "fp32 x int4 w_gate R=1632 N=14336 K=4096 g=128", (rnd32(1632, h), *w_gate4),
+         False),
+        ("qmatmul", "fp32 x int4 g=32 R=130 N=1000 K=4096", (rnd32(130, h), *q4(1000, h, 32)),
+         False),
+        ("qmatmul", "fp32 x ragged int8 R=100 N=1000 K=4100", (rnd32(100, 4100), *q8(1000, 4100)),
+         False),
+        ("qmatmul", "fp32 x 4 bytes off alignment R=40 N=4096 K=4096",
+         (rnd32(40 * h + 1)[1:].view(40, h), *q8(h, h)), False),
+        ("qmatmul", "fp32 x int4 g=6 R=48 N=300 K=192", (rnd32(48, 192), *q4(300, 192, 6)), False),
+        ("qmatmul", "int4 w_gate R=1632 N=14336 K=4096 g=32", (rnd(1632, h), *q4(inter, h, 32)),
+         False),
+        ("qmatmul", "q 1 byte off alignment R=64 N=4096 K=4096", (rnd(64, h), *q8_off(h, h)),
+         False),
+        ("qmatmul", "int4 g=6 R=48 N=300 K=192", (rnd(48, 192), *q4(300, 192, 6)), False),
+        ("qmatmul", "g=32 group scales 1000x apart R=70 N=300 K=512",
+         (rnd(70, 512), *q4_stepped(300, 512, 32)), False),
         ("qmatmul_tc", "int4 w_gate R=1632 N=14336 K=4096 g=128",
          (rnd(1632, h), *q4(inter, h, 128)), True),
         ("qmatmul_tc", "int8 w_gate R=1632 N=14336 K=4096", (rnd(1632, h), *q8(inter, h)), False),
@@ -1646,7 +1670,7 @@ def fp32_case(name, args) -> bool:
 # CUDA cores, and the gemvs on fp32 x (3xTF32, or three exact bf16 planes):
 # held to FP32_TOL too (fp32 sums on both sides, in other orders).
 FP32_SIMT_SWIGLU = ("swiglu_rows", "swiglu_down")
-FP32_GEMVS = ("gemv", "gemv_int8", "gemv_int4")
+FP32_GEMVS = ("gemv", "gemv_int8", "gemv_int4", "qmatmul")
 
 
 def held_to_fp32_tol(name, args) -> bool:
@@ -1688,7 +1712,7 @@ def bound(name, args, out, cuda_cores: bool = False):
     peak = PEAK_OPS[torch.int8 if name.startswith("gemv_int4_w4a8") else x.dtype]
     if fp32_case(name, args) and not cuda_cores:
         peak = TF32X3_OPS
-    if name in ("gemv_int4", "gemv_int8") and x.dtype == torch.float32:  # three bf16 products
+    if name in ("gemv_int4", "gemv_int8", "qmatmul") and x.dtype == torch.float32:  # 3 bf16 products
         peak = BF16X3_OPS
     if name == "gemv" and x.dtype == torch.float32:  # three TF32 products
         peak = TF32X3_OPS
@@ -1814,6 +1838,7 @@ ROUTED_BY = {
     "swiglu_tc": kernels.fused_swiglu_cuda,
     "swiglu_bwd_tc": kernels.fused_swiglu_bwd_cuda,
     "qmatmul_tc": kernels.qmatmul_cuda,
+    "qmatmul": kernels.qmatmul_cuda,
     "swiglu_tf32": kernels.fused_swiglu_cuda,
     "swiglu_bwd_tf32": kernels.fused_swiglu_bwd_cuda,
     "swiglu_rows": kernels.fused_swiglu_cuda,
@@ -1830,13 +1855,17 @@ def check_routed(name, label, args, got) -> None:
     by K, tiles fixed by N): rows 0-96 of the one, all of the other."""
     wrapper = kernels.KERNELS[name][0]
     got = got if isinstance(got, tuple) else (got,)
-    before = wrapper.launches
-    routed = ROUTED_BY[name](*args)
-    routed = routed if isinstance(routed, tuple) else (routed,)
-    if wrapper.launches != before + 1 or not all(map(torch.equal, routed, got)):
-        raise RuntimeError(f"{name} [{label}]: the model's entry did not route it to {name}, or "
-                           f"gave other bits")
-    log(f"kernel {name} [{label}]: the model's entry launched {name}, the same bits")
+    if name == "qmatmul" and reads_as_is(args[0], args[1], *check_quant(*args)[2:]):
+        log(f"kernel {name} [{label}]: forced onto the general route (the model's entry reads "
+            f"this x as it is)")
+    else:
+        before = wrapper.launches
+        routed = ROUTED_BY[name](*args)
+        routed = routed if isinstance(routed, tuple) else (routed,)
+        if wrapper.launches != before + 1 or not all(map(torch.equal, routed, got)):
+            raise RuntimeError(f"{name} [{label}]: the model's entry did not route it to {name}, "
+                               f"or gave other bits")
+        log(f"kernel {name} [{label}]: the model's entry launched {name}, the same bits")
     check_same_bits(name, label, wrapper, args, got)
     rows = args[0].shape[0]
     tile = name in ("swiglu_tc",) + FP32_SWIGLU

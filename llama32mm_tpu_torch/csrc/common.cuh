@@ -183,3 +183,60 @@ template <int N>
 __device__ __forceinline__ void async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// fp32 x = b0 + b1 + b2 in bf16, exactly for every normal x whose low part
+// stays normal (|x| above ~2^-110; below, bits under bf16's smallest
+// subnormal are lost): each plane is the top 16 bits of what the planes
+// before it leave (truncation, so no plane can round up to inf near
+// FLT_MAX), and each remainder is exact in fp32. A product b_i * (u - 8) or
+// b_i * q (int8) is exact in fp32, so the tensor cores add the three terms
+// of every product as fp32 would.
+__device__ __forceinline__ void split_bf16x3(float x, uint16_t (&b)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const uint32_t u = __float_as_uint(x);
+    b[i] = static_cast<uint16_t>(u >> 16);
+    x -= __uint_as_float(u & 0xFFFF0000u);
+  }
+}
+
+// The k whose x element e of a packed x row holds, or -1 for a zero. A
+// packed row has two halves of `half` elements: element c of the low half
+// holds the x of the low nibble of a weight byte, of the high half that of
+// its high nibble (int4 split-half packing: byte i of group j holds k = j g
+// + i and j g + g/2 + i). Group j's g/2 bytes sit at [j span, j span + g/2)
+// of a half, span >= g/2: zeros from there to (j + 1) span and past the
+// last group.
+__device__ __forceinline__ int planes_source(int e, int k, int g, int half, int span) {
+  const int g2 = g / 2, hi = e >= half, c = e - hi * half;
+  const int grp = c / span, off = c - grp * span;
+  if (grp >= k / g || off >= g2) return -1;
+  return grp * g + hi * g2 + off;
+}
+
+namespace {
+
+constexpr int kPlanesThreads = 256;
+
+// The quantized kernels' pre-pass (one block a row of x): x [rows, k] as P
+// bf16 planes [P][rows][ld], fp32 x split into three (split_bf16x3), bf16 x
+// copied into one, in the order the kernel reads them: natural (element e
+// holds k = e, zeros from K to ld) or packed (planes_source, halves of ld / 2
+// elements, groups `span` apart).
+template <typename T, int P, bool kPacked>
+__global__ void __launch_bounds__(kPlanesThreads)
+split_rows_kernel(const T* __restrict__ x, uint16_t* __restrict__ planes, int rows, int k, int g,
+                  int ld, int span) {
+  const T* xr = x + static_cast<size_t>(blockIdx.x) * k;
+  for (int e = threadIdx.x; e < ld; e += kPlanesThreads) {
+    const int src = kPacked ? planes_source(e, k, g, ld / 2, span) : e < k ? e : -1;
+    const float v = src >= 0 ? to_f32(xr[src]) : 0.f;
+    uint16_t b[3];
+    split_bf16x3(v, b);  // bf16 x: b[0] is x, b[1] = b[2] = 0
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      planes[(static_cast<size_t>(p) * rows + blockIdx.x) * ld + e] = b[p];
+  }
+}
+
+}  // namespace

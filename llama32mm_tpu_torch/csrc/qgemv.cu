@@ -164,11 +164,7 @@ __host__ __device__ constexpr int packed_half(int k) { return (k / 2 + 15) / 16 
 // low nibble of weight byte e; from packed_half(k) on: the high nibble of
 // byte e - packed_half(k)), or -1 in the padding past K/2.
 __device__ __forceinline__ int packed_source(int e, int k, int g) {
-  const int half = packed_half(k), g2 = g / 2;
-  const int hi = e >= half, c = e - hi * half;
-  if (c >= k / 2) return -1;
-  const int grp = c / g2;
-  return grp * g + hi * g2 + (c - grp * g2);
+  return planes_source(e, k, g, packed_half(k), g / 2);
 }
 
 // The group a span starts in and its byte offset there.
@@ -277,45 +273,6 @@ __device__ __forceinline__ void load_x(uint32_t (&d)[CB / 2], const __nv_bfloat1
       d[4 * i + 2] = v.z;
       d[4 * i + 3] = v.w;
     }
-  }
-}
-
-// fp32 x = b0 + b1 + b2 in bf16, exactly for every normal x whose low part
-// stays normal (|x| above ~2^-110; below, bits under bf16's smallest
-// subnormal are lost): each plane is the top 16 bits of what the planes
-// before it leave (truncation, so no plane can round up to inf near
-// FLT_MAX), and each remainder is exact in fp32. A product b_i * (u - 8) is
-// exact in fp32, so the tensor cores add the three terms of every product
-// as fp32 would.
-__device__ __forceinline__ void split_bf16x3(float x, uint16_t (&b)[3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const uint32_t u = __float_as_uint(x);
-    b[i] = static_cast<uint16_t>(u >> 16);
-    x -= __uint_as_float(u & 0xFFFF0000u);
-  }
-}
-
-// The W4A16 pre-pass (one block a row of x): x [rows, k] as P bf16 planes
-// [P][rows][ld] in the order the gemv reads them: natural (ld = k, the k
-// order of x: fp32 x split into three planes, or misaligned bf16 x copied to
-// an aligned one) or packed (ld = 2 packed_half(k): element e of a row's
-// low half holds the x of weight byte e's low nibble, of its high half that
-// of byte e's high nibble, zeros past K/2), for group sizes whose spans may
-// straddle groups and rows that are not 16-byte aligned.
-template <typename T, int P, bool kPacked>
-__global__ void __launch_bounds__(kQuantThreads)
-split_rows_kernel(const T* __restrict__ x, uint16_t* __restrict__ planes, int rows, int k, int g,
-                  int ld) {
-  const T* xr = x + static_cast<size_t>(blockIdx.x) * k;
-  for (int e = threadIdx.x; e < ld; e += kQuantThreads) {
-    const int src = kPacked ? packed_source(e, k, g) : e < k ? e : -1;
-    const float v = src >= 0 ? to_f32(xr[src]) : 0.f;
-    uint16_t b[3];
-    split_bf16x3(v, b);  // bf16 x: b[0] is x, b[1] = b[2] = 0
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-      planes[(static_cast<size_t>(p) * rows + blockIdx.x) * ld + e] = b[p];
   }
 }
 
@@ -1489,11 +1446,11 @@ extern "C" int l32_gemv_int8(const void* x, const void* q, const void* scale, vo
     ld = (k + 63) / 64 * 64;
     auto pl = static_cast<uint16_t*>(planes);
     if (dtype == L32_F32)
-      split_rows_kernel<float, 3, false><<<rows, kQuantThreads, 0, s>>>(
-          static_cast<const float*>(x), pl, rows, k, 0, ld);
+      split_rows_kernel<float, 3, false><<<rows, kPlanesThreads, 0, s>>>(
+          static_cast<const float*>(x), pl, rows, k, 0, ld, 0);
     else
-      split_rows_kernel<__nv_bfloat16, 1, false><<<rows, kQuantThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), pl, rows, k, 0, ld);
+      split_rows_kernel<__nv_bfloat16, 1, false><<<rows, kPlanesThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), pl, rows, k, 0, ld, 0);
     xp = static_cast<const __nv_bfloat16*>(planes);
   }
   const size_t plane = static_cast<size_t>(rows) * ld;
@@ -1535,17 +1492,17 @@ extern "C" int l32_gemv_int4(const void* x, const void* q4, const void* scale, v
   const size_t plane = static_cast<size_t>(rows) * ld;
   const bool fp32 = dtype == L32_F32;
   if (fp32 && natural)
-    split_rows_kernel<float, 3, false><<<rows, kQuantThreads, 0, s>>>(
-        static_cast<const float*>(x), pl, rows, k, g, ld);
+    split_rows_kernel<float, 3, false><<<rows, kPlanesThreads, 0, s>>>(
+        static_cast<const float*>(x), pl, rows, k, g, ld, g / 2);
   else if (fp32)
-    split_rows_kernel<float, 3, true><<<rows, kQuantThreads, 0, s>>>(
-        static_cast<const float*>(x), pl, rows, k, g, ld);
+    split_rows_kernel<float, 3, true><<<rows, kPlanesThreads, 0, s>>>(
+        static_cast<const float*>(x), pl, rows, k, g, ld, g / 2);
   else if (natural)
-    split_rows_kernel<__nv_bfloat16, 1, false><<<rows, kQuantThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), pl, rows, k, g, ld);
+    split_rows_kernel<__nv_bfloat16, 1, false><<<rows, kPlanesThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), pl, rows, k, g, ld, g / 2);
   else
-    split_rows_kernel<__nv_bfloat16, 1, true><<<rows, kQuantThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), pl, rows, k, g, ld);
+    split_rows_kernel<__nv_bfloat16, 1, true><<<rows, kPlanesThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), pl, rows, k, g, ld, g / 2);
   const bool words = int4_words_aligned(q4, k);
   if (fp32 && natural)
     launch_int4_natural<3>(xp, ld, plane, w, sc, out, rows, n, k, g, s);

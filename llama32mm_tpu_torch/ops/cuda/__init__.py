@@ -50,9 +50,9 @@ from llama32mm_tpu_torch.ops.cuda.qgemv import (
 )
 from llama32mm_tpu_torch.ops.cuda.qmatmul import (
     qmatmul_cuda,
+    qmatmul_general_cuda,
     qmatmul_plain,
     qmatmul_tc_cuda,
-    qmatmul_wmma_cuda,
 )
 from llama32mm_tpu_torch.ops.cuda.rmsnorm import (
     fused_add_rmsnorm_cuda,
@@ -87,7 +87,7 @@ KERNELS = {
     "flash_attention": (flash_attention_cuda, flash_attention_plain),
     "gemv_int8": (gemv_int8_general_cuda, gemv_int8_plain),
     "gemv_int4": (gemv_int4_cuda, gemv_int4_plain),
-    "qmatmul": (qmatmul_wmma_cuda, qmatmul_plain),
+    "qmatmul": (qmatmul_general_cuda, qmatmul_plain),
     "flash_attention_int8kv": (flash_attention_int8kv_cuda, flash_attention_int8kv_plain),
     "rmsnorm_fwd_train": (rmsnorm_fwd_train_cuda, rmsnorm_fwd_train_plain),
     "rmsnorm_bwd": (rmsnorm_bwd_cuda, rmsnorm_bwd_plain),

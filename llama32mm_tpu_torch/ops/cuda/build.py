@@ -139,9 +139,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "l32_gemv_int4_w4a8": [p, p, p, p, p, p, i, i, i, i, i, p],
         # (x, w_gate, w_up, w_down, partial_ws, out, rows, hidden, inter, tile, dtype, stream)
         "l32_swiglu_down": [p, p, p, p, p, p, i, i, i, i, i, p],
-        # (x, q|q4, scale, out, rows, n, k, group (0: int8), dtype, kernel (-1: routed),
-        #  launched kernel (out), stream)
-        "l32_qmatmul": [p, p, p, p, i, i, i, i, i, i, p, p],
+        # (x, q|q4, scale, workspace|NULL, out, rows, n, k, group (0: int8), dtype, kernel (-1:
+        #  routed, 0: the general route, 1: x as it is), launched kernel (out), stream)
+        "l32_qmatmul": [p, p, p, p, p, i, i, i, i, i, i, p, p],
         # (q, k, v, k_scale|NULL, v_scale|NULL, kv_valid, q_offsets|NULL, out, lse|NULL, b, nq,
         #  nkv, tq, tk, hd, q_offset, causal, stream); bf16 q
         "l32_flash_attn_tc": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],

@@ -39,6 +39,24 @@ text ids (S = 1632), host clock around preprocess, prefill and first token,
 ending in a synchronize. It prints each time and the median (TTFT).
 ``--kernels-only`` times the routed call and the kernels alone (for A/B
 runs of kernel variants).
+
+    python3 profile_qmatmul.py --fp32 [--general] [--rows R] [--tree DIR]
+
+times other shape sets at R = 1632 (or ``--rows``), each through the entry
+the model calls
+(``qmatmul_cuda``), beside ``qmatmul_plain``, the library call where it
+takes the inputs and the bound: ``--fp32`` fp32 x (``w_gate`` N=14336
+K=4096 in int8 and in int4 at g=128; the bound counts three bf16 products
+a weight, ``chip_smoke.bound``), ``--general`` bf16 x that the wgmma
+kernel's tiles do not take as it is (int4 ``w_gate`` at g=32, int8
+``w_gate`` at a ragged K=4100, and the int4 ``w_up`` of the set above forced
+onto the general route, ``qmatmul_general_cuda``, where the parent's
+``qmatmul`` entry forces its wmma kernel). A call slower than 50 ms (a CUDA-core loop) is timed
+with 2 launches, not 20, and is not profiled. ``--tree DIR`` (here and with
+``--kernels-only``) imports the port package and ``chip_smoke`` from
+another checkout (built into its own ``build/``), so that one chip call
+times a parent commit's kernels beside this tree's on the same shapes: run
+parent, tree, tree, parent.
 """
 
 from __future__ import annotations
@@ -50,21 +68,25 @@ import subprocess
 import sys
 import time
 from functools import partial
+from pathlib import Path
 
 import torch
 
-import chip_smoke as cs
-from llama32mm_tpu_torch.inference.engine import InferenceEngine
-from llama32mm_tpu_torch.models.quantize import quantize_llama_params
-from llama32mm_tpu_torch.ops import cuda as kernels
-from llama32mm_tpu_torch.ops.quant import (
+if __name__ == "__main__" and "--tree" in sys.argv[1:]:  # another checkout's port package
+    sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()))
+
+import chip_smoke as cs  # noqa: E402
+from llama32mm_tpu_torch.inference.engine import InferenceEngine  # noqa: E402
+from llama32mm_tpu_torch.models.quantize import quantize_llama_params  # noqa: E402
+from llama32mm_tpu_torch.ops import cuda as kernels  # noqa: E402
+from llama32mm_tpu_torch.ops.quant import (  # noqa: E402
     INT4_MIXED_RECIPE,
     dequantize_weight,
     quantize_weight,
     quantize_weight_int4,
 )
-from llama32mm_tpu_torch.preprocess.image import preprocess_image_device
-from profile_qgemv import L2_SPAN, device_ms, kernel_rows
+from llama32mm_tpu_torch.preprocess.image import preprocess_image_device  # noqa: E402
+from profile_qgemv import L2_SPAN, device_ms, kernel_rows  # noqa: E402
 
 ROWS = 1632
 SHAPES = {  # label: (N, K, group size; 0 for int8)
@@ -74,6 +96,17 @@ SHAPES = {  # label: (N, K, group size; 0 for int8)
     "int8 W_query N=4096 K=4096": (4096, 4096, 0),
     "int8 W_key N=1024 K=4096": (1024, 4096, 0),
 }
+# Other shape sets: label -> (N, K, group size, x dtype, entry: the routed
+# call, or "qmatmul", the KERNELS entry that forces the general route).
+BF, F32 = torch.bfloat16, torch.float32
+SETS = {
+    "--fp32": {"fp32 int8 w_gate N=14336 K=4096": (14336, 4096, 0, F32, "routed"),
+               "fp32 int4 w_gate N=14336 K=4096 g=128": (14336, 4096, 128, F32, "routed")},
+    "--general": {"int4 w_gate N=14336 K=4096 g=32": (14336, 4096, 32, BF, "routed"),
+                  "ragged int8 w_gate N=14336 K=4100": (14336, 4100, 0, BF, "routed"),
+                  "forced int4 w_up N=14336 K=4096 g=128": (14336, 4096, 128, BF, "qmatmul")},
+}
+SLOW_MS = 50.0  # a call above this is timed with 2 launches
 # Launches of each shape in one prefill of the 40-layer decoder, per recipe.
 PREFILL = {
     "int8": {"int8 w_gate N=14336 K=4096": 80, "int8 w_down N=4096 K=14336": 40,
@@ -132,6 +165,69 @@ def ttft(dev, card: str, reps: int = 5) -> None:
     print(json.dumps({"card": card, "ttft": out}))
 
 
+def timed_ms(fns) -> float:
+    """Device time of one call (``device_ms``), or for a call slower than
+    ``SLOW_MS`` the mean of 2 launches queued behind a sleep."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fns[0]()
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) < SLOW_MS:
+        return device_ms(fns)
+    torch.cuda._sleep(int(4e6))
+    start.record()
+    for i in range(2):
+        fns[i % len(fns)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 2
+
+
+def shape_sets(dev, card: str, flags, rows: int) -> None:
+    """The ``SETS`` the flags name, through the routed entry, as the module
+    docstring says."""
+    tree = Path(kernels.__file__).resolve().parents[3]
+    print(f"kernels of {tree}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for flag in flags:
+        for label, (n, k, g, dtype, name) in SETS[flag].items():
+            copies = quantized_copies(n, k, g, gen, dev)
+            x = torch.randn(rows, k, generator=gen, device=dev).to(dtype)
+            args = (x, *copies[0])
+            want = kernels.qmatmul_plain(*args)
+            entry = kernels.qmatmul_cuda if name == "routed" else kernels.KERNELS[name][0]
+            got = entry(*args)
+            err = (got.float() - want.float()).abs().max().item()
+            bound_ms, bound_by = cs.bound("qmatmul", args, want)
+            row = {"bound_ms": bound_ms, "bound_by": bound_by, "copies": len(copies)}
+            print(f"== {label} R={rows}: bound {bound_ms:.6g} ms ({bound_by}), {len(copies)} weight "
+                  f"copies; qmatmul_cuda max_abs_err vs plain {err:.6g} "
+                  f"(max {want.float().abs().max().item():.6g})")
+            calls = {"qmatmul_cuda": [partial(entry, x, *c) for c in copies],
+                     "qmatmul_plain": [partial(kernels.qmatmul_plain, *args)]}
+            try:
+                library = cs.library_call("qmatmul", args)
+                if library is not None:
+                    library()
+                    calls["_weight_int4pack_mm" if g else "_weight_int8pack_mm"] = [library]
+            except (RuntimeError, NotImplementedError) as e:
+                print(f"  library call unavailable: {str(e).splitlines()[0][:160]}")
+            for what, fns in calls.items():
+                ms = timed_ms(fns)
+                row[what] = ms
+                print(f"  {what:22s} {ms:.6g} ms  (share of bound {bound_ms / ms:.4g})")
+            if row["qmatmul_cuda"] < SLOW_MS:
+                for key, us in kernel_rows(calls["qmatmul_cuda"]):
+                    print(f"    {us:9.2f} us  {key[:100]}")
+            results[label] = row
+            del copies, calls, want, got
+            torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "tree": str(tree), "rows": rows, "device_ms": results}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_qmatmul: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -144,6 +240,11 @@ def main() -> int:
     cs.build_library()
     if "--ttft" in sys.argv[1:]:
         ttft(dev, card)
+        return 0
+    flags = [f for f in SETS if f in sys.argv[1:]]
+    if flags:
+        argv = sys.argv[1:]
+        shape_sets(dev, card, flags, int(argv[argv.index("--rows") + 1]) if "--rows" in argv else ROWS)
         return 0
     kernels_only = "--kernels-only" in sys.argv[1:]
     gen = torch.Generator(device=dev).manual_seed(0)
