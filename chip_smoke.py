@@ -232,21 +232,26 @@ for fp32 (the tiny exactness phases, ``vit_h_fp32``). The flash backward
 runs as two pairs: the tensor-core dq and dk/dv kernels for bf16 (every
 training path at 11B and 3B), and for fp32 the 3xTF32 dq and dk/dv. The
 SwiGLU's fp32 calls above 8 rows and every fp32 SwiGLU backward run the
-3xTF32 tile (``swiglu_tf32``, ``swiglu_bwd_tf32``). Step 3 also checks that every row of a B=8 decode call equals, bit
-for bit, a B=1 call on that row, and that two calls of a tensor-core
-backward kernel give the same bits; that each row of the int4 W4A16 gemv's
-R=8, 16 and 32 calls equals its R=1 call bit for bit and two calls of each
-int4 case give the same bits; that 50 calls of the tensor-core forward at hd
-8 (bf16 and int8 KV) give the same bits (the zero-fill of its head-dim
-padding once raced its copies); that the model's entry ``qmatmul_cuda``
-routes each wgmma GEMM case to the wgmma kernel on x as it is, and each
-case of its general route (fp32 x as three bf16 planes, ragged K, other
-int4 groups, misaligned x or q; the bf16 shapes it would read as they are
-forced there) to that route, two of its calls give the same bits, and rows
-0-96 of each R=1632 call equal an R=97 call bit for bit;
-that the model's gemv entry routes each tensor-core gemv case there, two
-calls give the same bits and each row of an R = 2-32 call equals its R = 1
-call; that the model's SwiGLU entries route each TMA-tile case (forward and
+3xTF32 tile (``swiglu_tf32``, ``swiglu_bwd_tf32``); a bf16 SwiGLU backward
+of at most 8 rows runs a rows kernel's backward (``swiglu_bwd_rows_tc``,
+``swiglu_bwd_rows``), a bf16 call of more rows the TMA tile, on the
+operands as they are or, where TMA cannot read them (H not a multiple of 8,
+an operand off 16-byte alignment), after the general route's pre-pass has
+copied those (``swiglu``, ``swiglu_bwd``). Step 3 also checks that every row
+of a B=8 decode call equals, bit for bit, a B=1 call on that row, and that
+two calls of a tensor-core backward kernel give the same bits; that each row
+of the int4 W4A16 gemv's R=8, 16 and 32 calls equals its R=1 call bit for
+bit and two calls of each int4 case give the same bits; that 50 calls of the
+tensor-core forward at hd 8 (bf16 and int8 KV) give the same bits (the
+zero-fill of its head-dim padding once raced its copies); that the model's
+entry ``qmatmul_cuda`` routes each wgmma GEMM case to the wgmma kernel on x
+as it is, and each case of its general route (fp32 x as three bf16 planes,
+ragged K, other int4 groups, misaligned x or q; the bf16 shapes it would
+read as they are forced there) to that route, two of its calls give the same
+bits, and rows 0-96 of each R=1632 call equal an R=97 call bit for bit; that
+the model's gemv entry routes each tensor-core gemv case there, two calls
+give the same bits and each row of an R = 2-32 call equals its R = 1 call;
+that the model's SwiGLU entries route each TMA-tile case (forward and
 backward) there, two calls give the same bits and rows 0-96 of each R=1632
 call equal an R=97 call; and prints the tensor-core forward's and backward's
 times beside the fp32 kernels' and SDPA's at the same shapes. The 3xTF32
@@ -254,33 +259,38 @@ kernels (flash forward, LSE, int8 KV, dq and dk/dv; the SwiGLU tile forward
 and backward) run fp32 cases held to 1e-5 of the plain version's largest
 magnitude (the bf16 cases to ``TOL``), each twice with the same bits (50
 times at hd 8), with their bound as three TF32 products at 494.7 TFLOP/s
-beside the CUDA-core bound at 67; the model's SwiGLU entries route each
-fp32 tile case there, and rows 0-96 of each R=1632 call (all rows of a
-smaller one) equal an R=97 call.
-The tensor-core SwiGLU rows kernel and W4A8 gemv get the same three checks
-as the tensor-core gemv (routed by the model's entry, two calls bit-equal,
-each row of an R > 1 call equal to its R = 1 call), and so do the CUDA-core
-SwiGLU rows kernel (fp32 at the 11B widths, R = 1, 2, 5, 8; H=100; x one
-element into its buffer; bf16 ragged H), the tensor-core int8 gemv, and the
-general routes of both gemvs (fp32 x at the head and ``w_gate``, R = 1, 8,
-32, as 3xTF32 products and as three bf16 planes, held to 1e-5 of
-max|plain|; ragged K=4100; x, w or q off 16-byte alignment); the TMA
-SwiGLU backward one case whose
-cotangent starts at an odd element; two calls of each RMSNorm backward case
-give the same bits (dt, and dw when asked for); two calls of each SwiGLU +
-down case give the same bits and each row of an R > 1 call equals its R = 1
-call (bf16 and fp32 at the 11B widths, the 3B's in bf16, ragged I and
-rows), and the bf16 and fp32 11B cases print their time beside the unfused
-SwiGLU + gemv pair's. The fp32 cases of the rows kernel and of SwiGLU +
-down are held to 1e-5 of max|plain|. Every bf16
-path at 11B and 3B must launch the new kernels and never an fp32 flash
-forward or backward, nor the dequantizing GEMM's general route, nor a
-gemv's general route;
-the bf16 generate and server launch the tensor-core gemv 201 times a decode
-step (and once for each prefill's head), the TMA SwiGLU tile 40 times a
-prefill and the tensor-core SwiGLU rows kernel 40 times a decode step, never
-the CUDA-core rows kernel or the wmma tile; the 3B full fine-tuning
-never the wmma tile.
+beside the CUDA-core bound at 67; the model's SwiGLU entries route each fp32
+tile case there, and rows 0-96 of each R=1632 call (all rows of a smaller
+one) equal an R=97 call. The tensor-core SwiGLU rows kernel and W4A8 gemv
+get the same three checks as the tensor-core gemv (routed by the model's
+entry, two calls bit-equal, each row of an R > 1 call equal to its R = 1
+call), and so do the CUDA-core SwiGLU rows kernel (fp32 at the 11B widths, R
+= 1, 2, 5, 8; H=100; x one element into its buffer; bf16 ragged H), the
+tensor-core int8 gemv, and the general routes of both gemvs (fp32 x at the
+head and ``w_gate``, R = 1, 8, 32, as 3xTF32 products and as three bf16
+planes, held to 1e-5 of max|plain|; ragged K=4100; x, w or q off 16-byte
+alignment); the TMA SwiGLU backward one case whose cotangent starts at an
+odd element; two calls of each RMSNorm backward case give the same bits (dt,
+and dw when asked for); two calls of each SwiGLU + down case give the same
+bits and each row of an R > 1 call equals its R = 1 call (bf16 and fp32 at
+the 11B widths, the 3B's in bf16, ragged I and rows), and the bf16 and fp32
+11B cases print their time beside the unfused SwiGLU + gemv pair's. The fp32
+cases of the rows kernel and of SwiGLU + down are held to 1e-5 of
+max|plain|. Every bf16 path at 11B and 3B must launch the new kernels and
+never an fp32 flash forward or backward, nor the dequantizing GEMM's general
+route, nor a gemv's general route; the bf16 generate and server launch the
+tensor-core gemv 201 times a decode step (and once for each prefill's head),
+the TMA SwiGLU tile 40 times a prefill and the tensor-core SwiGLU rows
+kernel 40 times a decode step, never the CUDA-core rows kernel or the SwiGLU
+general route; no 11B or 3B path ever launches the SwiGLU general route. The
+new SwiGLU cases (the rows kernels' backward at R = 1 and 8 at the 11B and
+3B widths, ragged H and I, x and the cotangent one element into their
+buffers; the TMA tile at H=4104 and H=200, whose last 64-k box TMA
+zero-fills; the general route on x, or on both weights, one element into its
+buffer) get the same checks as the rest: the model's entry routes each there
+with the same bits, two calls give the same bits, each row of a rows-kernel
+call equals its R=1 call and rows 0-96 of a tile call of 97 rows or more
+equal an R=97 call.
 
 Each kernel case also reports its bound (the larger of the bytes it must
 move over 3.35 TB/s and its operations over the dense peak for its type)
@@ -352,6 +362,8 @@ from llama32mm_tpu_torch.ops.cuda.attention import NEG_BIG, allowed_mask
 from llama32mm_tpu_torch.ops.cuda.build import build_library
 from llama32mm_tpu_torch.ops.cuda.qgemv import check_quant
 from llama32mm_tpu_torch.ops.cuda.qmatmul import reads_as_is
+from llama32mm_tpu_torch.ops.cuda.swiglu import ROWS_KERNEL_MAX as SWIGLU_ROWS_KERNEL_MAX
+from llama32mm_tpu_torch.ops.cuda.swiglu import reads_as_is as swiglu_reads_as_is
 from llama32mm_tpu_torch.models.quantize import quantize_llama_params
 from llama32mm_tpu_torch.ops.quant import (
     INT4_MIXED_RECIPE,
@@ -458,6 +470,10 @@ KERNEL_INFO = {
     "swiglu_bwd_tf32": ("llama32mm_tpu_torch/csrc/swiglu.cu",
                         "llama32mm_tpu/ops/pallas/swiglu.py:136"),
     "swiglu_rows": ("llama32mm_tpu_torch/csrc/swiglu.cu", "llama32mm_tpu/ops/pallas/swiglu.py:69"),
+    "swiglu_bwd_rows_tc": ("llama32mm_tpu_torch/csrc/swiglu.cu",
+                           "llama32mm_tpu/ops/pallas/swiglu.py:136"),
+    "swiglu_bwd_rows": ("llama32mm_tpu_torch/csrc/swiglu.cu",
+                        "llama32mm_tpu/ops/pallas/swiglu.py:136"),
 }
 # Pallas functions a kernel folds in beside the one it is listed against, and
 # the pl.pallas_call sites that its Pallas functions reach.
@@ -474,6 +490,8 @@ ALSO_REPLACES = {
     "swiglu_tf32": [_P + "swiglu.py:98"],
     "swiglu_bwd_tf32": [_P + "swiglu.py:98"],
     "swiglu_rows": [_P + "swiglu.py:98"],
+    "swiglu_bwd_rows_tc": [_P + "swiglu.py:98"],
+    "swiglu_bwd_rows": [_P + "swiglu.py:98"],
     "swiglu_down": [_P + "swiglu.py:255"],
     "flash_attention": [_P + "attention.py:198"],
     "flash_attention_int8kv": [_P + "attention.py:198"],
@@ -506,7 +524,7 @@ ALSO_REPLACES = {
 # linears through the tensor-core gemv, the bf16 prefill's SwiGLU through
 # the TMA tile and its decode SwiGLU (at most 8 rows) through the
 # tensor-core rows kernel (run_11b and run_server hold both to their counts,
-# and the CUDA-core rows kernel and the wmma tile to 0), the int4
+# and the CUDA-core rows kernel and the general route to 0), the int4
 # server's W4A8 gemvs through the W4A8 kernel (tensor cores at every call), and every int8
 # decode linear through the tensor-core int8 gemv (run_11b and run_server
 # hold it to its count, path_faults the general route to 0).
@@ -613,11 +631,12 @@ TINY_KERNELS = {
 
 def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
     """What a path's run got wrong: kernels it should have launched and did
-    not, fp32 kernels launched on a bf16 path, plain versions called."""
+    not, fp32 kernels launched on a bf16 path, the SwiGLU general route
+    (every SwiGLU operand of the 11B and 3B widths is read as it is), plain
+    versions called."""
     faults = [f"skipped {k}" for k in PATH_KERNELS[path] if launches[k] == 0]
-    if path in ("full_ft_3b", "zero1_full_ft_3b", "pp_full_ft_3b"):  # R = 1632 a SwiGLU call
-        faults += [f"launched the wmma {k} {launches[k]} times" for k in ("swiglu", "swiglu_bwd")
-                   if launches[k]]
+    faults += [f"launched the SwiGLU general route {k} {launches[k]} times"
+               for k in ("swiglu", "swiglu_bwd") if launches[k]]
     if path != "swiglu_down_op":
         faults += [f"launched the fp32 {k} {launches[k]} times"
                    for k in FP32_FORWARD + FP32_BACKWARD + FP32_SWIGLU if launches[k]]
@@ -634,12 +653,12 @@ def path_faults(path: str, launches: dict, plain_calls: dict) -> list:
 def swiglu_faults(launches: dict, layers: int, prefills: int, decode_steps: int) -> list:
     """A bf16 generate's or server's SwiGLU launches: the TMA tile once a
     layer per prefill, the tensor-core rows kernel once a layer per decode
-    step, and the CUDA-core rows kernel and the wmma tile never."""
+    step, and the CUDA-core rows kernel and the general route never."""
     want = {"swiglu_tc": layers * prefills, "swiglu_rows_tc": layers * decode_steps,
             "swiglu_rows": 0, "swiglu": 0}
     log(f"SwiGLU launches: TMA tile {launches['swiglu_tc']} (want {want['swiglu_tc']}), "
         f"tensor-core rows kernel {launches['swiglu_rows_tc']} (want {want['swiglu_rows_tc']}), "
-        f"CUDA-core rows kernel {launches['swiglu_rows']} (want 0), wmma tile "
+        f"CUDA-core rows kernel {launches['swiglu_rows']} (want 0), general route "
         f"{launches['swiglu']} (want 0)")
     return [f"launched {k} {launches[k]} times, not {n}" for k, n in want.items()
             if launches[k] != n]
@@ -835,6 +854,14 @@ def kernel_cases(dev, gen):
          (rnd(33, 100), rnd(200, 100, scale=0.1), rnd(200, 100, scale=0.1)), False),
         ("swiglu", "decode rows R=3 H=4096 I=14336",
          (rnd(3, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), False),
+        # what the routed entry leaves to the general route: x, or both
+        # weights, one element into their buffers (only those copied)
+        ("swiglu", "x offset by one element R=1632 H=4096 I=14336",
+         (rnd(1632 * h + 1)[1:].view(1632, h), rnd(inter, h, scale=0.02),
+          rnd(inter, h, scale=0.02)), False),
+        ("swiglu", "weights offset by one element R=130 H=256 I=300",
+         (rnd(130, 256), rnd(300 * 256 + 1, scale=0.1)[1:].view(300, 256),
+          rnd(300 * 256 + 1, scale=0.1)[1:].view(300, 256)), False),
         ("swiglu_rows", "ragged H R=3 H=100 I=200",
          (rnd(3, 100), rnd(200, 100, scale=0.1), rnd(200, 100, scale=0.1)), False),
         ("swiglu_rows", "ragged H R=8 H=4100 I=14336",
@@ -847,6 +874,11 @@ def kernel_cases(dev, gen):
          (rnd(33, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), False),
         ("swiglu_tc", "ragged I R=130 H=256 I=300",
          (rnd(130, 256), rnd(300, 256, scale=0.1), rnd(300, 256, scale=0.1)), False),
+        # H a multiple of 8 but not of 64: TMA zero-fills the last 64-k box
+        ("swiglu_tc", "R=1632 H=4104 I=14336",
+         (rnd(1632, 4104), rnd(inter, 4104, scale=0.02), rnd(inter, 4104, scale=0.02)), False),
+        ("swiglu_tc", "R=130 H=200 I=300",
+         (rnd(130, 200), rnd(300, 200, scale=0.1), rnd(300, 200, scale=0.1)), False),
         *[("swiglu_rows_tc", f"{'server ' if r == 8 else ''}decode R={r} H=4096 I=14336",
            (rnd(r, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02)), r == 8)
           for r in (1, 2, 5, 8)],
@@ -1571,6 +1603,35 @@ def training_kernel_cases(rnd, valid):
         ("swiglu_bwd_tc", "g offset by one element R=130 H=256 I=300",
          (rnd(130, 256), rnd(300, 256, scale=0.1), rnd(300, 256, scale=0.1),
           rnd(130 * 300 + 1)[1:].view(130, 300)), False),
+        # H a multiple of 8 but not of 64: TMA zero-fills the last 64-k box
+        ("swiglu_bwd_tc", "R=1632 H=4104 I=14336",
+         (rnd(1632, 4104), rnd(inter, 4104, scale=0.02), rnd(inter, 4104, scale=0.02),
+          rnd(1632, inter)), False),
+        ("swiglu_bwd_tc", "R=130 H=200 I=300",
+         (rnd(130, 200), rnd(300, 200, scale=0.1), rnd(300, 200, scale=0.1), rnd(130, 300)),
+         False),
+        # a bf16 training microbatch of at most 8 tokens: the rows kernels'
+        # backward (tensor cores where H % 32 == 0 and x and the weights are
+        # 16-byte aligned, else the CUDA cores)
+        *[("swiglu_bwd_rows_tc", f"R={r} H=4096 I=14336",
+           (rnd(r, h), rnd(inter, h, scale=0.02), rnd(inter, h, scale=0.02), rnd(r, inter)),
+           r == 8) for r in (1, 8)],
+        ("swiglu_bwd_rows_tc", "3B R=8 H=3072 I=8192",
+         (rnd(8, 3072), rnd(8192, 3072, scale=0.02), rnd(8192, 3072, scale=0.02),
+          rnd(8, 8192)), False),
+        ("swiglu_bwd_rows_tc", "ragged I R=3 H=96 I=200",
+         (rnd(3, 96), rnd(200, 96, scale=0.1), rnd(200, 96, scale=0.1), rnd(3, 200)), False),
+        ("swiglu_bwd_rows_tc", "g offset by one element R=5 H=256 I=300",
+         (rnd(5, 256), rnd(300, 256, scale=0.1), rnd(300, 256, scale=0.1),
+          rnd(5 * 300 + 1)[1:].view(5, 300)), False),
+        ("swiglu_bwd_rows", "ragged H R=3 H=100 I=200",
+         (rnd(3, 100), rnd(200, 100, scale=0.1), rnd(200, 100, scale=0.1), rnd(3, 200)), False),
+        ("swiglu_bwd_rows", "ragged H R=8 H=4100 I=14336",
+         (rnd(8, 4100), rnd(inter, 4100, scale=0.02), rnd(inter, 4100, scale=0.02),
+          rnd(8, inter)), True),
+        ("swiglu_bwd_rows", "x offset by one element R=4 H=256 I=300",
+         (rnd(4 * 256 + 1)[1:].view(4, 256), rnd(300, 256, scale=0.1), rnd(300, 256, scale=0.1),
+          rnd(4, 300)), False),
     ]
     masked = valid(2, 100, 90)
     masked[0, :6] = 0  # batch 0, query 0 (position 5) sees no key
@@ -1817,10 +1878,16 @@ def check_same_bits(name, label, wrapper, args, got, calls: int = 1) -> None:
 
 def check_gemv_rows_alone(name, label, wrapper, args, got) -> None:
     """Each row of a multi-row gemv call equals, bit for bit, the call on
-    that row alone (a server's request against a solo engine run)."""
+    that row alone (a server's request against a solo engine run); a SwiGLU
+    backward's cotangent is cut to that row with x, and each of its outputs
+    compared."""
     x = args[0]
+    cut = (0, 3) if name.startswith("swiglu_bwd") else (0,)
+    got = got if isinstance(got, tuple) else (got,)
     for r in range(x.shape[0]):
-        if not torch.equal(wrapper(x[r:r + 1].contiguous(), *args[1:]), got[r:r + 1]):
+        one = wrapper(*(a[r:r + 1].contiguous() if i in cut else a for i, a in enumerate(args)))
+        one = one if isinstance(one, tuple) else (one,)
+        if not all(torch.equal(o, g[r:r + 1]) for o, g in zip(one, got)):
             raise RuntimeError(f"{name} [{label}]: row {r} differs from the R=1 call on that row")
     log(f"kernel {name} [{label}]: each of the {x.shape[0]} rows equals its R=1 call bit for bit")
 
@@ -1842,7 +1909,22 @@ ROUTED_BY = {
     "swiglu_tf32": kernels.fused_swiglu_cuda,
     "swiglu_bwd_tf32": kernels.fused_swiglu_bwd_cuda,
     "swiglu_rows": kernels.fused_swiglu_cuda,
+    "swiglu_bwd_rows_tc": kernels.fused_swiglu_bwd_cuda,
+    "swiglu_bwd_rows": kernels.fused_swiglu_bwd_cuda,
+    "swiglu": kernels.fused_swiglu_cuda,
+    "swiglu_bwd": kernels.fused_swiglu_bwd_cuda,
 }
+# The bf16 SwiGLU kernels built on the TMA tile: the tile on the operands as
+# they are, and the general route (the tile after the pre-pass).
+SWIGLU_TMA = ("swiglu_tc", "swiglu_bwd_tc", "swiglu", "swiglu_bwd")
+
+
+def swiglu_routed_general(args) -> bool:
+    """Whether the model's SwiGLU entry takes the general route for these
+    operands: bf16, more rows than a rows kernel takes, and an operand the
+    TMA tile cannot read as it is."""
+    return (args[0].dtype == torch.bfloat16 and args[0].shape[0] > SWIGLU_ROWS_KERNEL_MAX
+            and not all(map(swiglu_reads_as_is, args[:3])))
 
 
 def check_routed(name, label, args, got) -> None:
@@ -1850,14 +1932,18 @@ def check_routed(name, label, args, got) -> None:
     with the same bits, a second call gives the same bits, each row of a
     multi-row decode call equals its R = 1 call bit for bit (warps split K
     at spans fixed by the weights' shape and are summed in a fixed order),
-    and the rows of an R = 1632 call, and of the SwiGLU tile at R <= 32,
-    equal those of an R = 97 call bit for bit (no split-K, a k order fixed
-    by K, tiles fixed by N): rows 0-96 of the one, all of the other."""
+    and the rows of an R = 1632 call, of a SwiGLU tile at R <= 32 and of a
+    bf16 SwiGLU tile call above 97 rows equal those of an R = 97 call bit
+    for bit (no split-K, a k order fixed by K, tiles fixed by N): rows 0-96
+    of the one, all of the other."""
     wrapper = kernels.KERNELS[name][0]
     got = got if isinstance(got, tuple) else (got,)
     if name == "qmatmul" and reads_as_is(args[0], args[1], *check_quant(*args)[2:]):
         log(f"kernel {name} [{label}]: forced onto the general route (the model's entry reads "
             f"this x as it is)")
+    elif name in ("swiglu", "swiglu_bwd") and not swiglu_routed_general(args):
+        log(f"kernel {name} [{label}]: forced onto the general route (the model's entry takes "
+            f"the TMA tile or a rows kernel here)")
     else:
         before = wrapper.launches
         routed = ROUTED_BY[name](*args)
@@ -1868,10 +1954,10 @@ def check_routed(name, label, args, got) -> None:
         log(f"kernel {name} [{label}]: the model's entry launched {name}, the same bits")
     check_same_bits(name, label, wrapper, args, got)
     rows = args[0].shape[0]
-    tile = name in ("swiglu_tc",) + FP32_SWIGLU
+    tile = name in SWIGLU_TMA + FP32_SWIGLU
     if 1 < rows <= 32 and not tile:
-        check_gemv_rows_alone(name, label, wrapper, args, got[0])
-    if rows == 1632 or (tile and rows <= 32):
+        check_gemv_rows_alone(name, label, wrapper, args, got)
+    if rows == 1632 or (tile and rows <= 32) or (name in SWIGLU_TMA and rows > 97):
         # x, and for the backward the cotangent, as 97 rows whose first
         # min(R, 97) are the case's (repeated where R < 97)
         n = min(rows, 97)

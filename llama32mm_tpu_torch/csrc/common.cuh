@@ -216,6 +216,29 @@ __device__ __forceinline__ int planes_source(int e, int k, int g, int half, int 
 
 namespace {
 
+constexpr int kPadThreads = 256;
+
+// The pre-pass of the general routes that read rows of whole 16-byte spans
+// (gemv.cu's for x, swiglu.cu's for x and both weights), one block a row:
+// x [rows, k] copied to rows of ld elements (ld a multiple of 16 bytes, xp
+// 16-byte aligned), zeros from k to ld. x may start at any element: a thread
+// gathers 16 bytes of a row by element loads (a warp's loads cover 512
+// contiguous bytes, read from L1 after the first) and writes them as one
+// 16-byte store, so each thread keeps 16 bytes of loads in flight.
+template <typename T>
+__global__ void __launch_bounds__(kPadThreads)
+pad_rows_kernel(const T* __restrict__ x, T* __restrict__ xp, int k, int ld) {
+  constexpr int V = Vec16<T>::N;
+  const T* xr = x + static_cast<size_t>(blockIdx.x) * k;
+  T* o = xp + static_cast<size_t>(blockIdx.x) * ld;
+  for (int e = threadIdx.x * V; e < ld; e += kPadThreads * V) {
+    Vec16<T> v;
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = e + j < k ? xr[e + j] : from_f32<T>(0.f);
+    store16(o + e, v);
+  }
+}
+
 constexpr int kPlanesThreads = 256;
 
 // The quantized kernels' pre-pass (one block a row of x): x [rows, k] as P

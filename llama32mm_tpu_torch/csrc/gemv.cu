@@ -52,7 +52,7 @@
 //    the total in fp32. Warps from N and K, tiles and the reduction as in 1,
 //    so a row's bits never depend on R.
 // 3. bf16 x with K not a multiple of 32 or a pointer off 16-byte alignment
-//    runs the kernel of 1 after a pre-pass (pad_rows_kernel) that copies x
+//    runs the kernel of 1 after a pre-pass (common.cuh::pad_rows_kernel) that copies x
 //    to aligned rows of whole spans, zeros past K; fp32 x takes the same
 //    pre-pass where K is not a multiple of 16 or x is misaligned. Weight rows
 //    that are not 16-byte aligned, or end inside a span, are read 16 bytes
@@ -67,19 +67,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kPadThreads = 256;
-
-// The pre-pass, one block a row of x: x [rows, k] copied to rows of ld
-// elements (ld a multiple of the kernel's span, so 16-byte aligned), zeros
-// from k to ld.
-template <typename T>
-__global__ void __launch_bounds__(kPadThreads)
-pad_rows_kernel(const T* __restrict__ x, T* __restrict__ xp, int k, int ld) {
-  const T* xr = x + static_cast<size_t>(blockIdx.x) * k;
-  T* o = xp + static_cast<size_t>(blockIdx.x) * ld;
-  for (int e = threadIdx.x; e < ld; e += kPadThreads) o[e] = e < k ? xr[e] : from_f32<T>(0.f);
-}
 
 // ---- The tensor-core kernel: bf16, and fp32 as 3xTF32 ----
 

@@ -12,7 +12,7 @@
 // shape (pick), never by failure:
 //
 // 1. The TMA tile (tma::swiglu_tma_kernel) takes bf16 x with H a multiple
-//    of 64, 16-byte-aligned x and weights and more than 8 rows: every
+//    of 8, 16-byte-aligned x and weights and more than 8 rows: every
 //    prefill and training call of the 11B and 3B models. A dual-B GEMM: a
 //    block owns 128 rows of x and 128 intermediate columns; two consumer
 //    warpgroups (64 rows each) issue wgmma m64n128k16 twice a k16 step,
@@ -25,23 +25,25 @@
 //    row tiles form a cluster: one copies the gate tile and the other the
 //    up tile, each multicast to both, which halves the weight bytes a block
 //    reads from L2 (PR 9's cp.async wgmma GEMM was bound by that traffic).
-//    Ragged R and I read as zeros (TMA) and are bounds-checked at the
-//    write. No split-K, a k order fixed by H and tiles fixed by I: a row's
-//    bits never depend on R or on its row tile, so a server's prefill equals
-//    a solo engine's.
+//    Ragged R, I and H read as zeros (TMA zero-fills a box past the matrix,
+//    so at H % 64 != 0 the last 64-k tile is partly zeros; the stage's
+//    barrier still counts the full box's bytes) and R and I are
+//    bounds-checked at the write. No split-K, a k order fixed by H and tiles
+//    fixed by I: a row's bits never depend on R or on its row tile, so a
+//    server's prefill equals a solo engine's.
 //    Measured (profile_swiglu.py, device time, NVIDIA H100 80GB HBM3 at
 //    700 W, R = 1632): 11B forward 0.594 ms (two cuBLAS GEMMs 0.589, the
-//    plain version 0.950, the wmma tile 2.550), 3B forward 0.267, 3B
+//    plain version 0.950, a wmma tile since removed 2.550), 3B forward 0.267, 3B
 //    backward 0.331 (plain 0.889). The products alone run the 11B forward
 //    in 0.57-0.62 ms and the copies alone in 0.55-0.60: the tile runs at
 //    the issue rate of its two warpgroups, with no overlap of one tile's
 //    epilogue and the next one's loads (a persistent grid would add it). At
 //    this speed the multicast gains nothing (0.606 ms without a cluster).
-// 2. With at most 8 rows (decode), bf16 x with H a multiple of 32 and
-//    16-byte-aligned x and weights take the tensor-core rows kernel
-//    (swiglu_rows_tc_kernel): gemv.cu's swap-AB mma.sync m16n8k16 form with
-//    two A streams (swiglu_rows.cuh::gate_up_tc, shared with the SwiGLU +
-//    down fusion). 16 intermediate columns of gate and of up are the M side
+// 2. With at most 8 rows (decode, forward and backward), bf16 x with H a
+//    multiple of 32 and 16-byte-aligned x and weights take the tensor-core
+//    rows kernel (swiglu_rows_tc_kernel): gemv.cu's swap-AB mma.sync
+//    m16n8k16 form with two A streams (swiglu_rows.cuh::gate_up_tc, shared
+//    with the SwiGLU + down fusion). 16 intermediate columns of gate and of up are the M side
 //    of two products and the <= 8 rows of x the N side, so a lane's x
 //    fragment feeds four products and x is read once per 16 columns.
 //    16-byte weight loads with the L2::256B hint, 4 spans in flight a lane
@@ -73,16 +75,21 @@
 //    loads in flight do not cover the products (2 R H I FMAs, 28 us at the
 //    CUDA cores' peak). Tried and slower: L2 prefetches of later spans (254
 //    registers), a per-warp cp.async ring (0.45 ms), 128 registers (spills).
-// 3. Other bf16 shapes (ragged H, misaligned pointers) take the wmma tile
-//    (swiglu_bf16_kernel): a 128 x 64 output tile, eight warps (4 x 2, 32 x
-//    32 each) of bf16 16x16x16 mma.sync (nvcuda::wmma) into fp32
-//    accumulators for gate and up, 32-wide K slices of x and both weights
-//    staged through a two-deep cp.async ring, silu(g) * u through shared
-//    memory to one rounded write per element; ragged R, H and I zero-filled
-//    at staging, an H that is not a multiple of 8 staged with plain loads.
+// 3. Other bf16 calls of more than 8 rows (H not a multiple of 8, or x or a
+//    weight not 16-byte aligned, such as a view that starts one element in)
+//    take the general route (launch_general): a pre-pass (common.cuh::
+//    pad_rows_kernel) copies only the operands TMA cannot read as they are
+//    to the caller's workspaces, rows of H rounded up to 8 with zeros past
+//    H, 16-byte aligned (all three where H % 8 != 0; x alone for an offset
+//    view of x: 13 MB at R = 1632, H = 4096), and the TMA tile of 1 reads
+//    them. Copying a weight costs its bytes twice more: at the 11B widths two
+//    117 MB workspaces for the call and ~0.14 ms of copies at 3.35 TB/s, so a
+//    caller that keeps such weights should keep them padded. Asked for
+//    (kernel -2, the registry's "swiglu" / "swiglu_bwd"), the route copies
+//    every operand at any row count: its time is this fallback's upper bound.
 // 4. fp32 inputs with more rows take the fp32 tile (tf32::swiglu_tf32_kernel):
-//    the wmma tile's dual-B GEMM (a 128 x 64 output tile, eight warps of 32 x
-//    32) on mma.sync m16n8k8 TF32, every fp32 product as three TF32 products
+//    a dual-B GEMM (a 128 x 64 output tile, eight warps of 32 x 32) on
+//    mma.sync m16n8k8 TF32, every fp32 product as three TF32 products
 //    (tf32.cuh). Bound by operations: at R = 1632, H = 4096, I = 14336 the
 //    383 GFLOP take 2.325 ms as three TF32 products at 494.7 TFLOP/s, 5.72 ms
 //    on the CUDA cores. Both operands are K-major as stored, so x and both
@@ -105,18 +112,19 @@
 // fp32 accumulators and writes d_gate = silu'(gate) * g * up and
 // d_up = g * silu(gate), silu'(x) = s (1 + x (1 - s)), s = sigmoid(x), in x's
 // type; gate and up never reach device memory. It is the forward's body with
-// another epilogue (the kBwd template parameter of the TMA tile, the wmma
-// tile and the fp32 tile), routed as the forward above 8 rows (pick), and at
-// 8 or fewer to the wmma tile (bf16) or the fp32 tile. The TMA and fp32 tiles
-// read g at each accumulator's (row, column) from device memory, in pairs
-// where g's pointer allows and one element at a time where it does not (a
-// contiguous view may start at an odd element); the wmma tile stages the g
-// tile through shared memory into fragments of the accumulators' layout.
-// Bound as the forward at R = 1632 (tensor-core FLOPs). dx = d_gate @ w_gate
-// + d_up @ w_up and the weight gradients are cuBLAS GEMMs in the wrapper's
-// autograd function.
+// another epilogue (the kBwd template parameter of every kernel above),
+// routed as the forward: in bf16 at most 8 rows take a rows kernel (the
+// tensor-core one where it takes the call, a training microbatch of a few
+// tokens: a weight-streaming call, bound by the weights' bytes), more the
+// TMA tile or the general route; every fp32 backward takes the fp32 tile.
+// The tiles read g at each accumulator's (row, column) from device memory,
+// in pairs where g's pointer allows and one element at a time where it does
+// not (a contiguous view may start at an odd element); the rows kernels read
+// it one element at a time where the forward writes its output. Bound as
+// the forward: tensor-core FLOPs at R = 1632, the weights' bytes at 8 rows
+// or fewer. dx = d_gate @ w_gate + d_up @ w_up and the weight gradients are
+// cuBLAS GEMMs in the wrapper's autograd function.
 #include <limits.h>
-#include <mma.h>
 
 #include "common.cuh"
 #include "swiglu_rows.cuh"
@@ -126,19 +134,6 @@
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BM = 128, BN = 64, BK = 32;
-constexpr int LDS = BK + 8;    // bf16 per staged row: 80 bytes, padding vs bank conflicts
-constexpr int LDC = BN + 4;    // floats per epilogue row
-constexpr int kThreads = 256;  // 8 warps, 4 x 2 over the 128 x 64 tile
-
-constexpr int kStageElems = (BM + 2 * BN) * LDS;       // x, gate and up slices
-constexpr int kRingBytes = 2 * kStageElems * 2;        // two stages of bf16
-constexpr int kEpilogueBytes = BM * LDC * 4;
-constexpr int kSmemBytes = kRingBytes > kEpilogueBytes ? kRingBytes : kEpilogueBytes;
-static_assert(kSmemBytes <= 48 * 1024, "static shared memory limit");
-
 // The backward epilogue on one (gate, up, g) triple: d_gate, d_up.
 __device__ __forceinline__ void swiglu_grad(float gate, float up, float g, float& d_gate,
                                             float& d_up) {
@@ -147,176 +142,26 @@ __device__ __forceinline__ void swiglu_grad(float gate, float up, float g, float
   d_up = g * (gate * s);
 }
 
-// Stage a [ROWS, 32] slice of a row-major [rows_total, h] matrix starting at
-// (row0, k0), zero-filling everything outside the matrix.
-template <int ROWS, bool kVec>
-__device__ __forceinline__ void stage_slice(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                            int row0, int rows_total, int k0, int h) {
-  if (kVec) {
-    for (int v = threadIdx.x; v < ROWS * (BK / 8); v += kThreads) {
-      const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-      const bool in = row0 + r < rows_total && k0 + c < h;
-      async_copy<16>(dst + r * LDS + c,
-                     in ? src + static_cast<size_t>(row0 + r) * h + k0 + c : src, in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < ROWS * BK; e += kThreads) {
-      const int r = e / BK, c = e % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      dst[r * LDS + c] = (gr < rows_total && gc < h) ? src[static_cast<size_t>(gr) * h + gc]
-                                                     : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// kBwd false: out = silu(gate) * up. kBwd true: gin is the cotangent g,
-// out = d_gate and out2 = d_up.
-template <bool kVec, bool kBwd>
-__global__ void __launch_bounds__(kThreads)
-swiglu_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wg,
-                   const __nv_bfloat16* __restrict__ wu, const __nv_bfloat16* __restrict__ gin,
-                   __nv_bfloat16* __restrict__ out, __nv_bfloat16* __restrict__ out2,
-                   int rows, int h, int inter) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  auto stage = [&](int buf, int k0) {
-    __nv_bfloat16* xs = ring + buf * kStageElems;
-    stage_slice<BM, kVec>(xs, x, m0, rows, k0, h);
-    stage_slice<BN, kVec>(xs + BM * LDS, wg, n0, inter, k0, h);
-    stage_slice<BN, kVec>(xs + (BM + BN) * LDS, wu, n0, inter, k0, h);
-    async_commit();
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> accg[2][2], accu[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(accg[i][j], 0.f);
-      wmma::fill_fragment(accu[i][j], 0.f);
-    }
-
-  const int nk = (h + BK - 1) / BK;
-  stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      stage((kt + 1) & 1, (kt + 1) * BK);  // overwrites the slice consumed last iteration
-      async_wait<1>();                     // slice kt has landed, kt + 1 may be in flight
-    } else {
-      async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* xs = ring + (kt & 1) * kStageElems;
-    const __nv_bfloat16* gs = xs + BM * LDS;
-    const __nv_bfloat16* us = gs + BN * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bg, bu;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], xs + (wm + i * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        // the [I, H] weight slice read column-major is the [H, I] B operand
-        wmma::load_matrix_sync(bg, gs + (wn + j * 16) * LDS + kk, LDS);
-        wmma::load_matrix_sync(bu, us + (wn + j * 16) * LDS + kk, LDS);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::mma_sync(accg[i][j], a[i], bg, accg[i][j]);
-          wmma::mma_sync(accu[i][j], a[i], bu, accu[i][j]);
-        }
-      }
-    }
-    __syncthreads();  // the next iteration's stage() overwrites this buffer
-  }
-
-  // Epilogue, through shared memory (reusing the ring) to one write per
-  // element. Forward: silu(g) * u in registers (both fragments have one
-  // layout). Backward: the g tile is staged as fp32 and read back into
-  // fragments of that same layout, then d_gate replaces gate and d_up up.
-  float* cs = reinterpret_cast<float*>(smem);
-  auto write_tile = [&](__nv_bfloat16* dst) {  // cs -> dst, bounds-checked
-    for (int e = threadIdx.x; e < BM * BN; e += kThreads) {
-      const int r = e / BN, c = e % BN;
-      const int gr = m0 + r, gc = n0 + c;
-      if (gr < rows && gc < inter)
-        dst[static_cast<size_t>(gr) * inter + gc] = __float2bfloat16(cs[r * LDC + c]);
-    }
-  };
-  if (kBwd) {
-    for (int e = threadIdx.x; e < BM * BN; e += kThreads) {
-      const int r = e / BN, c = e % BN;
-      const int gr = m0 + r, gc = n0 + c;
-      cs[r * LDC + c] = (gr < rows && gc < inter)
-                            ? __bfloat162float(gin[static_cast<size_t>(gr) * inter + gc])
-                            : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> gf;
-        wmma::load_matrix_sync(gf, cs + (wm + i * 16) * LDC + wn + j * 16, LDC,
-                               wmma::mem_row_major);
-#pragma unroll
-        for (int t = 0; t < gf.num_elements; ++t)
-          swiglu_grad(accg[i][j].x[t], accu[i][j].x[t], gf.x[t], accg[i][j].x[t],
-                      accu[i][j].x[t]);
-      }
-    __syncthreads();  // every warp has read its g fragments
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int t = 0; t < accg[i][j].num_elements; ++t)
-          accg[i][j].x[t] = silu(accg[i][j].x[t]) * accu[i][j].x[t];
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm + i * 16) * LDC + wn + j * 16, accg[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  write_tile(out);
-  if (kBwd) {
-    __syncthreads();  // cs is read out
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(cs + (wm + i * 16) * LDC + wn + j * 16, accu[i][j], LDC,
-                                wmma::mem_row_major);
-    __syncthreads();
-    write_tile(out2);
-  }
-}
-
 constexpr int kSmallRows = 8;
 
 // ---------------------------------------------------------------------------
-// The rows kernel: at most 8 rows of fp32, or of bf16 that the tensor-core
-// rows kernel does not take (H not a multiple of 32, misaligned pointers).
+// The rows kernel: at most 8 rows of fp32 (forward), or of bf16 that the
+// tensor-core rows kernel does not take (H not a multiple of 32, misaligned
+// pointers), forward and backward.
 // ---------------------------------------------------------------------------
 constexpr int kRowWarps = 4;  // warps a block
 
 // A warp owns kSimtCols intermediate columns of gate and of up
 // (swiglu_rows.cuh::gate_up_simt): its lanes read x once a span for all of
 // them, then the 2 x kSimtCols x MAXR partial sums are reduce-scattered, so
-// lane r * kSimtCols + c ends with column c of row r and writes
-// silu(gate) * up, formed in fp32 and rounded once.
-template <typename T, int MAXR, bool kVec>
+// lane r * kSimtCols + c ends with column c of row r and writes, formed in
+// fp32 and rounded once, silu(gate) * up (kBwd false) or d_gate to out and
+// d_up to out2 from the cotangent gin at that (row, column) (kBwd true).
+template <typename T, int MAXR, bool kVec, bool kBwd>
 __global__ void __launch_bounds__(kRowWarps * 32)
 swiglu_rows_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __restrict__ wu,
-                   T* __restrict__ out, int rows, int h, int inter) {
+                   const T* __restrict__ gin, T* __restrict__ out, T* __restrict__ out2, int rows,
+                   int h, int inter) {
   constexpr int NV = kSimtCols * MAXR;
   const int lane = threadIdx.x & 31;
   const int col0 = (blockIdx.x * kRowWarps + (threadIdx.x >> 5)) * kSimtCols;
@@ -325,46 +170,60 @@ swiglu_rows_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* _
   gate_up_simt<T, MAXR, kVec>(x, wg, wu, rows, h, inter, col0, g, u);
   const float gs = reduce_scatter<NV>(g), us = reduce_scatter<NV>(u);
   const int r = (lane % NV) / kSimtCols, col = col0 + lane % kSimtCols;
-  if (lane < NV && r < rows && col < inter)
-    out[static_cast<size_t>(r) * inter + col] = from_f32<T>(silu(gs) * us);
+  if (lane < NV && r < rows && col < inter) {
+    const size_t o = static_cast<size_t>(r) * inter + col;
+    if (kBwd) {
+      float d_gate, d_up;
+      swiglu_grad(gs, us, to_f32(gin[o]), d_gate, d_up);
+      out[o] = from_f32<T>(d_gate);
+      out2[o] = from_f32<T>(d_up);
+    } else {
+      out[o] = from_f32<T>(silu(gs) * us);
+    }
+  }
 }
 
-template <typename T, int MAXR>
-void launch_rows_r(const void* x, const void* wg, const void* wu, void* out, int rows, int h,
-                   int inter, cudaStream_t s) {
+template <typename T, int MAXR, bool kBwd>
+void launch_rows_r(const void* x, const void* wg, const void* wu, const void* g, void* out,
+                   void* out2, int rows, int h, int inter, cudaStream_t s) {
   const bool vec = h % Vec16<T>::N == 0 && aligned16(x) && aligned16(wg) && aligned16(wu);
-  auto kernel = vec ? swiglu_rows_kernel<T, MAXR, true> : swiglu_rows_kernel<T, MAXR, false>;
+  auto kernel = vec ? swiglu_rows_kernel<T, MAXR, true, kBwd>
+                    : swiglu_rows_kernel<T, MAXR, false, kBwd>;
   constexpr int kCols = kRowWarps * kSimtCols;
   kernel<<<(inter + kCols - 1) / kCols, kRowWarps * 32, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(wg), static_cast<const T*>(wu),
-      static_cast<T*>(out), rows, h, inter);
+      static_cast<const T*>(g), static_cast<T*>(out), static_cast<T*>(out2), rows, h, inter);
 }
 
 // The smallest instantiation that holds the rows (registers: the sums).
-template <typename T>
-void launch_rows(const void* x, const void* wg, const void* wu, void* out, int rows, int h,
-                 int inter, cudaStream_t s) {
-  if (rows <= 1) launch_rows_r<T, 1>(x, wg, wu, out, rows, h, inter, s);
-  else if (rows <= 2) launch_rows_r<T, 2>(x, wg, wu, out, rows, h, inter, s);
-  else if (rows <= 4) launch_rows_r<T, 4>(x, wg, wu, out, rows, h, inter, s);
-  else launch_rows_r<T, kSmallRows>(x, wg, wu, out, rows, h, inter, s);
+template <typename T, bool kBwd>
+void launch_rows(const void* x, const void* wg, const void* wu, const void* g, void* out,
+                 void* out2, int rows, int h, int inter, cudaStream_t s) {
+  if (rows <= 1) launch_rows_r<T, 1, kBwd>(x, wg, wu, g, out, out2, rows, h, inter, s);
+  else if (rows <= 2) launch_rows_r<T, 2, kBwd>(x, wg, wu, g, out, out2, rows, h, inter, s);
+  else if (rows <= 4) launch_rows_r<T, 4, kBwd>(x, wg, wu, g, out, out2, rows, h, inter, s);
+  else launch_rows_r<T, kSmallRows, kBwd>(x, wg, wu, g, out, out2, rows, h, inter, s);
 }
 
 // ---------------------------------------------------------------------------
 // The tensor-core rows kernel: bf16 x with at most 8 rows, H a multiple of
-// 32, 16-byte-aligned x and weights (every decode step of the bf16 models).
+// 32, 16-byte-aligned x and weights (every decode step of the bf16 models,
+// and the backward of a training microbatch that small), forward and
+// backward.
 // ---------------------------------------------------------------------------
 
 // One m16 tile of 16 intermediate columns (swiglu_rows.cuh::gate_up_tc); the
 // W warps take fixed parts of H's spans; both fp32 totals are summed in shared
-// memory in warp order, then silu(gate) * up is formed in fp32 and rounded
-// once. W comes from I and H alone (tc_warps), so a row's bits never depend on
-// R.
-template <int W>
+// memory in warp order, then silu(gate) * up (kBwd false), or d_gate to out
+// and d_up to out2 from the cotangent gin at that (row, column), read one
+// element at a time (kBwd true), is formed in fp32 and rounded once. W comes
+// from I and H alone (tc_warps), so a row's bits never depend on R.
+template <int W, bool kBwd>
 __global__ void __launch_bounds__(W * 32)
 swiglu_rows_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wg,
-                      const __nv_bfloat16* __restrict__ wu, __nv_bfloat16* __restrict__ out,
-                      int rows, int h, int inter) {
+                      const __nv_bfloat16* __restrict__ wu, const __nv_bfloat16* __restrict__ gin,
+                      __nv_bfloat16* __restrict__ out, __nv_bfloat16* __restrict__ out2, int rows,
+                      int h, int inter) {
   __shared__ float red[2][W][16][kSmallRows + 1];  // gate, up
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, t = lane & 3;
@@ -383,46 +242,44 @@ swiglu_rows_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
   for (int idx = threadIdx.x; idx < 16 * kSmallRows; idx += W * 32) {
     const int m = idx % 16, r = idx / 16;
     if (r < rows && n0 + m < inter) {
-      float g = red[0][0][m][r], u = red[1][0][m][r];
+      float gate = red[0][0][m][r], up = red[1][0][m][r];
 #pragma unroll
       for (int v = 1; v < W; ++v) {
-        g += red[0][v][m][r];
-        u += red[1][v][m][r];
+        gate += red[0][v][m][r];
+        up += red[1][v][m][r];
       }
-      out[static_cast<size_t>(r) * inter + n0 + m] = __float2bfloat16(silu(g) * u);
+      const size_t o = static_cast<size_t>(r) * inter + n0 + m;
+      if (kBwd) {
+        float d_gate, d_up;
+        swiglu_grad(gate, up, __bfloat162float(gin[o]), d_gate, d_up);
+        out[o] = __float2bfloat16(d_gate);
+        out2[o] = __float2bfloat16(d_up);
+      } else {
+        out[o] = __float2bfloat16(silu(gate) * up);
+      }
     }
   }
 }
 
-void launch_rows_tc(const void* x, const void* wg, const void* wu, void* out, int rows, int h,
-                    int inter, cudaStream_t s) {
+template <bool kBwd>
+void launch_rows_tc(const void* x, const void* wg, const void* wu, const void* g, void* out,
+                    void* out2, int rows, int h, int inter, cudaStream_t s) {
   using bf = __nv_bfloat16;
   auto xb = static_cast<const bf*>(x);
   auto gb = static_cast<const bf*>(wg);
   auto ub = static_cast<const bf*>(wu);
+  auto gi = static_cast<const bf*>(g);
   auto o = static_cast<bf*>(out);
+  auto o2 = static_cast<bf*>(out2);
   const int blocks = (inter + 15) / 16;
   const int warps = tc_warps(inter, h);
   if (warps == 4)
-    swiglu_rows_tc_kernel<4><<<blocks, 4 * 32, 0, s>>>(xb, gb, ub, o, rows, h, inter);
+    swiglu_rows_tc_kernel<4, kBwd><<<blocks, 4 * 32, 0, s>>>(xb, gb, ub, gi, o, o2, rows, h, inter);
   else if (warps == 8)
-    swiglu_rows_tc_kernel<8><<<blocks, 8 * 32, 0, s>>>(xb, gb, ub, o, rows, h, inter);
+    swiglu_rows_tc_kernel<8, kBwd><<<blocks, 8 * 32, 0, s>>>(xb, gb, ub, gi, o, o2, rows, h, inter);
   else
-    swiglu_rows_tc_kernel<16><<<blocks, 16 * 32, 0, s>>>(xb, gb, ub, o, rows, h, inter);
-}
-
-template <bool kBwd>
-int launch_tile(const void* x, const void* wg, const void* wu, const void* g, void* out,
-                void* out2, int rows, int h, int inter, cudaStream_t s) {
-  using bf = __nv_bfloat16;
-  const bool vec = h % 8 == 0 && aligned16(x) && aligned16(wg) && aligned16(wu);
-  if ((rows + BM - 1) / BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((inter + BN - 1) / BN, (rows + BM - 1) / BM);
-  auto kernel = vec ? swiglu_bf16_kernel<true, kBwd> : swiglu_bf16_kernel<false, kBwd>;
-  kernel<<<grid, kThreads, 0, s>>>(static_cast<const bf*>(x), static_cast<const bf*>(wg),
-                                   static_cast<const bf*>(wu), static_cast<const bf*>(g),
-                                   static_cast<bf*>(out), static_cast<bf*>(out2), rows, h, inter);
-  return 0;
+    swiglu_rows_tc_kernel<16, kBwd><<<blocks, 16 * 32, 0, s>>>(xb, gb, ub, gi, o, o2, rows, h,
+                                                               inter);
 }
 
 // ---------------------------------------------------------------------------
@@ -620,8 +477,10 @@ int launch(const void* x, const void* wg, const void* wu, const void* g, void* o
 }  // namespace tf32
 
 // ---------------------------------------------------------------------------
-// The TMA tile: bf16 x with H a multiple of 64 and 16-byte-aligned x and
-// weights, more than 8 rows (forward) or any rows (backward, when asked).
+// The TMA tile: bf16 x and weights in rows of whole 16 bytes (H a multiple
+// of 8) from 16-byte-aligned bases, as the caller's tensors or as the
+// general route's padded copies; more than 8 rows (routed), or any rows
+// (forced).
 // ---------------------------------------------------------------------------
 namespace tma {
 
@@ -772,17 +631,19 @@ swiglu_tma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant_
   cluster_sync();  // no block leaves while the other may still arrive on its barriers
 }
 
-// The tensor maps of this call (boxes of 128 rows x 64 k), then one launch:
-// row tiles rounded up to an even count (clusters of two), column tiles of
-// 128 on the grid's y axis, so the blocks that run together share their
-// weight tiles in L2. The tiles depend on I alone and the k order on H, so
-// a row's bits never depend on R or on its row tile.
+// The tensor maps of this call (boxes of 128 rows x 64 k over the operands'
+// ld columns; a last box past ld is zero-filled by TMA and still completes
+// its full kStageBytes on the stage's barrier), then one launch: row tiles
+// rounded up to an even count (clusters of two), column tiles of 128 on the
+// grid's y axis, so the blocks that run together share their weight tiles
+// in L2. The tiles depend on I alone and the k order on ld, so a row's bits
+// never depend on R or on its row tile.
 template <bool kBwd>
 int launch(const void* x, const void* wg, const void* wu, const void* g, void* out, void* out2,
-           int rows, int h, int inter, cudaStream_t s) {
+           int rows, int ld, int inter, cudaStream_t s) {
   CUtensorMap tx, tg, tu;
-  if (!bf16_tile_map(&tx, x, rows, h, kBM) || !bf16_tile_map(&tg, wg, inter, h, kBN) ||
-      !bf16_tile_map(&tu, wu, inter, h, kBN))
+  if (!bf16_tile_map(&tx, x, rows, ld, kBM) || !bf16_tile_map(&tg, wg, inter, ld, kBN) ||
+      !bf16_tile_map(&tu, wu, inter, ld, kBN))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long m_tiles = ((rows + kBM - 1) / kBM + kCluster - 1) / kCluster * kCluster;
   const int n_tiles = (inter + kBN - 1) / kBN;
@@ -793,23 +654,50 @@ int launch(const void* x, const void* wg, const void* wu, const void* g, void* o
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<dim3(static_cast<unsigned>(m_tiles), n_tiles), kThreads, kSmem, s>>>(
       tx, tg, tu, static_cast<const bf16*>(g), static_cast<bf16*>(out), static_cast<bf16*>(out2),
-      rows, inter, h / kBK);
+      rows, inter, (ld + kBK - 1) / kBK);
   return 0;
 }
 
 }  // namespace tma
 
+// Whether TMA reads an operand's rows of h elements as they are: whole 16
+// bytes from a 16-byte-aligned base.
+bool tma_reads(const void* p, int h) { return h % 8 == 0 && aligned16(p); }
+
+// The general route: each operand that TMA cannot read as it is (every one,
+// when asked for the route) copied by the pre-pass to its workspace
+// (common.cuh::pad_rows_kernel: rows of ld = H rounded up to 8, zeros past
+// H), then the TMA tile on ld columns. A copied operand without a workspace
+// is an error. The k order is fixed by ld, so by H: a row's bits never
+// depend on R, and equal the TMA tile's on the same values.
+template <bool kBwd>
+int launch_general(bool copy_all, const void* x, const void* wg, const void* wu,
+                   void* const (&ws)[3], const void* g, void* out, void* out2, int rows, int h,
+                   int inter, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const int ld = (h + 7) / 8 * 8;
+  const void* op[3] = {x, wg, wu};
+  const int n[3] = {rows, inter, inter};
+  for (int i = 0; i < 3; ++i) {
+    if (!copy_all && tma_reads(op[i], h)) continue;
+    if (ws[i] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    pad_rows_kernel<bf><<<n[i], kPadThreads, 0, s>>>(static_cast<const bf*>(op[i]),
+                                                     static_cast<bf*>(ws[i]), h, ld);
+    op[i] = ws[i];
+  }
+  return tma::launch<kBwd>(op[0], op[1], op[2], g, out, out2, rows, ld, inter, s);
+}
+
 // l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, ask
-// for the base tile (the wmma tile for bf16, the fp32 tile for fp32: neither
-// the TMA tile nor a rows kernel), or ask for the TMA tile, the tensor-core
-// rows kernel, the fp32 tile or the rows kernel; and the kernels they report
-// in *launched.
+// for the base route (the general route for bf16, the fp32 tile for fp32:
+// neither the TMA tile on the caller's tensors nor a rows kernel), or ask
+// for the TMA tile, the tensor-core rows kernel, the fp32 tile or the rows
+// kernel; and the kernels they report in *launched.
 enum { kRouted = -1, kRoutedBase = -2 };
-enum { kWmma = 1, kTma = 3, kRowsTc = 4, kTf32 = 5, kRows = 6 };
+enum { kGeneral = 1, kTma = 3, kRowsTc = 4, kTf32 = 5, kRows = 6 };
 
 bool tma_takes(const void* x, const void* wg, const void* wu, int h, int dtype) {
-  return dtype == L32_BF16 && h > 0 && h % tma::kBK == 0 && aligned16(x) && aligned16(wg) &&
-         aligned16(wu);
+  return dtype == L32_BF16 && h > 0 && tma_reads(x, h) && tma_reads(wg, h) && tma_reads(wu, h);
 }
 
 bool rows_tc_takes(const void* x, const void* wg, const void* wu, int rows, int h, int dtype) {
@@ -817,79 +705,95 @@ bool rows_tc_takes(const void* x, const void* wg, const void* wu, int rows, int 
          aligned16(wg) && aligned16(wu);
 }
 
-// The kernel a call takes, or -1 for an error. Routed, the forward takes a
-// rows kernel at most at 8 rows (the backward has none): the tensor-core
-// one where it takes the call, else the CUDA-core one; more rows in bf16
-// take the TMA tile where it takes the call, else the wmma tile; fp32 the
-// fp32 tile.
+// The kernel a call takes, or -1 for an error. Routed, a call of at most 8
+// rows takes a rows kernel (the backward only in bf16): the tensor-core one
+// where it takes the call, else the CUDA-core one; more rows in bf16 take
+// the TMA tile where it reads the operands as they are, else the general
+// route; fp32 the fp32 tile.
 int pick(int kernel, const void* x, const void* wg, const void* wu, int rows, int h, int dtype,
          bool bwd) {
   const bool tma = tma_takes(x, wg, wu, h, dtype);
-  const bool rows_tc = !bwd && rows_tc_takes(x, wg, wu, rows, h, dtype);
+  const bool rows_tc = rows_tc_takes(x, wg, wu, rows, h, dtype);
+  const bool small = rows <= kSmallRows && (!bwd || dtype == L32_BF16);
   if (kernel == kTma) return tma ? kTma : -1;
   if (kernel == kRowsTc) return rows_tc ? kRowsTc : -1;
   if (kernel == kTf32) return dtype == L32_F32 ? kTf32 : -1;
   if (dtype != L32_BF16 && dtype != L32_F32) return -1;
-  if (kernel == kRows) return !bwd && rows <= kSmallRows ? kRows : -1;
-  if (kernel == kRoutedBase) return dtype == L32_F32 ? kTf32 : kWmma;
+  if (kernel == kRows) return small ? kRows : -1;
+  if (kernel == kRoutedBase) return dtype == L32_F32 ? kTf32 : kGeneral;
   if (kernel != kRouted) return -1;
-  if (!bwd && rows <= kSmallRows) return rows_tc ? kRowsTc : kRows;
+  if (small) return rows_tc ? kRowsTc : kRows;
   if (dtype == L32_F32) return kTf32;
-  return tma && rows > kSmallRows ? kTma : kWmma;
+  return tma ? kTma : kGeneral;
+}
+
+// One call of the kernel pick chose (kBwd: g, out2 = d_up; else both NULL).
+template <bool kBwd>
+int launch_picked(int kernel, bool copy_all, const void* x, const void* wg, const void* wu,
+                  void* const (&ws)[3], const void* g, void* out, void* out2, int rows, int h,
+                  int inter, int dtype, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  switch (kernel) {
+    case kRowsTc:
+      launch_rows_tc<kBwd>(x, wg, wu, g, out, out2, rows, h, inter, s);
+      return 0;
+    case kRows:
+      if (dtype == L32_BF16)
+        launch_rows<bf, kBwd>(x, wg, wu, g, out, out2, rows, h, inter, s);
+      else if constexpr (!kBwd)
+        launch_rows<float, false>(x, wg, wu, g, out, out2, rows, h, inter, s);
+      return 0;
+    case kTf32:
+      return tf32::launch<kBwd>(x, wg, wu, g, out, out2, rows, h, inter, s);
+    case kGeneral:
+      return launch_general<kBwd>(copy_all, x, wg, wu, ws, g, out, out2, rows, h, inter, s);
+    default:
+      return tma::launch<kBwd>(x, wg, wu, g, out, out2, rows, h, inter, s);
+  }
 }
 
 }  // namespace
 
-// kernel: -1 routes by shape (pick), -2 asks for the base tile (the wmma
-// tile, or for fp32 the fp32 tile), 3 for the TMA tile, 4 for the tensor-core
-// rows kernel, 5 for the fp32 tile, 6 for the rows kernel, and a kernel that
-// does not take the call is an error. *launched is set to the kernel launched
-// (1 wmma tile, 3 TMA tile, 4 tensor-core rows kernel, 5 fp32 tile, 6 rows
-// kernel), or -1 where none was (no rows or no columns, or an error).
-extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, void* out,
-                              int rows, int h, int inter, int dtype, int kernel, int* launched,
-                              void* stream) {
+// kernel: -1 routes by shape (pick), -2 asks for the base route (the general
+// route, which copies all three operands, or for fp32 the fp32 tile), 3 for
+// the TMA tile on the caller's tensors, 4 for the tensor-core rows kernel, 5
+// for the fp32 tile, 6 for the rows kernel, and a kernel that does not take
+// the call is an error. xw, gw, uw: the general route's workspaces for x,
+// w_gate and w_up, each rows (x) or inter (weights) times H rounded up to 8
+// bf16 elements, 16-byte aligned; NULL where the call does not copy that
+// operand (the caller mirrors tma_reads). *launched is set to the kernel
+// launched (1 the general route, 3 TMA tile, 4 tensor-core rows kernel, 5
+// fp32 tile, 6 rows kernel), or -1 where none was (no rows or no columns,
+// or an error).
+extern "C" int l32_swiglu_fwd(const void* x, const void* wg, const void* wu, void* xw, void* gw,
+                              void* uw, void* out, int rows, int h, int inter, int dtype,
+                              int kernel, int* launched, void* stream) {
   *launched = -1;
   if (rows == 0 || inter == 0) return 0;
-  kernel = pick(kernel, x, wg, wu, rows, h, dtype, false);
-  if (kernel < 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  int err = 0;
-  if (kernel == kRowsTc)
-    launch_rows_tc(x, wg, wu, out, rows, h, inter, s);
-  else if (kernel == kRows && dtype == L32_BF16)
-    launch_rows<__nv_bfloat16>(x, wg, wu, out, rows, h, inter, s);
-  else if (kernel == kRows)
-    launch_rows<float>(x, wg, wu, out, rows, h, inter, s);
-  else if (kernel == kWmma)
-    err = launch_tile<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
-  else if (kernel == kTf32)
-    err = tf32::launch<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
-  else
-    err = tma::launch<false>(x, wg, wu, nullptr, out, nullptr, rows, h, inter, s);
+  const int picked = pick(kernel, x, wg, wu, rows, h, dtype, false);
+  if (picked < 0) return static_cast<int>(cudaErrorInvalidValue);
+  void* const ws[3] = {xw, gw, uw};
+  int err = launch_picked<false>(picked, kernel == kRoutedBase, x, wg, wu, ws, nullptr, out,
+                                 nullptr, rows, h, inter, dtype, static_cast<cudaStream_t>(stream));
   if (!err) err = static_cast<int>(cudaGetLastError());
-  if (!err) *launched = kernel;
+  if (!err) *launched = picked;
   return err;
 }
 
 // d_gate, d_up [rows, inter] from x [rows, h], both weights [inter, h] and
-// the cotangent g [rows, inter]; kernel and *launched as l32_swiglu_fwd's.
-extern "C" int l32_swiglu_bwd(const void* x, const void* wg, const void* wu, const void* g,
-                              void* d_gate, void* d_up, int rows, int h, int inter, int dtype,
-                              int kernel, int* launched, void* stream) {
+// the cotangent g [rows, inter]; kernel, the workspaces and *launched as
+// l32_swiglu_fwd's.
+extern "C" int l32_swiglu_bwd(const void* x, const void* wg, const void* wu, void* xw, void* gw,
+                              void* uw, const void* g, void* d_gate, void* d_up, int rows, int h,
+                              int inter, int dtype, int kernel, int* launched, void* stream) {
   *launched = -1;
   if (rows == 0 || inter == 0) return 0;
-  kernel = pick(kernel, x, wg, wu, rows, h, dtype, true);
-  if (kernel < 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  int err;
-  if (kernel == kWmma)
-    err = launch_tile<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
-  else if (kernel == kTf32)
-    err = tf32::launch<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
-  else
-    err = tma::launch<true>(x, wg, wu, g, d_gate, d_up, rows, h, inter, s);
+  const int picked = pick(kernel, x, wg, wu, rows, h, dtype, true);
+  if (picked < 0) return static_cast<int>(cudaErrorInvalidValue);
+  void* const ws[3] = {xw, gw, uw};
+  int err = launch_picked<true>(picked, kernel == kRoutedBase, x, wg, wu, ws, g, d_gate, d_up,
+                                rows, h, inter, dtype, static_cast<cudaStream_t>(stream));
   if (!err) err = static_cast<int>(cudaGetLastError());
-  if (!err) *launched = kernel;
+  if (!err) *launched = picked;
   return err;
 }

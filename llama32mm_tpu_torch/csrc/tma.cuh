@@ -141,7 +141,11 @@ static inline EncodeTiledFn encode_tiled() {
 
 // The map of a row-major bf16 [rows, cols] matrix at base (16-byte aligned,
 // cols a multiple of 8) in boxes of box_rows rows x 64 columns, 128-byte
-// swizzled; elements outside the matrix read as zero. False on failure.
+// swizzled; elements outside the matrix read as zero. L2 fetches 256 bytes
+// at a time where rows start on 128-byte lines, else 128 (a box row then
+// straddles two lines; 256-byte fetches cost the SwiGLU tile 15% at H =
+// 4104, 128-byte ones 5%, against H = 4096; profile_swiglu.py --general).
+// False on failure.
 static inline bool bf16_tile_map(CUtensorMap* map, const void* base, int rows, int cols,
                                  int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
@@ -150,8 +154,9 @@ static inline bool bf16_tile_map(CUtensorMap* map, const void* base, int rows, i
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t steps[2] = {1, 1};
+  const CUtensorMapL2promotion l2 =
+      cols % 64 == 0 ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B : CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+            box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, l2,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

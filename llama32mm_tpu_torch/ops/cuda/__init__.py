@@ -64,17 +64,19 @@ from llama32mm_tpu_torch.ops.cuda.rmsnorm import (
 )
 from llama32mm_tpu_torch.ops.cuda.swiglu import (
     fused_swiglu_bwd_cuda,
+    fused_swiglu_bwd_general_cuda,
     fused_swiglu_bwd_plain,
+    fused_swiglu_bwd_rows_cuda,
+    fused_swiglu_bwd_rows_tc_cuda,
     fused_swiglu_bwd_tc_cuda,
     fused_swiglu_bwd_tf32_cuda,
-    fused_swiglu_bwd_wmma_cuda,
     fused_swiglu_cuda,
+    fused_swiglu_general_cuda,
     fused_swiglu_plain,
     fused_swiglu_rows_cuda,
     fused_swiglu_rows_tc_cuda,
     fused_swiglu_tc_cuda,
     fused_swiglu_tf32_cuda,
-    fused_swiglu_wmma_cuda,
     swiglu_down_cuda,
     swiglu_down_plain,
 )
@@ -83,7 +85,7 @@ from llama32mm_tpu_torch.ops.cuda.swiglu import (
 KERNELS = {
     "rmsnorm": (fused_add_rmsnorm_cuda, fused_add_rmsnorm_plain),
     "gemv": (gemv_general_cuda, gemv_plain),
-    "swiglu": (fused_swiglu_wmma_cuda, fused_swiglu_plain),
+    "swiglu": (fused_swiglu_general_cuda, fused_swiglu_plain),
     "flash_attention": (flash_attention_cuda, flash_attention_plain),
     "gemv_int8": (gemv_int8_general_cuda, gemv_int8_plain),
     "gemv_int4": (gemv_int4_cuda, gemv_int4_plain),
@@ -91,7 +93,7 @@ KERNELS = {
     "flash_attention_int8kv": (flash_attention_int8kv_cuda, flash_attention_int8kv_plain),
     "rmsnorm_fwd_train": (rmsnorm_fwd_train_cuda, rmsnorm_fwd_train_plain),
     "rmsnorm_bwd": (rmsnorm_bwd_cuda, rmsnorm_bwd_plain),
-    "swiglu_bwd": (fused_swiglu_bwd_wmma_cuda, fused_swiglu_bwd_plain),
+    "swiglu_bwd": (fused_swiglu_bwd_general_cuda, fused_swiglu_bwd_plain),
     "flash_attention_lse": (flash_attention_fwd_lse_cuda, flash_attention_fwd_lse_plain),
     "flash_attention_bwd_dq": (flash_attention_bwd_dq_cuda, flash_attention_bwd_dq_plain),
     "flash_attention_bwd_dkv": (flash_attention_bwd_dkv_cuda, flash_attention_bwd_dkv_plain),
@@ -114,6 +116,8 @@ KERNELS = {
     "swiglu_tf32": (fused_swiglu_tf32_cuda, fused_swiglu_plain),
     "swiglu_bwd_tf32": (fused_swiglu_bwd_tf32_cuda, fused_swiglu_bwd_plain),
     "swiglu_rows": (fused_swiglu_rows_cuda, fused_swiglu_plain),
+    "swiglu_bwd_rows_tc": (fused_swiglu_bwd_rows_tc_cuda, fused_swiglu_bwd_plain),
+    "swiglu_bwd_rows": (fused_swiglu_bwd_rows_cuda, fused_swiglu_bwd_plain),
 }
 
 
@@ -132,7 +136,8 @@ def plain_counts() -> dict:
     (``qmatmul`` and ``qmatmul_tc`` share one, as do ``gemv`` and ``gemv_tc``,
     ``swiglu``, ``swiglu_tc``, ``swiglu_rows_tc``, ``swiglu_tf32`` and
     ``swiglu_rows``,
-    ``swiglu_bwd``, ``swiglu_bwd_tc`` and ``swiglu_bwd_tf32``,
+    ``swiglu_bwd``, ``swiglu_bwd_tc``, ``swiglu_bwd_tf32``,
+    ``swiglu_bwd_rows_tc`` and ``swiglu_bwd_rows``,
     ``gemv_int8`` and ``gemv_int8_tc``; ``gemv_int4`` and ``gemv_int4_w4a8``
     are one kernel each, on the tensor cores at every call)."""
     names = {}

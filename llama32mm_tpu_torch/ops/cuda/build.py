@@ -105,13 +105,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # (x, w, pad|NULL, out, rows, n, k, dtype, kernel (-1: routed, 0: the general route,
         #  1: the tensor-core kernel on x as it is), launched kernel (out), stream)
         "l32_gemv": [p, p, p, p, i, i, i, i, i, p, p],
-        # (x, w_gate, w_up, out, rows, hidden, inter, dtype, kernel (-1: routed, -2: routed
-        #  base tile, 3: the TMA tile, 4: the tensor-core rows kernel, 5: the fp32 tile, 6: the
-        #  rows kernel), launched kernel (out), stream)
-        "l32_swiglu_fwd": [p, p, p, p, i, i, i, i, i, p, p],
-        # (x, w_gate, w_up, g, d_gate, d_up, rows, hidden, inter, dtype, kernel (as
-        #  l32_swiglu_fwd's), launched kernel (out), stream)
-        "l32_swiglu_bwd": [p, p, p, p, p, p, i, i, i, i, i, p, p],
+        # (x, w_gate, w_up, x|w_gate|w_up workspaces (each NULL unless the general route
+        #  copies that operand), out, rows, hidden, inter, dtype, kernel (-1: routed, -2: the
+        #  general route, or the fp32 tile for fp32, 3: the TMA tile, 4: the tensor-core rows
+        #  kernel, 5: the fp32 tile, 6: the rows kernel), launched kernel (out), stream)
+        "l32_swiglu_fwd": [p, p, p, p, p, p, p, i, i, i, i, i, p, p],
+        # (x, w_gate, w_up, workspaces (as l32_swiglu_fwd's), g, d_gate, d_up, rows, hidden,
+        #  inter, dtype, kernel (as l32_swiglu_fwd's), launched kernel (out), stream)
+        "l32_swiglu_bwd": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p, p],
         # (q, k, v, kv_valid, q_offsets|NULL, out, lse|NULL, b, nq, nkv, tq, tk, hd, q_offset,
         #  causal, dtype, stream); 3xTF32 tensor cores
         "l32_flash_attn_tf32_fwd": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],

@@ -13,20 +13,28 @@ PyTorch versions, both weights in nn.Linear's ``[I, H]`` layout.
 
 ``fused_swiglu_cuda`` and ``fused_swiglu_bwd_cuda`` are the entries the
 model calls: ``l32_swiglu_fwd`` / ``l32_swiglu_bwd`` route each call by its
-shape and report the kernel they launched. bf16 x with H a multiple of 64,
-16-byte-aligned operands and more than 8 rows takes the TMA tile (wgmma
-fed by TMA), counted by ``fused_swiglu_tc_cuda`` / ``fused_swiglu_bwd_tc_cuda``;
-a bf16 forward with at most 8 rows, H a multiple of 32 and aligned operands
-the tensor-core rows kernel (``mma.sync``), counted by
-``fused_swiglu_rows_tc_cuda``; every other forward with at most 8 rows
-(fp32, ragged H, misaligned pointers) the CUDA-core rows kernel, counted by
-``fused_swiglu_rows_cuda``; an fp32 call with more than 8 rows, and every
-fp32 backward, the fp32 tile (3xTF32 ``mma.sync``), counted by
-``fused_swiglu_tf32_cuda`` / ``fused_swiglu_bwd_tf32_cuda``; every other
-bf16 call the wmma tile, counted by ``fused_swiglu_wmma_cuda`` /
-``fused_swiglu_bwd_wmma_cuda``. Called directly, each of those eight forces
-its own kernel (the wmma ones send fp32 calls to the fp32 tile: there is no
-other).
+shape and report the kernel they launched. A bf16 call with at most 8 rows
+(forward or backward), H a multiple of 32 and aligned operands takes the
+tensor-core rows kernel (``mma.sync``), counted by
+``fused_swiglu_rows_tc_cuda`` / ``fused_swiglu_bwd_rows_tc_cuda``; every
+other call with at most 8 rows (fp32 forward, ragged H, misaligned
+pointers) the CUDA-core rows kernel, counted by ``fused_swiglu_rows_cuda``
+/ ``fused_swiglu_bwd_rows_cuda``. A bf16 call with more rows whose
+operands the TMA tile reads as they are (``reads_as_is``: H a multiple of
+8, 16-byte-aligned x and weights) takes the TMA tile (wgmma fed by TMA),
+counted by ``fused_swiglu_tc_cuda`` / ``fused_swiglu_bwd_tc_cuda``; any
+other takes the general route, counted by ``fused_swiglu_general_cuda`` /
+``fused_swiglu_bwd_general_cuda``: a pre-pass copies the operands the tile
+cannot read as they are into workspaces this module allocates
+(``workspaces``: rows of H rounded up to 8, zeros past H), then the same
+TMA tile reads them. Copying a weight moves its bytes twice more: at the
+11B widths two 117 MB workspaces and ~0.14 ms a call, which no main-path
+shape pays. An fp32 call with more than 8 rows, and every fp32 backward,
+takes the fp32 tile (3xTF32 ``mma.sync``), counted by
+``fused_swiglu_tf32_cuda`` / ``fused_swiglu_bwd_tf32_cuda``. Called
+directly, each of those counted wrappers forces its own kernel; the general
+ones copy every operand at any row count (and send fp32 calls to the fp32
+tile: there is no other).
 """
 
 from __future__ import annotations
@@ -51,23 +59,63 @@ def _check(x, w_gate, w_up):
 
 
 # l32_swiglu_fwd / l32_swiglu_bwd's kernel argument: route by shape, ask for
-# the base tile (the wmma tile, or the fp32 tile for fp32), or ask for the TMA
-# tile, the tensor-core rows kernel, the fp32 tile or the CUDA-core rows kernel
-# (also the values they report when they launched those: WMMA for the wmma
-# tile).
-ROUTED, ROUTED_BASE, WMMA, TMA, ROWS_TC, TF32, ROWS = -1, -2, 1, 3, 4, 5, 6
+# the base route (the general route, or the fp32 tile for fp32), or ask for
+# the TMA tile on the caller's tensors, the tensor-core rows kernel, the fp32
+# tile or the CUDA-core rows kernel (also the values they report when they
+# launched those: GENERAL for the general route).
+ROUTED, ROUTED_BASE, GENERAL, TMA, ROWS_TC, TF32, ROWS = -1, -2, 1, 3, 4, 5, 6
+ROWS_KERNEL_MAX = 8  # rows a call of a rows kernel takes at most
+
+
+def reads_as_is(t: torch.Tensor) -> bool:
+    """Whether the TMA tile reads an operand (x or a weight, rows of H) as
+    it is: rows of whole 16 bytes (H a multiple of 8) from a 16-byte-aligned
+    base. The general route's pre-pass copies any other."""
+    return t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+
+
+def padded_ld(h: int) -> int:
+    """Elements of a row of the general route's copies: H rounded up to 8."""
+    return -(-h // 8) * 8
+
+
+def workspaces(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               kernel: int = ROUTED) -> tuple:
+    """The general route's workspaces for ``(x, w_gate, w_up)``: for each
+    operand the route copies, an empty bf16 tensor of ``[rows or I,
+    padded_ld(H)]``, else None. The route is taken by a bf16 call asked for
+    it (``ROUTED_BASE``: every operand copied, at any row count) or routed
+    with more than 8 rows and an operand ``reads_as_is`` refuses (only those
+    copied); every other call copies nothing."""
+    h, inter = x.shape[-1], w_gate.shape[0]
+    rows = x.numel() // h if h else 0
+    if x.dtype != torch.bfloat16 or rows == 0 or inter == 0:
+        return (None,) * 3
+    if kernel == ROUTED_BASE:
+        copy = (True,) * 3
+    elif kernel == ROUTED and rows > ROWS_KERNEL_MAX:
+        copy = tuple(not reads_as_is(t) for t in (x, w_gate, w_up))
+    else:
+        return (None,) * 3
+    return tuple(torch.empty(n, padded_ld(h), dtype=x.dtype, device=x.device) if c else None
+                 for n, c in zip((rows, inter, inter), copy))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _forward(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, kernel: int):
     h, inter, rows = _check(x, w_gate, w_up)
     out = torch.empty(*x.shape[:-1], inter, dtype=x.dtype, device=x.device)
+    ws = workspaces(x, w_gate, w_up, kernel)
     launched = ctypes.c_int(-1)
     status = load_library().l32_swiglu_fwd(
-        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr(), rows, h, inter,
-        dtype_code(x), kernel, ctypes.byref(launched), stream_of(x),
+        *map(_ptr, (x, w_gate, w_up, *ws)), out.data_ptr(), rows, h, inter, dtype_code(x),
+        kernel, ctypes.byref(launched), stream_of(x),
     )
     check(status, "swiglu kernel")
-    counter = {WMMA: fused_swiglu_wmma_cuda, TMA: fused_swiglu_tc_cuda,
+    counter = {GENERAL: fused_swiglu_general_cuda, TMA: fused_swiglu_tc_cuda,
                ROWS_TC: fused_swiglu_rows_tc_cuda, TF32: fused_swiglu_tf32_cuda,
                ROWS: fused_swiglu_rows_cuda}.get(launched.value)
     if counter is not None:
@@ -110,8 +158,9 @@ def fused_swiglu_rows_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Te
 
 
 @counted("launches")
-def fused_swiglu_wmma_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
-    """The wmma tile (bf16; fp32 takes the fp32 tile): any shape."""
+def fused_swiglu_general_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor):
+    """The general route, any shape and alignment: bf16 operands all copied
+    by the pre-pass, then the TMA tile; fp32 takes the fp32 tile."""
     return _forward(x, w_gate, w_up, ROUTED_BASE)
 
 
@@ -186,19 +235,18 @@ def _backward(x, w_gate, w_up, g, kernel: int):
     require("g", g, x, shape)
     d_gate = torch.empty(shape, dtype=x.dtype, device=x.device)
     d_up = torch.empty_like(d_gate)
+    ws = workspaces(x, w_gate, w_up, kernel)
     launched = ctypes.c_int(-1)
     status = load_library().l32_swiglu_bwd(
-        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), g.data_ptr(), d_gate.data_ptr(),
-        d_up.data_ptr(), rows, h, inter, dtype_code(x), kernel, ctypes.byref(launched),
-        stream_of(x),
+        *map(_ptr, (x, w_gate, w_up, *ws)), g.data_ptr(), d_gate.data_ptr(), d_up.data_ptr(),
+        rows, h, inter, dtype_code(x), kernel, ctypes.byref(launched), stream_of(x),
     )
     check(status, "swiglu backward kernel")
-    if launched.value == TMA:
-        fused_swiglu_bwd_tc_cuda.launches += 1
-    elif launched.value == TF32:
-        fused_swiglu_bwd_tf32_cuda.launches += 1
-    elif launched.value >= 0:
-        fused_swiglu_bwd_wmma_cuda.launches += 1
+    counter = {GENERAL: fused_swiglu_bwd_general_cuda, TMA: fused_swiglu_bwd_tc_cuda,
+               ROWS_TC: fused_swiglu_bwd_rows_tc_cuda, TF32: fused_swiglu_bwd_tf32_cuda,
+               ROWS: fused_swiglu_bwd_rows_cuda}.get(launched.value)
+    if counter is not None:
+        counter.launches += 1
     return d_gate, d_up
 
 
@@ -217,6 +265,13 @@ def fused_swiglu_bwd_tc_cuda(x, w_gate, w_up, g):
 
 
 @counted("launches")
+def fused_swiglu_bwd_rows_tc_cuda(x, w_gate, w_up, g):
+    """The tensor-core rows kernel's backward (bf16, at most 8 rows); raises
+    for a call it does not take."""
+    return _backward(x, w_gate, w_up, g, ROWS_TC)
+
+
+@counted("launches")
 def fused_swiglu_bwd_tf32_cuda(x, w_gate, w_up, g):
     """The fp32 tile's backward (fp32 operands); raises for a call it does
     not take."""
@@ -224,9 +279,17 @@ def fused_swiglu_bwd_tf32_cuda(x, w_gate, w_up, g):
 
 
 @counted("launches")
-def fused_swiglu_bwd_wmma_cuda(x, w_gate, w_up, g):
-    """The wmma tile's backward (bf16; fp32 takes the fp32 tile): any
-    shape."""
+def fused_swiglu_bwd_rows_cuda(x, w_gate, w_up, g):
+    """The CUDA-core rows kernel's backward (bf16, at most 8 rows); raises
+    for a call it does not take."""
+    return _backward(x, w_gate, w_up, g, ROWS)
+
+
+@counted("launches")
+def fused_swiglu_bwd_general_cuda(x, w_gate, w_up, g):
+    """The general route's backward, any shape and alignment: bf16 operands
+    all copied by the pre-pass, then the TMA tile; fp32 takes the fp32
+    tile."""
     return _backward(x, w_gate, w_up, g, ROUTED_BASE)
 
 

@@ -11,7 +11,8 @@ I=8192). For each it times
 - the routed entry the model calls (``fused_swiglu_cuda`` /
   ``fused_swiglu_bwd_cuda``: the TMA tile at these shapes);
 - the TMA tile (``swiglu_tc`` / ``swiglu_bwd_tc`` of ``ops.cuda.KERNELS``)
-  and the wmma tile it replaces (``swiglu`` / ``swiglu_bwd``) on their own;
+  and the general route (``swiglu`` / ``swiglu_bwd``: every operand copied
+  by the pad pre-pass, then the same tile) on their own;
 - the plain version (two matmuls, then silu and the product);
 - two cuBLAS bf16 GEMMs, ``x @ w_gate.T`` and ``x @ w_up.T``: the products
   alone, a ceiling the port never calls;
@@ -23,8 +24,8 @@ A prefill reads each layer's weights once, so a shape whose weights are
 smaller than 150 MB is held in several copies and the calls cycle through
 them. Then ``torch.profiler`` lists the kernels of the routed call, and the
 sums over one 11B prefill (40 launches) follow. The last line is one JSON
-object with every time. ``--kernels-only`` times the routed call and the
-two tiles alone (for A/B runs of kernel variants).
+object with every time. ``--kernels-only`` times the routed call, the
+tile and the general route alone (for A/B runs of kernel variants).
 
     python3 profile_swiglu.py --ttft
 
@@ -84,6 +85,33 @@ fp32; a yardstick the port never calls) and the bound (the bytes).
 Both modes first print ``ptxas -v``'s registers, stack and spills of their
 kernels (``swiglu_down.cu``; ``swiglu.cu``'s rows kernel), compiled from the
 sources of the tree they import.
+
+    python3 profile_swiglu.py --general [--tree DIR]
+    python3 profile_swiglu.py --rows --bwd [--tree DIR]
+
+instead time the bf16 calls that no main-path shape makes, each beside the
+main-path calls it must leave as they were. ``--general``: R = 1632
+forwards that the TMA tile cannot read as they are (H=4104, where TMA
+zero-fills the last 64-k box, and x one element into its buffer, which
+the pre-pass copies), the 11B forward and backward forced onto the general
+route (``swiglu`` / ``swiglu_bwd`` of ``ops.cuda.KERNELS``: every operand
+copied), and the TMA tile at the 11B and 3B widths, forward and backward
+(``swiglu_tc`` / ``swiglu_bwd_tc``). ``--rows --bwd``: the backward at R = 8
+and R = 1 at the 11B widths and at R = 8 with H=4100, through the routed
+entry, and the tensor-core rows kernel's forward at R = 1 and 8
+(``swiglu_rows_tc``). Each case is reached only through the routed entries
+and those registry keys, which a parent commit has too, so ``--tree DIR``
+times the parent's kernels on the same cases; each prints the kernels its
+call launched, its error against the plain version, the entry's time beside
+the plain version's and two ``F.linear`` calls' (the products alone, a
+yardstick the port never calls) with the same device timing and the weights
+cycled past the L2, and the kernels of one call by ``torch.profiler``.
+
+    python3 profile_swiglu.py --sass DIR
+
+compiles ``csrc/swiglu.cu`` of this tree and of the checkout DIR to cubins
+and compares the SASS of the TMA tile's functions instruction by instruction
+(addresses and encodings left out).
 """
 
 from __future__ import annotations
@@ -94,6 +122,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from pathlib import Path
@@ -138,6 +167,121 @@ ROWS_CASES = [  # (label, H, I, dtype, rows)
     *[(f"11B fp32 R={r} H=4096 I=14336", 4096, 14336, torch.float32, r) for r in (1, 2, 5, 8)],
     ("bf16 ragged H R=8 H=4100 I=14336", 4100, 14336, torch.bfloat16, 8),
 ]
+
+
+BF = torch.bfloat16
+TARGET_CASES = {  # mode: [(label, H, I, rows, backward, entry, x offset by one element)]
+    "general": [
+        ("fwd R=1632 H=4104 I=14336 routed", 4104, 14336, 1632, False, "routed", False),
+        ("fwd R=1632 H=4096 I=14336 x offset by one element routed", 4096, 14336, 1632, False,
+         "routed", True),
+        ("fwd 11B R=1632 H=4096 I=14336 forced general", 4096, 14336, 1632, False, "swiglu",
+         False),
+        ("bwd 11B R=1632 H=4096 I=14336 forced general", 4096, 14336, 1632, True, "swiglu_bwd",
+         False),
+        ("TMA fwd 11B R=1632 H=4096 I=14336", 4096, 14336, 1632, False, "swiglu_tc", False),
+        ("TMA bwd 11B R=1632 H=4096 I=14336", 4096, 14336, 1632, True, "swiglu_bwd_tc", False),
+        ("TMA fwd 3B R=1632 H=3072 I=8192", 3072, 8192, 1632, False, "swiglu_tc", False),
+        ("TMA bwd 3B R=1632 H=3072 I=8192", 3072, 8192, 1632, True, "swiglu_bwd_tc", False),
+    ],
+    "rows_bwd": [
+        ("bwd R=8 H=4096 I=14336 routed", 4096, 14336, 8, True, "routed", False),
+        ("bwd R=1 H=4096 I=14336 routed", 4096, 14336, 1, True, "routed", False),
+        ("bwd R=8 H=4100 I=14336 routed", 4100, 14336, 8, True, "routed", False),
+        ("rows_tc fwd R=1 H=4096 I=14336", 4096, 14336, 1, False, "swiglu_rows_tc", False),
+        ("rows_tc fwd R=8 H=4096 I=14336", 4096, 14336, 8, False, "swiglu_rows_tc", False),
+    ],
+}
+
+
+def target_cases(dev, card: str, mode: str) -> None:
+    """The cases of ``TARGET_CASES[mode]``, as the module docstring says."""
+    tree = Path(kernels.__file__).resolve().parents[3]
+    print(f"kernels of {tree}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for label, h, inter, rows, bwd, entry, offset in TARGET_CASES[mode]:
+        copies = copies_of(gen, dev, [(inter, h), (inter, h)], BF, 0.02)
+        x = torch.randn(rows * h + offset, generator=gen, device=dev).to(BF)[offset:].view(rows, h)
+        extra = (torch.randn(rows, inter, generator=gen, device=dev).to(BF),) if bwd else ()
+        name = "swiglu_bwd" if bwd else "swiglu"
+        plain = kernels.KERNELS[name][1]
+        if entry == "routed":
+            fn = kernels.fused_swiglu_bwd_cuda if bwd else kernels.fused_swiglu_cuda
+        else:
+            fn = kernels.KERNELS[entry][0]
+        args = (x, *copies[0], *extra)
+        want = plain(*args)
+        kernels.reset_counters()
+        got = fn(*args)
+        launched = {k: n for k, n in kernels.launch_counts().items() if n}
+        err, scale = cs.max_err(got, want)
+        bound_ms, bound_by = cs.bound(name, args, want)
+        row = {"launched": launched, "max_abs_err": err, "max_abs_plain": scale,
+               "bound_ms": bound_ms, "bound_by": bound_by, "copies": len(copies)}
+        print(f"== {label}: {entry} launched {launched}, |kernel - plain| {err:.6g} of "
+              f"{scale:.6g}; bound {bound_ms:.6g} ms ({bound_by}), {len(copies)} weight copies")
+        calls = {
+            entry: [partial(fn, x, *c, *extra) for c in copies],
+            "plain": [partial(plain, x, *c, *extra) for c in copies],
+            "F.linear x2": [partial(lambda wg, wu: (F.linear(x, wg), F.linear(x, wu)), *c)
+                            for c in copies],
+        }
+        timed_calls(calls, bound_ms, row)
+        for key, us in kernel_rows(calls[entry]):
+            print(f"    {us:9.2f} us  {key[:100]}")
+        results[label] = row
+        del copies, calls, args, x, extra, want, got
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "tree": str(tree), "mode": mode, "device_ms": results}))
+
+
+def sass_functions(src: Path, pattern: str) -> dict:
+    """SASS of the functions of ``src`` (compiled alone to a cubin) whose
+    names match ``pattern``: name -> instruction lines, without addresses
+    and encodings."""
+    from llama32mm_tpu_torch.ops.cuda import build
+
+    nvcc = build.find_nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = Path(tmp) / "k.cubin"
+        subprocess.run([nvcc, *build.NVCC_FLAGS, "-cubin", str(src), "-o", str(cubin)],
+                       check=True, capture_output=True)
+        dump = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True,
+                              text=True).stdout
+    funcs, name = {}, None
+    # the anonymous namespace's mangled name hashes the source's path
+    dump = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", dump)
+    for line in dump.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+            if name:
+                funcs[name] = []
+            continue
+        ins = re.sub(r"/\*\s*[0-9a-fx]*\s*\*/", "", line).strip()
+        if name and ins and not ins.startswith("."):
+            funcs[name].append(ins)
+    return funcs
+
+
+def sass_compare(other: Path) -> None:
+    """The TMA tile's SASS in this tree and in ``other``, as the module
+    docstring says."""
+    here = Path(__file__).resolve().parent
+    mine = sass_functions(here / "llama32mm_tpu_torch/csrc/swiglu.cu", "swiglu_tma_kernel")
+    theirs = sass_functions(other / "llama32mm_tpu_torch/csrc/swiglu.cu", "swiglu_tma_kernel")
+    for fn in sorted(set(mine) | set(theirs)):
+        a, b = mine.get(fn), theirs.get(fn)
+        if a is None or b is None:
+            print(f"sass {fn}: only in {'this tree' if b is None else other}")
+            continue
+        diff = [(i, x, y) for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        print(f"sass {fn}: {len(a)} instructions here, {len(b)} in {other}; "
+              f"{len(diff)} lines differ{' (identical)' if not diff and len(a) == len(b) else ''}")
+        for i, x, y in diff[:10]:
+            print(f"    {i}: {x}  |  {y}")
 
 
 def ttft(dev, card: str, reps: int = 5) -> None:
@@ -384,7 +528,16 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
+    if "--sass" in sys.argv[1:]:
+        sass_compare(Path(sys.argv[sys.argv.index("--sass") + 1]).resolve())
+        return 0
     cs.build_library()
+    if "--general" in sys.argv[1:]:
+        target_cases(dev, card, "general")
+        return 0
+    if "--rows" in sys.argv[1:] and "--bwd" in sys.argv[1:]:
+        target_cases(dev, card, "rows_bwd")
+        return 0
     if "--down" in sys.argv[1:]:
         down_cases(dev, card)
         return 0

@@ -43,9 +43,9 @@ CATEGORIES = (
     ("flash_tf32_fwd", "flash fwd (3xTF32)"), ("rmsnorm_bwd", "rmsnorm bwd"), ("dw_sum", "rmsnorm bwd"),
     ("rmsnorm_fwd", "rmsnorm fwd"), ("swiglu_tma", "swiglu (TMA tile)"),
     ("swiglu_rows_tc", "swiglu rows (tensor cores)"),
-    ("swiglu_rows", "swiglu rows (decode)"), ("swiglu", "swiglu (wmma tile, loop)"),
+    ("swiglu_rows", "swiglu rows (decode)"), ("swiglu", "swiglu (fp32 tile, other)"),
     ("gemv_w4a8", "W4A8 gemv (tensor cores)"), ("quantize_rows", "W4A8 row quantize"),
-    ("split_rows", "int4/int8 gemv x planes"), ("pad_rows", "gemv x padding"),
+    ("split_rows", "int4/int8 gemv x planes"), ("pad_rows", "gemv/swiglu padding pre-pass"),
     ("gemv_int8_tc", "int8 gemv (tensor cores)"), ("gemv_int4", "int4 gemv"),
     ("gemv_tc_kernel<float", "fp32 gemv (3xTF32)"), ("gemv_tc", "bf16 gemv (tensor cores)"),
     ("qmatmul", "qmatmul"), ("scatter", "cache writes (scatter)"),

@@ -113,7 +113,8 @@ def _cpu_args(name):
         return x, torch.ones(16), 1e-5
     if name == "rmsnorm_bwd":
         return x, x, torch.ones(16), torch.ones(3)
-    if name in ("swiglu_bwd", "swiglu_bwd_tc", "swiglu_bwd_tf32"):
+    if name in ("swiglu_bwd", "swiglu_bwd_tc", "swiglu_bwd_tf32", "swiglu_bwd_rows_tc",
+                "swiglu_bwd_rows"):
         return x, torch.randn(8, 16), torch.randn(8, 16), torch.randn(3, 8)
     if name.startswith("flash_attention_bwd"):
         q, lse = torch.randn(1, 2, 3, 16), torch.zeros(1, 2, 3)
